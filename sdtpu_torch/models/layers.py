@@ -1,0 +1,199 @@
+"""Shared neural-net primitives, the PyTorch counterpart of
+``sdtpu/models/layers.py``.
+
+Conventions (the same as the JAX package's, so tests compare like with like):
+
+* activations are NHWC at every function boundary. An NHWC-contiguous tensor
+  is, in memory, an NCHW tensor in ``channels_last`` format: ``conv2d`` hands
+  cuDNN that NCHW ``channels_last`` view and gets the same layout back, so no
+  layout copy happens around a convolution;
+* conv weights are OIHW in ``channels_last`` memory; dense weights are
+  ``(in, out)`` and run as ``x @ w``;
+* normalizations run in float32 whatever the activation dtype; matmuls and
+  convs run in the activation dtype. In float32 this matches the JAX
+  package's ``Precision.HIGHEST`` only with TF32 off for both cuBLAS and cuDNN
+  (``disable_tf32``). In bf16 one difference is known and accepted: the JAX
+  ``dense``/``conv2d`` add the bias in float32 before rounding to bf16, while
+  a bf16 ``torch.matmul``/``conv2d`` rounds its product before the bias add;
+* attention is ``[B, T, C]``; ``sdpa(..., kernel="cuda")`` routes to
+  ``sdtpu_torch.ops.attention.flash_attention``, ``"plain"`` stays here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def disable_tf32() -> None:
+    """float32 matmuls and convs in full float32 (the JAX package runs f32
+    at ``Precision.HIGHEST``; cuDNN convs default to TF32 otherwise)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# initializers (the JAX package's bounds; torch.Generator in place of keys)
+# ---------------------------------------------------------------------------
+
+def _uniform(shape, bound, generator, device):
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return u * (2.0 * bound) - bound
+
+
+def kaiming_uniform(shape, fan_in, generator, device):
+    """torch default init (kaiming_uniform with a=sqrt(5))."""
+    bound = math.sqrt(1.0 / fan_in) * math.sqrt(3.0)
+    return _uniform(shape, bound, generator, device)
+
+
+def init_dense(d_in, d_out, generator, device, zero_init=False, bias=True):
+    if zero_init:
+        w = torch.zeros((d_in, d_out), device=device)
+    else:
+        w = kaiming_uniform((d_in, d_out), d_in, generator, device)
+    if not bias:
+        return {"w": w}
+    if zero_init:
+        return {"w": w, "b": torch.zeros((d_out,), device=device)}
+    return {"w": w,
+            "b": _uniform((d_out,), 1.0 / math.sqrt(d_in), generator, device)}
+
+
+def init_conv(k, c_in, c_out, generator, device, zero_init=False):
+    """OIHW weight in channels_last memory, plus bias."""
+    shape = (c_out, c_in, k, k)
+    fan_in = c_in * k * k
+    if zero_init:
+        w = torch.zeros(shape, device=device)
+        b = torch.zeros((c_out,), device=device)
+    else:
+        w = kaiming_uniform(shape, fan_in, generator, device)
+        b = _uniform((c_out,), 1.0 / math.sqrt(fan_in), generator, device)
+    return {"w": w.contiguous(memory_format=torch.channels_last), "b": b}
+
+
+def init_norm(c, device):
+    return {"scale": torch.ones((c,), device=device),
+            "bias": torch.zeros((c,), device=device)}
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def dense(p, x, dtype=None):
+    dtype = dtype or x.dtype
+    y = x.to(dtype) @ p["w"].to(dtype)
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
+
+
+def conv2d(p, x, stride=1, padding=1, dtype=None):
+    """3x3/1x1 conv, NHWC x OIHW -> NHWC (cuDNN sees NCHW channels_last)."""
+    dtype = dtype or x.dtype
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), p["w"].to(dtype),
+                 p["b"].to(dtype), stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def layer_norm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def group_norm(p, x, groups, eps=1e-5):
+    """GroupNorm over channels-last x of shape [..., C], in float32 "ln
+    form": each group's (spatial x C/G) slab is normalized like a LayerNorm
+    (``sdtpu/models/layers.py:group_norm``)."""
+    c = x.shape[-1]
+    n = x.shape[0]
+    xf = x.float().reshape(n, -1, groups, c // groups)
+    mu = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf - mu).square().mean(dim=(1, 3), keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def quick_gelu(x):
+    return x * torch.sigmoid(1.702 * x)
+
+
+def geglu(p, x, dtype=None):
+    h = dense(p, x, dtype)
+    a, b = torch.chunk(h, 2, dim=-1)
+    return a * F.gelu(b, approximate="none")
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _split_heads(x, heads):
+    b, t, c = x.shape
+    return x.reshape(b, t, heads, c // heads).transpose(1, 2)
+
+
+def _attend(q, k, v, heads, mask=None):
+    """Multi-head attention with float32 logits and softmax, the weights
+    cast to q's dtype before P·V, float32 accumulation. bf16 inputs are
+    widened to float32 for the products, which is exact, as JAX's
+    ``preferred_element_type=float32`` is."""
+    b, tq, c = q.shape
+    d = c // heads
+    qh, kh, vh = (_split_heads(a, heads).float() for a in (q, k, v))
+    logits = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * (1.0 / math.sqrt(d))
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.tensor(
+            -1e9, dtype=torch.float32, device=logits.device))
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", w.float(), vh)
+    return o.to(q.dtype).transpose(1, 2).reshape(b, tq, c)
+
+
+def sdpa(q, k, v, heads: int, kernel: str = "plain"):
+    """Multi-head scaled-dot-product attention over [B, T, C] tensors.
+
+    ``kernel="cuda"`` routes to ``sdtpu_torch.ops.attention.flash_attention``
+    (the hand-written flash kernel on CUDA tensors, by the reference's
+    dispatch rule); ``"plain"`` is this module's einsum path."""
+    if kernel == "cuda":
+        from sdtpu_torch.ops.attention import flash_attention
+
+        return flash_attention(q, k, v, heads)
+    return _attend(q, k, v, heads)
+
+
+def causal_sdpa(q, k, v, heads: int):
+    """Causal multi-head attention (CLIP text encoder)."""
+    t = q.shape[1]
+    mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    return _attend(q, k, v, heads, mask)
+
+
+# ---------------------------------------------------------------------------
+# time features
+# ---------------------------------------------------------------------------
+
+def timestep_features(t, dim: int, max_period: float = 10000.0):
+    """Sinusoidal timestep features: [cos | sin] halves, LDM convention."""
+    half = dim // 2
+    t = torch.as_tensor(t, dtype=torch.float32)
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t[..., None] * freqs
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)

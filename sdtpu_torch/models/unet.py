@@ -1,0 +1,223 @@
+"""SD v1.x UNet denoiser, the counterpart of ``sdtpu/models/unet.py``'s base
+path (no ControlNet, PAG, DeepCache, ToMe, FreeU or cross-only levels).
+
+    down path:  per level, ``num_res_blocks`` x [ResBlock (+SpatialTransformer
+                at attn levels)], then a stride-2 conv between levels;
+    middle:     ResBlock, SpatialTransformer, ResBlock;
+    up path:    mirrored, with skip-concat from the down path, nearest-2x
+                upsample between levels;
+    out:        GroupNorm -> SiLU -> 3x3 conv.
+
+Activations are NHWC; attention flattens HW into the sequence axis, so the
+64x64 level's self-attention is a 4096-token problem for the flash kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sdtpu_torch.config import UNetConfig
+from sdtpu_torch.models.layers import (
+    conv2d,
+    dense,
+    geglu,
+    group_norm,
+    init_conv,
+    init_dense,
+    init_norm,
+    layer_norm,
+    sdpa,
+    silu,
+)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_resblock(c_in, c_out, temb_dim, zero_init_outs, gen, dev):
+    p = {
+        "norm1": init_norm(c_in, dev),
+        "conv1": init_conv(3, c_in, c_out, gen, dev),
+        "emb": init_dense(temb_dim, c_out, gen, dev),
+        "norm2": init_norm(c_out, dev),
+        "conv2": init_conv(3, c_out, c_out, gen, dev,
+                           zero_init=zero_init_outs),
+    }
+    if c_in != c_out:
+        p["skip"] = init_conv(1, c_in, c_out, gen, dev)
+    return p
+
+
+def _init_attn(c, kv_in, gen, dev):
+    return {
+        "q": init_dense(c, c, gen, dev, bias=False),
+        "k": init_dense(kv_in, c, gen, dev, bias=False),
+        "v": init_dense(kv_in, c, gen, dev, bias=False),
+        "out": init_dense(c, c, gen, dev),
+    }
+
+
+def _init_transformer(c, ctx_dim, zero_init_outs, gen, dev):
+    """Spatial transformer of depth 1, in the flat SD1.x layout."""
+    return {
+        "norm": init_norm(c, dev),
+        "proj_in": init_conv(1, c, c, gen, dev),
+        "proj_out": init_conv(1, c, c, gen, dev, zero_init=zero_init_outs),
+        "ln1": init_norm(c, dev),
+        "attn1": _init_attn(c, c, gen, dev),
+        "ln2": init_norm(c, dev),
+        "attn2": _init_attn(c, ctx_dim, gen, dev),
+        "ln3": init_norm(c, dev),
+        "ff1": init_dense(c, c * 8, gen, dev),       # GEGLU: 2 x 4c
+        "ff2": init_dense(c * 4, c, gen, dev),
+    }
+
+
+def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
+    """The parameter tree, in the JAX package's layout (same keys, same
+    shapes apart from OIHW conv weights). ``zero_init_outs`` zeroes each
+    block's output conv (the LDM training convention); demo mode passes
+    False so a random UNet predicts a non-trivial eps."""
+    gen, dev = generator, device
+    ch = cfg.model_channels
+    temb = cfg.time_embed_dim
+    params = {"conv_in": init_conv(3, cfg.in_channels, ch, gen, dev)}
+
+    down = []
+    skip_chs = [ch]
+    cur = ch
+    for lvl, mult in enumerate(cfg.channel_mult):
+        out_ch = ch * mult
+        blocks = []
+        for _ in range(cfg.num_res_blocks):
+            blk = {"res": _init_resblock(cur, out_ch, temb, zero_init_outs,
+                                         gen, dev)}
+            cur = out_ch
+            if lvl in cfg.attn_levels:
+                blk["st"] = _init_transformer(cur, cfg.context_dim,
+                                              zero_init_outs, gen, dev)
+            blocks.append(blk)
+            skip_chs.append(cur)
+        level = {"blocks": blocks}
+        if lvl != len(cfg.channel_mult) - 1:
+            level["down"] = init_conv(3, cur, cur, gen, dev)
+            skip_chs.append(cur)
+        down.append(level)
+    params["down"] = down
+
+    params["mid"] = {
+        "res1": _init_resblock(cur, cur, temb, zero_init_outs, gen, dev),
+        "st": _init_transformer(cur, cfg.context_dim, zero_init_outs, gen,
+                                dev),
+        "res2": _init_resblock(cur, cur, temb, zero_init_outs, gen, dev),
+    }
+
+    up = []
+    for lvl in reversed(range(len(cfg.channel_mult))):
+        out_ch = ch * cfg.channel_mult[lvl]
+        blocks = []
+        for _ in range(cfg.num_res_blocks + 1):
+            skip = skip_chs.pop()
+            blk = {"res": _init_resblock(cur + skip, out_ch, temb,
+                                         zero_init_outs, gen, dev)}
+            cur = out_ch
+            if lvl in cfg.attn_levels:
+                blk["st"] = _init_transformer(cur, cfg.context_dim,
+                                              zero_init_outs, gen, dev)
+            blocks.append(blk)
+        level = {"blocks": blocks}
+        if lvl != 0:
+            level["up"] = init_conv(3, cur, cur, gen, dev)
+        up.append(level)
+    params["up"] = up
+
+    params["out_norm"] = init_norm(cur, dev)
+    params["conv_out"] = init_conv(3, cur, cfg.out_channels, gen, dev,
+                                   zero_init=zero_init_outs)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def _resblock(p, x, emb, groups):
+    h = conv2d(p["conv1"], silu(group_norm(p["norm1"], x, groups, 1e-5)))
+    h = h + dense(p["emb"], silu(emb))[:, None, None, :]
+    h = conv2d(p["conv2"], silu(group_norm(p["norm2"], h, groups, 1e-5)))
+    if "skip" in p:
+        x = conv2d(p["skip"], x, padding=0)
+    return x + h
+
+
+def _transformer(p, x, context, heads, groups, kernels):
+    b, hh, ww, c = x.shape
+    h = group_norm(p["norm"], x, groups, 1e-6)
+    h = conv2d(p["proj_in"], h, padding=0).reshape(b, hh * ww, c)
+    h = _basic_block(p, h, context, heads, kernels)
+    h = h.reshape(b, hh, ww, c)
+    return x + conv2d(p["proj_out"], h, padding=0)
+
+
+def _basic_block(p, h, context, heads, kernels):
+    """attn1 (self) -> attn2 (cross) -> GEGLU ff, each with a residual."""
+    a = p["attn1"]
+    hn = layer_norm(p["ln1"], h)
+    o = sdpa(dense(a["q"], hn), dense(a["k"], hn), dense(a["v"], hn), heads,
+             kernels)
+    h = h + dense(a["out"], o)
+    a = p["attn2"]
+    hn = layer_norm(p["ln2"], h)
+    o = sdpa(dense(a["q"], hn), dense(a["k"], context),
+             dense(a["v"], context), heads, kernels)
+    h = h + dense(a["out"], o)
+    hn = layer_norm(p["ln3"], h)
+    return h + dense(p["ff2"], geglu(p["ff1"], hn))
+
+
+def _upsample_nearest(x):
+    b, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    return x.reshape(b, h * 2, w * 2, c)
+
+
+def apply(params, x, t_emb, context, cfg: UNetConfig,
+          kernels: str = "plain"):
+    """x: [B,H,W,C_in]; t_emb: [B, time_embed_dim] (already MLP-embedded by
+    ``sdtpu_torch.models.temb``); context: [B, T, context_dim] -> eps
+    [B,H,W,C_out].
+
+    kernels: ``"cuda"`` sends attention through the flash kernel's dispatch
+    (``sdtpu_torch.ops.attention``); ``"plain"`` keeps it on ``layers.sdpa``.
+    """
+    g = cfg.groups
+    heads = cfg.num_heads
+    h = conv2d(params["conv_in"], x)
+    skips = [h]
+    for level in params["down"]:
+        for blk in level["blocks"]:
+            h = _resblock(blk["res"], h, t_emb, g)
+            if "st" in blk:
+                h = _transformer(blk["st"], h, context, heads, g, kernels)
+            skips.append(h)
+        if "down" in level:
+            h = conv2d(level["down"], h, stride=2)
+            skips.append(h)
+
+    mid = params["mid"]
+    h = _resblock(mid["res1"], h, t_emb, g)
+    h = _transformer(mid["st"], h, context, heads, g, kernels)
+    h = _resblock(mid["res2"], h, t_emb, g)
+
+    for level in params["up"]:
+        for blk in level["blocks"]:
+            h = torch.cat([h, skips.pop()], dim=-1)
+            h = _resblock(blk["res"], h, t_emb, g)
+            if "st" in blk:
+                h = _transformer(blk["st"], h, context, heads, g, kernels)
+        if "up" in level:
+            h = conv2d(level["up"], _upsample_nearest(h))
+
+    h = silu(group_norm(params["out_norm"], h, g, 1e-5))
+    return conv2d(params["conv_out"], h)

@@ -1,0 +1,110 @@
+"""VAE decoder: latent [B,h,w,4] -> RGB image in [-1, 1], the counterpart of
+``sdtpu/models/vae.py``'s decoder: post-quant 1x1 conv, conv_in to the
+widest width, middle (ResnetBlock, single-head attention, ResnetBlock), one
+level per channel-mult in reverse with ``num_res_blocks + 1`` ResnetBlocks
+and nearest-2x upsample between levels, GroupNorm -> SiLU -> conv_out.
+GroupNorm eps is 1e-6 throughout."""
+
+from __future__ import annotations
+
+from sdtpu_torch.config import VAEConfig
+from sdtpu_torch.models.layers import (
+    conv2d,
+    group_norm,
+    init_conv,
+    init_norm,
+    sdpa,
+    silu,
+)
+from sdtpu_torch.models.unet import _upsample_nearest
+
+
+def _init_resblock(c_in, c_out, gen, dev):
+    p = {
+        "norm1": init_norm(c_in, dev),
+        "conv1": init_conv(3, c_in, c_out, gen, dev),
+        "norm2": init_norm(c_out, dev),
+        "conv2": init_conv(3, c_out, c_out, gen, dev),
+    }
+    if c_in != c_out:
+        p["nin"] = init_conv(1, c_in, c_out, gen, dev)
+    return p
+
+
+def _init_attn(c, gen, dev):
+    return {
+        "norm": init_norm(c, dev),
+        "q": init_conv(1, c, c, gen, dev),
+        "k": init_conv(1, c, c, gen, dev),
+        "v": init_conv(1, c, c, gen, dev),
+        "proj": init_conv(1, c, c, gen, dev),
+    }
+
+
+def init(cfg: VAEConfig, generator, device):
+    gen, dev = generator, device
+    widest = cfg.base_channels * cfg.channel_mult[-1]
+    params = {
+        "post_quant": init_conv(1, cfg.z_channels, cfg.z_channels, gen, dev),
+        "conv_in": init_conv(3, cfg.z_channels, widest, gen, dev),
+        "mid": {
+            "res1": _init_resblock(widest, widest, gen, dev),
+            "attn": _init_attn(widest, gen, dev),
+            "res2": _init_resblock(widest, widest, gen, dev),
+        },
+    }
+    up = []
+    cur = widest
+    for lvl in reversed(range(len(cfg.channel_mult))):
+        out_ch = cfg.base_channels * cfg.channel_mult[lvl]
+        blocks = []
+        for _ in range(cfg.num_res_blocks + 1):
+            blocks.append(_init_resblock(cur, out_ch, gen, dev))
+            cur = out_ch
+        level = {"blocks": blocks}
+        if lvl != 0:
+            level["up"] = init_conv(3, cur, cur, gen, dev)
+        up.append(level)
+    params["up"] = up
+    params["norm_out"] = init_norm(cur, dev)
+    params["conv_out"] = init_conv(3, cur, cfg.out_channels, gen, dev)
+    return params
+
+
+def _resblock(p, x, groups):
+    h = conv2d(p["conv1"], silu(group_norm(p["norm1"], x, groups, eps=1e-6)))
+    h = conv2d(p["conv2"], silu(group_norm(p["norm2"], h, groups, eps=1e-6)))
+    if "nin" in p:
+        x = conv2d(p["nin"], x, padding=0)
+    return x + h
+
+
+def _attn(p, x, groups, kernels):
+    b, hh, ww, c = x.shape
+    h = group_norm(p["norm"], x, groups, eps=1e-6)
+    q = conv2d(p["q"], h, padding=0).reshape(b, hh * ww, c)
+    k = conv2d(p["k"], h, padding=0).reshape(b, hh * ww, c)
+    v = conv2d(p["v"], h, padding=0).reshape(b, hh * ww, c)
+    o = sdpa(q, k, v, heads=1, kernel=kernels).reshape(b, hh, ww, c)
+    return x + conv2d(p["proj"], o, padding=0)
+
+
+def apply(params, z, cfg: VAEConfig, kernels: str = "plain"):
+    """z: [B,h,w,z_channels] *scaled* latent (the pipeline divides by
+    cfg.scale_factor first) -> [B, h*2^L, w*2^L, 3] in ~[-1, 1]. The mid
+    block's single-head attention (4096 tokens at d=512 for a 512x512
+    image) goes to the flash kernel under ``kernels="cuda"``."""
+    g = cfg.groups
+    h = conv2d(params["post_quant"], z, padding=0)
+    h = conv2d(params["conv_in"], h)
+    mid = params["mid"]
+    h = _resblock(mid["res1"], h, g)
+    h = _attn(mid["attn"], h, g, kernels)
+    h = _resblock(mid["res2"], h, g)
+    for level in params["up"]:
+        for blk in level["blocks"]:
+            h = _resblock(blk, h, g)
+        if "up" in level:
+            h = conv2d(level["up"], _upsample_nearest(h))
+    h = silu(group_norm(params["norm_out"], h, g, eps=1e-6))
+    return conv2d(params["conv_out"], h)

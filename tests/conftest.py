@@ -62,6 +62,11 @@ def pytest_configure(config):
         "smoke: sub-minute fast gate (tokenizer/samplers/pipeline-TINY/"
         "engine-infra); select with -m smoke",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "on a host without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
