@@ -6,8 +6,11 @@ uncond ``""`` embedding) -> generate. A failed phase latches the context:
 every later ``generate`` raises ``INVALID_CONTEXT``.
 
 The device is always explicit: ``Context(..., device="cuda")``. On a CUDA
-device ``kernels="auto"`` selects the hand-written CUDA kernels
+device ``kernels="auto"`` selects the hand-written flash-attention kernel
 (``"cuda"``); elsewhere it selects the plain PyTorch path (``"plain"``).
+``"cuda_gn"`` adds the fused GroupNorm(+SiLU) kernel and ``"cuda_conv"``
+the fused GN-prologue conv kernel, the counterparts of the reference's
+``"pallas_gn"`` and ``"pallas_conv"``; both keep the flash kernel on.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from sdtpu_torch.io.params import cast_params, init_pipeline_params
 from sdtpu_torch.models.layers import disable_tf32
 from sdtpu_torch.tokenizer import DEMO_MERGES, Tokenizer
 
-KERNELS = ("cuda", "plain")
+KERNELS = ("cuda", "cuda_gn", "cuda_conv", "plain")
 
 
 class Context:
@@ -71,7 +74,8 @@ class Context:
         if kernels not in KERNELS:
             raise SdtpuError(
                 ErrorCode.INVALID_ARGUMENT,
-                f"kernels must be auto|cuda|plain, got {kernels!r}",
+                f"kernels must be auto|{'|'.join(KERNELS)}, got "
+                f"{kernels!r}",
                 self.errors)
         self.kernels = kernels
         self.seed = int(seed)

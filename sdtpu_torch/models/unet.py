@@ -29,6 +29,8 @@ from sdtpu_torch.models.layers import (
     sdpa,
     silu,
 )
+from sdtpu_torch.ops import conv as C
+from sdtpu_torch.ops import groupnorm as G
 
 
 # ---------------------------------------------------------------------------
@@ -142,10 +144,38 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
 # apply
 # ---------------------------------------------------------------------------
 
-def _resblock(p, x, emb, groups):
-    h = conv2d(p["conv1"], silu(group_norm(p["norm1"], x, groups, 1e-5)))
-    h = h + dense(p["emb"], silu(emb))[:, None, None, :]
-    h = conv2d(p["conv2"], silu(group_norm(p["norm2"], h, groups, 1e-5)))
+def _gn(p, x, groups, eps, fuse_silu, kernels):
+    """GroupNorm (+SiLU); the fused kernel under ``"cuda_gn"``
+    (``sdtpu/models/unet.py:_gn``)."""
+    if kernels == "cuda_gn":
+        return G.fused_group_norm(p, x, groups, eps, fuse_silu)
+    y = group_norm(p, x, groups, eps)
+    return silu(y) if fuse_silu else y
+
+
+def _norm_conv(pn, pc, x, groups, eps, kernels, *, fuse_silu=True,
+               padding=1, t=None):
+    """conv(pc, [silu](GroupNorm(pn, x))) [+ t, a per-sample [N, Cout] add].
+
+    Under ``"cuda_conv"``, where the conv is ``eligible`` for x, one fused
+    kernel launch: the GroupNorm folded into the conv's prologue
+    (``gn_affine``), ``pc["b"] + t`` added in float32 in its epilogue
+    (``sdtpu/models/unet.py:224-244,266-275``)."""
+    if kernels == "cuda_conv" and C.eligible(x, pc["w"], 1, padding):
+        a, d = C.gn_affine(pn, x, groups, eps)
+        b = pc["b"].float()
+        if t is not None:
+            b = b[None, :] + t.float()
+        return C.fused_conv(x, pc["w"], b, a=a, d=d, silu=fuse_silu)
+    h = conv2d(pc, _gn(pn, x, groups, eps, fuse_silu, kernels),
+               padding=padding)
+    return h if t is None else h + t[:, None, None, :]
+
+
+def _resblock(p, x, emb, groups, kernels):
+    t = dense(p["emb"], silu(emb))
+    h = _norm_conv(p["norm1"], p["conv1"], x, groups, 1e-5, kernels, t=t)
+    h = _norm_conv(p["norm2"], p["conv2"], h, groups, 1e-5, kernels)
     if "skip" in p:
         x = conv2d(p["skip"], x, padding=0)
     return x + h
@@ -153,24 +183,31 @@ def _resblock(p, x, emb, groups):
 
 def _transformer(p, x, context, heads, groups, kernels):
     b, hh, ww, c = x.shape
-    h = group_norm(p["norm"], x, groups, 1e-6)
-    h = conv2d(p["proj_in"], h, padding=0).reshape(b, hh * ww, c)
-    h = _basic_block(p, h, context, heads, kernels)
+    h = _norm_conv(p["norm"], p["proj_in"], x, groups, 1e-6, kernels,
+                   fuse_silu=False, padding=0).reshape(b, hh * ww, c)
+    h = _basic_block(p, h, context, heads, attention_kernel(kernels))
     h = h.reshape(b, hh, ww, c)
     return x + conv2d(p["proj_out"], h, padding=0)
 
 
-def _basic_block(p, h, context, heads, kernels):
+def attention_kernel(kernels: str) -> str:
+    """Every ``cuda*`` policy keeps the flash kernel on, as every
+    ``pallas*`` policy does in the reference (``sdtpu/models/unet.py:255``,
+    ``vae.py:117``)."""
+    return "cuda" if kernels.startswith("cuda") else "plain"
+
+
+def _basic_block(p, h, context, heads, attn_kernel):
     """attn1 (self) -> attn2 (cross) -> GEGLU ff, each with a residual."""
     a = p["attn1"]
     hn = layer_norm(p["ln1"], h)
     o = sdpa(dense(a["q"], hn), dense(a["k"], hn), dense(a["v"], hn), heads,
-             kernels)
+             attn_kernel)
     h = h + dense(a["out"], o)
     a = p["attn2"]
     hn = layer_norm(p["ln2"], h)
     o = sdpa(dense(a["q"], hn), dense(a["k"], context),
-             dense(a["v"], context), heads, kernels)
+             dense(a["v"], context), heads, attn_kernel)
     h = h + dense(a["out"], o)
     hn = layer_norm(p["ln3"], h)
     return h + dense(p["ff2"], geglu(p["ff1"], hn))
@@ -189,7 +226,11 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
     [B,H,W,C_out].
 
     kernels: ``"cuda"`` sends attention through the flash kernel's dispatch
-    (``sdtpu_torch.ops.attention``); ``"plain"`` keeps it on ``layers.sdpa``.
+    (``sdtpu_torch.ops.attention``); ``"cuda_gn"`` adds the fused
+    GroupNorm(+SiLU) kernel for every GroupNorm (``ops.groupnorm``);
+    ``"cuda_conv"`` adds, instead, the fused GN-prologue conv kernel for
+    every ResBlock conv and transformer ``proj_in`` (``ops.conv``);
+    ``"plain"`` keeps everything on ``layers``.
     """
     g = cfg.groups
     heads = cfg.num_heads
@@ -197,7 +238,7 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
     skips = [h]
     for level in params["down"]:
         for blk in level["blocks"]:
-            h = _resblock(blk["res"], h, t_emb, g)
+            h = _resblock(blk["res"], h, t_emb, g, kernels)
             if "st" in blk:
                 h = _transformer(blk["st"], h, context, heads, g, kernels)
             skips.append(h)
@@ -206,18 +247,18 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
             skips.append(h)
 
     mid = params["mid"]
-    h = _resblock(mid["res1"], h, t_emb, g)
+    h = _resblock(mid["res1"], h, t_emb, g, kernels)
     h = _transformer(mid["st"], h, context, heads, g, kernels)
-    h = _resblock(mid["res2"], h, t_emb, g)
+    h = _resblock(mid["res2"], h, t_emb, g, kernels)
 
     for level in params["up"]:
         for blk in level["blocks"]:
             h = torch.cat([h, skips.pop()], dim=-1)
-            h = _resblock(blk["res"], h, t_emb, g)
+            h = _resblock(blk["res"], h, t_emb, g, kernels)
             if "st" in blk:
                 h = _transformer(blk["st"], h, context, heads, g, kernels)
         if "up" in level:
             h = conv2d(level["up"], _upsample_nearest(h))
 
-    h = silu(group_norm(params["out_norm"], h, g, 1e-5))
+    h = _gn(params["out_norm"], h, g, 1e-5, True, kernels)
     return conv2d(params["conv_out"], h)

@@ -16,7 +16,11 @@ from sdtpu_torch.models.layers import (
     sdpa,
     silu,
 )
-from sdtpu_torch.models.unet import _upsample_nearest
+from sdtpu_torch.models.unet import (
+    _norm_conv,
+    _upsample_nearest,
+    attention_kernel,
+)
 
 
 def _init_resblock(c_in, c_out, gen, dev):
@@ -71,9 +75,13 @@ def init(cfg: VAEConfig, generator, device):
     return params
 
 
-def _resblock(p, x, groups):
-    h = conv2d(p["conv1"], silu(group_norm(p["norm1"], x, groups, eps=1e-6)))
-    h = conv2d(p["conv2"], silu(group_norm(p["norm2"], h, groups, eps=1e-6)))
+def _resblock(p, x, groups, kernels):
+    """Under ``"cuda_conv"`` both convs take the fused kernel; under
+    ``"cuda_gn"`` the GroupNorms stay plain, as the reference's VAE keeps
+    them (``sdtpu/models/vae.py:82-108``)."""
+    kernels = "cuda_conv" if kernels == "cuda_conv" else "plain"
+    h = _norm_conv(p["norm1"], p["conv1"], x, groups, 1e-6, kernels)
+    h = _norm_conv(p["norm2"], p["conv2"], h, groups, 1e-6, kernels)
     if "nin" in p:
         x = conv2d(p["nin"], x, padding=0)
     return x + h
@@ -85,7 +93,8 @@ def _attn(p, x, groups, kernels):
     q = conv2d(p["q"], h, padding=0).reshape(b, hh * ww, c)
     k = conv2d(p["k"], h, padding=0).reshape(b, hh * ww, c)
     v = conv2d(p["v"], h, padding=0).reshape(b, hh * ww, c)
-    o = sdpa(q, k, v, heads=1, kernel=kernels).reshape(b, hh, ww, c)
+    o = sdpa(q, k, v, heads=1, kernel=attention_kernel(kernels))
+    o = o.reshape(b, hh, ww, c)
     return x + conv2d(p["proj"], o, padding=0)
 
 
@@ -93,17 +102,19 @@ def apply(params, z, cfg: VAEConfig, kernels: str = "plain"):
     """z: [B,h,w,z_channels] *scaled* latent (the pipeline divides by
     cfg.scale_factor first) -> [B, h*2^L, w*2^L, 3] in ~[-1, 1]. The mid
     block's single-head attention (4096 tokens at d=512 for a 512x512
-    image) goes to the flash kernel under ``kernels="cuda"``."""
+    image) goes to the flash kernel under every ``cuda*`` policy; the
+    ResBlock convs take the fused GN-prologue conv kernel under
+    ``kernels="cuda_conv"``."""
     g = cfg.groups
     h = conv2d(params["post_quant"], z, padding=0)
     h = conv2d(params["conv_in"], h)
     mid = params["mid"]
-    h = _resblock(mid["res1"], h, g)
+    h = _resblock(mid["res1"], h, g, kernels)
     h = _attn(mid["attn"], h, g, kernels)
-    h = _resblock(mid["res2"], h, g)
+    h = _resblock(mid["res2"], h, g, kernels)
     for level in params["up"]:
         for blk in level["blocks"]:
-            h = _resblock(blk, h, g)
+            h = _resblock(blk, h, g, kernels)
         if "up" in level:
             h = conv2d(level["up"], _upsample_nearest(h))
     h = silu(group_norm(params["norm_out"], h, g, eps=1e-6))

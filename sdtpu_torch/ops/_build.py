@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc at first use, and load them.
 
-All of ``sdtpu_torch/csrc/*.cu`` compiles into one shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). The library lands in
+Each of ``sdtpu_torch/csrc/*.cu`` compiles to an object file, all at once in
+parallel nvcc processes; one more nvcc call links them into a shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). The library lands in
 ``sdtpu_torch/_build/<hash>/libsdtpu_torch_kernels.so``, keyed by a hash of
-the sources and the nvcc command, so an unchanged tree does not rebuild. A
+the sources and the nvcc flags, so an unchanged tree does not rebuild. A
 failed build raises with nvcc's output.
 """
 
@@ -24,8 +25,8 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libsdtpu_torch_kernels.so"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 
 def sources() -> list[Path]:
@@ -45,8 +46,12 @@ def find_nvcc() -> str:
     return found
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(nvcc: str, src: Path, obj: Path) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(nvcc: str, objs: list[Path], out: Path) -> list[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
 
 
 def source_hash() -> str:
@@ -61,27 +66,42 @@ def library_path() -> Path:
     return BUILD_DIR / source_hash() / LIB_NAME
 
 
+def _check(proc: subprocess.Popen, what: str) -> None:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n"
+                           f"{err}{out}")
+
+
 def build() -> Path:
     """Compile the library unless this source hash is already built."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name, then rename: a concurrent or cut build
-    # never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(find_nvcc(), Path(tmp)),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                f"{proc.stdout}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = find_nvcc()
+    # objects and the library go to a temporary directory, then the library
+    # is renamed into place: a concurrent or cut build never leaves a
+    # half-written library under the final name
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen(compile_command(nvcc, src, obj),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources(), objs)]
+        try:
+            for src, proc in zip(sources(), procs):
+                _check(proc, src.name)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = Path(tmp) / LIB_NAME
+        _check(subprocess.Popen(link_command(nvcc, objs, lib),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True), "link")
+        os.replace(lib, out)
     return out
 
 
@@ -89,14 +109,19 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The built library with every C signature declared (once per
     process)."""
-    from sdtpu_torch.ops import attention
+    from sdtpu_torch.ops import attention, conv, groupnorm
 
     lib = ctypes.CDLL(str(build()))
-    attention.bind(lib)
+    for module in (attention, conv, groupnorm):
+        module.bind(lib)
     lib.sdtpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sdtpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def error_string(err: int) -> str:
-    return library().sdtpu_cuda_error_string(err).decode()
+def check_launch(err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a cudaError_t other than
+    0."""
+    if err != 0:
+        msg = library().sdtpu_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({msg})")

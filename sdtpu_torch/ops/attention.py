@@ -83,9 +83,7 @@ def flash_attention_cuda(q, k, v, heads: int):
         err = lib.sdtpu_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, heads, sq, sk, d, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err} "
-                           f"({_build.error_string(err)})")
+    _build.check_launch(err, "flash_attn_fwd")
     flash_attention_cuda.launches += 1
     return out
 

@@ -1,0 +1,234 @@
+"""Fused implicit-GEMM convolution for the UNet and VAE ResBlocks and the
+transformer ``proj_in`` under ``kernels="cuda_conv"``: a hand-written CUDA
+kernel for Hopper (``csrc/conv_gn_silu.cu``), the counterpart of
+``sdtpu/ops/conv.py``'s two Pallas kernels (``_conv_kernel`` and
+``_conv_kernel_b``; their two grid orders are a TPU VMEM artefact, one
+kernel takes both here).
+
+The caller folds each GroupNorm into per-(sample, channel) vectors A and D
+(``gn_affine``: one launch of the GroupNorm kernel's statistics mode on the
+card, where the reference leaves it to XLA); the kernel
+applies ``silu(x*A + D)`` while staging its input tile, adds a bias that may
+differ per sample (the ResBlock's time-embedding add), and rounds once.
+
+``eligible`` checks the kernel's own contract only: the reference's VMEM,
+power-of-two and Mosaic gates (``sdtpu/ops/conv.py:120-173,192-201``) are the
+TPU's. A conv outside it goes to ``layers.conv2d`` by that static rule. On a
+CPU tensor the kernel's plain version runs instead; on a CUDA tensor the
+kernel launches or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from sdtpu_torch.ops import groupnorm as G
+
+_BIG = 2 ** 31            # the kernel indexes each tensor with 32-bit ints
+_MAX_COUT_TILES = 65535   # 128-wide Cout tiles on the grid's y axis
+_TILE, _BK = 128, 32      # the kernel's output tile (M and Cout) and K step
+_MAX_SPLITS = 16
+_PROLOGUE = {None: 0, "affine": 1, "silu": 2}
+_COUNTERS: dict = {}      # device -> int32 per-tile counters, kept at 0
+
+
+def splits_for(m: int, c_out: int, k: int, sms: int) -> int:
+    """How many blocks share one output tile's K loop (split-K): as many as
+    keep all blocks in one wave of the two an SM holds, at most
+    _MAX_SPLITS, with at least 32 K steps (1,024 of K) per block, so the
+    partials' write and sum stay small beside the products. Swept on the
+    H100 at the SD1.5 UNet's 8x8-32x32 convs: the best count was within 5%
+    of this rule's at each."""
+    tiles = -(-m // _TILE) * -(-c_out // _TILE)
+    steps = -(-k // _BK)
+    return max(1, min(_MAX_SPLITS, 2 * sms // tiles, steps // 32))
+
+
+def _tile_counters(device, tiles: int):
+    """Zeroed int32 counters, one per output tile, kept per device: the
+    kernel's last block of each tile resets its counter to 0."""
+    have = _COUNTERS.get(device)
+    if have is None or have.numel() < tiles:
+        have = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = have
+    return have
+
+
+def _kernel_weight(w):
+    """OIHW weight -> its [Cout, kh, kw, Cin] view, the kernel's operand
+    (contiguous when ``w`` is in channels_last memory, as the port keeps
+    conv weights)."""
+    return w.permute(0, 2, 3, 1)
+
+
+def eligible(x, w, stride: int, padding: int) -> bool:
+    """Can ``fused_conv`` run this conv? x: [N, H, W, Cin] NHWC; w: OIHW.
+
+    The kernel's contract: stride 1; 3x3 with pad 1 or 1x1 with pad 0;
+    Cin % 8 == 0 (a 16-byte vector of the input never crosses a tap);
+    contiguous x and weights in channels_last memory; every tensor under
+    2^31 elements; bf16 activations. The dtype clause is the kernel's own:
+    on a CPU tensor the plain version runs and takes any floating dtype, so
+    the CPU tests take this route in float32. Each conv is checked against
+    its own input (the reference checks a ResBlock's conv2 against the
+    block's input, ``sdtpu/models/unet.py:230``)."""
+    if x.dim() != 4 or w.dim() != 4 or stride != 1:
+        return False
+    c_out, c_in, kh, kw = w.shape
+    if kh != kw or kh not in (1, 3) or padding != kh // 2:
+        return False
+    n, h, ww, xc = x.shape
+    if xc != c_in or c_in % 8 or x.numel() == 0:
+        return False
+    if (x.numel() >= _BIG or n * h * ww * c_out >= _BIG or w.numel() >= _BIG
+            or -(-c_out // _TILE) > _MAX_COUT_TILES):
+        return False
+    if not x.is_contiguous() or not _kernel_weight(w).is_contiguous():
+        return False
+    return x.device.type == "cpu" or x.dtype == torch.bfloat16
+
+
+def fused_conv(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
+    """GN(+SiLU)-prologue implicit-GEMM conv, NHWC x OIHW -> NHWC, the
+    contract of ``sdtpu/ops/conv.py:fused_conv``.
+
+    x: [N, H, W, Cin]; w: [Cout, Cin, k, k] in x's dtype, or int8 with a
+    per-output-channel ``w_scale`` [Cout]; b: [Cout] or per-sample
+    [N, Cout]; a, d: optional prologue [N, Cin], ``xn = x*a + d`` (the
+    GroupNorm folded by ``gn_affine``), then SiLU when ``silu``. 3x3 implies
+    pad 1, 1x1 pad 0, stride 1. The caller checks ``eligible`` first."""
+    if x.device.type == "cpu":
+        return fused_conv_reference(x, w, b, a=a, d=d, silu=silu,
+                                    w_scale=w_scale)
+    return fused_conv_cuda(x, w, b, a=a, d=d, silu=silu, w_scale=w_scale)
+
+
+def fused_conv_reference(x, w, b, *, a=None, d=None, silu=True,
+                         w_scale=None):
+    """The kernel's plain version: widen to float32, apply the prologue,
+    round it to x's dtype (the kernel's product operand; exact in float32),
+    convolve with zero padding (so the border is zero after the prologue),
+    multiply by the weight scale, add the bias, round once to x's dtype."""
+    z = x.float()
+    if a is not None:
+        z = z * a.float()[:, None, None, :] + d.float()[:, None, None, :]
+        if silu:
+            z = z * torch.sigmoid(z)
+    z = z.to(x.dtype).float()
+    y = F.conv2d(z.permute(0, 3, 1, 2), w.float(), padding=w.shape[-1] // 2)
+    if w_scale is not None:
+        y = y * w_scale.float()[None, :, None, None]
+    b = b.float()
+    y = y + (b[:, :, None, None] if b.dim() == 2 else b[None, :, None, None])
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
+    """Launch the CUDA kernel on ``torch.cuda.current_stream()``.
+
+    x bf16 and w bf16 (or int8 with ``w_scale``) within ``eligible``'s
+    contract, on one CUDA device; b, a, d, w_scale as in ``fused_conv``
+    (widened to float32 here). Raises on anything else. Counts its launches
+    in ``fused_conv_cuda.launches``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be bfloat16, got {x.dtype}")
+    k = w.shape[-1] if w.dim() == 4 else 0
+    if not eligible(x, w, 1, k // 2):
+        raise ValueError(f"conv of x {tuple(x.shape)} with w "
+                         f"{tuple(w.shape)} is outside the kernel's contract")
+    n, h, ww, c_in = x.shape
+    c_out = w.shape[0]
+    quantized = w_scale is not None
+    want = torch.int8 if quantized else torch.bfloat16
+    if w.dtype != want:
+        raise ValueError(f"w must be {want} here, got {w.dtype}")
+    wk = _kernel_weight(w)
+    if b.shape not in ((c_out,), (n, c_out)):
+        raise ValueError(f"b must be [{c_out}] or [{n}, {c_out}], got "
+                         f"{tuple(b.shape)}")
+    b = b.float().contiguous()
+    if (a is None) != (d is None):
+        raise ValueError("a and d come together")
+    if a is not None:
+        if a.shape != (n, c_in) or d.shape != (n, c_in):
+            raise ValueError(f"a and d must be [{n}, {c_in}]")
+        a, d = a.float().contiguous(), d.float().contiguous()
+    if quantized:
+        if w_scale.shape != (c_out,):
+            raise ValueError(f"w_scale must be [{c_out}]")
+        w_scale = w_scale.float().contiguous()
+    for name, t in (("w", wk), ("b", b), ("a", a), ("d", d),
+                    ("w_scale", w_scale)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} must be on {x.device}, got {t.device}")
+    for name, t in (("x", x), ("w", wk), ("a", a), ("d", d)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    from sdtpu_torch.ops import _build
+
+    lib = _build.library()
+    out = torch.empty((n, h, ww, c_out), dtype=x.dtype, device=x.device)
+    m = n * h * ww
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = splits_for(m, c_out, k * k * c_in, sms)
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(splits * m * c_out, dtype=torch.float32,
+                         device=x.device)
+        counters = _tile_counters(x.device, -(-m // _TILE)
+                                  * -(-c_out // _TILE))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    prologue = _PROLOGUE[None if a is None else ("silu" if silu else
+                                                 "affine")]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.sdtpu_conv_gn_silu(
+            x.data_ptr(), wk.data_ptr(), b.data_ptr(), ptr(a), ptr(d),
+            ptr(w_scale), out.data_ptr(), ptr(ws), ptr(counters), n, h, ww,
+            c_in, c_out, k, c_out if b.dim() == 2 else 0, prologue,
+            int(quantized), splits, stream)
+    _build.check_launch(err, "conv_gn_silu")
+    fused_conv_cuda.launches += 1
+    return out
+
+
+fused_conv_cuda.launches = 0
+
+
+def gn_affine(p, x, groups: int, eps: float = 1e-5):
+    """Fold GroupNorm(x) into per-(sample, channel) float32 A, D [N, C] with
+    ``group_norm(p, x) == x * A[n] + D[n]``, as ``sdtpu/ops/conv.py:
+    gn_affine`` does: mean and variance over each group's (spatial, C/G)
+    slab in float32. On a CUDA tensor within the GroupNorm kernel's
+    contract, that kernel's statistics mode computes it in one launch
+    (``groupnorm.group_norm_affine_cuda``); elsewhere the plain version."""
+    if x.device.type == "cuda" and G.uses_kernel(x, groups):
+        return G.group_norm_affine_cuda(p, x, groups, eps)
+    return gn_affine_reference(p, x, groups, eps)
+
+
+def gn_affine_reference(p, x, groups: int, eps: float = 1e-5):
+    """``gn_affine``'s plain version, in float32 torch ops."""
+    c = x.shape[-1]
+    cg = c // groups
+    xf = x.float().reshape(x.shape[0], -1, groups, cg)
+    var, mu = torch.var_mean(xf, dim=(1, 3), correction=0)      # [N, G]
+    rstd = torch.rsqrt(var + eps)
+    scale = p["scale"].float()[None, :]
+    bias = p["bias"].float()[None, :]
+    a = rstd.repeat_interleave(cg, dim=1) * scale
+    d = bias - (mu * rstd).repeat_interleave(cg, dim=1) * scale
+    return a, d
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Declare the C signature (pointers and the stream as c_void_p)."""
+    fn = lib.sdtpu_conv_gn_silu
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int

@@ -1,10 +1,11 @@
 """The port's attention op against the JAX package's
 (``sdtpu_torch.ops.attention`` vs ``sdtpu.ops.attention``), its dispatch
-rule, its build command, and the port's import isolation.
+rule, the build of all the port's kernels, and the port's import isolation.
 
 On the CPU the port's ``flash_attention`` runs the kernel's plain version;
 the JAX side runs its Pallas kernel in interpret mode, as tests/test_ops.py
-does. The CUDA kernel itself runs only on the card (the ``cuda`` test)."""
+does. The CUDA kernels themselves run only on the card (the ``cuda``
+tests, one per kernel, each against its plain version)."""
 
 import os
 import subprocess
@@ -19,6 +20,8 @@ import torch
 from sdtpu.ops import attention as j_attn
 from sdtpu_torch.ops import _build
 from sdtpu_torch.ops import attention as t_attn
+from sdtpu_torch.ops import conv as t_conv
+from sdtpu_torch.ops import groupnorm as t_gn
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -95,18 +98,41 @@ def test_cuda_wrapper_rejects_without_launching(bad):
     assert t_attn.flash_attention_cuda.launches == before
 
 
+KERNEL_SOURCES = ["conv_gn_silu.cu", "flash_attn_fwd.cu",
+                  "group_norm_silu.cu"]
+
+
 def test_nvcc_command_targets_sm90a_into_ignored_dir():
+    """One nvcc compile per source (started together), then one link into
+    the git-ignored build directory, every step for sm_90a."""
     out = _build.library_path()
-    cmd = _build.nvcc_command("nvcc", out)
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-o") + 1] == str(out)
-    assert [Path(s).name for s in cmd if s.endswith(".cu")] == [
-        "flash_attn_fwd.cu"]
+    assert [s.name for s in _build.sources()] == KERNEL_SOURCES
+    objs = []
+    for src in _build.sources():
+        obj = out.parent / f"{src.stem}.o"
+        cmd = _build.compile_command("nvcc", src, obj)
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+        assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(src)
+        objs.append(obj)
+    link = _build.link_command("nvcc", objs, out)
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    assert link[link.index("-o") + 1] == str(out)
+    assert link[-len(objs):] == [str(o) for o in objs]
     assert out.is_relative_to(_build.BUILD_DIR)
     rel = _build.BUILD_DIR.relative_to(REPO).as_posix()
     ignored = [ln.strip().rstrip("/") for ln in
                (REPO / ".gitignore").read_text().splitlines()]
     assert rel in ignored
+
+
+@pytest.mark.parametrize("name", KERNEL_SOURCES)
+def test_source_hash_covers_each_kernel(monkeypatch, name):
+    """Editing any kernel source moves the library to a new build
+    directory: each source's bytes are in the hash."""
+    full = _build.source_hash()
+    rest = [s for s in _build.sources() if s.name != name]
+    monkeypatch.setattr(_build, "sources", lambda: rest)
+    assert _build.source_hash() != full
 
 
 def test_port_imports_no_jax():
@@ -145,3 +171,82 @@ def test_cuda_kernel_matches_plain(b, s, c, heads):
                                            heads)
     # bf16 output (2^-9 relative) and bf16 P before P.V
     assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,c,groups,fuse_silu", [
+    (2, 4096, 320, 32, True), (2, 64, 2560, 32, False), (2, 77, 30, 3, True),
+    (1, 5, 9, 3, False)])
+def test_cuda_group_norm_matches_plain(n, hw, c, groups, fuse_silu):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((n, hw, c), generator=g, device="cuda") * 2 + 1).to(
+        torch.bfloat16)
+    p = {"scale": torch.randn(c, generator=g, device="cuda").to(
+        torch.bfloat16), "bias": torch.randn(c, generator=g, device="cuda")
+        .to(torch.bfloat16)}
+    out = t_gn.group_norm_cuda(p, x, groups, 1e-5, fuse_silu)
+    torch.cuda.synchronize()
+    ref = t_gn.group_norm_reference(p, x.float(), groups, 1e-5, fuse_silu)
+    # one bf16 rounding of the output (2^-9 relative) on float32 stats
+    assert (out.float() - ref).abs().max().item() <= (
+        1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((2, 64, 64, 320), 32),
+                                          ((2, 8, 8, 2560), 32),
+                                          ((1, 7, 9, 30), 3)])
+def test_cuda_group_norm_affine_matches_plain(shape, groups):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 1).to(
+        torch.bfloat16)
+    c = shape[-1]
+    p = {"scale": torch.randn(c, generator=g, device="cuda"),
+         "bias": torch.randn(c, generator=g, device="cuda")}
+    a, d = t_gn.group_norm_affine_cuda(p, x, groups, 1e-6)
+    torch.cuda.synchronize()
+    ra, rd = t_conv.gn_affine_reference(p, x, groups, 1e-6)
+    # float32 on both sides, sums in another order
+    for ours, ref in ((a, ra), (d, rd)):
+        assert (ours - ref).abs().max().item() <= (
+            1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c_out,k,prologue,int8", [
+    ((2, 64, 64, 320), 320, 3, "silu", False),
+    ((2, 8, 8, 2560), 1280, 3, "silu", False),
+    ((2, 32, 32, 640), 640, 1, "affine", False),
+    ((1, 7, 9, 24), 40, 3, "silu", True),
+    ((2, 5, 3, 16), 13, 3, None, False)])
+def test_cuda_conv_matches_plain(shape, c_out, k, prologue, int8):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n, _, _, c_in = shape
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((c_out, c_in, k, k), generator=g, device="cuda") / (
+        k * k * c_in) ** 0.5
+    scale = None
+    if int8:
+        scale = w.abs().amax(dim=(1, 2, 3)) / 127.0
+        w = torch.round(w / scale[:, None, None, None]).to(torch.int8)
+    else:
+        w = w.to(torch.bfloat16)
+    w = w.contiguous(memory_format=torch.channels_last)
+    b = torch.randn((n, c_out), generator=g, device="cuda")
+    kw = {}
+    if prologue:
+        kw = {"a": torch.rand((n, c_in), generator=g, device="cuda") + 0.5,
+              "d": torch.randn((n, c_in), generator=g, device="cuda"),
+              "silu": prologue == "silu"}
+    out = t_conv.fused_conv_cuda(x, w, b, w_scale=scale, **kw)
+    torch.cuda.synchronize()
+    ref = t_conv.fused_conv_reference(x.float(), w, b, w_scale=scale, **kw)
+    # bf16 prologue operand and output (2^-9 relative each), f32 sums
+    assert (out.float() - ref).abs().max().item() <= (
+        1e-2 * ref.abs().max().item())
