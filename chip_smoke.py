@@ -7,16 +7,17 @@ Phases, each printing one JSON object per line:
 1. device: the card's name and power limit (also printed raw, as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them), torch and CUDA versions;
-2. build: nvcc builds the kernels from sdtpu_torch/csrc (first use);
+2. build: nvcc builds the five kernels from sdtpu_torch/csrc (first use);
 3. kernel: the flash-attention kernel (K1) against its plain version at the
    main path's shapes (and d=64 as a look ahead), error and device
-   times;
+   times, beside ``F.scaled_dot_product_attention`` as a yardstick;
 4. sites: one SD1.5 UNet eval and one VAE decode under ``cuda_gn`` and
    ``cuda_conv`` record every call shape the fused GroupNorm (K2) and the
    fused conv (K3) get on the main path, and how often per image;
-5. kernel_gn, kernel_conv: K2 and K3 at every one of those shapes and at
-   ragged ones (odd planes, C/G not a multiple of 8, Cout not a multiple
-   of the tile, int8 weights), each against its plain version run in
+5. kernel_gn, kernel_conv: K2 and K3 at every one of those shapes (K3
+   with int8 weights too at the UNet's, as ``quantize="int8w"`` feeds it)
+   and at ragged ones (odd planes, C/G not a multiple of 8, Cout not a
+   multiple of the tile), each against its plain version run in
    float32 on the same bf16 inputs; device times of the kernel, of the
    plain version, and of the site as ``kernels="cuda"`` runs it (bf16
    GroupNorm + SiLU + cuDNN conv + bias);
@@ -27,13 +28,34 @@ Phases, each printing one JSON object per line:
    number of times; the same seed must give the same bytes; median s/image
    of 3;
 7. ab: s/image under plain, cuda, cuda_gn and cuda_conv, in turns;
-8. model: one SD1.5 UNet eval and one VAE decode at full width under each
+8. quantized serving, on three more Contexts with the same demo weights:
+   ``quantize="int8w_dense"`` (kernels cuda), ``"int8w"`` (cuda_conv) and
+   ``"int8"`` (cuda), the last calibrated on the card with 2 prompts x 2
+   steps. mm_sites records every call shape the weight-only-int8 GEMM (K4)
+   and the W8A8 GEMM (K5) get in one UNet eval; kernel_mm holds both
+   against their plain versions at those shapes and at ragged ones, with
+   device times of the kernel, the plain version and the library
+   yardsticks (the bf16 product of the unquantized site and the
+   dequantize-then-multiply fallback for K4; ``torch._int_mm`` and the
+   whole library int8 path for K5); main_path generates under each mode
+   (``int8`` with ``ops.matmul.KERNEL_W8A8`` off, where K5 must not launch,
+   and on) with every kernel's launches per image pinned and the same seed
+   giving the same bytes; ab_quant times the modes in turns; quant_model
+   holds one full-width UNet eval under each mode against the unquantized
+   float32 UNet, beside the unquantized bf16 error, and records each
+   mode's PSNR against the ``quantize="none"`` image at the same seed;
+9. model: one SD1.5 UNet eval and one VAE decode at full width under each
    policy, each against float32;
-9. breakdown: stage times and a profiler trace of one image under cuda,
-   cuda_gn and cuda_conv.
+10. breakdown: stage times and a profiler trace of one image under cuda,
+   cuda_conv and int8w_dense.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
+
+Every kernel's row carries its bound: the least time the card could take
+for the same call, the larger of its bytes (each input read once, each
+output written once) over the memory rate and its operations over the peak
+rate for their type (``bound``).
 
 Then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failure ends the run with a non-zero exit and no last line.
@@ -51,6 +73,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 PROMPT = "a photograph of an astronaut riding a horse"
 KERNEL_TOL = 2e-2       # K1: bf16 output (2^-9 relative) and bf16 P in P.V
@@ -61,8 +84,21 @@ FUSED_TOL = 1e-2
 # K2's statistics mode against gn_affine's plain version: both float32,
 # sums in another order
 AFFINE_TOL = 1e-4
+# K5 against its plain version: exact int32 sums and single float32
+# operations on both sides, so the float32 values agree before the final
+# cast: at most one bf16 ulp (2^-7 relative) after it
+W8A8_TOL = 2.0 ** -7
 MODEL_FACTOR = 2.0      # see phase_model
+# the quantized UNet against float32, and an image's PSNR against the
+# unquantized one: random weights, so only garbage is caught
+QUANT_REL_ERR_MAX = 0.5
+QUANT_PSNR_MIN_DB = 6.0
 POLICIES = ("plain", "cuda", "cuda_gn", "cuda_conv")
+# the H100 SXM's published dense peaks and memory rate (NVIDIA's data sheet)
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
+CALIB_PROMPTS = ["a photograph of an astronaut riding a horse",
+                 "a watercolor of a lighthouse at dusk"]
 # (batch, seq, channels, heads): UNet 64x64 and 32x32 self-attention at the
 # CFG batch of 2, the VAE mid block, and d=64 (SD2/SDXL) as a look ahead
 SHAPES = [(2, 4096, 320, 8), (2, 1024, 640, 8), (1, 4096, 512, 1),
@@ -76,16 +112,42 @@ STEPS = 20
 #   conv: 60 fused convs per UNet eval (22 ResBlocks x 2, 16 proj_in), 20
 #     evals, plus 14 VAE ResBlocks x 2; each with one launch of the
 #     GroupNorm kernel's statistics mode for its prologue (gn_affine)
+# under quantization (the UNet only; SD1.5 has 16 transformer blocks, 5 each
+# at 64x64, 32x32, 16x16 and 1 at 8x8, of 10 dense sites each, of which
+# attn2's k and v see the 154 rows of the text context; 16 proj_in, 16
+# proj_out and 14 skip 1x1 convs; 22 ResBlock emb dense of 2 rows):
+#   int8w_dense, kernels cuda: K4 at every dense site and 1x1 conv of the
+#     UNet, 160 + 22 + 46 = 228 per eval (the reference's own gate would
+#     leave out the 32 + 22 sites of 154 and 2 rows: 174);
+#   int8w, kernels cuda_conv: K3 reads int8 weights at its 60 UNet sites
+#     (the VAE's 28 stay bf16), and the 1x1 convs it does not fuse, 16
+#     proj_out + 14 skip, go to K4;
+#   int8, calibrated, KERNEL_W8A8 on: K5 where n >= m: every site of the 5
+#     blocks at 16x16 and the one at 8x8 (60), ff1 at 32x32 (5), and attn2's
+#     k and v at 64x64 and 32x32 (20; the reference's gate leaves the
+#     154-row sites out, 53 in all): 85 per eval. With the flag off, none.
 FLASH_PER_IMAGE = (5 + 5) * STEPS + 1
 CONV_PER_IMAGE = 60 * STEPS + 14 * 2
+MM_INT8W_PER_EVAL = 160 + 22 + 46
+MM_W8A8_PER_EVAL = 60 + 5 + 20
+KERNEL_NAMES = ("flash", "group_norm", "group_norm_affine", "conv",
+                "conv_int8", "matmul_int8w", "matmul_w8a8")
+
+
+def pins(**launches):
+    return {**dict.fromkeys(KERNEL_NAMES, 0), "flash": FLASH_PER_IMAGE,
+            **launches}
+
+
 PINNED = {
-    "cuda": {"flash": FLASH_PER_IMAGE, "group_norm": 0,
-             "group_norm_affine": 0, "conv": 0},
-    "cuda_gn": {"flash": FLASH_PER_IMAGE, "group_norm": 61 * STEPS,
-                "group_norm_affine": 0, "conv": 0},
-    "cuda_conv": {"flash": FLASH_PER_IMAGE, "group_norm": 0,
-                  "group_norm_affine": CONV_PER_IMAGE,
-                  "conv": CONV_PER_IMAGE},
+    "cuda": pins(),
+    "cuda_gn": pins(group_norm=61 * STEPS),
+    "cuda_conv": pins(group_norm_affine=CONV_PER_IMAGE, conv=CONV_PER_IMAGE),
+    "int8w_dense": pins(matmul_int8w=MM_INT8W_PER_EVAL * STEPS),
+    "int8w": pins(group_norm_affine=CONV_PER_IMAGE, conv=CONV_PER_IMAGE,
+                  conv_int8=60 * STEPS, matmul_int8w=(16 + 14) * STEPS),
+    "int8": pins(),
+    "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL * STEPS),
 }
 # K2 and K3 at shapes off the main path: odd planes, C/G not a multiple of
 # 8 (or of 2), Cout not a multiple of the 128 tile, int8 weights
@@ -97,6 +159,11 @@ CONV_RAGGED = [((2, 63, 65, 64), 100, 3, "silu", False),
                ((1, 7, 9, 24), 40, 3, "silu", True),
                ((2, 32, 32, 640), 640, 3, "silu", True),
                ((2, 9, 11, 40), 72, 1, "affine", False)]
+# K4 and K5 off the main path, (m, k, n, bias): a 64-deep step's K tail
+# (336 = 5 x 64 + 16), N not a multiple of 8 and odd, a single row, one
+# 16-deep step, no bias
+MM_RAGGED = [(300, 336, 130, True), (100, 48, 72, False), (33, 16, 7, True),
+             (1, 1280, 320, False), (129, 320, 129, True)]
 
 
 def emit(obj) -> None:
@@ -137,26 +204,37 @@ def rel_err(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def counts():
+def bound(ops: float, kind: str, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take for a call
+    of ``ops`` operations of type ``kind`` that must move ``nbytes``."""
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops > by_bytes
+                                   else "bytes")
+
+
+def _counters():
     from sdtpu_torch.ops import attention as A
     from sdtpu_torch.ops import conv as C
     from sdtpu_torch.ops import groupnorm as G
+    from sdtpu_torch.ops import matmul as MM
 
-    return {"flash": A.flash_attention_cuda.launches,
-            "group_norm": G.group_norm_cuda.launches,
-            "group_norm_affine": G.group_norm_affine_cuda.launches,
-            "conv": C.fused_conv_cuda.launches}
+    return {"flash": (A.flash_attention_cuda, "launches"),
+            "group_norm": (G.group_norm_cuda, "launches"),
+            "group_norm_affine": (G.group_norm_affine_cuda, "launches"),
+            "conv": (C.fused_conv_cuda, "launches"),
+            "conv_int8": (C.fused_conv_cuda, "launches_int8"),
+            "matmul_int8w": (MM.matmul_int8w_cuda, "launches"),
+            "matmul_w8a8": (MM.matmul_w8a8_cuda, "launches")}
+
+
+def counts():
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def reset_counts() -> None:
-    from sdtpu_torch.ops import attention as A
-    from sdtpu_torch.ops import conv as C
-    from sdtpu_torch.ops import groupnorm as G
-
-    A.flash_attention_cuda.launches = 0
-    G.group_norm_cuda.launches = 0
-    G.group_norm_affine_cuda.launches = 0
-    C.fused_conv_cuda.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def phase_device():
@@ -201,9 +279,18 @@ def phase_kernel():
         ms = cuda_ms(lambda: A.flash_attention_cuda(q, k, v, heads))
         plain_ms = cuda_ms(
             lambda: A.flash_attention_reference(q, k, v, heads))
+        # the one PyTorch call that computes the same function, as a
+        # yardstick only: the port never calls it
+        qh, kh, vh = (t.view(b, s, heads, c // heads).transpose(1, 2)
+                      for t in (q, k, v))
+        library_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh))
         flop = 4.0 * b * s * s * c
+        bound_ms, bound_by = bound(flop, "bf16", 4 * q.numel() * 2)
         row = {"shape": [b, s, c], "heads": heads, "head_dim": c // heads,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by,
                "tflops": flop / ms / 1e9, "plain_tflops": flop / plain_ms / 1e9}
         emit({"phase": "kernel", **row})
         if not err <= KERNEL_TOL:
@@ -225,7 +312,7 @@ def recording(module, name, log):
 
     # the wrapper adds to the launch count of whatever its module holds
     # under its name, which is `record` while it is replaced
-    record.launches = 0
+    record.launches = record.launches_int8 = 0
     setattr(module, name, record)
     try:
         yield
@@ -314,9 +401,14 @@ def phase_kernel_gn(gn_sites):
         ref = G.group_norm_reference(p, x.float(), groups, eps, silu)
         err = (out.float() - ref).abs().max().item()
         scale = ref.abs().max().item()
+        # x read and y written once; some 10 float32 operations an element
+        # (two-pass statistics, the affine map, SiLU)
+        bound_ms, bound_by = bound(10.0 * x.numel(), "f32",
+                                   2 * x.numel() * 2 + 2 * c * 2)
         row = {"shape": [n, hw, c], "groups": groups, "eps": eps,
                "silu": silu, "per_image": per_image, "max_abs_err": err,
-               "ref_abs_max": scale,
+               "ref_abs_max": scale, "bound_ms": bound_ms,
+               "bound_by": bound_by,
                "ms": cuda_ms(lambda: G.group_norm_cuda(p, x, groups, eps,
                                                        silu)),
                "plain_ms": cuda_ms(lambda: G.group_norm_reference(
@@ -331,8 +423,8 @@ def phase_kernel_gn(gn_sites):
 
 
 def phase_kernel_conv(conv_sites):
-    """K3 at every main-path shape and at ragged ones, against its plain
-    version in float32 on the same bf16 inputs (the prologue from a real
+    """K3 at every main-path shape (with int8 weights too at the UNet's)
+    and at ragged ones, against its plain version in float32 on the same bf16 inputs (the prologue from a real
     GroupNorm of x, ``gn_affine``, which is K2's statistics mode, itself
     held against its plain version); times of the kernel, of the plain
     version, of the whole cuda_conv site (``gn_affine`` + the kernel) and of
@@ -342,13 +434,16 @@ def phase_kernel_conv(conv_sites):
     from sdtpu_torch.ops import groupnorm as G
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    cases = [(k, n) for k, n in sorted(conv_sites.items(), key=str)]
-    cases += [((s, co, k, pro, True), 0, q8)
+    main = sorted(conv_sites.items(), key=str)
+    # (site, launches per image, int8 weights, launches per image under
+    # quantize="int8w", which quantizes the UNet's sites: the CFG batch of 2)
+    cases = [(k, n, False, 0) for k, n in main]
+    cases += [(k, 0, True, n) for k, n in main if k[0][0] == 2]
+    cases += [((s, co, k, pro, True), 0, q8, 0)
               for s, co, k, pro, q8 in CONV_RAGGED]
     rows = []
-    for case in cases:
-        (shape, c_out, k, prologue, per_sample), per_image = case[:2]
-        int8 = len(case) == 3 and case[2]
+    for (shape, c_out, k, prologue, per_sample), per_image, int8, \
+            per_image_int8 in cases:
         n, h, w_, c_in = shape
         x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
         w = torch.randn((c_out, c_in, k, k), generator=g, device="cuda") / (
@@ -390,9 +485,20 @@ def phase_kernel_conv(conv_sites):
         del ref
         flop = 2.0 * n * h * w_ * c_out * k * k * c_in
         ms = cuda_ms(lambda: C.fused_conv_cuda(x, w, b, w_scale=scale, **kw))
+        bound_ms, bound_by = bound(
+            flop, "bf16", x.numel() * 2 + w.numel() * w.element_size()
+            + n * h * w_ * c_out * 2 + b.numel() * 4
+            + (2 * n * c_in * 4 if prologue else 0)
+            + (c_out * 4 if int8 else 0))
+        affine_bound = bound(6.0 * x.numel(), "f32",
+                             x.numel() * 2 + 2 * c_in * 2 + 2 * n * c_in * 4)
         row = {"x": list(shape), "c_out": c_out, "k": k,
                "prologue": prologue, "int8": int8, "per_image": per_image,
+               "per_image_int8": per_image_int8,
                "max_abs_err": err, "ref_abs_max": ref_max, "ms": ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "affine_bound_ms": affine_bound[0],
+               "affine_bound_by": affine_bound[1],
                "tflops": flop / ms / 1e9,
                "plain_ms": cuda_ms(lambda: C.fused_conv_reference(
                    x, w, b, w_scale=scale, **kw)), **affine}
@@ -474,6 +580,7 @@ def phase_breakdown(ctx, policy):
 
     from sdtpu_torch.engine import pipeline
 
+    before = ctx.kernels
     ctx.kernels = policy
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -489,7 +596,7 @@ def phase_breakdown(ctx, policy):
         ev[3].record()
     torch.cuda.synchronize()
     res = {"phase": "breakdown", "kernels": policy,
-           "text_ms": ev[0].elapsed_time(ev[1]),
+           "quantize": ctx.quantize, "text_ms": ev[0].elapsed_time(ev[1]),
            "denoise_ms": ev[1].elapsed_time(ev[2]),
            "unet_eval_ms": ev[1].elapsed_time(ev[2]) / ctx.steps,
            "decode_ms": ev[2].elapsed_time(ev[3])}
@@ -516,9 +623,13 @@ def phase_breakdown(ctx, policy):
         "group_norm_ms": sum(v for k, v in by_name.items()
                              if "gn_kernel" in k),
         "conv_ms": sum(v for k, v in by_name.items() if "conv_kernel" in k),
+        "matmul_int8w_ms": sum(v for k, v in by_name.items()
+                               if "mm_int8w_kernel" in k),
+        "matmul_w8a8_ms": sum(v for k, v in by_name.items()
+                              if "mm_w8a8_kernel" in k),
         "top_kernels_ms": [[k[:90], v] for k, v in top]})
     emit(res)
-    ctx.kernels = "cuda"
+    ctx.kernels = before
 
 
 def check_image(img, size):
@@ -560,10 +671,13 @@ def phase_main_path(ctx):
     return launches
 
 
-def phase_policy(ctx, policy):
-    """The main path under a fused policy on the same Context: one image
-    with the pinned launches of every kernel, the same seed giving the same
-    bytes, median s/image of 3."""
+def phase_policy(ctx, policy, label=None):
+    """The main path under a kernel policy on ``ctx`` (``label`` names its
+    pinned counts where they are not the policy's own: a quantized mode):
+    one image with the pinned launches of every kernel, the same seed
+    giving the same bytes, median s/image of 3."""
+    label = label or policy
+    before = ctx.kernels
     ctx.kernels = policy
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -572,9 +686,9 @@ def phase_policy(ctx, policy):
     first = time.perf_counter() - t0
     launches = counts()
     check_image(img, ctx.cfg.image_size)
-    if launches != PINNED[policy]:
-        raise AssertionError(f"{policy}: launches for one image {launches}, "
-                             f"expected {PINNED[policy]}")
+    if launches != PINNED[label]:
+        raise AssertionError(f"{label}: launches for one image {launches}, "
+                             f"expected {PINNED[label]}")
     same = bool(np.array_equal(img, ctx.generate(PROMPT, guidance=7.5,
                                                  seed=11)))
     times = []
@@ -582,24 +696,26 @@ def phase_policy(ctx, policy):
         t0 = time.perf_counter()
         ctx.generate(PROMPT, guidance=7.5)
         times.append(time.perf_counter() - t0)
-    emit({"phase": "main_path", "kernels": policy, "first_image_s": first,
+    emit({"phase": "main_path", "kernels": policy, "quantize": ctx.quantize,
+          "mode": label, "first_image_s": first,
           "s_per_image": statistics.median(times), "image_s": times,
           "launches_per_image": launches, "identical": same,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "image_mean": float(img.mean()), "image_std": float(img.std())})
-    ctx.kernels = "cuda"
+    ctx.kernels = before
     if not same:
-        raise AssertionError(f"{policy}: same seed gave different images")
+        raise AssertionError(f"{label}: same seed gave different images")
     return launches
 
 
 def phase_ab(ctx):
     """s/image under every policy, in turns (plain, cuda, cuda_gn,
-    cuda_conv, then back, twice) on the same context and weights. It runs
+    cuda_conv, then back, then there again: 3 each) on the same context and
+    weights. It runs
     right after the main-path phases, before the float32 and profiler
     phases, so every arm sees the state the main-path timing saw."""
     times = {k: [] for k in POLICIES}
-    for k in (POLICIES + POLICIES[::-1]) * 2:
+    for k in POLICIES + POLICIES[::-1] + POLICIES:
         ctx.kernels = k
         t0 = time.perf_counter()
         ctx.generate(PROMPT, guidance=7.5, seed=9)
@@ -617,6 +733,260 @@ def phase_determinism(ctx):
     emit({"phase": "determinism", "kernels": ctx.kernels, "identical": same})
     if not same:
         raise AssertionError("same seed gave different images")
+
+
+def unet_inputs(cfg, seed):
+    """One CFG batch of UNet inputs at the configuration's widths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = cfg.compute_dtype
+    x = torch.randn((2, cfg.latent_size, cfg.latent_size,
+                     cfg.latent_channels), generator=g, device="cuda").to(dt)
+    te = torch.randn((2, cfg.unet.time_embed_dim), generator=g,
+                     device="cuda").to(dt)
+    context = torch.randn((2, cfg.clip.context_len, cfg.unet.context_dim),
+                          generator=g, device="cuda").to(dt)
+    return x, te, context
+
+
+@contextlib.contextmanager
+def w8a8_kernel(on: bool):
+    """``ops.matmul.KERNEL_W8A8`` set for a block, then put back."""
+    from sdtpu_torch.ops import matmul as MM
+
+    before = MM.KERNEL_W8A8
+    MM.KERNEL_W8A8 = on
+    try:
+        yield
+    finally:
+        MM.KERNEL_W8A8 = before
+
+
+def phase_calibrate(ctx_i):
+    """Static activation scales for the int8 Context, on the card: 2
+    prompts x 2 steps, as the caller of the reference does it. Every W8A8
+    site must come back with a float32 scalar ``x_scale``."""
+    from sdtpu_torch.quant.ptq import calibrate, count_quantized
+
+    t0 = time.perf_counter()
+    ctx_i.params = calibrate(ctx_i.params, ctx_i.cfg, CALIB_PROMPTS,
+                             ctx_i.tokenizer, steps=2)
+    scales = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "w_q" in node:
+                scales.append(node["x_scale"])
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+
+    walk(ctx_i.params)
+    vals = torch.stack(scales).float().cpu()
+    emit({"phase": "calibrate", "seconds": time.perf_counter() - t0,
+          "sites": count_quantized(ctx_i.params), "scaled": len(scales),
+          "x_scale_min": vals.min().item(), "x_scale_max": vals.max().item()})
+    # 16 transformer blocks of 10 dense sites
+    if len(scales) != 160 or not bool(torch.isfinite(vals).all()) or not (
+            vals.min().item() > 0):
+        raise AssertionError("calibration left a site without a scale")
+
+
+def phase_mm_sites(ctx_d, ctx_w, ctx_i):
+    """The call shapes K4 and K5 get on the quantized main paths, and how
+    many times per image: one UNet eval (x STEPS) under each mode with the
+    wrappers' arguments logged. Keys are (m, k, n, bias)."""
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import matmul as MM
+
+    x, te, context = unet_inputs(ctx_d.cfg, 6)
+    found = {}
+    for label, ctx, name, flag in (
+            ("int8w_dense", ctx_d, "matmul_int8w_cuda", False),
+            ("int8w", ctx_w, "matmul_int8w_cuda", False),
+            ("int8+k5", ctx_i, "matmul_w8a8_cuda", True)):
+        log = []
+        with torch.inference_mode(), recording(MM, name, log), w8a8_kernel(
+                flag):
+            unet.apply(ctx.params["unet"], x, te, context, ctx.cfg.unet,
+                       ctx.kernels)
+        sites = {}
+        for args, _ in log:   # (x, w8, scale[, x_scale], bias)
+            xx, w8 = args[0], args[1]
+            key = (xx.numel() // xx.shape[-1], w8.shape[0], w8.shape[1],
+                   args[-1] is not None)
+            sites[key] = sites.get(key, 0) + STEPS
+        found[label] = sites
+    reset_counts()
+    emit({"phase": "mm_sites", **{
+        f"{k}_{what}": v for k, sites in found.items() for what, v in (
+            ("shapes", len(sites)), ("per_image", sum(sites.values())))}})
+    for label, key in (("int8w_dense", "matmul_int8w"),
+                       ("int8w", "matmul_int8w"),
+                       ("int8+k5", "matmul_w8a8")):
+        if sum(found[label].values()) != PINNED[label][key]:
+            raise AssertionError(f"{label}: site counts differ from the "
+                                 f"pinned counts: {found[label]}")
+    return found
+
+
+def mm_case(m, k, n, bias, g):
+    """bf16 activations, an int8 weight in column-major memory with its
+    per-column scale, the bf16 weight it came from, a float32 bias."""
+    from sdtpu_torch.ops import matmul as MM
+
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
+    scale = w.abs().amax(dim=0) / 127.0
+    w8 = MM.column_major(torch.clamp(torch.round(w / scale), -127, 127)
+                         .to(torch.int8))
+    b = torch.randn(n, generator=g, device="cuda") if bias else None
+    return x, w8, scale, b, MM.column_major(w.to(torch.bfloat16))
+
+
+def phase_kernel_mm(sites):
+    """K4 and K5 at every main-path shape and at ragged ones, each against
+    its plain version on the same bf16 inputs (K4's run in float32, K5's
+    as it is: its arithmetic is exact up to the final cast).
+
+    Times: the kernel; the plain version; for K4 the bf16 ``x @ w + b`` of
+    the unquantized site (what ``quantize="none"`` runs: ``library_ms``)
+    and the dequantize-then-multiply fallback; for K5 ``torch._int_mm`` on
+    activations quantized beforehand (the product alone: ``library_ms``)
+    and the whole library path that ``KERNEL_W8A8 = False`` runs
+    (``layers.dense``: quantize, ``_int_mm``, scale, bias)."""
+    from sdtpu_torch.models import layers as L
+    from sdtpu_torch.ops import matmul as MM
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    k4 = dict(sites["int8w_dense"])
+    for key in sites["int8w"]:
+        k4.setdefault(key, 0)
+    k5 = sites["int8+k5"]
+    rows = {"matmul_int8w": [], "matmul_w8a8": []}
+    for name, cases in (
+            ("matmul_int8w", sorted(k4.items()) + [(c, 0) for c in MM_RAGGED]),
+            ("matmul_w8a8", sorted(k5.items()) + [(c, 0) for c in MM_RAGGED])):
+        for (m, k, n, bias), per_image in cases:
+            x, w8, scale, b, wb = mm_case(m, k, n, bias, g)
+            nbytes = (x.numel() * 2 + w8.numel() + n * 4 * (1 + bias)
+                      + m * n * 2)
+            row = {"m": m, "k": k, "n": n, "bias": bias,
+                   "per_image": per_image}
+            if name == "matmul_int8w":
+                out = MM.matmul_int8w_cuda(x, w8, scale, b)
+                torch.cuda.synchronize()
+                ref = MM.matmul_int8w_reference(x.float(), w8, scale, b)
+                bb = None if b is None else b.to(torch.bfloat16)
+                pd = {"w8": w8, "w8_scale": scale}
+                if b is not None:
+                    pd["b"] = bb
+                with_bias = (lambda y: y) if b is None else (
+                    lambda y: y + bb)
+                row.update(zip(("bound_ms", "bound_by"),
+                               bound(2.0 * m * k * n, "bf16", nbytes)))
+                row.update({
+                    "ms": cuda_ms(lambda: MM.matmul_int8w_cuda(
+                        x, w8, scale, b)),
+                    "plain_ms": cuda_ms(lambda: MM.matmul_int8w_reference(
+                        x, w8, scale, b)),
+                    "library_ms": cuda_ms(lambda: with_bias(x @ wb)),
+                    "dequant_ms": cuda_ms(lambda: with_bias(
+                        x @ L._weight(pd, torch.bfloat16)))})
+                tol = FUSED_TOL
+            else:
+                xs = x.float().abs().max() / 127.0
+                out = MM.matmul_w8a8_cuda(x, w8, scale, xs, b)
+                torch.cuda.synchronize()
+                ref = MM.matmul_w8a8_reference(x, w8, scale, xs, b)
+                row["mismatched"] = int((out != ref).sum().item())
+                ref = ref.float()
+                xq = MM.quantize_activation(x, xs)
+                pq = {"w_q": w8, "w_scale": scale, "x_scale": xs}
+                if b is not None:
+                    pq["b"] = b
+                row.update(zip(("bound_ms", "bound_by"),
+                               bound(2.0 * m * k * n, "int8", nbytes)))
+                row.update({
+                    "ms": cuda_ms(lambda: MM.matmul_w8a8_cuda(
+                        x, w8, scale, xs, b)),
+                    "plain_ms": cuda_ms(lambda: MM.matmul_w8a8_reference(
+                        x, w8, scale, xs, b)),
+                    "library_ms": (cuda_ms(lambda: torch._int_mm(xq, w8))
+                                   if m > 16 and n % 8 == 0 else None),
+                    "static_path_ms": cuda_ms(lambda: L.dense(pq, x))})
+                tol = W8A8_TOL
+            row["max_abs_err"] = (out.float() - ref).abs().max().item()
+            row["ref_abs_max"] = ref.abs().max().item()
+            row["tops"] = 2.0 * m * k * n / row["ms"] / 1e9
+            emit({"phase": "kernel_mm", "kernel": name, **row})
+            if not row["max_abs_err"] <= tol * row["ref_abs_max"]:
+                raise AssertionError(f"{name} disagrees at {row}")
+            rows[name].append(row)
+    return rows
+
+
+def phase_ab_quant(arms):
+    """s/image under each quantized mode and ``quantize="none"``, in turns
+    (there, back, there: 3 each). arms: (label, ctx, KERNEL_W8A8)."""
+    times = {label: [] for label, _, _ in arms}
+    for label, ctx, flag in arms + arms[::-1] + arms:
+        with w8a8_kernel(flag):
+            t0 = time.perf_counter()
+            ctx.generate(PROMPT, guidance=7.5, seed=9)
+            times[label].append(time.perf_counter() - t0)
+    emit({"phase": "ab_quant",
+          "s_per_image": {k: statistics.median(v) for k, v in times.items()},
+          "image_s": times})
+
+
+def phase_quant_model(ctx, arms):
+    """One full-width UNet eval under each quantized mode against the
+    unquantized float32 UNet on the same weights (the bf16 values widened
+    exactly) and inputs, beside the unquantized bf16 error; and each mode's
+    image against the ``quantize="none"`` image at the same seed
+    (``validate_quantized``). The weights are random, so the numbers are
+    recorded and only garbage fails."""
+    from sdtpu_torch.io.params import cast_params
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.quant.validate import validate_quantized
+
+    cfg = ctx.cfg
+    x, te, context = unet_inputs(cfg, 1)
+    res = {"phase": "quant_model"}
+    with torch.inference_mode():
+        p32 = cast_params(ctx.params["unet"], torch.float32)
+        ref = unet.apply(p32, x.float(), te.float(), context.float(),
+                         cfg.unet, "plain")
+        del p32
+        for label, c, flag in arms:
+            with w8a8_kernel(flag):
+                out = unet.apply(c.params["unet"], x, te, context, cfg.unet,
+                                 c.kernels)
+            res[f"unet_{label}_finite"] = bool(torch.isfinite(out).all())
+            res[f"unet_{label}_rel_err"] = rel_err(out, ref)
+            del out
+        del ref
+    torch.cuda.empty_cache()
+    for label, c, flag in arms[1:]:
+        with w8a8_kernel(flag):
+            m = validate_quantized(ctx, c, [PROMPT], seed=21)[0]
+        res[f"psnr_db_{label}"] = m["psnr_db"]
+        res[f"mean_abs_diff_{label}"] = m["mean_abs_diff"]
+    emit(res)
+    for label, _, _ in arms[1:]:
+        if not (res[f"unet_{label}_finite"]
+                and res[f"unet_{label}_rel_err"] <= QUANT_REL_ERR_MAX
+                and res[f"psnr_db_{label}"] >= QUANT_PSNR_MIN_DB):
+            raise AssertionError(f"{label}: quantized output is garbage: "
+                                 f"{res}")
+
+
+def main_row(rows):
+    """The timed row of a kernel: its most frequent main-path shape, the
+    one with the most rows among equals."""
+    return max(rows, key=lambda r: (r["per_image"], r["m"], r["n"]))
 
 
 def main() -> int:
@@ -641,6 +1011,8 @@ def main() -> int:
         "group_norm_plain": per_image_ms(gn_rows, "plain_ms"),
         "group_norm_cuda_site": per_image_ms(gn_rows, "cuda_site_ms"),
         "conv_kernel": per_image_ms(conv_rows, "ms"),
+        "conv_kernel_int8_sites": sum(r["per_image_int8"] * r["ms"]
+                                      for r in conv_rows),
         "gn_affine_kernel": per_image_ms(conv_rows, "affine_ms"),
         "gn_affine_plain": per_image_ms(conv_rows, "affine_plain_ms"),
         "conv_cuda_conv_site": per_image_ms(conv_rows, "cuda_conv_site_ms"),
@@ -650,14 +1022,45 @@ def main() -> int:
     for policy in ("cuda_gn", "cuda_conv"):
         launches[policy] = phase_policy(ctx, policy)
     phase_ab(ctx)
+
+    # quantized serving: one Context per mode, the same demo weights
+    ctx_d = Context(config="sd15", steps=STEPS, kernels="cuda",
+                    quantize="int8w_dense", device="cuda")
+    ctx_w = Context(config="sd15", steps=STEPS, kernels="cuda_conv",
+                    quantize="int8w", device="cuda")
+    ctx_i = Context(config="sd15", steps=STEPS, kernels="cuda",
+                    quantize="int8", device="cuda")
+    phase_calibrate(ctx_i)
+    mm_rows = phase_kernel_mm(phase_mm_sites(ctx_d, ctx_w, ctx_i))
+    k4_rows, k5_rows = mm_rows["matmul_int8w"], mm_rows["matmul_w8a8"]
+    emit({"phase": "kernel_totals_mm", "per_image_ms": {
+        "matmul_int8w_kernel": per_image_ms(k4_rows, "ms"),
+        "matmul_int8w_bf16_site": per_image_ms(k4_rows, "library_ms"),
+        "matmul_int8w_dequant_site": per_image_ms(k4_rows, "dequant_ms"),
+        "matmul_w8a8_kernel": per_image_ms(k5_rows, "ms"),
+        "matmul_w8a8_static_path": per_image_ms(k5_rows, "static_path_ms")}})
+    launches["int8w_dense"] = phase_policy(ctx_d, "cuda", "int8w_dense")
+    launches["int8w"] = phase_policy(ctx_w, "cuda_conv", "int8w")
+    launches["int8"] = phase_policy(ctx_i, "cuda", "int8")
+    with w8a8_kernel(True):
+        launches["int8+k5"] = phase_policy(ctx_i, "cuda", "int8+k5")
+    arms = [("none", ctx, False), ("int8w_dense", ctx_d, False),
+            ("int8w", ctx_w, False), ("int8", ctx_i, False),
+            ("int8+k5", ctx_i, True)]
+    phase_ab_quant(arms)
+    phase_quant_model(ctx, arms)
+
     phase_model(ctx)
-    for policy in ("cuda", "cuda_gn", "cuda_conv"):
-        phase_breakdown(ctx, policy)
+    for c, policy in ((ctx, "cuda"), (ctx, "cuda_conv"), (ctx_d, "cuda")):
+        phase_breakdown(c, policy)
 
     # the timed row of each kernel: its most frequent main-path shape (the
     # largest plane among equals)
     gn_main = max(gn_rows, key=lambda r: (r["per_image"], r["shape"][1]))
     conv_main = max(conv_rows, key=lambda r: (r["per_image"], r["x"][1]))
+    conv_main_int8 = max(conv_rows, key=lambda r: (r["per_image_int8"],
+                                                   r["x"][1]))
+    k4_main, k5_main = main_row(k4_rows), main_row(k5_rows)
     emit({"kernels": [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "sdtpu_torch/csrc/flash_attn_fwd.cu",
@@ -665,6 +1068,8 @@ def main() -> int:
          "launches": launches["cuda"]["flash"],
          "max_abs_err": max(r["max_abs_err"] for r in rows),
          "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+         "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+         "library_ms": rows[0]["library_ms"],
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -673,16 +1078,25 @@ def main() -> int:
          "launches": launches["cuda_gn"]["group_norm"],
          "max_abs_err": max(r["max_abs_err"] for r in gn_rows),
          "ms": gn_main["ms"], "plain_ms": gn_main["plain_ms"],
-         "cuda_site_ms": gn_main["cuda_site_ms"],
+         "bound_ms": gn_main["bound_ms"], "bound_by": gn_main["bound_by"],
+         "library_ms": gn_main["cuda_site_ms"],
+         "library": "the cuda policy's site: bf16 GroupNorm, then SiLU",
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
          "replaces": "sdtpu/ops/conv.py:236",
          "also_replaces": "sdtpu/ops/conv.py:301",
          "launches": launches["cuda_conv"]["conv"],
+         "launches_int8w": launches["int8w"]["conv"],
+         "launches_int8w_int8_weights": launches["int8w"]["conv_int8"],
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
-         "ms": conv_main["ms"], "plain_ms": conv_main["plain_ms"],
-         "cuda_site_ms": conv_main.get("cuda_site_ms"),
+         "ms": conv_main["ms"], "ms_int8_weights": conv_main_int8["ms"],
+         "plain_ms": conv_main["plain_ms"],
+         "bound_ms": conv_main["bound_ms"],
+         "bound_by": conv_main["bound_by"],
+         "library_ms": conv_main.get("cuda_site_ms"),
+         "library": "the cuda policy's site: bf16 GroupNorm, SiLU, cuDNN "
+                    "conv, bias",
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -696,7 +1110,34 @@ def main() -> int:
                             if "affine_abs_err" in r),
          "ms": conv_main["affine_ms"],
          "plain_ms": conv_main["affine_plain_ms"],
-         "timed_shape": conv_main["x"]}]})
+         "bound_ms": conv_main["affine_bound_ms"],
+         "bound_by": conv_main["affine_bound_by"], "library_ms": None,
+         "timed_shape": conv_main["x"]},
+        {"name": "matmul_int8w", "route": "cuda",
+         "source": "sdtpu_torch/csrc/matmul_int8w.cu",
+         "replaces": "sdtpu/ops/matmul.py:81",
+         "launches": launches["int8w_dense"]["matmul_int8w"],
+         "launches_int8w": launches["int8w"]["matmul_int8w"],
+         "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
+         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
+         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
+         "library_ms": k4_main["library_ms"],
+         "library": "the unquantized site: bf16 x @ w + b",
+         "dequant_ms": k4_main["dequant_ms"],
+         "timed_shape": [k4_main[d] for d in "mkn"]},
+        {"name": "matmul_w8a8", "route": "cuda",
+         "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
+         "replaces": "sdtpu/ops/matmul.py:150",
+         "launches": launches["int8+k5"]["matmul_w8a8"],
+         "launches_flag_off": launches["int8"]["matmul_w8a8"],
+         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
+         "mismatched": sum(r["mismatched"] for r in k5_rows),
+         "ms": k5_main["ms"], "plain_ms": k5_main["plain_ms"],
+         "bound_ms": k5_main["bound_ms"], "bound_by": k5_main["bound_by"],
+         "library_ms": k5_main["library_ms"],
+         "library": "torch._int_mm on activations quantized beforehand",
+         "static_path_ms": k5_main["static_path_ms"],
+         "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -11,6 +11,15 @@ device ``kernels="auto"`` selects the hand-written flash-attention kernel
 ``"cuda_gn"`` adds the fused GroupNorm(+SiLU) kernel and ``"cuda_conv"``
 the fused GN-prologue conv kernel, the counterparts of the reference's
 ``"pallas_gn"`` and ``"pallas_conv"``; both keep the flash kernel on.
+
+``quantize`` selects the reference's serving modes, applied to the UNet after
+the cast to the compute dtype: ``"int8"`` (W8A8 transformer matmuls,
+``quant.ptq.quantize_unet``; dynamic per-row activation scales until the
+caller runs ``ctx.params = quant.ptq.calibrate(ctx.params, ctx.cfg, prompts,
+ctx.tokenizer)``), ``"int8w"`` (weight-only-int8 convs, which the fused conv
+kernel reads under ``"cuda_conv"``) and ``"int8w_dense"`` (convs and matmuls,
+the latter through the weight-only-int8 GEMM kernel); ``"none"`` is the
+default.
 """
 
 from __future__ import annotations
@@ -26,9 +35,11 @@ from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.errors import ErrorCode, ErrorTable, SdtpuError
 from sdtpu_torch.io.params import cast_params, init_pipeline_params
 from sdtpu_torch.models.layers import disable_tf32
+from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
 from sdtpu_torch.tokenizer import DEMO_MERGES, Tokenizer
 
 KERNELS = ("cuda", "cuda_gn", "cuda_conv", "plain")
+QUANTIZE = ("none", "int8", "int8w", "int8w_dense")
 
 
 class Context:
@@ -42,6 +53,7 @@ class Context:
         config: PipelineConfig | str = "sd15",
         kernels: str = "auto",
         seed: int = 0,
+        quantize: str = "none",
         *,
         device,
     ) -> None:
@@ -75,9 +87,16 @@ class Context:
             raise SdtpuError(
                 ErrorCode.INVALID_ARGUMENT,
                 f"kernels must be auto|{'|'.join(KERNELS)}, got "
-                f"{kernels!r}",
+                f"{kernels!r} (quantization is the separate quantize= "
+                f"option: {'|'.join(QUANTIZE)})",
                 self.errors)
         self.kernels = kernels
+        if quantize not in QUANTIZE:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"quantize must be none|int8|int8w|int8w_dense, got "
+                f"{quantize!r}", self.errors)
+        self.quantize = quantize
         self.seed = int(seed)
         self.steps = int(steps)
         self.params = None
@@ -105,12 +124,20 @@ class Context:
     def _load_models(self) -> None:
         """Random demo weights from a fixed seed, cast to the compute dtype
         one model at a time (the float32 copy of one model is freed before
-        the next is built)."""
+        the next is built), then quantized as ``quantize`` says: after the
+        cast, and the UNet only (``sdtpu/engine/context.py:335-359``)."""
         try:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = init_pipeline_params(self.cfg, gen, self.device)
-            self.params = {k: cast_params(v, self.cfg.compute_dtype)
-                           for k, v in params.items()}
+            params = {k: cast_params(v, self.cfg.compute_dtype)
+                      for k, v in params.items()}
+            if self.quantize == "int8":
+                params = quantize_unet(params)
+            elif self.quantize.startswith("int8w"):
+                params["unet"] = quantize_weights_only(
+                    params["unet"],
+                    include_dense=self.quantize == "int8w_dense")
+            self.params = params
         except Exception as e:  # noqa: BLE001 - init boundary, latched
             self._fail(ErrorCode.RUNTIME_ERROR, f"model load failed: {e}")
 

@@ -3,7 +3,9 @@ package's tree.
 
 A tree is nested dicts and lists of tensors with the JAX package's keys
 (``sdtpu/io/params.py``): dense ``{"w": (in, out), "b"}``, conv ``{"w":
-OIHW, "b"}`` (channels_last memory), norms ``{"scale", "bias"}``. The port
+OIHW, "b"}`` (channels_last memory), norms ``{"scale", "bias"}``; a
+quantized site carries ``w8`` + ``w8_scale`` or ``w_q`` + ``w_scale`` (+
+``x_scale``) in place of ``w`` (``sdtpu_torch.quant.ptq``). The port
 carries the four trees of the txt2img path: ``clip``, ``temb``, ``unet`` and
 ``vae`` (the decoder).
 """
@@ -15,6 +17,7 @@ import torch
 
 from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.models import clip, temb, unet, vae
+from sdtpu_torch.ops.matmul import column_major
 
 PORTED = ("clip", "temb", "unet", "vae")
 
@@ -36,18 +39,24 @@ def init_pipeline_params(cfg: PipelineConfig, generator, device,
     }
 
 
-def _map(fn, node):
-    if isinstance(node, dict):
-        return {k: _map(fn, v) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_map(fn, v) for v in node]
-    return fn(node)
+#: quantization scales stay float32 whatever the compute dtype
+#: (``sdtpu/io/params.py:cast_params``)
+KEEP_FLOAT32 = ("w8_scale", "w_scale", "x_scale")
 
 
 def cast_params(params, dtype):
-    """Cast every floating leaf once, at load time."""
-    return _map(lambda a: a.to(dtype) if a.is_floating_point() else a,
-                params)
+    """Cast every floating leaf once, at load time, except the quantization
+    scales (``KEEP_FLOAT32``); int8 leaves are not floating and stay."""
+    def cast(node, key=None):
+        if isinstance(node, dict):
+            return {k: cast(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cast(v) for v in node]
+        if key in KEEP_FLOAT32 or not node.is_floating_point():
+            return node
+        return node.to(dtype)
+
+    return cast(params)
 
 
 def _convert(node, key=None):
@@ -56,13 +65,34 @@ def _convert(node, key=None):
     if isinstance(node, list):
         return [_convert(v) for v in node]
     t = torch.from_numpy(np.array(node, copy=True))
-    if key == "w" and t.dim() == 4:   # conv: HWIO -> OIHW
+    if key in ("w", "w8") and t.dim() == 4:   # conv: HWIO -> OIHW
         t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    elif key in ("w8", "w_q") and t.dim() == 2:
+        t = column_major(t)   # (in, out) stays; the int8 kernels' memory
     return t
+
+
+def _quantized_like(want, got):
+    """The port's own leaf dict ``want`` (``{"w", "b"}``) quantized the way
+    ``got`` was: ``w8`` + ``w8_scale`` (weight-only) or ``w_q`` + ``w_scale``
+    (+ ``x_scale`` once calibrated), with the scales' shapes."""
+    w = want["w"]
+    out = w.shape[0] if w.dim() == 4 else w.shape[1]
+    rest = {k: v for k, v in want.items() if k != "w"}
+    vec = torch.empty((out,), device="meta")
+    if "w8" in got:
+        return {"w8": w, "w8_scale": vec, **rest}
+    q = {"w_q": w, "w_scale": vec, **rest}
+    if "x_scale" in got:
+        q["x_scale"] = torch.empty((), device="meta")
+    return q
 
 
 def _check_shapes(got, want, path="params"):
     if isinstance(want, dict):
+        if (isinstance(got, dict) and "w" in want and "w" not in got
+                and ("w8" in got or "w_q" in got)):
+            want = _quantized_like(want, got)
         if not isinstance(got, dict) or set(got) != set(want):
             raise ValueError(f"{path}: keys {sorted(got)} != {sorted(want)}")
         for k in want:
@@ -80,10 +110,13 @@ def _check_shapes(got, want, path="params"):
 def from_jax_tree(tree, cfg: PipelineConfig):
     """The JAX package's parameter tree (nested dicts and lists of numpy
     arrays, as from ``sdtpu.io.params.init_pipeline_params``) -> the port's
-    float32 CPU tree. Conv weights go from HWIO to OIHW; dense weights stay
-    ``(in, out)``; every other path maps 1:1. Subtrees the port does not run
-    (the VAE encoder) are dropped. Raises if a shape differs from the
-    port's own tree for ``cfg``."""
+    CPU tree, dtypes kept. Conv weights (``w``, or int8 ``w8``) go from HWIO
+    to OIHW; dense weights stay ``(in, out)``, the int8 ones (``w8``,
+    ``w_q``) in column-major memory; every other path maps 1:1, so a tree
+    that the JAX package quantized or calibrated carries its int8 leaves
+    and scales over as they are. Subtrees the port does not run (the VAE
+    encoder) are dropped. Raises if a shape differs from the port's own
+    tree for ``cfg`` quantized the same way."""
     out = {name: _convert(tree[name]) for name in PORTED}
     _check_shapes(out, init_pipeline_params(cfg, None, torch.device("meta")))
     return out

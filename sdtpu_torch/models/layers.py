@@ -21,10 +21,13 @@ Conventions (the same as the JAX package's, so tests compare like with like):
 
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
+
+from sdtpu_torch.ops import matmul as MM
 
 
 def disable_tf32() -> None:
@@ -85,18 +88,125 @@ def init_norm(c, device):
 # primitives
 # ---------------------------------------------------------------------------
 
+#: when set (``sdtpu_torch.quant.ptq.calibrate``), the int8 dense path
+#: reports each site's activation absmax by calling the recorder with
+#: ``(w_q, absmax)``: ``w_q`` is the site's weight leaf, whose identity maps
+#: to its place in the parameter tree, and ``absmax`` a 0-d tensor on the
+#: activations' device (nothing is read on the host). A ContextVar, not a
+#: module global, so a calibration never leaks its recorder into another
+#: thread's or task's run (``sdtpu/models/layers.py:89-97``).
+_CALIB_RECORDER: contextvars.ContextVar = contextvars.ContextVar(
+    "sdtpu_torch_calib_recorder", default=None)
+
+
+def set_calibration_recorder(rec):
+    """Install or remove the calibration recorder; returns the previous
+    one."""
+    prev = _CALIB_RECORDER.get()
+    _CALIB_RECORDER.set(rec)
+    return prev
+
+
+def _w8a8_kernel_ok(p, x) -> bool:
+    """Route a calibrated (static ``x_scale``) int8 site through the W8A8
+    kernel (``ops.matmul.matmul_w8a8``)? The reference's rule
+    (``sdtpu/models/layers.py:100-131``): the opt-in flag
+    ``ops.matmul.KERNEL_W8A8`` (off by default), only sites whose weight
+    matrix is the larger stream (``n >= m``), and the kernel's own
+    ``eligible``. Every other site keeps the library int8 product."""
+    if "x_scale" not in p:
+        return False
+    if MM.DISABLE or not MM.KERNEL_W8A8:
+        return False
+    m = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    if p["w_q"].shape[1] < m:
+        return False
+    return MM.eligible(x, p["w_q"])
+
+
+def _dense_int8(p, x, dtype):
+    """W8A8 matmul with int32 accumulation (``sdtpu/models/layers.py:
+    _dense_int8``). Weights: per-output-channel scales
+    (``sdtpu_torch.quant.ptq``). Activations: the static per-tensor scale if
+    calibrated (``x_scale``), else a per-row dynamic scale. Calibrated sites
+    within ``_w8a8_kernel_ok`` run the W8A8 kernel, which quantizes the
+    activations itself; elsewhere the int8 x int8 -> int32 product is
+    ``ops.matmul.int8_matmul`` and ``y * xs * w_scale + b`` runs in float32,
+    in that order."""
+    xf = x.float()
+    rec = _CALIB_RECORDER.get()
+    if rec is not None:
+        rec(p["w_q"], xf.abs().max())
+    if rec is None and _w8a8_kernel_ok(p, x):
+        return MM.matmul_w8a8(x.to(dtype), p["w_q"], p["w_scale"],
+                              p["x_scale"], p.get("b")).to(dtype)
+    if "x_scale" in p:
+        xs = p["x_scale"]
+    else:
+        absmax = xf.abs().amax(dim=-1, keepdim=True)
+        xs = torch.where(absmax == 0, torch.ones_like(absmax),
+                         absmax / 127.0)
+    y = MM.int8_matmul(MM.quantize_activation(xf, xs), p["w_q"]).float()
+    y = y * xs * p["w_scale"].float()
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(dtype)
+
+
+def _weight(p, dtype):
+    """A site's weight: plain ``w``, or weight-only int8 ``w8`` times its
+    per-output-channel ``w8_scale`` rounded to the compute dtype (the
+    fallback of ``sdtpu/models/layers.py:172-180``; the kernels apply the
+    float32 scale to their accumulator instead). The scale lies along the
+    last axis of a dense ``(in, out)`` weight and the first of a conv's
+    OIHW."""
+    if "w8" in p:
+        scale = p["w8_scale"].to(dtype)
+        if p["w8"].dim() == 4:
+            scale = scale[:, None, None, None]
+        return p["w8"].to(dtype) * scale
+    return p["w"].to(dtype)
+
+
+def _int8w_gemm_ok(w8, x) -> bool:
+    """Route a weight-only-int8 site through ``ops.matmul.matmul_int8w``?
+    ``w8`` (int8 ``(in, out)``) being there is the opt-in
+    (``quantize="int8w_dense"``); a site outside the kernel's contract
+    dequantizes and takes the normal product."""
+    return not MM.DISABLE and MM.eligible(x, w8)
+
+
 def dense(p, x, dtype=None):
+    """``x @ w + b``, dispatched on the site's leaf names as
+    ``sdtpu/models/layers.py:199-227``: ``w_q`` is a W8A8 site, ``w8`` a
+    weight-only-int8 one, ``w`` a plain one."""
     dtype = dtype or x.dtype
-    y = x.to(dtype) @ p["w"].to(dtype)
+    if "w_q" in p:
+        return _dense_int8(p, x, dtype)
+    if "w8" in p and _int8w_gemm_ok(p["w8"], x.to(dtype)):
+        return MM.matmul_int8w(x.to(dtype), p["w8"], p["w8_scale"],
+                               p.get("b"))
+    y = x.to(dtype) @ _weight(p, dtype)
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y
 
 
 def conv2d(p, x, stride=1, padding=1, dtype=None):
-    """3x3/1x1 conv, NHWC x OIHW -> NHWC (cuDNN sees NCHW channels_last)."""
+    """3x3/1x1 conv, NHWC x OIHW -> NHWC (cuDNN sees NCHW channels_last).
+    A weight-only-int8 1x1 conv (stride 1, no padding) is a matmul over
+    ``[N*H*W, Cin]`` and goes to ``ops.matmul.matmul_int8w`` where that is
+    eligible; any other ``w8`` conv dequantizes first
+    (``sdtpu/models/layers.py:268-281``)."""
     dtype = dtype or x.dtype
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), p["w"].to(dtype),
+    if ("w8" in p and p["w8"].shape[-1] == 1 and p["w8"].shape[-2] == 1
+            and stride == 1 and padding == 0):
+        # OIHW [Cout, Cin, 1, 1] in channels_last memory is the (in, out)
+        # weight in column-major memory
+        w8 = p["w8"].reshape(p["w8"].shape[:2]).t()
+        if _int8w_gemm_ok(w8, x.to(dtype)):
+            return MM.matmul_int8w(x.to(dtype), w8, p["w8_scale"], p.get("b"))
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), _weight(p, dtype),
                  p["b"].to(dtype), stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)
 

@@ -153,6 +153,15 @@ def _gn(p, x, groups, eps, fuse_silu, kernels):
     return silu(y) if fuse_silu else y
 
 
+def _conv_wq(p):
+    """(weight, int8 scale or None) of a conv site: the fused conv kernel
+    takes weight-only-int8 weights as they are and applies the scale to its
+    accumulator (``sdtpu/models/unet.py:_conv_wq``)."""
+    if "w8" in p:
+        return p["w8"], p["w8_scale"]
+    return p["w"], None
+
+
 def _norm_conv(pn, pc, x, groups, eps, kernels, *, fuse_silu=True,
                padding=1, t=None):
     """conv(pc, [silu](GroupNorm(pn, x))) [+ t, a per-sample [N, Cout] add].
@@ -160,13 +169,16 @@ def _norm_conv(pn, pc, x, groups, eps, kernels, *, fuse_silu=True,
     Under ``"cuda_conv"``, where the conv is ``eligible`` for x, one fused
     kernel launch: the GroupNorm folded into the conv's prologue
     (``gn_affine``), ``pc["b"] + t`` added in float32 in its epilogue
-    (``sdtpu/models/unet.py:224-244,266-275``)."""
-    if kernels == "cuda_conv" and C.eligible(x, pc["w"], 1, padding):
+    (``sdtpu/models/unet.py:224-244,266-275``). A weight-only-int8 site
+    hands the kernel its int8 weight and scale."""
+    w, w_scale = _conv_wq(pc)
+    if kernels == "cuda_conv" and C.eligible(x, w, 1, padding):
         a, d = C.gn_affine(pn, x, groups, eps)
         b = pc["b"].float()
         if t is not None:
             b = b[None, :] + t.float()
-        return C.fused_conv(x, pc["w"], b, a=a, d=d, silu=fuse_silu)
+        return C.fused_conv(x, w, b, a=a, d=d, silu=fuse_silu,
+                            w_scale=w_scale)
     h = conv2d(pc, _gn(pn, x, groups, eps, fuse_silu, kernels),
                padding=padding)
     return h if t is None else h + t[:, None, None, :]

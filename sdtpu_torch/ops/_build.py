@@ -109,10 +109,10 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The built library with every C signature declared (once per
     process)."""
-    from sdtpu_torch.ops import attention, conv, groupnorm
+    from sdtpu_torch.ops import attention, conv, groupnorm, matmul
 
     lib = ctypes.CDLL(str(build()))
-    for module in (attention, conv, groupnorm):
+    for module in (attention, conv, groupnorm, matmul):
         module.bind(lib)
     lib.sdtpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sdtpu_cuda_error_string.restype = ctypes.c_char_p

@@ -132,7 +132,8 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
     x bf16 and w bf16 (or int8 with ``w_scale``) within ``eligible``'s
     contract, on one CUDA device; b, a, d, w_scale as in ``fused_conv``
     (widened to float32 here). Raises on anything else. Counts its launches
-    in ``fused_conv_cuda.launches``."""
+    in ``fused_conv_cuda.launches``, those with int8 weights also in
+    ``fused_conv_cuda.launches_int8``."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -194,10 +195,12 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
             int(quantized), splits, stream)
     _build.check_launch(err, "conv_gn_silu")
     fused_conv_cuda.launches += 1
+    fused_conv_cuda.launches_int8 += int(quantized)
     return out
 
 
 fused_conv_cuda.launches = 0
+fused_conv_cuda.launches_int8 = 0
 
 
 def gn_affine(p, x, groups: int, eps: float = 1e-5):

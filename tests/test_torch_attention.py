@@ -22,6 +22,7 @@ from sdtpu_torch.ops import _build
 from sdtpu_torch.ops import attention as t_attn
 from sdtpu_torch.ops import conv as t_conv
 from sdtpu_torch.ops import groupnorm as t_gn
+from sdtpu_torch.ops import matmul as t_mm
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -99,7 +100,7 @@ def test_cuda_wrapper_rejects_without_launching(bad):
 
 
 KERNEL_SOURCES = ["conv_gn_silu.cu", "flash_attn_fwd.cu",
-                  "group_norm_silu.cu"]
+                  "group_norm_silu.cu", "matmul_int8w.cu", "matmul_w8a8.cu"]
 
 
 def test_nvcc_command_targets_sm90a_into_ignored_dir():
@@ -250,3 +251,47 @@ def test_cuda_conv_matches_plain(shape, c_out, k, prologue, int8):
     # bf16 prologue operand and output (2^-9 relative each), f32 sums
     assert (out.float() - ref).abs().max().item() <= (
         1e-2 * ref.abs().max().item())
+
+
+def _int8_gemm_case(m, k, n, bias):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device="cuda") * 0.05
+    scale = w.abs().amax(dim=0) / 127.0
+    w8 = t_mm.column_major(torch.clamp(torch.round(w / scale), -127, 127)
+                           .to(torch.int8))
+    b = torch.randn(n, generator=g, device="cuda") if bias else None
+    return x, w8, scale, b
+
+
+INT8_GEMM_SHAPES = [(8192, 320, 320, True), (512, 5120, 1280, True),
+                    (154, 768, 320, False), (2, 1280, 320, True),
+                    (33, 16, 7, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bias", INT8_GEMM_SHAPES)
+def test_cuda_matmul_int8w_matches_plain(m, k, n, bias):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, w8, scale, b = _int8_gemm_case(m, k, n, bias)
+    out = t_mm.matmul_int8w_cuda(x, w8, scale, b)
+    torch.cuda.synchronize()
+    ref = t_mm.matmul_int8w_reference(x.float(), w8, scale, b)
+    # one bf16 rounding of the output (2^-9 relative) on float32 sums
+    assert (out.float() - ref).abs().max().item() <= (
+        1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bias", INT8_GEMM_SHAPES)
+def test_cuda_matmul_w8a8_matches_plain(m, k, n, bias):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, w8, scale, b = _int8_gemm_case(m, k, n, bias)
+    xs = x.float().abs().max() / 127.0
+    out = t_mm.matmul_w8a8_cuda(x, w8, scale, xs, b)
+    torch.cuda.synchronize()
+    # exact int32 sums and single float32 operations on both sides: the
+    # same bf16 values
+    assert torch.equal(out, t_mm.matmul_w8a8_reference(x, w8, scale, xs, b))
