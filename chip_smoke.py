@@ -8,9 +8,13 @@ Phases, each printing one JSON object per line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them), torch and CUDA versions;
 2. build: nvcc builds the five kernels from sdtpu_torch/csrc (first use);
+   resources: registers and spills of the wgmma kernels, from ptxas, taken
+   beside the build;
 3. kernel: the flash-attention kernel (K1) against its plain version at the
    main path's shapes (and d=64 as a look ahead), error and device
-   times, beside ``F.scaled_dot_product_attention`` as a yardstick;
+   times, beside ``F.scaled_dot_product_attention`` as a yardstick and the
+   time its exponentials alone need; then at the shapes its tiles could
+   break (sq != sk, a ragged sk, one tile, d = 8, 128, 256);
 4. sites: one SD1.5 UNet eval and one VAE decode under ``cuda_gn`` and
    ``cuda_conv`` record every call shape the fused GroupNorm (K2) and the
    fused conv (K3) get on the main path, and how often per image;
@@ -26,13 +30,14 @@ Phases, each printing one JSON object per line:
    ``auto`` choice), then under ``"cuda_gn"`` and ``"cuda_conv"`` on the
    same Context; each image must launch each kernel exactly the pinned
    number of times; the same seed must give the same bytes; median s/image
-   of 3;
+   of 3 under ``cuda``, the mean of 2 under the others;
 7. ab: s/image under plain, cuda, cuda_gn and cuda_conv, in turns;
 8. quantized serving, on three more Contexts with the same demo weights:
    ``quantize="int8w_dense"`` (kernels cuda), ``"int8w"`` (cuda_conv) and
    ``"int8"`` (cuda), the last calibrated on the card with 2 prompts x 2
    steps. mm_sites records every call shape the weight-only-int8 GEMM (K4)
-   and the W8A8 GEMM (K5) get in one UNet eval; kernel_mm holds both
+   and the W8A8 GEMM (K5) get in one UNet eval; widening sends all 256
+   int8 values through both of K4's widenings; kernel_mm holds both
    against their plain versions at those shapes and at ragged ones, with
    device times of the kernel, the plain version and the library
    yardsticks (the bf16 product of the unquantized site and the
@@ -76,7 +81,12 @@ import torch
 import torch.nn.functional as F
 
 PROMPT = "a photograph of an astronaut riding a horse"
-KERNEL_TOL = 2e-2       # K1: bf16 output (2^-9 relative) and bf16 P in P.V
+# K1: max-abs error against the float32 plain version, relative to its
+# max-abs. The bf16 output (2^-9 relative) and bf16 P in P.V leave it near
+# 2^-8; with randn inputs a value of the output is a mean over about sk / e
+# keys, so a dropped key tile, a P rounded coarser than bf16 or a scale some
+# per cent off moves it by more than this
+KERNEL_TOL = 2.0 ** -6
 # K2, K3: max-abs error against the float32 plain version, relative to its
 # max-abs: one bf16 rounding of the output (2^-9), and for K3 of the
 # prologue's output too, the product operand
@@ -103,6 +113,17 @@ CALIB_PROMPTS = ["a photograph of an astronaut riding a horse",
 # CFG batch of 2, the VAE mid block, and d=64 (SD2/SDXL) as a look ahead
 SHAPES = [(2, 4096, 320, 8), (2, 1024, 640, 8), (1, 4096, 512, 1),
           (2, 4096, 512, 8)]
+# K1 off the main path, (batch, sq, sk, channels, heads): a ragged sk under
+# 4096 queries, sq != sk both ways, a single 128-row tile, d = 8, 128, 256
+# and 144 (padded to 256), the split design with ragged sq
+FLASH_RAGGED = [(2, 4096, 1000, 320, 8), (2, 1024, 4096, 640, 8),
+                (1, 128, 128, 40, 1), (2, 1024, 1024, 64, 8),
+                (2, 1024, 1024, 1024, 8), (1, 1024, 1024, 256, 1),
+                (1, 200, 136, 144, 1), (1, 1000, 4096, 512, 1)]
+# exponentials a second: 16 a clock on each of the 132 SMs' special-function
+# units, at the clock the published 989 TFLOP/s implies (4096 bf16 FLOP a
+# clock an SM): 1.829 GHz
+PEAK_EXP = 132 * 16 * (989e12 / (132 * 4096))
 STEPS = 20
 # launches per image of each kernel under each policy:
 #   flash: 5 self-attentions at 64x64 + 5 at 32x32 per UNet eval, 20 evals,
@@ -129,9 +150,16 @@ STEPS = 20
 FLASH_PER_IMAGE = (5 + 5) * STEPS + 1
 CONV_PER_IMAGE = 60 * STEPS + 14 * 2
 MM_INT8W_PER_EVAL = 160 + 22 + 46
+# of them the sites that split K on the H100's 132 SMs, where the sum pass
+# is a second kernel after K4's (matmul_int8w counts a call once): every
+# site of 512 and 128 rows but ff1, attn2's k and v at every level, the skip
+# convs of 512 and 128 rows; and of int8w's 16 proj_out + 14 skip convs
+MM_INT8W_SUMS_PER_EVAL = 93
+MM_INT8W_SUMS_PER_EVAL_CONVS = 13
 MM_W8A8_PER_EVAL = 60 + 5 + 20
 KERNEL_NAMES = ("flash", "group_norm", "group_norm_affine", "conv",
-                "conv_int8", "matmul_int8w", "matmul_w8a8")
+                "conv_int8", "matmul_int8w", "matmul_int8w_sum",
+                "matmul_w8a8")
 
 
 def pins(**launches):
@@ -143,9 +171,11 @@ PINNED = {
     "cuda": pins(),
     "cuda_gn": pins(group_norm=61 * STEPS),
     "cuda_conv": pins(group_norm_affine=CONV_PER_IMAGE, conv=CONV_PER_IMAGE),
-    "int8w_dense": pins(matmul_int8w=MM_INT8W_PER_EVAL * STEPS),
+    "int8w_dense": pins(matmul_int8w=MM_INT8W_PER_EVAL * STEPS,
+                        matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL * STEPS),
     "int8w": pins(group_norm_affine=CONV_PER_IMAGE, conv=CONV_PER_IMAGE,
-                  conv_int8=60 * STEPS, matmul_int8w=(16 + 14) * STEPS),
+                  conv_int8=60 * STEPS, matmul_int8w=(16 + 14) * STEPS,
+                  matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL_CONVS * STEPS),
     "int8": pins(),
     "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL * STEPS),
 }
@@ -225,6 +255,7 @@ def _counters():
             "conv": (C.fused_conv_cuda, "launches"),
             "conv_int8": (C.fused_conv_cuda, "launches_int8"),
             "matmul_int8w": (MM.matmul_int8w_cuda, "launches"),
+            "matmul_int8w_sum": (MM.matmul_int8w_cuda, "sum_launches"),
             "matmul_w8a8": (MM.matmul_w8a8_cuda, "launches")}
 
 
@@ -251,49 +282,82 @@ def phase_device():
 
 
 def phase_build():
+    """Build and load the kernels; beside the build, ``nvcc -Xptxas -v`` on
+    the wgmma kernels' sources (K1, K4) for their registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from sdtpu_torch.ops import _build
 
     t0 = time.perf_counter()
     path = _build.library_path()
     fresh = not path.exists()
-    _build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": fresh, "sources": [s.name for s in _build.sources()],
-          "library": str(path.relative_to(_build.PKG_DIR))})
+    names = ("flash_attn_fwd.cu", "matmul_int8w.cu")
+    with ThreadPoolExecutor(len(names)) as pool:
+        reports = [pool.submit(_build.ptxas_report, _build.SRC_DIR / n)
+                   for n in names]
+        _build.library()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "built": fresh, "sources": [s.name for s in _build.sources()],
+              "headers": [h.name for h in _build.headers()],
+              "library": str(path.relative_to(_build.PKG_DIR))})
+        reports = [r.result() for r in reports]
+    for name, report in zip(names, reports):
+        emit({"phase": "resources", "source": name, "kernels": report})
+        if not report or any(r["spill_store_bytes"] for r in report):
+            raise AssertionError(f"{name}: a kernel spills: {report}")
 
 
 def phase_kernel():
+    """K1 at the main path's shapes, then at ``FLASH_RAGGED`` (there without
+    the plain version's time). Each phase line also carries the tile the
+    wrapper's static rule chose and ``exp_bound_ms``, the time the softmax's
+    exponentials alone need on the special-function units (derived, not
+    measured, so it stays out of the ``kernels`` line)."""
     from sdtpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for b, s, c, heads in SHAPES:
-        q, k, v = (torch.randn((b, s, c), generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+    cases = [(b, s, s, c, h, True) for b, s, c, h in SHAPES]
+    cases += [(*case, False) for case in FLASH_RAGGED]
+    for b, sq, sk, c, heads, main in cases:
+        d = c // heads
+        q = torch.randn((b, sq, c), generator=g, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, sk, c), generator=g, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
         out = A.flash_attention_cuda(q, k, v, heads)
         torch.cuda.synchronize()
         ref = A.flash_attention_reference(q.float(), k.float(), v.float(),
                                           heads)
         err = (out.float() - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
         del ref
         ms = cuda_ms(lambda: A.flash_attention_cuda(q, k, v, heads))
-        plain_ms = cuda_ms(
-            lambda: A.flash_attention_reference(q, k, v, heads))
         # the one PyTorch call that computes the same function, as a
         # yardstick only: the port never calls it
-        qh, kh, vh = (t.view(b, s, heads, c // heads).transpose(1, 2)
+        qh, kh, vh = (t.view(b, t.shape[1], heads, d).transpose(1, 2)
                       for t in (q, k, v))
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        flop = 4.0 * b * s * s * c
-        bound_ms, bound_by = bound(flop, "bf16", 4 * q.numel() * 2)
-        row = {"shape": [b, s, c], "heads": heads, "head_dim": c // heads,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by,
-               "tflops": flop / ms / 1e9, "plain_tflops": flop / plain_ms / 1e9}
-        emit({"phase": "kernel", **row})
-        if not err <= KERNEL_TOL:
+        flop = 4.0 * b * sq * sk * c
+        bound_ms, bound_by = bound(
+            flop, "bf16", 2 * (q.numel() + k.numel()) * 2)
+        dpad, block_rows, bkv = A.plan(d, sq, sk, b * heads, sms)
+        # flash_attn_fwd.cu holds one design: every instantiation the rule
+        # can choose is the wgmma kernel
+        row = {"shape": [b, sq, c], "sk": sk, "heads": heads, "head_dim": d,
+               "design": "wgmma", "max_abs_err": err, "ref_abs_max": ref_max,
+               "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "tflops": flop / ms / 1e9}
+        if main:
+            row["plain_ms"] = cuda_ms(
+                lambda: A.flash_attention_reference(q, k, v, heads))
+            row["plain_tflops"] = flop / row["plain_ms"] / 1e9
+        emit({"phase": "kernel" if main else "kernel_ragged", **row,
+              "dpad": dpad, "block_rows": block_rows, "keys_per_step": bkv,
+              "exp_bound_ms": b * heads * sq * sk / PEAK_EXP * 1e3})
+        if not err <= KERNEL_TOL * ref_max:
             raise AssertionError(f"kernel disagrees at {row}")
         rows.append(row)
         torch.cuda.empty_cache()
@@ -312,7 +376,7 @@ def recording(module, name, log):
 
     # the wrapper adds to the launch count of whatever its module holds
     # under its name, which is `record` while it is replaced
-    record.launches = record.launches_int8 = 0
+    record.launches = record.launches_int8 = record.sum_launches = 0
     setattr(module, name, record)
     try:
         yield
@@ -624,7 +688,7 @@ def phase_breakdown(ctx, policy):
                              if "gn_kernel" in k),
         "conv_ms": sum(v for k, v in by_name.items() if "conv_kernel" in k),
         "matmul_int8w_ms": sum(v for k, v in by_name.items()
-                               if "mm_int8w_kernel" in k),
+                               if "mm_int8w" in k),
         "matmul_w8a8_ms": sum(v for k, v in by_name.items()
                               if "mm_w8a8_kernel" in k),
         "top_kernels_ms": [[k[:90], v] for k, v in top]})
@@ -675,7 +739,8 @@ def phase_policy(ctx, policy, label=None):
     """The main path under a kernel policy on ``ctx`` (``label`` names its
     pinned counts where they are not the policy's own: a quantized mode):
     one image with the pinned launches of every kernel, the same seed
-    giving the same bytes, median s/image of 3."""
+    giving the same bytes, s/image as the mean of 2 (the policies and modes
+    are compared in ``ab`` and ``ab_quant``, in turns)."""
     label = label or policy
     before = ctx.kernels
     ctx.kernels = policy
@@ -692,7 +757,7 @@ def phase_policy(ctx, policy, label=None):
     same = bool(np.array_equal(img, ctx.generate(PROMPT, guidance=7.5,
                                                  seed=11)))
     times = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         ctx.generate(PROMPT, guidance=7.5)
         times.append(time.perf_counter() - t0)
@@ -845,6 +910,32 @@ def mm_case(m, k, n, bias, g):
     return x, w8, scale, b, MM.column_major(w.to(torch.bfloat16))
 
 
+def phase_widening():
+    """All 256 int8 values through K4's two widenings (the tile kernel's
+    byte permutes and bf16 subtract at 256 rows, the skinny kernel's float32
+    mantissa trick at 2 rows): one-hot rows of x pick each weight out, with
+    scale 1 and no bias, and the bf16 output must equal it exactly."""
+    from sdtpu_torch.ops import matmul as MM
+
+    vals = torch.arange(-128, 128, device="cuda").to(torch.int8)
+    w8 = MM.column_major(vals[:, None].expand(256, 16).contiguous())
+    ones = torch.ones(16, device="cuda")
+    want = vals.float()[:, None].expand(256, 16)
+    tile = MM.matmul_int8w_cuda(
+        torch.eye(256, device="cuda", dtype=torch.bfloat16), w8, ones)
+    skinny = []
+    for k0 in range(0, 256, 2):
+        x = torch.zeros((2, 256), device="cuda", dtype=torch.bfloat16)
+        x[0, k0] = x[1, k0 + 1] = 1
+        skinny.append(MM.matmul_int8w_cuda(x, w8, ones))
+    torch.cuda.synchronize()
+    wrong = {"tile": int((tile.float() != want).sum().item()),
+             "skinny": int((torch.cat(skinny).float() != want).sum().item())}
+    emit({"phase": "widening", "values": 256, "wrong": wrong})
+    if any(wrong.values()):
+        raise AssertionError(f"int8 -> bf16 widening is not exact: {wrong}")
+
+
 def phase_kernel_mm(sites):
     """K4 and K5 at every main-path shape and at ragged ones, each against
     its plain version on the same bf16 inputs (K4's run in float32, K5's
@@ -860,6 +951,7 @@ def phase_kernel_mm(sites):
     from sdtpu_torch.ops import matmul as MM
 
     g = torch.Generator(device="cuda").manual_seed(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     k4 = dict(sites["int8w_dense"])
     for key in sites["int8w"]:
         k4.setdefault(key, 0)
@@ -874,7 +966,12 @@ def phase_kernel_mm(sites):
                       + m * n * 2)
             row = {"m": m, "k": k, "n": n, "bias": bias,
                    "per_image": per_image}
+            derived = {}
             if name == "matmul_int8w":
+                # which of the source's kernels the static rule chose
+                derived["plan"] = MM.plan_int8w(m, k, n, sms)
+                row["design"] = {"tile": "wgmma", "skinny": "simt"}[
+                    derived["plan"]["path"]]
                 out = MM.matmul_int8w_cuda(x, w8, scale, b)
                 torch.cuda.synchronize()
                 ref = MM.matmul_int8w_reference(x.float(), w8, scale, b)
@@ -920,7 +1017,7 @@ def phase_kernel_mm(sites):
             row["max_abs_err"] = (out.float() - ref).abs().max().item()
             row["ref_abs_max"] = ref.abs().max().item()
             row["tops"] = 2.0 * m * k * n / row["ms"] / 1e9
-            emit({"phase": "kernel_mm", "kernel": name, **row})
+            emit({"phase": "kernel_mm", "kernel": name, **row, **derived})
             if not row["max_abs_err"] <= tol * row["ref_abs_max"]:
                 raise AssertionError(f"{name} disagrees at {row}")
             rows[name].append(row)
@@ -929,9 +1026,9 @@ def phase_kernel_mm(sites):
 
 def phase_ab_quant(arms):
     """s/image under each quantized mode and ``quantize="none"``, in turns
-    (there, back, there: 3 each). arms: (label, ctx, KERNEL_W8A8)."""
+    (there and back: 2 each, their mean). arms: (label, ctx, KERNEL_W8A8)."""
     times = {label: [] for label, _, _ in arms}
-    for label, ctx, flag in arms + arms[::-1] + arms:
+    for label, ctx, flag in arms + arms[::-1]:
         with w8a8_kernel(flag):
             t0 = time.perf_counter()
             ctx.generate(PROMPT, guidance=7.5, seed=9)
@@ -1031,6 +1128,7 @@ def main() -> int:
     ctx_i = Context(config="sd15", steps=STEPS, kernels="cuda",
                     quantize="int8", device="cuda")
     phase_calibrate(ctx_i)
+    phase_widening()
     mm_rows = phase_kernel_mm(phase_mm_sites(ctx_d, ctx_w, ctx_i))
     k4_rows, k5_rows = mm_rows["matmul_int8w"], mm_rows["matmul_w8a8"]
     emit({"phase": "kernel_totals_mm", "per_image_ms": {
@@ -1070,6 +1168,7 @@ def main() -> int:
          "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
          "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
          "library_ms": rows[0]["library_ms"],
+         "design": rows[0]["design"],
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -1123,6 +1222,9 @@ def main() -> int:
          "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
          "library_ms": k4_main["library_ms"],
          "library": "the unquantized site: bf16 x @ w + b",
+         "design": k4_main["design"],
+         "sum_pass_launches": launches["int8w_dense"]["matmul_int8w_sum"],
+         "sum_pass_launches_int8w": launches["int8w"]["matmul_int8w_sum"],
          "dequant_ms": k4_main["dequant_ms"],
          "timed_shape": [k4_main[d] for d in "mkn"]},
         {"name": "matmul_w8a8", "route": "cuda",
@@ -1135,7 +1237,8 @@ def main() -> int:
          "ms": k5_main["ms"], "plain_ms": k5_main["plain_ms"],
          "bound_ms": k5_main["bound_ms"], "bound_by": k5_main["bound_by"],
          "library_ms": k5_main["library_ms"],
-         "library": "torch._int_mm on activations quantized beforehand",
+         "library": "torch._int_mm on activations quantized beforehand: "
+                    "the product alone, part of K5's function",
          "static_path_ms": k5_main["static_path_ms"],
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -54,9 +55,14 @@ def link_command(nvcc: str, objs: list[Path], out: Path) -> list[str]:
     return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
 
 
+def headers() -> list[Path]:
+    """Headers the sources include from their own directory."""
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -103,6 +109,42 @@ def build() -> Path:
                                 stderr=subprocess.PIPE, text=True), "link")
         os.replace(lib, out)
     return out
+
+
+def ptxas_report(src: Path) -> list[dict]:
+    """Registers and spill bytes of every kernel of one source, as ``nvcc
+    -Xptxas -v`` reports them; the object goes to a temporary directory.
+    Names are demangled where the toolkit's ``cu++filt`` is at hand."""
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = compile_command(nvcc, src, Path(tmp) / "probe.o")
+        proc = subprocess.run([*cmd, "-Xptxas", "-v"], capture_output=True,
+                              text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    return parse_ptxas(proc.stderr + proc.stdout,
+                       Path(nvcc).with_name("cu++filt"))
+
+
+def parse_ptxas(text: str, filt: Path | None = None) -> list[dict]:
+    """``[{"kernel", "registers", "spill_store_bytes", "spill_load_bytes"}]``
+    from ptxas's verbose output, one entry per ``Compiling entry function``
+    block."""
+    rows = []
+    for block in text.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          block)
+        if filt is not None and filt.exists():
+            out = subprocess.run([str(filt), name], capture_output=True,
+                                 text=True).stdout.strip()
+            name = out or name
+        rows.append({"kernel": name,
+                     "registers": int(regs.group(1)) if regs else None,
+                     "spill_store_bytes": int(spill.group(1)) if spill else None,
+                     "spill_load_bytes": int(spill.group(2)) if spill else None})
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

@@ -72,9 +72,43 @@ def eligible(x, w) -> bool:
 
 
 def tile_for(m: int, n: int, sms: int) -> int:
-    """The output tile's side: 128 where that gives every SM a block, else
-    64 (the UNet's 32x32 level and below)."""
+    """``matmul_w8a8``'s output tile side: 128 where that gives every SM a
+    block, else 64 (the UNet's 32x32 level and below)."""
     return 128 if -(-m // 128) * -(-n // 128) >= sms else 64
+
+
+SKINNY_M = 16             # rows up to which K4 takes its skinny kernel
+_BM, _BK = 128, 64        # K4's tile kernel: output rows, K depth of a step
+
+
+def plan_int8w(m: int, k: int, n: int, sms: int) -> dict:
+    """``matmul_int8w``'s static rule: which of the kernels of
+    ``csrc/matmul_int8w.cu`` takes ``[m, k] @ [k, n]``, and how.
+
+    * ``path``: ``"skinny"`` up to ``SKINNY_M`` rows (the ResBlocks'
+      time-embedding dense: no tensor cores, ``ceil(n / 8)`` blocks stream
+      the weights), else ``"tile"`` (wgmma, 128 rows a block).
+    * ``bn``, the tile's columns: 160 where that divides ``n`` and 128 does
+      not (n = 320 is two exact tiles), else 128; a ragged last tile is
+      zero-filled and masked.
+    * ``splits`` and ``steps``: K is walked in steps of 64; where the output
+      tiles would leave half of the SMs idle, the steps are cut into
+      ``splits`` runs of ``steps`` each (the last may be shorter, none is
+      empty), one block a run, and a second pass sums the float32 partial
+      tiles in a fixed order. ``splits == 1`` writes the output directly.
+    * ``blocks``: the grid's size.
+    """
+    if m <= SKINNY_M:
+        return {"path": "skinny", "bn": 0, "splits": 1, "steps": 0,
+                "blocks": -(-n // 8) * -(-m // 4)}
+    bn = 160 if n % 160 == 0 and n % 128 else 128
+    tiles = -(-m // _BM) * -(-n // bn)
+    steps_all = -(-k // _BK)
+    splits = 1 if 2 * tiles > sms else min(steps_all, sms // tiles)
+    steps = -(-steps_all // splits)
+    splits = -(-steps_all // steps)
+    return {"path": "tile", "bn": bn, "splits": splits, "steps": steps,
+            "blocks": tiles * splits}
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +173,9 @@ def matmul_int8w_cuda(x, w8, scale, bias=None):
 
     x bf16 and w8 int8 within ``eligible``'s contract, on one CUDA device;
     scale and bias [N] (widened to float32 here). Raises on anything else.
-    Counts its launches in ``matmul_int8w_cuda.launches``."""
+    Counts its calls that launched in ``matmul_int8w_cuda.launches``, and
+    in ``matmul_int8w_cuda.sum_launches`` those of them that split K and so
+    launched the sum pass as a second kernel."""
     m, k, n = _check_operands(x, w8, (("scale", scale), ("bias", bias)))
     scale, bias = _f32(scale), _f32(bias)
     from sdtpu_torch.ops import _build
@@ -147,17 +183,26 @@ def matmul_int8w_cuda(x, w8, scale, bias=None):
     lib = _build.library()
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = plan_int8w(m, k, n, sms)
+    partial = None
+    if plan["splits"] > 1:
+        partial = torch.empty((plan["splits"], m, n), dtype=torch.float32,
+                              device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sdtpu_matmul_int8w(
             x.data_ptr(), w8.data_ptr(), scale.data_ptr(), _ptr(bias),
-            out.data_ptr(), m, k, n, tile_for(m, n, sms), stream)
+            out.data_ptr(), _ptr(partial), m, k, n,
+            int(plan["path"] == "skinny"), plan["bn"], plan["splits"],
+            plan["steps"], stream)
     _build.check_launch(err, "matmul_int8w")
     matmul_int8w_cuda.launches += 1
+    matmul_int8w_cuda.sum_launches += plan["splits"] > 1
     return out
 
 
 matmul_int8w_cuda.launches = 0
+matmul_int8w_cuda.sum_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +294,7 @@ matmul_w8a8_cuda.launches = 0
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C signatures (pointers and the stream as c_void_p)."""
     fn = lib.sdtpu_matmul_int8w
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.sdtpu_matmul_w8a8

@@ -170,8 +170,10 @@ def test_cuda_kernel_matches_plain(b, s, c, heads):
     torch.cuda.synchronize()
     ref = t_attn.flash_attention_reference(q.float(), k.float(), v.float(),
                                            heads)
-    # bf16 output (2^-9 relative) and bf16 P before P.V
-    assert (out.float() - ref).abs().max().item() <= 2e-2
+    # relative to the output's largest value: the bf16 output (2^-9) and
+    # bf16 P before P.V leave it near 2^-8
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs(
+        ).max().item()
 
 
 @pytest.mark.cuda

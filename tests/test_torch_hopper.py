@@ -1,0 +1,445 @@
+"""The static rules of the port's wgmma kernels (K1 flash attention, K4
+weight-only-int8 GEMM), mirrored in Python and tested on the CPU; the build's
+hash over the shared headers; the committed ``wgmma_sm90.cuh`` against its
+generator. The kernels themselves run only on the card: the ``cuda`` tests
+hold them against their plain versions at the shapes the rules could break."""
+
+import importlib.util
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+from sdtpu_torch.ops import _build
+from sdtpu_torch.ops import attention as t_attn
+from sdtpu_torch.ops import matmul as t_mm
+
+SMS = 132     # an H100 SXM
+
+
+# ---------------------------------------------------------------------------
+# K1: plan(d, sq, sk, batch_heads, sms) -> (dpad, rows, bkv)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,sq,sk,bh,want", [
+    # the main path: UNet 64x64 and 32x32 at the CFG batch, the VAE mid block
+    (40, 4096, 4096, 16, (48, 128, 64)),
+    (80, 1024, 1024, 16, (80, 64, 64)),
+    (512, 4096, 4096, 1, (512, 64, 32)),
+    # d = 64 (SD2 / SDXL)
+    (64, 4096, 4096, 16, (64, 128, 64)),
+    # few row tiles: 64 rows a block, so more SMs get one
+    (64, 640, 512, 1, (64, 64, 64)),
+    (40, 128, 128, 1, (48, 64, 64)),
+    # ragged sequences and sq != sk do not change the tile
+    (40, 4096, 1000, 16, (48, 128, 64)),
+    # the padded head dims
+    (8, 1024, 1024, 64, (16, 128, 64)),
+    (24, 1024, 1024, 64, (32, 128, 64)),
+    (96, 1024, 1024, 64, (128, 64, 64)),
+    (128, 1024, 1024, 64, (128, 64, 64)),
+    (136, 1024, 1024, 64, (256, 64, 64)),
+    (256, 1024, 1024, 64, (256, 64, 64)),
+    (264, 1024, 1024, 64, (512, 64, 32)),
+])
+def test_flash_plan(d, sq, sk, bh, want):
+    assert t_attn.plan(d, sq, sk, bh, SMS) == want
+
+
+def _flash_smem(dpad, rows, bkv):
+    """The kernel's shared memory: 1 KB of alignment slack, the Q tile and
+    two stages of a K and a V tile, each in column blocks of 64 bf16 (128-byte
+    rows)."""
+    ch = -(-dpad // 64)
+    return 1024 + ch * rows * 128 + 2 * 2 * ch * bkv * 128
+
+
+@pytest.mark.parametrize("d", range(8, 513, 8))
+def test_flash_plan_covers_every_head_dim(d):
+    """Every head dim of the wrapper's contract gets a padded dim the wgmma
+    kernel is built for, and tiles that fit a block's 227 KB (two blocks an
+    SM up to d = 128)."""
+    for sq, bh in ((64, 1), (4096, 16), (130, 3)):
+        dpad, rows, bkv = t_attn.plan(d, sq, 77, bh, SMS)
+        assert dpad in t_attn.DPADS and dpad >= d and dpad % 16 == 0
+        assert min(p for p in t_attn.DPADS if p >= d) == dpad
+        assert rows in (64, 128) and bkv in (32, 64)
+        smem = _flash_smem(dpad, rows, bkv)
+        assert smem <= 227 * 1024
+        if dpad <= 128:
+            assert 2 * (smem + 1024) <= 228 * 1024
+        if dpad > 64:
+            # one warpgroup a tile, or two splitting its columns: the entry
+            # point refuses 128 rows here
+            assert rows == 64
+        assert bkv == (32 if dpad == 512 else 64)
+
+
+@pytest.mark.parametrize("d,sq,sk", [(0, 64, 64), (12, 64, 64), (520, 64, 64),
+                                     (64, 0, 64), (64, 64, 0)])
+def test_flash_plan_rejects(d, sq, sk):
+    with pytest.raises(ValueError):
+        t_attn.plan(d, sq, sk, 1, SMS)
+
+
+def test_flash_rows_follow_the_card():
+    """128 rows a block up to dpad 64 unless that leaves half the SMs
+    without one; one warpgroup a block from dpad 80 on."""
+    for tiles128 in range(1, 300):
+        _, rows, _ = t_attn.plan(64, tiles128 * 128, 128, 1, SMS)
+        assert rows == (128 if 2 * tiles128 >= SMS else 64)
+        assert t_attn.plan(80, tiles128 * 128, 128, 1, SMS)[1] == 64
+
+
+# ---------------------------------------------------------------------------
+# K4: plan_int8w(m, k, n, sms)
+# ---------------------------------------------------------------------------
+
+def _unet_sites():
+    """(m, k, n) of the 228 K4 sites of one SD1.5 UNet eval at 512x512 and
+    the CFG batch of 2 (``quantize="int8w_dense"``): per level of width c
+    and m = 2 * plane rows, a transformer block's attn1 q, k, v, o and
+    attn2 q, o (c -> c), attn2 k, v (the 154 text rows, 768 -> c), ff1 (c ->
+    8c), ff2 (4c -> c), proj_in and proj_out; the ResBlocks' skip 1x1 convs;
+    the ResBlocks' time-embedding dense (2 rows, 1280 -> c)."""
+    sites = []
+    for m, c, blocks in ((8192, 320, 5), (2048, 640, 5), (512, 1280, 5),
+                         (128, 1280, 1)):
+        for _ in range(blocks):
+            sites += [(m, c, c)] * 8 + [(154, 768, c)] * 2
+            sites += [(m, c, 8 * c), (m, 4 * c, c)]
+    # skip convs: down 320->640, 640->1280; up 2560, 2560, 2560, 2560,
+    # 1920 -> 1280; 1920, 1280, 960 -> 640; 960, 640, 640 -> 320
+    sites += [(2048, 320, 640), (512, 640, 1280)]
+    sites += [(128, 2560, 1280)] * 3 + [(512, 2560, 1280)] * 2
+    sites += [(512, 1920, 1280), (2048, 1920, 640), (2048, 1280, 640),
+              (2048, 960, 640), (8192, 960, 320), (8192, 640, 320),
+              (8192, 640, 320)]
+    sites += [(2, 1280, c) for c in [320] * 5 + [640] * 5 + [1280] * 12]
+    return sites
+
+
+# chip_smoke.MM_RAGGED and the tails the tile kernel zero-fills or masks
+MM_RAGGED = [(300, 336, 130), (100, 48, 72), (33, 16, 7), (1, 1280, 320),
+             (129, 320, 129), (17, 16, 8), (16, 32, 9), (257, 1040, 480)]
+
+
+def test_unet_site_count():
+    assert len(_unet_sites()) == 228
+
+
+def test_unet_sites_that_split_k():
+    """93 of an eval's 228 sites split K on 132 SMs and so run the sum pass
+    as a second kernel: every site of 512 and 128 rows but ff1, attn2's k
+    and v at every level, and the skip convs of 512 and 128 rows."""
+    split = [s for s in _unet_sites()
+             if t_mm.plan_int8w(*s, SMS)["splits"] > 1]
+    assert len(split) == 93
+    assert all(m <= 512 and n < 10240 for m, _, n in split)
+
+
+@pytest.mark.parametrize("m,k,n", sorted(set(_unet_sites())) + MM_RAGGED)
+def test_int8w_plan_covers_k_once_and_fills_the_card(m, k, n):
+    p = t_mm.plan_int8w(m, k, n, SMS)
+    if m <= 16:
+        assert p["path"] == "skinny" and p["splits"] == 1
+        assert p["blocks"] == -(-n // 8) * -(-m // 4)
+        return
+    assert p["path"] == "tile" and p["bn"] in (128, 160)
+    steps_all = -(-k // 64)
+    tiles = -(-m // 128) * -(-n // p["bn"])
+    # the runs cover the K steps exactly once and none is empty
+    assert p["splits"] >= 1 and p["steps"] >= 1
+    assert p["splits"] * p["steps"] >= steps_all
+    assert (p["splits"] - 1) * p["steps"] < steps_all
+    assert p["blocks"] == tiles * p["splits"] >= min(SMS, tiles)
+    if 2 * tiles > SMS:
+        assert p["splits"] == 1        # the tiles fill the card themselves
+    else:
+        assert p["blocks"] <= SMS
+        # as many runs as fit the card, or one a step
+        assert (p["splits"] == steps_all
+                or tiles * (p["splits"] + 1) > SMS
+                or -(-steps_all // (p["splits"] + 1)) == p["steps"])
+    # a column tile that divides N where one of the two does
+    if n % 160 == 0 and n % 128:
+        assert p["bn"] == 160
+    elif n % 128 == 0:
+        assert p["bn"] == 128
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (8192, 320, 320, {"path": "tile", "bn": 160, "splits": 1, "steps": 5,
+                      "blocks": 128}),
+    (2048, 640, 5120, {"path": "tile", "bn": 128, "splits": 1, "steps": 10,
+                       "blocks": 640}),
+    (512, 1280, 1280, {"path": "tile", "bn": 128, "splits": 3, "steps": 7,
+                       "blocks": 120}),
+    (128, 5120, 1280, {"path": "tile", "bn": 128, "splits": 12, "steps": 7,
+                       "blocks": 120}),
+    (154, 768, 320, {"path": "tile", "bn": 160, "splits": 12, "steps": 1,
+                     "blocks": 48}),
+    (2, 1280, 1280, {"path": "skinny", "bn": 0, "splits": 1, "steps": 0,
+                     "blocks": 160}),
+])
+def test_int8w_plan_at_the_main_shapes(m, k, n, want):
+    assert t_mm.plan_int8w(m, k, n, SMS) == want
+
+
+def test_int8w_plan_is_what_the_wrapper_passes(monkeypatch):
+    """The wrapper hands the plan to the C entry point as it is, with a
+    float32 scratch of ``[splits, m, n]`` exactly where K is split."""
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+
+    lib = types.SimpleNamespace(sdtpu_matmul_int8w=entry)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(t_mm, "_check_operands",
+                        lambda x, w, v: (x.shape[0], *w.shape))
+    made = []
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        kw["device"] = "cpu"
+        made.append((tuple(shape), kw["dtype"]))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(
+                            multi_processor_count=SMS))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: __import__("contextlib").nullcontext())
+    before = t_mm.matmul_int8w_cuda.launches
+    sums = t_mm.matmul_int8w_cuda.sum_launches
+    for m, k, n in ((512, 1280, 1280), (2048, 640, 640), (2, 1280, 320)):
+        made.clear()
+        x = torch.zeros((m, k), dtype=torch.bfloat16)
+        w = t_mm.column_major(torch.zeros((k, n), dtype=torch.int8))
+        t_mm.matmul_int8w_cuda(x, w, torch.ones(n))
+        p = t_mm.plan_int8w(m, k, n, SMS)
+        assert seen["args"][6:13] == (m, k, n, int(p["path"] == "skinny"),
+                                      p["bn"], p["splits"], p["steps"])
+        scratch = [s for s, dt in made if dt == torch.float32]
+        assert scratch == ([(p["splits"], m, n)] if p["splits"] > 1 else [])
+        assert (seen["args"][5] is None) == (p["splits"] == 1)
+    assert t_mm.matmul_int8w_cuda.launches == before + 3
+    # of the three only [512, 1280] @ [1280, 1280] splits K
+    assert t_mm.matmul_int8w_cuda.sum_launches == sums + 1
+
+
+# ---------------------------------------------------------------------------
+# the build: headers in the hash, the generated header, the C signatures
+# ---------------------------------------------------------------------------
+
+def test_headers_are_found():
+    assert [h.name for h in _build.headers()] == ["wgmma_sm90.cuh"]
+
+
+@pytest.mark.parametrize("name", ["wgmma_sm90.cuh"])
+def test_source_hash_covers_each_header(monkeypatch, name):
+    """Editing a header the kernels include moves the library to a new
+    build directory."""
+    full = _build.source_hash()
+    rest = [h for h in _build.headers() if h.name != name]
+    monkeypatch.setattr(_build, "headers", lambda: rest)
+    assert _build.source_hash() != full
+
+
+def test_source_hash_covers_the_flags(monkeypatch):
+    full = _build.source_hash()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-g"])
+    assert _build.source_hash() != full
+
+
+def _generator():
+    path = _build.SRC_DIR / "gen_wgmma.py"
+    spec = importlib.util.spec_from_file_location("gen_wgmma", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_wgmma_header_is_the_generators_output():
+    assert (_build.SRC_DIR / "wgmma_sm90.cuh").read_text() == \
+        _generator().render()
+
+
+@pytest.mark.parametrize("n,forms", [
+    (16, ("rs_mn",)), (32, ("ss", "rs_mn")), (48, ("rs_mn",)),
+    (64, ("ss", "rs_mn")), (80, ("rs_mn",)), (128, ("ss", "rs_mn")),
+    (160, ("ss",)), (256, ("rs_mn",))])
+def test_wgmma_header_has_each_width(n, forms):
+    """Every accumulator width a kernel instantiates has its wrapper, in
+    the forms it is instantiated in and no other (flash: ``ss`` at its key
+    tiles, ``rs_mn`` at its padded head dims and the halves of 256 and 512;
+    the GEMM: ``ss`` at its column tiles), with N / 2 accumulator operands a
+    thread and the m64nNk16 instruction."""
+    text = _generator().struct(n)
+    assert f"struct Wgmma<{n}>" in text
+    assert [f for f in ("ss", "rs_mn") if f"void {f}(" in text] == list(forms)
+    assert text.count(
+        f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16") == len(forms)
+    assert text.count('"+f"(d[') == len(forms) * (n // 2)
+
+
+def test_wgmma_forms_are_what_the_kernels_instantiate():
+    """flash_attn_fwd.cu: ``ss`` over the keys of a step, ``rs_mn`` over a
+    warpgroup's output columns (the padded head dim, half of it above 128);
+    matmul_int8w.cu: ``ss`` over its column tile."""
+    forms = _generator().FORMS
+    plans = [t_attn.plan(d, 4096, 4096, 16, SMS) for d in range(8, 513, 8)]
+    bns = {t_mm.plan_int8w(m, 320, n, SMS)["bn"]
+           for m in (64, 8192) for n in (320, 640, 130)}
+    assert set(forms["ss"]) == {bkv for _, _, bkv in plans} | bns
+    assert set(forms["rs_mn"]) == {dpad if dpad <= 128 else dpad // 2
+                                   for dpad, _, _ in plans}
+
+
+PTXAS = """\
+ptxas info    : Compiling entry function '_Z3fooILi48EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooILi48EEvPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 82 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers
+"""
+
+
+def test_parse_ptxas_reads_registers_and_spills():
+    assert _build.parse_ptxas(PTXAS) == [
+        {"kernel": "_Z3fooILi48EEvPf", "registers": 82,
+         "spill_store_bytes": 0, "spill_load_bytes": 0},
+        {"kernel": "_Z3barv", "registers": 255, "spill_store_bytes": 8,
+         "spill_load_bytes": 4}]
+    assert _build.parse_ptxas("nothing compiled") == []
+
+
+@pytest.mark.parametrize("module,fn,pointers,ints", [
+    (t_attn, "sdtpu_flash_attn_fwd", 4, 8),
+    (t_mm, "sdtpu_matmul_int8w", 6, 7),
+    (t_mm, "sdtpu_matmul_w8a8", 6, 4),
+])
+def test_bind_declares_the_c_signature(module, fn, pointers, ints):
+    """Pointers and the stream as c_void_p (never cut to 32 bits), then the
+    ints, in the entry point's order."""
+    import ctypes
+
+    lib = types.SimpleNamespace(
+        sdtpu_flash_attn_fwd=types.SimpleNamespace(),
+        sdtpu_matmul_int8w=types.SimpleNamespace(),
+        sdtpu_matmul_w8a8=types.SimpleNamespace())
+    module.bind(lib)
+    sig = getattr(lib, fn)
+    assert sig.argtypes == ([ctypes.c_void_p] * pointers
+                            + [ctypes.c_int] * ints + [ctypes.c_void_p])
+    assert sig.restype is ctypes.c_int
+    src = (_build.SRC_DIR / {"sdtpu_flash_attn_fwd": "flash_attn_fwd.cu",
+                             "sdtpu_matmul_int8w": "matmul_int8w.cu",
+                             "sdtpu_matmul_w8a8": "matmul_w8a8.cu"}[fn]
+           ).read_text()
+    decl = src[src.index(f'extern "C" int {fn}('):]
+    decl = decl[:decl.index(")")]
+    assert decl.count("void*") == pointers + 1
+    assert decl.count("int ") == ints + 1     # and the return type
+
+
+def test_no_fallback_in_the_wrappers():
+    """On a CUDA tensor a wrapper launches or raises: no ``try`` in the
+    kernel wrappers' modules, and no library attention or GEMM in them."""
+    for mod in (t_attn, t_mm):
+        text = Path(mod.__file__).read_text()
+        assert "try:" not in text and "except" not in text
+    assert "scaled_dot_product_attention" not in Path(
+        t_attn.__file__).read_text()
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,c,heads", [
+    (2, 4096, 1000, 320, 8),     # ragged sk, sq != sk, d = 40 padded to 48
+    (1, 128, 128, 40, 1),        # one tile
+    (1, 130, 1, 40, 1),          # a single key
+    (2, 300, 77, 80, 2),
+    (1, 128, 256, 8, 1), (1, 256, 128, 64, 1), (1, 256, 200, 128, 1),
+    (1, 200, 136, 144, 1), (1, 256, 256, 256, 1),
+    (1, 1000, 4096, 512, 1),     # the split design, ragged sq
+])
+def test_cuda_flash_at_the_shapes_the_tiles_could_break(b, sq, sk, c, heads):
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((b, sq, c), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, sk, c), generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    out = t_attn.flash_attention_cuda(q, k, v, heads)
+    torch.cuda.synchronize()
+    ref = t_attn.flash_attention_reference(q.float(), k.float(), v.float(),
+                                           heads)
+    # relative to the output's largest value: the bf16 output (2^-9) and
+    # bf16 P before P.V leave it near 2^-8; a dropped key tile, a coarser P
+    # or a scale some per cent off does not
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs(
+        ).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 2])
+def test_cuda_int8w_widening_is_exact(m):
+    """All 256 int8 values through the kernel (the tile kernel's bit-trick
+    widening at m = 256, the skinny kernel's at m = 2): one-hot rows of x
+    pick each weight out, and the output must equal it."""
+    _needs_card()
+    vals = torch.arange(-128, 128, device="cuda").to(torch.int8)
+    w8 = t_mm.column_major(vals[:, None].expand(256, 16).contiguous())
+    ones = torch.ones(16, device="cuda")
+    if m == 256:
+        x = torch.eye(256, device="cuda", dtype=torch.bfloat16)
+        out = t_mm.matmul_int8w_cuda(x, w8, ones)
+        assert bool((out.float() == vals.float()[:, None]).all())
+        return
+    for k0 in range(0, 256, 2):
+        x = torch.zeros((2, 256), device="cuda", dtype=torch.bfloat16)
+        x[0, k0] = x[1, k0 + 1] = 1
+        out = t_mm.matmul_int8w_cuda(x, w8, ones).float()
+        assert bool((out[0] == k0 - 128).all() and (out[1] == k0 - 127).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MM_RAGGED + [
+    (512, 1280, 1280), (128, 5120, 1280), (154, 768, 320), (2, 1280, 1280),
+    (8192, 320, 320), (5, 4096, 33)])
+def test_cuda_int8w_paths_match_plain(m, k, n):
+    """The K tail, ragged M and N, split-K and the skinny kernel, within one
+    bf16 rounding of the float32 plain version (the sums run in another
+    order, split-K's in runs)."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device="cuda") * 0.05
+    scale = w.abs().amax(dim=0) / 127.0
+    w8 = t_mm.column_major(torch.clamp(torch.round(w / scale), -127, 127)
+                           .to(torch.int8))
+    b = torch.randn(n, generator=g, device="cuda")
+    out = t_mm.matmul_int8w_cuda(x, w8, scale, b)
+    again = t_mm.matmul_int8w_cuda(x, w8, scale, b)
+    torch.cuda.synchronize()
+    ref = t_mm.matmul_int8w_reference(x.float(), w8, scale, b)
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max(
+        ).item()
+    assert torch.equal(out, again)      # no atomics: the same bytes
