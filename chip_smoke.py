@@ -8,8 +8,8 @@ Phases, each printing one JSON object per line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them), torch and CUDA versions;
 2. build: nvcc builds the five kernels from sdtpu_torch/csrc (first use);
-   resources: registers and spills of the wgmma kernels, from ptxas, taken
-   beside the build;
+   resources: registers and spills of the wgmma kernels (K1, K3, K4, K5),
+   from ptxas, taken beside the build;
 3. kernel: the flash-attention kernel (K1) against its plain version at the
    main path's shapes (and d=64 as a look ahead), error and device
    times, beside ``F.scaled_dot_product_attention`` as a yardstick and the
@@ -21,10 +21,14 @@ Phases, each printing one JSON object per line:
 5. kernel_gn, kernel_conv: K2 and K3 at every one of those shapes (K3
    with int8 weights too at the UNet's, as ``quantize="int8w"`` feeds it)
    and at ragged ones (odd planes, C/G not a multiple of 8, Cout not a
-   multiple of the tile), each against its plain version run in
-   float32 on the same bf16 inputs; device times of the kernel, of the
-   plain version, and of the site as ``kernels="cuda"`` runs it (bf16
-   GroupNorm + SiLU + cuDNN conv + bias);
+   multiple of the tile; for K3 the shapes its slab could break and one of
+   each class its general kernel takes), each against its plain version
+   run in float32 on the same bf16 inputs; device times of the kernel, of
+   the plain version, and of the site as ``kernels="cuda"`` runs it (bf16
+   GroupNorm + SiLU + cuDNN conv + bias); K3's rows carry the kernel and the
+   tiling its static rule chose (``design``, ``plan``), the time its
+   prologue's special-function work alone needs, and at three shapes the
+   kernel's time without the prologue;
 6. main path: Context(config="sd15", steps=20, sampler="dpm") with random
    demo weights generates 512x512 images under ``kernels="cuda"`` (the
    ``auto`` choice), then under ``"cuda_gn"`` and ``"cuda_conv"`` on the
@@ -41,8 +45,8 @@ Phases, each printing one JSON object per line:
    against their plain versions at those shapes and at ragged ones, with
    device times of the kernel, the plain version and the library
    yardsticks (the bf16 product of the unquantized site and the
-   dequantize-then-multiply fallback for K4; ``torch._int_mm`` and the
-   whole library int8 path for K5); main_path generates under each mode
+   dequantize-then-multiply fallback for K4; the whole library int8 path
+   and ``torch._int_mm`` alone for K5); main_path generates under each mode
    (``int8`` with ``ops.matmul.KERNEL_W8A8`` off, where K5 must not launch,
    and on) with every kernel's launches per image pinned and the same seed
    giving the same bytes; ab_quant times the modes in turns; quant_model
@@ -52,7 +56,7 @@ Phases, each printing one JSON object per line:
 9. model: one SD1.5 UNet eval and one VAE decode at full width under each
    policy, each against float32;
 10. breakdown: stage times and a profiler trace of one image under cuda,
-   cuda_conv and int8w_dense.
+   cuda_conv, int8w_dense and int8 with K5.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -157,9 +161,12 @@ MM_INT8W_PER_EVAL = 160 + 22 + 46
 MM_INT8W_SUMS_PER_EVAL = 93
 MM_INT8W_SUMS_PER_EVAL_CONVS = 13
 MM_W8A8_PER_EVAL = 60 + 5 + 20
+# of them the sites that split K (K5's steps are 128 deep): every site of
+# 512 and 128 rows but ff1 (54), and attn2's k and v at 64x64 and 32x32 (20)
+MM_W8A8_SUMS_PER_EVAL = 54 + 20
 KERNEL_NAMES = ("flash", "group_norm", "group_norm_affine", "conv",
                 "conv_int8", "matmul_int8w", "matmul_int8w_sum",
-                "matmul_w8a8")
+                "matmul_w8a8", "matmul_w8a8_sum")
 
 
 def pins(**launches):
@@ -177,23 +184,49 @@ PINNED = {
                   conv_int8=60 * STEPS, matmul_int8w=(16 + 14) * STEPS,
                   matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL_CONVS * STEPS),
     "int8": pins(),
-    "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL * STEPS),
+    "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL * STEPS,
+                    matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL * STEPS),
 }
 # K2 and K3 at shapes off the main path: odd planes, C/G not a multiple of
 # 8 (or of 2), Cout not a multiple of the 128 tile, int8 weights
 GN_RAGGED = [(2, 77, 30, 3, 1e-5, True), (1, 5, 9, 3, 1e-6, False),
              (2, 1023, 960, 32, 1e-5, True)]
-# (x shape, c_out, k, prologue, int8)
-CONV_RAGGED = [((2, 63, 65, 64), 100, 3, "silu", False),
-               ((2, 5, 3, 16), 13, 3, None, False),
-               ((1, 7, 9, 24), 40, 3, "silu", True),
-               ((2, 32, 32, 640), 640, 3, "silu", True),
-               ((2, 9, 11, 40), 72, 1, "affine", False)]
+# (x shape, c_out, k, prologue, int8, the kernel the static rule must
+# choose). The general kernel's classes: a plane whose rows do not tile 128
+# pixels, Cin not a multiple of 64, both. The slab kernel: a tile that
+# spans two samples and ends in a ragged one, a 128-pixel run of a row at W
+# = 128 and 256 with Cout not a multiple of the tile, one Cin chunk and 30
+# of them split over blocks, eight 4x4 planes a tile, 1x1 sites with one
+# and with a ragged last chunk of three 64-channel groups
+CONV_RAGGED = [((2, 63, 65, 64), 100, 3, "silu", False, "general"),
+               ((2, 5, 3, 16), 13, 3, None, False, "general"),
+               ((1, 7, 9, 24), 40, 3, "silu", True, "general"),
+               ((2, 32, 32, 640), 640, 3, "silu", True, "slab"),
+               ((2, 9, 11, 40), 72, 1, "affine", False, "general"),
+               ((2, 16, 16, 40), 72, 3, "silu", True, "general"),
+               ((2, 6, 32, 64), 72, 3, "silu", False, "general"),
+               ((3, 8, 8, 64), 100, 3, "silu", False, "slab"),
+               ((3, 8, 8, 64), 100, 3, "silu", True, "slab"),
+               ((1, 8, 128, 64), 72, 3, "silu", False, "slab"),
+               ((1, 8, 128, 64), 72, 3, "silu", True, "slab"),
+               ((1, 4, 256, 128), 200, 3, "affine", False, "slab"),
+               ((1, 4, 256, 128), 200, 3, None, True, "slab"),
+               ((2, 16, 16, 1920), 100, 3, "silu", False, "slab"),
+               ((2, 16, 16, 1920), 100, 3, "silu", True, "slab"),
+               ((5, 4, 4, 64), 64, 3, "silu", False, "slab"),
+               ((2, 16, 16, 128), 136, 1, "affine", False, "slab"),
+               ((2, 16, 16, 320), 136, 1, "affine", True, "slab"),
+               ((2, 8, 8, 1280), 1280, 1, "silu", False, "slab")]
+# where K3's time without the prologue is taken too
+CONV_PROBED = {((2, 64, 64, 320), 320, 3), ((2, 16, 16, 1280), 1280, 3),
+               ((2, 8, 8, 1280), 1280, 3)}
 # K4 and K5 off the main path, (m, k, n, bias): a 64-deep step's K tail
 # (336 = 5 x 64 + 16), N not a multiple of 8 and odd, a single row, one
-# 16-deep step, no bias
+# 16-deep step, no bias, one 128-deep step and a tail (144), split-K with
+# ragged M
 MM_RAGGED = [(300, 336, 130, True), (100, 48, 72, False), (33, 16, 7, True),
-             (1, 1280, 320, False), (129, 320, 129, True)]
+             (1, 1280, 320, False), (129, 320, 129, True),
+             (64, 144, 256, True), (154, 768, 1280, False)]
 
 
 def emit(obj) -> None:
@@ -256,7 +289,8 @@ def _counters():
             "conv_int8": (C.fused_conv_cuda, "launches_int8"),
             "matmul_int8w": (MM.matmul_int8w_cuda, "launches"),
             "matmul_int8w_sum": (MM.matmul_int8w_cuda, "sum_launches"),
-            "matmul_w8a8": (MM.matmul_w8a8_cuda, "launches")}
+            "matmul_w8a8": (MM.matmul_w8a8_cuda, "launches"),
+            "matmul_w8a8_sum": (MM.matmul_w8a8_cuda, "sum_launches")}
 
 
 def counts():
@@ -283,7 +317,8 @@ def phase_device():
 
 def phase_build():
     """Build and load the kernels; beside the build, ``nvcc -Xptxas -v`` on
-    the wgmma kernels' sources (K1, K4) for their registers and spills."""
+    the wgmma kernels' sources (K1, K3, K4, K5) for their registers and
+    spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from sdtpu_torch.ops import _build
@@ -291,7 +326,8 @@ def phase_build():
     t0 = time.perf_counter()
     path = _build.library_path()
     fresh = not path.exists()
-    names = ("flash_attn_fwd.cu", "matmul_int8w.cu")
+    names = ("flash_attn_fwd.cu", "conv_gn_silu.cu", "matmul_int8w.cu",
+             "matmul_w8a8.cu")
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [pool.submit(_build.ptxas_report, _build.SRC_DIR / n)
                    for n in names]
@@ -492,22 +528,30 @@ def phase_kernel_conv(conv_sites):
     GroupNorm of x, ``gn_affine``, which is K2's statistics mode, itself
     held against its plain version); times of the kernel, of the plain
     version, of the whole cuda_conv site (``gn_affine`` + the kernel) and of
-    the cuda policy's site (bf16 GroupNorm + SiLU + cuDNN conv + bias)."""
+    the cuda policy's site (bf16 GroupNorm + SiLU + cuDNN conv + bias).
+    The plain version's and the statistics mode's times are taken at the
+    main path's bf16 rows only. Each row names the kernel and the tiling
+    ``plan_conv`` chose; a ragged case must get the kernel it was written
+    for. ``prologue_bound_ms`` is
+    the time the SiLU's special-function work alone needs, one operation
+    an input element (derived, not measured); ``ms_no_prologue`` the
+    kernel's time on the same call without ``a`` and ``d``."""
     from sdtpu_torch.models import unet
     from sdtpu_torch.ops import conv as C
     from sdtpu_torch.ops import groupnorm as G
 
     g = torch.Generator(device="cuda").manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     main = sorted(conv_sites.items(), key=str)
     # (site, launches per image, int8 weights, launches per image under
     # quantize="int8w", which quantizes the UNet's sites: the CFG batch of 2)
-    cases = [(k, n, False, 0) for k, n in main]
-    cases += [(k, 0, True, n) for k, n in main if k[0][0] == 2]
-    cases += [((s, co, k, pro, True), 0, q8, 0)
-              for s, co, k, pro, q8 in CONV_RAGGED]
+    cases = [(k, n, False, 0, None) for k, n in main]
+    cases += [(k, 0, True, n, None) for k, n in main if k[0][0] == 2]
+    cases += [((s, co, k, pro, True), 0, q8, 0, want)
+              for s, co, k, pro, q8, want in CONV_RAGGED]
     rows = []
     for (shape, c_out, k, prologue, per_sample), per_image, int8, \
-            per_image_int8 in cases:
+            per_image_int8, want in cases:
         n, h, w_, c_in = shape
         x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
         w = torch.randn((c_out, c_in, k, k), generator=g, device="cuda") / (
@@ -535,11 +579,13 @@ def phase_kernel_conv(conv_sites):
             affine = {
                 "affine_abs_err": max((a - ra).abs().max().item(),
                                       (d - rd).abs().max().item()),
-                "affine_rel_err": max(rel_err(a, ra), rel_err(d, rd)),
-                "affine_ms": cuda_ms(lambda: G.group_norm_affine_cuda(
-                    pn, x, groups, 1e-5)),
-                "affine_plain_ms": cuda_ms(lambda: C.gn_affine_reference(
-                    pn, x, groups, 1e-5))}
+                "affine_rel_err": max(rel_err(a, ra), rel_err(d, rd))}
+            if per_image:
+                affine.update({
+                    "affine_ms": cuda_ms(lambda: G.group_norm_affine_cuda(
+                        pn, x, groups, 1e-5)),
+                    "affine_plain_ms": cuda_ms(
+                        lambda: C.gn_affine_reference(pn, x, groups, 1e-5))})
             del ra, rd
         out = C.fused_conv_cuda(x, w, b, w_scale=scale, **kw)
         torch.cuda.synchronize()
@@ -556,16 +602,24 @@ def phase_kernel_conv(conv_sites):
             + (c_out * 4 if int8 else 0))
         affine_bound = bound(6.0 * x.numel(), "f32",
                              x.numel() * 2 + 2 * c_in * 2 + 2 * n * c_in * 4)
+        plan = C.plan_conv(n, h, w_, c_in, c_out, k, sms, int8)
         row = {"x": list(shape), "c_out": c_out, "k": k,
                "prologue": prologue, "int8": int8, "per_image": per_image,
+               "design": plan["design"], "plan": plan,
                "per_image_int8": per_image_int8,
                "max_abs_err": err, "ref_abs_max": ref_max, "ms": ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "affine_bound_ms": affine_bound[0],
                "affine_bound_by": affine_bound[1],
-               "tflops": flop / ms / 1e9,
-               "plain_ms": cuda_ms(lambda: C.fused_conv_reference(
-                   x, w, b, w_scale=scale, **kw)), **affine}
+               "tflops": flop / ms / 1e9, **affine}
+        if per_image:
+            row["plain_ms"] = cuda_ms(lambda: C.fused_conv_reference(
+                x, w, b, w_scale=scale, **kw))
+        if prologue == "silu":
+            row["prologue_bound_ms"] = x.numel() / PEAK_EXP * 1e3
+        if (shape, c_out, k) in CONV_PROBED and prologue and not int8:
+            row["ms_no_prologue"] = cuda_ms(lambda: C.fused_conv_cuda(
+                x, w, b, w_scale=scale))
         if prologue and not int8:
             # the whole site under each policy, with the same GroupNorm
             pc = {"w": w, "b": b if b.dim() == 1 else b[0]}
@@ -577,6 +631,9 @@ def phase_kernel_conv(conv_sites):
         emit({"phase": "kernel_conv", **row})
         if not err <= FUSED_TOL * ref_max:
             raise AssertionError(f"conv kernel disagrees at {row}")
+        if want not in (None, plan["design"]):
+            raise AssertionError(f"conv case written for the {want} kernel "
+                                 f"got {row}")
         if affine and not affine["affine_rel_err"] <= AFFINE_TOL:
             raise AssertionError(f"gn_affine kernel disagrees at {row}")
         rows.append(row)
@@ -686,11 +743,14 @@ def phase_breakdown(ctx, policy):
                         if "flash_fwd_kernel" in k),
         "group_norm_ms": sum(v for k, v in by_name.items()
                              if "gn_kernel" in k),
-        "conv_ms": sum(v for k, v in by_name.items() if "conv_kernel" in k),
+        "conv_ms": sum(v for k, v in by_name.items() if any(
+            kernel in k for kernel in ("conv_slab_kernel",
+                                       "conv_general_kernel",
+                                       "conv_sum_kernel"))),
         "matmul_int8w_ms": sum(v for k, v in by_name.items()
                                if "mm_int8w" in k),
         "matmul_w8a8_ms": sum(v for k, v in by_name.items()
-                              if "mm_w8a8_kernel" in k),
+                              if "mm_w8a8" in k),
         "top_kernels_ms": [[k[:90], v] for k, v in top]})
     emit(res)
     ctx.kernels = before
@@ -943,10 +1003,11 @@ def phase_kernel_mm(sites):
 
     Times: the kernel; the plain version; for K4 the bf16 ``x @ w + b`` of
     the unquantized site (what ``quantize="none"`` runs: ``library_ms``)
-    and the dequantize-then-multiply fallback; for K5 ``torch._int_mm`` on
-    activations quantized beforehand (the product alone: ``library_ms``)
-    and the whole library path that ``KERNEL_W8A8 = False`` runs
-    (``layers.dense``: quantize, ``_int_mm``, scale, bias)."""
+    and the dequantize-then-multiply fallback; for K5 the whole library
+    path that ``KERNEL_W8A8 = False`` runs (``layers.dense``: quantize,
+    ``_int_mm``, scale, bias: ``library_ms``, also as ``static_path_ms``)
+    and ``torch._int_mm`` on activations quantized beforehand (the product
+    alone: ``product_ms``). Each row carries its kernel's plan."""
     from sdtpu_torch.models import layers as L
     from sdtpu_torch.ops import matmul as MM
 
@@ -993,6 +1054,8 @@ def phase_kernel_mm(sites):
                         x @ L._weight(pd, torch.bfloat16)))})
                 tol = FUSED_TOL
             else:
+                derived["plan"] = MM.plan_w8a8(m, k, n, sms)
+                row["design"] = "wgmma"
                 xs = x.float().abs().max() / 127.0
                 out = MM.matmul_w8a8_cuda(x, w8, scale, xs, b)
                 torch.cuda.synchronize()
@@ -1010,9 +1073,10 @@ def phase_kernel_mm(sites):
                         x, w8, scale, xs, b)),
                     "plain_ms": cuda_ms(lambda: MM.matmul_w8a8_reference(
                         x, w8, scale, xs, b)),
-                    "library_ms": (cuda_ms(lambda: torch._int_mm(xq, w8))
+                    "product_ms": (cuda_ms(lambda: torch._int_mm(xq, w8))
                                    if m > 16 and n % 8 == 0 else None),
                     "static_path_ms": cuda_ms(lambda: L.dense(pq, x))})
+                row["library_ms"] = row["static_path_ms"]
                 tol = W8A8_TOL
             row["max_abs_err"] = (out.float() - ref).abs().max().item()
             row["ref_abs_max"] = ref.abs().max().item()
@@ -1151,6 +1215,8 @@ def main() -> int:
     phase_model(ctx)
     for c, policy in ((ctx, "cuda"), (ctx, "cuda_conv"), (ctx_d, "cuda")):
         phase_breakdown(c, policy)
+    with w8a8_kernel(True):
+        phase_breakdown(ctx_i, "cuda")
 
     # the timed row of each kernel: its most frequent main-path shape (the
     # largest plane among equals)
@@ -1196,6 +1262,7 @@ def main() -> int:
          "library_ms": conv_main.get("cuda_site_ms"),
          "library": "the cuda policy's site: bf16 GroupNorm, SiLU, cuDNN "
                     "conv, bias",
+         "design": conv_main["design"], "plan": conv_main["plan"],
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -1237,8 +1304,13 @@ def main() -> int:
          "ms": k5_main["ms"], "plain_ms": k5_main["plain_ms"],
          "bound_ms": k5_main["bound_ms"], "bound_by": k5_main["bound_by"],
          "library_ms": k5_main["library_ms"],
-         "library": "torch._int_mm on activations quantized beforehand: "
+         "library": "the static library path: quantize, torch._int_mm, "
+                    "scale, bias (layers.dense with KERNEL_W8A8 off)",
+         "product_ms": k5_main["product_ms"],
+         "product": "torch._int_mm on activations quantized beforehand: "
                     "the product alone, part of K5's function",
+         "design": k5_main["design"],
+         "sum_pass_launches": launches["int8+k5"]["matmul_w8a8_sum"],
          "static_path_ms": k5_main["static_path_ms"],
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

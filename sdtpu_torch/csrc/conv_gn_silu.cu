@@ -4,7 +4,7 @@
 //
 // Replaces sdtpu/ops/conv.py:_conv_kernel and _conv_kernel_b, the two Pallas
 // TPU kernels of the JAX package (their two grid orders are a TPU VMEM
-// artefact; one kernel takes both here). It computes the same function:
+// artefact; one source takes both here). It computes the same function:
 //   z   = x * A[n, ci] + D[n, ci], then SiLU if asked (the GroupNorm folded
 //         by the caller into per-(sample, channel) A and D), rounded to
 //         bf16, the operand type of the product;
@@ -16,35 +16,76 @@
 //
 // What bounds it on this card: the tensor cores at the large planes (the
 // UNet's 64x64 convs are 15 GFLOP on 10 MB, the VAE's 512x512 convs 38
-// GFLOP), and the number of output tiles at the small ones: the 8x8 level
-// has M = 128 output pixels, one row of tiles, while K = 9 x 2560 is deep.
+// GFLOP), but only once the prologue is out of their way: applied to every
+// staged tap it is more special-function work than the products it feeds.
+// At the small planes (16x16, 8x8: M = 512, 128 output pixels) the weights
+// are the larger stream (29 MB at 1280 -> 1280) and the output has far fewer
+// tiles than the card has SMs.
 //
-// What the design does about it: a GEMM with M = N*H*W output pixels, N =
-// Cout and K = kh*kw*Cin, tiled 128 x 128 x 32 over 8 warps, each warp 64 x
-// 32 outputs in mma.sync m16n8k16 (bf16 in, f32 accumulate). The A tile is
-// gathered from the NHWC input (contiguous Cin, so a 16-byte vector never
-// crosses a tap since Cin % 8 == 0); the B tile reads the port's OIHW
-// weights in channels_last memory, [Cout][kh][kw][Cin]: each output
-// channel's K run is contiguous, the column-major operand the mma wants.
-// Both arrive by cp.async in a 4-stage shared-memory ring, three reduction
-// steps in flight ahead of the one being multiplied, with taps outside the
-// image zero-filled by the copy itself. When a step lands, each thread
-// applies the prologue to the A chunks it copied, in shared memory, once
-// per element and before the step's one barrier, so that work overlaps
-// the previous step's products and the normalised tensor never exists in
-// device memory; int8
-// weights widen to bf16 there too (exact for |v| <= 127) and their scale is
-// applied once to the accumulator. Where the output has fewer tiles than
-// the card has SMs (the 8x8 and 16x16 levels), the K loop is split over up
-// to 16 blocks per tile (split-K), with a deterministic reduction of the
-// partials by the tile's last block. Ragged M, Cout and K tails are masked
-// in the kernel. wgmma and TMA are left for later work.
+// What the design does about it. Two kernels, chosen by the wrapper's static
+// rule (sdtpu_torch/ops/conv.py:plan_conv), which this file checks.
+//
+//  * The slab kernel (conv_slab_kernel), the TPU kernel's own idea (a padded
+//    plane chunk staged once, normalised once in fast memory, the taps as
+//    shifted products over it), for Cin % 64 == 0 and planes whose rows tile
+//    128 pixels (W divides 128 or is a multiple of it). A block owns 128
+//    consecutive output pixels, 64 a warpgroup, and BN = 128 or 160 output
+//    channels, and walks Cin in chunks of 64. For a chunk it stages, by
+//    cp.async with zero-fill outside the image, the input rows those pixels'
+//    taps touch, halo included (4 x 66 pixels at W = 64, 3 x 130 at W >= 128,
+//    two whole 10 x 10 planes at 8 x 8), in rows of 144 bytes (ldmatrix
+//    without bank conflicts), and applies the prologue to it in shared
+//    memory ONCE, skipping the positions outside the image, with A and D of
+//    the chunk staged beside it and SiLU as h + h * tanh(h), h = z / 2 (one
+//    special-function operation a value). A tap is then an offset of the
+//    rows ldmatrix names: each warp loads its m16k16 fragments of the
+//    shifted slab and issues wgmma (m64nBNk16, bf16 in, f32 accumulate) with
+//    A from registers and B, one tap's [BN][64] weight tile, K-major in
+//    128-byte-swizzled shared memory. The weight tiles run in a ring of
+//    their own, 3 steps ahead by cp.async straight into the swizzle (int8
+//    weights arrive raw and the thread that copied a chunk widens it into
+//    the swizzled tile with one byte permute and one sub.bf16x2 a pair; the
+//    scale stays in the epilogue). The slab is double-buffered, and a third
+//    warpgroup that multiplies nothing keeps it ahead: it issues the copy of
+//    chunk c + 1 at chunk c's first tap, waits for it three taps later and
+//    spreads its prologue over the remaining taps, so that the pass costs
+//    the multiplying warpgroups neither issue slots in their step nor its
+//    latency before the step's barrier (done by them, between a step's
+//    products and the next barrier, it cost 30% at 64x64). A multiplying
+//    warpgroup loads its fragments only while it
+//    has no product in flight (registers written inside an open wgmma stage
+//    make the compiler serialize the products); the step's barrier does not
+//    wait for the products, so the two warpgroups drift apart and one's
+//    fragment loads fall under the other's products. A 1x1 conv is the
+//    same kernel with one tap: its slab chunk holds three 64-channel groups
+//    of the block's 128 pixels, which take the taps' place.
+//  * Where the output tiles would leave half the card idle (16x16, 8x8), the
+//    grid's z axis takes runs of slab chunks, each block writes its f32
+//    partial tile, and conv_sum_kernel sums them in a fixed order, applies
+//    scale and bias and rounds once: no atomics, the same bytes every run.
+//  * The output tile leaves through shared memory as whole 16-byte row
+//    chunks, scale and bias applied in f32.
+//  * The general kernel (conv_general_kernel) takes what the slab does not:
+//    odd planes, Cin % 8 == 0. A GEMM tiled 128 x 128 x 32 over 8 warps in
+//    mma.sync m16n8k16, A gathered per (pixel, tap) by cp.async in a 4-stage
+//    ring, the prologue applied to every staged chunk before the step's one
+//    barrier, split-K with a deterministic reduction by a tile's last block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_sm90.cuh"
+
 namespace {
+
+constexpr int PRO_NONE = 0, PRO_AFFINE = 1, PRO_SILU = 2;
+constexpr int MAX_DEVICES = 64;
+constexpr size_t SMEM_CAP = 227 * 1024;   // a block's shared memory on sm_90
+
+// ---------------------------------------------------------------------------
+// the general kernel
+// ---------------------------------------------------------------------------
 
 constexpr int BM = 128;          // output pixels per block
 constexpr int BN = 128;          // output channels per block
@@ -52,8 +93,6 @@ constexpr int BK = 32;           // reduction depth per stage
 constexpr int STAGES = 4;        // shared-memory pipeline depth
 constexpr int THREADS = 256;     // 8 warps: 2 along M x 4 along N
 constexpr int LDS = BK + 8;      // padded shared row: conflict-free fragments
-constexpr int PRO_NONE = 0, PRO_AFFINE = 1, PRO_SILU = 2;
-constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
                                           uint32_t b0, uint32_t b1) {
@@ -115,11 +154,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t word, int shift) {
-  const float lo = (float)(int8_t)((word >> shift) & 0xffu);
-  const float hi = (float)(int8_t)((word >> (shift + 8)) & 0xffu);
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two int8 (bytes `sel` picks out of `word`, each into the low byte of a
+// 16-bit lane) to two bf16, exactly: 128 + (b & 0x7f) minus 128 or 256, one
+// byte permute and one sub.bf16x2 (as csrc/matmul_int8w.cu widens).
+__device__ __forceinline__ uint32_t widen2(uint32_t word, uint32_t sel) {
+  const uint32_t lanes = __byte_perm(word, 0u, sel);
+  const uint32_t hi = (lanes & 0x007f007fu) | 0x43004300u;
+  const uint32_t lo = (lanes & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&hi),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&lo));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // The rows one thread stages: rows srow and srow + 64 of the A and B
@@ -235,10 +279,10 @@ __device__ __forceinline__ void transform_stage(
     if (Q8) {
       const uint2 q = *reinterpret_cast<const uint2*>(sQ + row * BK + r.skc);
       uint4 vb;
-      vb.x = int8x2_to_bf16x2(q.x, 0);
-      vb.y = int8x2_to_bf16x2(q.x, 16);
-      vb.z = int8x2_to_bf16x2(q.y, 0);
-      vb.w = int8x2_to_bf16x2(q.y, 16);
+      vb.x = widen2(q.x, 0x4140);
+      vb.y = widen2(q.x, 0x4342);
+      vb.z = widen2(q.y, 0x4140);
+      vb.w = widen2(q.y, 0x4342);
       *reinterpret_cast<uint4*>(sB + row * LDS + r.skc) = vb;
     }
   }
@@ -259,7 +303,7 @@ constexpr size_t MAX_SMEM = 200 * 1024;
 // tile) sums the partials in split order, so the result does not depend on
 // which block came last, and runs the epilogue.
 template <int PRO, bool Q8>
-__global__ void __launch_bounds__(THREADS) conv_kernel(const ConvArgs p) {
+__global__ void __launch_bounds__(THREADS) conv_general_kernel(const ConvArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sB = sA + STAGES * BM * LDS;
@@ -464,7 +508,7 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(const ConvArgs p) {
 }
 
 template <int PRO, bool Q8>
-cudaError_t launch(ConvArgs a, cudaStream_t stream) {
+cudaError_t launch_general(ConvArgs a, cudaStream_t stream) {
   // a tile of BM rows spans at most this many samples; their A and D go to
   // shared memory when they fit, else the prologue reads device memory
   const int hw = a.h * a.w;
@@ -480,7 +524,7 @@ cudaError_t launch(ConvArgs a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (smem > allowed[dev]) {
-    err = cudaFuncSetAttribute(conv_kernel<PRO, Q8>,
+    err = cudaFuncSetAttribute(conv_general_kernel<PRO, Q8>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
@@ -489,13 +533,605 @@ cudaError_t launch(ConvArgs a, cudaStream_t stream) {
   const long long m = (long long)a.n * a.h * a.w;
   const dim3 grid((unsigned)((m + BM - 1) / BM), (a.cout + BN - 1) / BN,
                   a.splits);
-  conv_kernel<PRO, Q8><<<grid, THREADS, smem, stream>>>(a);
+  conv_general_kernel<PRO, Q8><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the slab kernel
+// ---------------------------------------------------------------------------
+
+using wgmma::Wgmma;
+
+constexpr int SLAB_PITCH = 144;    // bytes of a slab row: 64 bf16 and 16 spare
+constexpr int SLAB_MAX_ROWS = 400; // rows of one 64-channel group of a slab
+constexpr int SLAB_MAX_SAMPLES = 8;
+constexpr int SLAB_CONSUMERS = 256;  // two warpgroups that multiply
+constexpr int SLAB_THREADS = 384;    // and one that stages and normalises
+
+struct SlabArgs {
+  ConvArgs c;
+  int prologue;           // PRO_*
+  int ph, pw, ns;         // the block's pixels: ns samples x ph rows x pw
+  int rpg;                // slab rows of one group: ns (ph + 2 pad)(pw + 2 pad)
+  int chunks_per_split;   // slab chunks a block of the grid's z axis takes
+};
+
+// The constants that follow from the kernel size. A slab chunk holds G
+// groups of 64 input channels and is multiplied in up to T steps, one weight
+// tile each: the 9 taps of its one group (3x3), or its 3 groups (1x1). The
+// weight copies run D steps ahead.
+template <int KS>
+struct Shape {
+  static constexpr int G = KS == 3 ? 1 : 3;
+  static constexpr int T = KS == 3 ? 9 : 3;
+  static constexpr int D = KS == 3 ? 3 : 2;
+};
+
+// Shared memory of a block, from a 1024-byte boundary: the weight tiles wgmma
+// reads (D + 2 of bf16 weights; 3 widened ones and D raw stages of int8),
+// two slabs, two stages of the chunk's A and D, the table of the slab rows'
+// pixels, the block's bias rows and scales.
+struct SlabSmem {
+  uint32_t tiles, raw, slab, ad, table, bias, scale, total;
+};
+
+__host__ __device__ inline SlabSmem slab_smem(int bn, bool q8, int ks, int rpg,
+                                              int ns) {
+  const int g = ks == 3 ? 1 : 3, d = ks == 3 ? 3 : 2;
+  SlabSmem s;
+  s.tiles = 0;
+  s.raw = (q8 ? 3 : d + 2) * bn * 128;
+  s.slab = s.raw + (q8 ? d * bn * 64 : 0);
+  s.ad = s.slab + 2 * g * rpg * SLAB_PITCH;
+  s.table = s.ad + 2 * (2 * ns * g * 64 * 4);
+  s.bias = s.table + ((rpg * 4 + 15) & ~15);
+  s.scale = s.bias + ns * bn * 4;
+  s.total = 1024 + s.scale + bn * 4;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src,
+                                              bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// The slab kernel's block-wide barrier, with its thread count spelled out:
+// the helper and the multiplying warpgroups reach it from different loops.
+__device__ __forceinline__ void slab_barrier() {
+  asm volatile("bar.sync 0, %0;\n" ::"n"(SLAB_THREADS) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit_mem() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_mem() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4],
+                                               uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// silu(z) = z / (1 + exp(-z)) = h + h tanh(h), h = z / 2: one
+// special-function operation
+__device__ __forceinline__ float silu_tanh(float z) {
+  const float h = 0.5f * z;
+  float t;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(h));
+  return fmaf(h, t, h);
+}
+
+// grid: (ceil(M / 128), ceil(cout / BN), splits), M = n h w; 384 threads:
+// warpgroups 0 and 1 copy the weights and multiply, 64 pixels each;
+// warpgroup 2, the helper, copies the slabs and applies the prologue.
+template <int BN, bool Q8, int KS>
+__global__ void __launch_bounds__(SLAB_THREADS)
+conv_slab_kernel(const SlabArgs a) {
+  using S = Shape<KS>;
+  constexpr int G = S::G, T = S::T, D = S::D;
+  constexpr int PAD = KS / 2;
+  constexpr int NT = Q8 ? 3 : D + 2;     // weight tiles wgmma reads
+  constexpr int NACC = BN / 2;
+  constexpr int W_ITERS = ((Q8 ? BN * 4 : BN * 8) + 255) / 256;
+  const ConvArgs& p = a.c;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_addr = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  unsigned char* gen = smem_raw + (base - raw_addr);
+  const SlabSmem L = slab_smem(BN, Q8, KS, a.rpg, a.ns);
+  const uint32_t slab_bytes = G * a.rpg * SLAB_PITCH;
+  const uint32_t ad_floats = 2 * a.ns * G * 64;   // A then D of one stage
+  int* table = reinterpret_cast<int*>(gen + L.table);
+  float* s_bias = reinterpret_cast<float*>(gen + L.bias);
+  float* s_scale = reinterpret_cast<float*>(gen + L.scale);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  // from a shuffle, so that the compiler sees the roles as warp-uniform
+  const bool helper = __shfl_sync(0xffffffffu, tid / 128, 0) == 2;
+  const int g = lane / 4, tg = lane % 4;
+  const int hw = p.h * p.w;
+  const int M = p.n * hw;
+  const int K = KS * KS * p.cin;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * BN;
+  // the block's first sample and the pixel its patch starts at
+  const int nb0 = m0 / hw;
+  const int oh0 = (m0 - nb0 * hw) / p.w;
+  const int ow0 = m0 - nb0 * hw - oh0 * p.w;
+  const int sw = a.pw + 2 * PAD;             // slab row of pixels
+  const int plane = sw * (a.ph + 2 * PAD);   // slab rows of one sample
+
+  // the pixel each slab row holds, as (pixel index << 3) | local sample, or
+  // -1 outside the image or past the last sample: the conv's zero padding
+  for (int q = tid; q < a.rpg; q += SLAB_THREADS) {
+    const int s = q / plane, r2 = q - s * plane;
+    const int r = r2 / sw, c = r2 - r * sw;
+    const int n = nb0 + s, ih = oh0 - PAD + r, iw = ow0 - PAD + c;
+    const bool in = n < p.n && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w;
+    table[q] = in ? ((((n * p.h + ih) * p.w + iw) << 3) | s) : -1;
+  }
+  // the block's columns of each of its samples' bias rows, and of the scale
+  for (int i = tid; i < a.ns * BN; i += SLAB_THREADS) {
+    const int s = i / BN, col = i - s * BN;
+    const bool in = nb0 + s < p.n && n0 + col < p.cout;
+    s_bias[i] =
+        in ? p.bias[(long long)(nb0 + s) * p.bias_stride + n0 + col] : 0.f;
+  }
+  if (tid < BN)
+    s_scale[tid] = Q8 && n0 + tid < p.cout ? p.wscale[n0 + tid] : 1.f;
+
+  // this block's run of slab chunks, and its steps
+  const int groups_all = p.cin / 64;
+  const int chunks_all = (groups_all + G - 1) / G;
+  const int c_begin = blockIdx.z * a.chunks_per_split;
+  const int c_end = min(c_begin + a.chunks_per_split, chunks_all);
+  const int nsteps =
+      KS == 3 ? (c_end - c_begin) * T : min(c_end * G, groups_all) - c_begin * G;
+  auto steps_in = [&](int c) {
+    return KS == 3 ? T : min(G, groups_all - c * G);
+  };
+
+  // a multiplying thread's copy slots of a weight tile: 16-byte chunk tid %
+  // 8 (8 bf16) of rows tid / 8 + 32 j, or chunk tid % 4 (16 int8) of rows tid
+  // / 4 + 64 j
+  constexpr int W_CPR = Q8 ? 4 : 8, W_RSTEP = 256 / W_CPR;
+  const int w_cc = tid % W_CPR, w_r = tid / W_CPR;
+  int w_src[W_ITERS];      // element offset of the slot at k = 0, -1: none
+#pragma unroll
+  for (int j = 0; j < W_ITERS; ++j) {
+    const int r = w_r + W_RSTEP * j;
+    w_src[j] = r < BN && n0 + r < p.cout
+                   ? (n0 + r) * K + w_cc * (Q8 ? 16 : 8)
+                   : -1;
+  }
+  const uint32_t w_dst =
+      Q8 ? w_r * 64 + w_cc * 16 : w_r * 128 + ((w_cc ^ (w_r & 7)) << 4);
+  const uint32_t b_lo = w_r * 128 + (((2 * w_cc) ^ (w_r & 7)) << 4);
+  const uint32_t b_hi = w_r * 128 + (((2 * w_cc + 1) ^ (w_r & 7)) << 4);
+
+  // the weight tile of step (chunk c, step t of it): its first K index
+  auto copy_weights = [&](int c, int t, int stage) {
+    const int k0 = KS == 3 ? t * p.cin + c * 64 : (c * G + t) * 64;
+    const uint32_t dst = base + (Q8 ? L.raw + stage * (BN * 64)
+                                    : L.tiles + stage * (BN * 128)) + w_dst;
+#pragma unroll
+    for (int j = 0; j < W_ITERS; ++j) {
+      if (w_r + W_RSTEP * j < BN) {
+        const bool in = w_src[j] >= 0;
+        const void* src =
+            !in ? p.wt
+            : Q8 ? (const void*)(static_cast<const int8_t*>(p.wt) + w_src[j] + k0)
+                 : (const void*)(static_cast<const __nv_bfloat16*>(p.wt) +
+                                 w_src[j] + k0);
+        cp_async16_to(dst + j * (W_RSTEP * (Q8 ? 64 : 128)), src, in);
+      }
+    }
+  };
+
+  // slab chunk c into buffer buf: every row's 64 channels of each group, and
+  // the chunk's A and D of the block's samples; by the threads first, first
+  // + stride, ...
+  const int slots = G * a.rpg * 8;
+  auto copy_slab = [&](int c, int buf, int first, int stride) {
+    const uint32_t dst = base + L.slab + buf * slab_bytes;
+    for (int slot = first; slot < slots; slot += stride) {
+      const int row = slot >> 3, j = slot & 7;
+      const int gq = G > 1 ? row / a.rpg : 0;
+      const int e = table[row - gq * a.rpg];
+      const int cb = (c * G + gq) * 64;
+      const bool in = e >= 0 && cb < p.cin;
+      cp_async16_to(dst + row * SLAB_PITCH + j * 16,
+                    in ? p.x + ((long long)(e >> 3) * p.cin + cb + j * 8) : p.x,
+                    in);
+    }
+    if (a.prologue != PRO_NONE) {
+      const int per = a.ns * G * 16;     // 16-byte copies of A, then of D
+      const uint32_t ad = base + L.ad + buf * (ad_floats * 4);
+      for (int i = first; i < 2 * per; i += stride) {
+        const int which = i / per, r = i - which * per;
+        const int s = r / (G * 16), r2 = r - s * (G * 16);
+        const int gq = r2 / 16, j = r2 - gq * 16;
+        const int cb = (c * G + gq) * 64;
+        const bool in = nb0 + s < p.n && cb < p.cin;
+        const float* src = (which ? p.pd : p.pa) +
+                           ((long long)(nb0 + s) * p.cin + cb + j * 4);
+        cp_async16_to(ad + i * 16, in ? (const void*)src : (const void*)p.x,
+                      in);
+      }
+    }
+  };
+
+  // the prologue on slots first + stride k, k in [k0, k1), in shared memory,
+  // on the positions inside the image only: the zero padding stays zero
+  auto transform = [&](int buf, int k0, int k1, int first, int stride) {
+    unsigned char* slab = gen + L.slab + buf * slab_bytes;
+    const float* ad = reinterpret_cast<const float*>(gen + L.ad) + buf * ad_floats;
+    for (int k = k0; k < k1; ++k) {
+      const int slot = first + stride * k;
+      if (slot >= slots) break;
+      const int row = slot >> 3, j = slot & 7;
+      const int gq = G > 1 ? row / a.rpg : 0;
+      const int e = table[row - gq * a.rpg];
+      if (e < 0) continue;
+      const int s = e & 7;
+      const float* av = ad + (s * G + gq) * 64 + j * 8;
+      const float* dv = av + a.ns * G * 64;
+      const float4 a0 = *reinterpret_cast<const float4*>(av);
+      const float4 a1 = *reinterpret_cast<const float4*>(av + 4);
+      const float4 d0 = *reinterpret_cast<const float4*>(dv);
+      const float4 d1 = *reinterpret_cast<const float4*>(dv + 4);
+      const float aa[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float dd[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+      uint4* ptr = reinterpret_cast<uint4*>(slab + row * SLAB_PITCH + j * 16);
+      uint4 v = *ptr;
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        float z0 = f.x * aa[2 * i] + dd[2 * i];
+        float z1 = f.y * aa[2 * i + 1] + dd[2 * i + 1];
+        if (a.prologue == PRO_SILU) {
+          z0 = silu_tanh(z0);
+          z1 = silu_tanh(z1);
+        }
+        h2[i] = __floats2bfloat162_rn(z0, z1);
+      }
+      *ptr = v;
+    }
+  };
+  // Slots a thread when the whole block shares a slab's prologue, and when
+  // the helper warpgroup takes it alone; of the latter a step's share. A 1x1
+  // conv leaves the pass one step (T - D), so there the whole block shares
+  // every slab's, once the helper's copies are behind a barrier.
+  constexpr bool SHARED = KS == 1;
+  const int nslots_all = (slots + SLAB_THREADS - 1) / SLAB_THREADS;
+  const int nslots = (slots + 127) / 128;
+  const int sps = SHARED ? nslots_all : (nslots + T - D - 1) / (T - D);
+  const int pro_first = SHARED ? tid : tid - SLAB_CONSUMERS;
+  const int pro_stride = SHARED ? SLAB_THREADS : 128;
+
+  __syncthreads();   // the table is written
+  // the first slab is the whole block's work
+  copy_slab(c_begin, 0, tid, SLAB_THREADS);
+  cp_async_commit_mem();
+  // the weight copies' cursor: the chunk and the step of it copied next
+  int pc = c_begin, pt = 0;
+#pragma unroll
+  for (int s = 0; s < D; ++s) {
+    if (s < nsteps && !helper) {
+      copy_weights(pc, pt, s);
+      if (++pt == steps_in(pc)) {
+        pt = 0;
+        ++pc;
+      }
+    }
+    cp_async_commit_mem();
+  }
+  cp_async_wait_mem<D>();    // the first slab has landed
+  __syncthreads();
+  if (a.prologue != PRO_NONE) transform(0, 0, nslots_all, tid, SLAB_THREADS);
+
+  // the slab row of this lane's fragment row, pixel wg 64 + warp 16 + lane %
+  // 16 of the block, at tap (0, 0); a tap adds a row offset
+  const int frag_p = wg * 64 + warp * 16 + (lane & 15);
+  const int frag_s = frag_p / (a.ph * a.pw);
+  const int frag_r = frag_p / a.pw - frag_s * a.ph;
+  const int frag_c = frag_p - (frag_p / a.pw) * a.pw;
+  const uint32_t frag_off =
+      (frag_s * plane + frag_r * sw + frag_c) * SLAB_PITCH + (lane >> 4) * 16;
+
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+
+  // the consumer's cursor, and the stages of step i: the weight tile in st,
+  // raw int8 in sr; the copies of step i + D go to tile st_next (or to sr)
+  int cc = c_begin, ct = 0, buf = 0;
+  int st = 0, sr = 0, st_next = Q8 ? 0 : D % NT;
+  if (helper) {
+    // The helper warpgroup's whole loop (the roles never meet again: the
+    // compiler serializes products it finds behind a divergent branch). The
+    // next chunk's slab: copied at this chunk's first step into the buffer
+    // the last chunk has left, waited for D steps later, and normalised, a
+    // share a step, over the chunk's remaining steps, under the other
+    // warpgroups' products; each barrier is the block's.
+    for (int i = 0; i < nsteps; ++i) {
+      const bool next = cc + 1 < c_end;
+      if (ct == D && next) cp_async_wait_mem<0>();
+      slab_barrier();
+      if (ct == 0 && next) {
+        copy_slab(cc + 1, buf ^ 1, tid - SLAB_CONSUMERS, 128);
+        cp_async_commit_mem();
+      }
+      if (a.prologue != PRO_NONE && ct >= D && next)
+        transform(buf ^ 1, (ct - D) * sps, (ct - D + 1) * sps, pro_first,
+                  pro_stride);
+      if (++ct == steps_in(cc)) {
+        ct = 0;
+        ++cc;
+        buf ^= 1;
+      }
+    }
+    return;
+  }
+
+  uint32_t frag[4][4];
+  for (int i = 0; i < nsteps; ++i) {
+    const uint32_t tile = base + L.tiles + st * (BN * 128);
+    cp_async_wait_mem<D - 1>();   // this thread's copies of step i landed
+    if (Q8) {
+      // each thread widens the int8 chunks it copied itself: 16 int8 of a
+      // row become the 16-byte chunks 2cc and 2cc + 1 of the swizzled row
+      const uint32_t w_raw = base + L.raw + sr * (BN * 64) + w_dst;
+#pragma unroll
+      for (int j = 0; j < W_ITERS; ++j) {
+        if (w_r + 64 * j < BN) {
+          const uint4 q = ld_shared16(w_raw + j * (64 * 64));
+          uint4 lo, hi;
+          lo.x = widen2(q.x, 0x4140);
+          lo.y = widen2(q.x, 0x4342);
+          lo.z = widen2(q.y, 0x4140);
+          lo.w = widen2(q.y, 0x4342);
+          hi.x = widen2(q.z, 0x4140);
+          hi.y = widen2(q.z, 0x4342);
+          hi.z = widen2(q.w, 0x4140);
+          hi.w = widen2(q.w, 0x4342);
+          st_shared16(tile + b_lo + j * (64 * 128), lo);
+          st_shared16(tile + b_hi + j * (64 * 128), hi);
+        }
+      }
+    }
+    wgmma::fence_async_proxy();
+    // step i is ready in full; step i - 2 is consumed by both warpgroups
+    // (each waited for it before its products of step i - 1), while the
+    // products of step i - 1 may still run: the barrier does not wait for
+    // them, so the warpgroups drift apart and one's fragment loads fall
+    // under the other's products
+    slab_barrier();
+    if (i + D < nsteps) {
+      copy_weights(pc, pt, Q8 ? sr : st_next);
+      if (++pt == steps_in(pc)) {
+        pt = 0;
+        ++pc;
+      }
+    }
+    cp_async_commit_mem();
+
+    // the fragment registers are written only while this warpgroup has no
+    // product in flight (the compiler serializes the products otherwise)
+    wgmma::wait<0>();
+    const uint32_t rows = KS == 3 ? (ct / 3) * sw + ct % 3 : ct * a.rpg;
+    const uint32_t a_addr =
+        base + L.slab + buf * slab_bytes + rows * SLAB_PITCH + frag_off;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldmatrix_x4_at(frag[kk], a_addr + kk * 32);
+    const uint64_t b_desc = wgmma::descriptor(tile, 16, 1024);
+    wgmma::pin(acc);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<BN>::rs(acc, frag[kk], b_desc + ((kk * 32) >> 4), 1);
+    wgmma::commit();
+    if (SHARED && a.prologue != PRO_NONE && ct >= D && cc + 1 < c_end)
+      transform(buf ^ 1, (ct - D) * sps, (ct - D + 1) * sps, pro_first,
+                pro_stride);
+
+    if (++ct == steps_in(cc)) {
+      ct = 0;
+      ++cc;
+      buf ^= 1;
+    }
+    st = st + 1 == NT ? 0 : st + 1;
+    st_next = st_next + 1 == NT ? 0 : st_next + 1;
+    sr = sr + 1 == D ? 0 : sr + 1;
+  }
+  wgmma::wait<0>();
+  wgmma::pin(acc);
+  cp_async_wait_mem<0>();
+
+  const int prow = wg * 64 + warp * 16 + g;   // and prow + 8
+  if (p.ws != nullptr) {
+    // this block's share of the K sum, f32, for conv_sum_kernel
+    float* part = p.ws + (long long)blockIdx.z * M * p.cout;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + prow + half * 8;
+      if (row >= M) continue;
+      float* dst = part + (long long)row * p.cout;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + tg * 2;
+        if (col >= p.cout) continue;
+        const float v0 = acc[4 * j + half * 2], v1 = acc[4 * j + half * 2 + 1];
+        if (col + 1 < p.cout && (p.cout & 1) == 0) {
+          *reinterpret_cast<float2*>(dst + col) = make_float2(v0, v1);
+        } else {
+          dst[col] = v0;
+          if (col + 1 < p.cout) dst[col + 1] = v1;
+        }
+      }
+    }
+    return;
+  }
+  // epilogue through shared memory: scale (1 for bf16 weights), the row's
+  // sample's bias, one rounding to bf16; the warpgroup's 64 x BN tile staged
+  // in rows padded by 16 bytes, then written out as whole 16-byte chunks, a
+  // row's chunks by neighbouring threads (element by element where cout % 8
+  // != 0 leaves the rows unaligned)
+  constexpr int LDC = BN * 2 + 16;
+  // both multiplying warpgroups are done reading the tiles
+  asm volatile("bar.sync 3, %0;\n" ::"n"(SLAB_CONSUMERS) : "memory");
+  const uint32_t sC = base + wg * (64 * LDC);
+  const int t = tid % 128;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    // a block of several samples holds whole planes of ph x pw pixels
+    const float* brow =
+        s_bias + (a.ns > 1 ? (prow + half * 8) / (a.ph * a.pw) : 0) * BN;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = j * 8 + tg * 2;
+      const float v0 = acc[4 * j + half * 2] * s_scale[c] + brow[c];
+      const float v1 = acc[4 * j + half * 2 + 1] * s_scale[c + 1] + brow[c + 1];
+      const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       sC + (warp * 16 + g + half * 8) * LDC + c * 2),
+                   "r"(*reinterpret_cast<const uint32_t*>(&v))
+                   : "memory");
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  constexpr int CPR = BN / 8;   // 16-byte chunks a row
+  if (p.cout % 8 == 0) {
+#pragma unroll 4
+    for (int c = t; c < 64 * CPR; c += 128) {
+      const int r = c / CPR, cc8 = c % CPR;
+      const int row = m0 + wg * 64 + r, col = n0 + cc8 * 8;
+      if (row < M && col < p.cout)
+        *reinterpret_cast<uint4*>(p.y + (long long)row * p.cout + col) =
+            ld_shared16(sC + r * LDC + cc8 * 16);
+    }
+    return;
+  }
+  for (int c = t; c < 64 * CPR; c += 128) {
+    const int r = c / CPR, cc8 = c % CPR;
+    const int row = m0 + wg * 64 + r, col = n0 + cc8 * 8;
+    if (row >= M || col >= p.cout) continue;
+    const uint4 v = ld_shared16(sC + r * LDC + cc8 * 16);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+    __nv_bfloat16* dst = p.y + (long long)row * p.cout + col;
+    for (int i = 0; i < 8 && col + i < p.cout; ++i) dst[i] = e[i];
+  }
+}
+
+// Second pass of the slab kernel's split: y = (sum over splits, in order) *
+// w_scale + the sample's bias. V elements a thread: 4 (16-byte reads) where
+// cout % 4 == 0, else 1.
+template <int V>
+__global__ void __launch_bounds__(256)
+conv_sum_kernel(const ConvArgs p, int splits) {
+  const long long total = (long long)p.n * p.h * p.w * p.cout;
+  const long long e = ((long long)blockIdx.x * 256 + threadIdx.x) * V;
+  if (e >= total) return;
+  const int col = (int)(e % p.cout);
+  const long long row = e / p.cout;
+  float sum[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) sum[i] = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    if (V == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p.ws + s * total + e);
+      sum[0] += v.x;
+      sum[V > 1 ? 1 : 0] += v.y;
+      sum[V > 2 ? 2 : 0] += v.z;
+      sum[V > 3 ? 3 : 0] += v.w;
+    } else {
+      sum[0] += p.ws[s * total + e];
+    }
+  }
+  const float* bias = p.bias + (row / (p.h * p.w)) * p.bias_stride + col;
+  __nv_bfloat16 out[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    float v = sum[i];
+    if (p.wscale != nullptr) v *= p.wscale[col + i];
+    out[i] = __float2bfloat16_rn(v + bias[i]);
+  }
+  if (V == 4)
+    *reinterpret_cast<uint2*>(p.y + e) = *reinterpret_cast<const uint2*>(out);
+  else
+    p.y[e] = out[0];
+}
+
+template <int BN, bool Q8, int KS>
+cudaError_t launch_slab(const SlabArgs& a, cudaStream_t stream) {
+  const size_t smem = slab_smem(BN, Q8, KS, a.rpg, a.ns).total;
+  // raise the kernel's shared-memory cap on this device to the most this
+  // instantiation has needed there (not again inside a graph capture)
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(conv_slab_kernel<BN, Q8, KS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = smem;
+  }
+  const long long m = (long long)a.c.n * a.c.h * a.c.w;
+  const dim3 grid((unsigned)((m + 127) / 128), (a.c.cout + BN - 1) / BN,
+                  a.c.splits);
+  conv_slab_kernel<BN, Q8, KS><<<grid, SLAB_THREADS, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.c.splits == 1) return err;
+  const long long total = m * a.c.cout;
+  if (a.c.cout % 4 == 0)
+    conv_sum_kernel<4><<<(unsigned)((total / 4 + 255) / 256), 256, 0, stream>>>(
+        a.c, a.c.splits);
+  else
+    conv_sum_kernel<1><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        a.c, a.c.splits);
+  return cudaGetLastError();
+}
+
+template <int BN, bool Q8>
+cudaError_t launch_slab_ks(const SlabArgs& a, cudaStream_t stream) {
+  return a.c.ks == 3 ? launch_slab<BN, Q8, 3>(a, stream)
+                     : launch_slab<BN, Q8, 1>(a, stream);
+}
+
 template <int PRO>
-cudaError_t launch_q(const ConvArgs& a, bool q8, cudaStream_t stream) {
-  return q8 ? launch<PRO, true>(a, stream) : launch<PRO, false>(a, stream);
+cudaError_t launch_general_q(const ConvArgs& a, bool q8, cudaStream_t stream) {
+  return q8 ? launch_general<PRO, true>(a, stream)
+            : launch_general<PRO, false>(a, stream);
 }
 
 }  // namespace
@@ -504,10 +1140,19 @@ cudaError_t launch_q(const ConvArgs& a, bool q8, cudaStream_t stream) {
 // w_scale [cout] f32; bias: f32, row s at bias + s * bias_stride
 // (bias_stride 0 for one bias row, cout for one per sample); a, d: [n, cin]
 // f32 when prologue is 1 (affine) or 2 (affine + SiLU); y: [n, h, w, cout]
-// bf16. All contiguous, x and wt 16-byte aligned. ks 3 pads by 1, ks 1 by
-// 0; stride 1; cin % 8 == 0; every tensor under 2^31 elements. splits > 1
-// splits the K loop over blocks: ws then holds splits * n*h*w * cout f32
-// and counters one int per output tile, all 0 (the kernel leaves them 0).
+// bf16. All contiguous, x, wt, a and d 16-byte aligned. ks 3 pads by 1, ks
+// 1 by 0; stride 1; cin % 8 == 0; every tensor under 2^31 elements.
+//
+// The rest is the wrapper's plan (ops/conv.py:plan_conv), checked here.
+// design 0, the general kernel: splits > 1 splits the K loop over blocks; ws
+// then holds splits * n*h*w * cout f32 and counters one int per output tile,
+// all 0 (the kernel leaves them 0); bn, chunks, ph, pw and ns are not read.
+// design 1, the slab kernel: cin % 64 == 0; a block's 128 pixels are ns
+// samples of ph rows of pw pixels (pw = min(w, 128) dividing w; ph rows
+// dividing h, or ns whole planes); bn = 128 or 160 output channels a block;
+// the slab chunks (64 input channels for ks 3, 192 for ks 1) cut into
+// `splits` runs of `chunks`, every run non-empty; ws holds the partials
+// where splits > 1, else it is null; counters is not read.
 // Returns a cudaError_t (0 on success).
 extern "C" int sdtpu_conv_gn_silu(const void* x, const void* wt,
                                   const void* bias, const void* a,
@@ -515,7 +1160,8 @@ extern "C" int sdtpu_conv_gn_silu(const void* x, const void* wt,
                                   void* ws, void* counters, int n, int h,
                                   int w, int cin, int cout, int ks,
                                   int bias_stride, int prologue, int quantized,
-                                  int splits, void* stream) {
+                                  int design, int bn, int splits, int chunks,
+                                  int ph, int pw, int ns, void* stream) {
   const long long big = 1LL << 31;
   if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || cin % 8 != 0 ||
       (ks != 1 && ks != 3) || prologue < PRO_NONE || prologue > PRO_SILU ||
@@ -523,19 +1169,42 @@ extern "C" int sdtpu_conv_gn_silu(const void* x, const void* wt,
       (quantized && w_scale == nullptr) || bias == nullptr ||
       (long long)n * h * w * cin >= big || (long long)n * h * w * cout >= big ||
       (long long)cout * ks * ks * cin >= big || (cout + BN - 1) / BN > 65535 ||
-      splits < 1 || splits > 64 ||
-      (splits > 1 && (ws == nullptr || counters == nullptr)))
+      splits < 1 || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const ConvArgs args{static_cast<const __nv_bfloat16*>(x), wt,
                       static_cast<const float*>(bias),
                       static_cast<const float*>(a), static_cast<const float*>(d),
-                      static_cast<const float*>(w_scale),
+                      quantized ? static_cast<const float*>(w_scale) : nullptr,
                       static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
                       static_cast<int*>(counters), n, h, w, cin, cout, ks,
                       bias_stride, splits, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool q8 = quantized != 0;
-  if (prologue == PRO_SILU) return (int)launch_q<PRO_SILU>(args, q8, s);
-  if (prologue == PRO_AFFINE) return (int)launch_q<PRO_AFFINE>(args, q8, s);
-  return (int)launch_q<PRO_NONE>(args, q8, s);
+  if (design == 0) {
+    if (splits > 64 || (splits > 1 && counters == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (prologue == PRO_SILU) return (int)launch_general_q<PRO_SILU>(args, q8, s);
+    if (prologue == PRO_AFFINE)
+      return (int)launch_general_q<PRO_AFFINE>(args, q8, s);
+    return (int)launch_general_q<PRO_NONE>(args, q8, s);
+  }
+  const int pad = ks / 2, groups = ks == 3 ? 1 : 3;
+  if (design != 1 || cin % 64 != 0 || (bn != 128 && bn != 160) || ph < 1 ||
+      pw < 1 || ns < 1 || ns > SLAB_MAX_SAMPLES || ns * ph * pw != 128 ||
+      pw != (w < 128 ? w : 128) || w % pw != 0 ||
+      (ns == 1 ? h % ph != 0 : ph != h) || (ws != nullptr) != (splits > 1) ||
+      chunks < 1 || splits > 65535 || (long long)splits * n * h * w * cout >= big)
+    return (int)cudaErrorInvalidValue;
+  const int rpg = ns * (ph + 2 * pad) * (pw + 2 * pad);
+  const int chunks_all = (cin / 64 + groups - 1) / groups;
+  if (rpg > SLAB_MAX_ROWS || (long long)(splits - 1) * chunks >= chunks_all ||
+      (long long)splits * chunks < chunks_all ||
+      slab_smem(bn, q8, ks, rpg, ns).total > SMEM_CAP)
+    return (int)cudaErrorInvalidValue;
+  const SlabArgs sa{args, prologue, ph, pw, ns, rpg, chunks};
+  if (bn == 160)
+    return (int)(q8 ? launch_slab_ks<160, true>(sa, s)
+                    : launch_slab_ks<160, false>(sa, s));
+  return (int)(q8 ? launch_slab_ks<128, true>(sa, s)
+                  : launch_slab_ks<128, false>(sa, s));
 }

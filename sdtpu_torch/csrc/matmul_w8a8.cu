@@ -14,90 +14,131 @@
 // result equals the plain PyTorch version's bit for bit.
 //
 // What bounds it on this card: the layers send it the dense sites with N >=
-// M (the UNet's 16x16 and 8x8 levels, M = 512 and 128, and ff1 at 32x32),
-// where the output has few tiles for 132 SMs and the weights are the larger
-// stream: time is set by how many blocks are in flight and by the latency
-// of each block's K loop, not by the int8 tensor-core rate.
+// M (the UNet's 16x16 and 8x8 levels, M = 512 and 128, ff1 at 32x32, and the
+// 154 text rows of attn2's k and v), where the weights are the larger stream
+// and the output has fewer tiles than the card has SMs: the bytes, once
+// enough blocks are in flight to stream them; only ff1 at 32x32 ([2048, 640]
+// . [640, 5120]) comes near the int8 tensor cores' rate.
 //
-// What the design does about it: the quantized activations never touch
-// device memory. The bf16 A tile and the int8 B tile arrive by cp.async in
-// a 4-stage shared-memory ring, 64 of K per stage; when a stage lands each
-// thread quantizes the A chunks it copied (rintf rounds half to even, as
-// jnp.round and torch.round do) into a double-buffered int8 tile, before
-// the step's one barrier, so that pass overlaps the previous step's
-// products. The weights are read in the layout the port keeps them in,
-// [N][K] with K contiguous (a dense weight (in, out) in column-major
-// memory), the column-major B operand of mma.sync m16n8k32 (s8 x s8 ->
-// s32); fragments come by ldmatrix, which moves 16-byte rows whatever the
-// element type. Two tiles, 128 x 128 and 64 x 64 (8 warps either way): the
-// launcher's caller asks for the small one where the large one would leave
-// SMs without a block. Ragged M and N and the K tail (K % 16 == 0) are
-// masked or zero-filled in the kernel. Split-K, wgmma and TMA are left for
-// later work.
+// What the design does about it: the skeleton of csrc/matmul_int8w.cu with
+// the integer wgmma (m64nNk32, s8 x s8 -> s32, both operands K-major in
+// 128-byte-swizzled shared memory, which is how x [M][K] and the weights
+// [N][K] lie). A block is two warpgroups of 64 rows each, 128 x BN output
+// (BN = 128, or 160 where that divides N and 128 does not), 128 of K a step:
+// one swizzled row of int8. Quantizing an x tile costs a block more
+// instruction issue than the int8 products of 128 columns take, and every
+// column tile repeats it, so the wide sites (ff1: N = 5120, 10240) take BN =
+// 256, where the products of a step outweigh its quantizing and x is read
+// and quantized half as often; its tiles are 64 of K deep, in the 64-byte
+// swizzle, so that the rings fit. The weights go by cp.async straight into
+// the swizzled B tile (no widening). The bf16 x tile arrives by cp.async in a
+// ring of its own; each thread quantizes the 32 bytes it copied itself
+// (half to even, as jnp.round and torch.round do, by adding 1.5 * 2^23: the
+// rounding and the float-to-int conversion cost no conversion instruction)
+// into one 16-byte chunk of one of three swizzled int8 A tiles, before the step's one
+// barrier, so the quantized activations never touch device memory and the
+// products of step i stay in flight (wgmma is asynchronous) under the
+// quantizing of step i + 1; the copies run 2 steps (256 of K) ahead, those
+// of x into a ring one stage deeper, so that they go out before the step's
+// quantizing and not after it. Split-K
+// where the tiles would leave half the card idle, by the wrapper's static
+// rule (sdtpu_torch/ops/matmul.py:plan_w8a8), which this file checks: the
+// grid's z axis takes runs of K steps, each block writes its int32 partial
+// tile, and a second kernel sums them (exact in any order) and applies the
+// two f32 factors and the bias as single operations, so the result stays
+// bit-equal to the plain version. The output tile leaves through shared
+// memory as whole 16-byte row chunks. Ragged M and N are zero-filled and
+// masked; the K tail (K % 16 == 0) is zero-filled (a zero activation
+// quantizes to 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_sm90.cuh"
+
 namespace {
 
-constexpr int BK = 64;           // reduction depth per stage (two mma steps)
-constexpr int STAGES = 4;        // shared-memory pipeline depth
-constexpr int THREADS = 256;     // 8 warps: 2 along M x 4 along N
-constexpr int LDQ = BK + 16;     // padded int8 row: conflict-free fragments
+using wgmma::Wgmma;
+
+constexpr int BM = 128;          // output rows a block: 64 a warpgroup
+constexpr int THREADS = 256;
 constexpr int MAX_DEVICES = 64;
+constexpr int NA = 3;            // quantized A tiles
 
-__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// What follows from the column tile: BK, the reduction depth a step and the
+// bytes of a tile row (128, or 64 at BN = 256), D, the steps the copies run
+// ahead (256 or 192 of K), NB, the B tiles.
+template <int BN>
+struct Tile {
+  static constexpr int BK = BN == 256 ? 64 : 128;
+  static constexpr int D = BN == 256 ? 3 : 2;
+  static constexpr int NB = D + 2;
+  static constexpr int NX = D + 1;             // raw stages of x
+  static constexpr int CPR = BK / 16;          // 16-byte chunks a tile row
+  static constexpr int RSTEP = THREADS / CPR;  // rows between a thread's slots
+};
+
+// where 16-byte chunk c of tile row r lies: the 128-byte swizzle, or the
+// 64-byte one
+template <int BK>
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return r * BK + ((c ^ (BK == 128 ? r & 7 : (r >> 1) & 3)) << 4);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
+template <int BK>
+__device__ __forceinline__ uint64_t tile_descriptor(uint32_t addr) {
+  return BK == 128 ? wgmma::descriptor(addr, 16, 1024)
+                   : wgmma::descriptor64(addr, 512);
 }
+// what a probe leaves out (sdtpu_torch/tools/probe.py), 0 in every other call
+constexpr int PROBE_NO_PRODUCTS = 1, PROBE_NO_COPIES = 2;
 
-// Four 8 x 16-byte matrices: for int8 operands, 8 rows of 16 k values each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const int8_t* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// Asynchronous 16-byte global -> shared copy; with pred false nothing is
-// read and the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
 }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// clip(round_half_even(v * inv), -127, 127) as the low byte of the result
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// clip(round_half_even(v * inv), -127, 127) in the low byte of the result.
+// The bounds are integers, so clipping first gives the same value; adding
+// 1.5 * 2^23 then rounds to an integer, half to even (one f32 addition in
+// round-to-nearest), and leaves it in the low mantissa bits, two's
+// complement: no conversion instruction, which runs at a fraction of the
+// f32 rate.
 __device__ __forceinline__ uint32_t quantize(float v, float inv) {
-  const float q = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
-  return (uint32_t)(int)q & 0xffu;
+  const float t = fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(t, 12582912.f));
 }
 
+// four bf16 (two words) to four int8 in one word
 __device__ __forceinline__ uint32_t quantize4(uint32_t w0, uint32_t w1,
                                               float inv) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w0));
   const float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w1));
-  return quantize(a.x, inv) | (quantize(a.y, inv) << 8) |
-         (quantize(b.x, inv) << 16) | (quantize(b.y, inv) << 24);
+  const uint32_t lo = __byte_perm(quantize(a.x, inv), quantize(a.y, inv), 0x0040);
+  const uint32_t hi = __byte_perm(quantize(b.x, inv), quantize(b.y, inv), 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
 }
 
 struct MmArgs {
@@ -107,176 +148,297 @@ struct MmArgs {
   const float* xscale;      // [1]
   const float* bias;        // [n] or null
   __nv_bfloat16* y;         // [m, n]
+  int* partial;             // [splits][m][n], or null when splits == 1
   int m, k, n;
+  int steps_per_split;      // K steps (of BK) a block takes
+  int probe;
 };
 
-template <int BM, int BN>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return (size_t)STAGES * BM * BK * sizeof(__nv_bfloat16)   // raw bf16 A
-         + (size_t)2 * BM * LDQ                              // quantized A
-         + (size_t)STAGES * BN * LDQ;                        // int8 B
+// Shared memory from a 1024-byte boundary: NA quantized A tiles and NB B
+// tiles (rows of BK bytes, swizzled), then NX stages of raw bf16 x, each
+// thread's 16-byte chunks side by side.
+template <int BN>
+constexpr size_t smem_bytes() {
+  using T = Tile<BN>;
+  return 1024 + (size_t)NA * BM * T::BK + (size_t)T::NB * BN * T::BK +
+         (size_t)T::NX * BM * T::BK * 2;
 }
 
-// grid: (ceil(m / BM), ceil(n / BN)). Each thread stages BM / 32 16-byte
-// chunks of A (8 bf16 of row tid / 8 [+ 32, ...]) and BN / 64 16-byte
-// chunks of B (16 int8 of row tid / 4 [+ 64]).
-template <int BM, int BN>
+// y = f32(acc) * (x_scale * w_scale[n]) + bias[n], each a single operation
+__device__ __forceinline__ float finish(int acc, float factor, float bias,
+                                        bool has_bias) {
+  const float v = __fmul_rn((float)acc, factor);
+  return has_bias ? __fadd_rn(v, bias) : v;
+}
+
+// grid: (ceil(m / 128), ceil(n / BN), splits)
+template <int BN>
 __global__ void __launch_bounds__(THREADS) mm_w8a8_kernel(const MmArgs p) {
-  constexpr int MT = BM / 2 / 16;   // 16-row mma tiles per warp
-  constexpr int NT = BN / 4 / 8;    // 8-column mma tiles per warp
-  constexpr int A_ITERS = BM / 32;
-  constexpr int B_ITERS = BN / 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem);
-  int8_t* sA = reinterpret_cast<int8_t*>(sX + STAGES * BM * BK);
-  int8_t* sB = sA + 2 * BM * LDQ;
+  using T = Tile<BN>;
+  constexpr int BK = T::BK, D = T::D, NB = T::NB, NX = T::NX;
+  constexpr int CPR = T::CPR, RSTEP = T::RSTEP;
+  constexpr int NACC = BN / 2;
+  constexpr int A_ITERS = BM / RSTEP;                  // 4, or 2
+  constexpr int B_ITERS = (BN + RSTEP - 1) / RSTEP;    // 4 or 5, or 4
+  constexpr uint32_t RAW_STAGE = BM * BK * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sA = base;                       // [NA][128 rows][BK B]
+  const uint32_t sB = sA + NA * BM * BK;          // [NB][BN rows][BK B]
+  const uint32_t sX = sB + NB * BN * BK;          // [NX][A_ITERS][2][256][16 B]
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int steps_all = (p.k + BK - 1) / BK;
+  const int step0 = blockIdx.z * p.steps_per_split;
+  const int steps = min(p.steps_per_split, steps_all - step0);
+  const bool products = p.probe != PROBE_NO_PRODUCTS;
+  const bool copies = p.probe != PROBE_NO_COPIES;
 
   const float xs = *p.xscale;
   const float inv = __fdiv_rn(1.0f, xs);
 
-  const int arow = tid / 8, akc = (tid % 8) * 8;
-  const int brow = tid / 4, bkc = (tid % 4) * 16;
-  const __nv_bfloat16* asrc[A_ITERS];
-  bool ain_row[A_ITERS];
+  // A thread's slots are fixed for the kernel: the 16 values c = tid % CPR
+  // of x rows tid / CPR + RSTEP i (32 bytes of bf16, two copies, one 16-byte
+  // chunk of int8 once quantized), and the 16-byte chunk c of weight rows
+  // tid / CPR + RSTEP j. The swizzle of a row depends on row % 8, which i
+  // and j keep.
+  const int cc = tid % CPR, r0 = tid / CPR;
+  const uint32_t tile_off = swizzled<BK>(r0, cc);
+  const uint32_t raw_off = tid * 16;
+  const __nv_bfloat16* a_src[A_ITERS];
+  const int8_t* b_src[B_ITERS];
 #pragma unroll
   for (int i = 0; i < A_ITERS; ++i) {
-    const int row = m0 + arow + i * 32;
-    ain_row[i] = row < p.m;
-    asrc[i] = p.x + (ain_row[i] ? (long long)row * p.k : 0);
+    const int row = m0 + r0 + RSTEP * i;   // null: past M, zero-filled
+    a_src[i] = row < p.m ? p.x + (long long)row * p.k + step0 * BK + cc * 16
+                         : nullptr;
   }
-  const int8_t* bsrc[B_ITERS];
-  bool bin_row[B_ITERS];
 #pragma unroll
-  for (int i = 0; i < B_ITERS; ++i) {
-    const int col = n0 + brow + i * 64;
-    bin_row[i] = col < p.n;
-    bsrc[i] = p.wt + (bin_row[i] ? (long long)col * p.k : 0);
+  for (int j = 0; j < B_ITERS; ++j) {
+    const int row = n0 + r0 + RSTEP * j;   // null: past N or past the tile
+    b_src[j] = r0 + RSTEP * j < BN && row < p.n
+                   ? p.wt + (long long)row * p.k + step0 * BK + cc * 16
+                   : nullptr;
   }
+  const int k_first = step0 * BK + cc * 16;
 
-  // copies of reduction step `step` into stage `s`; rows past M or N and
-  // columns past K are zero-filled (a zero activation quantizes to 0)
-  auto issue = [&](int step, int s) {
-    const int k0 = step * BK;
+  // copies of reduction step `step` (of this block's run): x into raw stage
+  // sx, the weights into B tile sb; rows past M or N and columns past K are
+  // zero-filled
+  auto copy_x = [&](int step, int sx) {
+    const bool k_in = k_first + step * BK < p.k;
+    const uint32_t x_dst = sX + sx * RAW_STAGE + raw_off;
 #pragma unroll
     for (int i = 0; i < A_ITERS; ++i) {
-      const bool in = ain_row[i] && k0 + akc < p.k;
-      cp_async16(sX + (s * BM + arow + i * 32) * BK + akc,
-                 in ? asrc[i] + k0 + akc : p.x, in);
+      const bool in = k_in && a_src[i] != nullptr;
+      const __nv_bfloat16* src = in ? a_src[i] + step * BK : p.x;
+      cp_async16(x_dst + (2 * i) * (THREADS * 16), src, in);
+      cp_async16(x_dst + (2 * i + 1) * (THREADS * 16), in ? src + 8 : src, in);
     }
+  };
+  auto copy_w = [&](int step, int sb) {
+    const bool k_in = k_first + step * BK < p.k;
+    const uint32_t b_dst = sB + sb * (BN * BK) + tile_off;
 #pragma unroll
-    for (int i = 0; i < B_ITERS; ++i) {
-      const bool in = bin_row[i] && k0 + bkc < p.k;
-      cp_async16(sB + (s * BN + brow + i * 64) * LDQ + bkc,
-                 in ? bsrc[i] + k0 + bkc : p.wt, in);
+    for (int j = 0; j < B_ITERS; ++j) {
+      if (r0 + RSTEP * j < BN) {
+        const bool in = k_in && b_src[j] != nullptr;
+        cp_async16(b_dst + j * (RSTEP * BK),
+                   in ? (const void*)(b_src[j] + step * BK) : (const void*)p.wt,
+                   in);
+      }
     }
   };
 
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-
-  const int wm = (warp / 4) * (BM / 2), wn = (warp % 4) * (BN / 4);
-  const int steps = (p.k + BK - 1) / BK;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) issue(s, s);
-    cp_async_commit();
+  // this block's columns of x_scale * w_scale and of the bias
+  __shared__ float s_factor[BN], s_bias[BN];
+  if (tid < BN) {
+    const bool in = n0 + tid < p.n;
+    s_factor[tid] = in ? __fmul_rn(xs, p.wscale[n0 + tid]) : 0.f;
+    s_bias[tid] = in && p.bias ? p.bias[n0 + tid] : 0.f;
   }
 
+  int acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0;
+
+#pragma unroll
+  for (int s = 0; s < D; ++s) {
+    if (s < steps && copies) {
+      copy_x(s, s);
+      copy_w(s, s);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  // stages of step i: raw x in sx, its quantized tile in sa, the weights in
+  // sb; the copies of step i + D go to raw stage sx_next (this thread
+  // quantized what it held a step ago) and, after the barrier, B tile sb_next
+  int sx = 0, sa = 0, sb = 0, sx_next = D % NX, sb_next = D % NB;
   for (int i = 0; i < steps; ++i) {
-    const int slot = i % STAGES;
-    // the quantized tile of step i: step i - 1's may still be read by
-    // other warps, step i - 2's is consumed (the barrier of step i - 1)
-    int8_t* A = sA + (i % 2) * BM * LDQ;
-    const int8_t* B = sB + slot * BN * LDQ;
-    cp_async_wait<STAGES - 2>();   // this thread's copies of step i landed
-    // each thread quantizes the chunks it copied itself, so no barrier is
-    // needed first
+    const uint32_t a_dst = sA + sa * (BM * BK);
+    const uint32_t x_raw = sX + sx * RAW_STAGE + raw_off;
+    cp_async_wait<D - 1>();   // this thread's copies of step i landed
+    if (i + D < steps && copies) copy_x(i + D, sx_next);
+    // this warpgroup's products of step i - 2 are done; those of step i - 1
+    // stay in flight
+    wgmma::wait<1>();
+    // each thread quantizes the values it copied itself: 16 bf16 become one
+    // 16-byte chunk of the swizzled int8 row
 #pragma unroll
     for (int j = 0; j < A_ITERS; ++j) {
-      const int row = arow + j * 32;
-      const uint4 v =
-          *reinterpret_cast<const uint4*>(sX + (slot * BM + row) * BK + akc);
-      uint2 q;
-      q.x = quantize4(v.x, v.y, inv);
-      q.y = quantize4(v.z, v.w, inv);
-      *reinterpret_cast<uint2*>(A + row * LDQ + akc) = q;
+      const uint4 lo = ld_shared16(x_raw + (2 * j) * (THREADS * 16));
+      const uint4 hi = ld_shared16(x_raw + (2 * j + 1) * (THREADS * 16));
+      uint4 q;
+      q.x = quantize4(lo.x, lo.y, inv);
+      q.y = quantize4(lo.z, lo.w, inv);
+      q.z = quantize4(hi.x, hi.y, inv);
+      q.w = quantize4(hi.z, hi.w, inv);
+      st_shared16(a_dst + tile_off + j * (RSTEP * BK), q);
     }
-    __syncthreads();   // step i is ready in full; step i - 1 is consumed
-    const int next = i + STAGES - 1;
-    if (next < steps) issue(next, next % STAGES);
-    cp_async_commit();
+    wgmma::fence_async_proxy();
+    __syncthreads();   // step i is ready in full; step i - 2 is consumed
+    if (i + D < steps && copies) copy_w(i + D, sb_next);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    if (products) {
+      const uint64_t a_desc = tile_descriptor<BK>(a_dst + wg * (64 * BK));
+      const uint64_t b_desc = tile_descriptor<BK>(sB + sb * (BN * BK));
+      wgmma::pin(acc);
+      wgmma::fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(af[mt], A + (wm + mt * 16 + (lane % 16)) * LDQ + kk +
-                                (lane / 16) * 16);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t q[4];
-        ldmatrix_x4(q, B + (wn + np * 16 + (lane % 8) + (lane / 16) * 8) * LDQ +
-                           kk + ((lane / 8) % 2) * 16);
-        bfr[2 * np][0] = q[0];
-        bfr[2 * np][1] = q[1];
-        bfr[2 * np + 1][0] = q[2];
-        bfr[2 * np + 1][1] = q[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          mma_s8_16832(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+      for (int kk = 0; kk < BK / 32; ++kk)
+        Wgmma<BN>::ss_s8(acc, a_desc + ((kk * 32) >> 4),
+                         b_desc + ((kk * 32) >> 4), 1);
+      wgmma::commit();
     }
+    sx = sx + 1 == NX ? 0 : sx + 1;
+    sx_next = sx_next + 1 == NX ? 0 : sx_next + 1;
+    sa = sa + 1 == NA ? 0 : sa + 1;
+    sb = sb + 1 == NB ? 0 : sb + 1;
+    sb_next = sb_next + 1 == NB ? 0 : sb_next + 1;
   }
+  wgmma::wait<0>();
+  wgmma::pin(acc);
   cp_async_wait<0>();
 
-  // epilogue: one f32 factor x_scale * w_scale[n], then bias, then one
-  // rounding to bf16
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  const int row0 = m0 + wg * 64 + warp * 16 + g;
+  if (p.partial != nullptr) {
+    // this block's share of the K sum, int32, for the second pass
+    int* part = p.partial + (long long)blockIdx.z * p.m * p.n;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mt * 16 + g + half * 8;
+      const int row = row0 + half * 8;
       if (row >= p.m) continue;
-      __nv_bfloat16* yrow = p.y + (long long)row * p.n;
+      int* prow = part + (long long)row * p.n;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = n0 + wn + nt * 8 + tg * 2;
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + tg * 2;
         if (col >= p.n) continue;
-        float v0 = __fmul_rn((float)acc[mt][nt][half * 2],
-                             __fmul_rn(xs, p.wscale[col]));
-        if (p.bias) v0 = __fadd_rn(v0, p.bias[col]);
-        if (col + 1 < p.n) {
-          float v1 = __fmul_rn((float)acc[mt][nt][half * 2 + 1],
-                               __fmul_rn(xs, p.wscale[col + 1]));
-          if (p.bias) v1 = __fadd_rn(v1, p.bias[col + 1]);
-          if ((p.n & 1) == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(yrow + col) =
-                __floats2bfloat162_rn(v0, v1);
-            continue;
-          }
-          yrow[col + 1] = __float2bfloat16_rn(v1);
+        const int v0 = acc[4 * j + half * 2], v1 = acc[4 * j + half * 2 + 1];
+        if (col + 1 < p.n && (p.n & 1) == 0) {
+          *reinterpret_cast<int2*>(prow + col) = make_int2(v0, v1);
+        } else {
+          prow[col] = v0;
+          if (col + 1 < p.n) prow[col + 1] = v1;
         }
-        yrow[col] = __float2bfloat16_rn(v0);
       }
     }
+    return;
+  }
+  // epilogue through shared memory: the factor, the bias, one rounding to
+  // bf16; the warpgroup's 64 x BN tile staged in rows padded by 16 bytes (so
+  // the fragment's 4-byte writes miss each other's banks), then written out
+  // as whole 16-byte chunks, a row's chunks by neighbouring threads (element
+  // by element where N % 8 != 0 leaves the rows unaligned)
+  constexpr int LDC = BN * 2 + 16;
+  const bool has_bias = p.bias != nullptr;
+  __syncthreads();   // both warpgroups are done reading the tiles
+  const uint32_t sC = sA + wg * (64 * LDC);
+  const int t = tid % 128;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float f0 = s_factor[j * 8 + tg * 2], f1 = s_factor[j * 8 + tg * 2 + 1];
+    const float b0 = s_bias[j * 8 + tg * 2], b1 = s_bias[j * 8 + tg * 2 + 1];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          finish(acc[4 * j + half * 2], f0, b0, has_bias),
+          finish(acc[4 * j + half * 2 + 1], f1, b1, has_bias));
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       sC + (warp * 16 + g + half * 8) * LDC +
+                       (j * 8 + tg * 2) * 2),
+                   "r"(*reinterpret_cast<const uint32_t*>(&v))
+                   : "memory");
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  constexpr int OUT_CPR = BN / 8;   // 16-byte chunks an output row
+  if (p.n % 8 == 0) {
+#pragma unroll
+    for (int c = t; c < 64 * OUT_CPR; c += 128) {
+      const int r = c / OUT_CPR, c8 = c % OUT_CPR;
+      const int row = m0 + wg * 64 + r, col = n0 + c8 * 8;
+      if (row < p.m && col < p.n)
+        *reinterpret_cast<uint4*>(p.y + (long long)row * p.n + col) =
+            ld_shared16(sC + r * LDC + c8 * 16);
+    }
+    return;
+  }
+  for (int c = t; c < 64 * OUT_CPR; c += 128) {
+    const int r = c / OUT_CPR, c8 = c % OUT_CPR;
+    const int row = m0 + wg * 64 + r, col = n0 + c8 * 8;
+    if (row >= p.m || col >= p.n) continue;
+    const uint4 v = ld_shared16(sC + r * LDC + c8 * 16);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+    __nv_bfloat16* dst = p.y + (long long)row * p.n + col;
+    for (int i = 0; i < 8 && col + i < p.n; ++i) dst[i] = e[i];
   }
 }
 
-template <int BM, int BN>
-cudaError_t launch(const MmArgs& a, cudaStream_t stream) {
+// Second pass of split-K: the int32 partials summed (exact in any order),
+// then the factor and the bias as in the one-pass epilogue. V elements a
+// thread: 4 (16-byte reads) where n % 4 == 0, else 1.
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+mm_w8a8_reduce_kernel(const MmArgs p, int splits) {
+  const long long total = (long long)p.m * p.n;
+  const long long e = ((long long)blockIdx.x * THREADS + threadIdx.x) * V;
+  if (e >= total) return;
+  const int col = (int)(e % p.n);
+  int sum[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) sum[i] = 0;
+  for (int s = 0; s < splits; ++s) {
+    if (V == 4) {
+      const int4 v = *reinterpret_cast<const int4*>(p.partial + s * total + e);
+      sum[0] += v.x;
+      sum[V > 1 ? 1 : 0] += v.y;
+      sum[V > 2 ? 2 : 0] += v.z;
+      sum[V > 3 ? 3 : 0] += v.w;
+    } else {
+      sum[0] += p.partial[s * total + e];
+    }
+  }
+  const float xs = *p.xscale;
+  __nv_bfloat16 out[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    out[i] = __float2bfloat16_rn(
+        finish(sum[i], __fmul_rn(xs, p.wscale[col + i]),
+               p.bias ? p.bias[col + i] : 0.f, p.bias != nullptr));
+  if (V == 4)
+    *reinterpret_cast<uint2*>(p.y + e) = *reinterpret_cast<const uint2*>(out);
+  else
+    p.y[e] = out[0];
+}
+
+template <int BN>
+cudaError_t launch(const MmArgs& a, int splits, cudaStream_t stream) {
   // raise the kernel's shared-memory cap on this device once (not again
   // inside a graph capture)
   static bool allowed[MAX_DEVICES] = {};
@@ -284,16 +446,25 @@ cudaError_t launch(const MmArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  constexpr size_t smem = smem_bytes<BM, BN>();
+  constexpr size_t smem = smem_bytes<BN>();
   if (!allowed[dev]) {
-    err = cudaFuncSetAttribute(mm_w8a8_kernel<BM, BN>,
+    err = cudaFuncSetAttribute(mm_w8a8_kernel<BN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     allowed[dev] = true;
   }
-  const dim3 grid((a.m + BM - 1) / BM, (a.n + BN - 1) / BN);
-  mm_w8a8_kernel<BM, BN><<<grid, THREADS, smem, stream>>>(a);
+  const dim3 grid((a.m + BM - 1) / BM, (a.n + BN - 1) / BN, splits);
+  mm_w8a8_kernel<BN><<<grid, THREADS, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long total = (long long)a.m * a.n;
+  if (a.n % 4 == 0)
+    mm_w8a8_reduce_kernel<4><<<(unsigned)((total / 4 + THREADS - 1) / THREADS),
+                               THREADS, 0, stream>>>(a, splits);
+  else
+    mm_w8a8_reduce_kernel<1><<<(unsigned)((total + THREADS - 1) / THREADS),
+                               THREADS, 0, stream>>>(a, splits);
   return cudaGetLastError();
 }
 
@@ -302,26 +473,43 @@ cudaError_t launch(const MmArgs& a, cudaStream_t stream) {
 // x: [m, k] bf16; wt: [n][k] int8 (the weight (k, n) with k contiguous);
 // w_scale: [n] f32; x_scale: one f32 in device memory; bias: [n] f32 or
 // null; y: [m, n] bf16. All contiguous, x and wt 16-byte aligned; k % 16 ==
-// 0; every tensor under 2^31 elements. tile is 128 or 64, the output tile's
-// side. Returns a cudaError_t (0 on success).
+// 0; every tensor under 2^31 elements. bn, splits and steps_per_split are the
+// wrapper's plan (ops/matmul.py:plan_w8a8): bn = 128, 160 or 256 output
+// columns a block and the K steps (of 128; of 64 at bn = 256) cut into
+// `splits` runs of steps_per_split, every run non-empty. partial: int32 [splits][m][n] scratch where splits >
+// 1, else null. probe: 0; 1 leaves out the products and 2 the copies inside
+// the K loop (a measurement's stubs: the output is then not the product).
+// Returns a cudaError_t (0 on success).
 extern "C" int sdtpu_matmul_w8a8(const void* x, const void* wt,
                                  const void* w_scale, const void* x_scale,
-                                 const void* bias, void* y, int m, int k,
-                                 int n, int tile, void* stream) {
+                                 const void* bias, void* y, void* partial,
+                                 int m, int k, int n, int bn, int splits,
+                                 int steps_per_split, int probe,
+                                 void* stream) {
   const long long big = 1LL << 31;
+  const int bk = bn == 256 ? 64 : 128;
+  const int steps = (k + bk - 1) / bk;
   if (m <= 0 || k <= 0 || n <= 0 || k % 16 != 0 || x == nullptr ||
       wt == nullptr || w_scale == nullptr || x_scale == nullptr ||
-      y == nullptr || (tile != 128 && tile != 64) ||
-      (long long)m * k >= big || (long long)m * n >= big ||
-      (long long)k * n >= big || (n + tile - 1) / tile > 65535)
+      y == nullptr || (long long)m * k >= big || (long long)m * n >= big ||
+      (long long)k * n >= big || (bn != 128 && bn != 160 && bn != 256) ||
+      splits < 1 ||
+      splits > 65535 || steps_per_split < 1 ||
+      (long long)(splits - 1) * steps_per_split >= steps ||
+      (long long)splits * steps_per_split < steps ||
+      (splits > 1) != (partial != nullptr) || (n + bn - 1) / bn > 65535 ||
+      (long long)splits * m * n >= big || probe < 0 || probe > 2)
     return (int)cudaErrorInvalidValue;
   const MmArgs args{static_cast<const __nv_bfloat16*>(x),
                     static_cast<const int8_t*>(wt),
                     static_cast<const float*>(w_scale),
                     static_cast<const float*>(x_scale),
                     static_cast<const float*>(bias),
-                    static_cast<__nv_bfloat16*>(y), m, k, n};
+                    static_cast<__nv_bfloat16*>(y),
+                    static_cast<int*>(partial), m, k, n, steps_per_split,
+                    probe};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 128) return (int)launch<128, 128>(args, s);
-  return (int)launch<64, 64>(args, s);
+  if (bn == 256) return (int)launch<256>(args, splits, s);
+  if (bn == 160) return (int)launch<160>(args, splits, s);
+  return (int)launch<128>(args, splits, s);
 }

@@ -1,9 +1,9 @@
 """Fused implicit-GEMM convolution for the UNet and VAE ResBlocks and the
-transformer ``proj_in`` under ``kernels="cuda_conv"``: a hand-written CUDA
-kernel for Hopper (``csrc/conv_gn_silu.cu``), the counterpart of
+transformer ``proj_in`` under ``kernels="cuda_conv"``: hand-written CUDA
+kernels for Hopper (``csrc/conv_gn_silu.cu``), the counterpart of
 ``sdtpu/ops/conv.py``'s two Pallas kernels (``_conv_kernel`` and
 ``_conv_kernel_b``; their two grid orders are a TPU VMEM artefact, one
-kernel takes both here).
+source takes both here).
 
 The caller folds each GroupNorm into per-(sample, channel) vectors A and D
 (``gn_affine``: one launch of the GroupNorm kernel's statistics mode on the
@@ -11,11 +11,16 @@ card, where the reference leaves it to XLA); the kernel
 applies ``silu(x*A + D)`` while staging its input tile, adds a bias that may
 differ per sample (the ResBlock's time-embedding add), and rounds once.
 
-``eligible`` checks the kernel's own contract only: the reference's VMEM,
+``eligible`` checks the source's own contract only: the reference's VMEM,
 power-of-two and Mosaic gates (``sdtpu/ops/conv.py:120-173,192-201``) are the
-TPU's. A conv outside it goes to ``layers.conv2d`` by that static rule. On a
-CPU tensor the kernel's plain version runs instead; on a CUDA tensor the
-kernel launches or the call raises.
+TPU's. A conv outside it goes to ``layers.conv2d`` by that static rule.
+Inside it ``plan_conv`` chooses, from the shapes alone, between the source's
+two kernels: the slab kernel (wgmma over a halo slab that is normalised
+once; Cin % 64 == 0 and planes whose rows tile 128 pixels: every UNet and
+VAE site) with its column tile and its split of the Cin chunks, or the
+general kernel (any plane, Cin % 8 == 0) with ``splits_for``'s split-K. On a
+CPU tensor the plain version runs instead; on a CUDA tensor a kernel
+launches or the call raises.
 """
 
 from __future__ import annotations
@@ -29,8 +34,13 @@ from sdtpu_torch.ops import groupnorm as G
 
 _BIG = 2 ** 31            # the kernel indexes each tensor with 32-bit ints
 _MAX_COUT_TILES = 65535   # 128-wide Cout tiles on the grid's y axis
-_TILE, _BK = 128, 32      # the kernel's output tile (M and Cout) and K step
+_TILE, _BK = 128, 32      # the general kernel's tile (M and Cout), K step
 _MAX_SPLITS = 16
+# the slab kernel (csrc/conv_gn_silu.cu: SLAB_*, Shape, slab_smem)
+_SLAB_PITCH = 144         # bytes of a slab row: 64 bf16 and 16 spare
+_SLAB_MAX_ROWS = 400      # slab rows of one 64-channel group
+_SLAB_MAX_SAMPLES = 8     # samples one block's 128 pixels may span
+_SMEM_CAP = 227 * 1024    # a block's shared memory on sm_90
 _PROLOGUE = {None: 0, "affine": 1, "silu": 2}
 _COUNTERS: dict = {}      # device -> int32 per-tile counters, kept at 0
 
@@ -45,6 +55,113 @@ def splits_for(m: int, c_out: int, k: int, sms: int) -> int:
     tiles = -(-m // _TILE) * -(-c_out // _TILE)
     steps = -(-k // _BK)
     return max(1, min(_MAX_SPLITS, 2 * sms // tiles, steps // 32))
+
+
+def general_plan(m: int, c_in: int, c_out: int, ks: int, sms: int) -> dict:
+    """The general kernel's plan: 128 x 128 output tiles, ``splits_for``'s
+    split-K."""
+    splits = splits_for(m, c_out, ks * ks * c_in, sms)
+    return {"design": "general", "bn": _TILE, "splits": splits, "chunks": 0,
+            "ph": 0, "pw": 0, "ns": 0,
+            "blocks": -(-m // _TILE) * -(-c_out // _TILE) * splits, "smem": 0}
+
+
+def slab_patch(h: int, w: int):
+    """How the slab kernel's 128 consecutive output pixels lie in an h x w
+    plane, as (rows, pixels a row, samples), or None where they do not tile
+    it: a 128-pixel run of one row (w a multiple of 128), 128 / w whole rows
+    of one sample (dividing h), or whole planes of up to
+    ``_SLAB_MAX_SAMPLES`` samples (h w dividing 128)."""
+    if w >= 128:
+        return (1, 128, 1) if w % 128 == 0 else None
+    if 128 % w:
+        return None
+    rows = 128 // w
+    if h % rows == 0:
+        return (rows, w, 1)
+    if rows % h == 0 and rows // h <= _SLAB_MAX_SAMPLES:
+        return (h, w, rows // h)
+    return None
+
+
+def slab_shape(ks: int):
+    """(groups, steps, lead): a slab chunk holds ``groups`` runs of 64 input
+    channels and is multiplied in up to ``steps`` steps of one weight tile
+    each (the 9 taps of its one group, or the 3 groups of a 1x1 conv); the
+    weight copies run ``lead`` steps ahead."""
+    return (1, 9, 3) if ks == 3 else (3, 3, 2)
+
+
+def slab_smem_bytes(bn: int, int8: bool, ks: int, rows: int, ns: int) -> int:
+    """The slab kernel's dynamic shared memory (``slab_smem`` in the
+    source): 1 KB of alignment slack, the weight tiles (lead + 2 of bf16
+    weights; 3 widened and ``lead`` raw stages of int8), two slabs of
+    ``groups * rows`` rows, two stages of the chunk's A and D, the table of
+    the slab rows' pixels, the block's bias rows and scales."""
+    groups, _, lead = slab_shape(ks)
+    tiles = (3 if int8 else lead + 2) * bn * 128
+    raw = lead * bn * 64 if int8 else 0
+    slabs = 2 * groups * rows * _SLAB_PITCH
+    ad = 2 * (2 * ns * groups * 64 * 4)
+    table = (rows * 4 + 15) // 16 * 16
+    return 1024 + tiles + raw + slabs + ad + table + ns * bn * 4 + bn * 4
+
+
+def slab_plan(n: int, h: int, w: int, c_in: int, c_out: int, ks: int,
+              sms: int, int8: bool = False):
+    """The slab kernel's plan for a conv within its contract, else None
+    (``plan_conv`` names the fields)."""
+    patch = slab_patch(h, w)
+    if c_in % 64 or patch is None:
+        return None
+    ph, pw, ns = patch
+    pad = ks // 2
+    rows = ns * (ph + 2 * pad) * (pw + 2 * pad)
+    bn = 160 if c_out % 160 == 0 and c_out % 128 else 128
+    smem = slab_smem_bytes(bn, int8, ks, rows, ns)
+    if smem > _SMEM_CAP and bn == 160:
+        bn, smem = 128, slab_smem_bytes(128, int8, ks, rows, ns)
+    if rows > _SLAB_MAX_ROWS or smem > _SMEM_CAP:
+        return None
+    tiles = -(-n * h * w // _TILE) * -(-c_out // bn)
+    chunks_all = -(-(c_in // 64) // slab_shape(ks)[0])
+    splits = 1 if 2 * tiles > sms else min(chunks_all, sms // tiles)
+    chunks = -(-chunks_all // splits)
+    splits = -(-chunks_all // chunks)
+    return {"design": "slab", "bn": bn, "splits": splits, "chunks": chunks,
+            "ph": ph, "pw": pw, "ns": ns, "blocks": tiles * splits,
+            "smem": smem}
+
+
+def plan_conv(n: int, h: int, w: int, c_in: int, c_out: int, ks: int,
+              sms: int, int8: bool = False) -> dict:
+    """The static rule of ``fused_conv_cuda``: which kernel of
+    ``csrc/conv_gn_silu.cu`` takes the conv, and how.
+
+    * ``design``: ``"slab"`` where Cin % 64 == 0, the plane tiles into runs
+      of 128 pixels (``slab_patch``: ``ph``, ``pw``, ``ns``), the slab has at
+      most ``_SLAB_MAX_ROWS`` rows and the block's shared memory fits; else
+      ``"general"`` (``general_plan``). A 1x1 conv whose blocks would walk
+      more than two slab chunks un-split stays general too: each chunk
+      costs a block a round trip to device memory that nothing hides (one
+      block an SM), and the general kernel measured faster there (the
+      UNet's 32x32 ``proj_in``).
+    * ``bn``, the slab kernel's column tile: 160 where that divides Cout
+      and 128 does not (Cout = 320 is two exact tiles) and fits, else 128.
+    * ``splits`` and ``chunks``: Cin is walked in slab chunks (64 channels
+      for 3x3, 192 for 1x1); where the output tiles would leave half of the
+      SMs idle, the chunks are cut into ``splits`` runs of ``chunks`` each
+      (the last may be shorter, none is empty), one block a run, and a second
+      pass sums the float32 partial tiles in a fixed order.
+    * ``blocks``: the grid's size; ``smem``: the slab kernel's dynamic
+      shared memory a block (0 for the general kernel, whose launcher sizes
+      its own).
+    """
+    plan = slab_plan(n, h, w, c_in, c_out, ks, sms, int8)
+    if plan is None or (ks == 1 and plan["splits"] == 1
+                        and plan["chunks"] > 2):
+        return general_plan(n * h * w, c_in, c_out, ks, sms)
+    return plan
 
 
 def _tile_counters(device, tiles: int):
@@ -131,9 +248,10 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
 
     x bf16 and w bf16 (or int8 with ``w_scale``) within ``eligible``'s
     contract, on one CUDA device; b, a, d, w_scale as in ``fused_conv``
-    (widened to float32 here). Raises on anything else. Counts its launches
-    in ``fused_conv_cuda.launches``, those with int8 weights also in
-    ``fused_conv_cuda.launches_int8``."""
+    (widened to float32 here). Raises on anything else. ``plan_conv``
+    chooses the kernel and its tiling; the C entry point checks the plan.
+    Counts its launches in ``fused_conv_cuda.launches``, those with int8
+    weights also in ``fused_conv_cuda.launches_int8``."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -176,13 +294,17 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
     out = torch.empty((n, h, ww, c_out), dtype=x.dtype, device=x.device)
     m = n * h * ww
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = splits_for(m, c_out, k * k * c_in, sms)
+    plan = plan_conv(n, h, ww, c_in, c_out, k, sms, quantized)
+    slab = plan["design"] == "slab"
     ws = counters = None
-    if splits > 1:
-        ws = torch.empty(splits * m * c_out, dtype=torch.float32,
+    if plan["splits"] > 1:
+        # float32 partial tiles; the general kernel's last block of a tile
+        # sums them (a counter a tile), the slab kernel's second pass
+        ws = torch.empty((plan["splits"], m, c_out), dtype=torch.float32,
                          device=x.device)
-        counters = _tile_counters(x.device, -(-m // _TILE)
-                                  * -(-c_out // _TILE))
+        if not slab:
+            counters = _tile_counters(x.device, -(-m // _TILE)
+                                      * -(-c_out // _TILE))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     prologue = _PROLOGUE[None if a is None else ("silu" if silu else
                                                  "affine")]
@@ -192,7 +314,8 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
             x.data_ptr(), wk.data_ptr(), b.data_ptr(), ptr(a), ptr(d),
             ptr(w_scale), out.data_ptr(), ptr(ws), ptr(counters), n, h, ww,
             c_in, c_out, k, c_out if b.dim() == 2 else 0, prologue,
-            int(quantized), splits, stream)
+            int(quantized), int(slab), plan["bn"], plan["splits"],
+            plan["chunks"], plan["ph"], plan["pw"], plan["ns"], stream)
     _build.check_launch(err, "conv_gn_silu")
     fused_conv_cuda.launches += 1
     fused_conv_cuda.launches_int8 += int(quantized)
@@ -232,6 +355,6 @@ def gn_affine_reference(p, x, groups: int, eps: float = 1e-5):
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C signature (pointers and the stream as c_void_p)."""
     fn = lib.sdtpu_conv_gn_silu
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int

@@ -17,7 +17,9 @@ weight in channels_last memory is the same bytes.
 ``eligible`` is the kernels' own contract, not the reference's: its
 ``_tiles`` and ``eligible`` encode TPU lane, sublane and VMEM limits. On a CPU
 tensor each wrapper runs its kernel's plain version; on a CUDA tensor the
-kernel launches or the call raises.
+kernel launches or the call raises. Which kernel of a source takes a
+product, its column tile and its split of K are static rules on the shapes:
+``plan_int8w`` and ``plan_w8a8``, each checked by its C entry point.
 """
 
 from __future__ import annotations
@@ -71,14 +73,26 @@ def eligible(x, w) -> bool:
     return x.device.type == "cpu" or x.dtype == torch.bfloat16
 
 
-def tile_for(m: int, n: int, sms: int) -> int:
-    """``matmul_w8a8``'s output tile side: 128 where that gives every SM a
-    block, else 64 (the UNet's 32x32 level and below)."""
-    return 128 if -(-m // 128) * -(-n // 128) >= sms else 64
-
-
 SKINNY_M = 16             # rows up to which K4 takes its skinny kernel
 _BM, _BK = 128, 64        # K4's tile kernel: output rows, K depth of a step
+_BK_W8A8 = 128            # K5's K depth of a step: one swizzled row of int8
+
+
+def _tile_plan(m: int, k: int, n: int, sms: int, bk: int,
+               bn: int = 0) -> dict:
+    """The rule both wgmma GEMMs share: 128 rows a block; ``bn`` columns
+    (unless given), 160 where that divides ``n`` and 128 does not, else 128;
+    K walked in steps of ``bk``, cut into ``splits`` runs of ``steps`` (the
+    last may be shorter, none is empty) where the output tiles would leave
+    half of the SMs idle."""
+    bn = bn or (160 if n % 160 == 0 and n % 128 else 128)
+    tiles = -(-m // _BM) * -(-n // bn)
+    steps_all = -(-k // bk)
+    splits = 1 if 2 * tiles > sms else min(steps_all, sms // tiles)
+    steps = -(-steps_all // splits)
+    splits = -(-steps_all // steps)
+    return {"path": "tile", "bn": bn, "splits": splits, "steps": steps,
+            "blocks": tiles * splits}
 
 
 def plan_int8w(m: int, k: int, n: int, sms: int) -> dict:
@@ -101,14 +115,22 @@ def plan_int8w(m: int, k: int, n: int, sms: int) -> dict:
     if m <= SKINNY_M:
         return {"path": "skinny", "bn": 0, "splits": 1, "steps": 0,
                 "blocks": -(-n // 8) * -(-m // 4)}
-    bn = 160 if n % 160 == 0 and n % 128 else 128
-    tiles = -(-m // _BM) * -(-n // bn)
-    steps_all = -(-k // _BK)
-    splits = 1 if 2 * tiles > sms else min(steps_all, sms // tiles)
-    steps = -(-steps_all // splits)
-    splits = -(-steps_all // steps)
-    return {"path": "tile", "bn": bn, "splits": splits, "steps": steps,
-            "blocks": tiles * splits}
+    return _tile_plan(m, k, n, sms, _BK)
+
+
+def plan_w8a8(m: int, k: int, n: int, sms: int) -> dict:
+    """``matmul_w8a8``'s static rule, ``plan_int8w``'s tile rule with K
+    walked in steps of 128 (one swizzled row of int8): ``bn`` columns a
+    block, ``splits`` runs of ``steps`` K steps with int32 partial tiles and
+    a sum pass where ``splits > 1``, ``blocks`` the grid's size. Where tiles
+    of 256 columns divide ``n`` and still give every SM a block (ff1: n =
+    5120, 10240), ``bn`` is 256 and a step 64 deep: quantizing an x tile
+    costs more than the products of 128 columns, and every column tile
+    repeats it. Every M takes the tile kernel (the layers send K5 no site
+    of a few rows)."""
+    if n % 256 == 0 and -(-m // _BM) * (n // 256) >= sms:
+        return _tile_plan(m, k, n, sms, _BK_W8A8 // 2, bn=256)
+    return _tile_plan(m, k, n, sms, _BK_W8A8)
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +288,10 @@ def matmul_w8a8_cuda(x, w8, w_scale, x_scale, bias=None):
     x bf16 and w8 int8 within ``eligible``'s contract, on one CUDA device;
     w_scale and bias [N] (widened to float32 here); x_scale a one-element
     tensor on that device, read by the kernel (never by the host). Raises on
-    anything else. Counts its launches in ``matmul_w8a8_cuda.launches``."""
+    anything else. Counts its calls that launched in
+    ``matmul_w8a8_cuda.launches``, and in ``matmul_w8a8_cuda.sum_launches``
+    those of them that split K and so launched the sum pass as a second
+    kernel."""
     m, k, n = _check_operands(x, w8, (("w_scale", w_scale), ("bias", bias)))
     if not torch.is_tensor(x_scale) or x_scale.numel() != 1 or (
             x_scale.device != x.device):
@@ -277,18 +302,25 @@ def matmul_w8a8_cuda(x, w8, w_scale, x_scale, bias=None):
     lib = _build.library()
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = plan_w8a8(m, k, n, sms)
+    partial = None
+    if plan["splits"] > 1:
+        partial = torch.empty((plan["splits"], m, n), dtype=torch.int32,
+                              device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sdtpu_matmul_w8a8(
             x.data_ptr(), w8.data_ptr(), w_scale.data_ptr(),
-            x_scale.data_ptr(), _ptr(bias), out.data_ptr(), m, k, n,
-            tile_for(m, n, sms), stream)
+            x_scale.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(partial),
+            m, k, n, plan["bn"], plan["splits"], plan["steps"], 0, stream)
     _build.check_launch(err, "matmul_w8a8")
     matmul_w8a8_cuda.launches += 1
+    matmul_w8a8_cuda.sum_launches += plan["splits"] > 1
     return out
 
 
 matmul_w8a8_cuda.launches = 0
+matmul_w8a8_cuda.sum_launches = 0
 
 
 def bind(lib: ctypes.CDLL) -> None:
@@ -298,6 +330,6 @@ def bind(lib: ctypes.CDLL) -> None:
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.sdtpu_matmul_w8a8
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int

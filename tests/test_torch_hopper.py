@@ -1,8 +1,10 @@
-"""The static rules of the port's wgmma kernels (K1 flash attention, K4
-weight-only-int8 GEMM), mirrored in Python and tested on the CPU; the build's
-hash over the shared headers; the committed ``wgmma_sm90.cuh`` against its
-generator. The kernels themselves run only on the card: the ``cuda`` tests
-hold them against their plain versions at the shapes the rules could break."""
+"""The static rules of the port's wgmma kernels (K1 flash attention, K3
+fused conv, K4 weight-only-int8 GEMM, K5 W8A8 GEMM), mirrored in Python and
+tested on the CPU; the build's hash over the shared headers; the committed
+``wgmma_sm90.cuh`` against its generator. The kernels themselves run only on
+the card: the ``cuda`` tests hold them against their plain versions at the
+shapes the rules could break (this file imports no JAX, so they run there:
+``python3 -m pytest tests/test_torch_hopper.py -m cuda``)."""
 
 import importlib.util
 import types
@@ -13,9 +15,23 @@ import torch
 
 from sdtpu_torch.ops import _build
 from sdtpu_torch.ops import attention as t_attn
+from sdtpu_torch.ops import conv as t_conv
 from sdtpu_torch.ops import matmul as t_mm
 
 SMS = 132     # an H100 SXM
+SMEM_CAP = 227 * 1024     # a block's shared memory on sm_90
+
+
+def _load(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the smoke run's ragged cases, so that both hold the same shapes
+chip_smoke = _load(Path(__file__).resolve().parent.parent / "chip_smoke.py",
+                   "chip_smoke")
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +138,12 @@ def _unet_sites():
 
 # chip_smoke.MM_RAGGED and the tails the tile kernel zero-fills or masks
 MM_RAGGED = [(300, 336, 130), (100, 48, 72), (33, 16, 7), (1, 1280, 320),
-             (129, 320, 129), (17, 16, 8), (16, 32, 9), (257, 1040, 480)]
+             (129, 320, 129), (17, 16, 8), (16, 32, 9), (257, 1040, 480),
+             (64, 144, 256), (154, 768, 1280)]
+
+
+def test_ragged_rows_cover_the_smoke_runs():
+    assert {c[:3] for c in chip_smoke.MM_RAGGED} <= set(MM_RAGGED)
 
 
 def test_unet_site_count():
@@ -190,32 +211,10 @@ def test_int8w_plan_at_the_main_shapes(m, k, n, want):
 def test_int8w_plan_is_what_the_wrapper_passes(monkeypatch):
     """The wrapper hands the plan to the C entry point as it is, with a
     float32 scratch of ``[splits, m, n]`` exactly where K is split."""
-    seen = {}
-
-    def entry(*args):
-        seen["args"] = args
-        return 0
-
-    lib = types.SimpleNamespace(sdtpu_matmul_int8w=entry)
-    monkeypatch.setattr(_build, "library", lambda: lib)
+    seen, made = {}, []
+    _fake_card(monkeypatch, "sdtpu_matmul_int8w", seen, made)
     monkeypatch.setattr(t_mm, "_check_operands",
                         lambda x, w, v: (x.shape[0], *w.shape))
-    made = []
-    real_empty = torch.empty
-
-    def empty(shape, **kw):
-        kw["device"] = "cpu"
-        made.append((tuple(shape), kw["dtype"]))
-        return real_empty(shape, **kw)
-
-    monkeypatch.setattr(torch, "empty", empty)
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda d: types.SimpleNamespace(
-                            multi_processor_count=SMS))
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: __import__("contextlib").nullcontext())
     before = t_mm.matmul_int8w_cuda.launches
     sums = t_mm.matmul_int8w_cuda.sum_launches
     for m, k, n in ((512, 1280, 1280), (2048, 640, 640), (2, 1280, 320)):
@@ -232,6 +231,339 @@ def test_int8w_plan_is_what_the_wrapper_passes(monkeypatch):
     assert t_mm.matmul_int8w_cuda.launches == before + 3
     # of the three only [512, 1280] @ [1280, 1280] splits K
     assert t_mm.matmul_int8w_cuda.sum_launches == sums + 1
+
+
+# ---------------------------------------------------------------------------
+# K5: plan_w8a8(m, k, n, sms)
+# ---------------------------------------------------------------------------
+
+def _w8a8_sites():
+    """(m, k, n) of the 85 K5 sites of one SD1.5 UNet eval (``quantize=
+    "int8"`` with ``KERNEL_W8A8`` on: the dense sites with n >= m): every
+    site of the 5 transformer blocks at 16x16 and the one at 8x8, ff1 at
+    32x32, attn2's k and v (the 154 text rows) at 64x64 and 32x32."""
+    sites = []
+    for m, blocks in ((512, 5), (128, 1)):
+        for _ in range(blocks):
+            sites += [(m, 1280, 1280)] * 6 + [(154, 768, 1280)] * 2
+            sites += [(m, 1280, 10240), (m, 5120, 1280)]
+    sites += [(2048, 640, 5120)] * 5
+    sites += [(154, 768, 320)] * 10 + [(154, 768, 640)] * 10
+    return sites
+
+
+def test_w8a8_site_count():
+    assert len(_w8a8_sites()) == 85
+    assert all(n >= m for m, _, n in _w8a8_sites())
+
+
+def test_w8a8_sites_that_split_k():
+    """74 of an eval's 85 sites split K on 132 SMs and so run the sum pass
+    as a second kernel: all but ff1 at every level (the smoke run's pin)."""
+    split = [s for s in _w8a8_sites() if t_mm.plan_w8a8(*s, SMS)["splits"] > 1]
+    assert len(split) == chip_smoke.MM_W8A8_SUMS_PER_EVAL == 74
+    assert all(n < 5120 for _, _, n in split)
+
+
+@pytest.mark.parametrize("m,k,n", sorted(set(_w8a8_sites())) + MM_RAGGED)
+def test_w8a8_plan_covers_k_once_and_fills_the_card(m, k, n):
+    p = t_mm.plan_w8a8(m, k, n, SMS)
+    assert p["path"] == "tile" and p["bn"] in (128, 160, 256)
+    bk = 64 if p["bn"] == 256 else 128     # a step's depth follows the tile
+    steps_all = -(-k // bk)
+    tiles = -(-m // 128) * -(-n // p["bn"])
+    # the runs cover the K steps exactly once and none is empty
+    assert p["splits"] >= 1 and p["steps"] >= 1
+    assert p["splits"] * p["steps"] >= steps_all
+    assert (p["splits"] - 1) * p["steps"] < steps_all
+    assert p["blocks"] == tiles * p["splits"] >= min(SMS, tiles)
+    if 2 * tiles > SMS:
+        assert p["splits"] == 1        # the tiles fill the card themselves
+    else:
+        assert p["blocks"] <= SMS
+        assert (p["splits"] == steps_all
+                or tiles * (p["splits"] + 1) > SMS
+                or -(-steps_all // (p["splits"] + 1)) == p["steps"])
+    if p["bn"] == 256:
+        # the wide tile only where it divides N and still fills the card
+        assert n % 256 == 0 and tiles >= SMS and p["splits"] == 1
+    else:
+        assert n % 256 or -(-m // 128) * (n // 256) < SMS
+        # the same tile rule as K4's, with steps twice as deep
+        assert p["bn"] == t_mm.plan_int8w(max(m, 17), k, n, SMS)["bn"]
+    # 3 quantized A tiles, lead + 2 B tiles and lead + 1 raw bf16 stages of
+    # x (the copies run lead steps ahead), 1 KB of slack, the two column
+    # vectors
+    lead = 3 if p["bn"] == 256 else 2
+    assert (1024 + 3 * 128 * bk + (lead + 2) * p["bn"] * bk
+            + (lead + 1) * 128 * bk * 2 + 2 * p["bn"] * 4) <= SMEM_CAP
+    # the epilogue's two staged 64-row tiles fit what the rings held
+    assert 2 * 64 * (2 * p["bn"] + 16) <= 3 * 128 * bk + (lead + 2) * p[
+        "bn"] * bk
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (512, 1280, 1280, {"path": "tile", "bn": 128, "splits": 3, "steps": 4,
+                       "blocks": 120}),
+    (2048, 640, 5120, {"path": "tile", "bn": 256, "splits": 1, "steps": 10,
+                       "blocks": 320}),
+    (512, 1280, 10240, {"path": "tile", "bn": 256, "splits": 1, "steps": 20,
+                        "blocks": 160}),
+    (128, 1280, 10240, {"path": "tile", "bn": 128, "splits": 1, "steps": 10,
+                        "blocks": 80}),
+    (128, 5120, 1280, {"path": "tile", "bn": 128, "splits": 10, "steps": 4,
+                       "blocks": 100}),
+    (154, 768, 320, {"path": "tile", "bn": 160, "splits": 6, "steps": 1,
+                     "blocks": 24}),
+    (2, 1280, 1280, {"path": "tile", "bn": 128, "splits": 10, "steps": 1,
+                     "blocks": 100}),
+])
+def test_w8a8_plan_at_the_main_shapes(m, k, n, want):
+    assert t_mm.plan_w8a8(m, k, n, SMS) == want
+
+
+def _fake_card(monkeypatch, entry_name, seen, made):
+    """The wrapper's way to the C entry point without a card: the library,
+    the device queries and ``torch.empty`` replaced."""
+    def entry(*args):
+        seen["args"] = args
+        return 0
+
+    lib = types.SimpleNamespace(**{entry_name: entry})
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    real_empty = torch.empty
+
+    def empty(shape, **kw):
+        kw["device"] = "cpu"
+        made.append((tuple(shape), kw["dtype"]))
+        return real_empty(shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(
+                            multi_processor_count=SMS))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: __import__("contextlib").nullcontext())
+
+
+def test_w8a8_plan_is_what_the_wrapper_passes(monkeypatch):
+    """The wrapper hands the plan to the C entry point as it is, with an
+    int32 scratch of ``[splits, m, n]`` exactly where K is split, and no
+    probe."""
+    seen, made = {}, []
+    _fake_card(monkeypatch, "sdtpu_matmul_w8a8", seen, made)
+    monkeypatch.setattr(t_mm, "_check_operands",
+                        lambda x, w, v: (x.shape[0], *w.shape))
+    xs = types.SimpleNamespace(numel=lambda: 1, device=torch.device("cpu"),
+                               float=lambda: torch.ones(1))
+    monkeypatch.setattr(torch, "is_tensor", lambda t: True)
+    before = t_mm.matmul_w8a8_cuda.launches
+    sums = t_mm.matmul_w8a8_cuda.sum_launches
+    for m, k, n in ((512, 1280, 1280), (2048, 640, 5120), (154, 768, 320)):
+        made.clear()
+        x = torch.zeros((m, k), dtype=torch.bfloat16)
+        w = t_mm.column_major(torch.zeros((k, n), dtype=torch.int8))
+        t_mm.matmul_w8a8_cuda(x, w, torch.ones(n), xs)
+        p = t_mm.plan_w8a8(m, k, n, SMS)
+        assert seen["args"][7:14] == (m, k, n, p["bn"], p["splits"],
+                                      p["steps"], 0)
+        scratch = [s for s, dt in made if dt == torch.int32]
+        assert scratch == ([(p["splits"], m, n)] if p["splits"] > 1 else [])
+        assert (seen["args"][6] is None) == (p["splits"] == 1)
+    assert t_mm.matmul_w8a8_cuda.launches == before + 3
+    assert t_mm.matmul_w8a8_cuda.sum_launches == sums + 2
+
+
+# ---------------------------------------------------------------------------
+# K3: plan_conv(n, h, w, c_in, c_out, ks, sms, int8)
+# ---------------------------------------------------------------------------
+
+# (n, h, w, c_in, c_out, ks) of the 60 fused convs of one SD1.5 UNet eval at
+# 512x512 and the CFG batch of 2 (44 ResBlock 3x3 convs, 16 proj_in), and the
+# shapes of the VAE decoder's 28 at batch 1
+UNET_CONVS = (
+    [(2, 64, 64, 320, 320, 3)] * 7 + [(2, 64, 64, 640, 320, 3)] * 2
+    + [(2, 64, 64, 960, 320, 3)] + [(2, 64, 64, 320, 320, 1)] * 5
+    + [(2, 32, 32, 320, 640, 3)] + [(2, 32, 32, 640, 640, 3)] * 6
+    + [(2, 32, 32, c, 640, 3) for c in (960, 1280, 1920)]
+    + [(2, 32, 32, 640, 640, 1)] * 5
+    + [(2, 16, 16, 640, 1280, 3)] + [(2, 16, 16, 1280, 1280, 3)] * 6
+    + [(2, 16, 16, 1920, 1280, 3)] + [(2, 16, 16, 2560, 1280, 3)] * 2
+    + [(2, 16, 16, 1280, 1280, 1)] * 5
+    + [(2, 8, 8, 1280, 1280, 3)] * 11 + [(2, 8, 8, 2560, 1280, 3)] * 3
+    + [(2, 8, 8, 1280, 1280, 1)])
+VAE_CONVS = [(1, 64, 64, 512, 512, 3), (1, 128, 128, 512, 512, 3),
+             (1, 256, 256, 512, 256, 3), (1, 256, 256, 256, 256, 3),
+             (1, 512, 512, 256, 128, 3), (1, 512, 512, 128, 128, 3)]
+RAGGED_CONVS = [(*shape, c_out, ks, int8, want) for shape, c_out, ks, _, int8,
+                want in chip_smoke.CONV_RAGGED]
+
+
+def test_unet_conv_count():
+    assert len(UNET_CONVS) == 60
+
+
+def _check_conv_plan(n, h, w, c_in, c_out, ks, int8, want=None):
+    p = t_conv.plan_conv(n, h, w, c_in, c_out, ks, SMS, int8)
+    m = n * h * w
+    assert p["design"] in ("slab", "general")      # exactly one kernel
+    if want is not None:
+        assert p["design"] == want
+    if p["design"] == "general":
+        assert p == t_conv.general_plan(m, c_in, c_out, ks, SMS)
+        assert p["splits"] == t_conv.splits_for(m, c_out, ks * ks * c_in, SMS)
+        return p
+    # the slab kernel's contract
+    ph, pw, ns = p["ph"], p["pw"], p["ns"]
+    assert c_in % 64 == 0 and p["bn"] in (128, 160)
+    assert ns * ph * pw == 128 and 1 <= ns <= 8
+    assert pw == min(w, 128) and w % pw == 0
+    assert (h % ph == 0) if ns == 1 else (ph == h)
+    pad = ks // 2
+    rows = ns * (ph + 2 * pad) * (pw + 2 * pad)
+    assert rows <= 400
+    assert p["smem"] == t_conv.slab_smem_bytes(p["bn"], int8, ks, rows, ns)
+    assert p["smem"] <= SMEM_CAP
+    # the epilogue stages two 64 x bn bf16 tiles, rows padded by 16 bytes,
+    # over the weight tiles
+    groups, steps, lead = t_conv.slab_shape(ks)
+    assert 2 * 64 * (2 * p["bn"] + 16) <= (3 if int8 else lead + 2) * p[
+        "bn"] * 128
+    assert steps > lead          # the next slab lands inside its chunk
+    # the runs cover the Cin chunks exactly once and none is empty
+    chunks_all = -(-(c_in // 64) // groups)
+    assert p["splits"] >= 1 and p["chunks"] >= 1
+    assert p["splits"] * p["chunks"] >= chunks_all
+    assert (p["splits"] - 1) * p["chunks"] < chunks_all
+    tiles = -(-m // 128) * -(-c_out // p["bn"])
+    assert p["blocks"] == tiles * p["splits"] >= min(SMS, tiles)
+    if 2 * tiles > SMS:
+        assert p["splits"] == 1
+    else:
+        assert p["blocks"] <= SMS
+        assert (p["splits"] == chunks_all
+                or tiles * (p["splits"] + 1) > SMS
+                or -(-chunks_all // (p["splits"] + 1)) == p["chunks"])
+    if c_out % 160 == 0 and c_out % 128:
+        assert p["bn"] == 160
+    elif c_out % 128 == 0:
+        assert p["bn"] == 128
+    return p
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("site", sorted(set(UNET_CONVS)) + VAE_CONVS)
+def test_conv_plan_at_every_main_path_site(site, int8):
+    """Every UNet and VAE site gets the slab kernel but the UNet's 32x32
+    ``proj_in`` (un-split, four slab chunks a block: the general kernel
+    measured faster there)."""
+    general = site == (2, 32, 32, 640, 640, 1)
+    _check_conv_plan(*site, int8, "general" if general else "slab")
+    slab = t_conv.slab_plan(*site, SMS, int8)
+    if general:      # within the slab kernel's contract, kept off it by rule
+        assert slab["splits"] == 1 and slab["chunks"] == 4
+    else:
+        assert slab == t_conv.plan_conv(*site, SMS, int8)
+
+
+@pytest.mark.parametrize("case", RAGGED_CONVS)
+def test_conv_plan_at_the_ragged_cases(case):
+    _check_conv_plan(*case)
+
+
+@pytest.mark.parametrize("site,want", [
+    ((2, 64, 64, 320, 320, 3), {"bn": 160, "splits": 1, "chunks": 5,
+                                "ph": 2, "pw": 64, "ns": 1, "blocks": 128}),
+    ((2, 32, 32, 640, 640, 3), {"bn": 128, "splits": 1, "chunks": 10,
+                                "ph": 4, "pw": 32, "ns": 1, "blocks": 80}),
+    ((2, 16, 16, 1280, 1280, 3), {"bn": 128, "splits": 3, "chunks": 7,
+                                  "ph": 8, "pw": 16, "ns": 1, "blocks": 120}),
+    ((2, 8, 8, 1280, 1280, 3), {"bn": 128, "splits": 10, "chunks": 2,
+                                "ph": 8, "pw": 8, "ns": 2, "blocks": 100}),
+    ((2, 64, 64, 320, 320, 1), {"bn": 160, "splits": 1, "chunks": 2,
+                                "ph": 2, "pw": 64, "ns": 1, "blocks": 128}),
+    ((1, 512, 512, 128, 128, 3), {"bn": 128, "splits": 1, "chunks": 2,
+                                  "ph": 1, "pw": 128, "ns": 1,
+                                  "blocks": 2048}),
+])
+def test_conv_plan_at_the_main_shapes(site, want):
+    p = t_conv.plan_conv(*site, SMS)
+    assert p["design"] == "slab"
+    assert {k: p[k] for k in want} == want
+
+
+@pytest.mark.parametrize("h,w,want", [
+    (64, 64, (2, 64, 1)), (32, 32, (4, 32, 1)), (16, 16, (8, 16, 1)),
+    (8, 8, (8, 8, 2)), (4, 4, (4, 4, 8)), (8, 16, (8, 16, 1)),
+    (128, 128, (1, 128, 1)), (4, 256, (1, 128, 1)), (512, 512, (1, 128, 1)),
+    (1, 128, (1, 128, 1)), (16, 8, (16, 8, 1)),
+    # rows that do not tile 128 pixels, planes under an eighth of a tile
+    (63, 65, None), (5, 3, None), (6, 32, None), (3, 64, None),
+    (2, 2, None), (8, 192, None), (9, 11, None),
+])
+def test_slab_patch(h, w, want):
+    assert t_conv.slab_patch(h, w) == want
+
+
+def test_slab_constants_are_the_sources():
+    """The Python mirror of the slab kernel's shared-memory layout and
+    limits against the constants in the source."""
+    src = (_build.SRC_DIR / "conv_gn_silu.cu").read_text()
+    assert f"constexpr int SLAB_PITCH = {t_conv._SLAB_PITCH};" in src
+    assert f"constexpr int SLAB_MAX_ROWS = {t_conv._SLAB_MAX_ROWS};" in src
+    assert f"constexpr int SLAB_MAX_SAMPLES = {t_conv._SLAB_MAX_SAMPLES};" \
+        in src
+    assert "constexpr size_t SMEM_CAP = 227 * 1024;" in src
+    assert t_conv._SMEM_CAP == SMEM_CAP
+    assert "static constexpr int G = KS == 3 ? 1 : 3;" in src
+    assert "static constexpr int T = KS == 3 ? 9 : 3;" in src
+    assert "static constexpr int D = KS == 3 ? 3 : 2;" in src
+    assert t_conv.slab_shape(3) == (1, 9, 3)
+    assert t_conv.slab_shape(1) == (3, 3, 2)
+
+
+def test_conv_plan_is_what_the_wrapper_passes(monkeypatch):
+    """The wrapper hands the plan to the C entry point as it is, with a
+    float32 scratch of ``[splits, m, c_out]`` exactly where the reduction is
+    split, and the per-tile counters only for the general kernel."""
+    seen, made = {}, []
+    _fake_card(monkeypatch, "sdtpu_conv_gn_silu", seen, made)
+    monkeypatch.setattr(t_conv, "eligible", lambda x, w, s, p: True)
+    monkeypatch.setattr(t_conv, "_tile_counters",
+                        lambda device, tiles: torch.zeros(tiles,
+                                                          dtype=torch.int32))
+    real_device = torch.Tensor.device
+
+    class Cuda(torch.Tensor):
+        device = types.SimpleNamespace(type="cuda")
+
+    before = t_conv.fused_conv_cuda.launches
+    for site in ((2, 8, 8, 128, 192, 3), (2, 16, 16, 64, 64, 3),
+                 (1, 6, 32, 64, 64, 3), (2, 5, 5, 4096, 128, 3)):
+        n, h, w, c_in, c_out, ks = site
+        made.clear()
+        x = torch.zeros((n, h, w, c_in), dtype=torch.bfloat16).as_subclass(
+            Cuda)
+        wt = torch.zeros((c_out, c_in, ks, ks), dtype=torch.bfloat16
+                         ).contiguous(memory_format=torch.channels_last
+                                      ).as_subclass(Cuda)
+        b = torch.zeros(c_out).as_subclass(Cuda)
+        t_conv.fused_conv_cuda(x, wt, b)
+        p = t_conv.plan_conv(*site, SMS, False)
+        assert seen["args"][9:15] == site
+        assert seen["args"][18:25] == (
+            int(p["design"] == "slab"), p["bn"], p["splits"], p["chunks"],
+            p["ph"], p["pw"], p["ns"])
+        scratch = [s for s, dt in made if dt == torch.float32]
+        assert scratch == ([(p["splits"], n * h * w, c_out)]
+                           if p["splits"] > 1 else [])
+        assert (seen["args"][7] is None) == (p["splits"] == 1)
+        assert (seen["args"][8] is None) == (
+            p["splits"] == 1 or p["design"] == "slab")
+    assert real_device is torch.Tensor.device
+    assert t_conv.fused_conv_cuda.launches == before + 4
 
 
 # ---------------------------------------------------------------------------
@@ -259,11 +591,7 @@ def test_source_hash_covers_the_flags(monkeypatch):
 
 
 def _generator():
-    path = _build.SRC_DIR / "gen_wgmma.py"
-    spec = importlib.util.spec_from_file_location("gen_wgmma", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load(_build.SRC_DIR / "gen_wgmma.py", "gen_wgmma")
 
 
 def test_wgmma_header_is_the_generators_output():
@@ -273,26 +601,38 @@ def test_wgmma_header_is_the_generators_output():
 
 @pytest.mark.parametrize("n,forms", [
     (16, ("rs_mn",)), (32, ("ss", "rs_mn")), (48, ("rs_mn",)),
-    (64, ("ss", "rs_mn")), (80, ("rs_mn",)), (128, ("ss", "rs_mn")),
-    (160, ("ss",)), (256, ("rs_mn",))])
+    (64, ("ss", "rs_mn")), (80, ("rs_mn",)),
+    (128, ("ss", "rs_mn", "rs", "ss_s8")), (160, ("ss", "rs", "ss_s8")),
+    (256, ("rs_mn", "ss_s8"))])
 def test_wgmma_header_has_each_width(n, forms):
     """Every accumulator width a kernel instantiates has its wrapper, in
     the forms it is instantiated in and no other (flash: ``ss`` at its key
     tiles, ``rs_mn`` at its padded head dims and the halves of 256 and 512;
-    the GEMM: ``ss`` at its column tiles), with N / 2 accumulator operands a
-    thread and the m64nNk16 instruction."""
+    the GEMMs: ``ss`` and the int8 ``ss_s8`` at their column tiles; the conv:
+    ``rs`` at its), with N / 2 accumulator operands a thread, float for the
+    m64nNk16 bf16 instruction and int for the m64nNk32 int8 one."""
     text = _generator().struct(n)
     assert f"struct Wgmma<{n}>" in text
-    assert [f for f in ("ss", "rs_mn") if f"void {f}(" in text] == list(forms)
+    assert [f for f in ("ss", "rs_mn", "rs", "ss_s8")
+            if f"void {f}(" in text] == list(forms)
+    bf16 = [f for f in forms if f != "ss_s8"]
     assert text.count(
-        f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16") == len(forms)
-    assert text.count('"+f"(d[') == len(forms) * (n // 2)
+        f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16") == len(bf16)
+    assert text.count('"+f"(d[') == len(bf16) * (n // 2)
+    int8 = len(forms) - len(bf16)
+    assert text.count(
+        f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8") == int8
+    assert text.count('"+r"(d[') == int8 * (n // 2)
+    # the register-operand forms differ in the transpose flag of B alone
+    assert text.count("p, 1, 1, 1;") == ("rs_mn" in forms)
+    assert text.count("p, 1, 1, 0;") == ("rs" in forms)
 
 
 def test_wgmma_forms_are_what_the_kernels_instantiate():
     """flash_attn_fwd.cu: ``ss`` over the keys of a step, ``rs_mn`` over a
     warpgroup's output columns (the padded head dim, half of it above 128);
-    matmul_int8w.cu: ``ss`` over its column tile."""
+    matmul_int8w.cu: ``ss`` over its column tile; matmul_w8a8.cu: ``ss_s8``
+    over its column tile; conv_gn_silu.cu: ``rs`` over its column tile."""
     forms = _generator().FORMS
     plans = [t_attn.plan(d, 4096, 4096, 16, SMS) for d in range(8, 513, 8)]
     bns = {t_mm.plan_int8w(m, 320, n, SMS)["bn"]
@@ -300,6 +640,15 @@ def test_wgmma_forms_are_what_the_kernels_instantiate():
     assert set(forms["ss"]) == {bkv for _, _, bkv in plans} | bns
     assert set(forms["rs_mn"]) == {dpad if dpad <= 128 else dpad // 2
                                    for dpad, _, _ in plans}
+    assert set(forms["ss_s8"]) == {t_mm.plan_w8a8(m, k, n, SMS)["bn"]
+                                   for m, k, n in _w8a8_sites() + MM_RAGGED}
+    assert set(forms["rs"]) == {
+        t_conv.plan_conv(*site, SMS)["bn"] for site in UNET_CONVS + VAE_CONVS}
+    for name, form, count in (("matmul_w8a8.cu", "ss_s8", 1),
+                              ("conv_gn_silu.cu", "rs", 1),
+                              ("matmul_int8w.cu", "ss", 1)):
+        src = (_build.SRC_DIR / name).read_text()
+        assert src.count(f"Wgmma<BN>::{form}(") == count
 
 
 PTXAS = """\
@@ -326,7 +675,8 @@ def test_parse_ptxas_reads_registers_and_spills():
 @pytest.mark.parametrize("module,fn,pointers,ints", [
     (t_attn, "sdtpu_flash_attn_fwd", 4, 8),
     (t_mm, "sdtpu_matmul_int8w", 6, 7),
-    (t_mm, "sdtpu_matmul_w8a8", 6, 4),
+    (t_mm, "sdtpu_matmul_w8a8", 7, 7),
+    (t_conv, "sdtpu_conv_gn_silu", 9, 16),
 ])
 def test_bind_declares_the_c_signature(module, fn, pointers, ints):
     """Pointers and the stream as c_void_p (never cut to 32 bits), then the
@@ -336,7 +686,8 @@ def test_bind_declares_the_c_signature(module, fn, pointers, ints):
     lib = types.SimpleNamespace(
         sdtpu_flash_attn_fwd=types.SimpleNamespace(),
         sdtpu_matmul_int8w=types.SimpleNamespace(),
-        sdtpu_matmul_w8a8=types.SimpleNamespace())
+        sdtpu_matmul_w8a8=types.SimpleNamespace(),
+        sdtpu_conv_gn_silu=types.SimpleNamespace())
     module.bind(lib)
     sig = getattr(lib, fn)
     assert sig.argtypes == ([ctypes.c_void_p] * pointers
@@ -344,7 +695,8 @@ def test_bind_declares_the_c_signature(module, fn, pointers, ints):
     assert sig.restype is ctypes.c_int
     src = (_build.SRC_DIR / {"sdtpu_flash_attn_fwd": "flash_attn_fwd.cu",
                              "sdtpu_matmul_int8w": "matmul_int8w.cu",
-                             "sdtpu_matmul_w8a8": "matmul_w8a8.cu"}[fn]
+                             "sdtpu_matmul_w8a8": "matmul_w8a8.cu",
+                             "sdtpu_conv_gn_silu": "conv_gn_silu.cu"}[fn]
            ).read_text()
     decl = src[src.index(f'extern "C" int {fn}('):]
     decl = decl[:decl.index(")")]
@@ -355,7 +707,7 @@ def test_bind_declares_the_c_signature(module, fn, pointers, ints):
 def test_no_fallback_in_the_wrappers():
     """On a CUDA tensor a wrapper launches or raises: no ``try`` in the
     kernel wrappers' modules, and no library attention or GEMM in them."""
-    for mod in (t_attn, t_mm):
+    for mod in (t_attn, t_mm, t_conv):
         text = Path(mod.__file__).read_text()
         assert "try:" not in text and "except" not in text
     assert "scaled_dot_product_attention" not in Path(
@@ -443,3 +795,88 @@ def test_cuda_int8w_paths_match_plain(m, k, n):
     assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max(
         ).item()
     assert torch.equal(out, again)      # no atomics: the same bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MM_RAGGED + [
+    (512, 1280, 1280), (128, 5120, 1280), (154, 768, 320), (2, 1280, 1280),
+    (2048, 640, 5120)])
+def test_cuda_w8a8_is_bit_equal_to_plain(m, k, n):
+    """The K tail, ragged M and N, one step and a tail, split-K with int32
+    partials: every value equal to the plain version's, and the same bytes
+    twice."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device="cuda") * 0.05
+    scale = w.abs().amax(dim=0) / 127.0
+    w8 = t_mm.column_major(torch.clamp(torch.round(w / scale), -127, 127)
+                           .to(torch.int8))
+    b = torch.randn(n, generator=g, device="cuda")
+    xs = x.float().abs().max() / 127.0
+    out = t_mm.matmul_w8a8_cuda(x, w8, scale, xs, b)
+    again = t_mm.matmul_w8a8_cuda(x, w8, scale, xs, b)
+    torch.cuda.synchronize()
+    ref = t_mm.matmul_w8a8_reference(x, w8, scale, xs, b)
+    assert int((out != ref).sum().item()) == 0
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_cuda_w8a8_quantizes_every_value_as_plain():
+    """The kernel's rounding (an addition of 1.5 * 2^23) against the plain
+    version's round-half-even and clip, on halves, values past the clip and
+    both zeros: an identity weight picks each quantized value out."""
+    _needs_card()
+    vals = torch.cat([torch.arange(-130, 131, dtype=torch.float32) * 0.5,
+                      torch.tensor([-0.0, 0.0, 1e30, -1e30, 126.5, -126.5,
+                                    0.49, -0.49])])
+    k = 272
+    x = torch.zeros((k, k), dtype=torch.float32)
+    x.diagonal()[:vals.numel()] = vals
+    x = x.to(torch.bfloat16).cuda()
+    w8 = t_mm.column_major(torch.eye(k, dtype=torch.int8).cuda())
+    ones = torch.ones(k, device="cuda")
+    xs = torch.ones((), device="cuda")
+    out = t_mm.matmul_w8a8_cuda(x, w8, ones, xs)
+    torch.cuda.synchronize()
+    want = t_mm.quantize_activation(x, xs).to(torch.bfloat16)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.CONV_RAGGED)
+def test_cuda_conv_at_the_ragged_cases(case):
+    """Both kernels of the conv source at the shapes their tiles could
+    break, within one bf16 rounding of the float32 plain version, the same
+    bytes twice, and the kernel the case was written for."""
+    _needs_card()
+    shape, c_out, ks, prologue, int8, want = case
+    n, h, w_, c_in = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((c_out, c_in, ks, ks), generator=g, device="cuda") / (
+        ks * ks * c_in) ** 0.5
+    scale = None
+    if int8:
+        scale = w.abs().amax(dim=(1, 2, 3)) / 127.0
+        w = torch.round(w / scale[:, None, None, None]).to(torch.int8)
+    else:
+        w = w.to(torch.bfloat16)
+    w = w.contiguous(memory_format=torch.channels_last)
+    b = torch.randn((n, c_out), generator=g, device="cuda")
+    kw = {}
+    if prologue:
+        kw = {"a": torch.rand((n, c_in), generator=g, device="cuda") + 0.5,
+              "d": torch.randn((n, c_in), generator=g, device="cuda"),
+              "silu": prologue == "silu"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert t_conv.plan_conv(n, h, w_, c_in, c_out, ks, sms, int8)[
+        "design"] == want
+    out = t_conv.fused_conv_cuda(x, w, b, w_scale=scale, **kw)
+    again = t_conv.fused_conv_cuda(x, w, b, w_scale=scale, **kw)
+    torch.cuda.synchronize()
+    ref = t_conv.fused_conv_reference(x.float(), w, b, w_scale=scale, **kw)
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max(
+        ).item()
+    assert torch.equal(out, again)

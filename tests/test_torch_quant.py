@@ -310,14 +310,19 @@ def test_matmul_eligible_is_the_kernel_contract(x_shape, w_shape, layout,
 
 
 @pytest.mark.parametrize("m,n,want", [
-    (8192, 320, 128),    # 64x64 level: 192 tiles of 128
-    (2048, 640, 64),     # 32x32: 80 tiles of 128 would leave SMs idle
-    (2048, 5120, 128),   # ff1 at 32x32: 640 tiles
-    (512, 1280, 64), (128, 1280, 64), (154, 320, 64), (2, 1280, 64)])
+    (8192, 320, (160, 1)),     # 64x64 level: 128 exact tiles of 128 x 160
+    (2048, 640, (128, 1)),     # 32x32: 80 tiles, too many to split
+    (2048, 5120, (256, 1)),    # ff1 at 32x32: 320 tiles of 256 columns
+    (512, 1280, (128, 3)),     # 16x16: 40 tiles, K in 3 runs: 120 blocks
+    (128, 1280, (128, 10)),    # 8x8: 10 tiles, a block a K step
+    (154, 320, (160, 10)), (2, 1280, (128, 10))])
 def test_matmul_tile_fills_the_card(m, n, want):
-    """On a 132-SM card (the kernels run on the card only; the choice is
-    plain Python)."""
-    assert t_mm.tile_for(m, n, 132) == want
+    """``plan_w8a8`` on a 132-SM card at K = 1280 (the kernels run on the
+    card only; the choice is plain Python): the column tile, and K split
+    where the tiles alone would leave half the SMs idle."""
+    p = t_mm.plan_w8a8(m, 1280, n, 132)
+    assert (p["bn"], p["splits"]) == want
+    assert p["blocks"] <= 132 or p["splits"] == 1
 
 
 @pytest.mark.parametrize("bad", ["cpu", "float32", "row_major", "x_scale"])
