@@ -18,17 +18,21 @@ Phases, each printing one JSON object per line:
 4. sites: one SD1.5 UNet eval and one VAE decode under ``cuda_gn`` and
    ``cuda_conv`` record every call shape the fused GroupNorm (K2) and the
    fused conv (K3) get on the main path, and how often per image;
-5. kernel_gn, kernel_conv: K2 and K3 at every one of those shapes (K3
-   with int8 weights too at the UNet's, as ``quantize="int8w"`` feeds it)
-   and at ragged ones (odd planes, C/G not a multiple of 8, Cout not a
-   multiple of the tile; for K3 the shapes its slab could break and one of
-   each class its general kernel takes), each against its plain version
-   run in float32 on the same bf16 inputs; device times of the kernel, of
-   the plain version, and of the site as ``kernels="cuda"`` runs it (bf16
-   GroupNorm + SiLU + cuDNN conv + bias); K3's rows carry the kernel and the
-   tiling its static rule chose (``design``, ``plan``), the time its
-   prologue's special-function work alone needs, and at three shapes the
-   kernel's time without the prologue;
+5. kernel_gn, kernel_gn_affine, kernel_conv: K2, K2's statistics mode (at
+   the GroupNorm of every fused conv site) and K3 at every one of those
+   shapes (K3 with int8 weights too at the UNet's, as ``quantize="int8w"``
+   feeds it) and at ragged ones (odd planes, C/G not a multiple of 8, each
+   of K2's span classes, planes K2 streams, Cout not a multiple of the
+   tile; for K3 the shapes its slab could break and one of each class its
+   general kernel takes), each against its plain version run in float32 on
+   the same bf16 inputs; device times of the kernel, of the plain version,
+   of the one PyTorch call that computes the same function where there is
+   one (``F.group_norm`` + SiLU, ``torch.var_mean``), and of the site as
+   ``kernels="cuda"`` runs it (bf16 GroupNorm + SiLU + cuDNN conv + bias);
+   K2's and K3's rows carry the plan their static rules chose (``design``,
+   ``plan``; K2's with the clusters the card holds at once), K3's the time
+   its prologue's special-function work alone needs, and at three shapes
+   the kernel's time without the prologue;
 6. main path: Context(config="sd15", steps=20, sampler="dpm") with random
    demo weights generates 512x512 images under ``kernels="cuda"`` (the
    ``auto`` choice), then under ``"cuda_gn"`` and ``"cuda_conv"`` on the
@@ -56,7 +60,7 @@ Phases, each printing one JSON object per line:
 9. model: one SD1.5 UNet eval and one VAE decode at full width under each
    policy, each against float32;
 10. breakdown: stage times and a profiler trace of one image under cuda,
-   cuda_conv, int8w_dense and int8 with K5.
+   cuda_gn, cuda_conv, int8w_dense and int8 with K5.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -188,9 +192,15 @@ PINNED = {
                     matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL * STEPS),
 }
 # K2 and K3 at shapes off the main path: odd planes, C/G not a multiple of
-# 8 (or of 2), Cout not a multiple of the 128 tile, int8 weights
+# 8 (or of 2), Cout not a multiple of the 128 tile, int8 weights. K2's: C %
+# 8 != 0 (4- and 2-byte vectors), a 16-block cluster with a short last run,
+# each span class (C/G = 10, 20, 30, 40, 60, 80) on an odd plane, and two
+# planes no cluster holds (the streamed variant: the VAE's 512^2 x 128 and
+# 256^2 x 512)
 GN_RAGGED = [(2, 77, 30, 3, 1e-5, True), (1, 5, 9, 3, 1e-6, False),
-             (2, 1023, 960, 32, 1e-5, True)]
+             (2, 1023, 960, 32, 1e-5, True)] + [
+    (1, 999, c, 32, 1e-5, True) for c in (320, 640, 960, 1280, 1920, 2560)
+] + [(1, 262144, 128, 32, 1e-6, False), (1, 65536, 512, 32, 1e-6, True)]
 # (x shape, c_out, k, prologue, int8, the kernel the static rule must
 # choose). The general kernel's classes: a plane whose rows do not tile 128
 # pixels, Cin not a multiple of 64, both. The slab kernel: a tile that
@@ -477,11 +487,35 @@ def phase_sites(ctx):
     return gn_sites, conv_sites
 
 
+def _gn_case(n, hw, c, g):
+    x = (torch.randn((n, hw, c), generator=g, device="cuda") * 2 + 0.5).to(
+        torch.bfloat16)
+    p = {"scale": (torch.rand(c, generator=g, device="cuda") + 0.5).to(
+             torch.bfloat16),
+         "bias": torch.randn(c, generator=g, device="cuda").to(
+             torch.bfloat16)}
+    return x, p
+
+
+def _gn_plan(n, hw, c, groups):
+    """K2's plan for a call (the static rule, what the wrapper passes) and
+    how many of its clusters the card holds at once."""
+    from sdtpu_torch.ops import groupnorm as G
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = G.plan_gn(n, hw, c, groups, sms)
+    return {**plan, "co_resident": G.co_resident(n, hw, c, groups, plan)}
+
+
 def phase_kernel_gn(gn_sites):
     """K2 at every main-path shape and at ragged ones, against its plain
     version in float32 on the same bf16 inputs; times of the kernel, the
-    plain version (bf16 in, float32 math) and the cuda policy's site (bf16
-    ``layers.group_norm``, then SiLU)."""
+    plain version (bf16 in, float32 math), the one PyTorch call that
+    computes the same function (``F.group_norm`` on the NCHW view of the
+    channels-last x, then ``F.silu`` at SiLU sites: ``library_ms``) and the
+    cuda policy's site (bf16 ``layers.group_norm``, then SiLU). Each row
+    carries the plan its static rule chose (``design``: ``resident`` or
+    ``streamed``)."""
     from sdtpu_torch.models import unet
     from sdtpu_torch.ops import groupnorm as G
 
@@ -490,35 +524,93 @@ def phase_kernel_gn(gn_sites):
     cases += [(k, 0) for k in GN_RAGGED]
     rows = []
     for (n, hw, c, groups, eps, silu), per_image in cases:
-        x = (torch.randn((n, hw, c), generator=g, device="cuda") * 2 + 0.5
-             ).to(torch.bfloat16)
-        p = {"scale": (torch.rand(c, generator=g, device="cuda") + 0.5).to(
-                 torch.bfloat16),
-             "bias": torch.randn(c, generator=g, device="cuda").to(
-                 torch.bfloat16)}
+        x, p = _gn_case(n, hw, c, g)
         out = G.group_norm_cuda(p, x, groups, eps, silu)
         torch.cuda.synchronize()
         ref = G.group_norm_reference(p, x.float(), groups, eps, silu)
         err = (out.float() - ref).abs().max().item()
         scale = ref.abs().max().item()
+        del ref
         # x read and y written once; some 10 float32 operations an element
         # (two-pass statistics, the affine map, SiLU)
         bound_ms, bound_by = bound(10.0 * x.numel(), "f32",
                                    2 * x.numel() * 2 + 2 * c * 2)
+        nchw = x.view(n, hw, c).permute(0, 2, 1)
+        act = F.silu if silu else (lambda t: t)
+        plan = _gn_plan(n, hw, c, groups)
         row = {"shape": [n, hw, c], "groups": groups, "eps": eps,
                "silu": silu, "per_image": per_image, "max_abs_err": err,
                "ref_abs_max": scale, "bound_ms": bound_ms,
-               "bound_by": bound_by,
+               "bound_by": bound_by, "design": plan["variant"],
+               "plan": plan,
                "ms": cuda_ms(lambda: G.group_norm_cuda(p, x, groups, eps,
                                                        silu)),
                "plain_ms": cuda_ms(lambda: G.group_norm_reference(
                    p, x, groups, eps, silu)),
+               "library_ms": cuda_ms(lambda: act(F.group_norm(
+                   nchw, groups, p["scale"], p["bias"], eps))),
                "cuda_site_ms": cuda_ms(lambda: unet._gn(
                    p, x, groups, eps, silu, "cuda"))}
         emit({"phase": "kernel_gn", **row})
         if not err <= FUSED_TOL * scale:
             raise AssertionError(f"group_norm kernel disagrees at {row}")
         rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernel_gn_affine(conv_sites):
+    """K2's statistics mode at the GroupNorm of every fused conv site of
+    the main path (the UNet's and the VAE's, launches per image summed over
+    the convs that share an input shape) and at the ragged shapes, against
+    ``gn_affine``'s plain version on the same bf16 inputs (both float32);
+    times of the kernel, the plain version and the one PyTorch call that
+    takes the same statistics (``torch.var_mean`` over the [N, hw, G, C/G]
+    view: ``library_ms``)."""
+    from sdtpu_torch.ops import conv as C
+    from sdtpu_torch.ops import groupnorm as G
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    per_image: dict = {}
+    for (shape, _, _, prologue, _), count in conv_sites.items():
+        if prologue:
+            n, h, w_, c = shape
+            key = (n, h * w_, c, 32)
+            per_image[key] = per_image.get(key, 0) + count
+    cases = sorted(per_image.items())
+    cases += [(k[:4], 0) for k in GN_RAGGED]
+    rows = []
+    for (n, hw, c, groups), count in cases:
+        x, p = _gn_case(n, hw, c, g)
+        a, d = G.group_norm_affine_cuda(p, x, groups, 1e-5)
+        torch.cuda.synchronize()
+        ra, rd = C.gn_affine_reference(p, x, groups, 1e-5)
+        err = max(rel_err(a, ra), rel_err(d, rd))
+        # x read once, A and D written; some 6 float32 operations an
+        # element (the two passes' sums)
+        bound_ms, bound_by = bound(6.0 * x.numel(), "f32",
+                                   x.numel() * 2 + 2 * c * 2 + 2 * n * c * 4)
+        view = x.view(n, hw, groups, c // groups)
+        plan = _gn_plan(n, hw, c, groups)
+        row = {"shape": [n, hw, c], "groups": groups, "per_image": count,
+               "max_abs_err": max((a - ra).abs().max().item(),
+                                  (d - rd).abs().max().item()),
+               "rel_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+               "design": plan["variant"], "plan": plan,
+               "ms": cuda_ms(lambda: G.group_norm_affine_cuda(p, x, groups,
+                                                              1e-5)),
+               "plain_ms": cuda_ms(lambda: C.gn_affine_reference(
+                   p, x, groups, 1e-5)),
+               "library_ms": cuda_ms(lambda: torch.var_mean(
+                   view, dim=(1, 3), correction=0))}
+        emit({"phase": "kernel_gn_affine", **row})
+        if not err <= AFFINE_TOL:
+            raise AssertionError(f"gn_affine kernel disagrees at {row}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    if sum(r["per_image"] for r in rows) != PINNED["cuda_conv"][
+            "group_norm_affine"]:
+        raise AssertionError("statistics-mode sites differ from the pins")
     return rows
 
 
@@ -529,8 +621,8 @@ def phase_kernel_conv(conv_sites):
     held against its plain version); times of the kernel, of the plain
     version, of the whole cuda_conv site (``gn_affine`` + the kernel) and of
     the cuda policy's site (bf16 GroupNorm + SiLU + cuDNN conv + bias).
-    The plain version's and the statistics mode's times are taken at the
-    main path's bf16 rows only. Each row names the kernel and the tiling
+    The plain version's times are taken at the main path's bf16 rows only
+    (the statistics mode's in ``kernel_gn_affine``). Each row names the kernel and the tiling
     ``plan_conv`` chose; a ragged case must get the kernel it was written
     for. ``prologue_bound_ms`` is
     the time the SiLU's special-function work alone needs, one operation
@@ -580,12 +672,6 @@ def phase_kernel_conv(conv_sites):
                 "affine_abs_err": max((a - ra).abs().max().item(),
                                       (d - rd).abs().max().item()),
                 "affine_rel_err": max(rel_err(a, ra), rel_err(d, rd))}
-            if per_image:
-                affine.update({
-                    "affine_ms": cuda_ms(lambda: G.group_norm_affine_cuda(
-                        pn, x, groups, 1e-5)),
-                    "affine_plain_ms": cuda_ms(
-                        lambda: C.gn_affine_reference(pn, x, groups, 1e-5))})
             del ra, rd
         out = C.fused_conv_cuda(x, w, b, w_scale=scale, **kw)
         torch.cuda.synchronize()
@@ -600,8 +686,6 @@ def phase_kernel_conv(conv_sites):
             + n * h * w_ * c_out * 2 + b.numel() * 4
             + (2 * n * c_in * 4 if prologue else 0)
             + (c_out * 4 if int8 else 0))
-        affine_bound = bound(6.0 * x.numel(), "f32",
-                             x.numel() * 2 + 2 * c_in * 2 + 2 * n * c_in * 4)
         plan = C.plan_conv(n, h, w_, c_in, c_out, k, sms, int8)
         row = {"x": list(shape), "c_out": c_out, "k": k,
                "prologue": prologue, "int8": int8, "per_image": per_image,
@@ -609,8 +693,6 @@ def phase_kernel_conv(conv_sites):
                "per_image_int8": per_image_int8,
                "max_abs_err": err, "ref_abs_max": ref_max, "ms": ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "affine_bound_ms": affine_bound[0],
-               "affine_bound_by": affine_bound[1],
                "tflops": flop / ms / 1e9, **affine}
         if per_image:
             row["plain_ms"] = cuda_ms(lambda: C.fused_conv_reference(
@@ -1166,16 +1248,21 @@ def main() -> int:
         raise AssertionError(f"kernels resolved to {ctx.kernels}")
     gn_sites, conv_sites = phase_sites(ctx)
     gn_rows = phase_kernel_gn(gn_sites)
+    affine_rows = phase_kernel_gn_affine(conv_sites)
     conv_rows = phase_kernel_conv(conv_sites)
     emit({"phase": "kernel_totals", "per_image_ms": {
         "group_norm_kernel": per_image_ms(gn_rows, "ms"),
+        "group_norm_bound": per_image_ms(gn_rows, "bound_ms"),
         "group_norm_plain": per_image_ms(gn_rows, "plain_ms"),
+        "group_norm_library": per_image_ms(gn_rows, "library_ms"),
         "group_norm_cuda_site": per_image_ms(gn_rows, "cuda_site_ms"),
+        "group_norm_affine_kernel": per_image_ms(affine_rows, "ms"),
+        "group_norm_affine_bound": per_image_ms(affine_rows, "bound_ms"),
+        "group_norm_affine_plain": per_image_ms(affine_rows, "plain_ms"),
+        "group_norm_affine_library": per_image_ms(affine_rows, "library_ms"),
         "conv_kernel": per_image_ms(conv_rows, "ms"),
         "conv_kernel_int8_sites": sum(r["per_image_int8"] * r["ms"]
                                       for r in conv_rows),
-        "gn_affine_kernel": per_image_ms(conv_rows, "affine_ms"),
-        "gn_affine_plain": per_image_ms(conv_rows, "affine_plain_ms"),
         "conv_cuda_conv_site": per_image_ms(conv_rows, "cuda_conv_site_ms"),
         "conv_cuda_site": per_image_ms(conv_rows, "cuda_site_ms")}})
     launches = {"cuda": phase_main_path(ctx)}
@@ -1213,7 +1300,8 @@ def main() -> int:
     phase_quant_model(ctx, arms)
 
     phase_model(ctx)
-    for c, policy in ((ctx, "cuda"), (ctx, "cuda_conv"), (ctx_d, "cuda")):
+    for c, policy in ((ctx, "cuda"), (ctx, "cuda_gn"), (ctx, "cuda_conv"),
+                      (ctx_d, "cuda")):
         phase_breakdown(c, policy)
     with w8a8_kernel(True):
         phase_breakdown(ctx_i, "cuda")
@@ -1221,6 +1309,8 @@ def main() -> int:
     # the timed row of each kernel: its most frequent main-path shape (the
     # largest plane among equals)
     gn_main = max(gn_rows, key=lambda r: (r["per_image"], r["shape"][1]))
+    affine_main = max(affine_rows, key=lambda r: (r["per_image"],
+                                                  r["shape"][1]))
     conv_main = max(conv_rows, key=lambda r: (r["per_image"], r["x"][1]))
     conv_main_int8 = max(conv_rows, key=lambda r: (r["per_image_int8"],
                                                    r["x"][1]))
@@ -1244,8 +1334,10 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in gn_rows),
          "ms": gn_main["ms"], "plain_ms": gn_main["plain_ms"],
          "bound_ms": gn_main["bound_ms"], "bound_by": gn_main["bound_by"],
-         "library_ms": gn_main["cuda_site_ms"],
-         "library": "the cuda policy's site: bf16 GroupNorm, then SiLU",
+         "library_ms": gn_main["library_ms"],
+         "library": "F.group_norm on the NCHW view of x, then F.silu",
+         "cuda_site_ms": gn_main["cuda_site_ms"],
+         "design": gn_main["design"], "plan": gn_main["plan"],
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -1272,13 +1364,15 @@ def main() -> int:
                  "conv_gn_silu, in place of sdtpu/ops/conv.py:632 "
                  "gn_affine (XLA work in the reference)",
          "launches": launches["cuda_conv"]["group_norm_affine"],
-         "max_abs_err": max(r["affine_abs_err"] for r in conv_rows
-                            if "affine_abs_err" in r),
-         "ms": conv_main["affine_ms"],
-         "plain_ms": conv_main["affine_plain_ms"],
-         "bound_ms": conv_main["affine_bound_ms"],
-         "bound_by": conv_main["affine_bound_by"], "library_ms": None,
-         "timed_shape": conv_main["x"]},
+         "launches_int8w": launches["int8w"]["group_norm_affine"],
+         "max_abs_err": max(r["max_abs_err"] for r in affine_rows),
+         "ms": affine_main["ms"], "plain_ms": affine_main["plain_ms"],
+         "bound_ms": affine_main["bound_ms"],
+         "bound_by": affine_main["bound_by"],
+         "library_ms": affine_main["library_ms"],
+         "library": "torch.var_mean over the [N, hw, G, C/G] view",
+         "design": affine_main["design"], "plan": affine_main["plan"],
+         "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
          "replaces": "sdtpu/ops/matmul.py:81",

@@ -3,7 +3,9 @@
 
 Lifecycle: load models -> load tokenizer -> prepare buffers (the cached
 uncond ``""`` embedding) -> generate. A failed phase latches the context:
-every later ``generate`` raises ``INVALID_CONTEXT``.
+every later ``generate`` raises ``INVALID_CONTEXT``. A failure inside one
+``generate`` (a kernel wrapper, its build or launch, torch) comes out as
+``SdtpuError(RUNTIME_ERROR)`` and latches nothing.
 
 The device is always explicit: ``Context(..., device="cuda")``. On a CUDA
 device ``kernels="auto"`` selects the hand-written flash-attention kernel
@@ -208,12 +210,22 @@ class Context:
             seed = self.seed
             self.seed += 1
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        with torch.inference_mode():
-            res = pipeline.generate(
-                self.params, self._tokens(prompt), self._uncond, gen,
-                float(guidance), cfg=self.cfg, steps=self.steps,
-                use_cfg=guidance != 1.0, kernels=self.kernels, output=output)
-            res = res[0].cpu().numpy()
+        try:
+            with torch.inference_mode():
+                res = pipeline.generate(
+                    self.params, self._tokens(prompt), self._uncond, gen,
+                    float(guidance), cfg=self.cfg, steps=self.steps,
+                    use_cfg=guidance != 1.0, kernels=self.kernels,
+                    output=output)
+                res = res[0].cpu().numpy()
+        except SdtpuError:
+            raise
+        except Exception as e:  # noqa: BLE001 - call boundary, not latched
+            # a kernel wrapper's refusal, a failed build or launch, a torch
+            # error: typed and recorded, and the context stays usable
+            raise SdtpuError(ErrorCode.RUNTIME_ERROR,
+                             f"generate failed: {type(e).__name__}: {e}",
+                             self.errors) from e
         if output == "latent":
             return res
         if out is not None:

@@ -5,7 +5,9 @@ the counterpart of ``sdtpu/ops/attention.py:_flash_kernel``.
 ``flash_attention`` dispatches the way the JAX package does: short or
 unaligned query sequences (the 77-token cross-attention, the 16x16 and 8x8
 levels, CLIP) and anything that is not self-attention go to the plain
-``layers.sdpa``; square problems of >= 512 tokens go to the kernel. On a CPU
+``layers.sdpa``; square problems of >= 512 tokens go to the kernel where
+they are within its contract (``uses_kernel``: on a card, bf16 and a head
+dim it is built for), else to ``layers.sdpa`` too. On a CPU
 tensor the kernel's plain version runs instead; on a CUDA tensor the kernel
 launches or the call raises.
 """
@@ -19,13 +21,29 @@ import torch
 from sdtpu_torch.models.layers import sdpa
 
 
-def uses_kernel(sq: int, sk: int) -> bool:
-    """The reference's dispatch rule (``sdtpu/ops/attention.py:224-238``,
-    with ``CROSS_FLASH`` off): the kernel takes self-attention of at least
-    512 tokens in multiples of 128."""
-    if sq < 512 or sq % 128 != 0:
+def uses_kernel(q, k, v, heads: int) -> bool:
+    """The dispatch rule on [B, T, C] tensors. The reference's clause
+    (``sdtpu/ops/attention.py:224-238``, with ``CROSS_FLASH`` off): the
+    kernel takes self-attention of at least 512 tokens in multiples of 128.
+    Then the kernel's own contract, as ``flash_attention_cuda`` checks it: on
+    a CUDA tensor bf16 q, k, v, contiguous, on one device, 16-byte aligned,
+    a head dim that is a multiple of 8 and at most 512, at most 65535
+    batch-heads. On a CPU tensor the plain version runs and takes any
+    floating dtype, as the other kernels' rules do; everything else goes to
+    the plain ``layers.sdpa``."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq < 512 or sq % 128 != 0 or sq != sk:
         return False
-    return sq == sk
+    if q.device.type == "cpu":
+        return True
+    c = q.shape[-1]
+    if heads <= 0 or c % heads or (c // heads) % 8 or c // heads > 512:
+        return False
+    if q.shape[0] * heads > 65535 or k.shape != q.shape or v.shape != q.shape:
+        return False
+    return all(t.device == q.device and t.dtype == torch.bfloat16
+               and t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v))
 
 
 # padded head dims the kernel is built for; above 128 its two warpgroups
@@ -63,7 +81,7 @@ def plan(d: int, sq: int, sk: int, batch_heads: int, sms: int):
 
 def flash_attention(q, k, v, heads: int):
     """Drop-in for ``layers.sdpa`` on [B, T, C] tensors."""
-    if not uses_kernel(q.shape[1], k.shape[1]):
+    if not uses_kernel(q, k, v, heads):
         return sdpa(q, k, v, heads)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, heads)

@@ -2,6 +2,8 @@
 
     python3 -m sdtpu_torch.tools.probe conv     # K3, the fused conv
     python3 -m sdtpu_torch.tools.probe w8a8     # K5, the W8A8 GEMM
+    python3 -m sdtpu_torch.tools.probe gn       # K2, the GroupNorm's plans
+    PYTHONPATH=. python3 <this file> gn_times   # K2 of the checkout in .
 
 Run from the repository's root (device times come from ``chip_smoke.cuda_ms``:
 CUDA-graph replays between CUDA events). Each probe prints one JSON object a
@@ -19,6 +21,21 @@ left out and with the copies left out of its K loop (the entry point's
 ``probe`` argument: the output is then not the product), beside K4 on the
 same operands: whether the copies and the quantizing or the products limit a
 step.
+
+``gn``: K2 at each distinct main-path GroupNorm plane (the UNet's, the VAE's
+two resident ones and one streamed) under its static rule's plan, the same
+with the rows in two chunks through two buffers, and every other plan of spans and cluster
+sizes that fits a block: device times of both modes, each plan's co-resident
+clusters, each against the plain version: which tiling the rule should
+choose. Beside them the yardsticks: one tiny launch, a copy of x (the floor
+of a pass that reads x and writes y), ``F.group_norm`` + SiLU on the NCHW
+view, ``torch.var_mean`` over the groups.
+
+``gn_times``: K2's both modes at the UNet's GroupNorm planes as the
+checkout it is imported from runs them (``group_norm_cuda``,
+``group_norm_affine_cuda``): run by path from the root of another checkout,
+with ``PYTHONPATH=.``, it times that checkout's kernel, so two commits
+compare in one call.
 """
 
 from __future__ import annotations
@@ -120,12 +137,119 @@ def probe_w8a8() -> None:
                   x, w8, scale, b))})
 
 
+# (n, hw, c) of the distinct GroupNorm planes of the main path (32 groups):
+# the UNet's at the CFG batch, the VAE decoder's at batch 1
+GN_PLANES = [(2, 4096, 320), (2, 4096, 640), (2, 4096, 960), (2, 1024, 320),
+             (2, 1024, 640), (2, 1024, 960), (2, 1024, 1280), (2, 1024, 1920),
+             (2, 256, 640), (2, 256, 1280), (2, 256, 1920), (2, 256, 2560),
+             (2, 64, 1280), (2, 64, 2560)]
+VAE_PLANES = [(1, 4096, 512), (1, 16384, 512), (1, 262144, 128)]
+
+
+def _gn_inputs(n, hw, c, g):
+    x = (torch.randn((n, hw, c), generator=g, device="cuda") * 2 + 0.5).to(
+        torch.bfloat16)
+    p = {"scale": (torch.rand(c, generator=g, device="cuda") + 0.5).to(
+             torch.bfloat16),
+         "bias": torch.randn(c, generator=g, device="cuda").to(
+             torch.bfloat16)}
+    return x, p
+
+
+def probe_gn() -> None:
+    import math
+
+    from chip_smoke import cuda_ms, rel_err
+    from sdtpu_torch.ops import conv as C
+    from sdtpu_torch.ops import groupnorm as G
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    real_plan = G.plan_gn
+    one = torch.zeros(1, device="cuda")
+    emit({"probe": "gn_floor", "launch_ms": cuda_ms(lambda: one.add_(1))})
+    for n, hw, c in GN_PLANES + VAE_PLANES:
+        x, p = _gn_inputs(n, hw, c, g)
+        y = torch.empty_like(x)
+        rule = real_plan(n, hw, c, 32, sms)
+        cpg = c // 32
+        unit = math.lcm(cpg, G.gn_vec(c))
+
+        def plan_of(span, lay):
+            return {**rule, "span": span, **lay,
+                    "grid": (lay["cluster"], n * (c // span)),
+                    "blocks": lay["cluster"] * n * (c // span)}
+
+        # the rule's tiling with the rows in two chunks through two
+        # buffers: the second lands while the first is reduced
+        halves = G._layout(hw, rule["span"], cpg, rule["cluster"],
+                           -(-rule["rows"] // 2))
+        plans = [rule] + ([plan_of(rule["span"], halves)]
+                          if rule["variant"] == "resident" else [])
+        for span in (s for s in range(unit, c + 1, unit) if c % s == 0):
+            for cl in (1, 2, 4, 8, 12, 16):
+                if cl > hw:
+                    continue
+                lay = G._layout(hw, span, cpg, cl)
+                if lay["smem"] > G._SMEM_CAP:
+                    lay = G._layout(hw, span, cpg, cl,
+                                    max(1, G._CHUNK // (2 * span)))
+                plan = plan_of(span, lay)
+                if plan["smem"] <= G._SMEM_CAP and plan not in plans:
+                    plans.append(plan)
+        ref = G.group_norm_reference(p, x.float(), 32, 1e-5, True)
+        ra, rd = C.gn_affine_reference(p, x, 32, 1e-5)
+        emit({"probe": "gn_yardsticks", "shape": [n, hw, c],
+              "copy_ms": cuda_ms(lambda: y.copy_(x)),
+              "library_ms": cuda_ms(lambda: torch.nn.functional.silu(
+                  torch.nn.functional.group_norm(
+                      x.view(n, hw, c).permute(0, 2, 1), 32, p["scale"],
+                      p["bias"], 1e-5))),
+              "var_mean_ms": cuda_ms(lambda: torch.var_mean(
+                  x.view(n, hw, 32, cpg), dim=(1, 3), correction=0))})
+        for plan in plans:
+            G.plan_gn = lambda *args, plan=plan: plan
+            try:
+                y = G.group_norm_cuda(p, x, 32, 1e-5, True)
+                a, d = G.group_norm_affine_cuda(p, x, 32, 1e-5)
+                torch.cuda.synchronize()
+                emit({"probe": "gn", "shape": [n, hw, c],
+                      "rule": plan is rule,
+                      **{k: plan[k] for k in ("span", "cluster", "rows",
+                                              "chunk", "bufs", "variant",
+                                              "smem", "blocks")},
+                      "co_resident": G.co_resident(n, hw, c, 32, plan, True),
+                      "err": rel_err(y, ref),
+                      "affine_err": max(rel_err(a, ra), rel_err(d, rd)),
+                      "ms": cuda_ms(lambda: G.group_norm_cuda(
+                          p, x, 32, 1e-5, True)),
+                      "affine_ms": cuda_ms(lambda: G.group_norm_affine_cuda(
+                          p, x, 32, 1e-5))})
+            finally:
+                G.plan_gn = real_plan
+        torch.cuda.empty_cache()
+
+
+def probe_gn_times() -> None:
+    from chip_smoke import cuda_ms
+    from sdtpu_torch.ops import groupnorm as G
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for n, hw, c in GN_PLANES:
+        x, p = _gn_inputs(n, hw, c, g)
+        emit({"probe": "gn_times", "module": G.__file__, "shape": [n, hw, c],
+              "ms": cuda_ms(lambda: G.group_norm_cuda(p, x, 32, 1e-5, True)),
+              "affine_ms": cuda_ms(lambda: G.group_norm_affine_cuda(
+                  p, x, 32, 1e-5))})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 2
     what = sys.argv[1] if len(sys.argv) > 1 else ""
-    probes = {"conv": probe_conv, "w8a8": probe_w8a8}
+    probes = {"conv": probe_conv, "w8a8": probe_w8a8, "gn": probe_gn,
+              "gn_times": probe_gn_times}
     if what not in probes:
         print(f"usage: python3 -m sdtpu_torch.tools.probe {'|'.join(probes)}",
               file=sys.stderr)

@@ -71,7 +71,8 @@ def _jax_route(monkeypatch, sq, sk):
     (1024, 1024), (4096, 4096), (1024, 77), (4096, 77), (4096, 1024)])
 def test_uses_kernel_matches_jax_dispatch(monkeypatch, sq, sk):
     want = _jax_route(monkeypatch, sq, sk) == "kernel"
-    assert t_attn.uses_kernel(sq, sk) == want
+    assert t_attn.uses_kernel(torch.zeros(1, sq, 8), torch.zeros(1, sk, 8),
+                              torch.zeros(1, sk, 8), 1) == want
 
     taken = []
     monkeypatch.setattr(t_attn, "sdpa",
@@ -174,49 +175,6 @@ def test_cuda_kernel_matches_plain(b, s, c, heads):
     # bf16 P before P.V leave it near 2^-8
     assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs(
         ).max().item()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,hw,c,groups,fuse_silu", [
-    (2, 4096, 320, 32, True), (2, 64, 2560, 32, False), (2, 77, 30, 3, True),
-    (1, 5, 9, 3, False)])
-def test_cuda_group_norm_matches_plain(n, hw, c, groups, fuse_silu):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = (torch.randn((n, hw, c), generator=g, device="cuda") * 2 + 1).to(
-        torch.bfloat16)
-    p = {"scale": torch.randn(c, generator=g, device="cuda").to(
-        torch.bfloat16), "bias": torch.randn(c, generator=g, device="cuda")
-        .to(torch.bfloat16)}
-    out = t_gn.group_norm_cuda(p, x, groups, 1e-5, fuse_silu)
-    torch.cuda.synchronize()
-    ref = t_gn.group_norm_reference(p, x.float(), groups, 1e-5, fuse_silu)
-    # one bf16 rounding of the output (2^-9 relative) on float32 stats
-    assert (out.float() - ref).abs().max().item() <= (
-        1e-2 * ref.abs().max().item())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,groups", [((2, 64, 64, 320), 32),
-                                          ((2, 8, 8, 2560), 32),
-                                          ((1, 7, 9, 30), 3)])
-def test_cuda_group_norm_affine_matches_plain(shape, groups):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 1).to(
-        torch.bfloat16)
-    c = shape[-1]
-    p = {"scale": torch.randn(c, generator=g, device="cuda"),
-         "bias": torch.randn(c, generator=g, device="cuda")}
-    a, d = t_gn.group_norm_affine_cuda(p, x, groups, 1e-6)
-    torch.cuda.synchronize()
-    ra, rd = t_conv.gn_affine_reference(p, x, groups, 1e-6)
-    # float32 on both sides, sums in another order
-    for ours, ref in ((a, ra), (d, rd)):
-        assert (ours - ref).abs().max().item() <= (
-            1e-4 * ref.abs().max().item())
 
 
 @pytest.mark.cuda

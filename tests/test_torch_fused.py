@@ -118,6 +118,8 @@ def _oihw(w_hwio):
 @pytest.mark.parametrize("c,groups,eps,fuse_silu", [
     (32, 4, 1e-5, True),       # 8 channels per group
     (40, 4, 1e-6, False),      # 10 per group, as SD1.5's 320 / 32
+    (80, 4, 1e-5, True),       # 20 per group, as 640 / 32
+    (120, 4, 1e-6, False),     # 30 per group, as 960 / 32
 ])
 def test_fused_group_norm_matches_jax(pallas, c, groups, eps, fuse_silu):
     """16x16 planes: the JAX kernel's gate needs hw % 128 == 0. Both sides
@@ -188,7 +190,8 @@ def test_fused_conv_matches_jax(pallas, case):
     assert_close(ours, ref, rel=1e-5)
 
 
-@pytest.mark.parametrize("c,groups,eps", [(32, 4, 1e-5), (40, 4, 1e-6)])
+@pytest.mark.parametrize("c,groups,eps", [(32, 4, 1e-5), (40, 4, 1e-6),
+                                         (80, 4, 1e-5), (120, 4, 1e-6)])
 def test_gn_affine_matches_jax(c, groups, eps):
     """The prologue operands: A and D with GroupNorm(x) = x * A + D, against
     JAX's gn_affine (XLA in the reference; the plain version on a CPU

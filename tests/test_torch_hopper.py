@@ -1,21 +1,27 @@
-"""The static rules of the port's wgmma kernels (K1 flash attention, K3
-fused conv, K4 weight-only-int8 GEMM, K5 W8A8 GEMM), mirrored in Python and
-tested on the CPU; the build's hash over the shared headers; the committed
-``wgmma_sm90.cuh`` against its generator. The kernels themselves run only on
-the card: the ``cuda`` tests hold them against their plain versions at the
-shapes the rules could break (this file imports no JAX, so they run there:
-``python3 -m pytest tests/test_torch_hopper.py -m cuda``)."""
+"""The static rules of the port's Hopper kernels (K1 flash attention and its
+dispatch rule, K2 fused GroupNorm and its statistics mode, K3 fused conv, K4
+weight-only-int8 GEMM, K5 W8A8 GEMM), mirrored in Python and tested on the
+CPU; ``Context.generate``'s error boundary; the build's hash over the shared
+headers; the committed ``wgmma_sm90.cuh`` against its generator. The kernels
+themselves run only on the card: the ``cuda`` tests hold them against their
+plain versions at the shapes the rules could break (this file imports no
+JAX, so they run there: ``python3 -m pytest tests/test_torch_hopper.py -m
+cuda``)."""
 
 import importlib.util
+import math
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from sdtpu_torch import Context, ErrorCode, SdtpuError
 from sdtpu_torch.ops import _build
 from sdtpu_torch.ops import attention as t_attn
 from sdtpu_torch.ops import conv as t_conv
+from sdtpu_torch.ops import groupnorm as t_gn
 from sdtpu_torch.ops import matmul as t_mm
 
 SMS = 132     # an H100 SXM
@@ -106,6 +112,96 @@ def test_flash_rows_follow_the_card():
         _, rows, _ = t_attn.plan(64, tiles128 * 128, 128, 1, SMS)
         assert rows == (128 if 2 * tiles128 >= SMS else 64)
         assert t_attn.plan(80, tiles128 * 128, 128, 1, SMS)[1] == 64
+
+
+def _fake(shape, dtype=torch.bfloat16, device="cuda", contiguous=True,
+          ptr=0):
+    """What a dispatch rule reads of a tensor, without a card."""
+    return types.SimpleNamespace(
+        shape=torch.Size(shape), dtype=dtype, device=torch.device(device),
+        is_contiguous=lambda: contiguous, data_ptr=lambda: ptr)
+
+
+@pytest.mark.parametrize("case,c,heads,want", [
+    ("bf16", 320, 8, True),            # the 64x64 self-attention, d = 40
+    ("bf16", 512, 1, True),            # the VAE's mid block, d = 512
+    ("float32", 320, 8, False),        # dataclasses.replace(SD15, "float32")
+    ("bf16", 20, 1, False),            # d = 20: not a multiple of 8
+    ("bf16", 520, 1, False),           # d = 520: above 512
+    ("strided", 320, 8, False),        # not contiguous
+    ("unaligned", 320, 8, False),      # not on a 16-byte boundary
+    ("cpu_float32", 320, 8, True),     # the plain version takes any dtype
+    ("cpu_float32", 20, 1, True),
+    ("cpu_bf16", 520, 1, True),
+])
+def test_flash_rule_is_the_kernel_contract(case, c, heads, want):
+    """K1's static rule reads the tensors: the reference's sequence clause,
+    then, on a CUDA tensor, what ``flash_attention_cuda`` takes (bf16,
+    contiguous, aligned, a head dim it is built for); on a CPU tensor the
+    plain version, any floating dtype. Taken by the rule alone, on stand-ins
+    for tensors of either device type."""
+    dtype = torch.float32 if "float32" in case else torch.bfloat16
+    device = "cpu" if case.startswith("cpu") else "cuda"
+    t = _fake((2, 4096, c), dtype, device, contiguous=case != "strided",
+              ptr=8 if case == "unaligned" else 0)
+    assert t_attn.uses_kernel(t, t, t, heads) is want
+    short = _fake((2, 77, c), dtype, device)
+    assert t_attn.uses_kernel(short, short, short, heads) is False
+
+
+@pytest.mark.parametrize("dtype,c,heads", [
+    (torch.float32, 320, 8), (torch.bfloat16, 20, 1),
+    (torch.bfloat16, 520, 1)])
+def test_flash_outside_the_contract_takes_the_plain_path(monkeypatch, dtype,
+                                                         c, heads):
+    """On a CUDA tensor outside the kernel's contract ``flash_attention``
+    calls the plain ``layers.sdpa`` and never the wrapper, which would
+    raise."""
+    taken = []
+    monkeypatch.setattr(t_attn, "sdpa", lambda *a: taken.append("plain"))
+    monkeypatch.setattr(t_attn, "flash_attention_cuda",
+                        lambda *a: taken.append("kernel"))
+    t = _fake((2, 4096, c), dtype)
+    t_attn.flash_attention(t, t, t, heads)
+    ok = _fake((2, 4096, 320))
+    t_attn.flash_attention(ok, ok, ok, 8)
+    assert taken == ["plain", "kernel"]
+
+
+# ---------------------------------------------------------------------------
+# Context.generate: failures inside the pipeline come out typed
+# ---------------------------------------------------------------------------
+
+def test_generate_types_a_wrapper_failure_and_stays_usable(monkeypatch):
+    """A kernel wrapper's RuntimeError (a failed launch) inside ``generate``
+    comes out as SdtpuError(RUNTIME_ERROR), chained, recorded; the context
+    is not latched, and the next call gives the image it would have given.
+    An SdtpuError raised inside passes through as it is."""
+    ctx = Context(config="tiny", steps=2, device="cpu", kernels="cuda_gn")
+    want = ctx.generate("a horse", seed=3)
+    real = t_gn.group_norm_reference
+    failure = RuntimeError("group_norm_silu launch failed: cudaError 700")
+
+    def broken(*a, **kw):
+        raise failure
+
+    monkeypatch.setattr(t_gn, "group_norm_reference", broken)
+    with pytest.raises(SdtpuError) as ei:
+        ctx.generate("a horse", seed=3)
+    assert ei.value.code == ErrorCode.RUNTIME_ERROR
+    assert ei.value.__cause__ is failure
+    assert "launch failed" in ctx.last_error(ErrorCode.RUNTIME_ERROR)
+    inner = SdtpuError(ErrorCode.INVALID_ARGUMENT, "from inside")
+
+    def refusing(*a, **kw):
+        raise inner
+
+    monkeypatch.setattr(t_gn, "group_norm_reference", refusing)
+    with pytest.raises(SdtpuError) as ei:
+        ctx.generate("a horse", seed=3)
+    assert ei.value is inner
+    monkeypatch.setattr(t_gn, "group_norm_reference", real)
+    assert np.array_equal(ctx.generate("a horse", seed=3), want)
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +663,256 @@ def test_conv_plan_is_what_the_wrapper_passes(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# K2: plan_gn(n, hw, c, groups, sms), both modes
+# ---------------------------------------------------------------------------
+
+# (n, hw, c) of the 61 GroupNorms of one SD1.5 UNet eval at 512x512 and the
+# CFG batch of 2, 32 groups each: the 44 ResBlock norms (down 8 ResBlocks,
+# mid 2, up 12 over the skip concats), the 16 transformer norms and
+# out_norm; and of the 28 GroupNorms the VAE decoder's fused convs fold
+# (gn_affine, the statistics mode) at batch 1: 14 ResBlocks x 2
+UNET_GNS = ([(2, 4096, 320)] * 13 + [(2, 4096, 640)] * 2 + [(2, 4096, 960)]
+            + [(2, 1024, 320)] + [(2, 1024, 640)] * 11
+            + [(2, 1024, c) for c in (960, 1280, 1920)]
+            + [(2, 256, 640)] + [(2, 256, 1280)] * 11 + [(2, 256, 1920)]
+            + [(2, 256, 2560)] * 2 + [(2, 64, 1280)] * 12
+            + [(2, 64, 2560)] * 3)
+VAE_GNS = ([(1, 4096, 512)] * 10 + [(1, 16384, 512)] * 6 + [(1, 65536, 512)]
+           + [(1, 65536, 256)] * 5 + [(1, 262144, 256)]
+           + [(1, 262144, 128)] * 5)
+GN_RAGGED = [case[:4] for case in chip_smoke.GN_RAGGED]
+# the planes no cluster's shared memory holds: the VAE's 256^2 and 512^2
+STREAMED = {(1, 65536, 512), (1, 65536, 256), (1, 262144, 256),
+            (1, 262144, 128)}
+# the sites the float64 emulation takes on the CPU (up to 8M values)
+SMALL_GNS = [s for s in sorted(set(UNET_GNS)) + [(1, 4096, 512)] + GN_RAGGED
+             if s[0] * s[1] * s[2] <= 2 ** 23]
+
+
+def test_gn_site_counts():
+    assert len(UNET_GNS) == 61 and len(VAE_GNS) == 28
+    # a fused conv's input is a GroupNorm's: the same planes
+    assert {(n, h * w, c) for n, h, w, c, _, _ in UNET_CONVS} == set(UNET_GNS)
+    assert {(n, h * w, c) for n, h, w, c, _, _ in VAE_CONVS} == set(VAE_GNS)
+
+
+def _check_gn_plan(n, hw, c, groups):
+    p = t_gn.plan_gn(n, hw, c, groups, SMS)
+    cpg = c // groups
+    span, cl, rows = p["span"], p["cluster"], p["rows"]
+    # whole groups and whole vectors: 16 bytes wherever C allows
+    assert p["vec"] == (8 if c % 8 == 0 else 2 if c % 2 == 0 else 1)
+    assert span % math.lcm(cpg, p["vec"]) == 0 and c % span == 0
+    if c % 8 == 0:
+        assert p["vec"] == 8 and span % 8 == 0
+    # the clusters' runs of rows cover the plane exactly once
+    assert 1 <= cl <= 16 and cl <= hw
+    if p["variant"] == "resident":
+        assert cl <= t_gn._BIG_CLUSTER
+    assert cl * rows >= hw and (cl - 1) * rows < hw
+    covered = [r for b in range(cl)
+               for r in range(min(hw, b * rows), min(hw, (b + 1) * rows))]
+    assert covered == list(range(hw))
+    assert 1 <= p["chunk"] <= rows
+    assert p["smem"] == t_gn.gn_smem_bytes(span, cpg, p["chunk"], p["bufs"])
+    assert p["smem"] <= SMEM_CAP
+    assert p["grid"] == (cl, n * (c // span))
+    assert p["blocks"] == cl * n * (c // span)
+    assert n * (c // span) <= 65535
+    # one tile of the block's rows, or chunks through two buffers
+    assert p["bufs"] == (1 if p["chunk"] == rows else 2)
+    assert p["variant"] == ("resident" if p["bufs"] == 1 else "streamed")
+    assert p["smem"] <= t_gn._RESIDENT     # two blocks an SM
+    return p
+
+
+@pytest.mark.parametrize("site", sorted(set(UNET_GNS)) + sorted(set(VAE_GNS))
+                         + GN_RAGGED)
+def test_gn_plan_at_every_site(site):
+    """Every UNet and VAE site and the smoke run's ragged ones: spans of
+    whole groups and 16-byte vectors covering whole 32-byte sectors where C
+    is a multiple of 8, rows covered once, at most 16 blocks a cluster and
+    227 KB a block; resident (x read once) at every UNet site, streamed at
+    the VAE's planes of 256^2 and 512^2; one wave on the 132 SMs."""
+    n, hw, c = site[:3]
+    groups = site[3] if len(site) > 3 else 32
+    p = _check_gn_plan(n, hw, c, groups)
+    assert p["variant"] == ("streamed" if (n, hw, c) in STREAMED
+                            else "resident")
+    if p["variant"] == "resident":
+        assert p["blocks"] <= 2 * SMS
+    else:
+        assert p["cluster"] == 16 and p["blocks"] >= SMS - 4
+
+
+@pytest.mark.parametrize("site,want", [
+    # the narrowest span of whole groups and sectors; a block per 256 rows
+    ((2, 4096, 320), {"span": 40, "cluster": 8, "rows": 512,
+                      "blocks": 128}),
+    ((2, 1024, 640), {"span": 40, "cluster": 4, "rows": 256,
+                      "blocks": 128}),
+    # a 64 KB tile at most: 120 channels x 342 rows in 12-block clusters
+    ((2, 4096, 960), {"span": 120, "cluster": 12, "rows": 342,
+                      "blocks": 192}),
+    # the 16x16 and 8x8 levels: one block a (sample, span), no cluster
+    ((2, 256, 1280), {"span": 40, "cluster": 1, "rows": 256,
+                      "blocks": 64}),
+    ((2, 64, 1280), {"span": 40, "cluster": 1, "rows": 64, "blocks": 64}),
+    ((2, 64, 2560), {"span": 80, "cluster": 1, "rows": 64, "blocks": 64}),
+    # the VAE's 512^2 x 128: 32-byte spans, 16-block clusters, 32 KB chunks
+    ((1, 262144, 128), {"span": 16, "cluster": 16, "rows": 16384,
+                        "chunk": 1024, "blocks": 128}),
+])
+def test_gn_plan_at_the_main_shapes(site, want):
+    p = t_gn.plan_gn(*site, 32, SMS)
+    assert {k: p[k] for k in want} == want
+
+
+@pytest.mark.parametrize("args", [(0, 64, 320, 32), (2, 0, 320, 32),
+                                  (2, 64, 320, 0), (2, 64, 320, 33)])
+def test_gn_plan_rejects(args):
+    with pytest.raises(ValueError):
+        t_gn.plan_gn(*args, SMS)
+
+
+def test_gn_constants_are_the_sources():
+    """The Python mirror of the kernel's block, cluster and shared-memory
+    layout against the source."""
+    src = (_build.SRC_DIR / "group_norm_silu.cu").read_text()
+    assert f"constexpr int THREADS = {t_gn._THREADS};" in src
+    assert f"constexpr int MAX_CLUSTER = {t_gn._MAX_CLUSTER};" in src
+    assert f"constexpr int MAX_BUFS = {t_gn._MAX_BUFS};" in src
+    assert "constexpr size_t SMEM_CAP = 227 * 1024;" in src
+    assert t_gn._SMEM_CAP == SMEM_CAP
+    assert "l.red = bufs * buf;" in src
+    assert "l.chs = l.red + (size_t)THREADS * 8 * sizeof(float);" in src
+    assert "l.ab = l.chs + (size_t)span * sizeof(float);" in src
+    assert "l.gst = l.ab + 2 * (size_t)span * sizeof(float);" in src
+    assert "l.total = l.gst + 6 * (size_t)(span / cpg) * sizeof(float);" \
+        in src
+    assert f"constexpr int MAX_CPG = {t_gn.MAX_CHANNELS_PER_GROUP};" in src
+
+
+def _emulate_gn_stats(x, groups, plan, dtype):
+    """The kernel's statistics in ``dtype``, by its partition: (sample,
+    span) clusters of ``plan["cluster"]`` blocks of ``plan["rows"]`` rows,
+    each in chunks of ``plan["chunk"]``; a chunk's group mean, then its
+    centred squares; Chan's formula over a block's chunks, then over the
+    cluster's blocks in rank order. Returns mean, variance [N, G]."""
+    n, hw, c = x.shape
+    cpg = c // groups
+    span, rows, chunk = plan["span"], plan["rows"], plan["chunk"]
+    xs = x.to(dtype).reshape(n, hw, c // span, span // cpg, cpg)
+    parts = []
+    for rank in range(plan["cluster"]):
+        r0, r1 = min(hw, rank * rows), min(hw, (rank + 1) * rows)
+        cnt, mean, m2 = 0, 0.0, 0.0
+        for k0 in range(r0, r1, chunk):
+            t = xs[:, k0:min(r1, k0 + chunk)]
+            nb = t.shape[1] * cpg
+            mb = t.sum(dim=(1, 4)) / nb
+            qb = ((t - mb[:, None, :, :, None]) ** 2).sum(dim=(1, 4))
+            if cnt == 0:
+                mean, m2 = mb, qb
+            else:
+                d = mb - mean
+                mean = mean + d * (nb / (cnt + nb))
+                m2 = m2 + qb + d * d * (cnt * nb / (cnt + nb))
+            cnt += nb
+        parts.append((cnt, mean, m2))
+    total = hw * cpg
+    mean = sum(cnt / total * m for cnt, m, _ in parts)
+    m2 = sum(q + cnt * (m - mean) ** 2 for cnt, m, q in parts)
+    return mean.reshape(n, groups), (m2 / total).reshape(n, groups)
+
+
+def _forced_streamed(n, hw, c, groups, cl, chunk):
+    plan = t_gn.plan_gn(n, hw, c, groups, SMS)
+    return {**plan, **t_gn._layout(hw, plan["span"], c // groups, cl, chunk)}
+
+
+@pytest.mark.parametrize("site", SMALL_GNS + ["streamed", "cluster_edge"])
+def test_gn_partition_and_chan_match_the_plain_version(site):
+    """The kernel's partition and combination, emulated in float64, against
+    ``gn_affine``'s plain version at each site's tiling (and a streamed plan
+    of many chunks and a 16-block cluster with empty blocks, at small
+    planes), on a plane of mean 64 and std 1. There E[x^2] - mean^2 in
+    float32 loses the variance; the float32 emulation keeps it."""
+    if site == "streamed":
+        n, hw, c, groups = 2, 1000, 320, 32
+        plan = _forced_streamed(n, hw, c, groups, 16, 7)
+        assert plan["bufs"] == 2
+    elif site == "cluster_edge":
+        n, hw, c, groups = 2, 9, 320, 32
+        plan = _forced_streamed(n, hw, c, groups, 16, 1)
+    else:
+        n, hw, c = site[:3]
+        groups = site[3] if len(site) > 3 else 32
+        plan = t_gn.plan_gn(n, hw, c, groups, SMS)
+    rng = np.random.default_rng(hw + c)
+    x = torch.from_numpy(rng.standard_normal((n, hw, c)).astype(np.float32)
+                         + 64.0)
+    p = {"scale": torch.from_numpy(rng.random(c).astype(np.float32) + 0.5),
+         "bias": torch.from_numpy(rng.standard_normal(c).astype(np.float32))}
+    mean, var = _emulate_gn_stats(x, groups, plan, torch.float64)
+    cpg = c // groups
+    rstd = torch.rsqrt(var + 1e-5)
+    a = rstd.repeat_interleave(cpg, dim=1) * p["scale"].double()
+    d = p["bias"].double() - (mean * rstd).repeat_interleave(cpg, dim=1) * \
+        p["scale"].double()
+    ra, rd = t_conv.gn_affine_reference(p, x, groups, 1e-5)
+    for ours, ref in ((a, ra), (d, rd)):
+        assert (ours.float() - ref).abs().max() <= 1e-4 * ref.abs().max()
+    xd = x.double().reshape(n, hw, groups, cpg)
+    true_var = xd.var(dim=(1, 3), unbiased=False)
+    _, var32 = _emulate_gn_stats(x, groups, plan, torch.float32)
+    naive = ((x * x).reshape(n, hw, groups, cpg).mean(dim=(1, 3))
+             - x.reshape(n, hw, groups, cpg).mean(dim=(1, 3)) ** 2)
+    err = (var32.double() - true_var).abs().max().item()
+    assert err <= 1e-4
+    if hw * cpg >= 4096:
+        assert (naive.double() - true_var).abs().max().item() > 10 * err
+
+
+def test_gn_plan_is_what_the_wrapper_passes(monkeypatch):
+    """Both modes hand ``plan_gn``'s span, cluster and chunk to the C entry
+    point as they are."""
+    _fake_card(monkeypatch, "sdtpu_group_norm_silu", {}, [])
+    entries = {}
+
+    def entry(name):
+        def run(*args):
+            entries[name] = args
+            return 0
+        return run
+
+    lib = types.SimpleNamespace(
+        sdtpu_group_norm_silu=entry("silu"),
+        sdtpu_group_norm_affine=entry("affine"))
+    monkeypatch.setattr(_build, "library", lambda: lib)
+
+    class Cuda(torch.Tensor):
+        device = types.SimpleNamespace(type="cuda")
+
+    before = (t_gn.group_norm_cuda.launches,
+              t_gn.group_norm_affine_cuda.launches)
+    for n, hw, c, groups in ((2, 4096, 320, 32), (2, 64, 2560, 32),
+                             (1, 5, 9, 3), (1, 65536, 256, 32)):
+        x = torch.zeros((n, hw, c), dtype=torch.bfloat16).as_subclass(Cuda)
+        p = {k: torch.zeros(c).as_subclass(Cuda) for k in ("scale", "bias")}
+        t_gn.group_norm_cuda(p, x, groups, 1e-5, True)
+        t_gn.group_norm_affine_cuda(p, x, groups, 1e-5)
+        plan = t_gn.plan_gn(n, hw, c, groups, SMS)
+        want = (n, hw, c, groups, plan["span"], plan["cluster"],
+                plan["chunk"], plan["bufs"])
+        assert entries["silu"][4:12] == want
+        assert entries["affine"][5:13] == want
+    assert (t_gn.group_norm_cuda.launches,
+            t_gn.group_norm_affine_cuda.launches) == (before[0] + 4,
+                                                      before[1] + 4)
+
+
+# ---------------------------------------------------------------------------
 # the build: headers in the hash, the generated header, the C signatures
 # ---------------------------------------------------------------------------
 
@@ -677,41 +1023,51 @@ def test_parse_ptxas_reads_registers_and_spills():
     (t_mm, "sdtpu_matmul_int8w", 6, 7),
     (t_mm, "sdtpu_matmul_w8a8", 7, 7),
     (t_conv, "sdtpu_conv_gn_silu", 9, 16),
+    # K2: (ints before eps, ints after it)
+    (t_gn, "sdtpu_group_norm_silu", 4, (8, 2)),
+    (t_gn, "sdtpu_group_norm_affine", 5, (8, 1)),
+    (t_gn, "sdtpu_group_norm_clusters", 0, 9),
 ])
 def test_bind_declares_the_c_signature(module, fn, pointers, ints):
     """Pointers and the stream as c_void_p (never cut to 32 bits), then the
-    ints, in the entry point's order."""
+    ints (K2's eps, a float, among them), in the entry point's order."""
     import ctypes
 
-    lib = types.SimpleNamespace(
-        sdtpu_flash_attn_fwd=types.SimpleNamespace(),
-        sdtpu_matmul_int8w=types.SimpleNamespace(),
-        sdtpu_matmul_w8a8=types.SimpleNamespace(),
-        sdtpu_conv_gn_silu=types.SimpleNamespace())
+    names = ("sdtpu_flash_attn_fwd", "sdtpu_matmul_int8w",
+             "sdtpu_matmul_w8a8", "sdtpu_conv_gn_silu",
+             "sdtpu_group_norm_silu", "sdtpu_group_norm_affine",
+             "sdtpu_group_norm_clusters")
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names})
     module.bind(lib)
     sig = getattr(lib, fn)
+    before, after = ints if isinstance(ints, tuple) else (ints, None)
+    tail = ([] if after is None
+            else [ctypes.c_float] + [ctypes.c_int] * after)
     assert sig.argtypes == ([ctypes.c_void_p] * pointers
-                            + [ctypes.c_int] * ints + [ctypes.c_void_p])
+                            + [ctypes.c_int] * before + tail
+                            + [ctypes.c_void_p])
     assert sig.restype is ctypes.c_int
     src = (_build.SRC_DIR / {"sdtpu_flash_attn_fwd": "flash_attn_fwd.cu",
                              "sdtpu_matmul_int8w": "matmul_int8w.cu",
                              "sdtpu_matmul_w8a8": "matmul_w8a8.cu",
-                             "sdtpu_conv_gn_silu": "conv_gn_silu.cu"}[fn]
-           ).read_text()
+                             "sdtpu_conv_gn_silu": "conv_gn_silu.cu"}.get(
+        fn, "group_norm_silu.cu")).read_text()
     decl = src[src.index(f'extern "C" int {fn}('):]
     decl = decl[:decl.index(")")]
     assert decl.count("void*") == pointers + 1
-    assert decl.count("int ") == ints + 1     # and the return type
+    assert decl.count("int ") == before + (after or 0) + 1  # and the return
+    assert decl.count("float ") == (after is not None)
 
 
 def test_no_fallback_in_the_wrappers():
     """On a CUDA tensor a wrapper launches or raises: no ``try`` in the
     kernel wrappers' modules, and no library attention or GEMM in them."""
-    for mod in (t_attn, t_mm, t_conv):
+    for mod in (t_attn, t_gn, t_mm, t_conv):
         text = Path(mod.__file__).read_text()
         assert "try:" not in text and "except" not in text
     assert "scaled_dot_product_attention" not in Path(
         t_attn.__file__).read_text()
+    assert "functional" not in Path(t_gn.__file__).read_text()
 
 
 # ---------------------------------------------------------------------------
@@ -880,3 +1236,178 @@ def test_cuda_conv_at_the_ragged_cases(case):
     assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max(
         ).item()
     assert torch.equal(out, again)
+
+
+# K2, both modes, on the card
+
+# one main-path site of each span class, C/G = 10, 20, 30, 40, 60, 80
+GN_SPAN_CLASSES = [(2, 4096, 320, 32), (2, 4096, 640, 32), (2, 4096, 960, 32),
+                   (2, 1024, 1280, 32), (2, 1024, 1920, 32), (2, 64, 2560, 32)]
+
+
+def _gn_inputs(n, hw, c, mean=0.5, std=2.0):
+    g = torch.Generator(device="cuda").manual_seed(hw + c)
+    x = (torch.randn((n, hw, c), generator=g, device="cuda") * std + mean
+         ).to(torch.bfloat16)
+    p = {"scale": (torch.rand(c, generator=g, device="cuda") + 0.5).to(
+             torch.bfloat16),
+         "bias": torch.randn(c, generator=g, device="cuda").to(
+             torch.bfloat16)}
+    return x, p
+
+
+def _check_gn_modes(x, p, groups, eps=1e-5):
+    """Both modes twice: y within one bf16 rounding (2^-9 relative, 1e-2
+    with room) of the float32 plain version, A and D within 1e-4 of
+    theirs (float32 both, sums in another order); the same bytes twice."""
+    y = t_gn.group_norm_cuda(p, x, groups, eps, True)
+    y2 = t_gn.group_norm_cuda(p, x, groups, eps, True)
+    a, d = t_gn.group_norm_affine_cuda(p, x, groups, eps)
+    a2, d2 = t_gn.group_norm_affine_cuda(p, x, groups, eps)
+    torch.cuda.synchronize()
+    ref = t_gn.group_norm_reference(p, x.float(), groups, eps, True)
+    assert (y.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max(
+        ).item()
+    ra, rd = t_conv.gn_affine_reference(p, x, groups, eps)
+    for ours, want in ((a, ra), (d, rd)):
+        assert (ours - want).abs().max().item() <= 1e-4 * want.abs().max(
+            ).item()
+    assert torch.equal(y, y2) and torch.equal(a, a2) and torch.equal(d, d2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,c,groups", GN_SPAN_CLASSES + GN_RAGGED)
+def test_cuda_group_norm_both_modes_at_each_class(n, hw, c, groups):
+    """Each span class, the ragged cases (C % 8 != 0, odd planes, a short
+    last run of a 16-block cluster) and the streamed VAE plane."""
+    _needs_card()
+    _check_gn_modes(*_gn_inputs(n, hw, c), groups)
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_keeps_the_variance_at_mean_64():
+    """A plane of mean 64 and std 1, where E[x^2] - mean^2 in float32 would
+    lose the variance."""
+    _needs_card()
+    _check_gn_modes(*_gn_inputs(2, 4096, 320, mean=64.0, std=1.0), 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,c,groups,cl,chunk", [
+    (2, 5, 320, 32, 16, 1),      # 11 of 16 blocks without a row
+    (2, 9, 2560, 32, 16, 1),
+    (2, 300, 320, 32, 16, 7),    # streamed: 3 chunks of 7 rows a block
+    (1, 1000, 960, 32, 13, 5),
+    (2, 77, 30, 3, 16, 2),       # 4-byte vectors, streamed
+    (1, 5, 9, 3, 4, 1),          # 2-byte vectors, empty blocks
+])
+def test_cuda_group_norm_at_forced_plans(monkeypatch, n, hw, c, groups, cl,
+                                         chunk):
+    """Plans the static rule does not give but the C entry point takes: a
+    16-block cluster over fewer rows than blocks, many chunks through two
+    buffers, clusters that are not a power of two."""
+    _needs_card()
+    plan = _forced_streamed(n, hw, c, groups, cl, chunk)
+    monkeypatch.setattr(t_gn, "plan_gn", lambda *a: plan)
+    _check_gn_modes(*_gn_inputs(n, hw, c), groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,c", [(2, 4096, 320), (2, 64, 2560),
+                                    (1, 65536, 256)])
+def test_cuda_group_norm_graph_replays_give_the_same_bytes(n, hw, c):
+    """Both modes captured in a CUDA graph (cluster launches), replayed
+    twice: each replay gives the eager calls' bytes."""
+    _needs_card()
+    x, p = _gn_inputs(n, hw, c)
+    want = (t_gn.group_norm_cuda(p, x, 32, 1e-5, True),
+            *t_gn.group_norm_affine_cuda(p, x, 32, 1e-5))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        t_gn.group_norm_cuda(p, x, 32, 1e-5, True)
+        t_gn.group_norm_affine_cuda(p, x, 32, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = (t_gn.group_norm_cuda(p, x, 32, 1e-5, True),
+               *t_gn.group_norm_affine_cuda(p, x, 32, 1e-5))
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sorted(set(UNET_GNS)) + sorted(set(VAE_GNS)))
+def test_cuda_gn_plan_is_one_wave(site):
+    """The card holds every cluster of a main-path plan at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    _needs_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = t_gn.plan_gn(*site, 32, sms)
+    need = p["grid"][1] if p["cluster"] > 1 else p["blocks"]
+    assert t_gn.co_resident(*site, 32, p) >= need
+
+
+@pytest.mark.cuda
+def test_cuda_flash_float32_takes_the_plain_path():
+    """dataclasses.replace(SD15, dtype="float32")'s 64x64 self-attention on
+    the card: the rule sends it to ``layers.sdpa``; nothing raises and the
+    kernel does not launch."""
+    _needs_card()
+    from sdtpu_torch.models.layers import sdpa
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((2, 4096, 320), generator=g, device="cuda")
+               for _ in range(3))
+    before = t_attn.flash_attention_cuda.launches
+    out = t_attn.flash_attention(q, k, v, 8)
+    torch.cuda.synchronize()
+    assert t_attn.flash_attention_cuda.launches == before
+    assert torch.equal(out, sdpa(q, k, v, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,c,groups,fuse_silu", [
+    (2, 4096, 320, 32, True), (2, 64, 2560, 32, False), (2, 77, 30, 3, True),
+    (1, 5, 9, 3, False)])
+def test_cuda_group_norm_matches_plain(n, hw, c, groups, fuse_silu):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((n, hw, c), generator=g, device="cuda") * 2 + 1).to(
+        torch.bfloat16)
+    p = {"scale": torch.randn(c, generator=g, device="cuda").to(
+        torch.bfloat16), "bias": torch.randn(c, generator=g, device="cuda")
+        .to(torch.bfloat16)}
+    out = t_gn.group_norm_cuda(p, x, groups, 1e-5, fuse_silu)
+    torch.cuda.synchronize()
+    ref = t_gn.group_norm_reference(p, x.float(), groups, 1e-5, fuse_silu)
+    # one bf16 rounding of the output (2^-9 relative) on float32 stats
+    assert (out.float() - ref).abs().max().item() <= (
+        1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((2, 64, 64, 320), 32),
+                                          ((2, 8, 8, 2560), 32),
+                                          ((1, 7, 9, 30), 3)])
+def test_cuda_group_norm_affine_matches_plain(shape, groups):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(shape, generator=g, device="cuda") * 2 + 1).to(
+        torch.bfloat16)
+    c = shape[-1]
+    p = {"scale": torch.randn(c, generator=g, device="cuda"),
+         "bias": torch.randn(c, generator=g, device="cuda")}
+    a, d = t_gn.group_norm_affine_cuda(p, x, groups, 1e-6)
+    torch.cuda.synchronize()
+    ra, rd = t_conv.gn_affine_reference(p, x, groups, 1e-6)
+    # float32 on both sides, sums in another order
+    for ours, ref in ((a, ra), (d, rd)):
+        assert (ours - ref).abs().max().item() <= (
+            1e-4 * ref.abs().max().item())
