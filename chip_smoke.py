@@ -40,6 +40,10 @@ Phases, each printing one JSON object per line:
    number of times; the same seed must give the same bytes; median s/image
    of 3 under ``cuda``, the mean of 2 under the others;
 7. ab: s/image under plain, cuda, cuda_gn and cuda_conv, in turns;
+   samplers: one image each with ddim, plms_exact, euler_a, lms, dpm_sde,
+   unipc, heun and dpm_karras under cuda, K1's launches pinned (201, 211
+   for plms_exact, 401 for heun), the same bytes for the same seed, finite
+   latents;
 8. quantized serving, on three more Contexts with the same demo weights:
    ``quantize="int8w_dense"`` (kernels cuda), ``"int8w"`` (cuda_conv) and
    ``"int8"`` (cuda), the last calibrated on the card with 2 prompts x 2
@@ -57,9 +61,18 @@ Phases, each printing one JSON object per line:
    holds one full-width UNet eval under each mode against the unquantized
    float32 UNet, beside the unquantized bf16 error, and records each
    mode's PSNR against the ``quantize="none"`` image at the same seed;
-9. model: one SD1.5 UNet eval and one VAE decode at full width under each
+9. batch: ``generate_batch`` of 3 requests (own seed, guidance, negative
+   prompt; padded to 4) under cuda, cuda_gn, cuda_conv, int8w_dense and
+   int8 with K5: every kernel's launches per call pinned, a batch of one
+   against ``generate`` (the same bytes), each request's latents against
+   its run alone within ``BATCH_GAP_FACTOR`` times its own gap between
+   bf16 and a float32 run, s/image at B = 4 against B = 1 in turns, device
+   busy ms per image at B = 4; then kernel_*_b4: the sites of a UNet eval
+   at N = 8 and a VAE decode at N = 4 recorded, and K1-K5 held against
+   their plain versions at each, with their plans and device times;
+10. model: one SD1.5 UNet eval and one VAE decode at full width under each
    policy, each against float32;
-10. breakdown: stage times and a profiler trace of one image under cuda,
+11. breakdown: stage times and a profiler trace of one image under cuda,
    cuda_gn, cuda_conv, int8w_dense and int8 with K5.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
@@ -168,6 +181,16 @@ MM_W8A8_PER_EVAL = 60 + 5 + 20
 # of them the sites that split K (K5's steps are 128 deep): every site of
 # 512 and 128 rows but ff1 (54), and attn2's k and v at 64x64 and 32x32 (20)
 MM_W8A8_SUMS_PER_EVAL = 54 + 20
+# batched serving: generate_batch of 3 requests, padded to 4, runs one UNet
+# eval at N = 8 a step and one VAE decode at N = 4. Its launches per call are
+# one image's, but where a rule reads M: at N = 8 K5's n >= m routing keeps
+# 35 of the 160 transformer sites (85 at N = 2), of which 29 split K (74),
+# and 44 of K4's 228 sites split K (93)
+# (tests/test_torch_hopper.py::test_batch_pins_are_the_rules)
+BATCH = 4
+MM_INT8W_SUMS_PER_EVAL_B4 = 44
+MM_W8A8_PER_EVAL_B4 = 35
+MM_W8A8_SUMS_PER_EVAL_B4 = 29
 KERNEL_NAMES = ("flash", "group_norm", "group_norm_affine", "conv",
                 "conv_int8", "matmul_int8w", "matmul_int8w_sum",
                 "matmul_w8a8", "matmul_w8a8_sum")
@@ -191,6 +214,44 @@ PINNED = {
     "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL * STEPS,
                     matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL * STEPS),
 }
+BATCH_PINNED = {
+    "cuda": PINNED["cuda"], "cuda_gn": PINNED["cuda_gn"],
+    "cuda_conv": PINNED["cuda_conv"],
+    "int8w_dense": pins(
+        matmul_int8w=MM_INT8W_PER_EVAL * STEPS,
+        matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL_B4 * STEPS),
+    "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL_B4 * STEPS,
+                    matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL_B4 * STEPS),
+}
+# the samplers phase, under cuda: UNet evals per image (K1 launches 10 times
+# an eval, and once in the VAE): one a step, two on plms_exact's first step,
+# two a step for heun
+SAMPLER_EVALS = {"ddim": STEPS, "plms_exact": STEPS + 1, "euler_a": STEPS,
+                 "lms": STEPS, "dpm_sde": STEPS, "unipc": STEPS,
+                 "heun": 2 * STEPS, "dpm_karras": STEPS}
+# three requests with their own seed, guidance (one of 1.0: its uncond half
+# mixes in with weight 0) and negative prompt; the third's attention syntax
+# takes the batch down the weighted text path. The batch phase times four
+# distinct ones (no padding) against one
+BATCH_REQUESTS = [
+    {"prompt": PROMPT, "seed": 31, "guidance": 7.5},
+    {"prompt": "a watercolor of a lighthouse at dusk", "seed": 32,
+     "guidance": 1.0, "negative_prompt": "blurry"},
+    {"prompt": "a (red:1.3) vintage car on a coastal road", "seed": 33,
+     "guidance": 4.0, "negative_prompt": "low quality, [grainy]"}]
+BATCH_TIMED = BATCH_REQUESTS + [
+    {"prompt": "a bowl of fruit on a wooden table", "seed": 34,
+     "guidance": 7.5}]
+# a request's latents in the batch against the same request run alone,
+# relative to the float32 run's max-abs, may differ by at most this factor
+# times that request's own gap between bf16 alone (cuda) and float32. Both
+# gaps are rounding grown over 20 steps: a batch runs other bf16 sums (and
+# under int8 + K5 other routes, n >= m reading M), which the trajectory
+# amplifies to the order of bf16 itself (0.72-1.16x under cuda, up to 1.95x
+# under int8 + K5 on an H100), so the factor is the one the model phase
+# holds every bf16 path to; a request mixed up with a batch-mate (its seed,
+# guidance or negative prompt) is off by O(1)
+BATCH_GAP_FACTOR = MODEL_FACTOR
 # K2 and K3 at shapes off the main path: odd planes, C/G not a multiple of
 # 8 (or of 2), Cout not a multiple of the 128 tile, int8 weights. K2's: C %
 # 8 != 0 (4- and 2-byte vectors), a 16-block cluster with a short last run,
@@ -353,19 +414,20 @@ def phase_build():
             raise AssertionError(f"{name}: a kernel spills: {report}")
 
 
-def phase_kernel():
+def phase_kernel(shapes=SHAPES, ragged=FLASH_RAGGED, label="kernel"):
     """K1 at the main path's shapes, then at ``FLASH_RAGGED`` (there without
     the plain version's time). Each phase line also carries the tile the
     wrapper's static rule chose and ``exp_bound_ms``, the time the softmax's
     exponentials alone need on the special-function units (derived, not
-    measured, so it stays out of the ``kernels`` line)."""
+    measured, so it stays out of the ``kernels`` line). ``shapes`` and
+    ``label``: the batch phase's shapes (N = 8, the VAE's 4)."""
     from sdtpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    cases = [(b, s, s, c, h, True) for b, s, c, h in SHAPES]
-    cases += [(*case, False) for case in FLASH_RAGGED]
+    cases = [(b, s, s, c, h, True) for b, s, c, h in shapes]
+    cases += [(*case, False) for case in ragged]
     for b, sq, sk, c, heads, main in cases:
         d = c // heads
         q = torch.randn((b, sq, c), generator=g, device="cuda").to(
@@ -400,7 +462,7 @@ def phase_kernel():
             row["plain_ms"] = cuda_ms(
                 lambda: A.flash_attention_reference(q, k, v, heads))
             row["plain_tflops"] = flop / row["plain_ms"] / 1e9
-        emit({"phase": "kernel" if main else "kernel_ragged", **row,
+        emit({"phase": label if main else "kernel_ragged", **row,
               "dpad": dpad, "block_rows": block_rows, "keys_per_step": bkv,
               "exp_bound_ms": b * heads * sq * sk / PEAK_EXP * 1e3})
         if not err <= KERNEL_TOL * ref_max:
@@ -430,10 +492,12 @@ def recording(module, name, log):
         setattr(module, name, real)
 
 
-def phase_sites(ctx):
+def phase_sites(ctx, batch=1):
     """The call shapes K2 and K3 get on the main path, and how many times
     each runs per image: one UNet eval (x STEPS) and one VAE decode under
-    each policy, with the wrappers' arguments logged."""
+    each policy, with the wrappers' arguments logged; for ``batch``
+    requests, the UNet eval at N = 2 x batch and the decode at N = batch
+    (the launches per call do not change)."""
     from sdtpu_torch.models import unet, vae
     from sdtpu_torch.ops import conv as C
     from sdtpu_torch.ops import groupnorm as G
@@ -441,13 +505,8 @@ def phase_sites(ctx):
     cfg = ctx.cfg
     g = torch.Generator(device="cuda").manual_seed(3)
     dt = cfg.compute_dtype
-    x = torch.randn((2, cfg.latent_size, cfg.latent_size,
-                     cfg.latent_channels), generator=g, device="cuda").to(dt)
-    te = torch.randn((2, cfg.unet.time_embed_dim), generator=g,
-                     device="cuda").to(dt)
-    context = torch.randn((2, cfg.clip.context_len, cfg.unet.context_dim),
-                          generator=g, device="cuda").to(dt)
-    z = torch.randn((1, cfg.latent_size, cfg.latent_size,
+    x, te, context = unet_inputs(cfg, 3, batch)
+    z = torch.randn((batch, cfg.latent_size, cfg.latent_size,
                      cfg.latent_channels), generator=g, device="cuda").to(dt)
     gn_sites: dict = {}
     conv_sites: dict = {}
@@ -476,7 +535,7 @@ def phase_sites(ctx):
                            prologue, b.dim() == 2)
                 sites[key] = sites.get(key, 0) + per_image
     reset_counts()
-    emit({"phase": "sites",
+    emit({"phase": "sites", "batch": batch,
           "group_norm_sites": len(gn_sites),
           "group_norm_per_image": sum(gn_sites.values()),
           "conv_sites": len(conv_sites),
@@ -507,7 +566,7 @@ def _gn_plan(n, hw, c, groups):
     return {**plan, "co_resident": G.co_resident(n, hw, c, groups, plan)}
 
 
-def phase_kernel_gn(gn_sites):
+def phase_kernel_gn(gn_sites, ragged=GN_RAGGED, label="kernel_gn"):
     """K2 at every main-path shape and at ragged ones, against its plain
     version in float32 on the same bf16 inputs; times of the kernel, the
     plain version (bf16 in, float32 math), the one PyTorch call that
@@ -521,7 +580,7 @@ def phase_kernel_gn(gn_sites):
 
     g = torch.Generator(device="cuda").manual_seed(4)
     cases = [(k, n) for k, n in sorted(gn_sites.items(), key=str)]
-    cases += [(k, 0) for k in GN_RAGGED]
+    cases += [(k, 0) for k in ragged]
     rows = []
     for (n, hw, c, groups, eps, silu), per_image in cases:
         x, p = _gn_case(n, hw, c, g)
@@ -551,7 +610,7 @@ def phase_kernel_gn(gn_sites):
                    nchw, groups, p["scale"], p["bias"], eps))),
                "cuda_site_ms": cuda_ms(lambda: unet._gn(
                    p, x, groups, eps, silu, "cuda"))}
-        emit({"phase": "kernel_gn", **row})
+        emit({"phase": label, **row})
         if not err <= FUSED_TOL * scale:
             raise AssertionError(f"group_norm kernel disagrees at {row}")
         rows.append(row)
@@ -559,7 +618,8 @@ def phase_kernel_gn(gn_sites):
     return rows
 
 
-def phase_kernel_gn_affine(conv_sites):
+def phase_kernel_gn_affine(conv_sites, ragged=GN_RAGGED,
+                           label="kernel_gn_affine"):
     """K2's statistics mode at the GroupNorm of every fused conv site of
     the main path (the UNet's and the VAE's, launches per image summed over
     the convs that share an input shape) and at the ragged shapes, against
@@ -578,7 +638,7 @@ def phase_kernel_gn_affine(conv_sites):
             key = (n, h * w_, c, 32)
             per_image[key] = per_image.get(key, 0) + count
     cases = sorted(per_image.items())
-    cases += [(k[:4], 0) for k in GN_RAGGED]
+    cases += [(k[:4], 0) for k in ragged]
     rows = []
     for (n, hw, c, groups), count in cases:
         x, p = _gn_case(n, hw, c, g)
@@ -603,7 +663,7 @@ def phase_kernel_gn_affine(conv_sites):
                    p, x, groups, 1e-5)),
                "library_ms": cuda_ms(lambda: torch.var_mean(
                    view, dim=(1, 3), correction=0))}
-        emit({"phase": "kernel_gn_affine", **row})
+        emit({"phase": label, **row})
         if not err <= AFFINE_TOL:
             raise AssertionError(f"gn_affine kernel disagrees at {row}")
         rows.append(row)
@@ -614,7 +674,8 @@ def phase_kernel_gn_affine(conv_sites):
     return rows
 
 
-def phase_kernel_conv(conv_sites):
+def phase_kernel_conv(conv_sites, ragged=CONV_RAGGED, unet_n=2,
+                      label="kernel_conv"):
     """K3 at every main-path shape (with int8 weights too at the UNet's)
     and at ragged ones, against its plain version in float32 on the same bf16 inputs (the prologue from a real
     GroupNorm of x, ``gn_affine``, which is K2's statistics mode, itself
@@ -636,11 +697,12 @@ def phase_kernel_conv(conv_sites):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     main = sorted(conv_sites.items(), key=str)
     # (site, launches per image, int8 weights, launches per image under
-    # quantize="int8w", which quantizes the UNet's sites: the CFG batch of 2)
+    # quantize="int8w", which quantizes the UNet's sites: the CFG batch,
+    # ``unet_n``)
     cases = [(k, n, False, 0, None) for k, n in main]
-    cases += [(k, 0, True, n, None) for k, n in main if k[0][0] == 2]
+    cases += [(k, 0, True, n, None) for k, n in main if k[0][0] == unet_n]
     cases += [((s, co, k, pro, True), 0, q8, 0, want)
-              for s, co, k, pro, q8, want in CONV_RAGGED]
+              for s, co, k, pro, q8, want in ragged]
     rows = []
     for (shape, c_out, k, prologue, per_sample), per_image, int8, \
             per_image_int8, want in cases:
@@ -710,7 +772,7 @@ def phase_kernel_conv(conv_sites):
                 row[f"{policy}_site_ms"] = cuda_ms(lambda: unet._norm_conv(
                     pn, pc, x, groups, 1e-5, policy,
                     fuse_silu=prologue == "silu", padding=k // 2, t=t))
-        emit({"phase": "kernel_conv", **row})
+        emit({"phase": label, **row})
         if not err <= FUSED_TOL * ref_max:
             raise AssertionError(f"conv kernel disagrees at {row}")
         if want not in (None, plan["design"]):
@@ -775,12 +837,30 @@ def phase_model(ctx):
                                      f"{res}")
 
 
+def device_profile(fn):
+    """torch.profiler over one call of ``fn``: device ms by kernel name,
+    the number of device kernels, and the call's wall ms on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    launches = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            launches += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    return by_name, launches, wall_ms
+
+
 def phase_breakdown(ctx, policy):
     """Where one image's time goes under ``policy``: CUDA-event times of
     the three stages, then a torch.profiler trace of one image (device busy
     and idle share, the kernels that take the most device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from sdtpu_torch.engine import pipeline
 
     before = ctx.kernels
@@ -803,18 +883,8 @@ def phase_breakdown(ctx, policy):
            "denoise_ms": ev[1].elapsed_time(ev[2]),
            "unet_eval_ms": ev[1].elapsed_time(ev[2]) / ctx.steps,
            "decode_ms": ev[2].elapsed_time(ev[3])}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ctx.generate(PROMPT, guidance=7.5, seed=5)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
-    launches = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            launches += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+    by_name, launches, wall_ms = device_profile(
+        lambda: ctx.generate(PROMPT, guidance=7.5, seed=5))
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     res.update({
@@ -942,15 +1012,17 @@ def phase_determinism(ctx):
         raise AssertionError("same seed gave different images")
 
 
-def unet_inputs(cfg, seed):
-    """One CFG batch of UNet inputs at the configuration's widths."""
+def unet_inputs(cfg, seed, batch=1):
+    """The CFG batch of ``batch`` requests' UNet inputs at the
+    configuration's widths."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = cfg.compute_dtype
-    x = torch.randn((2, cfg.latent_size, cfg.latent_size,
+    n = 2 * batch
+    x = torch.randn((n, cfg.latent_size, cfg.latent_size,
                      cfg.latent_channels), generator=g, device="cuda").to(dt)
-    te = torch.randn((2, cfg.unet.time_embed_dim), generator=g,
+    te = torch.randn((n, cfg.unet.time_embed_dim), generator=g,
                      device="cuda").to(dt)
-    context = torch.randn((2, cfg.clip.context_len, cfg.unet.context_dim),
+    context = torch.randn((n, cfg.clip.context_len, cfg.unet.context_dim),
                           generator=g, device="cuda").to(dt)
     return x, te, context
 
@@ -1000,19 +1072,24 @@ def phase_calibrate(ctx_i):
         raise AssertionError("calibration left a site without a scale")
 
 
-def phase_mm_sites(ctx_d, ctx_w, ctx_i):
+def phase_mm_sites(ctx_d, ctx_w, ctx_i, batch=1):
     """The call shapes K4 and K5 get on the quantized main paths, and how
     many times per image: one UNet eval (x STEPS) under each mode with the
-    wrappers' arguments logged. Keys are (m, k, n, bias)."""
+    wrappers' arguments logged. Keys are (m, k, n, bias). For ``batch``
+    requests (the UNet eval at N = 2 x batch) the modes of the batch phase,
+    against ``BATCH_PINNED``."""
     from sdtpu_torch.models import unet
     from sdtpu_torch.ops import matmul as MM
 
-    x, te, context = unet_inputs(ctx_d.cfg, 6)
+    x, te, context = unet_inputs(ctx_d.cfg, 6, batch)
     found = {}
-    for label, ctx, name, flag in (
-            ("int8w_dense", ctx_d, "matmul_int8w_cuda", False),
+    arms = (("int8w_dense", ctx_d, "matmul_int8w_cuda", False),
             ("int8w", ctx_w, "matmul_int8w_cuda", False),
-            ("int8+k5", ctx_i, "matmul_w8a8_cuda", True)):
+            ("int8+k5", ctx_i, "matmul_w8a8_cuda", True))
+    pinned = PINNED if batch == 1 else BATCH_PINNED
+    for label, ctx, name, flag in arms:
+        if label not in pinned:
+            continue
         log = []
         with torch.inference_mode(), recording(MM, name, log), w8a8_kernel(
                 flag):
@@ -1026,13 +1103,14 @@ def phase_mm_sites(ctx_d, ctx_w, ctx_i):
             sites[key] = sites.get(key, 0) + STEPS
         found[label] = sites
     reset_counts()
-    emit({"phase": "mm_sites", **{
+    emit({"phase": "mm_sites", "batch": batch, **{
         f"{k}_{what}": v for k, sites in found.items() for what, v in (
             ("shapes", len(sites)), ("per_image", sum(sites.values())))}})
     for label, key in (("int8w_dense", "matmul_int8w"),
                        ("int8w", "matmul_int8w"),
                        ("int8+k5", "matmul_w8a8")):
-        if sum(found[label].values()) != PINNED[label][key]:
+        if label in found and sum(found[label].values()) != pinned[label][
+                key]:
             raise AssertionError(f"{label}: site counts differ from the "
                                  f"pinned counts: {found[label]}")
     return found
@@ -1078,7 +1156,7 @@ def phase_widening():
         raise AssertionError(f"int8 -> bf16 widening is not exact: {wrong}")
 
 
-def phase_kernel_mm(sites):
+def phase_kernel_mm(sites, ragged=MM_RAGGED, label="kernel_mm"):
     """K4 and K5 at every main-path shape and at ragged ones, each against
     its plain version on the same bf16 inputs (K4's run in float32, K5's
     as it is: its arithmetic is exact up to the final cast).
@@ -1096,13 +1174,13 @@ def phase_kernel_mm(sites):
     g = torch.Generator(device="cuda").manual_seed(7)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     k4 = dict(sites["int8w_dense"])
-    for key in sites["int8w"]:
+    for key in sites.get("int8w", ()):
         k4.setdefault(key, 0)
     k5 = sites["int8+k5"]
     rows = {"matmul_int8w": [], "matmul_w8a8": []}
     for name, cases in (
-            ("matmul_int8w", sorted(k4.items()) + [(c, 0) for c in MM_RAGGED]),
-            ("matmul_w8a8", sorted(k5.items()) + [(c, 0) for c in MM_RAGGED])):
+            ("matmul_int8w", sorted(k4.items()) + [(c, 0) for c in ragged]),
+            ("matmul_w8a8", sorted(k5.items()) + [(c, 0) for c in ragged])):
         for (m, k, n, bias), per_image in cases:
             x, w8, scale, b, wb = mm_case(m, k, n, bias, g)
             nbytes = (x.numel() * 2 + w8.numel() + n * 4 * (1 + bias)
@@ -1163,7 +1241,7 @@ def phase_kernel_mm(sites):
             row["max_abs_err"] = (out.float() - ref).abs().max().item()
             row["ref_abs_max"] = ref.abs().max().item()
             row["tops"] = 2.0 * m * k * n / row["ms"] / 1e9
-            emit({"phase": "kernel_mm", "kernel": name, **row, **derived})
+            emit({"phase": label, "kernel": name, **row, **derived})
             if not row["max_abs_err"] <= tol * row["ref_abs_max"]:
                 raise AssertionError(f"{name} disagrees at {row}")
             rows[name].append(row)
@@ -1226,6 +1304,163 @@ def phase_quant_model(ctx, arms):
                                  f"{res}")
 
 
+def phase_samplers(ctx):
+    """One image with each sampler of ``SAMPLER_EVALS`` under ``cuda`` on
+    the main Context: uint8 [512, 512, 3], not constant, finite latents,
+    the same bytes for the same seed, and K1 launched 10 times an eval and
+    once in the VAE, no other kernel."""
+    before = ctx.sampler, ctx.kernels
+    ctx.kernels = "cuda"
+    for name, evals in SAMPLER_EVALS.items():
+        ctx.sampler = name
+        reset_counts()
+        t0 = time.perf_counter()
+        img = ctx.generate(PROMPT, guidance=7.5, seed=41)
+        image_s = time.perf_counter() - t0
+        launches = counts()
+        same = bool(np.array_equal(img, ctx.generate(PROMPT, guidance=7.5,
+                                                     seed=41)))
+        lat = ctx.generate(PROMPT, guidance=7.5, seed=41, output="latent")
+        want = pins(flash=10 * evals + 1)
+        emit({"phase": "samplers", "sampler": name, "evals": evals,
+              "image_s": image_s, "launches_per_image": launches,
+              "identical": same, "latent_finite": bool(np.isfinite(lat).all()),
+              "latent_abs_max": float(np.abs(lat).max()),
+              "image_mean": float(img.mean()), "image_std": float(img.std())})
+        check_image(img, ctx.cfg.image_size)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        if not same or not np.isfinite(lat).all():
+            raise AssertionError(f"{name}: not deterministic or not finite")
+    ctx.sampler, ctx.kernels = before
+
+
+def latents_alone(ctx, requests):
+    """Each request's latents, run alone (a batch of one)."""
+    return [ctx.generate_batch([r], output="latent")[0] for r in requests]
+
+
+def float32_latents(ctx):
+    """``BATCH_REQUESTS``' latents from a float32 run of ``ctx``'s weights
+    (the bf16 values widened exactly) at full width: the plain path, each
+    request alone. The float32 Context is freed before returning."""
+    import dataclasses
+
+    from sdtpu_torch import Context
+    from sdtpu_torch.io.params import cast_params
+
+    c32 = Context(config=dataclasses.replace(ctx.cfg, dtype="float32"),
+                  steps=STEPS, kernels="plain", device=ctx.device)
+    c32.params = {k: cast_params(v, torch.float32)
+                  for k, v in ctx.params.items()}
+    with torch.inference_mode():
+        c32._prepare_buffers()
+    lat = latents_alone(c32, BATCH_REQUESTS)
+    del c32
+    torch.cuda.empty_cache()
+    return lat
+
+
+def phase_batch(arms, lat32):
+    """``generate_batch`` of ``BATCH_REQUESTS`` (3, padded to 4) on each
+    arm, (label, Context, kernel policy, ``KERNEL_W8A8``): the images,
+    every kernel's launches per call (``BATCH_PINNED``), a batch of one
+    against ``generate`` (the same bytes), each request's latents in the
+    batch against the request alone, within ``BATCH_GAP_FACTOR`` times the
+    gap between the request alone under ``cuda`` and its float32 run
+    (``lat32``), relative to the float32 run's max-abs; s/image at B = 4
+    (``BATCH_TIMED``) against B = 1, in turns, and device busy ms per image
+    at B = 4 (torch.profiler)."""
+    bound = None
+    rows = []
+    for label, ctx, policy, flag in arms:
+        before = ctx.kernels
+        ctx.kernels = policy
+        with w8a8_kernel(flag):
+            reset_counts()
+            imgs = ctx.generate_batch(BATCH_REQUESTS)
+            launches = counts()
+            for img in imgs:
+                check_image(img, ctx.cfg.image_size)
+            r0 = BATCH_REQUESTS[0]
+            one = ctx.generate_batch([r0])[0]
+            same_one = bool(np.array_equal(one, ctx.generate(
+                r0["prompt"], guidance=r0["guidance"], seed=r0["seed"])))
+            in_batch = ctx.generate_batch(BATCH_REQUESTS, output="latent")
+            alone = latents_alone(ctx, BATCH_REQUESTS)
+            scale = [float(np.abs(r).max()) for r in lat32]
+            if bound is None:     # the first arm is cuda's bf16
+                bound = [float(np.abs(a - r).max()) / m
+                         for a, r, m in zip(alone, lat32, scale)]
+            gap = [float(np.abs(b - a).max()) / m
+                   for b, a, m in zip(in_batch, alone, scale)]
+            times = {1: [], BATCH: []}
+            for reqs in ([BATCH_TIMED[0]], BATCH_TIMED, BATCH_TIMED,
+                         [BATCH_TIMED[0]]):
+                t0 = time.perf_counter()
+                ctx.generate_batch(reqs)
+                times[len(reqs)].append((time.perf_counter() - t0)
+                                        / len(reqs))
+            by_name, kernels_b4, wall_ms = device_profile(
+                lambda: ctx.generate_batch(BATCH_TIMED))
+        ctx.kernels = before
+        row = {"phase": "batch", "mode": label, "kernels": policy,
+               "quantize": ctx.quantize, "launches_per_call": launches,
+               "batch_of_one_identical": same_one,
+               "latent_finite": bool(all(np.isfinite(b).all()
+                                         for b in in_batch)),
+               "in_batch_gap": gap, "bound": bound,
+               "bound_factor": BATCH_GAP_FACTOR,
+               "s_per_image_b1": statistics.mean(times[1]),
+               "s_per_image_b4": statistics.mean(times[BATCH]),
+               "image_s": {str(k): v for k, v in times.items()},
+               "device_busy_ms_per_image_b4": sum(by_name.values()) / BATCH,
+               "device_kernels_b4": kernels_b4,
+               "profiled_wall_ms_b4": wall_ms,
+               "image_means": [float(i.mean()) for i in imgs]}
+        emit(row)
+        if launches != BATCH_PINNED[label]:
+            raise AssertionError(f"batch {label}: launches {launches}, "
+                                 f"expected {BATCH_PINNED[label]}")
+        if not same_one or not row["latent_finite"]:
+            raise AssertionError(f"batch {label}: a batch of one differs "
+                                 f"from generate, or latents not finite")
+        if any(g > BATCH_GAP_FACTOR * b for g, b in zip(gap, bound)):
+            raise AssertionError(f"batch {label}: a request in the batch is "
+                                 f"off its run alone: {gap} > {bound}")
+        rows.append(row)
+    return rows
+
+
+def phase_batch_kernels(ctx, ctx_d, ctx_w, ctx_i):
+    """The kernels at the call shapes of a batch of four: the sites of one
+    UNet eval at N = 8 and one VAE decode at N = 4 recorded as
+    ``phase_sites`` and ``phase_mm_sites`` do, then K1, K2, K2's statistics
+    mode, K3, K4 and K5 at each distinct one against their plain versions,
+    with the batch-2 rows' tolerances; each row carries its plan and its
+    device time."""
+    flash = phase_kernel([(2 * BATCH, 4096, 320, 8), (2 * BATCH, 1024, 640, 8),
+                          (BATCH, 4096, 512, 1)], [], "kernel_b4")
+    gn_sites, conv_sites = phase_sites(ctx, BATCH)
+    gn = phase_kernel_gn(gn_sites, [], "kernel_gn_b4")
+    affine = phase_kernel_gn_affine(conv_sites, [], "kernel_gn_affine_b4")
+    conv = phase_kernel_conv(conv_sites, [], 2 * BATCH, "kernel_conv_b4")
+    mm = phase_kernel_mm(phase_mm_sites(ctx_d, ctx_w, ctx_i, BATCH), [],
+                         "kernel_mm_b4")
+    return {"flash": flash, "group_norm": gn, "group_norm_affine": affine,
+            "conv": conv, **mm}
+
+
+def batch_summary(rows):
+    """A kernel's batch rows for the ``kernels`` line: the worst error and
+    the most launched site's time."""
+    top = max(rows, key=lambda r: (r.get("per_image", 0), r.get("m", 0)))
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": top["ms"], "bound_ms": top["bound_ms"],
+            "rows": len(rows)}
+
+
 def main_row(rows):
     """The timed row of a kernel: its most frequent main-path shape, the
     one with the most rows among equals."""
@@ -1270,6 +1505,7 @@ def main() -> int:
     for policy in ("cuda_gn", "cuda_conv"):
         launches[policy] = phase_policy(ctx, policy)
     phase_ab(ctx)
+    phase_samplers(ctx)
 
     # quantized serving: one Context per mode, the same demo weights
     ctx_d = Context(config="sd15", steps=STEPS, kernels="cuda",
@@ -1299,6 +1535,15 @@ def main() -> int:
     phase_ab_quant(arms)
     phase_quant_model(ctx, arms)
 
+    # batched serving under every policy and the modes with a GEMM kernel,
+    # then the kernels at the batch's call shapes
+    phase_batch([("cuda", ctx, "cuda", False),
+                 ("cuda_gn", ctx, "cuda_gn", False),
+                 ("cuda_conv", ctx, "cuda_conv", False),
+                 ("int8w_dense", ctx_d, "cuda", False),
+                 ("int8+k5", ctx_i, "cuda", True)], float32_latents(ctx))
+    b4 = phase_batch_kernels(ctx, ctx_d, ctx_w, ctx_i)
+
     phase_model(ctx)
     for c, policy in ((ctx, "cuda"), (ctx, "cuda_gn"), (ctx, "cuda_conv"),
                       (ctx_d, "cuda")):
@@ -1325,6 +1570,7 @@ def main() -> int:
          "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
          "library_ms": rows[0]["library_ms"],
          "design": rows[0]["design"],
+         "batch4": batch_summary(b4["flash"]),
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -1338,6 +1584,7 @@ def main() -> int:
          "library": "F.group_norm on the NCHW view of x, then F.silu",
          "cuda_site_ms": gn_main["cuda_site_ms"],
          "design": gn_main["design"], "plan": gn_main["plan"],
+         "batch4": batch_summary(b4["group_norm"]),
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -1355,6 +1602,7 @@ def main() -> int:
          "library": "the cuda policy's site: bf16 GroupNorm, SiLU, cuDNN "
                     "conv, bias",
          "design": conv_main["design"], "plan": conv_main["plan"],
+         "batch4": batch_summary(b4["conv"]),
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -1372,6 +1620,7 @@ def main() -> int:
          "library_ms": affine_main["library_ms"],
          "library": "torch.var_mean over the [N, hw, G, C/G] view",
          "design": affine_main["design"], "plan": affine_main["plan"],
+         "batch4": batch_summary(b4["group_norm_affine"]),
          "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
@@ -1387,6 +1636,7 @@ def main() -> int:
          "sum_pass_launches": launches["int8w_dense"]["matmul_int8w_sum"],
          "sum_pass_launches_int8w": launches["int8w"]["matmul_int8w_sum"],
          "dequant_ms": k4_main["dequant_ms"],
+         "batch4": batch_summary(b4["matmul_int8w"]),
          "timed_shape": [k4_main[d] for d in "mkn"]},
         {"name": "matmul_w8a8", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
@@ -1406,6 +1656,7 @@ def main() -> int:
          "design": k5_main["design"],
          "sum_pass_launches": launches["int8+k5"]["matmul_w8a8_sum"],
          "static_path_ms": k5_main["static_path_ms"],
+         "batch4": batch_summary(b4["matmul_w8a8"]),
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

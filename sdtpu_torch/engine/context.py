@@ -4,8 +4,17 @@
 Lifecycle: load models -> load tokenizer -> prepare buffers (the cached
 uncond ``""`` embedding) -> generate. A failed phase latches the context:
 every later ``generate`` raises ``INVALID_CONTEXT``. A failure inside one
-``generate`` (a kernel wrapper, its build or launch, torch) comes out as
-``SdtpuError(RUNTIME_ERROR)`` and latches nothing.
+``generate`` or batch (a kernel wrapper, its build or launch, torch) comes
+out as ``SdtpuError(RUNTIME_ERROR)`` and latches nothing.
+
+Serving: ``generate`` takes a prompt or a list of prompts and a
+``negative_prompt``; ``generate_batch``/``generate_batch_async`` take
+requests with a ``prompt`` and their own ``guidance``, ``seed`` and
+``negative_prompt``, padded to a power of two. Prompts may carry the
+attention syntax and run past the 77-token window (``sdtpu_torch.text``).
+``sampler`` is any name of ``samplers.SAMPLERS`` (``"dpm"`` by default).
+The reference's LoRA, ControlNet, PAG, two-stage and mesh arguments are
+refused with ``INVALID_ARGUMENT`` until their slices of the port.
 
 The device is always explicit: ``Context(..., device="cuda")``. On a CUDA
 device ``kernels="auto"`` selects the hand-written flash-attention kernel
@@ -32,12 +41,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sdtpu_torch import text as text_mod
 from sdtpu_torch.config import CONFIGS, PipelineConfig
 from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.errors import ErrorCode, ErrorTable, SdtpuError
 from sdtpu_torch.io.params import cast_params, init_pipeline_params
 from sdtpu_torch.models.layers import disable_tf32
 from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
+from sdtpu_torch.samplers import SAMPLERS
 from sdtpu_torch.tokenizer import DEMO_MERGES, Tokenizer
 
 KERNELS = ("cuda", "cuda_gn", "cuda_conv", "plain")
@@ -58,6 +69,8 @@ class Context:
         quantize: str = "none",
         *,
         device,
+        mesh=None,
+        lora: Optional[str] = None,
     ) -> None:
         self.errors = ErrorTable()
         self._failed = False
@@ -76,13 +89,13 @@ class Context:
                 "checkpoint loading is not ported yet (sdtpu.io.weights is "
                 "later work of the port); model_dir=None runs random demo "
                 "weights", self.errors)
-        if sampler != "dpm":
+        _refuse_unported(self.errors, mesh=mesh, lora=lora)
+        if not isinstance(sampler, str) or sampler.lower() not in SAMPLERS:
             raise SdtpuError(
                 ErrorCode.INVALID_ARGUMENT,
-                f"unknown sampler {sampler!r}: the port runs 'dpm' "
-                f"(DPM-Solver++ 2M); the other samplers are later work",
+                f"unknown sampler {sampler!r}; available: {sorted(SAMPLERS)}",
                 self.errors)
-        self.sampler = "dpm"
+        self.sampler = sampler
         if kernels == "auto":
             kernels = "cuda" if self.device.type == "cuda" else "plain"
         if kernels not in KERNELS:
@@ -156,14 +169,66 @@ class Context:
 
     def _prepare_buffers(self) -> None:
         """Precompute the uncond ("") embedding."""
-        self._uncond = self._embed_prompt("")[0]
+        self._uncond = self._embed_prompt("")
 
     def _tokens(self, text: str):
         ids = self.tokenizer.tokenize(text, self.cfg.clip.context_len)
         return torch.tensor([ids], dtype=torch.int64, device=self.device)
 
     def _embed_prompt(self, text: str):
-        return pipeline.encode_text(self.params, self._tokens(text), self.cfg)
+        """One prompt's embedding [T, D]."""
+        return pipeline.encode_text(self.params, self._tokens(text),
+                                    self.cfg)[0]
+
+    def _refuse_scheduling(self, texts) -> None:
+        if any(text_mod.has_schedule(t or "", self.steps) for t in texts):
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                "prompt scheduling ([from:to:when] / [a|b]) is supported "
+                "on Context.generate only (the port's generate does not "
+                "schedule prompts yet)", self.errors)
+
+    def _text_inputs(self, prompts: list[str], negatives: list):
+        """-> (tokens, weights or None, one uncond embedding a negative),
+        as ``sdtpu/engine/context.py:_build_text_inputs`` builds them.
+
+        Everything fits one window and carries no weight: tokens [B, T]
+        (attention syntax of unit weight stripped), weights None, the
+        cached ``""`` embedding where a negative is empty. Else the long or
+        weighted path: tokens and weights [B, k, T], every prompt and
+        negative padded to the same chunk count k, and each uncond
+        embedding [k*T, D] encoded with its weights."""
+        L = self.cfg.clip.context_len
+        negs = [n or "" for n in negatives]
+        tok = self.tokenizer
+        if not any(text_mod.needs_chunking(tok, t, L)
+                   for t in prompts + [n for n in negs if n]):
+            def plain(t):
+                return (text_mod.strip_syntax(t)
+                        if text_mod.has_attention_syntax(t) else t)
+
+            tokens = torch.tensor([tok.tokenize(plain(p), L) for p in prompts],
+                                  dtype=torch.int64, device=self.device)
+            return tokens, None, [self._embed_prompt(plain(n)) if n
+                                  else self._uncond for n in negs]
+        k = max(text_mod.chunked_tokens(tok, t, L)[0].shape[0]
+                for t in prompts + negs)
+
+        def chunked(texts):
+            per = [text_mod.chunked_tokens(tok, t, L, min_chunks=k)
+                   for t in texts]
+            return (torch.tensor(np.stack([t for t, _ in per]),
+                                 dtype=torch.int64, device=self.device),
+                    torch.tensor(np.stack([w for _, w in per]),
+                                 device=self.device))
+
+        tokens, weights = chunked(prompts)
+        uncond = []
+        for n in negs:
+            nt, nw = chunked([n])
+            uncond.append(pipeline.encode_text(self.params, nt, self.cfg,
+                                               nw)[0])
+        return tokens, weights, uncond
 
     # ------------------------------------------------------------------
     # knobs
@@ -183,49 +248,91 @@ class Context:
     # generate
     # ------------------------------------------------------------------
 
-    def generate(self, prompt: str, guidance: float = 7.5,
-                 seed: Optional[int] = None,
-                 out: Optional[np.ndarray] = None,
-                 output: str = "image") -> np.ndarray:
-        """prompt -> uint8 RGB image [H, W, 3] (numpy, on the host).
-
-        ``seed`` overrides the context seed for this call; otherwise the
-        context seed is used and incremented. ``out``: optional caller
-        buffer to fill. ``output="latent"`` returns the float32
-        scale-factored latents [h, w, 4] instead of decoding."""
+    def _check_usable(self) -> None:
         if self._failed:
             raise SdtpuError(ErrorCode.INVALID_CONTEXT,
                              "context previously failed and gave up",
                              self.errors)
-        if not isinstance(prompt, str):
-            raise SdtpuError(
-                ErrorCode.INVALID_ARGUMENT,
-                "prompt must be one string (batched prompts are later work "
-                "of the port)", self.errors)
+
+    def _check_output(self, output: str) -> None:
         if output not in ("image", "latent"):
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
                              f"output must be image|latent, got {output!r}",
                              self.errors)
-        if seed is None:
-            seed = self.seed
-            self.seed += 1
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _run(self, what: str, fn):
+        """``fn()`` under inference mode; any failure but an
+        ``SdtpuError`` (a kernel wrapper's refusal, a failed build or
+        launch, a torch error) comes out typed as ``RUNTIME_ERROR``,
+        recorded, and the context stays usable."""
         try:
             with torch.inference_mode():
-                res = pipeline.generate(
-                    self.params, self._tokens(prompt), self._uncond, gen,
-                    float(guidance), cfg=self.cfg, steps=self.steps,
-                    use_cfg=guidance != 1.0, kernels=self.kernels,
-                    output=output)
-                res = res[0].cpu().numpy()
+                return fn()
         except SdtpuError:
             raise
         except Exception as e:  # noqa: BLE001 - call boundary, not latched
-            # a kernel wrapper's refusal, a failed build or launch, a torch
-            # error: typed and recorded, and the context stays usable
             raise SdtpuError(ErrorCode.RUNTIME_ERROR,
-                             f"generate failed: {type(e).__name__}: {e}",
+                             f"{what} failed: {type(e).__name__}: {e}",
                              self.errors) from e
+
+    def _next_seed(self, seed: Optional[int]) -> int:
+        if seed is None:
+            seed = self.seed
+            self.seed += 1
+        return int(seed)
+
+    def generate(self, prompt: str | list[str], guidance: float = 7.5,
+                 seed: Optional[int] = None,
+                 negative_prompt: Optional[str] = None,
+                 out: Optional[np.ndarray] = None,
+                 lora: Optional[str] = None, control_image=None,
+                 control: Optional[str] = None, control_scale: float = 1.0,
+                 denoising_end: Optional[float] = None,
+                 output: str = "image",
+                 pag_scale: Optional[float] = None) -> np.ndarray:
+        """prompt -> uint8 RGB image [H, W, 3] (numpy, on the host), or
+        [B, H, W, 3] for a list of prompts.
+
+        ``negative_prompt`` replaces the ``""`` uncond embedding of the CFG
+        mix for the whole call. ``seed`` overrides the context seed for
+        this call; otherwise the context seed is used and incremented. One
+        generator of that seed draws the latents of every prompt of a list
+        (and then a ``NEEDS_NOISE`` sampler's step noise). ``out``: optional
+        caller buffer to fill. ``output="latent"`` returns the float32
+        scale-factored latents [h, w, 4] (or [B, ...]) instead of decoding.
+        ``lora``, ``control_image``, ``control``, ``denoising_end`` and
+        ``pag_scale`` are not ported yet and refused when given."""
+        self._check_usable()
+        prompts = [prompt] if isinstance(prompt, str) else prompt
+        if not isinstance(prompts, (list, tuple)) or not all(
+                isinstance(p, str) for p in prompts):
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                             "prompt must be a string or a list of strings",
+                             self.errors)
+        prompts = list(prompts)
+        if not prompts:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, "empty prompt list",
+                             self.errors)
+        _refuse_unported(self.errors, lora=lora, control_image=control_image,
+                         control=control, denoising_end=denoising_end,
+                         pag_scale=pag_scale)
+        self._check_output(output)
+        self._refuse_scheduling(prompts + [negative_prompt])
+        seed = self._next_seed(seed)
+
+        def call():
+            tokens, weights, (uncond,) = self._text_inputs(
+                prompts, [negative_prompt])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            return pipeline.generate(
+                self.params, tokens, uncond, gen, float(guidance),
+                cfg=self.cfg, sampler=self.sampler, steps=self.steps,
+                use_cfg=guidance != 1.0, kernels=self.kernels,
+                output=output, token_weights=weights).cpu().numpy()
+
+        res = self._run("generate", call)
+        if isinstance(prompt, str):
+            res = res[0]
         if output == "latent":
             return res
         if out is not None:
@@ -238,5 +345,81 @@ class Context:
             return out
         return res
 
+    def generate_batch_async(self, requests: list[dict],
+                             lora: Optional[str] = None,
+                             output: str = "image"):
+        """Enqueue one batched run of several independent requests and
+        return ``finish()``, which copies the results to the host and
+        returns one array per request, in order.
+
+        Each request: ``prompt`` (str, required) and optional ``guidance``
+        (7.5), ``seed`` (the context seed, incremented) and
+        ``negative_prompt``, all a sample: a guidance vector, one
+        generator a sample (the sample's latents, then its step noise), the
+        uncond embeddings stacked. The batch is padded to the next power of
+        two with copies of the first request; only the n real results come
+        back. The CFG pair always runs (a guidance of 1.0 mixes in its
+        uncond half with weight 0). A batch of one gives the bytes of
+        ``generate``. ``lora`` (or a request's ``lora``/``pag_scale``) is
+        not ported yet and refused. ``output="latent"`` returns latents."""
+        self._check_usable()
+        if not requests:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, "empty request list",
+                             self.errors)
+        for r in requests:
+            if not isinstance(r, dict) or not isinstance(r.get("prompt"),
+                                                         str):
+                raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                                 "each request needs a string 'prompt'",
+                                 self.errors)
+            _refuse_unported(self.errors, lora=r.get("lora"),
+                             pag_scale=r.get("pag_scale"))
+        _refuse_unported(self.errors, lora=lora)
+        self._check_output(output)
+        n = len(requests)
+        p = 1 << (n - 1).bit_length()
+        pad = list(requests) + [requests[0]] * (p - n)
+        self._refuse_scheduling([t for r in requests for t in (
+            r["prompt"], r.get("negative_prompt"))])
+        seeds = [self._next_seed(r.get("seed")) for r in pad]
+        guidance = [float(r.get("guidance", 7.5)) for r in pad]
+
+        def call():
+            tokens, weights, uncond = self._text_inputs(
+                [r["prompt"] for r in pad],
+                [r.get("negative_prompt") for r in pad])
+            gens = [torch.Generator(device=self.device).manual_seed(s)
+                    for s in seeds]
+            return pipeline.generate(
+                self.params, tokens, torch.stack(uncond), gens, guidance,
+                cfg=self.cfg, sampler=self.sampler, steps=self.steps,
+                use_cfg=True, kernels=self.kernels, output=output,
+                token_weights=weights)
+
+        res = self._run("generate_batch", call)
+
+        def finish() -> list[np.ndarray]:
+            host = self._run("generate_batch", lambda: res[:n].cpu().numpy())
+            return [host[i] for i in range(n)]
+
+        return finish
+
+    def generate_batch(self, requests: list[dict],
+                       lora: Optional[str] = None,
+                       output: str = "image") -> list[np.ndarray]:
+        """``generate_batch_async``, finished."""
+        return self.generate_batch_async(requests, lora, output)()
+
     def last_error(self, code: ErrorCode) -> Optional[str]:
         return self.errors.last(code)
+
+
+def _refuse_unported(errors: ErrorTable, **given) -> None:
+    """Refuse a reference argument whose feature is a later slice of the
+    port (LoRA, ControlNet, PAG, two-stage, the mesh), when it is given."""
+    for name, value in given.items():
+        if value is not None:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"{name}= is not ported yet (a later slice of the port)",
+                errors)

@@ -1,5 +1,5 @@
-"""Parameter trees: random init, dtype casting, and the bridge from the JAX
-package's tree.
+"""Parameter trees: random init, dtype casting, and the bridge from and to
+the JAX package's tree.
 
 A tree is nested dicts and lists of tensors with the JAX package's keys
 (``sdtpu/io/params.py``): dense ``{"w": (in, out), "b"}``, conv ``{"w":
@@ -120,3 +120,21 @@ def from_jax_tree(tree, cfg: PipelineConfig):
     out = {name: _convert(tree[name]) for name in PORTED}
     _check_shapes(out, init_pipeline_params(cfg, None, torch.device("meta")))
     return out
+
+
+def to_jax_tree(params):
+    """The port's float32 (or int8) tree -> the JAX package's layout, as
+    numpy arrays on the host: the inverse of ``from_jax_tree``. Conv
+    weights (``w``, int8 ``w8``) go from OIHW to HWIO; every other leaf
+    keeps its shape."""
+    def convert(node, key=None):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v) for v in node]
+        t = node.detach().cpu()
+        if key in ("w", "w8") and t.dim() == 4:   # conv: OIHW -> HWIO
+            t = t.permute(2, 3, 1, 0)
+        return np.ascontiguousarray(t.numpy())
+
+    return convert(params)

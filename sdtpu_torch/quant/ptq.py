@@ -176,7 +176,7 @@ def calibrate(params_q, cfg, prompts, tokenizer, steps: int = 4,
         absmax[path] = (torch.maximum(absmax[path], value)
                         if path in absmax else value)
 
-    plan = dpm.plan(NoiseSchedule.sd_v1(), steps, device)
+    plan = dpm.plan(NoiseSchedule.sd_v1(), steps, device=device)
     dtype = cfg.compute_dtype
     t_embs = temb_mod.apply(params_q["temb"], plan.model_t, cfg.unet,
                             dtype=dtype)

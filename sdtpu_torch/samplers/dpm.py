@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sdtpu_torch.samplers.schedule import NoiseSchedule
+from sdtpu_torch.samplers.schedule import NoiseSchedule, to_f32
 
 
 class Plan(NamedTuple):
@@ -33,8 +33,11 @@ class State(NamedTuple):
     prev_y: torch.Tensor  # previous step's data prediction
 
 
-def plan(schedule: NoiseSchedule, steps: int, device) -> Plan:
-    ts = schedule.sampling_times(steps)           # [steps+1], 1 -> 1/N
+def plan(schedule: NoiseSchedule, steps: int, start_step: int = 0,
+         spacing: str = "uniform", *, device) -> Plan:
+    """``start_step`` > 0 (a warm start): the solver's history restarts
+    there, so the first executed step is pure 1st order (``i2r`` 0)."""
+    ts = schedule.times(steps, spacing)           # [steps+1], 1 -> 1/N
     model_t = schedule.model_times(ts[:-1])       # [steps]
     alpha = schedule.marginal_alpha(ts)           # [steps+1]
     sigma = schedule.marginal_sigma(ts)
@@ -44,23 +47,21 @@ def plan(schedule: NoiseSchedule, steps: int, device) -> Plan:
     r = np.ones_like(h)
     r[1:] = h[:-1] / h[1:]
     i2r = 1.0 / (2.0 * r)
-    i2r[:1] = 0.0  # first step: pure 1st order
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
+    i2r[: start_step + 1] = 0.0  # first executed step: pure 1st order
     return Plan(
-        model_t=f32(model_t),
-        alpha_s=f32(alpha[:-1]),
-        inv_alpha_s=f32(1.0 / alpha[:-1]),
-        sigma_s=f32(sigma[:-1]),
-        sigma_ratio=f32(sigma[1:] / sigma[:-1]),
-        alpha_phi=f32(alpha[1:] * phi),
-        i2r=f32(i2r),
+        model_t=to_f32(model_t, device),
+        alpha_s=to_f32(alpha[:-1], device),
+        inv_alpha_s=to_f32(1.0 / alpha[:-1], device),
+        sigma_s=to_f32(sigma[:-1], device),
+        sigma_ratio=to_f32(sigma[1:] / sigma[:-1], device),
+        alpha_phi=to_f32(alpha[1:] * phi, device),
+        i2r=to_f32(i2r, device),
     )
 
 
 def init_state(x: torch.Tensor) -> State:
+    """The state for latents like ``x`` (every sampler of the port takes
+    the latents, where the JAX package takes their shape)."""
     return State(prev_y=torch.zeros_like(x))
 
 

@@ -9,8 +9,9 @@ and every comparison asserts that the JAX side really reached its Pallas
 kernel: off the TPU its shape gates silently send a call to XLA
 (``sdtpu/ops/conv.py:182``, ``sdtpu/ops/groupnorm.py:129``), which would
 compare the port with the plain reference instead. Inputs are numpy arrays
-from a fixed seed; weights are the JAX package's random init, carried over
-by ``from_jax_tree``. Each test states its tolerance.
+from a fixed seed; weights are the port's random init in the JAX package's
+layout (``to_jax_tree``), carried back by ``from_jax_tree``. Each test
+states its tolerance.
 """
 
 import collections
@@ -24,9 +25,9 @@ import torch
 from jax.experimental import pallas as pl
 
 from sdtpu import config as j_config
+from sdtpu import text as j_text
 from sdtpu.engine import pipeline as j_pipeline
 from sdtpu.engine.context import DEMO_MERGES as J_DEMO_MERGES
-from sdtpu.io.params import init_pipeline_params as j_init_params
 from sdtpu.models import unet as j_unet
 from sdtpu.models import vae as j_vae
 from sdtpu.ops import attention as j_attn
@@ -36,7 +37,8 @@ from sdtpu.tokenizer import Tokenizer as JTokenizer
 from sdtpu_torch import Context, ErrorCode, SdtpuError
 from sdtpu_torch import config as t_config
 from sdtpu_torch.engine import pipeline as t_pipeline
-from sdtpu_torch.io.params import from_jax_tree
+from sdtpu_torch.io.params import (from_jax_tree, init_pipeline_params,
+                                   to_jax_tree)
 from sdtpu_torch.models import layers as t_layers
 from sdtpu_torch.models import unet as t_unet
 from sdtpu_torch.models import vae as t_vae
@@ -56,9 +58,13 @@ def _no_tf32():
 
 @pytest.fixture(scope="module")
 def trees():
-    """(JAX tree as numpy, the port's tree) for TINY."""
-    jtree = jax.tree.map(np.asarray,
-                         j_init_params(jax.random.PRNGKey(0), TINY_J))
+    """(the JAX package's tree as numpy, the port's tree) for TINY: the
+    port's random init in the JAX layout (``to_jax_tree``), carried back by
+    ``from_jax_tree``. The JAX package's own init of the same tree takes
+    some 40 s on the CPU; ``test_torch_slice.py::
+    test_port_init_has_jax_tree_shapes`` holds both inits to one tree."""
+    jtree = to_jax_tree(init_pipeline_params(
+        TINY_T, torch.Generator().manual_seed(0), "cpu"))
     return jtree, from_jax_tree(jtree, TINY_T)
 
 
@@ -396,21 +402,29 @@ def test_vae_matches_jax_pallas_conv(pallas, trees):
 def test_context_cuda_conv_matches_jax_pipeline(monkeypatch, pallas, trees):
     """Context(kernels="cuda_conv").generate, with the JAX tree's weights
     and the JAX pipeline's noise injected, against the JAX pipeline under
-    pallas_conv (its conv kernel in interpret mode). Latents: max-abs error
-    <= 1e-4 x their max-abs; the uint8 image within 1 (a value on a .5
-    boundary may round either way)."""
+    pallas_conv (its conv kernel in interpret mode), given the inputs the
+    JAX package's Context builds: PROMPT runs past TINY's 16-token window,
+    so both take the chunked text path (``sdtpu/engine/context.py:
+    _build_text_inputs``). Latents: max-abs error <= 1e-4 x their max-abs;
+    the uint8 image within 1 (a value on a .5 boundary may round either
+    way)."""
     jtree, ttree = trees
     steps, seed, guidance = 2, 7, 7.5
     tok = JTokenizer.from_merges(J_DEMO_MERGES)
     L = TINY_J.clip.context_len
-    jtok = jnp.asarray([tok.tokenize(PROMPT, L)], jnp.int32)
+    assert j_text.needs_chunking(tok, PROMPT, L)
+    k = j_text.chunked_tokens(tok, PROMPT, L)[0].shape[0]
+    jtok, jw = (jnp.asarray(a[None])
+                for a in j_text.chunked_tokens(tok, PROMPT, L, min_chunks=k))
+    nt, nw = (jnp.asarray(a[None])
+              for a in j_text.chunked_tokens(tok, "", L, min_chunks=k))
     j_unc = jax.jit(functools.partial(j_pipeline.encode_text, cfg=TINY_J))(
-        jtree, jnp.asarray([tok.tokenize("", L)], jnp.int32))[0]
+        jtree, nt, weights=nw)[0]
     key = jax.random.PRNGKey(seed)
     j_lat = jax.jit(functools.partial(
         j_pipeline.generate, cfg=TINY_J, sampler="dpm", steps=steps,
         kernels="pallas_conv", output="latent"))(
-        jtree, jtok, j_unc, key, jnp.float32(guidance))
+        jtree, jtok, j_unc, key, jnp.float32(guidance), token_weights=jw)
     j_img = np.asarray(jax.jit(functools.partial(
         j_pipeline.decode_latents, cfg=TINY_J, kernels="pallas_conv"))(
         jtree, j_lat))

@@ -1071,6 +1071,99 @@ def test_no_fallback_in_the_wrappers():
 
 
 # ---------------------------------------------------------------------------
+# batched serving: four requests are one UNet eval at N = 8 (each request's
+# CFG pair) and one VAE decode at N = 4; every rule at those sites
+# ---------------------------------------------------------------------------
+
+BATCH = 4
+
+
+def _batched(sites, n):
+    """The same sites with their batch (the first entry) set to ``n``."""
+    return [(n, *site[1:]) for site in sites]
+
+
+def _transformer_sites(batch):
+    """(m, k, n) of the 160 dense sites of one UNet eval's 16 transformer
+    blocks for ``batch`` requests (the CFG batch of 2 a request): attn1 q,
+    k, v, o and attn2 q, o (c -> c), attn2 k, v (the 77 text rows a sample,
+    768 -> c), ff1 (c -> 8c), ff2 (4c -> c). ``quantize="int8"`` routes the
+    sites with n >= m to K5 (``layers._w8a8_kernel_ok``)."""
+    sites = []
+    for rows, c, blocks in ((4096, 320, 5), (1024, 640, 5), (256, 1280, 5),
+                            (64, 1280, 1)):
+        m = 2 * batch * rows
+        for _ in range(blocks):
+            sites += [(m, c, c)] * 6 + [(2 * batch * 77, 768, c)] * 2
+            sites += [(m, c, 8 * c), (m, 4 * c, c)]
+    return sites
+
+
+FLASH_B4 = [(2 * BATCH, 4096, 320, 8), (2 * BATCH, 1024, 640, 8),
+            (BATCH, 4096, 512, 1)]
+GNS_B4 = sorted(set(_batched(UNET_GNS, 2 * BATCH) + _batched(VAE_GNS, BATCH)))
+UNET_CONVS_B4 = sorted(set(_batched(UNET_CONVS, 2 * BATCH)))
+VAE_CONVS_B4 = _batched(VAE_CONVS, BATCH)
+K4_SITES_B4 = sorted({(BATCH * m, k, n) for m, k, n in _unet_sites()})
+K5_SITES_B4 = sorted({s for s in _transformer_sites(BATCH) if s[2] >= s[0]})
+
+
+def test_batch_pins_are_the_rules():
+    """At N = 8 the K5 routing (n >= m) keeps 35 of the 160 transformer
+    sites (85 at N = 2); K4 still takes all 228 sites, of which 44 split K
+    (93 at N = 2); of K5's 35, 29 split (74): the smoke run's batch pins."""
+    assert sorted(s for s in _transformer_sites(1) if s[2] >= s[0]) == sorted(
+        _w8a8_sites())
+    k5 = [s for s in _transformer_sites(BATCH) if s[2] >= s[0]]
+    assert len(k5) == chip_smoke.MM_W8A8_PER_EVAL_B4 == 35
+    assert sum(t_mm.plan_w8a8(*s, SMS)["splits"] > 1 for s in k5) == (
+        chip_smoke.MM_W8A8_SUMS_PER_EVAL_B4) == 29
+    k4 = [(BATCH * m, k, n) for m, k, n in _unet_sites()]
+    assert sum(t_mm.plan_int8w(*s, SMS)["splits"] > 1 for s in k4) == (
+        chip_smoke.MM_INT8W_SUMS_PER_EVAL_B4) == 44
+
+
+@pytest.mark.parametrize("kernel,site", (
+    [("flash", s) for s in FLASH_B4] + [("gn", s) for s in GNS_B4]
+    + [("conv", s + (q8,)) for s in UNET_CONVS_B4 for q8 in (False, True)]
+    + [("conv", s + (False,)) for s in VAE_CONVS_B4]
+    + [("int8w", s) for s in K4_SITES_B4]
+    + [("w8a8", s) for s in K5_SITES_B4]), ids=str)
+def test_rules_take_every_batch_site(kernel, site):
+    """Every site of a batch of four through its kernel's static rule, and
+    the plan within what the C entry point accepts (its grid's axes, its
+    32-bit indexing, the split-K scratch, shared memory)."""
+    if kernel == "flash":
+        b, sq, c, heads = site
+        d = c // heads
+        dpad, rows, bkv = t_attn.plan(d, sq, sq, b * heads, SMS)
+        assert dpad in t_attn.DPADS and dpad >= d and b * heads <= 65535
+        assert rows == (128 if dpad <= 64 else 64)
+        assert _flash_smem(dpad, rows, bkv) <= SMEM_CAP
+        assert b * sq * c < 2 ** 31
+    elif kernel == "gn":
+        n, hw, c = site
+        p = _check_gn_plan(n, hw, c, 32)
+        assert n * 32 <= t_gn.MAX_SAMPLE_GROUPS and hw * c < 2 ** 31
+        assert p["grid"][1] <= 65535
+    elif kernel == "conv":
+        n, h, w, c_in, c_out, ks, int8 = site
+        p = _check_conv_plan(n, h, w, c_in, c_out, ks, int8)
+        assert n * h * w * max(c_in, c_out) < 2 ** 31
+        assert p["splits"] * n * h * w * c_out < 2 ** 31
+        assert -(-c_out // 128) <= 65535
+    elif kernel == "int8w":
+        test_int8w_plan_covers_k_once_and_fills_the_card(*site)
+        m, k, n = site
+        p = t_mm.plan_int8w(m, k, n, SMS)
+        assert p["splits"] * m * n < 2 ** 31 and max(m * k, m * n) < 2 ** 31
+    else:
+        test_w8a8_plan_covers_k_once_and_fills_the_card(*site)
+        m, k, n = site
+        assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -1411,3 +1504,47 @@ def test_cuda_group_norm_affine_matches_plain(shape, groups):
     for ours, ref in ((a, ra), (d, rd)):
         assert (ours - ref).abs().max().item() <= (
             1e-4 * ref.abs().max().item())
+
+
+# the kernels at the sites of a batch of four, on the card: K1 at 64
+# batch-heads and the VAE's 4; K2 in both modes at the 64^2 and 8^2 levels
+# and the VAE's largest plane; K3 (bf16 and int8 weights) at N = 8 and the
+# VAE's 512^2 plane; K4 at 4x the rows, the emb dense of 8 rows; K5 at the
+# N = 8 sites the n >= m routing keeps
+BATCH_CARD_CASES = (
+    [("flash", s) for s in FLASH_B4]
+    + [("gn", s) for s in ((8, 4096, 320), (8, 64, 2560), (4, 262144, 128))]
+    + [("conv", ((8, 64, 64, 320), 320, 3, "silu", q8)) for q8 in (0, 1)]
+    + [("conv", ((8, 8, 8, 2560), 1280, 3, "silu", 1)),
+       ("conv", ((8, 32, 32, 640), 640, 1, "affine", 0)),
+       ("conv", ((4, 512, 512, 128), 128, 3, "silu", 0))]
+    + [("int8w", s) for s in ((32768, 320, 320), (616, 768, 640),
+                              (8, 1280, 320), (8192, 1280, 640))]
+    + [("w8a8", s) for s in ((616, 768, 640), (2048, 1280, 10240),
+                             (512, 1280, 1280))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,site", BATCH_CARD_CASES, ids=str)
+def test_cuda_kernels_at_batch_sites(kernel, site):
+    """Each kernel at a site of a batch of four, with the plan its rule
+    gives there, held to its plain version as at the batch-2 sites: K1
+    within 2^-6 of the output's max-abs, K2, K3 and K4 within one bf16
+    rounding (1e-2), K2's statistics within 1e-4, K5 bit-equal; the same
+    bytes twice."""
+    _needs_card()
+    if kernel == "flash":
+        b, sq, c, heads = site
+        test_cuda_flash_at_the_shapes_the_tiles_could_break(b, sq, sq, c,
+                                                            heads)
+    elif kernel == "gn":
+        _check_gn_modes(*_gn_inputs(*site), 32)
+    elif kernel == "conv":
+        shape, c_out, ks, prologue, int8 = site
+        want = t_conv.plan_conv(*shape, c_out, ks, SMS, bool(int8))["design"]
+        test_cuda_conv_at_the_ragged_cases(
+            (shape, c_out, ks, prologue, bool(int8), want))
+    elif kernel == "int8w":
+        test_cuda_int8w_paths_match_plain(*site)
+    else:
+        test_cuda_w8a8_is_bit_equal_to_plain(*site)

@@ -24,7 +24,6 @@ from jax.experimental import pallas as pl
 
 from sdtpu import config as j_config
 from sdtpu.engine.context import DEMO_MERGES as J_DEMO_MERGES
-from sdtpu.io.params import init_pipeline_params as j_init_params
 from sdtpu.models import layers as j_layers
 from sdtpu.models import unet as j_unet
 from sdtpu.ops import attention as j_attn
@@ -34,7 +33,8 @@ from sdtpu.quant import ptq as j_ptq
 from sdtpu.tokenizer import Tokenizer as JTokenizer
 from sdtpu_torch import Context, ErrorCode, SdtpuError
 from sdtpu_torch import config as t_config
-from sdtpu_torch.io.params import cast_params, from_jax_tree
+from sdtpu_torch.io.params import (cast_params, from_jax_tree,
+                                   init_pipeline_params, to_jax_tree)
 from sdtpu_torch.models import layers as t_layers
 from sdtpu_torch.models import unet as t_unet
 from sdtpu_torch.ops import conv as t_conv
@@ -54,9 +54,13 @@ def _no_tf32():
 
 @pytest.fixture(scope="module")
 def trees():
-    """(JAX tree as numpy, the port's tree) for TINY."""
-    jtree = jax.tree.map(np.asarray,
-                         j_init_params(jax.random.PRNGKey(0), TINY_J))
+    """(the JAX package's tree as numpy, the port's tree) for TINY: the
+    port's random init in the JAX layout (``to_jax_tree``), carried back by
+    ``from_jax_tree``. The JAX package's own init of the same tree takes
+    some 40 s on the CPU; ``test_torch_slice.py::
+    test_port_init_has_jax_tree_shapes`` holds both inits to one tree."""
+    jtree = to_jax_tree(init_pipeline_params(
+        TINY_T, torch.Generator().manual_seed(0), "cpu"))
     return jtree, from_jax_tree(jtree, TINY_T)
 
 

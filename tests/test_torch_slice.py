@@ -1,12 +1,12 @@
 """The port's SD v1.5 txt2img slice against the JAX package, module by
 module and end to end, at TINY in float32 on the CPU.
 
-Both sides get the same weights (the JAX package's random init, carried
-over by ``sdtpu_torch.io.params.from_jax_tree``) and the same inputs, made
-with numpy from a fixed seed. Unless a test says otherwise the tolerance is
-max-abs error <= 1e-4 x the reference output's max-abs: both sides compute
-in float32 (TF32 off, HIGHEST precision in JAX), and only the order of
-summation differs.
+Both sides get the same weights (the port's random init in the JAX
+package's layout, ``sdtpu_torch.io.params.to_jax_tree``, carried back by
+``from_jax_tree``) and the same inputs, made with numpy from a fixed seed.
+Unless a test says otherwise the tolerance is max-abs error <= 1e-4 x the
+reference output's max-abs: both sides compute in float32 (TF32 off,
+HIGHEST precision in JAX), and only the order of summation differs.
 """
 
 import dataclasses
@@ -33,7 +33,8 @@ from sdtpu.tokenizer import Tokenizer as JTokenizer
 from sdtpu_torch import Context, ErrorCode, SdtpuError
 from sdtpu_torch import config as t_config
 from sdtpu_torch.engine import pipeline as t_pipeline
-from sdtpu_torch.io.params import from_jax_tree, init_pipeline_params
+from sdtpu_torch.io.params import (from_jax_tree, init_pipeline_params,
+                                   to_jax_tree)
 from sdtpu_torch.models import clip as t_clip
 from sdtpu_torch.models import layers as t_layers
 from sdtpu_torch.models import temb as t_temb
@@ -54,9 +55,13 @@ def _no_tf32():
 
 @pytest.fixture(scope="module")
 def trees():
-    """(JAX tree as numpy, the port's tree) for TINY."""
-    jtree = jax.tree.map(np.asarray,
-                         j_init_params(jax.random.PRNGKey(0), TINY_J))
+    """(the JAX package's tree as numpy, the port's tree) for TINY: the
+    port's random init in the JAX layout (``to_jax_tree``), carried back by
+    ``from_jax_tree``. The JAX package's own init of the same tree takes
+    some 40 s on the CPU; ``test_torch_slice.py::
+    test_port_init_has_jax_tree_shapes`` holds both inits to one tree."""
+    jtree = to_jax_tree(init_pipeline_params(
+        TINY_T, torch.Generator().manual_seed(0), "cpu"))
     return jtree, from_jax_tree(jtree, TINY_T)
 
 
@@ -183,7 +188,7 @@ def test_layers_match_jax(case):
 
 def test_temb_matches_jax(trees):
     jtree, ttree = trees
-    t = t_dpm.plan(TNoiseSchedule.sd_v1(), 20, "cpu").model_t
+    t = t_dpm.plan(TNoiseSchedule.sd_v1(), 20, device="cpu").model_t
     ref = j_temb.apply(jtree["temb"], jnp.asarray(t.numpy()), TINY_J.unet)
     assert_close(t_temb.apply(ttree["temb"], t, TINY_T.unet), ref)
 
@@ -219,16 +224,24 @@ def test_vae_matches_jax(trees):
 
 
 def test_port_init_has_jax_tree_shapes(trees):
-    """The port's own init builds the JAX package's tree (shapes, keys);
-    from_jax_tree raises on any difference."""
+    """The port's own init builds the JAX package's tree (shapes, keys:
+    the JAX init traced, not run); ``to_jax_tree`` gives it the JAX
+    package's layout, and from_jax_tree raises on any difference."""
     jtree, _ = trees
+    shapes = jax.eval_shape(lambda k: j_init_params(k, TINY_J),
+                            jax.random.PRNGKey(0))
+    ref = {k: jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes[k])
+           for k in ("clip", "temb", "unet", "vae")}
     ours = init_pipeline_params(TINY_T, torch.Generator().manual_seed(0),
                                 "cpu")
-    conv = from_jax_tree(jtree, TINY_T)
+    conv = from_jax_tree(ref, TINY_T)
     flat_o = jax.tree_util.tree_flatten_with_path(ours)[0]
     flat_c = jax.tree_util.tree_flatten_with_path(conv)[0]
     assert [(p, tuple(a.shape)) for p, a in flat_o] == [
         (p, tuple(a.shape)) for p, a in flat_c]
+    flat_j = jax.tree_util.tree_flatten_with_path(to_jax_tree(ours))[0]
+    assert [(p, a.shape) for p, a in flat_j] == [
+        (p, a.shape) for p, a in jax.tree_util.tree_flatten_with_path(ref)[0]]
     with pytest.raises(ValueError):
         bad = dict(jtree, temb={"fc0": jtree["temb"]["fc0"]})
         from_jax_tree(bad, TINY_T)
@@ -240,7 +253,7 @@ def test_port_init_has_jax_tree_shapes(trees):
 
 def test_dpm_plan_and_step_match_jax():
     steps = 20
-    ours = t_dpm.plan(TNoiseSchedule.sd_v1(), steps, "cpu")
+    ours = t_dpm.plan(TNoiseSchedule.sd_v1(), steps, device="cpu")
     ref = j_dpm.plan(JNoiseSchedule.sd_v1(), steps)
     for name in ref._fields:
         # the same float64 numpy math, cast once to float32: bit-equal
@@ -319,7 +332,7 @@ def test_context_generate(ctx):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"sampler": "euler"}, {"steps": 0}, {"model_dir": "weights"},
+    {"sampler": "nope"}, {"steps": 0}, {"model_dir": "weights"},
     {"kernels": "pallas"}, {"config": "sdxl"}])
 def test_context_invalid_arguments(kwargs):
     with pytest.raises(SdtpuError) as ei:
