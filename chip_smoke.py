@@ -73,7 +73,23 @@ Phases, each printing one JSON object per line:
 10. model: one SD1.5 UNet eval and one VAE decode at full width under each
    policy, each against float32;
 11. breakdown: stage times and a profiler trace of one image under cuda,
-   cuda_gn, cuda_conv, int8w_dense and int8 with K5.
+   cuda_gn, cuda_conv, int8w_dense and int8 with K5;
+12. checkpoint: the demo weights exported by ``io.weights.params_to_ldm``
+   as a BF16 LDM safetensors file (with the VAE encoder, as every SD
+   checkpoint carries it), converted by ``sdtpu_torch.tools.convert_weights``
+   to a native file and to an ``--int8w conv`` native file, all under a
+   temporary directory; ``Context(model_dir=...)`` on each must give the
+   demo Contexts' bytes at the same seed with every kernel's launches per
+   image at the pins: the LDM file under cuda, cuda_gn and cuda_conv and
+   with ``quantize="int8w_dense"`` and calibrated ``"int8"`` with K5, the
+   native file under cuda and cuda_conv, the int8w file under cuda_conv
+   with ``quantize="none"`` (its int8 weights are in the file); each
+   load's ``init_s`` and each file's size;
+13. text_surface, under cuda on the native file, K1's launches pinned and
+   the same bytes for the same seed each time: ``clip_skip=2``, a
+   textual-inversion placeholder whose vector is a word's row (that word's
+   bytes), a scheduled prompt, a degenerate schedule (the plain prompt's
+   bytes). The files are deleted after it.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -91,10 +107,14 @@ Without a CUDA card it exits non-zero before printing anything.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1304,6 +1324,173 @@ def phase_quant_model(ctx, arms):
                                  f"{res}")
 
 
+CKPT_SEED = 17
+CONFIG = "sd15"
+
+
+def demo_images(ctx, ctx_d, ctx_w, ctx_i):
+    """The demo Contexts' images at ``CKPT_SEED``: under cuda, cuda_gn and
+    cuda_conv, and under int8w_dense, int8w and int8 + K5."""
+    before = ctx.kernels
+    out = {}
+    for policy in ("cuda", "cuda_gn", "cuda_conv"):
+        ctx.kernels = policy
+        out[policy] = ctx.generate(PROMPT, guidance=7.5, seed=CKPT_SEED)
+    ctx.kernels = before
+    out["int8w_dense"] = ctx_d.generate(PROMPT, guidance=7.5, seed=CKPT_SEED)
+    out["int8w"] = ctx_w.generate(PROMPT, guidance=7.5, seed=CKPT_SEED)
+    with w8a8_kernel(True):
+        out["int8+k5"] = ctx_i.generate(PROMPT, guidance=7.5,
+                                        seed=CKPT_SEED)
+    return out
+
+
+def loaded_image(c, policy, label, want):
+    """One image of a Context on loaded weights under ``policy``: every
+    kernel's launches at ``PINNED[label]``, the bytes of ``want`` (the demo
+    weights' image at the same seed)."""
+    c.kernels = policy
+    reset_counts()
+    img = c.generate(PROMPT, guidance=7.5, seed=CKPT_SEED)
+    launches = counts()
+    check_image(img, c.cfg.image_size)
+    if launches != PINNED[label]:
+        raise AssertionError(f"loaded {label}: launches for one image "
+                             f"{launches}, expected {PINNED[label]}")
+    if not np.array_equal(img, want):
+        raise AssertionError(f"loaded {label}: other bytes than the demo "
+                             f"weights at the same seed")
+    return launches
+
+
+def load_context(model_dir, **kw):
+    from sdtpu_torch import Context
+
+    return Context(model_dir=str(model_dir), config=CONFIG, steps=STEPS,
+                   device="cuda", **kw)
+
+
+def release(*contexts):
+    for c in contexts:
+        c.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_checkpoint(root, ctx, demo, smi):
+    """Write the checkpoint files under ``root`` and serve each through
+    ``Context(model_dir=...)`` (module docstring, item 12). Returns the
+    native directory and the launches per image on loaded weights."""
+    from sdtpu_torch.io import safetensors as st
+    from sdtpu_torch.io.weights import NATIVE_SUFFIX, params_to_ldm
+    from sdtpu_torch.quant.ptq import calibrate
+    from sdtpu_torch.tools import convert_weights
+
+    start = time.perf_counter()
+    ldm, native, int8w = (os.path.join(root, d) for d in ("ldm", "native",
+                                                          "int8w"))
+    for d in (ldm, native, int8w):
+        os.makedirs(d)
+    ldm_file = os.path.join(ldm, "sd15-demo.safetensors")
+    t0 = time.perf_counter()
+    st.save_file(params_to_ldm(ctx.params, ctx.cfg,
+                               dtype=ctx.cfg.compute_dtype), ldm_file)
+    res = {"phase": "checkpoint", "nvidia_smi": smi,
+           "write_ldm_s": time.perf_counter() - t0}
+    for label, out, extra in (("native", native, []),
+                              ("int8w", int8w, ["--int8w", "conv"])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):   # its progress lines
+            rc = convert_weights.main([ldm_file, out, "--config", CONFIG,
+                                       "--dtype", ctx.cfg.dtype, *extra])
+        if rc != 0:
+            raise AssertionError(f"convert_weights {label} failed")
+        res[f"convert_{label}_s"] = time.perf_counter() - t0
+    res["dtype"] = ctx.cfg.dtype
+    res["bytes"] = {
+        "ldm": os.path.getsize(ldm_file),
+        "native": os.path.getsize(os.path.join(native,
+                                               f"model{NATIVE_SUFFIX}")),
+        "native_int8w": os.path.getsize(os.path.join(
+            int8w, f"model{NATIVE_SUFFIX}"))}
+    res["init_s"] = {"demo": ctx.init_seconds}
+    launches = {}
+
+    c = load_context(ldm, kernels="cuda")
+    res["init_s"]["ldm"] = c.init_seconds
+    for policy in ("cuda", "cuda_gn", "cuda_conv"):
+        launches[policy] = loaded_image(c, policy, policy, demo[policy])
+    release(c)
+    c = load_context(native, kernels="cuda")
+    res["init_s"]["native"] = c.init_seconds
+    for policy in ("cuda", "cuda_conv"):
+        loaded_image(c, policy, policy, demo[policy])
+    release(c)
+    c = load_context(int8w, kernels="cuda_conv")
+    res["init_s"]["native_int8w"] = c.init_seconds
+    launches["int8w"] = loaded_image(c, "cuda_conv", "int8w", demo["int8w"])
+    release(c)
+    c = load_context(ldm, kernels="cuda", quantize="int8w_dense")
+    res["init_s"]["ldm_int8w_dense"] = c.init_seconds
+    launches["int8w_dense"] = loaded_image(c, "cuda", "int8w_dense",
+                                           demo["int8w_dense"])
+    release(c)
+    c = load_context(ldm, kernels="cuda", quantize="int8")
+    res["init_s"]["ldm_int8"] = c.init_seconds
+    c.params = calibrate(c.params, c.cfg, CALIB_PROMPTS, c.tokenizer,
+                         steps=2)
+    with w8a8_kernel(True):
+        launches["int8+k5"] = loaded_image(c, "cuda", "int8+k5",
+                                           demo["int8+k5"])
+    release(c)
+    res["launches_per_image"] = launches
+    res["identical"] = True
+    res["seconds"] = time.perf_counter() - start
+    emit(res)
+    return native, launches
+
+
+def phase_text_surface(native, demo):
+    """The text features on the native file under cuda (module docstring,
+    item 13): K1 201 launches an image, the same bytes twice at a seed."""
+    def image(c, prompt, label):
+        reset_counts()
+        img = c.generate(prompt, guidance=7.5, seed=CKPT_SEED)
+        launches = counts()
+        check_image(img, c.cfg.image_size)
+        if launches != PINNED["cuda"]:
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"{PINNED['cuda']}")
+        if not np.array_equal(img, c.generate(prompt, guidance=7.5,
+                                              seed=CKPT_SEED)):
+            raise AssertionError(f"{label}: same seed gave other bytes")
+        return img
+
+    start = time.perf_counter()
+    res = {"phase": "text_surface"}
+    c = load_context(native, kernels="cuda", clip_skip=2)
+    skip = image(c, PROMPT, "clip_skip=2")
+    res["clip_skip_2_differs"] = not np.array_equal(skip, demo["cuda"])
+    release(c)
+    c = load_context(native, kernels="cuda")
+    table = c.params["clip"]["token_embedding"]
+    c.load_embedding("<steed>", table[c.tokenizer.encode("horse")])
+    ti = image(c, PROMPT.replace("horse", "<steed>"), "placeholder")
+    res["placeholder_is_the_word"] = bool(np.array_equal(ti, demo["cuda"]))
+    sched = image(c, "a [cat:dog:0.5] on a sofa", "scheduled")
+    res["scheduled_differs"] = not np.array_equal(
+        sched, image(c, "a dog on a sofa", "plain"))
+    degen = image(c, f"[{PROMPT}:{PROMPT}:0.5]", "degenerate schedule")
+    res["degenerate_is_the_plain"] = bool(np.array_equal(degen,
+                                                         demo["cuda"]))
+    release(c)
+    res["seconds"] = time.perf_counter() - start
+    emit(res)
+    if not (res["clip_skip_2_differs"] and res["placeholder_is_the_word"]
+            and res["scheduled_differs"] and res["degenerate_is_the_plain"]):
+        raise AssertionError(f"text_surface: {res}")
+
+
 def phase_samplers(ctx):
     """One image with each sampler of ``SAMPLER_EVALS`` under ``cuda`` on
     the main Context: uint8 [512, 512, 3], not constant, finite latents,
@@ -1474,7 +1661,7 @@ def main() -> int:
         return 2
     from sdtpu_torch import Context
 
-    name, _ = phase_device()
+    name, smi = phase_device()
     phase_build()
     rows = phase_kernel()
     ctx = Context(config="sd15", steps=STEPS, sampler="dpm", kernels="auto",
@@ -1535,6 +1722,16 @@ def main() -> int:
     phase_ab_quant(arms)
     phase_quant_model(ctx, arms)
 
+    # the user's model: the demo weights written as checkpoint files and
+    # served from them, then the text features on the native file
+    demo = demo_images(ctx, ctx_d, ctx_w, ctx_i)
+    root = tempfile.mkdtemp(prefix="sdtpu-ckpt-")
+    try:
+        native, loaded = phase_checkpoint(root, ctx, demo, smi)
+        phase_text_surface(native, demo)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
     # batched serving under every policy and the modes with a GEMM kernel,
     # then the kernels at the batch's call shapes
     phase_batch([("cuda", ctx, "cuda", False),
@@ -1565,6 +1762,7 @@ def main() -> int:
          "source": "sdtpu_torch/csrc/flash_attn_fwd.cu",
          "replaces": "sdtpu/ops/attention.py:37",
          "launches": launches["cuda"]["flash"],
+         "launches_loaded_weights": loaded["cuda"]["flash"],
          "max_abs_err": max(r["max_abs_err"] for r in rows),
          "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
          "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
@@ -1577,6 +1775,7 @@ def main() -> int:
          "source": "sdtpu_torch/csrc/group_norm_silu.cu",
          "replaces": "sdtpu/ops/groupnorm.py:38",
          "launches": launches["cuda_gn"]["group_norm"],
+         "launches_loaded_weights": loaded["cuda_gn"]["group_norm"],
          "max_abs_err": max(r["max_abs_err"] for r in gn_rows),
          "ms": gn_main["ms"], "plain_ms": gn_main["plain_ms"],
          "bound_ms": gn_main["bound_ms"], "bound_by": gn_main["bound_by"],
@@ -1591,6 +1790,8 @@ def main() -> int:
          "replaces": "sdtpu/ops/conv.py:236",
          "also_replaces": "sdtpu/ops/conv.py:301",
          "launches": launches["cuda_conv"]["conv"],
+         "launches_loaded_weights": loaded["cuda_conv"]["conv"],
+         "launches_loaded_int8w_int8_weights": loaded["int8w"]["conv_int8"],
          "launches_int8w": launches["int8w"]["conv"],
          "launches_int8w_int8_weights": launches["int8w"]["conv_int8"],
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
@@ -1612,6 +1813,7 @@ def main() -> int:
                  "conv_gn_silu, in place of sdtpu/ops/conv.py:632 "
                  "gn_affine (XLA work in the reference)",
          "launches": launches["cuda_conv"]["group_norm_affine"],
+         "launches_loaded_weights": loaded["cuda_conv"]["group_norm_affine"],
          "launches_int8w": launches["int8w"]["group_norm_affine"],
          "max_abs_err": max(r["max_abs_err"] for r in affine_rows),
          "ms": affine_main["ms"], "plain_ms": affine_main["plain_ms"],
@@ -1626,6 +1828,7 @@ def main() -> int:
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
          "replaces": "sdtpu/ops/matmul.py:81",
          "launches": launches["int8w_dense"]["matmul_int8w"],
+         "launches_loaded_weights": loaded["int8w_dense"]["matmul_int8w"],
          "launches_int8w": launches["int8w"]["matmul_int8w"],
          "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
          "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
@@ -1642,6 +1845,7 @@ def main() -> int:
          "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
          "replaces": "sdtpu/ops/matmul.py:150",
          "launches": launches["int8+k5"]["matmul_w8a8"],
+         "launches_loaded_weights": loaded["int8+k5"]["matmul_w8a8"],
          "launches_flag_off": launches["int8"]["matmul_w8a8"],
          "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
          "mismatched": sum(r["mismatched"] for r in k5_rows),

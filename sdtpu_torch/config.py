@@ -23,6 +23,9 @@ class CLIPConfig:
     mlp_ratio: int = 4
     context_len: int = 77
     eps: float = 1e-5
+    # A1111 "CLIP skip": run `layers - skip_last` blocks, then the final LN
+    # (skip_last = clip_skip - 1). Set via Context(clip_skip=...)
+    skip_last: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,14 +7,27 @@ every later ``generate`` raises ``INVALID_CONTEXT``. A failure inside one
 ``generate`` or batch (a kernel wrapper, its build or launch, torch) comes
 out as ``SdtpuError(RUNTIME_ERROR)`` and latches nothing.
 
+Weights: ``model_dir=None`` builds random demo weights from a fixed seed;
+else ``model_dir`` is a directory or one file holding an SD1.x checkpoint,
+loaded by ``io.weights.load_pipeline_params`` (the native
+``*.sdtpu.safetensors`` preferred, then LDM-named ``*.safetensors``), with
+``model_dir/ctokenizer.txt`` as the tokenizer when present. A missing or
+empty ``model_dir`` fails as ``RUNTIME_ERROR`` "model load failed: ..." and
+latches; a checkpoint of a family the port does not load yet (SD2, SDXL,
+ControlNet, orbax) is ``INVALID_ARGUMENT``. ``embeddings={placeholder:
+source}`` loads textual-inversion embeddings (``load_embedding``);
+``clip_skip`` taps the text tower ``clip_skip - 1`` blocks early.
+
 Serving: ``generate`` takes a prompt or a list of prompts and a
 ``negative_prompt``; ``generate_batch``/``generate_batch_async`` take
 requests with a ``prompt`` and their own ``guidance``, ``seed`` and
 ``negative_prompt``, padded to a power of two. Prompts may carry the
-attention syntax and run past the 77-token window (``sdtpu_torch.text``).
-``sampler`` is any name of ``samplers.SAMPLERS`` (``"dpm"`` by default).
-The reference's LoRA, ControlNet, PAG, two-stage and mesh arguments are
-refused with ``INVALID_ARGUMENT`` until their slices of the port.
+attention syntax and run past the 77-token window (``sdtpu_torch.text``);
+``generate`` also takes prompt scheduling (``[from:to:when]``, ``[a|b]``)
+within one window. ``sampler`` is any name of ``samplers.SAMPLERS``
+(``"dpm"`` by default). The reference's LoRA, ControlNet, PAG, two-stage
+and mesh arguments are refused with ``INVALID_ARGUMENT`` until their slices
+of the port.
 
 The device is always explicit: ``Context(..., device="cuda")``. On a CUDA
 device ``kernels="auto"`` selects the hand-written flash-attention kernel
@@ -35,7 +48,10 @@ default.
 
 from __future__ import annotations
 
+import dataclasses
+import pickle
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -45,7 +61,9 @@ from sdtpu_torch import text as text_mod
 from sdtpu_torch.config import CONFIGS, PipelineConfig
 from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.errors import ErrorCode, ErrorTable, SdtpuError
+from sdtpu_torch.io import safetensors as st
 from sdtpu_torch.io.params import cast_params, init_pipeline_params
+from sdtpu_torch.io.weights import UnsupportedCheckpoint, load_pipeline_params
 from sdtpu_torch.models.layers import disable_tf32
 from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
 from sdtpu_torch.samplers import SAMPLERS
@@ -71,6 +89,8 @@ class Context:
         device,
         mesh=None,
         lora: Optional[str] = None,
+        embeddings: Optional[dict] = None,
+        clip_skip: int = 1,
     ) -> None:
         self.errors = ErrorTable()
         self._failed = False
@@ -82,13 +102,20 @@ class Context:
                     f"unknown config {config!r}; available: "
                     f"{sorted(CONFIGS)}", self.errors)
             config = CONFIGS[config.lower()]
+        if clip_skip != 1:
+            # A1111 "CLIP skip": tap the text tower clip_skip - 1 blocks
+            # early, then the final LN (sdtpu/engine/context.py:123-139)
+            if (not isinstance(clip_skip, int) or clip_skip < 1
+                    or clip_skip > config.clip.layers):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"clip_skip must be an int in [1, clip.layers] on a "
+                    f"single-tower config, got {clip_skip!r}", self.errors)
+            config = dataclasses.replace(config, clip=dataclasses.replace(
+                config.clip, skip_last=clip_skip - 1))
         self.cfg = config
-        if model_dir is not None:
-            raise SdtpuError(
-                ErrorCode.INVALID_ARGUMENT,
-                "checkpoint loading is not ported yet (sdtpu.io.weights is "
-                "later work of the port); model_dir=None runs random demo "
-                "weights", self.errors)
+        self.model_dir = Path(model_dir) if model_dir else None
+        self._embeddings: dict[str, int] = {}   # placeholder -> rows
         _refuse_unported(self.errors, mesh=mesh, lora=lora)
         if not isinstance(sampler, str) or sampler.lower() not in SAMPLERS:
             raise SdtpuError(
@@ -126,6 +153,10 @@ class Context:
             self._load_models()
             self._load_tokenizer()
             self._prepare_buffers()
+            # textual inversion needs the params (rows appended) and the
+            # tokenizer (placeholders registered)
+            for word, src in (embeddings or {}).items():
+                self.load_embedding(word, src)
         self.init_seconds = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
@@ -137,15 +168,21 @@ class Context:
         raise SdtpuError(code, reason, self.errors)
 
     def _load_models(self) -> None:
-        """Random demo weights from a fixed seed, cast to the compute dtype
-        one model at a time (the float32 copy of one model is freed before
-        the next is built), then quantized as ``quantize`` says: after the
-        cast, and the UNet only (``sdtpu/engine/context.py:335-359``)."""
+        """The checkpoint under ``model_dir``, converted, cast to the
+        compute dtype and moved one leaf at a time; or random demo weights
+        from a fixed seed, cast one model at a time (the float32 copy of one
+        model is freed before the next is built). Then quantized as
+        ``quantize`` says: after the cast, and the UNet only
+        (``sdtpu/engine/context.py:307-386``)."""
         try:
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            params = init_pipeline_params(self.cfg, gen, self.device)
-            params = {k: cast_params(v, self.cfg.compute_dtype)
-                      for k, v in params.items()}
+            dtype = self.cfg.compute_dtype
+            if self.model_dir is not None:
+                params = load_pipeline_params(self.model_dir, self.cfg,
+                                              dtype=dtype, device=self.device)
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                params = init_pipeline_params(self.cfg, gen, self.device)
+                params = {k: cast_params(v, dtype) for k, v in params.items()}
             if self.quantize == "int8":
                 params = quantize_unet(params)
             elif self.quantize.startswith("int8w"):
@@ -153,12 +190,20 @@ class Context:
                     params["unet"],
                     include_dense=self.quantize == "int8w_dense")
             self.params = params
+        except UnsupportedCheckpoint as e:
+            self._fail(ErrorCode.INVALID_ARGUMENT, str(e))
         except Exception as e:  # noqa: BLE001 - init boundary, latched
             self._fail(ErrorCode.RUNTIME_ERROR, f"model load failed: {e}")
 
     def _load_tokenizer(self) -> None:
+        """``model_dir/ctokenizer.txt`` when there is one, else the demo
+        tokenizer; its vocabulary must fit the model's."""
         try:
-            self.tokenizer = Tokenizer.from_merges(DEMO_MERGES)
+            flat = self.model_dir / "ctokenizer.txt" if self.model_dir else None
+            if flat is not None and flat.exists():
+                self.tokenizer = Tokenizer.from_flat_file(flat)
+            else:
+                self.tokenizer = Tokenizer.from_merges(DEMO_MERGES)
         except Exception as e:  # noqa: BLE001 - init boundary, latched
             self._fail(ErrorCode.RUNTIME_ERROR, f"tokenizer load failed: {e}")
         if self.tokenizer.vocab_size > self.cfg.clip.vocab_size:
@@ -185,8 +230,38 @@ class Context:
             raise SdtpuError(
                 ErrorCode.INVALID_ARGUMENT,
                 "prompt scheduling ([from:to:when] / [a|b]) is supported "
-                "on Context.generate only (the port's generate does not "
-                "schedule prompts yet)", self.errors)
+                "on Context.generate only", self.errors)
+
+    def _negative_embedding(self, negative: Optional[str]):
+        """One window's uncond embedding: the cached ``""`` one, or the
+        negative prompt's, its attention syntax stripped."""
+        if not negative:
+            return self._uncond
+        return self._embed_prompt(text_mod.strip_syntax(negative)
+                                  if text_mod.has_attention_syntax(negative)
+                                  else negative)
+
+    def _schedule_inputs(self, prompts: list[str]):
+        """Prompt scheduling (``sdtpu/engine/context.py:839-941``): the
+        prompts resolved at every step, deduplicated into V variants ->
+        (tokens [V, B, 1, T], weights [V, B, 1, T], idx [steps]) on the
+        host: the k = 1 chunked form carries each variant's weights. Each
+        variant must fit one window."""
+        L = self.cfg.clip.context_len
+        variants, idx = text_mod.schedule_table(prompts, self.steps)
+        tok_rows, w_rows = [], []
+        for row in variants:
+            per = [text_mod.chunked_tokens(self.tokenizer, p, L) for p in row]
+            if any(t.shape[0] > 1 for t, _ in per):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"scheduled prompts must fit one {L}-token window "
+                    f"(long-prompt chunking + scheduling is unsupported)",
+                    self.errors)
+            tok_rows.append(np.stack([t[0] for t, _ in per]))
+            w_rows.append(np.stack([w[0] for _, w in per]))
+        return (np.stack(tok_rows)[:, :, None], np.stack(w_rows)[:, :, None],
+                idx)
 
     def _text_inputs(self, prompts: list[str], negatives: list):
         """-> (tokens, weights or None, one uncond embedding a negative),
@@ -209,8 +284,7 @@ class Context:
 
             tokens = torch.tensor([tok.tokenize(plain(p), L) for p in prompts],
                                   dtype=torch.int64, device=self.device)
-            return tokens, None, [self._embed_prompt(plain(n)) if n
-                                  else self._uncond for n in negs]
+            return tokens, None, [self._negative_embedding(n) for n in negs]
         k = max(text_mod.chunked_tokens(tok, t, L)[0].shape[0]
                 for t in prompts + negs)
 
@@ -301,7 +375,13 @@ class Context:
         caller buffer to fill. ``output="latent"`` returns the float32
         scale-factored latents [h, w, 4] (or [B, ...]) instead of decoding.
         ``lora``, ``control_image``, ``control``, ``denoising_end`` and
-        ``pag_scale`` are not ported yet and refused when given."""
+        ``pag_scale`` are not ported yet and refused when given.
+
+        A prompt with scheduling (``[from:to:when]``, ``[a|b]``) conditions
+        each step on its resolved text: the deduplicated variants encode
+        into one table and each step gathers its own on the device. Each
+        variant must fit one window; the negative prompt cannot be
+        scheduled; the output is an image."""
         self._check_usable()
         prompts = [prompt] if isinstance(prompt, str) else prompt
         if not isinstance(prompts, (list, tuple)) or not all(
@@ -317,18 +397,38 @@ class Context:
                          control=control, denoising_end=denoising_end,
                          pag_scale=pag_scale)
         self._check_output(output)
-        self._refuse_scheduling(prompts + [negative_prompt])
+        if text_mod.has_schedule(negative_prompt or "", self.steps):
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                "scheduling inside the negative prompt is not supported",
+                self.errors)
+        sched = None
+        if any(text_mod.has_schedule(p, self.steps) for p in prompts):
+            if output != "image":
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    "prompt scheduling composes with plain txt2img only "
+                    "(no latent output)", self.errors)
+            sched = self._schedule_inputs(prompts)
         seed = self._next_seed(seed)
 
         def call():
-            tokens, weights, (uncond,) = self._text_inputs(
-                prompts, [negative_prompt])
+            idx = None
+            if sched is None:
+                tokens, weights, (uncond,) = self._text_inputs(
+                    prompts, [negative_prompt])
+            else:
+                tokens, weights, idx = (torch.from_numpy(a).to(self.device)
+                                        for a in sched)
+                tokens = tokens.long()
+                uncond = self._negative_embedding(negative_prompt)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             return pipeline.generate(
                 self.params, tokens, uncond, gen, float(guidance),
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
                 use_cfg=guidance != 1.0, kernels=self.kernels,
-                output=output, token_weights=weights).cpu().numpy()
+                output=output, token_weights=weights,
+                sched_idx=idx).cpu().numpy()
 
         res = self._run("generate", call)
         if isinstance(prompt, str):
@@ -412,6 +512,86 @@ class Context:
 
     def last_error(self, code: ErrorCode) -> Optional[str]:
         return self.errors.last(code)
+
+    # ------------------------------------------------------------------
+    # textual inversion
+    # ------------------------------------------------------------------
+
+    def load_embedding(self, placeholder: str, source) -> None:
+        """Textual-inversion embedding (``sdtpu/engine/context.py:611-699``):
+        the learned vector(s) append to the CLIP token-embedding table and
+        the whitespace-free ``placeholder`` (e.g. ``"<my-style>"``) becomes a
+        word of the prompt vocabulary that encodes to those rows.
+
+        ``source``: a [k, D] (or [D]) array or tensor, a dict of them (key
+        ``"clip_l"``, a single entry, or A1111's ``"emb_params"``), or a path
+        to an ``.npz``, an A1111 ``.pt`` (``string_to_param["*"]``, read
+        with ``torch.load(weights_only=True)``) or a ``.safetensors`` file
+        of such a dict. A multi-vector embedding (k > 1) takes k tokens of
+        the window. A bad shape, key set or placeholder is
+        ``INVALID_ARGUMENT``."""
+        self._check_usable()
+        vec = self._read_embedding_arrays(source)
+        clip = dict(self.params["clip"])
+        table = clip["token_embedding"]
+        if vec.dim() != 2 or vec.shape[1] != table.shape[1]:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"clip embedding must be [k, {table.shape[1]}], got "
+                f"{list(vec.shape)}", self.errors)
+        start, k = int(table.shape[0]), int(vec.shape[0])
+        try:
+            self.tokenizer.add_placeholder(placeholder,
+                                           list(range(start, start + k)))
+        except ValueError as e:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, str(e),
+                             self.errors) from e
+        clip["token_embedding"] = torch.cat(
+            [table, vec.to(device=table.device, dtype=table.dtype)], dim=0)
+        self.params = {**self.params, "clip": clip}
+        self._embeddings[placeholder] = k
+
+    def _read_embedding_arrays(self, source):
+        """-> the [k, D] float32 tensor of ``source`` (see
+        ``load_embedding``), on the host."""
+        data = source
+        if isinstance(source, (str, Path)):
+            path = str(source)
+            try:
+                if path.endswith(".npz"):
+                    with np.load(path) as z:
+                        data = {k: z[k] for k in z.files}
+                elif path.endswith(".pt"):
+                    obj = torch.load(path, map_location="cpu",
+                                     weights_only=True)
+                    data = {"emb": obj["string_to_param"]["*"]}
+                else:
+                    data = st.load_file(path)
+            except (OSError, ValueError, KeyError, TypeError, RuntimeError,
+                    pickle.UnpicklingError) as e:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"cannot read embedding {path}: {type(e).__name__}: "
+                    f"{e}", self.errors) from e
+        if not isinstance(data, dict):
+            data = {"emb": data}
+        data = {k: torch.atleast_2d(torch.as_tensor(v).detach().cpu()
+                                    .float())
+                for k, v in data.items()}
+        if "clip_l" in data:
+            return data["clip_l"]
+        if len(data) == 1:
+            return next(iter(data.values()))
+        for key in ("emb_params", "emb"):  # A1111 / the JAX package's
+            if key in data:
+                return data[key]
+        raise SdtpuError(
+            ErrorCode.INVALID_ARGUMENT,
+            f"cannot pick ['clip_l'] embedding arrays from keys "
+            f"{sorted(data)}", self.errors)
+
+    def embedding_names(self) -> list[str]:
+        return sorted(self._embeddings)
 
 
 def _refuse_unported(errors: ErrorTable, **given) -> None:

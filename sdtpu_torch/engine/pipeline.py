@@ -117,7 +117,7 @@ def _seam(a, shape, device, name):
 
 def denoise(params, context, generator, guidance, cfg: PipelineConfig,
             steps: int, use_cfg: bool, kernels: str = "plain", noise=None,
-            *, sampler: str = "dpm", step_noise=None):
+            *, sampler: str = "dpm", step_noise=None, cond_schedule=None):
     """Run the denoising loop with ``sampler`` (a name of
     ``samplers.SAMPLERS``). context: [B or 2B, T, D]; with ``use_cfg`` rows
     [0:B] are cond and [B:2B] uncond. ``guidance``: a scalar or one a
@@ -132,7 +132,12 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
     Two-eval samplers (``NEEDS_SECOND_EVAL``, heun and dpm2) evaluate the
     UNet again at ``predictor``'s probe point, with the time embeddings of
     the plan's ``model_t2``. ``plms_exact`` spends two evals on step 0
-    (CompVis's pseudo improved Euler) and keeps ``e_t`` in its history."""
+    (CompVis's pseudo improved Euler) and keeps ``e_t`` in its history.
+
+    Prompt scheduling: ``cond_schedule`` = (table [V, B, T, D], idx
+    [steps] int64 on the device); every UNet eval of step i takes its cond
+    rows from variant ``idx[i]`` (gathered on the device: no host sync, no
+    branch), the uncond rows from ``context``."""
     device = context.device
     dtype = cfg.compute_dtype
     mod = get_sampler(sampler)
@@ -158,10 +163,17 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
     if g.dim():
         g = g.reshape(-1, 1, 1, 1)
 
+    def rows(i):
+        if cond_schedule is None:
+            return context
+        table, idx = cond_schedule
+        cond = table.index_select(0, idx[i:i + 1])[0]
+        return torch.cat([cond, context[b:]], dim=0) if use_cfg else cond
+
     def predict_eps(x, i, second=False):
         te = (t_embs2 if second else t_embs)[i].expand(context.shape[0], -1)
         x_in = (torch.cat([x, x], dim=0) if use_cfg else x).to(dtype)
-        eps = unet.apply(params["unet"], x_in, te, context, cfg.unet,
+        eps = unet.apply(params["unet"], x_in, te, rows(i), cfg.unet,
                          kernels).float()
         if use_cfg:
             eps = g * eps[:b] + (1.0 - g) * eps[b:]
@@ -195,15 +207,37 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
 def generate(params, tokens, uncond_embedding, generator, guidance, *,
              cfg: PipelineConfig, sampler: str = "dpm", steps: int = 20,
              use_cfg: bool = True, kernels: str = "plain", noise=None,
-             step_noise=None, output: str = "image", token_weights=None):
+             step_noise=None, output: str = "image", token_weights=None,
+             sched_idx=None):
     """tokens [B, T] (or chunked [B, k, T] with ``token_weights``) -> uint8
     [B, H, W, 3], or with ``output="latent"`` the float32 scale-factored
     latents. ``uncond_embedding``: [T, D] or [B, T, D], encoded by the
-    caller. ``generator``, ``noise``, ``step_noise``: see ``denoise``."""
-    context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
-                             weights=token_weights)
+    caller. ``generator``, ``noise``, ``step_noise``: see ``denoise``.
+
+    Prompt scheduling (``sdtpu/engine/pipeline.py:653-667``): with
+    ``sched_idx`` ([steps] integer, each step's variant), tokens are [V, B,
+    k, T] (+ weights): the V variants encode into one table [V, B, k*T, D]
+    in one call, and step i conditions on variant ``sched_idx[i]``."""
+    cond_schedule = None
+    if sched_idx is not None:
+        v, bsz, k, t = tokens.shape
+        w = (None if token_weights is None
+             else torch.as_tensor(token_weights).reshape(v * bsz, k, t))
+        emb = encode_text(params, tokens.reshape(v * bsz, k, t), cfg, w)
+        table = emb.reshape(v, bsz, *emb.shape[1:])
+        context = table[0]
+        if use_cfg:
+            p_un = uncond_embedding.to(table.dtype).expand(context.shape)
+            context = torch.cat([context, p_un], dim=0)
+        idx = torch.as_tensor(sched_idx, dtype=torch.int64,
+                              device=table.device)
+        cond_schedule = (table, idx)
+    else:
+        context = _build_context(params, tokens, uncond_embedding, cfg,
+                                 use_cfg, weights=token_weights)
     x = denoise(params, context, generator, guidance, cfg, steps, use_cfg,
-                kernels, noise=noise, sampler=sampler, step_noise=step_noise)
+                kernels, noise=noise, sampler=sampler, step_noise=step_noise,
+                cond_schedule=cond_schedule)
     if output == "latent":
         return x
     return decode_latents(params, x, cfg, kernels)

@@ -6,8 +6,9 @@ A tree is nested dicts and lists of tensors with the JAX package's keys
 OIHW, "b"}`` (channels_last memory), norms ``{"scale", "bias"}``; a
 quantized site carries ``w8`` + ``w8_scale`` or ``w_q`` + ``w_scale`` (+
 ``x_scale``) in place of ``w`` (``sdtpu_torch.quant.ptq``). The port
-carries the four trees of the txt2img path: ``clip``, ``temb``, ``unet`` and
-``vae`` (the decoder).
+carries the four trees of the txt2img path, ``clip``, ``temb``, ``unet`` and
+``vae`` (the decoder), and ``vae_enc``, the VAE encoder's parameters, which
+every SD checkpoint carries (its forward is not ported yet).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.models import clip, temb, unet, vae
 from sdtpu_torch.ops.matmul import column_major
 
-PORTED = ("clip", "temb", "unet", "vae")
+PORTED = ("clip", "temb", "unet", "vae", "vae_enc")
 
 
 def init_pipeline_params(cfg: PipelineConfig, generator, device,
@@ -36,6 +37,7 @@ def init_pipeline_params(cfg: PipelineConfig, generator, device,
         "unet": unet.init(cfg.unet, generator, device,
                           zero_init_outs=not demo),
         "vae": vae.init(cfg.vae, generator, device),
+        "vae_enc": vae.init_encoder(cfg.vae, generator, device),
     }
 
 
@@ -59,16 +61,24 @@ def cast_params(params, dtype):
     return cast(params)
 
 
-def _convert(node, key=None):
+def _convert(node, key=None, dtype=None, device=None):
     if isinstance(node, dict):
-        return {k: _convert(v, k) for k, v in node.items()}
+        return {k: _convert(v, k, dtype, device) for k, v in node.items()}
     if isinstance(node, list):
-        return [_convert(v) for v in node]
-    t = torch.from_numpy(np.array(node, copy=True))
+        return [_convert(v, None, dtype, device) for v in node]
+    t = (node if torch.is_tensor(node)
+         else torch.from_numpy(np.array(node, copy=True)))
+    if device is not None:
+        t = t.to(device)
+    if (dtype is not None and key not in KEEP_FLOAT32
+            and t.is_floating_point()):
+        t = t.float().to(dtype)
     if key in ("w", "w8") and t.dim() == 4:   # conv: HWIO -> OIHW
         t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     elif key in ("w8", "w_q") and t.dim() == 2:
         t = column_major(t)   # (in, out) stays; the int8 kernels' memory
+    else:
+        t = t.contiguous()
     return t
 
 
@@ -107,34 +117,50 @@ def _check_shapes(got, want, path="params"):
                          f"{tuple(want.shape)}")
 
 
-def from_jax_tree(tree, cfg: PipelineConfig):
+def from_jax_tree(tree, cfg: PipelineConfig, dtype=None, device=None):
     """The JAX package's parameter tree (nested dicts and lists of numpy
-    arrays, as from ``sdtpu.io.params.init_pipeline_params``) -> the port's
-    CPU tree, dtypes kept. Conv weights (``w``, or int8 ``w8``) go from HWIO
-    to OIHW; dense weights stay ``(in, out)``, the int8 ones (``w8``,
-    ``w_q``) in column-major memory; every other path maps 1:1, so a tree
-    that the JAX package quantized or calibrated carries its int8 leaves
-    and scales over as they are. Subtrees the port does not run (the VAE
-    encoder) are dropped. Raises if a shape differs from the port's own
-    tree for ``cfg`` quantized the same way."""
-    out = {name: _convert(tree[name]) for name in PORTED}
+    arrays or tensors, as from ``sdtpu.io.params.init_pipeline_params``) ->
+    the port's tree. Conv weights (``w``, or int8 ``w8``) go from HWIO to
+    OIHW; dense weights stay ``(in, out)``, the int8 ones (``w8``, ``w_q``)
+    in column-major memory; every other path maps 1:1, so a tree that the
+    JAX package quantized or calibrated carries its int8 leaves and scales
+    over as they are. Raises if a shape differs from the port's own tree
+    for ``cfg`` quantized the same way.
+
+    Leaf by leaf, each is moved to ``device`` (the host when None) and,
+    with ``dtype``, every floating leaf but the quantization scales is cast
+    to ``dtype`` through float32; without it dtypes are kept. So a tree on
+    the host in another dtype never has a second whole copy beside it."""
+    out = {name: _convert(tree[name], None, dtype, device)
+           for name in PORTED}
     _check_shapes(out, init_pipeline_params(cfg, None, torch.device("meta")))
     return out
 
 
+def _map_leaves(fn, node, key=None):
+    if isinstance(node, dict):
+        return {k: _map_leaves(fn, v, k) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_leaves(fn, v) for v in node]
+    return fn(node, key)
+
+
+def jax_layout(params):
+    """The port's tree in the JAX package's layout, on its device, each leaf
+    a view where one will do: conv weights (``w``, int8 ``w8``) go from OIHW
+    to HWIO; every other leaf keeps its shape. The JAX package's native
+    file (``io.weights.save_native``) holds this tree."""
+    def leaf(t, key):
+        if key in ("w", "w8") and t.dim() == 4:   # conv: OIHW -> HWIO
+            return t.permute(2, 3, 1, 0)
+        return t
+
+    return _map_leaves(leaf, params)
+
+
 def to_jax_tree(params):
     """The port's float32 (or int8) tree -> the JAX package's layout, as
-    numpy arrays on the host: the inverse of ``from_jax_tree``. Conv
-    weights (``w``, int8 ``w8``) go from OIHW to HWIO; every other leaf
-    keeps its shape."""
-    def convert(node, key=None):
-        if isinstance(node, dict):
-            return {k: convert(v, k) for k, v in node.items()}
-        if isinstance(node, list):
-            return [convert(v) for v in node]
-        t = node.detach().cpu()
-        if key in ("w", "w8") and t.dim() == 4:   # conv: OIHW -> HWIO
-            t = t.permute(2, 3, 1, 0)
-        return np.ascontiguousarray(t.numpy())
-
-    return convert(params)
+    numpy arrays on the host: the inverse of ``from_jax_tree``."""
+    return _map_leaves(
+        lambda t, _: t.detach().cpu().contiguous().numpy().copy(),
+        jax_layout(params))

@@ -1,0 +1,483 @@
+"""Checkpoint loading: Stable Diffusion v1.x weights -> the port's tree.
+
+Carried over from ``sdtpu/io/weights.py`` (the JAX package), cut to the
+SD1.x parts: the rule tables that map the CompVis/LDM key names
+(``model.diffusion_model.*``, ``cond_stage_model.transformer.*``,
+``first_stage_model.*``) onto the JAX package's tree, the inverse
+(``params_to_ldm``), and the native file (``*.sdtpu.safetensors``: the
+flattened JAX-layout tree, the JAX package's format, so a file written by
+either package loads in both). The rules are generated from the same loops
+that build the trees, so block indices cannot drift from the architecture.
+
+Conventions: torch Linear kernels are [out, in] and conv kernels OIHW in a
+checkpoint; the rules build the JAX package's layout (dense ``(in, out)``,
+conv HWIO) as views, and ``io.params.from_jax_tree`` makes the port's tree
+of it, one leaf at a time: one layout rule, not two.
+
+Files are read and written by ``io.safetensors``; the ``safetensors``
+package is not needed. SD2 (OpenCLIP), SDXL and refiner checkpoints,
+ControlNets and orbax directories are families and formats the port does
+not have yet: ``UnsupportedCheckpoint`` names them.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from sdtpu_torch.config import PipelineConfig
+from sdtpu_torch.io import safetensors as st
+from sdtpu_torch.io.params import PORTED, from_jax_tree, jax_layout
+
+
+class UnsupportedCheckpoint(ValueError):
+    """A checkpoint of a family or format the port does not load yet."""
+
+
+class Rule(NamedTuple):
+    ldm: str            # LDM key prefix (without .weight/.bias suffix)
+    path: tuple         # path into the tree (without final w/b/scale/bias)
+    kind: str           # 'linear' | 'conv' | 'norm' | 'embed'
+
+
+# ---------------------------------------------------------------------------
+# rule generation (mirrors models/*.init loops)
+# ---------------------------------------------------------------------------
+
+def _st_rules(ldm_prefix: str, path: tuple) -> list[Rule]:
+    """A spatial transformer of one basic block (the SD1.x layout)."""
+    tb = ldm_prefix + "transformer_blocks.0."
+    return [
+        Rule(ldm_prefix + "norm", path + ("norm",), "norm"),
+        Rule(ldm_prefix + "proj_in", path + ("proj_in",), "conv"),
+        Rule(tb + "norm1", path + ("ln1",), "norm"),
+        Rule(tb + "attn1.to_q", path + ("attn1", "q"), "linear"),
+        Rule(tb + "attn1.to_k", path + ("attn1", "k"), "linear"),
+        Rule(tb + "attn1.to_v", path + ("attn1", "v"), "linear"),
+        Rule(tb + "attn1.to_out.0", path + ("attn1", "out"), "linear"),
+        Rule(tb + "norm2", path + ("ln2",), "norm"),
+        Rule(tb + "attn2.to_q", path + ("attn2", "q"), "linear"),
+        Rule(tb + "attn2.to_k", path + ("attn2", "k"), "linear"),
+        Rule(tb + "attn2.to_v", path + ("attn2", "v"), "linear"),
+        Rule(tb + "attn2.to_out.0", path + ("attn2", "out"), "linear"),
+        Rule(tb + "norm3", path + ("ln3",), "norm"),
+        Rule(tb + "ff.net.0.proj", path + ("ff1",), "linear"),
+        Rule(tb + "ff.net.2", path + ("ff2",), "linear"),
+        Rule(ldm_prefix + "proj_out", path + ("proj_out",), "conv"),
+    ]
+
+
+def _res_rules(ldm_prefix: str, path: tuple, has_skip: bool) -> list[Rule]:
+    rules = [
+        Rule(ldm_prefix + "in_layers.0", path + ("norm1",), "norm"),
+        Rule(ldm_prefix + "in_layers.2", path + ("conv1",), "conv"),
+        Rule(ldm_prefix + "emb_layers.1", path + ("emb",), "linear"),
+        Rule(ldm_prefix + "out_layers.0", path + ("norm2",), "norm"),
+        Rule(ldm_prefix + "out_layers.3", path + ("conv2",), "conv"),
+    ]
+    if has_skip:
+        rules.append(Rule(ldm_prefix + "skip_connection", path + ("skip",),
+                          "conv"))
+    return rules
+
+
+def unet_rules(cfg: PipelineConfig) -> list[Rule]:
+    u = cfg.unet
+    pre = "model.diffusion_model."
+    rules = [
+        Rule(pre + "time_embed.0", ("temb", "fc0"), "linear"),
+        Rule(pre + "time_embed.2", ("temb", "fc1"), "linear"),
+        Rule(pre + "input_blocks.0.0", ("unet", "conv_in"), "conv"),
+    ]
+    ch = u.model_channels
+    cur = ch
+    idx = 1
+    skip_chs = [ch]
+    for lvl, mult in enumerate(u.channel_mult):
+        out_ch = ch * mult
+        for b in range(u.num_res_blocks):
+            p = ("unet", "down", lvl, "blocks", b)
+            rules += _res_rules(f"{pre}input_blocks.{idx}.0.", p + ("res",),
+                                has_skip=cur != out_ch)
+            cur = out_ch
+            if lvl in u.attn_levels:
+                rules += _st_rules(f"{pre}input_blocks.{idx}.1.", p + ("st",))
+            skip_chs.append(cur)
+            idx += 1
+        if lvl != len(u.channel_mult) - 1:
+            rules.append(Rule(f"{pre}input_blocks.{idx}.0.op",
+                              ("unet", "down", lvl, "down"), "conv"))
+            skip_chs.append(cur)
+            idx += 1
+
+    rules += _res_rules(pre + "middle_block.0.", ("unet", "mid", "res1"),
+                        False)
+    rules += _st_rules(pre + "middle_block.1.", ("unet", "mid", "st"))
+    rules += _res_rules(pre + "middle_block.2.", ("unet", "mid", "res2"),
+                        False)
+
+    idx = 0
+    for k, lvl in enumerate(reversed(range(len(u.channel_mult)))):
+        out_ch = ch * u.channel_mult[lvl]
+        for b in range(u.num_res_blocks + 1):
+            skip = skip_chs.pop()
+            p = ("unet", "up", k, "blocks", b)
+            rules += _res_rules(f"{pre}output_blocks.{idx}.0.", p + ("res",),
+                                has_skip=cur + skip != out_ch)
+            cur = out_ch
+            comp = 1
+            if lvl in u.attn_levels:
+                rules += _st_rules(f"{pre}output_blocks.{idx}.{comp}.",
+                                   p + ("st",))
+                comp += 1
+            if b == u.num_res_blocks and lvl != 0:
+                rules.append(Rule(
+                    f"{pre}output_blocks.{idx}.{comp}.conv",
+                    ("unet", "up", k, "up"), "conv",
+                ))
+            idx += 1
+
+    rules += [
+        Rule(pre + "out.0", ("unet", "out_norm"), "norm"),
+        Rule(pre + "out.2", ("unet", "conv_out"), "conv"),
+    ]
+    return rules
+
+
+def clip_rules(cfg: PipelineConfig,
+               pre: str = "cond_stage_model.transformer.text_model.",
+               ) -> list[Rule]:
+    rules = [
+        Rule(pre + "embeddings.token_embedding", ("clip", "token_embedding"),
+             "embed"),
+        Rule(pre + "embeddings.position_embedding",
+             ("clip", "position_embedding"), "embed"),
+        Rule(pre + "final_layer_norm", ("clip", "final_ln"), "norm"),
+    ]
+    for i in range(cfg.clip.layers):
+        b = f"{pre}encoder.layers.{i}."
+        p = ("clip", "blocks", i)
+        rules += [
+            Rule(b + "layer_norm1", p + ("ln1",), "norm"),
+            Rule(b + "self_attn.q_proj", p + ("q",), "linear"),
+            Rule(b + "self_attn.k_proj", p + ("k",), "linear"),
+            Rule(b + "self_attn.v_proj", p + ("v",), "linear"),
+            Rule(b + "self_attn.out_proj", p + ("out",), "linear"),
+            Rule(b + "layer_norm2", p + ("ln2",), "norm"),
+            Rule(b + "mlp.fc1", p + ("fc1",), "linear"),
+            Rule(b + "mlp.fc2", p + ("fc2",), "linear"),
+        ]
+    return rules
+
+
+def vae_rules(cfg: PipelineConfig) -> list[Rule]:
+    v = cfg.vae
+    pre = "first_stage_model."
+    dec = pre + "decoder."
+    rules = [
+        Rule(pre + "post_quant_conv", ("vae", "post_quant"), "conv"),
+        Rule(dec + "conv_in", ("vae", "conv_in"), "conv"),
+    ]
+
+    def res(ldm, path, c_in, c_out):
+        out = [
+            Rule(ldm + "norm1", path + ("norm1",), "norm"),
+            Rule(ldm + "conv1", path + ("conv1",), "conv"),
+            Rule(ldm + "norm2", path + ("norm2",), "norm"),
+            Rule(ldm + "conv2", path + ("conv2",), "conv"),
+        ]
+        if c_in != c_out:
+            out.append(Rule(ldm + "nin_shortcut", path + ("nin",), "conv"))
+        return out
+
+    def attn(ldm, path):
+        return [
+            Rule(ldm + "norm", path + ("norm",), "norm"),
+            Rule(ldm + "q", path + ("q",), "conv"),
+            Rule(ldm + "k", path + ("k",), "conv"),
+            Rule(ldm + "v", path + ("v",), "conv"),
+            Rule(ldm + "proj_out", path + ("proj",), "conv"),
+        ]
+
+    widest = v.base_channels * v.channel_mult[-1]
+    rules += res(dec + "mid.block_1.", ("vae", "mid", "res1"), widest, widest)
+    rules += attn(dec + "mid.attn_1.", ("vae", "mid", "attn"))
+    rules += res(dec + "mid.block_2.", ("vae", "mid", "res2"), widest, widest)
+
+    # LDM stores decoder levels as up[i_level] (0 = finest); processing order
+    # is reversed, and the tree's "up" list is in processing order.
+    cur = widest
+    n_lvl = len(v.channel_mult)
+    for k, lvl in enumerate(reversed(range(n_lvl))):
+        out_ch = v.base_channels * v.channel_mult[lvl]
+        for b in range(v.num_res_blocks + 1):
+            rules += res(
+                f"{dec}up.{lvl}.block.{b}.",
+                ("vae", "up", k, "blocks", b), cur, out_ch,
+            )
+            cur = out_ch
+        if lvl != 0:
+            rules.append(Rule(f"{dec}up.{lvl}.upsample.conv",
+                              ("vae", "up", k, "up"), "conv"))
+    rules += [
+        Rule(dec + "norm_out", ("vae", "norm_out"), "norm"),
+        Rule(dec + "conv_out", ("vae", "conv_out"), "conv"),
+    ]
+
+    # encoder (img2img; every SD checkpoint carries it)
+    enc = pre + "encoder."
+    rules += [
+        Rule(enc + "conv_in", ("vae_enc", "conv_in"), "conv"),
+        Rule(pre + "quant_conv", ("vae_enc", "quant"), "conv"),
+    ]
+    cur = v.base_channels
+    for lvl, mult in enumerate(v.channel_mult):
+        out_ch = v.base_channels * mult
+        for b in range(v.num_res_blocks):
+            rules += res(
+                f"{enc}down.{lvl}.block.{b}.",
+                ("vae_enc", "down", lvl, "blocks", b), cur, out_ch,
+            )
+            cur = out_ch
+        if lvl != n_lvl - 1:
+            rules.append(Rule(f"{enc}down.{lvl}.downsample.conv",
+                              ("vae_enc", "down", lvl, "down"), "conv"))
+    rules += res(enc + "mid.block_1.", ("vae_enc", "mid", "res1"), cur, cur)
+    rules += attn(enc + "mid.attn_1.", ("vae_enc", "mid", "attn"))
+    rules += res(enc + "mid.block_2.", ("vae_enc", "mid", "res2"), cur, cur)
+    rules += [
+        Rule(enc + "norm_out", ("vae_enc", "norm_out"), "norm"),
+        Rule(enc + "conv_out", ("vae_enc", "conv_out"), "conv"),
+    ]
+    return rules
+
+
+def all_rules(cfg: PipelineConfig, include_clip: bool = True) -> list[Rule]:
+    rules = unet_rules(cfg) + vae_rules(cfg)
+    if include_clip:
+        rules += clip_rules(cfg)
+    return rules
+
+
+# ---------------------------------------------------------------------------
+# tensor transforms (views; from_jax_tree and the writer make them dense)
+# ---------------------------------------------------------------------------
+
+def _from_ldm(kind: str, name: str, t):
+    if kind == "linear" and name == "w":
+        return t.t()
+    if kind == "conv" and name == "w":
+        if t.dim() == 2:  # some checkpoints store 1x1 convs as [O, I]
+            t = t[:, :, None, None]
+        return t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+    return t
+
+
+def _to_ldm(kind: str, name: str, t):
+    if kind == "linear" and name == "w":
+        return t.t()
+    if kind == "conv" and name == "w":
+        return t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+    return t
+
+
+_SUFFIX = {
+    "linear": [("weight", "w"), ("bias", "b")],
+    "conv": [("weight", "w"), ("bias", "b")],
+    "norm": [("weight", "scale"), ("bias", "bias")],
+    "embed": [("weight", None)],
+}
+
+
+def _tree_set(tree, path, value):
+    node = tree
+    for i, k in enumerate(path[:-1]):
+        nxt = path[i + 1]
+        empty = [] if isinstance(nxt, int) else {}
+        if isinstance(k, int):
+            while len(node) <= k:
+                node.append(None)
+            if node[k] is None:
+                node[k] = empty
+            node = node[k]
+        else:
+            if k not in node:
+                node[k] = empty
+            node = node[k]
+    node[path[-1]] = value
+
+
+def _tree_get(tree, path):
+    node = tree
+    for k in path:
+        node = node[k]
+    return node
+
+
+# ---------------------------------------------------------------------------
+# families the port does not load yet
+# ---------------------------------------------------------------------------
+
+#: LDM key prefix -> the family it marks, and where the port takes it up
+_FAMILIES = (
+    ("cond_stage_model.model.", "an SD 2.x checkpoint (OpenCLIP text "
+     "tower)", "ROADMAP item 18"),
+    ("conditioner.embedders.", "an SDXL or refiner checkpoint", "ROADMAP "
+     "item 18"),
+    ("control_model.", "a ControlNet checkpoint", "ROADMAP item 18"),
+)
+
+
+def refuse_families(keys) -> None:
+    """Raise ``UnsupportedCheckpoint`` when the LDM ``keys`` belong to a
+    family the port does not load yet (before any weight is converted)."""
+    keys = list(keys)
+    for prefix, what, where in _FAMILIES:
+        if any(k.startswith(prefix) for k in keys):
+            raise UnsupportedCheckpoint(
+                f"{what} ({prefix}* keys) is not loaded by the port yet "
+                f"({where}); SD1.x LDM checkpoints and native files are")
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+def load_ldm_state_dict(tensors: dict, cfg: PipelineConfig,
+                        strict: bool = True, dtype=torch.float32,
+                        device=None):
+    """LDM-named {key: tensor} (an SD1.x checkpoint: HF-CLIP text tower) ->
+    the port's tree. Every leaf goes through float32, as the JAX package
+    loads it, then to ``dtype`` (float32 by default), on ``device`` (the
+    host by default), one leaf at a time. Keys no rule names
+    (``model_ema.*``, ``position_ids``) are ignored; with ``strict`` a
+    missing one raises ``KeyError``."""
+    refuse_families(tensors)
+    tree: dict = {}
+    missing = []
+    for rule in all_rules(cfg):
+        for ldm_suffix, ours in _SUFFIX[rule.kind]:
+            key = f"{rule.ldm}.{ldm_suffix}"
+            if key not in tensors:
+                # bias-less linears (SD attention q/k/v) simply absent
+                if ldm_suffix == "bias":
+                    continue
+                missing.append(key)
+                continue
+            t = tensors[key]
+            val = _from_ldm(rule.kind, ours, t) if ours else t
+            _tree_set(tree, rule.path + ((ours,) if ours else ()), val)
+    if strict and missing:
+        raise KeyError(
+            f"{len(missing)} checkpoint keys missing, first: {missing[:5]}"
+        )
+    return from_jax_tree(tree, cfg, dtype=dtype or torch.float32,
+                         device=device)
+
+
+def params_to_ldm(params, cfg: PipelineConfig, dtype=torch.float32) -> dict:
+    """The port's tree -> LDM-named {key: contiguous tensor} on the host
+    (export and round trips), each leaf cast to ``dtype`` (float32, as the JAX
+    package's inverse gives; ``None`` keeps each leaf's dtype). A quantized
+    site has no ``w`` and gives no weight, as in the JAX package."""
+    tree = jax_layout(params)
+    out = {}
+    for rule in all_rules(cfg):
+        node = _tree_get(tree, rule.path)
+        for ldm_suffix, ours in _SUFFIX[rule.kind]:
+            if ours is not None and ours not in node:
+                continue
+            t = _to_ldm(rule.kind, ours or "w", node[ours] if ours else node)
+            t = t.detach().to("cpu")
+            if dtype is not None:
+                t = t.to(dtype)
+            out[f"{rule.ldm}.{ldm_suffix}"] = t.contiguous()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# native fast-load format: the flattened JAX-layout tree in one file
+# ---------------------------------------------------------------------------
+
+NATIVE_SUFFIX = ".sdtpu.safetensors"
+
+
+def _flatten_tree(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten_tree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            out.update(_flatten_tree(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def _unflatten_tree(flat: dict):
+    tree: dict = {}
+    for key, val in flat.items():
+        parts = [int(p) if p.isdigit() else p for p in key.split("/")]
+        _tree_set(tree, tuple(parts), val)
+    return tree
+
+
+def save_native(params, path) -> None:
+    """Write the port's tree (any dtype, quantized or not) as the JAX
+    package's native file: the flattened JAX-layout tree, the same key
+    names and dtypes (``sdtpu/io/weights.py:save_native``)."""
+    st.save_file(_flatten_tree(jax_layout(params)), path)
+
+
+def load_native(path, cfg: PipelineConfig, dtype=None, device=None):
+    """A native file (written by either package) -> the port's tree, each
+    leaf to ``dtype`` (kept when None) on ``device``."""
+    tree = _unflatten_tree(st.load_file(path))
+    extra = sorted(set(tree) - set(PORTED))
+    if extra:
+        raise UnsupportedCheckpoint(
+            f"native file {path} carries {extra}, trees of a family the "
+            f"port does not load yet (ROADMAP item 18); it loads "
+            f"{list(PORTED)}")
+    return from_jax_tree(tree, cfg, dtype=dtype, device=device)
+
+
+def is_orbax_checkpoint(path) -> bool:
+    """An orbax checkpoint directory (``sdtpu/io/orbax_ckpt.py``)."""
+    p = Path(path)
+    return (p / "_CHECKPOINT_METADATA").exists() or (
+        p.is_dir() and any(p.glob("**/_CHECKPOINT_METADATA")))
+
+
+def load_pipeline_params(model_dir, cfg: PipelineConfig, dtype=None,
+                         device=None):
+    """Load from a directory holding an SD v1.x checkpoint, or from one
+    file: the native file (``*.sdtpu.safetensors``, written by
+    ``sdtpu_torch.tools.convert_weights`` or the JAX package's converter)
+    is preferred, then LDM-named ``*.safetensors``. ``dtype``: the compute
+    dtype every floating leaf is cast to (an LDM file's through float32).
+    The tokenizer (``ctokenizer.txt``) is the Context's."""
+    model_dir = Path(model_dir)
+    if is_orbax_checkpoint(model_dir):
+        raise UnsupportedCheckpoint(
+            f"{model_dir} is an orbax checkpoint directory, which the port "
+            f"does not read yet (ROADMAP item 24); convert it to a native "
+            f"file")
+    if model_dir.is_file():
+        if model_dir.name.endswith(NATIVE_SUFFIX):
+            return load_native(model_dir, cfg, dtype, device)
+        files = [model_dir]
+    else:
+        native = sorted(model_dir.glob(f"*{NATIVE_SUFFIX}"))
+        if native:
+            return load_native(native[0], cfg, dtype, device)
+        files = sorted(model_dir.glob("*.safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors checkpoint under {model_dir}")
+    tensors = {}
+    for f in files:
+        tensors.update(st.load_file(f))
+    return load_ldm_state_dict(tensors, cfg, dtype=dtype, device=device)

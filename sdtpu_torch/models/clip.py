@@ -53,9 +53,13 @@ def _encoder_block(blk, x, heads, eps):
 
 
 def apply(params, tokens, cfg: CLIPConfig, dtype=torch.float32):
-    """tokens: [B, T] integer ids -> [B, T, hidden] (post final LN)."""
+    """tokens: [B, T] integer ids -> [B, T, hidden] (post final LN).
+
+    ``cfg.skip_last`` drops the last blocks and keeps the final LN (A1111's
+    "CLIP skip", ``skip_last = clip_skip - 1``)."""
     x = params["token_embedding"][tokens.long()].to(dtype)
     x = x + params["position_embedding"][: tokens.shape[-1]].to(dtype)
-    for blk in params["blocks"]:
+    blocks = params["blocks"]
+    for blk in blocks[:len(blocks) - cfg.skip_last]:
         x = _encoder_block(blk, x, cfg.heads, cfg.eps)
     return layer_norm(params["final_ln"], x, cfg.eps)

@@ -75,6 +75,41 @@ def init(cfg: VAEConfig, generator, device):
     return params
 
 
+def init_encoder(cfg: VAEConfig, generator, device):
+    """The encoder's parameters (``sdtpu/models/vae.py:init_encoder``):
+    conv_in, per-level ResnetBlocks with a stride-2 downsample conv between
+    levels, middle (ResnetBlock, attention, ResnetBlock), GroupNorm ->
+    conv_out to 2 * z channels (mean, logvar), the 1x1 quant conv. Every SD
+    checkpoint carries them; the encoder's forward (img2img) is not
+    ported yet."""
+    gen, dev = generator, device
+    params = {"conv_in": init_conv(3, cfg.out_channels, cfg.base_channels,
+                                   gen, dev)}
+    down = []
+    cur = cfg.base_channels
+    for lvl, mult in enumerate(cfg.channel_mult):
+        out_ch = cfg.base_channels * mult
+        blocks = []
+        for _ in range(cfg.num_res_blocks):
+            blocks.append(_init_resblock(cur, out_ch, gen, dev))
+            cur = out_ch
+        level = {"blocks": blocks}
+        if lvl != len(cfg.channel_mult) - 1:
+            level["down"] = init_conv(3, cur, cur, gen, dev)
+        down.append(level)
+    params["down"] = down
+    params["mid"] = {
+        "res1": _init_resblock(cur, cur, gen, dev),
+        "attn": _init_attn(cur, gen, dev),
+        "res2": _init_resblock(cur, cur, gen, dev),
+    }
+    params["norm_out"] = init_norm(cur, dev)
+    params["conv_out"] = init_conv(3, cur, 2 * cfg.z_channels, gen, dev)
+    params["quant"] = init_conv(1, 2 * cfg.z_channels, 2 * cfg.z_channels,
+                                gen, dev)
+    return params
+
+
 def _resblock(p, x, groups, kernels):
     """Under ``"cuda_conv"`` both convs take the fused kernel; under
     ``"cuda_gn"`` the GroupNorms stay plain, as the reference's VAE keeps

@@ -15,8 +15,9 @@ JAX. ``tests/test_torch_serving.py`` pins it against the original.
   separately; the hidden states concatenate into one long cross-attention
   context. A batch pads every prompt to the same chunk count with empty
   (eot-filled) chunks.
-* Prompt scheduling (``[from:to:when]``, ``[a|b]``): the functions are here;
-  the port's ``Context`` refuses a scheduled prompt until it wires them in.
+* Prompt scheduling (``[from:to:when]``, ``[a|b]``): ``Context.generate``
+  resolves the prompt at every step (``schedule_table``) and conditions
+  each step on its variant (``engine.pipeline.generate(..., sched_idx=)``).
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""Measurement scripts of the port that run on the card only."""
+"""Scripts of the port: the checkpoint converter (host), and measurement probes that run on the card."""

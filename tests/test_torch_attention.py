@@ -27,6 +27,17 @@ from sdtpu_torch.ops import matmul as t_mm
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and eager ops on TINY tensors lose far more to oversubscribed threads
+    than they gain from them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def _interpret(monkeypatch):
     monkeypatch.setattr(j_attn, "INTERPRET", True)

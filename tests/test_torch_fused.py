@@ -52,6 +52,17 @@ CUDA_POLICIES = ("cuda", "cuda_gn", "cuda_conv")
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and eager ops on TINY tensors lose far more to oversubscribed threads
+    than they gain from them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _no_tf32():
     t_layers.disable_tf32()
 

@@ -8,6 +8,7 @@ plain versions at the shapes the rules could break (this file imports no
 JAX, so they run there: ``python3 -m pytest tests/test_torch_hopper.py -m
 cuda``)."""
 
+import dataclasses
 import importlib.util
 import math
 import types
@@ -18,6 +19,9 @@ import pytest
 import torch
 
 from sdtpu_torch import Context, ErrorCode, SdtpuError
+from sdtpu_torch.config import TINY
+from sdtpu_torch.io import safetensors as t_st
+from sdtpu_torch.io import weights as t_weights
 from sdtpu_torch.ops import _build
 from sdtpu_torch.ops import attention as t_attn
 from sdtpu_torch.ops import conv as t_conv
@@ -26,6 +30,17 @@ from sdtpu_torch.ops import matmul as t_mm
 
 SMS = 132     # an H100 SXM
 SMEM_CAP = 227 * 1024     # a block's shared memory on sm_90
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and eager ops on TINY tensors lose far more to oversubscribed threads
+    than they gain from them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _load(path, name):
@@ -1548,3 +1563,52 @@ def test_cuda_kernels_at_batch_sites(kernel, site):
         test_cuda_int8w_paths_match_plain(*site)
     else:
         test_cuda_w8a8_is_bit_equal_to_plain(*site)
+
+
+@pytest.mark.cuda
+def test_cuda_reader_puts_a_bf16_file_on_the_card(tmp_path):
+    """A BF16 checkpoint read straight to the device: each tensor on the
+    card, its dtype and bytes those written (beside I64 ids and a 0-d
+    scalar)."""
+    _needs_card()
+    g = torch.Generator().manual_seed(0)
+    tensors = {"w": torch.randn((320, 320, 3, 3), generator=g).to(
+        torch.bfloat16), "b": torch.randn(320, generator=g).to(
+        torch.bfloat16), "ids": torch.arange(77)[None],
+        "s": torch.tensor(0.5)}
+    t_st.save_file(tensors, tmp_path / "m.safetensors")
+    got = t_st.load_file(tmp_path / "m.safetensors", device="cuda")
+    for k, v in tensors.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype, k
+        assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_cuda_context_model_dir_runs_the_kernels(tmp_path):
+    """TINY in bf16 at a 32x32 latent (1,024 tokens: K1's rule takes the
+    first level's and the VAE's self-attention) under ``cuda_conv``: a
+    Context on the demo weights exported as a BF16 LDM file gives the demo
+    Context's bytes, with the same launches of K1, K2's statistics mode and
+    K3 per image."""
+    _needs_card()
+    cfg = dataclasses.replace(TINY, dtype="bfloat16", latent_size=32)
+    counters = ((t_attn.flash_attention_cuda, "launches"),
+                (t_gn.group_norm_affine_cuda, "launches"),
+                (t_conv.fused_conv_cuda, "launches"))
+
+    def run(ctx):
+        before = [getattr(f, a) for f, a in counters]
+        img = ctx.generate("a horse", seed=5)
+        return img, [getattr(f, a) - n for (f, a), n in zip(counters,
+                                                             before)]
+
+    demo = Context(config=cfg, steps=2, device="cuda", kernels="cuda_conv")
+    t_st.save_file(t_weights.params_to_ldm(demo.params, cfg,
+                                           dtype=torch.bfloat16),
+                   tmp_path / "sd.safetensors")
+    ctx = Context(model_dir=str(tmp_path), config=cfg, steps=2,
+                  device="cuda", kernels="cuda_conv")
+    want, want_n = run(demo)
+    got, got_n = run(ctx)
+    assert all(n > 0 for n in want_n) and got_n == want_n
+    assert np.array_equal(got, want)

@@ -49,6 +49,17 @@ PROMPT = "a photograph of an astronaut riding a horse"
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and eager ops on TINY tensors lose far more to oversubscribed threads
+    than they gain from them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _no_tf32():
     t_layers.disable_tf32()
 
@@ -231,7 +242,7 @@ def test_port_init_has_jax_tree_shapes(trees):
     shapes = jax.eval_shape(lambda k: j_init_params(k, TINY_J),
                             jax.random.PRNGKey(0))
     ref = {k: jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes[k])
-           for k in ("clip", "temb", "unet", "vae")}
+           for k in ("clip", "temb", "unet", "vae", "vae_enc")}
     ours = init_pipeline_params(TINY_T, torch.Generator().manual_seed(0),
                                 "cpu")
     conv = from_jax_tree(ref, TINY_T)
@@ -332,7 +343,7 @@ def test_context_generate(ctx):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"sampler": "nope"}, {"steps": 0}, {"model_dir": "weights"},
+    {"sampler": "nope"}, {"steps": 0}, {"clip_skip": 0},
     {"kernels": "pallas"}, {"config": "sdxl"}])
 def test_context_invalid_arguments(kwargs):
     with pytest.raises(SdtpuError) as ei:
