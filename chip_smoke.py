@@ -89,7 +89,29 @@ Phases, each printing one JSON object per line:
    the same bytes for the same seed each time: ``clip_skip=2``, a
    textual-inversion placeholder whose vector is a word's row (that word's
    bytes), a scheduled prompt, a degenerate schedule (the plain prompt's
-   bytes). The files are deleted after it.
+   bytes). The files are deleted after it;
+14. families: the SD 2.x and SDXL configurations at full width with demo
+   weights, 20 DPM-Solver++(2M) steps, CFG 7.5, batch 1, bf16 (the SD1.5
+   Contexts released first). ``sdxl`` at 1024x1024: one image under plain,
+   cuda, cuda_gn and cuda_conv on one Context, then on a Context each
+   under ``quantize="int8w_dense"`` (K4) and calibrated ``"int8"`` with
+   ``KERNEL_W8A8`` (K5); ``sd21`` at 768x768 (v-prediction) under cuda and
+   cuda_conv and with heun (the second eval's v conversion); ``sd21base``
+   under cuda. Every image: uint8, not constant, finite latents whose
+   decode gives the same bytes (the same seed), every kernel's launches
+   per image at ``FAMILY_PINNED`` (derived from the rules at every
+   full-width site by tests/test_torch_hopper.py). s/image in turns under
+   each policy (SDXL), device busy ms, kernels and idle share per SDXL
+   image (torch.profiler), ``init_s``; one UNet eval under each policy
+   against float32 within ``MODEL_FACTOR`` of the plain bf16 path's error,
+   the quantized modes' under ``QUANT_REL_ERR_MAX``; each family's demo
+   tree written as a BF16 LDM file in its real naming (SDXL's sgm layout,
+   SD 2.1's OpenCLIP tower) and served by ``Context(model_dir=...)`` with
+   the demo bytes and pins (file bytes, write s, ``init_s``); then
+   kernel_sdxl_* and kernel_sd21_*: K1-K5 at every site the two families'
+   main paths give them, against their plain versions with the existing
+   tolerances, device times beside bounds, plain and library times and
+   launches per image.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -243,6 +265,61 @@ BATCH_PINNED = {
     "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL_B4 * STEPS,
                     matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL_B4 * STEPS),
 }
+# the families phase (sd21 768x768 v-prediction, sd21base 512x512, sdxl
+# 1024x1024), 20 steps, batch 1: launches per image of each kernel under
+# each mode, derived from the rules at every site of the full-width UNet
+# and VAE (tests/test_torch_hopper.py::test_family_pins_are_the_rules):
+#   flash: SDXL 10 self-attentions at 64x64 (d 64, 10 heads) and 60 at 32x32
+#     (the depth-10 level, with the mid block; 20 heads) an eval, SD 2.x 5 at
+#     the first level and 5 at the second (the 24^2 and 12^2 levels, 576 and
+#     144 tokens, take the plain path by the sequence clause), plus the VAE's
+#     mid block, under every cuda* policy;
+#   group_norm: SDXL 46 (17 ResBlocks x 2, 11 transformer norms, out_norm)
+#     an eval; conv and its statistics mode: SDXL 45 (34 + 11 proj_in) an
+#     eval plus the VAE's 28; SD 2.x as SD1.5 (61; 60 + 28);
+#   int8w_dense: K4 at SDXL's 700 transformer dense sites (70 basic blocks),
+#     22 proj 1x1 convs, 11 skip convs and 17 emb dense: 750 an eval, of
+#     which 140 split K; SD 2.x 228, as SD1.5;
+#   int8 + K5: the n >= m sites: SDXL ff1 (N = 10,240 >= M = 2,048) and
+#     attn2 k, v (154 rows) of the 60 blocks at 32x32, attn2 k, v of the 10
+#     at 64x64: 200 an eval, of which 140 split K
+FAMILY_STEPS = STEPS
+
+
+def family_pins(flash, **launches):
+    return {**dict.fromkeys(KERNEL_NAMES, 0), "flash": flash, **launches}
+
+
+FLASH_XL = 70 * FAMILY_STEPS + 1
+FLASH_SD2 = 10 * FAMILY_STEPS + 1
+FAMILY_PINNED = {
+    "sdxl": {
+        "plain": family_pins(0),
+        "cuda": family_pins(FLASH_XL),
+        "cuda_gn": family_pins(FLASH_XL, group_norm=46 * FAMILY_STEPS),
+        "cuda_conv": family_pins(FLASH_XL,
+                                 group_norm_affine=45 * FAMILY_STEPS + 28,
+                                 conv=45 * FAMILY_STEPS + 28),
+        "int8w_dense": family_pins(FLASH_XL,
+                                   matmul_int8w=750 * FAMILY_STEPS,
+                                   matmul_int8w_sum=140 * FAMILY_STEPS),
+        "int8+k5": family_pins(FLASH_XL, matmul_w8a8=200 * FAMILY_STEPS,
+                               matmul_w8a8_sum=140 * FAMILY_STEPS)},
+    "sd21": {
+        "cuda": family_pins(FLASH_SD2),
+        "cuda_conv": family_pins(FLASH_SD2, group_norm_affine=CONV_PER_IMAGE,
+                                 conv=CONV_PER_IMAGE),
+        "heun": family_pins(10 * 2 * FAMILY_STEPS + 1),
+        # the sites phase's: the kernel rows at SD 2.1's K2, K4 and K5 sites
+        "cuda_gn": family_pins(FLASH_SD2, group_norm=61 * FAMILY_STEPS),
+        "int8w_dense": family_pins(FLASH_SD2,
+                                   matmul_int8w=MM_INT8W_PER_EVAL * STEPS,
+                                   matmul_int8w_sum=44 * FAMILY_STEPS),
+        "int8+k5": family_pins(FLASH_SD2,
+                               matmul_w8a8=MM_W8A8_PER_EVAL * STEPS,
+                               matmul_w8a8_sum=39 * FAMILY_STEPS)},
+    "sd21base": {"cuda": family_pins(FLASH_SD2)},
+}
 # the samplers phase, under cuda: UNet evals per image (K1 launches 10 times
 # an eval, and once in the VAE): one a step, two on plms_exact's first step,
 # two a step for heun
@@ -320,8 +397,15 @@ MM_RAGGED = [(300, 336, 130, True), (100, 48, 72, False), (33, 16, 7, True),
              (64, 144, 256, True), (154, 768, 1280, False)]
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line on stdout; the seconds since the start and the phase on
+    stderr, where a run's time goes."""
     print(json.dumps(obj), flush=True)
+    print(f"[{time.perf_counter() - START:7.1f} s] {obj.get('phase')}",
+          file=sys.stderr, flush=True)
 
 
 def cuda_ms(fn, reps: int = 10, replays: int = 5) -> float:
@@ -434,13 +518,15 @@ def phase_build():
             raise AssertionError(f"{name}: a kernel spills: {report}")
 
 
-def phase_kernel(shapes=SHAPES, ragged=FLASH_RAGGED, label="kernel"):
+def phase_kernel(shapes=SHAPES, ragged=FLASH_RAGGED, label="kernel",
+                 per_image=None):
     """K1 at the main path's shapes, then at ``FLASH_RAGGED`` (there without
     the plain version's time). Each phase line also carries the tile the
     wrapper's static rule chose and ``exp_bound_ms``, the time the softmax's
     exponentials alone need on the special-function units (derived, not
     measured, so it stays out of the ``kernels`` line). ``shapes`` and
-    ``label``: the batch phase's shapes (N = 8, the VAE's 4)."""
+    ``label``: the batch phase's shapes (N = 8, the VAE's 4), or a family's
+    (``per_image``: launches per image of each shape, put in its row)."""
     from sdtpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -482,6 +568,8 @@ def phase_kernel(shapes=SHAPES, ragged=FLASH_RAGGED, label="kernel"):
             row["plain_ms"] = cuda_ms(
                 lambda: A.flash_attention_reference(q, k, v, heads))
             row["plain_tflops"] = flop / row["plain_ms"] / 1e9
+        if per_image is not None:
+            row["per_image"] = per_image.get((b, sq, c, heads), 0)
         emit({"phase": label if main else "kernel_ragged", **row,
               "dpad": dpad, "block_rows": block_rows, "keys_per_step": bkv,
               "exp_bound_ms": b * heads * sq * sk / PEAK_EXP * 1e3})
@@ -512,7 +600,7 @@ def recording(module, name, log):
         setattr(module, name, real)
 
 
-def phase_sites(ctx, batch=1):
+def phase_sites(ctx, batch=1, pinned=PINNED, label="sites"):
     """The call shapes K2 and K3 get on the main path, and how many times
     each runs per image: one UNet eval (x STEPS) and one VAE decode under
     each policy, with the wrappers' arguments logged; for ``batch``
@@ -555,13 +643,13 @@ def phase_sites(ctx, batch=1):
                            prologue, b.dim() == 2)
                 sites[key] = sites.get(key, 0) + per_image
     reset_counts()
-    emit({"phase": "sites", "batch": batch,
+    emit({"phase": label, "batch": batch,
           "group_norm_sites": len(gn_sites),
           "group_norm_per_image": sum(gn_sites.values()),
           "conv_sites": len(conv_sites),
           "conv_per_image": sum(conv_sites.values())})
-    if sum(gn_sites.values()) != PINNED["cuda_gn"]["group_norm"] or sum(
-            conv_sites.values()) != PINNED["cuda_conv"]["conv"]:
+    if sum(gn_sites.values()) != pinned["cuda_gn"]["group_norm"] or sum(
+            conv_sites.values()) != pinned["cuda_conv"]["conv"]:
         raise AssertionError("site counts differ from the pinned counts")
     return gn_sites, conv_sites
 
@@ -639,7 +727,8 @@ def phase_kernel_gn(gn_sites, ragged=GN_RAGGED, label="kernel_gn"):
 
 
 def phase_kernel_gn_affine(conv_sites, ragged=GN_RAGGED,
-                           label="kernel_gn_affine"):
+                           label="kernel_gn_affine",
+                           pin=PINNED["cuda_conv"]["group_norm_affine"]):
     """K2's statistics mode at the GroupNorm of every fused conv site of
     the main path (the UNet's and the VAE's, launches per image summed over
     the convs that share an input shape) and at the ragged shapes, against
@@ -688,14 +777,13 @@ def phase_kernel_gn_affine(conv_sites, ragged=GN_RAGGED,
             raise AssertionError(f"gn_affine kernel disagrees at {row}")
         rows.append(row)
         torch.cuda.empty_cache()
-    if sum(r["per_image"] for r in rows) != PINNED["cuda_conv"][
-            "group_norm_affine"]:
+    if sum(r["per_image"] for r in rows) != pin:
         raise AssertionError("statistics-mode sites differ from the pins")
     return rows
 
 
 def phase_kernel_conv(conv_sites, ragged=CONV_RAGGED, unet_n=2,
-                      label="kernel_conv"):
+                      label="kernel_conv", int8=True):
     """K3 at every main-path shape (with int8 weights too at the UNet's)
     and at ragged ones, against its plain version in float32 on the same bf16 inputs (the prologue from a real
     GroupNorm of x, ``gn_affine``, which is K2's statistics mode, itself
@@ -720,7 +808,8 @@ def phase_kernel_conv(conv_sites, ragged=CONV_RAGGED, unet_n=2,
     # quantize="int8w", which quantizes the UNet's sites: the CFG batch,
     # ``unet_n``)
     cases = [(k, n, False, 0, None) for k, n in main]
-    cases += [(k, 0, True, n, None) for k, n in main if k[0][0] == unet_n]
+    cases += [(k, 0, True, n, None) for k, n in main
+              if int8 and k[0][0] == unet_n]
     cases += [((s, co, k, pro, True), 0, q8, 0, want)
               for s, co, k, pro, q8, want in ragged]
     rows = []
@@ -1639,6 +1728,411 @@ def phase_batch_kernels(ctx, ctx_d, ctx_w, ctx_i):
             "conv": conv, **mm}
 
 
+# ---------------------------------------------------------------------------
+# the SD 2.x and SDXL families at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_SEED = 23
+
+
+def family_context(name, **kw):
+    from sdtpu_torch import Context
+
+    return Context(config=name, steps=FAMILY_STEPS, device="cuda", **kw)
+
+
+def family_image(ctx, name, mode, seed=FAMILY_SEED):
+    """One image of a family Context under its current policy, sampler and
+    flags: uint8 [S, S, 3], not constant, every kernel's launches at
+    ``FAMILY_PINNED[name][mode]``; then the same seed's latents, finite, and
+    their decode, which must give the same bytes. Returns (image,
+    launches, first image's seconds)."""
+    from sdtpu_torch.engine import pipeline
+
+    reset_counts()
+    t0 = time.perf_counter()
+    img = ctx.generate(PROMPT, guidance=7.5, seed=seed)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    check_image(img, ctx.cfg.image_size)
+    if launches != FAMILY_PINNED[name][mode]:
+        raise AssertionError(f"{name} {mode}: launches for one image "
+                             f"{launches}, expected "
+                             f"{FAMILY_PINNED[name][mode]}")
+    lat = ctx.generate(PROMPT, guidance=7.5, seed=seed, output="latent")
+    if not np.isfinite(lat).all():
+        raise AssertionError(f"{name} {mode}: latents not finite")
+    with torch.inference_mode():
+        again = pipeline.decode_latents(
+            ctx.params, torch.from_numpy(lat[None]).to("cuda"), ctx.cfg,
+            ctx.kernels)[0].cpu().numpy()
+    if not np.array_equal(img, again):
+        raise AssertionError(f"{name} {mode}: the same seed gave other "
+                             f"bytes")
+    emit({"phase": "family_image", "config": name, "mode": mode,
+          "kernels": ctx.kernels, "quantize": ctx.quantize,
+          "sampler": ctx.sampler, "first_image_s": seconds,
+          "launches_per_image": launches, "identical": True,
+          "latent_abs_max": float(np.abs(lat).max()),
+          "image_mean": float(img.mean()), "image_std": float(img.std())})
+    return img, launches, seconds
+
+
+def family_mm_sites(ctx, name):
+    """The call shapes K4 and K5 get in one UNet eval of the family at the
+    CFG batch of 2, and their launches per image: the Context's bf16 UNet
+    quantized on the card as ``quantize="int8w_dense"`` and as ``"int8"``
+    with a static scale at every site (the scales' values do not change a
+    shape), run with the wrappers' arguments logged. Held to the family's
+    pins."""
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import matmul as MM
+    from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
+
+    def scaled(node):
+        if isinstance(node, dict):
+            if "w_q" in node:
+                return {**node, "x_scale": torch.tensor(0.05, device="cuda")}
+            return {k: scaled(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [scaled(v) for v in node]
+        return node
+
+    x, te, context = unet_inputs(ctx.cfg, 6)
+    found = {}
+    for label, fn, flag, quantize in (
+            ("int8w_dense", "matmul_int8w_cuda", False,
+             lambda p: quantize_weights_only(p, include_dense=True)),
+            ("int8+k5", "matmul_w8a8_cuda", True,
+             lambda p: scaled(quantize_unet({"unet": p})["unet"]))):
+        params = quantize(ctx.params["unet"])
+        log = []
+        with torch.inference_mode(), recording(MM, fn, log), w8a8_kernel(
+                flag):
+            unet.apply(params, x, te, context, ctx.cfg.unet, "cuda")
+        del params
+        sites = {}
+        for args, _ in log:
+            xx, w8 = args[0], args[1]
+            key = (xx.numel() // xx.shape[-1], w8.shape[0], w8.shape[1],
+                   args[-1] is not None)
+            sites[key] = sites.get(key, 0) + STEPS
+        found[label] = sites
+        torch.cuda.empty_cache()
+    reset_counts()
+    pinned = FAMILY_PINNED[name]
+    emit({"phase": "family_mm_sites", "config": name, **{
+        f"{k}_{what}": v for k, sites in found.items() for what, v in (
+            ("shapes", len(sites)), ("per_image", sum(sites.values())))}})
+    for label, key in (("int8w_dense", "matmul_int8w"),
+                       ("int8+k5", "matmul_w8a8")):
+        if sum(found[label].values()) != pinned[label][key]:
+            raise AssertionError(f"{name} {label}: site counts differ from "
+                                 f"the pins: {found[label]}")
+    return found
+
+
+def family_flash_sites(ctx, name):
+    """K1's call shapes in one UNet eval (x STEPS) and one VAE decode under
+    ``cuda``, with launches per image, held to the family's pin."""
+    from sdtpu_torch.models import unet, vae
+    from sdtpu_torch.ops import attention as A
+
+    cfg = ctx.cfg
+    x, te, context = unet_inputs(cfg, 3)
+    sites = {}
+    for per_image, run in (
+            (STEPS, lambda: unet.apply(ctx.params["unet"], x, te, context,
+                                       cfg.unet, "cuda")),
+            (1, lambda: vae.apply(ctx.params["vae"], x[:1], cfg.vae,
+                                  "cuda"))):
+        log = []
+        with torch.inference_mode(), recording(A, "flash_attention_cuda",
+                                               log):
+            run()
+        for (q, _, _, heads), _ in log:
+            key = (q.shape[0], q.shape[1], q.shape[2], heads)
+            sites[key] = sites.get(key, 0) + per_image
+    reset_counts()
+    if sum(sites.values()) != FAMILY_PINNED[name]["cuda"]["flash"]:
+        raise AssertionError(f"{name}: K1 sites {sites}")
+    return sites
+
+
+def family_sites(ctx, name):
+    """Every kernel's call shapes on the family's main path, with launches
+    per image: K1 (``cuda``), K2 and K3 (``phase_sites``), K4 and K5."""
+    gn, conv = phase_sites(ctx, pinned=FAMILY_PINNED[name],
+                           label=f"sites_{name}")
+    return {"flash": family_flash_sites(ctx, name), "group_norm": gn,
+            "conv": conv, "mm": family_mm_sites(ctx, name)}
+
+
+def family_kernel_rows(name, sites):
+    """K1-K5 at the family's sites against their plain versions, with the
+    existing tolerances (``kernel_families``): device ms of the kernel, its
+    plain version and the library call, the bound and launches per
+    image."""
+    label = f"kernel_{name}"
+    flash = sorted(sites["flash"])
+    return {
+        "flash": phase_kernel(flash, [], label, per_image=sites["flash"]),
+        "group_norm": phase_kernel_gn(sites["group_norm"], [],
+                                      f"{label}_gn"),
+        "group_norm_affine": phase_kernel_gn_affine(
+            sites["conv"], [], f"{label}_gn_affine",
+            FAMILY_PINNED[name]["cuda_conv"]["group_norm_affine"]),
+        "conv": phase_kernel_conv(sites["conv"], [], 2, f"{label}_conv",
+                                  int8=False),
+        **phase_kernel_mm(sites["mm"], [], f"{label}_mm")}
+
+
+def family_unet_errors(ctx, contexts=()):
+    """One full-width UNet eval at the CFG batch of 2 under each policy on
+    ``ctx`` (bf16), and under each quantized Context of ``contexts``
+    ((label, Context, KERNEL_W8A8)), against a float32 eval of ``ctx``'s
+    weights (the bf16 values widened exactly) on the same inputs, the time
+    embedding carrying the additive conditioning of a random pooled
+    embedding where the family has one. Returns (errors, the reference
+    and its inputs, to hold later quantized Contexts to)."""
+    from sdtpu_torch.engine import pipeline
+    from sdtpu_torch.io.params import cast_params
+    from sdtpu_torch.models import unet
+
+    cfg = ctx.cfg
+    x, te, context = unet_inputs(cfg, 1)
+    with torch.inference_mode():
+        if cfg.clip2 is not None:
+            g = torch.Generator(device="cuda").manual_seed(2)
+            pooled = torch.randn((2, cfg.clip2.projection), generator=g,
+                                 device="cuda").to(cfg.compute_dtype)
+            te = te + pipeline._add_embedding(ctx.params, pooled, cfg)
+        p32 = cast_params(ctx.params["unet"], torch.float32)
+        ref = unet.apply(p32, x.float(), te.float(), context.float(),
+                         cfg.unet, "plain")
+        del p32
+        torch.cuda.empty_cache()
+    res = {}
+    for k in POLICIES:
+        with torch.inference_mode():
+            out = unet.apply(ctx.params["unet"], x, te, context, cfg.unet, k)
+        res[f"unet_{k}_finite"] = bool(torch.isfinite(out).all())
+        res[f"unet_{k}_rel_err"] = rel_err(out, ref)
+        del out
+    return res, (x, te, context, ref)
+
+
+def quant_unet_error(c, flag, held):
+    from sdtpu_torch.models import unet
+
+    x, te, context, ref = held
+    with torch.inference_mode(), w8a8_kernel(flag):
+        out = unet.apply(c.params["unet"], x, te, context, c.cfg.unet,
+                         c.kernels)
+    return bool(torch.isfinite(out).all()), rel_err(out, ref)
+
+
+def ldm_family_file(ctx, path):
+    """The Context's tree as a BF16 LDM file in its family's real naming:
+    SDXL's sgm layout as ``params_to_ldm`` gives it; SD 2.x with the
+    OpenCLIP tower (``cond_stage_model.model.*``, fused in_proj) in place of
+    the HF-CLIP keys."""
+    from sdtpu_torch.io import safetensors as st
+    from sdtpu_torch.io.params import jax_layout
+    from sdtpu_torch.io.weights import params_to_ldm, tree_to_openclip_text
+
+    dt = ctx.cfg.compute_dtype
+    sd = params_to_ldm(ctx.params, ctx.cfg, dtype=dt)
+    if ctx.cfg.clip2 is None:
+        sd = {k: v for k, v in sd.items()
+              if not k.startswith("cond_stage_model.")}
+        sd.update({k: v.detach().to("cpu", dt).contiguous()
+                   for k, v in tree_to_openclip_text(
+                       jax_layout(ctx.params)["clip"]).items()})
+    t0 = time.perf_counter()
+    st.save_file(sd, path)
+    del sd
+    return time.perf_counter() - t0
+
+
+def family_checkpoint(ctx, name, root, want):
+    """The demo tree written as a BF16 LDM file in the family's naming and
+    served by ``Context(model_dir=)`` under ``cuda``: the demo Context's
+    bytes at the seed and its pins. Returns the phase's numbers."""
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    path = os.path.join(d, f"{name}-demo.safetensors")
+    t0 = time.perf_counter()
+    write_s = ldm_family_file(ctx, path)
+    res = {"write_s": write_s, "export_and_write_s": time.perf_counter() - t0,
+           "bytes": os.path.getsize(path)}
+    c = family_context(name, model_dir=d, kernels="cuda")
+    res["init_s"] = c.init_seconds
+    img, launches, _ = family_image(c, name, "cuda")
+    release(c)
+    shutil.rmtree(d, ignore_errors=True)
+    if not np.array_equal(img, want):
+        raise AssertionError(f"{name}: the loaded checkpoint gave other "
+                             f"bytes than the demo weights")
+    res["launches_per_image"] = launches
+    res["identical"] = True
+    return res
+
+
+def phase_families(smi):
+    """SD 2.1 (768x768, v-prediction), SD 2.1-base and SDXL (1024x1024) at
+    full width with demo weights, 20 DPM-Solver++(2M) steps, CFG 7.5, batch
+    1, bf16 (module docstring, item 14). Returns the kernel rows at the
+    families' sites and the launches per image."""
+    from sdtpu_torch.quant.ptq import calibrate
+
+    start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sdtpu-family-")
+    out = {"rows": {}, "launches": {}}
+    try:
+        # SDXL: the policies on one Context, timed in turns
+        xl = family_context("sdxl", kernels="cuda")
+        res = {"phase": "family", "config": "sdxl", "nvidia_smi": smi,
+               "init_s": xl.init_seconds}
+        sites_xl = family_sites(xl, "sdxl")
+        imgs, first = {}, {}
+        for policy in POLICIES:
+            xl.kernels = policy
+            imgs[policy], out["launches"][f"sdxl_{policy}"], first[
+                policy] = family_image(xl, "sdxl", policy)
+        times = {k: [] for k in POLICIES}
+        for k in POLICIES[::-1] + POLICIES:
+            xl.kernels = k
+            t0 = time.perf_counter()
+            xl.generate(PROMPT, guidance=7.5, seed=9)
+            times[k].append(time.perf_counter() - t0)
+        xl.kernels = "cuda"
+        by_name, kernels, wall_ms = device_profile(
+            lambda: xl.generate(PROMPT, guidance=7.5, seed=5))
+        busy = sum(by_name.values())
+        errs, held = family_unet_errors(xl)
+        res.update({
+            "first_image_s": first,
+            "s_per_image": {k: statistics.median(v)
+                            for k, v in times.items()},
+            "image_s": times, "device_busy_ms": busy,
+            "device_kernels": kernels, "profiled_wall_ms": wall_ms,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "flash_ms": sum(v for k, v in by_name.items()
+                            if "flash_fwd_kernel" in k),
+            "top_kernels_ms": [[k[:90], v] for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:10]],
+            **errs})
+        for k in POLICIES[1:]:
+            if not (res[f"unet_{k}_finite"] and res[f"unet_{k}_rel_err"]
+                    <= MODEL_FACTOR * res["unet_plain_rel_err"]):
+                emit(res)
+                raise AssertionError(f"sdxl UNet under {k} off the float32 "
+                                     f"run: {res}")
+        res["checkpoint"] = family_checkpoint(xl, "sdxl", root, imgs["cuda"])
+        release(xl)
+        del xl
+        emit(res)
+        res = {"phase": "family_quant", "config": "sdxl", "nvidia_smi": smi,
+               "unet_plain_rel_err": res["unet_plain_rel_err"]}
+        # the quantized modes, one Context each, K4 and K5
+        xd = family_context("sdxl", kernels="cuda", quantize="int8w_dense")
+        _, out["launches"]["sdxl_int8w_dense"], res[
+            "first_image_s_int8w_dense"] = family_image(xd, "sdxl",
+                                                        "int8w_dense")
+        res["unet_int8w_dense_finite"], res["unet_int8w_dense_rel_err"] = \
+            quant_unet_error(xd, False, held)
+        release(xd)
+        xi = family_context("sdxl", kernels="cuda", quantize="int8")
+        t0 = time.perf_counter()
+        xi.params = calibrate(xi.params, xi.cfg, CALIB_PROMPTS, xi.tokenizer,
+                              steps=2)
+        res["calibrate_s"] = time.perf_counter() - t0
+        with w8a8_kernel(True):
+            _, out["launches"]["sdxl_int8+k5"], res[
+                "first_image_s_int8+k5"] = family_image(xi, "sdxl",
+                                                        "int8+k5")
+        res["unet_int8+k5_finite"], res["unet_int8+k5_rel_err"] = \
+            quant_unet_error(xi, True, held)
+        release(xi)
+        del held
+        torch.cuda.empty_cache()
+        emit(res)
+        for k in ("int8w_dense", "int8+k5"):
+            if not (res[f"unet_{k}_finite"]
+                    and res[f"unet_{k}_rel_err"] <= QUANT_REL_ERR_MAX):
+                raise AssertionError(f"sdxl UNet under {k} is garbage: "
+                                     f"{res}")
+
+        # SD 2.1 768-v: cuda, cuda_conv, and heun's second-eval conversion
+        sd2 = family_context("sd21", kernels="cuda")
+        res = {"phase": "family", "config": "sd21", "nvidia_smi": smi,
+               "init_s": sd2.init_seconds}
+        sites_sd2 = family_sites(sd2, "sd21")
+        imgs = {}
+        for policy in ("cuda", "cuda_conv"):
+            sd2.kernels = policy
+            imgs[policy], out["launches"][f"sd21_{policy}"], _ = \
+                family_image(sd2, "sd21", policy)
+        sd2.kernels, sd2.sampler = "cuda", "heun"
+        _, out["launches"]["sd21_heun"], _ = family_image(sd2, "sd21",
+                                                          "heun")
+        sd2.sampler = "dpm"
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sd2.generate(PROMPT, guidance=7.5, seed=9)
+            times.append(time.perf_counter() - t0)
+        errs, held = family_unet_errors(sd2)
+        del held
+        res.update({"s_per_image_cuda": statistics.median(times),
+                    "image_s": times, **errs})
+        res["checkpoint"] = family_checkpoint(sd2, "sd21", root,
+                                              imgs["cuda"])
+        release(sd2)
+        del sd2
+        emit(res)
+        for k in POLICIES[1:]:
+            if not (res[f"unet_{k}_finite"] and res[f"unet_{k}_rel_err"]
+                    <= MODEL_FACTOR * res["unet_plain_rel_err"]):
+                raise AssertionError(f"sd21 UNet under {k} off the float32 "
+                                     f"run: {res}")
+
+        base = family_context("sd21base", kernels="cuda")
+        _, out["launches"]["sd21base_cuda"], first_base = family_image(
+            base, "sd21base", "cuda")
+        t0 = time.perf_counter()
+        base.generate(PROMPT, guidance=7.5, seed=9)
+        emit({"phase": "family", "config": "sd21base", "nvidia_smi": smi,
+              "init_s": base.init_seconds, "first_image_s": first_base,
+              "image_s": time.perf_counter() - t0})
+        release(base)
+        del base
+        torch.cuda.empty_cache()
+
+        out["rows"]["sdxl"] = family_kernel_rows("sdxl", sites_xl)
+        out["rows"]["sd21"] = family_kernel_rows("sd21", sites_sd2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "families_done", "seconds": time.perf_counter() - start})
+    return out
+
+
+def family_summary(rows, launches):
+    """A kernel's rows at a family's sites for the ``kernels`` line: the
+    worst error, the most launched site's times and bound, the sum over
+    the sites of launches x ms per image beside the bound's, and launches
+    per image on the main path."""
+    top = max(rows, key=lambda r: (r.get("per_image", 0), r.get("m", 0)))
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": top["ms"], "plain_ms": top.get("plain_ms"),
+            "bound_ms": top["bound_ms"],
+            "library_ms": top.get("library_ms", top.get("cuda_site_ms")),
+            "per_image_ms": per_image_ms(rows, "ms"),
+            "per_image_bound_ms": per_image_ms(rows, "bound_ms"),
+            "launches": launches, "rows": len(rows)}
+
+
 def batch_summary(rows):
     """A kernel's batch rows for the ``kernels`` line: the worst error and
     the most launched site's time."""
@@ -1747,6 +2241,19 @@ def main() -> int:
         phase_breakdown(c, policy)
     with w8a8_kernel(True):
         phase_breakdown(ctx_i, "cuda")
+    release(ctx, ctx_d, ctx_w, ctx_i)
+
+    # the SD 2.x and SDXL families at full width, then every kernel at their
+    # sites
+    fam = phase_families(smi)
+    fl = fam["launches"]
+
+    def families(kernel, counter, sdxl_mode, sd21_mode):
+        return {"sdxl": family_summary(fam["rows"]["sdxl"][kernel],
+                                       fl[f"sdxl_{sdxl_mode}"][counter]),
+                "sd21": family_summary(fam["rows"]["sd21"][kernel],
+                                       fl.get(f"sd21_{sd21_mode}", {}).get(
+                                           counter))}
 
     # the timed row of each kernel: its most frequent main-path shape (the
     # largest plane among equals)
@@ -1769,6 +2276,7 @@ def main() -> int:
          "library_ms": rows[0]["library_ms"],
          "design": rows[0]["design"],
          "batch4": batch_summary(b4["flash"]),
+         "families": families("flash", "flash", "cuda", "cuda"),
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -1784,6 +2292,8 @@ def main() -> int:
          "cuda_site_ms": gn_main["cuda_site_ms"],
          "design": gn_main["design"], "plan": gn_main["plan"],
          "batch4": batch_summary(b4["group_norm"]),
+         "families": families("group_norm", "group_norm", "cuda_gn",
+                              "cuda_gn"),
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -1804,6 +2314,7 @@ def main() -> int:
                     "conv, bias",
          "design": conv_main["design"], "plan": conv_main["plan"],
          "batch4": batch_summary(b4["conv"]),
+         "families": families("conv", "conv", "cuda_conv", "cuda_conv"),
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -1823,6 +2334,8 @@ def main() -> int:
          "library": "torch.var_mean over the [N, hw, G, C/G] view",
          "design": affine_main["design"], "plan": affine_main["plan"],
          "batch4": batch_summary(b4["group_norm_affine"]),
+         "families": families("group_norm_affine", "group_norm_affine",
+                              "cuda_conv", "cuda_conv"),
          "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
@@ -1840,6 +2353,8 @@ def main() -> int:
          "sum_pass_launches_int8w": launches["int8w"]["matmul_int8w_sum"],
          "dequant_ms": k4_main["dequant_ms"],
          "batch4": batch_summary(b4["matmul_int8w"]),
+         "families": families("matmul_int8w", "matmul_int8w",
+                              "int8w_dense", "int8w_dense"),
          "timed_shape": [k4_main[d] for d in "mkn"]},
         {"name": "matmul_w8a8", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
@@ -1861,6 +2376,8 @@ def main() -> int:
          "sum_pass_launches": launches["int8+k5"]["matmul_w8a8_sum"],
          "static_path_ms": k5_main["static_path_ms"],
          "batch4": batch_summary(b4["matmul_w8a8"]),
+         "families": families("matmul_w8a8", "matmul_w8a8", "int8+k5",
+                              "int8+k5"),
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,15 +1,16 @@
 """Model/pipeline configuration for the PyTorch port.
 
 Carried over from ``sdtpu/config.py`` (the JAX package), cut to the fields
-the SD v1.5 txt2img path reads. Field names, defaults and the ``SD15`` and
-``TINY`` values are the JAX package's; ``tests/test_torch_slice.py`` pins
-them against it.
+the txt2img paths of SD v1.5, SD 2.x and SDXL-base read. Field names,
+defaults and the ``SD15``, ``SD21``, ``SD21_BASE``, ``SDXL``, ``TINY`` and
+``TINY_XL`` values are the JAX package's; ``tests/test_torch_slice.py`` and
+``tests/test_torch_families.py`` pin them against it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,9 +24,14 @@ class CLIPConfig:
     mlp_ratio: int = 4
     context_len: int = 77
     eps: float = 1e-5
+    act: str = "quick_gelu"      # SD2 (OpenCLIP ViT-H) and bigG use "gelu"
+    penultimate: bool = False    # skip the last block, then the final LN
     # A1111 "CLIP skip": run `layers - skip_last` blocks, then the final LN
     # (skip_last = clip_skip - 1). Set via Context(clip_skip=...)
     skip_last: int = 0
+    # width of the pooled embedding's projection (SDXL's bigG: 1280); 0 =
+    # no ``text_proj`` leaf
+    projection: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +43,29 @@ class UNetConfig:
     num_res_blocks: int = 2
     attn_levels: Tuple[int, ...] = (0, 1, 2)   # levels with spatial transformers
     num_heads: int = 8
+    head_dim: int = 0            # SD2/XL: heads = channels // head_dim
     context_dim: int = 768
     time_embed_dim: int = 1280                 # = 4 * model_channels
     groups: int = 32
+    # transformer blocks per spatial transformer, per level (SDXL: (0, 2,
+    # 10)); empty = depth 1 at every attention level. The mid block takes
+    # the deepest attention level's depth
+    transformer_depth: Tuple[int, ...] = ()
+    # input width of the additive conditioning MLP (SDXL: 2816 = 1280
+    # pooled + 6 x 256 fourier micro-conditions); 0 = none
+    adm_in_channels: int = 0
+
+    def depth_at(self, lvl: int) -> int:
+        if not self.transformer_depth:
+            return 1
+        return self.transformer_depth[lvl]
+
+    def mid_depth(self) -> int:
+        if not self.transformer_depth:
+            return 1
+        lvl = max(self.attn_levels) if self.attn_levels else (
+            len(self.channel_mult) - 1)
+        return self.transformer_depth[lvl]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,12 +82,20 @@ class VAEConfig:
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     clip: CLIPConfig = CLIPConfig()
+    # second text tower (SDXL's OpenCLIP bigG): the two towers' hidden
+    # states concatenate to the cross-attention context, and tower 2's
+    # pooled embedding feeds the UNet's additive conditioning
+    clip2: Optional[CLIPConfig] = None
     unet: UNetConfig = UNetConfig()
     vae: VAEConfig = VAEConfig()
     latent_channels: int = 4
     latent_size: int = 64
     upscale: int = 8          # VAE upsampling factor
     dtype: str = "bfloat16"   # activation/compute dtype
+    prediction: str = "eps"   # "eps" | "v" (SD 2.x 768-v)
+    # the SDXL refiner's single-tower layout: a later slice of the port;
+    # Context refuses a config that sets it
+    refiner: bool = False
 
     @property
     def image_size(self) -> int:
@@ -73,6 +107,36 @@ class PipelineConfig:
 
 
 SD15 = PipelineConfig()
+
+# Stable Diffusion 2.1 (768-v): the OpenCLIP ViT-H text tower (GELU; 23 of
+# its 24 blocks, the penultimate tap pre-cut, then the final LN),
+# head-dim-64 attention, v-prediction, 768x768
+SD21 = PipelineConfig(
+    clip=CLIPConfig(hidden=1024, layers=23, heads=16, act="gelu",
+                    penultimate=False),
+    unet=UNetConfig(num_heads=0, head_dim=64, context_dim=1024),
+    latent_size=96,
+    prediction="v",
+)
+
+# SD 2.1-base (512x512, eps-prediction), the same towers
+SD21_BASE = dataclasses.replace(SD21, latent_size=64, prediction="eps")
+
+# Stable Diffusion XL base (1024x1024): CLIP-L and OpenCLIP bigG, each
+# tapped at its penultimate block, concatenated to a 2048-wide context;
+# bigG's pooled embedding and six size/crop micro-conditions through the
+# additive MLP (2816 -> 1280); a 3-level UNet with no attention at level 0,
+# transformer depth (-, 2, 10) and head-dim-64 attention
+SDXL = PipelineConfig(
+    clip=CLIPConfig(),
+    clip2=CLIPConfig(hidden=1280, layers=32, heads=20, act="gelu",
+                     projection=1280),
+    unet=UNetConfig(channel_mult=(1, 2, 4), attn_levels=(1, 2),
+                    transformer_depth=(0, 2, 10), num_heads=0, head_dim=64,
+                    context_dim=2048, adm_in_channels=2816),
+    vae=VAEConfig(scale_factor=0.13025),
+    latent_size=128,
+)
 
 # Tiny config for CPU tests: same topology, ~1000x fewer FLOPs.
 TINY = PipelineConfig(
@@ -88,8 +152,43 @@ TINY = PipelineConfig(
     dtype="float32",
 )
 
+# Tiny SDXL topology for CPU tests: dual towers (the second a GELU tower
+# with a 48 -> 16 projection), depth-2 transformers at level 1 only, the
+# additive conditioning (16 pooled + 6 fourier blocks x 8 = 64)
+TINY_XL = PipelineConfig(
+    clip=CLIPConfig(vocab_size=512 + 22 + 2, hidden=32, layers=2, heads=2,
+                    context_len=16),
+    clip2=CLIPConfig(vocab_size=512 + 22 + 2, hidden=48, layers=3, heads=2,
+                     context_len=16, act="gelu", projection=16),
+    unet=UNetConfig(model_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+                    attn_levels=(1,), transformer_depth=(0, 2), num_heads=2,
+                    context_dim=80, time_embed_dim=64, groups=4,
+                    adm_in_channels=64),
+    vae=VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+                  groups=4),
+    latent_size=8,
+    upscale=2,
+    dtype="float32",
+)
+
 #: name -> config registry (Context(config=...))
 CONFIGS = {
     "sd15": SD15,
+    "sd21": SD21,
+    "sd21base": SD21_BASE,
+    "sdxl": SDXL,
     "tiny": TINY,
+}
+
+#: the JAX package's other configurations, and the ROADMAP item of the
+#: port that brings each (``Context`` refuses them by name)
+NOT_PORTED = {
+    "sd15_inpaint": "item 18's concat families, after item 17",
+    "sd15_ip2p": "item 18's concat families, after item 17",
+    "sd15_lcm": "item 18 (LCM's guidance embedding)",
+    "sd21_inpaint": "item 18's concat families, after item 17",
+    "sd2_depth": "item 18's concat families, after item 17",
+    "sd_x4": "item 18 (the x4 upscaler)",
+    "sdxl_inpaint": "item 18's concat families, after item 17",
+    "sdxl_refiner": "item 18 (the refiner, refine and denoising_end)",
 }

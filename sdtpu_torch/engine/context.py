@@ -7,16 +7,25 @@ every later ``generate`` raises ``INVALID_CONTEXT``. A failure inside one
 ``generate`` or batch (a kernel wrapper, its build or launch, torch) comes
 out as ``SdtpuError(RUNTIME_ERROR)`` and latches nothing.
 
+Configurations: ``"sd15"``, ``"sd21"`` (768x768, v-prediction),
+``"sd21base"`` (512x512) and ``"sdxl"`` (1024x1024, two text towers, the
+pooled and micro-conditioning), or a ``PipelineConfig``. The JAX package's
+other names (inpaint, depth, ip2p, LCM, x4, the refiner) are
+``INVALID_ARGUMENT`` naming the ROADMAP item that brings them.
+
 Weights: ``model_dir=None`` builds random demo weights from a fixed seed;
-else ``model_dir`` is a directory or one file holding an SD1.x checkpoint,
-loaded by ``io.weights.load_pipeline_params`` (the native
+else ``model_dir`` is a directory or one file holding a checkpoint of the
+configuration's family (SD1.x, SD2.x with its OpenCLIP tower, or SDXL in
+the sgm naming), loaded by ``io.weights.load_pipeline_params`` (the native
 ``*.sdtpu.safetensors`` preferred, then LDM-named ``*.safetensors``), with
 ``model_dir/ctokenizer.txt`` as the tokenizer when present. A missing or
 empty ``model_dir`` fails as ``RUNTIME_ERROR`` "model load failed: ..." and
-latches; a checkpoint of a family the port does not load yet (SD2, SDXL,
-ControlNet, orbax) is ``INVALID_ARGUMENT``. ``embeddings={placeholder:
+latches; a checkpoint of a family the port does not load yet (the SDXL
+refiner, ControlNet, orbax), or of another family than the
+configuration's, is ``INVALID_ARGUMENT``. ``embeddings={placeholder:
 source}`` loads textual-inversion embeddings (``load_embedding``);
-``clip_skip`` taps the text tower ``clip_skip - 1`` blocks early.
+``clip_skip`` taps a single-tower configuration's text tower ``clip_skip -
+1`` blocks early.
 
 Serving: ``generate`` takes a prompt or a list of prompts and a
 ``negative_prompt``; ``generate_batch``/``generate_batch_async`` take
@@ -24,10 +33,10 @@ requests with a ``prompt`` and their own ``guidance``, ``seed`` and
 ``negative_prompt``, padded to a power of two. Prompts may carry the
 attention syntax and run past the 77-token window (``sdtpu_torch.text``);
 ``generate`` also takes prompt scheduling (``[from:to:when]``, ``[a|b]``)
-within one window. ``sampler`` is any name of ``samplers.SAMPLERS``
-(``"dpm"`` by default). The reference's LoRA, ControlNet, PAG, two-stage
-and mesh arguments are refused with ``INVALID_ARGUMENT`` until their slices
-of the port.
+within one window, on a single-tower configuration as the reference does.
+``sampler`` is any name of ``samplers.SAMPLERS`` (``"dpm"`` by default).
+The reference's LoRA, ControlNet, PAG, two-stage and mesh arguments are
+refused with ``INVALID_ARGUMENT`` until their slices of the port.
 
 The device is always explicit: ``Context(..., device="cuda")``. On a CUDA
 device ``kernels="auto"`` selects the hand-written flash-attention kernel
@@ -58,11 +67,11 @@ import numpy as np
 import torch
 
 from sdtpu_torch import text as text_mod
-from sdtpu_torch.config import CONFIGS, PipelineConfig
+from sdtpu_torch.config import CONFIGS, NOT_PORTED, PipelineConfig
 from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.errors import ErrorCode, ErrorTable, SdtpuError
 from sdtpu_torch.io import safetensors as st
-from sdtpu_torch.io.params import cast_params, init_pipeline_params
+from sdtpu_torch.io.params import cast_params, init_tree, tree_names
 from sdtpu_torch.io.weights import UnsupportedCheckpoint, load_pipeline_params
 from sdtpu_torch.models.layers import disable_tf32
 from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
@@ -96,17 +105,31 @@ class Context:
         self._failed = False
         self.device = torch.device(device)
         if isinstance(config, str):
+            if config.lower() in NOT_PORTED:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"config {config!r} is not ported yet (ROADMAP "
+                    f"{NOT_PORTED[config.lower()]}); available: "
+                    f"{sorted(CONFIGS)}", self.errors)
             if config.lower() not in CONFIGS:
                 raise SdtpuError(
                     ErrorCode.INVALID_ARGUMENT,
                     f"unknown config {config!r}; available: "
                     f"{sorted(CONFIGS)}", self.errors)
             config = CONFIGS[config.lower()]
+        if config.refiner:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"a refiner config is not ported yet (ROADMAP "
+                f"{NOT_PORTED['sdxl_refiner']})", self.errors)
         if clip_skip != 1:
             # A1111 "CLIP skip": tap the text tower clip_skip - 1 blocks
-            # early, then the final LN (sdtpu/engine/context.py:123-139)
+            # early, then the final LN (sdtpu/engine/context.py:123-139);
+            # single-tower configurations only: XL's towers already tap
+            # their penultimate hidden states
             if (not isinstance(clip_skip, int) or clip_skip < 1
-                    or clip_skip > config.clip.layers):
+                    or clip_skip > config.clip.layers
+                    or config.clip2 is not None):
                 raise SdtpuError(
                     ErrorCode.INVALID_ARGUMENT,
                     f"clip_skip must be an int in [1, clip.layers] on a "
@@ -181,8 +204,9 @@ class Context:
                                               dtype=dtype, device=self.device)
             else:
                 gen = torch.Generator(device=self.device).manual_seed(0)
-                params = init_pipeline_params(self.cfg, gen, self.device)
-                params = {k: cast_params(v, dtype) for k, v in params.items()}
+                params = {name: cast_params(init_tree(name, self.cfg, gen,
+                                                      self.device), dtype)
+                          for name in tree_names(self.cfg)}
             if self.quantize == "int8":
                 params = quantize_unet(params)
             elif self.quantize.startswith("int8w"):
@@ -404,6 +428,11 @@ class Context:
                 self.errors)
         sched = None
         if any(text_mod.has_schedule(p, self.steps) for p in prompts):
+            if self.cfg.clip2 is not None:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    "prompt scheduling is single-tower only (XL pending)",
+                    self.errors)
             if output != "image":
                 raise SdtpuError(
                     ErrorCode.INVALID_ARGUMENT,
@@ -519,41 +548,51 @@ class Context:
 
     def load_embedding(self, placeholder: str, source) -> None:
         """Textual-inversion embedding (``sdtpu/engine/context.py:611-699``):
-        the learned vector(s) append to the CLIP token-embedding table and
-        the whitespace-free ``placeholder`` (e.g. ``"<my-style>"``) becomes a
-        word of the prompt vocabulary that encodes to those rows.
+        the learned vector(s) append to each text tower's token-embedding
+        table and the whitespace-free ``placeholder`` (e.g.
+        ``"<my-style>"``) becomes a word of the prompt vocabulary that
+        encodes to those rows.
 
-        ``source``: a [k, D] (or [D]) array or tensor, a dict of them (key
-        ``"clip_l"``, a single entry, or A1111's ``"emb_params"``), or a path
-        to an ``.npz``, an A1111 ``.pt`` (``string_to_param["*"]``, read
-        with ``torch.load(weights_only=True)``) or a ``.safetensors`` file
-        of such a dict. A multi-vector embedding (k > 1) takes k tokens of
-        the window. A bad shape, key set or placeholder is
+        ``source``: a [k, D] (or [D]) array or tensor, a dict of them, or a
+        path to an ``.npz``, an A1111 ``.pt`` (``string_to_param["*"]``,
+        read with ``torch.load(weights_only=True)``) or a ``.safetensors``
+        file of such a dict. A dual-tower configuration (SDXL) takes the
+        keys ``"clip_l"`` and ``"clip_g"``, one [k, D] per tower; a single
+        tower takes ``"clip_l"``, a single entry, or A1111's
+        ``"emb_params"``. A multi-vector embedding (k > 1) takes k tokens
+        of the window. A bad shape, key set or placeholder is
         ``INVALID_ARGUMENT``."""
         self._check_usable()
-        vec = self._read_embedding_arrays(source)
-        clip = dict(self.params["clip"])
-        table = clip["token_embedding"]
-        if vec.dim() != 2 or vec.shape[1] != table.shape[1]:
-            raise SdtpuError(
-                ErrorCode.INVALID_ARGUMENT,
-                f"clip embedding must be [k, {table.shape[1]}], got "
-                f"{list(vec.shape)}", self.errors)
-        start, k = int(table.shape[0]), int(vec.shape[0])
+        towers = ("clip",) if self.cfg.clip2 is None else ("clip", "clip2")
+        vecs = self._read_embedding_arrays(source, towers)
+        k = int(vecs[0].shape[0]) if vecs[0].dim() == 2 else 0
+        start = int(self.params["clip"]["token_embedding"].shape[0])
+        new = {}
+        for tower, vec in zip(towers, vecs):
+            tp = dict(self.params[tower])
+            table = tp["token_embedding"]
+            if (vec.dim() != 2 or vec.shape[0] != k
+                    or vec.shape[1] != table.shape[1]):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"{tower} embedding must be [k, {table.shape[1]}], got "
+                    f"{list(vec.shape)}", self.errors)
+            tp["token_embedding"] = torch.cat(
+                [table, vec.to(device=table.device, dtype=table.dtype)],
+                dim=0)
+            new[tower] = tp
         try:
             self.tokenizer.add_placeholder(placeholder,
                                            list(range(start, start + k)))
         except ValueError as e:
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT, str(e),
                              self.errors) from e
-        clip["token_embedding"] = torch.cat(
-            [table, vec.to(device=table.device, dtype=table.dtype)], dim=0)
-        self.params = {**self.params, "clip": clip}
+        self.params = {**self.params, **new}
         self._embeddings[placeholder] = k
 
-    def _read_embedding_arrays(self, source):
-        """-> the [k, D] float32 tensor of ``source`` (see
-        ``load_embedding``), on the host."""
+    def _read_embedding_arrays(self, source, towers):
+        """-> one [k, D] float32 tensor of ``source`` a tower of ``towers``
+        (see ``load_embedding``), on the host."""
         data = source
         if isinstance(source, (str, Path)):
             path = str(source)
@@ -578,17 +617,19 @@ class Context:
         data = {k: torch.atleast_2d(torch.as_tensor(v).detach().cpu()
                                     .float())
                 for k, v in data.items()}
-        if "clip_l" in data:
-            return data["clip_l"]
-        if len(data) == 1:
-            return next(iter(data.values()))
-        for key in ("emb_params", "emb"):  # A1111 / the JAX package's
-            if key in data:
-                return data[key]
+        key_of = {"clip": "clip_l", "clip2": "clip_g"}
+        if all(key_of[t] in data for t in towers):
+            return [data[key_of[t]] for t in towers]
+        if len(towers) == 1:
+            if len(data) == 1:
+                return [next(iter(data.values()))]
+            for key in ("emb_params", "emb"):  # A1111 / the JAX package's
+                if key in data:
+                    return [data[key]]
         raise SdtpuError(
             ErrorCode.INVALID_ARGUMENT,
-            f"cannot pick ['clip_l'] embedding arrays from keys "
-            f"{sorted(data)}", self.errors)
+            f"cannot pick {[key_of[t] for t in towers]} embedding arrays "
+            f"from keys {sorted(data)}", self.errors)
 
     def embedding_names(self) -> list[str]:
         return sorted(self._embeddings)

@@ -1,5 +1,7 @@
 """The prompt -> image pipeline, the counterpart of
-``sdtpu/engine/pipeline.py``'s txt2img path:
+``sdtpu/engine/pipeline.py``'s txt2img path, for SD1.x, SD2.x (v- or
+eps-prediction) and SDXL (two towers, a packed pooled row, the additive
+conditioning):
 
     tokens --CLIP--> cond embedding (weighted, chunked) --+
     uncond embedding ("", or a negative prompt a sample) -+
@@ -10,7 +12,8 @@
     --round/clamp--> uint8
 
 The latents and the sampler state stay float32; only the UNet input is cast
-to the compute dtype, and eps comes back as float32. PyTorch runs the loop
+to the compute dtype, and eps comes back as float32 (a v-prediction model's
+output converted to eps there, per CFG slot). PyTorch runs the loop
 eagerly: one UNet call a step, two for heun and dpm2, and one more on
 ``plms_exact``'s first step. Every sampler's ``step`` is tensor math with no
 branch on a value.
@@ -35,26 +38,71 @@ def encode_text(params, tokens, cfg: PipelineConfig, weights=None):
     scale each token's embedding; then each sample's mean is restored to
     its value before the weighting (the A1111 normalization), unless that
     mean is degenerate (|mean| <= 1e-4 rms). All-ones weights are an exact
-    no-op."""
-    if tokens.dim() == 2:
-        return clip.apply(params["clip"], tokens, cfg.clip,
-                          dtype=cfg.compute_dtype)
-    b, k, t = tokens.shape
-    emb = clip.apply(params["clip"], tokens.reshape(b * k, t), cfg.clip,
-                     dtype=cfg.compute_dtype)
-    emb = emb.reshape(b, k * t, emb.shape[-1])
-    if weights is None:
+    no-op.
+
+    Dual-tower configurations (SDXL, ``cfg.clip2``): each window goes
+    through both towers (``clip.apply_xl``), whose penultimate hidden
+    states concatenate to [.., 2048]; tower 2's pooled embedding (of
+    window 0 in the chunked form) is packed after the weighting as one
+    extra trailing row, zero-padded to the context width: [B, T+1, D]
+    (``sdtpu/engine/pipeline.py:39-150``). One array thus carries the whole
+    text conditioning through batching and negative prompts;
+    ``_unpack_context`` splits it at the UNet."""
+    chunked = tokens.dim() == 3
+    b = tokens.shape[0]
+    flat = tokens.reshape(-1, tokens.shape[-1])
+    dt = cfg.compute_dtype
+    pooled = None
+    if cfg.clip2 is None:
+        emb = clip.apply(params["clip"], flat, cfg.clip, dtype=dt)
+    else:
+        h2, pooled = clip.apply_xl(params["clip2"], flat, cfg.clip2,
+                                   cfg.clip2.vocab_size - 1, dtype=dt)
+        h1, _ = clip.apply_xl(params["clip"], flat, cfg.clip,
+                              cfg.clip.vocab_size - 1, dtype=dt)
+        emb = torch.cat([h1, h2], dim=-1)
+        pooled = pooled.reshape(b, -1, pooled.shape[-1])[:, 0]
+    emb = emb.reshape(b, -1, emb.shape[-1])
+    if chunked and weights is not None:
+        k, t = tokens.shape[1:]
+        w = torch.as_tensor(weights, device=emb.device).reshape(b, k * t, 1)
+        old_mean = emb.float().mean(dim=(1, 2), keepdim=True)
+        emb = emb * w.to(emb.dtype)
+        g = emb.float()
+        new_mean = g.mean(dim=(1, 2), keepdim=True)
+        rms = torch.sqrt((g * g).mean(dim=(1, 2), keepdim=True))
+        ok = new_mean.abs() > 1e-4 * rms
+        one = torch.ones_like(new_mean)
+        scale = torch.where(ok, old_mean / torch.where(ok, new_mean, one),
+                            one)
+        emb = emb * scale.to(emb.dtype)
+    if pooled is None:
         return emb
-    w = torch.as_tensor(weights, device=emb.device).reshape(b, k * t, 1)
-    old_mean = emb.float().mean(dim=(1, 2), keepdim=True)
-    emb = emb * w.to(emb.dtype)
-    g = emb.float()
-    new_mean = g.mean(dim=(1, 2), keepdim=True)
-    rms = torch.sqrt((g * g).mean(dim=(1, 2), keepdim=True))
-    ok = new_mean.abs() > 1e-4 * rms
-    one = torch.ones_like(new_mean)
-    scale = torch.where(ok, old_mean / torch.where(ok, new_mean, one), one)
-    return emb * scale.to(emb.dtype)
+    row = torch.zeros((b, 1, emb.shape[-1]), dtype=emb.dtype,
+                      device=emb.device)
+    row[:, 0, : pooled.shape[-1]] = pooled.to(emb.dtype)
+    return torch.cat([emb, row], dim=1)
+
+
+def _unpack_context(context, cfg: PipelineConfig):
+    """Packed text conditioning -> (cross-attention context, pooled [CB,
+    projection] or None). The context is made contiguous: a slice of the
+    packed rows is not, and the int8 GEMM kernels' rule takes contiguous
+    activations only (attn2's k and v read it)."""
+    if cfg.clip2 is None:
+        return context, None
+    return (context[:, :-1, :].contiguous(),
+            context[:, -1, : cfg.clip2.projection])
+
+
+def _add_embedding(params, pooled, cfg: PipelineConfig):
+    """SDXL's additive conditioning: pooled [CB, P] and the six static
+    micro-conditions' fourier features -> [CB, time_embed_dim], added to
+    every step's time embedding."""
+    fdim = (cfg.unet.adm_in_channels - cfg.clip2.projection) // 6
+    micro = temb.micro_features(cfg, fdim, pooled.device).to(pooled.dtype)
+    y = torch.cat([pooled, micro[None].expand(pooled.shape[0], -1)], dim=-1)
+    return temb.apply_vec(params["add_mlp"], y, dtype=cfg.compute_dtype)
 
 
 def _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
@@ -137,9 +185,17 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
     Prompt scheduling: ``cond_schedule`` = (table [V, B, T, D], idx
     [steps] int64 on the device); every UNet eval of step i takes its cond
     rows from variant ``idx[i]`` (gathered on the device: no host sync, no
-    branch), the uncond rows from ``context``."""
+    branch), the uncond rows from ``context``; single-tower configurations
+    only, as in the reference.
+
+    SDXL: ``context`` is packed (``encode_text``); its pooled rows give the
+    additive embedding, added to every eval's time embedding. A
+    v-prediction model's output is turned into eps before the CFG mix."""
     device = context.device
     dtype = cfg.compute_dtype
+    context, pooled = _unpack_context(context, cfg)
+    add_emb = (None if pooled is None
+               else _add_embedding(params, pooled, cfg))
     mod = get_sampler(sampler)
     plan = mod.plan(NoiseSchedule.sd_v1(), steps, device=device)
     b = context.shape[0] // (2 if use_cfg else 1)
@@ -172,9 +228,17 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
 
     def predict_eps(x, i, second=False):
         te = (t_embs2 if second else t_embs)[i].expand(context.shape[0], -1)
-        x_in = (torch.cat([x, x], dim=0) if use_cfg else x).to(dtype)
-        eps = unet.apply(params["unet"], x_in, te, rows(i), cfg.unet,
-                         kernels).float()
+        if add_emb is not None:
+            te = te + add_emb.to(te.dtype)
+        x_rep = torch.cat([x, x], dim=0) if use_cfg else x
+        eps = unet.apply(params["unet"], x_rep.to(dtype), te, rows(i),
+                         cfg.unet, kernels).float()
+        if cfg.prediction == "v":
+            # v = alpha*eps - sigma*x0  =>  eps = alpha*v + sigma*x_t, per
+            # CFG slot; the second eval takes the probe point's marginals
+            a_i = (plan.alpha_m if second else plan.alpha_s)[i]
+            s_i = (plan.sigma_m if second else plan.sigma_s)[i]
+            eps = a_i * eps + s_i * x_rep
         if use_cfg:
             eps = g * eps[:b] + (1.0 - g) * eps[b:]
         return eps

@@ -6,9 +6,11 @@ A tree is nested dicts and lists of tensors with the JAX package's keys
 OIHW, "b"}`` (channels_last memory), norms ``{"scale", "bias"}``; a
 quantized site carries ``w8`` + ``w8_scale`` or ``w_q`` + ``w_scale`` (+
 ``x_scale``) in place of ``w`` (``sdtpu_torch.quant.ptq``). The port
-carries the four trees of the txt2img path, ``clip``, ``temb``, ``unet`` and
-``vae`` (the decoder), and ``vae_enc``, the VAE encoder's parameters, which
-every SD checkpoint carries (its forward is not ported yet).
+carries the trees of the txt2img path, ``clip``, ``temb``, ``unet`` and
+``vae`` (the decoder); for SDXL ``clip2`` (the second text tower, with its
+``text_proj``) and ``add_mlp`` (the additive conditioning); and
+``vae_enc``, the VAE encoder's parameters, which every SD checkpoint
+carries (its forward is not ported yet).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.models import clip, temb, unet, vae
 from sdtpu_torch.ops.matmul import column_major
 
-PORTED = ("clip", "temb", "unet", "vae", "vae_enc")
+PORTED = ("clip", "clip2", "temb", "unet", "add_mlp", "vae", "vae_enc")
 
 
 def init_pipeline_params(cfg: PipelineConfig, generator, device,
@@ -30,15 +32,41 @@ def init_pipeline_params(cfg: PipelineConfig, generator, device,
     ``demo=True`` the UNet's zero-initialized output convs get random
     weights, so a fresh UNet does not predict eps == 0. The numbers differ
     from the JAX package's (torch.Generator, not threefry); the shapes do
-    not."""
-    return {
-        "clip": clip.init(cfg.clip, generator, device),
-        "temb": temb.init(cfg.unet, generator, device),
-        "unet": unet.init(cfg.unet, generator, device,
-                          zero_init_outs=not demo),
-        "vae": vae.init(cfg.vae, generator, device),
-        "vae_enc": vae.init_encoder(cfg.vae, generator, device),
+    not. The trees are drawn in ``PORTED`` order; ``init_tree`` builds one
+    at a time from the same generator, with the same numbers."""
+    return {name: build(cfg, generator, device, demo)
+            for name, build in _builders(cfg).items()}
+
+
+def _builders(cfg: PipelineConfig) -> dict:
+    """name -> builder of each tree the configuration has, in ``PORTED``
+    order."""
+    out = {
+        "clip": lambda c, g, d, demo: clip.init(c.clip, g, d),
+        "clip2": lambda c, g, d, demo: clip.init(c.clip2, g, d),
+        "temb": lambda c, g, d, demo: temb.init(c.unet, g, d),
+        "unet": lambda c, g, d, demo: unet.init(c.unet, g, d,
+                                                zero_init_outs=not demo),
+        "add_mlp": lambda c, g, d, demo: temb.init_add(c.unet, g, d),
+        "vae": lambda c, g, d, demo: vae.init(c.vae, g, d),
+        "vae_enc": lambda c, g, d, demo: vae.init_encoder(c.vae, g, d),
     }
+    if cfg.clip2 is None:
+        del out["clip2"], out["add_mlp"]
+    return out
+
+
+def tree_names(cfg: PipelineConfig) -> tuple:
+    """The trees of ``PORTED`` the configuration has."""
+    return tuple(_builders(cfg))
+
+
+def init_tree(name: str, cfg: PipelineConfig, generator, device,
+              demo: bool = True):
+    """The tree ``name`` of ``init_pipeline_params``. Called in
+    ``tree_names`` order on one generator, it gives that function's numbers
+    while only one float32 tree exists at a time."""
+    return _builders(cfg)[name](cfg, generator, device, demo)
 
 
 #: quantization scales stay float32 whatever the compute dtype
@@ -132,7 +160,7 @@ def from_jax_tree(tree, cfg: PipelineConfig, dtype=None, device=None):
     to ``dtype`` through float32; without it dtypes are kept. So a tree on
     the host in another dtype never has a second whole copy beside it."""
     out = {name: _convert(tree[name], None, dtype, device)
-           for name in PORTED}
+           for name in tree_names(cfg)}
     _check_shapes(out, init_pipeline_params(cfg, None, torch.device("meta")))
     return out
 

@@ -1,10 +1,14 @@
-"""Checkpoint loading: Stable Diffusion v1.x weights -> the port's tree.
+"""Checkpoint loading: Stable Diffusion v1.x, v2.x and XL weights -> the
+port's tree.
 
 Carried over from ``sdtpu/io/weights.py`` (the JAX package), cut to the
-SD1.x parts: the rule tables that map the CompVis/LDM key names
-(``model.diffusion_model.*``, ``cond_stage_model.transformer.*``,
-``first_stage_model.*``) onto the JAX package's tree, the inverse
-(``params_to_ldm``), and the native file (``*.sdtpu.safetensors``: the
+txt2img families the port serves: the rule tables that map the
+CompVis/LDM key names (``model.diffusion_model.*``,
+``cond_stage_model.transformer.*``, ``first_stage_model.*``) onto the JAX
+package's tree; SD 2.x's OpenCLIP tower (``cond_stage_model.model.*``, one
+fused ``in_proj`` a block) and SDXL's two (``conditioner.embedders.0``
+HF-CLIP, ``.1`` OpenCLIP bigG with its ``text_projection``); the inverse
+(``params_to_ldm``); and the native file (``*.sdtpu.safetensors``: the
 flattened JAX-layout tree, the JAX package's format, so a file written by
 either package loads in both). The rules are generated from the same loops
 that build the trees, so block indices cannot drift from the architecture.
@@ -15,9 +19,9 @@ conv HWIO) as views, and ``io.params.from_jax_tree`` makes the port's tree
 of it, one leaf at a time: one layout rule, not two.
 
 Files are read and written by ``io.safetensors``; the ``safetensors``
-package is not needed. SD2 (OpenCLIP), SDXL and refiner checkpoints,
-ControlNets and orbax directories are families and formats the port does
-not have yet: ``UnsupportedCheckpoint`` names them.
+package is not needed. SDXL refiner checkpoints, ControlNets and orbax
+directories are families and formats the port does not have yet:
+``UnsupportedCheckpoint`` names them.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 
 from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.io import safetensors as st
-from sdtpu_torch.io.params import PORTED, from_jax_tree, jax_layout
+from sdtpu_torch.io.params import (PORTED, from_jax_tree, jax_layout,
+                                   tree_names)
 
 
 class UnsupportedCheckpoint(ValueError):
@@ -46,27 +51,33 @@ class Rule(NamedTuple):
 # rule generation (mirrors models/*.init loops)
 # ---------------------------------------------------------------------------
 
-def _st_rules(ldm_prefix: str, path: tuple) -> list[Rule]:
-    """A spatial transformer of one basic block (the SD1.x layout)."""
-    tb = ldm_prefix + "transformer_blocks.0."
-    return [
+def _st_rules(ldm_prefix: str, path: tuple, depth: int = 1) -> list[Rule]:
+    """A spatial transformer of ``depth`` basic blocks: flat in the tree at
+    depth 1, nested under ``blocks`` deeper (``models/unet.py``)."""
+    rules = [
         Rule(ldm_prefix + "norm", path + ("norm",), "norm"),
         Rule(ldm_prefix + "proj_in", path + ("proj_in",), "conv"),
-        Rule(tb + "norm1", path + ("ln1",), "norm"),
-        Rule(tb + "attn1.to_q", path + ("attn1", "q"), "linear"),
-        Rule(tb + "attn1.to_k", path + ("attn1", "k"), "linear"),
-        Rule(tb + "attn1.to_v", path + ("attn1", "v"), "linear"),
-        Rule(tb + "attn1.to_out.0", path + ("attn1", "out"), "linear"),
-        Rule(tb + "norm2", path + ("ln2",), "norm"),
-        Rule(tb + "attn2.to_q", path + ("attn2", "q"), "linear"),
-        Rule(tb + "attn2.to_k", path + ("attn2", "k"), "linear"),
-        Rule(tb + "attn2.to_v", path + ("attn2", "v"), "linear"),
-        Rule(tb + "attn2.to_out.0", path + ("attn2", "out"), "linear"),
-        Rule(tb + "norm3", path + ("ln3",), "norm"),
-        Rule(tb + "ff.net.0.proj", path + ("ff1",), "linear"),
-        Rule(tb + "ff.net.2", path + ("ff2",), "linear"),
-        Rule(ldm_prefix + "proj_out", path + ("proj_out",), "conv"),
     ]
+    for d in range(depth):
+        tb = ldm_prefix + f"transformer_blocks.{d}."
+        bp = path if depth == 1 else path + ("blocks", d)
+        rules += [
+            Rule(tb + "norm1", bp + ("ln1",), "norm"),
+            Rule(tb + "attn1.to_q", bp + ("attn1", "q"), "linear"),
+            Rule(tb + "attn1.to_k", bp + ("attn1", "k"), "linear"),
+            Rule(tb + "attn1.to_v", bp + ("attn1", "v"), "linear"),
+            Rule(tb + "attn1.to_out.0", bp + ("attn1", "out"), "linear"),
+            Rule(tb + "norm2", bp + ("ln2",), "norm"),
+            Rule(tb + "attn2.to_q", bp + ("attn2", "q"), "linear"),
+            Rule(tb + "attn2.to_k", bp + ("attn2", "k"), "linear"),
+            Rule(tb + "attn2.to_v", bp + ("attn2", "v"), "linear"),
+            Rule(tb + "attn2.to_out.0", bp + ("attn2", "out"), "linear"),
+            Rule(tb + "norm3", bp + ("ln3",), "norm"),
+            Rule(tb + "ff.net.0.proj", bp + ("ff1",), "linear"),
+            Rule(tb + "ff.net.2", bp + ("ff2",), "linear"),
+        ]
+    rules.append(Rule(ldm_prefix + "proj_out", path + ("proj_out",), "conv"))
+    return rules
 
 
 def _res_rules(ldm_prefix: str, path: tuple, has_skip: bool) -> list[Rule]:
@@ -103,7 +114,8 @@ def unet_rules(cfg: PipelineConfig) -> list[Rule]:
                                 has_skip=cur != out_ch)
             cur = out_ch
             if lvl in u.attn_levels:
-                rules += _st_rules(f"{pre}input_blocks.{idx}.1.", p + ("st",))
+                rules += _st_rules(f"{pre}input_blocks.{idx}.1.", p + ("st",),
+                                   u.depth_at(lvl))
             skip_chs.append(cur)
             idx += 1
         if lvl != len(u.channel_mult) - 1:
@@ -114,7 +126,8 @@ def unet_rules(cfg: PipelineConfig) -> list[Rule]:
 
     rules += _res_rules(pre + "middle_block.0.", ("unet", "mid", "res1"),
                         False)
-    rules += _st_rules(pre + "middle_block.1.", ("unet", "mid", "st"))
+    rules += _st_rules(pre + "middle_block.1.", ("unet", "mid", "st"),
+                       u.mid_depth())
     rules += _res_rules(pre + "middle_block.2.", ("unet", "mid", "res2"),
                         False)
 
@@ -130,7 +143,7 @@ def unet_rules(cfg: PipelineConfig) -> list[Rule]:
             comp = 1
             if lvl in u.attn_levels:
                 rules += _st_rules(f"{pre}output_blocks.{idx}.{comp}.",
-                                   p + ("st",))
+                                   p + ("st",), u.depth_at(lvl))
                 comp += 1
             if b == u.num_res_blocks and lvl != 0:
                 rules.append(Rule(
@@ -143,6 +156,12 @@ def unet_rules(cfg: PipelineConfig) -> list[Rule]:
         Rule(pre + "out.0", ("unet", "out_norm"), "norm"),
         Rule(pre + "out.2", ("unet", "conv_out"), "conv"),
     ]
+    if u.adm_in_channels:
+        # SDXL's pooled/micro-conditioning MLP (sgm names it label_emb)
+        rules += [
+            Rule(pre + "label_emb.0.0", ("add_mlp", "fc0"), "linear"),
+            Rule(pre + "label_emb.0.2", ("add_mlp", "fc1"), "linear"),
+        ]
     return rules
 
 
@@ -262,6 +281,87 @@ def all_rules(cfg: PipelineConfig, include_clip: bool = True) -> list[Rule]:
 
 
 # ---------------------------------------------------------------------------
+# OpenCLIP text towers (SD 2.x: cond_stage_model.model.*; SDXL's bigG)
+# ---------------------------------------------------------------------------
+
+OPENCLIP_PREFIX = "cond_stage_model.model."
+#: SDXL's tower prefixes (the sgm conditioner layout)
+XL_CLIP_PREFIX = "conditioner.embedders.0.transformer.text_model."
+XL_CLIP2_PREFIX = "conditioner.embedders.1.model."
+
+
+def openclip_text_to_tree(tensors: dict, ccfg, pre: str = OPENCLIP_PREFIX):
+    """OpenCLIP-named keys -> a text tower's tree in the JAX layout (views):
+    each block's fused ``in_proj_weight`` [3d, d] / ``in_proj_bias`` [3d]
+    split into q, k and v; ``text_projection`` ([d, proj], used as ``x @
+    W``) taken as it is where the tower has a projection. ``ccfg.layers``
+    blocks are read: SD2's checkpoint holds 24, its pre-cut config reads 23
+    and ignores the last (``sdtpu/io/weights.py:379-423``)."""
+    d = ccfg.hidden
+
+    def t(name):
+        return tensors[pre + name]
+
+    tree = {
+        "token_embedding": t("token_embedding.weight"),
+        "position_embedding": t("positional_embedding"),
+        "final_ln": {"scale": t("ln_final.weight"),
+                     "bias": t("ln_final.bias")},
+        "blocks": [],
+    }
+    if ccfg.projection and pre + "text_projection" in tensors:
+        tree["text_proj"] = t("text_projection")
+    for i in range(ccfg.layers):
+        b = f"transformer.resblocks.{i}."
+        in_w, in_b = t(b + "attn.in_proj_weight"), t(b + "attn.in_proj_bias")
+        tree["blocks"].append({
+            "ln1": {"scale": t(b + "ln_1.weight"), "bias": t(b + "ln_1.bias")},
+            **{n: {"w": in_w[j * d:(j + 1) * d].t(),
+                   "b": in_b[j * d:(j + 1) * d]}
+               for j, n in enumerate("qkv")},
+            "out": {"w": t(b + "attn.out_proj.weight").t(),
+                    "b": t(b + "attn.out_proj.bias")},
+            "ln2": {"scale": t(b + "ln_2.weight"), "bias": t(b + "ln_2.bias")},
+            "fc1": {"w": t(b + "mlp.c_fc.weight").t(),
+                    "b": t(b + "mlp.c_fc.bias")},
+            "fc2": {"w": t(b + "mlp.c_proj.weight").t(),
+                    "b": t(b + "mlp.c_proj.bias")},
+        })
+    return tree
+
+
+def tree_to_openclip_text(tree, pre: str = OPENCLIP_PREFIX) -> dict:
+    """The inverse of ``openclip_text_to_tree`` on a tower's JAX-layout
+    tree: OpenCLIP-named {key: tensor} (views; the caller makes them
+    contiguous)."""
+    out = {
+        pre + "token_embedding.weight": tree["token_embedding"],
+        pre + "positional_embedding": tree["position_embedding"],
+        pre + "ln_final.weight": tree["final_ln"]["scale"],
+        pre + "ln_final.bias": tree["final_ln"]["bias"],
+    }
+    if "text_proj" in tree:
+        out[pre + "text_projection"] = tree["text_proj"]
+    for i, blk in enumerate(tree["blocks"]):
+        b = f"{pre}transformer.resblocks.{i}."
+        out[b + "attn.in_proj_weight"] = torch.cat(
+            [blk[n]["w"].t() for n in "qkv"], dim=0)
+        out[b + "attn.in_proj_bias"] = torch.cat(
+            [blk[n]["b"] for n in "qkv"], dim=0)
+        out[b + "attn.out_proj.weight"] = blk["out"]["w"].t()
+        out[b + "attn.out_proj.bias"] = blk["out"]["b"]
+        out[b + "ln_1.weight"] = blk["ln1"]["scale"]
+        out[b + "ln_1.bias"] = blk["ln1"]["bias"]
+        out[b + "ln_2.weight"] = blk["ln2"]["scale"]
+        out[b + "ln_2.bias"] = blk["ln2"]["bias"]
+        out[b + "mlp.c_fc.weight"] = blk["fc1"]["w"].t()
+        out[b + "mlp.c_fc.bias"] = blk["fc1"]["b"]
+        out[b + "mlp.c_proj.weight"] = blk["fc2"]["w"].t()
+        out[b + "mlp.c_proj.bias"] = blk["fc2"]["b"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # tensor transforms (views; from_jax_tree and the writer make them dense)
 # ---------------------------------------------------------------------------
 
@@ -322,42 +422,82 @@ def _tree_get(tree, path):
 
 #: LDM key prefix -> the family it marks, and where the port takes it up
 _FAMILIES = (
-    ("cond_stage_model.model.", "an SD 2.x checkpoint (OpenCLIP text "
-     "tower)", "ROADMAP item 18"),
-    ("conditioner.embedders.", "an SDXL or refiner checkpoint", "ROADMAP "
-     "item 18"),
+    ("conditioner.embedders.0.model.", "an SDXL refiner checkpoint (its "
+     "one bigG tower)", "ROADMAP item 18"),
     ("control_model.", "a ControlNet checkpoint", "ROADMAP item 18"),
 )
 
 
-def refuse_families(keys) -> None:
+def refuse_families(keys, cfg: PipelineConfig) -> None:
     """Raise ``UnsupportedCheckpoint`` when the LDM ``keys`` belong to a
-    family the port does not load yet (before any weight is converted)."""
+    family the port does not load yet, or to one that is not ``cfg``'s
+    (SDXL keys on a single-tower configuration, an OpenCLIP tower on a
+    quick-GELU one, SD1.x/2.x text keys on SDXL), before any weight is
+    converted."""
     keys = list(keys)
     for prefix, what, where in _FAMILIES:
         if any(k.startswith(prefix) for k in keys):
             raise UnsupportedCheckpoint(
                 f"{what} ({prefix}* keys) is not loaded by the port yet "
-                f"({where}); SD1.x LDM checkpoints and native files are")
+                f"({where}); SD1.x, SD2.x and SDXL LDM checkpoints and "
+                f"native files are")
+    if cfg.clip2 is None:
+        marks = (("conditioner.embedders.", "an SDXL checkpoint",
+                  "config='sdxl'"),)
+        if cfg.clip.act == "quick_gelu":
+            marks += ((OPENCLIP_PREFIX, "an SD 2.x checkpoint (OpenCLIP "
+                       "text tower)", "config='sd21' or 'sd21base'"),)
+    else:
+        marks = (("cond_stage_model.", "an SD1.x/2.x checkpoint",
+                  "config='sd15', 'sd21' or 'sd21base'"),)
+    for prefix, what, fits in marks:
+        if any(k.startswith(prefix) for k in keys):
+            raise UnsupportedCheckpoint(
+                f"{what} ({prefix}* keys) does not fit this configuration; "
+                f"serve it with {fits}")
 
 
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
+def _layout_rules(tensors, cfg: PipelineConfig):
+    """(rules, {tree name: OpenCLIP prefix}) of a checkpoint's layout: SDXL
+    (cfg.clip2) reads tower 1 by the HF-CLIP rules under its sgm prefix and
+    bigG by the OpenCLIP ones; a single-tower configuration reads an
+    OpenCLIP tower where the keys have one (SD 2.x), else the HF-CLIP
+    rules (``sdtpu/io/weights.py:523-569``)."""
+    if cfg.clip2 is not None:
+        return (unet_rules(cfg) + vae_rules(cfg)
+                + clip_rules(cfg, pre=XL_CLIP_PREFIX),
+                {"clip2": (XL_CLIP2_PREFIX, cfg.clip2)})
+    if tensors is not None and any(k.startswith(OPENCLIP_PREFIX)
+                                   for k in tensors):
+        return (all_rules(cfg, include_clip=False),
+                {"clip": (OPENCLIP_PREFIX, cfg.clip)})
+    return all_rules(cfg), {}
+
+
 def load_ldm_state_dict(tensors: dict, cfg: PipelineConfig,
                         strict: bool = True, dtype=torch.float32,
                         device=None):
-    """LDM-named {key: tensor} (an SD1.x checkpoint: HF-CLIP text tower) ->
-    the port's tree. Every leaf goes through float32, as the JAX package
-    loads it, then to ``dtype`` (float32 by default), on ``device`` (the
-    host by default), one leaf at a time. Keys no rule names
-    (``model_ema.*``, ``position_ids``) are ignored; with ``strict`` a
+    """LDM-named {key: tensor} (an SD1.x checkpoint with its HF-CLIP text
+    tower, SD 2.x with its OpenCLIP one, or SDXL in the sgm naming) -> the
+    port's tree. Every leaf goes through float32, as the JAX package loads
+    it, then to ``dtype`` (float32 by default), on ``device`` (the host by
+    default), one leaf at a time. Keys no rule names (``model_ema.*``,
+    ``position_ids``, SD2's 24th text block) are ignored; with ``strict`` a
     missing one raises ``KeyError``."""
-    refuse_families(tensors)
+    refuse_families(tensors, cfg)
+    rules, openclip = _layout_rules(tensors, cfg)
     tree: dict = {}
     missing = []
-    for rule in all_rules(cfg):
+    for name, (pre, ccfg) in openclip.items():
+        try:
+            tree[name] = openclip_text_to_tree(tensors, ccfg, pre)
+        except KeyError as e:
+            missing.append(str(e))
+    for rule in rules:
         for ldm_suffix, ours in _SUFFIX[rule.kind]:
             key = f"{rule.ldm}.{ldm_suffix}"
             if key not in tensors:
@@ -381,19 +521,28 @@ def params_to_ldm(params, cfg: PipelineConfig, dtype=torch.float32) -> dict:
     """The port's tree -> LDM-named {key: contiguous tensor} on the host
     (export and round trips), each leaf cast to ``dtype`` (float32, as the JAX
     package's inverse gives; ``None`` keeps each leaf's dtype). A quantized
-    site has no ``w`` and gives no weight, as in the JAX package."""
+    site has no ``w`` and gives no weight, as in the JAX package. As there,
+    SDXL's towers take the sgm naming (bigG through
+    ``tree_to_openclip_text``) and a single tower the HF-CLIP one; an SD
+    2.x file in OpenCLIP naming is ``tree_to_openclip_text`` of the
+    ``clip`` tree in place of the ``cond_stage_model.transformer`` keys."""
     tree = jax_layout(params)
+    raw = {}
+    if cfg.clip2 is not None:
+        raw.update(tree_to_openclip_text(tree["clip2"], XL_CLIP2_PREFIX))
     out = {}
-    for rule in all_rules(cfg):
+    for rule in _layout_rules(None, cfg)[0]:
         node = _tree_get(tree, rule.path)
         for ldm_suffix, ours in _SUFFIX[rule.kind]:
             if ours is not None and ours not in node:
                 continue
-            t = _to_ldm(rule.kind, ours or "w", node[ours] if ours else node)
-            t = t.detach().to("cpu")
-            if dtype is not None:
-                t = t.to(dtype)
-            out[f"{rule.ldm}.{ldm_suffix}"] = t.contiguous()
+            raw[f"{rule.ldm}.{ldm_suffix}"] = _to_ldm(
+                rule.kind, ours or "w", node[ours] if ours else node)
+    for key, t in raw.items():
+        t = t.detach().to("cpu")
+        if dtype is not None:
+            t = t.to(dtype)
+        out[key] = t.contiguous()
     return out
 
 
@@ -442,6 +591,12 @@ def load_native(path, cfg: PipelineConfig, dtype=None, device=None):
             f"native file {path} carries {extra}, trees of a family the "
             f"port does not load yet (ROADMAP item 18); it loads "
             f"{list(PORTED)}")
+    other = sorted(set(tree) - set(tree_names(cfg)))
+    if other:
+        raise UnsupportedCheckpoint(
+            f"native file {path} carries {other}, trees this configuration "
+            f"does not have (a dual-tower file is served with "
+            f"config='sdxl')")
     return from_jax_tree(tree, cfg, dtype=dtype, device=device)
 
 
@@ -454,7 +609,8 @@ def is_orbax_checkpoint(path) -> bool:
 
 def load_pipeline_params(model_dir, cfg: PipelineConfig, dtype=None,
                          device=None):
-    """Load from a directory holding an SD v1.x checkpoint, or from one
+    """Load from a directory holding a checkpoint of ``cfg``'s family (SD
+    v1.x, v2.x or XL), or from one
     file: the native file (``*.sdtpu.safetensors``, written by
     ``sdtpu_torch.tools.convert_weights`` or the JAX package's converter)
     is preferred, then LDM-named ``*.safetensors``. ``dtype``: the compute

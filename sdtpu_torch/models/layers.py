@@ -242,6 +242,12 @@ def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
 
+def gelu(x):
+    """Exact (erf) GELU, OpenCLIP's MLP activation
+    (``jax.nn.gelu(approximate=False)``)."""
+    return F.gelu(x, approximate="none")
+
+
 def geglu(p, x, dtype=None):
     h = dense(p, x, dtype)
     a, b = torch.chunk(h, 2, dim=-1)

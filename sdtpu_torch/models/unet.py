@@ -1,9 +1,14 @@
-"""SD v1.x UNet denoiser, the counterpart of ``sdtpu/models/unet.py``'s base
-path (no ControlNet, PAG, DeepCache, ToMe, FreeU or cross-only levels).
+"""The SD1.x, SD2.x and SDXL UNet denoiser, the counterpart of
+``sdtpu/models/unet.py``'s base path (no ControlNet, PAG, DeepCache, ToMe,
+FreeU or cross-only levels).
 
     down path:  per level, ``num_res_blocks`` x [ResBlock (+SpatialTransformer
                 at attn levels)], then a stride-2 conv between levels;
     middle:     ResBlock, SpatialTransformer, ResBlock;
+
+a SpatialTransformer runs ``transformer_depth`` basic blocks (SDXL: 2 and
+10; 1 elsewhere), with ``num_heads`` heads or, where ``head_dim`` is set,
+``channels // head_dim``;
     up path:    mirrored, with skip-concat from the down path, nearest-2x
                 upsample between levels;
     out:        GroupNorm -> SiLU -> 3x3 conv.
@@ -60,12 +65,9 @@ def _init_attn(c, kv_in, gen, dev):
     }
 
 
-def _init_transformer(c, ctx_dim, zero_init_outs, gen, dev):
-    """Spatial transformer of depth 1, in the flat SD1.x layout."""
+def _init_basic(c, ctx_dim, gen, dev):
+    """One attn1 / attn2 / GEGLU-ff block, the transformer's depth unit."""
     return {
-        "norm": init_norm(c, dev),
-        "proj_in": init_conv(1, c, c, gen, dev),
-        "proj_out": init_conv(1, c, c, gen, dev, zero_init=zero_init_outs),
         "ln1": init_norm(c, dev),
         "attn1": _init_attn(c, c, gen, dev),
         "ln2": init_norm(c, dev),
@@ -74,6 +76,24 @@ def _init_transformer(c, ctx_dim, zero_init_outs, gen, dev):
         "ff1": init_dense(c, c * 8, gen, dev),       # GEGLU: 2 x 4c
         "ff2": init_dense(c * 4, c, gen, dev),
     }
+
+
+def _init_transformer(c, ctx_dim, zero_init_outs, gen, dev, depth=1):
+    """Spatial transformer: GroupNorm + proj_in, ``depth`` basic blocks,
+    proj_out. Depth 1 keeps the basic block's leaves flat in this dict (the
+    SD1.x/2.x layout); deeper ones (SDXL) nest them under ``"blocks"``, as
+    the JAX package does."""
+    p = {
+        "norm": init_norm(c, dev),
+        "proj_in": init_conv(1, c, c, gen, dev),
+        "proj_out": init_conv(1, c, c, gen, dev, zero_init=zero_init_outs),
+    }
+    if depth == 1:
+        p.update(_init_basic(c, ctx_dim, gen, dev))
+    else:
+        p["blocks"] = [_init_basic(c, ctx_dim, gen, dev)
+                       for _ in range(depth)]
+    return p
 
 
 def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
@@ -98,7 +118,8 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
             cur = out_ch
             if lvl in cfg.attn_levels:
                 blk["st"] = _init_transformer(cur, cfg.context_dim,
-                                              zero_init_outs, gen, dev)
+                                              zero_init_outs, gen, dev,
+                                              cfg.depth_at(lvl))
             blocks.append(blk)
             skip_chs.append(cur)
         level = {"blocks": blocks}
@@ -111,7 +132,7 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
     params["mid"] = {
         "res1": _init_resblock(cur, cur, temb, zero_init_outs, gen, dev),
         "st": _init_transformer(cur, cfg.context_dim, zero_init_outs, gen,
-                                dev),
+                                dev, cfg.mid_depth()),
         "res2": _init_resblock(cur, cur, temb, zero_init_outs, gen, dev),
     }
 
@@ -126,7 +147,8 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
             cur = out_ch
             if lvl in cfg.attn_levels:
                 blk["st"] = _init_transformer(cur, cfg.context_dim,
-                                              zero_init_outs, gen, dev)
+                                              zero_init_outs, gen, dev,
+                                              cfg.depth_at(lvl))
             blocks.append(blk)
         level = {"blocks": blocks}
         if lvl != 0:
@@ -197,7 +219,8 @@ def _transformer(p, x, context, heads, groups, kernels):
     b, hh, ww, c = x.shape
     h = _norm_conv(p["norm"], p["proj_in"], x, groups, 1e-6, kernels,
                    fuse_silu=False, padding=0).reshape(b, hh * ww, c)
-    h = _basic_block(p, h, context, heads, attention_kernel(kernels))
+    for blk in p.get("blocks", (p,)):
+        h = _basic_block(blk, h, context, heads, attention_kernel(kernels))
     h = h.reshape(b, hh, ww, c)
     return x + conv2d(p["proj_out"], h, padding=0)
 
@@ -225,6 +248,12 @@ def _basic_block(p, h, context, heads, attn_kernel):
     return h + dense(p["ff2"], geglu(p["ff1"], hn))
 
 
+def _heads(cfg: UNetConfig, c: int) -> int:
+    """SD1.x: a fixed head count; SD2.x and SDXL: a fixed head dim, so the
+    count grows with the width (``sdtpu/models/unet.py:378-381``)."""
+    return c // cfg.head_dim if cfg.head_dim else cfg.num_heads
+
+
 def _upsample_nearest(x):
     b, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
@@ -245,14 +274,14 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
     ``"plain"`` keeps everything on ``layers``.
     """
     g = cfg.groups
-    heads = cfg.num_heads
     h = conv2d(params["conv_in"], x)
     skips = [h]
     for level in params["down"]:
         for blk in level["blocks"]:
             h = _resblock(blk["res"], h, t_emb, g, kernels)
             if "st" in blk:
-                h = _transformer(blk["st"], h, context, heads, g, kernels)
+                h = _transformer(blk["st"], h, context,
+                                 _heads(cfg, h.shape[-1]), g, kernels)
             skips.append(h)
         if "down" in level:
             h = conv2d(level["down"], h, stride=2)
@@ -260,7 +289,8 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
 
     mid = params["mid"]
     h = _resblock(mid["res1"], h, t_emb, g, kernels)
-    h = _transformer(mid["st"], h, context, heads, g, kernels)
+    h = _transformer(mid["st"], h, context, _heads(cfg, h.shape[-1]), g,
+                     kernels)
     h = _resblock(mid["res2"], h, t_emb, g, kernels)
 
     for level in params["up"]:
@@ -268,7 +298,8 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
             h = torch.cat([h, skips.pop()], dim=-1)
             h = _resblock(blk["res"], h, t_emb, g, kernels)
             if "st" in blk:
-                h = _transformer(blk["st"], h, context, heads, g, kernels)
+                h = _transformer(blk["st"], h, context,
+                                 _heads(cfg, h.shape[-1]), g, kernels)
         if "up" in level:
             h = conv2d(level["up"], _upsample_nearest(h))
 

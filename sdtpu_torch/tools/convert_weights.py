@@ -1,9 +1,12 @@
-"""Offline checkpoint converter: SD v1.x checkpoint -> model directory.
+"""Offline checkpoint converter: SD v1.x, v2.x or XL checkpoint -> model
+directory.
 
 The port's counterpart of ``tools/convert_weights.py``:
 
     input:  an LDM single-file checkpoint (*.safetensors, or *.ckpt / *.pt /
-            *.pth read with ``torch.load(weights_only=True)``)
+            *.pth read with ``torch.load(weights_only=True)``): SD1.x, SD
+            2.x with its OpenCLIP tower (``--config sd21`` or ``sd21base``)
+            or SDXL in the sgm naming (``--config sdxl``)
     output: <out_dir>/model.sdtpu.safetensors, the JAX package's native
             format (the flattened JAX-layout tree in the target dtype,
             quantized as asked), which both packages load
@@ -13,10 +16,11 @@ Usage (from the repository root):
 
     python3 -m sdtpu_torch.tools.convert_weights \\
         v1-5-pruned-emaonly.safetensors out_dir [--dtype bfloat16] \\
-        [--config sd15|tiny] [--tokenizer ctokenizer.txt] [--int8] \\
-        [--int8w conv|dense] [--force]
+        [--config sd15|sd21|sd21base|sdxl|tiny] \\
+        [--tokenizer ctokenizer.txt] [--int8] [--int8w conv|dense] [--force]
 
-Then ``sdtpu_torch.Context(model_dir="out_dir", device="cuda")``. A model
+Then ``sdtpu_torch.Context(model_dir="out_dir", config=..., device="cuda")``
+with the same ``config``. A model
 quantized here serves with ``quantize="none"``: its int8 leaves are in the
 file. Runs on the host; no GPU is needed.
 """

@@ -1179,6 +1179,248 @@ def test_rules_take_every_batch_site(kernel, site):
 
 
 # ---------------------------------------------------------------------------
+# the families (sd21, sd21base, sdxl) at full width: every site the main
+# path gives each kernel, recorded from the port's own code on the meta
+# device (shapes only, nothing computed), through every rule
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("sd21", "sd21base", "sdxl")
+# (kernel policy, quantize, KERNEL_W8A8): the smoke run's modes
+MODES = {"plain": ("plain", "none", False),
+         "cuda": ("cuda", "none", False),
+         "cuda_gn": ("cuda_gn", "none", False),
+         "cuda_conv": ("cuda_conv", "none", False),
+         "int8w_dense": ("cuda", "int8w_dense", False),
+         "int8+k5": ("cuda", "int8", True)}
+
+
+def _meta_tree(tree, dtype=torch.bfloat16):
+    if isinstance(tree, dict):
+        return {k: _meta_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_meta_tree(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _calibrated(tree):
+    """Every W8A8 site with a static activation scale, as ``calibrate``
+    leaves it."""
+    if isinstance(tree, dict):
+        if "w_q" in tree:
+            return {**tree, "x_scale": torch.empty((), device="meta")}
+        return {k: _calibrated(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_calibrated(v) for v in tree]
+    return tree
+
+
+def _record_family(name, mode):
+    """{(part, kernel): [call key, ...]} of one UNet eval (part "unet", the
+    CFG batch of 2) and one VAE decode (part "vae", batch 1) of the
+    configuration ``name`` at its full width under ``mode``: the kernel
+    wrappers replaced by recorders that return empty meta tensors of the
+    kernel's output shape. Keys: flash (b, sq, c, heads); group_norm (n,
+    hw, c, groups, eps, silu); group_norm_affine (n, hw, c, groups); conv
+    (n, h, w, c_in, c_out, k, int8); matmul_int8w and matmul_w8a8 (m, k,
+    n)."""
+    from sdtpu_torch.config import CONFIGS
+    from sdtpu_torch.models import unet, vae
+    from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
+
+    cfg = CONFIGS[name]
+    policy, quantize, k5 = MODES[mode]
+    log = {}
+    part = ["unet"]
+
+    def put(kernel, key):
+        log.setdefault((part[0], kernel), []).append(key)
+
+    def flash(q, k, v, heads):
+        put("flash", (q.shape[0], q.shape[1], q.shape[2], heads))
+        return torch.empty_like(q)
+
+    def gn(p, x, groups, eps, silu):
+        put("group_norm", (x.shape[0], x.numel() // (x.shape[0] * x.shape[-1]),
+                           x.shape[-1], groups, eps, bool(silu)))
+        return torch.empty_like(x)
+
+    def affine(p, x, groups, eps=1e-5):
+        if t_gn.uses_kernel(x, groups):
+            put("group_norm_affine", (x.shape[0], x.numel() // (
+                x.shape[0] * x.shape[-1]), x.shape[-1], groups))
+        return t_conv.gn_affine_reference(p, x, groups, eps)
+
+    def conv(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
+        put("conv", (*x.shape, w.shape[0], w.shape[-1], w_scale is not None))
+        return x.new_empty((*x.shape[:3], w.shape[0]))
+
+    def mm(kernel):
+        def run(x, w8, *args):
+            put(kernel, (x.numel() // x.shape[-1], *w8.shape))
+            return x.new_empty((*x.shape[:-1], w8.shape[1]))
+        return run
+
+    conv2d = torch.nn.functional.conv2d
+
+    def channels_last_conv2d(*args, **kwargs):
+        # cuDNN gives a channels_last result for a channels_last weight, as
+        # every weight of the tree is; the meta device's rule may not (the
+        # 1x1 post_quant conv of 4 channels, whose weight is both layouts)
+        return conv2d(*args, **kwargs).contiguous(
+            memory_format=torch.channels_last)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(torch.nn.functional, "conv2d", channels_last_conv2d)
+    mp.setattr(t_attn, "flash_attention_cuda", flash)
+    mp.setattr(t_gn, "group_norm_cuda", gn)
+    mp.setattr(t_conv, "gn_affine", affine)
+    mp.setattr(t_conv, "fused_conv_cuda", conv)
+    mp.setattr(t_mm, "matmul_int8w_cuda", mm("matmul_int8w"))
+    mp.setattr(t_mm, "matmul_w8a8_cuda", mm("matmul_w8a8"))
+    mp.setattr(t_mm, "KERNEL_W8A8", k5)
+    try:
+        params = _meta_tree(unet.init(cfg.unet, None, "meta"))
+        if quantize == "int8":
+            params = _calibrated(quantize_unet({"unet": params})["unet"])
+        elif quantize == "int8w_dense":
+            params = quantize_weights_only(params, include_dense=True)
+        n, size = 2, cfg.latent_size
+        x = torch.empty((n, size, size, 4), device="meta",
+                        dtype=torch.bfloat16)
+        te = torch.empty((n, cfg.unet.time_embed_dim), device="meta",
+                         dtype=torch.bfloat16)
+        ctx = torch.empty((n, cfg.clip.context_len, cfg.unet.context_dim),
+                          device="meta", dtype=torch.bfloat16)
+        unet.apply(params, x, te, ctx, cfg.unet, policy)
+        part[0] = "vae"
+        vp = _meta_tree(vae.init(cfg.vae, None, "meta"))
+        vae.apply(vp, x[:1], cfg.vae, policy)
+    finally:
+        mp.undo()
+    return log
+
+
+_FAMILY_LOGS = {}
+
+
+def _family_log(name, mode):
+    if (name, mode) not in _FAMILY_LOGS:
+        _FAMILY_LOGS[name, mode] = _record_family(name, mode)
+    return _FAMILY_LOGS[name, mode]
+
+
+def _per_image(log, evals):
+    """Launches per image of each counter of ``chip_smoke.KERNEL_NAMES``:
+    ``evals`` UNet evals and one VAE decode; the conv kernel's int8 launches
+    and the GEMM kernels' sum passes (split K on the card's SMs) as the
+    wrappers count them."""
+    out = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0)
+    for (part, kernel), keys in log.items():
+        times = evals if part == "unet" else 1
+        out[kernel] += times * len(keys)
+        if kernel == "conv":
+            out["conv_int8"] += times * sum(k[-1] for k in keys)
+        elif kernel == "matmul_int8w":
+            out["matmul_int8w_sum"] += times * sum(
+                t_mm.plan_int8w(*k, SMS)["splits"] > 1 for k in keys)
+        elif kernel == "matmul_w8a8":
+            out["matmul_w8a8_sum"] += times * sum(
+                t_mm.plan_w8a8(*k, SMS)["splits"] > 1 for k in keys)
+    return out
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_pins_are_the_rules(name):
+    """Each family's launches per image under each mode, from its sites and
+    the rules, are the smoke run's pins (``chip_smoke.FAMILY_PINNED``):
+    K1 1,401 an SDXL image and 201 an SD 2.x one under every ``cuda*``
+    policy (the 576- and 144-token levels take the plain path by the
+    reference's sequence clause)."""
+    for mode, want in chip_smoke.FAMILY_PINNED[name].items():
+        evals = 2 * chip_smoke.STEPS if mode == "heun" else chip_smoke.STEPS
+        got = _per_image(_family_log(name, "cuda" if mode == "heun"
+                                     else mode), evals)
+        assert got == want, (name, mode)
+    assert chip_smoke.FAMILY_PINNED["sdxl"]["cuda"]["flash"] == 1401
+    assert chip_smoke.FAMILY_PINNED["sd21"]["cuda"]["flash"] == 201
+
+
+def _family_sites(kernel):
+    sites = set()
+    for name in FAMILIES:
+        for mode in chip_smoke.FAMILY_PINNED[name]:
+            if mode == "heun":
+                continue
+            for (_, k), keys in _family_log(name, mode).items():
+                if k == kernel:
+                    sites.update(keys)
+    return sorted(sites)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "group_norm",
+                                    "group_norm_affine", "conv",
+                                    "matmul_int8w", "matmul_w8a8"])
+def test_rules_take_every_family_site(kernel):
+    """Every site of the three families through its kernel's static rule,
+    and the plan within what the C entry point accepts (its grid's axes,
+    its 32-bit indexing, the split-K scratch, shared memory). New at these
+    widths: head dim 64 with 5-20 heads and 9,216- and 16,384-token
+    attentions (K1), 128^2 UNet planes and the 1024^2 VAE (K2, K3), K =
+    2,048 and N = 10,240 (K4, K5)."""
+    sites = _family_sites(kernel)
+    assert sites
+    for site in sites:
+        if kernel == "flash":
+            b, sq, c, heads = site
+            d = c // heads
+            assert d in (64, 512) and sq % 128 == 0 and sq >= 512
+            dpad, rows, bkv = t_attn.plan(d, sq, sq, b * heads, SMS)
+            assert dpad == d and b * heads <= 65535
+            assert _flash_smem(dpad, rows, bkv) <= SMEM_CAP
+            assert b * sq * c < 2 ** 31
+        elif kernel in ("group_norm", "group_norm_affine"):
+            n, hw, c, groups = site[:4]
+            p = _check_gn_plan(n, hw, c, groups)
+            assert n * groups <= t_gn.MAX_SAMPLE_GROUPS and hw * c < 2 ** 31
+            assert p["grid"][1] <= 65535
+        elif kernel == "conv":
+            n, h, w, c_in, c_out, ks, int8 = site
+            p = _check_conv_plan(n, h, w, c_in, c_out, ks, int8)
+            assert n * h * w * max(c_in, c_out) < 2 ** 31
+            assert p["splits"] * n * h * w * c_out < 2 ** 31
+            assert -(-c_out // 128) <= 65535
+        elif kernel == "matmul_int8w":
+            test_int8w_plan_covers_k_once_and_fills_the_card(*site)
+            m, k, n = site
+            p = t_mm.plan_int8w(m, k, n, SMS)
+            assert p["splits"] * m * n < 2 ** 31
+            assert max(m * k, m * n) < 2 ** 31
+        else:
+            test_w8a8_plan_covers_k_once_and_fills_the_card(*site)
+            m, k, n = site
+            assert n >= m
+            assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
+
+
+def test_family_sites_reach_the_new_shapes():
+    """The shapes the issue of these families names are among the sites:
+    K1 at [20, 4096, 64] and [40, 1024, 64] (SDXL), [10, 9216, 64] (SD2.1
+    768) and the VAE's [1, 16384, 512]; K2 and K3 at 128^2 x 320 and the
+    1024^2 VAE; K4 and K5 at K = 2,048 and N = 10,240."""
+    flash = _family_sites("flash")
+    for site in ((2, 4096, 640, 10), (2, 1024, 1280, 20), (2, 9216, 320, 5),
+                 (1, 16384, 512, 1)):
+        assert site in flash
+    assert (2, 16384, 320, 32, 1e-5, True) in _family_sites("group_norm")
+    convs = _family_sites("conv")
+    assert (2, 128, 128, 320, 320, 3, False) in convs
+    assert (1, 1024, 1024, 128, 128, 3, False) in convs
+    k4 = _family_sites("matmul_int8w")
+    assert (154, 2048, 640) in k4 and (2048, 1280, 10240) in k4
+    assert any(k == 2048 for _, k, _ in _family_sites("matmul_w8a8"))
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -1612,3 +1854,55 @@ def test_cuda_context_model_dir_runs_the_kernels(tmp_path):
     got, got_n = run(ctx)
     assert all(n > 0 for n in want_n) and got_n == want_n
     assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,c,heads", [
+    (2, 1024, 1280, 20),      # SDXL's depth-10 level: 40 batch-heads, d 64
+    (2, 4096, 640, 10),       # SDXL's 64x64 level
+    (2, 9216, 320, 5),        # SD 2.1 768's first level
+    (1, 16384, 512, 1),       # SDXL's VAE mid block
+])
+def test_cuda_flash_at_the_family_shapes(b, sq, c, heads):
+    """K1 at the families' self-attention shapes, within 2^-6 of the
+    output's largest value, as at SD1.5's."""
+    test_cuda_flash_at_the_shapes_the_tiles_could_break(b, sq, sq, c, heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["cuda", "cuda_gn", "cuda_conv"])
+def test_cuda_tiny_xl_context_against_plain(policy):
+    """TINY_XL in bf16 at a 64x64 latent (the depth-2 level: 1,024 tokens
+    of d 16; the VAE: 4,096 of d 32), 2 steps: each ``cuda*`` policy
+    launches its kernels, and its latents are as close to a float32 run
+    of the same weights as the plain bf16 path's, within 2x (the smoke
+    run's ``MODEL_FACTOR``)."""
+    _needs_card()
+    from sdtpu_torch.config import TINY_XL
+    from sdtpu_torch.io.params import cast_params
+
+    cfg = dataclasses.replace(TINY_XL, dtype="bfloat16", latent_size=64)
+    ctx = Context(config=cfg, steps=2, device="cuda", kernels="plain")
+    c32 = Context(config=dataclasses.replace(cfg, dtype="float32"), steps=2,
+                  device="cuda", kernels="plain")
+    c32.params = {k: cast_params(v, torch.float32)
+                  for k, v in ctx.params.items()}
+    with torch.inference_mode():
+        c32._prepare_buffers()
+    ref = c32.generate("a horse", seed=5, output="latent")
+    plain = ctx.generate("a horse", seed=5, output="latent")
+    counters = {"cuda": [(t_attn.flash_attention_cuda, "launches")],
+                "cuda_gn": [(t_gn.group_norm_cuda, "launches")],
+                "cuda_conv": [(t_conv.fused_conv_cuda, "launches"),
+                              (t_gn.group_norm_affine_cuda, "launches")]}
+    watched = counters["cuda"] + counters.get(policy, [])
+    before = [getattr(f, a) for f, a in watched]
+    ctx.kernels = policy
+    got = ctx.generate("a horse", seed=5, output="latent")
+    assert all(getattr(f, a) > n for (f, a), n in zip(watched, before))
+    scale = np.abs(ref).max()
+    gap_plain = np.abs(plain - ref).max() / scale
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() / scale <= 2.0 * max(gap_plain, 1e-3)
+    assert np.array_equal(got, ctx.generate("a horse", seed=5,
+                                            output="latent"))
