@@ -38,8 +38,9 @@ Phases, each printing one JSON object per line:
    ``auto`` choice), then under ``"cuda_gn"`` and ``"cuda_conv"`` on the
    same Context; each image must launch each kernel exactly the pinned
    number of times; the same seed must give the same bytes; median s/image
-   of 3 under ``cuda``, the mean of 2 under the others;
-7. ab: s/image under plain, cuda, cuda_gn and cuda_conv, in turns;
+   of 3 under ``cuda``, one more image under the others;
+7. ab: s/image under plain, cuda, cuda_gn and cuda_conv, in turns (there
+   and back: 2 each);
    samplers: one image each with ddim, plms_exact, euler_a, lms, dpm_sde,
    unipc, heun and dpm_karras under cuda, K1's launches pinned (201, 211
    for plms_exact, 401 for heun), the same bytes for the same seed, finite
@@ -100,8 +101,8 @@ Phases, each printing one JSON object per line:
    under cuda. Every image: uint8, not constant, finite latents whose
    decode gives the same bytes (the same seed), every kernel's launches
    per image at ``FAMILY_PINNED`` (derived from the rules at every
-   full-width site by tests/test_torch_hopper.py). s/image in turns under
-   each policy (SDXL), device busy ms, kernels and idle share per SDXL
+   full-width site by tests/test_torch_hopper.py). s/image under each
+   policy, one image each (SDXL), device busy ms, kernels and idle share per SDXL
    image (torch.profiler), ``init_s``; one UNet eval under each policy
    against float32 within ``MODEL_FACTOR`` of the plain bf16 path's error,
    the quantized modes' under ``QUANT_REL_ERR_MAX``; each family's demo
@@ -112,6 +113,29 @@ Phases, each printing one JSON object per line:
    main paths give them, against their plain versions with the existing
    tolerances, device times beside bounds, plain and library times and
    launches per image.
+
+15. image, after the quantized phases, on their Contexts: image-conditioned
+   serving on SD1.5 at full width, 20 DPM-Solver++(2M) steps, CFG 7.5, a
+   fixed-seed random uint8 image and a mask: ``img2img`` at strength 0.6
+   under cuda, cuda_gn and cuda_conv and under ``quantize="int8w_dense"``,
+   ``inpaint`` at 1.0, ``hires_fix(scale=2)`` and ``img2img_batch`` of 3
+   requests (the batch of one against ``img2img``, the same bytes). Every
+   call: uint8, not constant, finite latents whose decode gives the same
+   bytes (the same seed), every kernel's launches per call at
+   ``IMAGE_PINNED``; the encoder's device ms under cuda and cuda_conv;
+   s/image of img2img against generate under cuda, in turns. Then
+   kernel_image_*: K1-K5 at every image-conditioned site (the hires pass's
+   UNet at a 128^2 grid and its 1024^2 decode, InstructPix2Pix's UNet batch
+   of 3, the VAE encoder at 512^2), against their plain versions with the
+   existing tolerances, device times beside bounds, plain and library
+   times and launches per image (K1's plain version over groups of heads
+   where its float32 scores would pass 2 GiB: ``flash_plain``);
+16. concat, after the families: the concat-conditioned configurations at
+   full width with demo weights, one Context at a time: ``sd15_inpaint``
+   and ``sd15_ip2p`` at 20 steps under cuda and cuda_conv, ``sd2_depth``
+   at 20 steps (strength 0.8) under cuda, ``sd21_inpaint`` and
+   ``sdxl_inpaint`` at 4 steps under cuda (their kernel sites, not a speed
+   measure), each call held as in the image phase.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -188,6 +212,8 @@ FLASH_RAGGED = [(2, 4096, 1000, 320, 8), (2, 1024, 4096, 640, 8),
 # clock an SM): 1.829 GHz
 PEAK_EXP = 132 * 16 * (989e12 / (132 * 4096))
 STEPS = 20
+# the float32 scores K1's plain version may hold at once (``flash_plain``)
+PLAIN_SCORES_BYTES = 2 ** 31
 # launches per image of each kernel under each policy:
 #   flash: 5 self-attentions at 64x64 + 5 at 32x32 per UNet eval, 20 evals,
 #     plus the VAE mid block, under every cuda* policy;
@@ -319,6 +345,59 @@ FAMILY_PINNED = {
                                matmul_w8a8=MM_W8A8_PER_EVAL * STEPS,
                                matmul_w8a8_sum=39 * FAMILY_STEPS)},
     "sd21base": {"cuda": family_pins(FLASH_SD2)},
+}
+# the image and concat phases: image-conditioned calls at full width, 20
+# DPM-Solver++(2M) steps (4 for sd21_inpaint and sdxl_inpaint), launches per
+# call of each kernel under each mode, derived from the rules at every site
+# of the UNet, the VAE decoder and its encoder
+# (tests/test_torch_hopper.py::test_image_pins_are_the_rules). A warm start
+# of strength s runs steps - round(steps (1 - s)) UNet evals: img2img at
+# 0.6 12, depth2img at 0.8 16, the hires pass at 0.6 12; inpaint and ip2p at
+# 1.0 run all 20. Each call encodes one image (an inpaint at strength 1.0
+# only the masked one) and decodes one; the hires fix decodes once, at
+# 1024^2:
+#   flash: 10 an SD1.5 eval at any batch (ip2p's three CFG slots are one
+#     UNet batch of 3), 15 an eval of the hires pass (at its 128^2 grid the
+#     16,384-, 4,096- and 1,024-token levels all take the kernel), SD 2.x 10
+#     and SDXL 70 an eval, and the encoder's and the decoder's mid blocks;
+#   group_norm (cuda_gn): 61 an SD1.5 eval; the VAE's stay plain;
+#   conv and its statistics mode (cuda_conv): 60 an SD1.5 eval, the
+#     decoder's 28 and the encoder's 20 (8 down blocks and 2 mid blocks x 2);
+#     conv_in and the downsample convs stay cuDNN convs;
+#   int8w_dense: K4's 228 sites an eval, 93 of them split K, as at B = 1
+IMAGE_STEPS_XL = 4
+IMAGE_EVALS = 12
+DEPTH_EVALS = 16
+FLASH_IMAGE = 10 * IMAGE_EVALS + 2
+FLASH_FULL = 10 * STEPS + 2
+CONV_ENCODER = 20
+IMAGE_PINNED = {
+    "img2img": {
+        "cuda": pins(flash=FLASH_IMAGE),
+        "cuda_gn": pins(flash=FLASH_IMAGE, group_norm=61 * IMAGE_EVALS),
+        "cuda_conv": pins(
+            flash=FLASH_IMAGE,
+            group_norm_affine=60 * IMAGE_EVALS + 28 + CONV_ENCODER,
+            conv=60 * IMAGE_EVALS + 28 + CONV_ENCODER),
+        "int8w_dense": pins(flash=FLASH_IMAGE,
+                            matmul_int8w=MM_INT8W_PER_EVAL * IMAGE_EVALS,
+                            matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL
+                            * IMAGE_EVALS)},
+    "inpaint": {"cuda": pins(flash=FLASH_FULL)},
+    "hires": {"cuda": pins(flash=10 * STEPS + 15 * IMAGE_EVALS + 1)},
+    "sd15_inpaint": {
+        "cuda": pins(flash=FLASH_FULL),
+        "cuda_conv": pins(flash=FLASH_FULL,
+                          group_norm_affine=CONV_PER_IMAGE + CONV_ENCODER,
+                          conv=CONV_PER_IMAGE + CONV_ENCODER)},
+    "sd15_ip2p": {
+        "cuda": pins(flash=FLASH_FULL),
+        "cuda_conv": pins(flash=FLASH_FULL,
+                          group_norm_affine=CONV_PER_IMAGE + CONV_ENCODER,
+                          conv=CONV_PER_IMAGE + CONV_ENCODER)},
+    "sd2_depth": {"cuda": pins(flash=10 * DEPTH_EVALS + 2)},
+    "sd21_inpaint": {"cuda": pins(flash=10 * IMAGE_STEPS_XL + 2)},
+    "sdxl_inpaint": {"cuda": pins(flash=70 * IMAGE_STEPS_XL + 2)},
 }
 # the samplers phase, under cuda: UNet evals per image (K1 launches 10 times
 # an eval, and once in the VAE): one a step, two on plms_exact's first step,
@@ -518,6 +597,37 @@ def phase_build():
             raise AssertionError(f"{name}: a kernel spills: {report}")
 
 
+def flash_plain_chunks(b, sq, sk, heads):
+    """How many calls ``flash_plain`` splits a problem into."""
+    per = max(1, PLAIN_SCORES_BYTES // (sq * sk * 4))
+    return 1 if b * heads <= per else b * -(-heads // per)
+
+
+def flash_plain(q, k, v, heads):
+    """K1's plain version on [B, T, C] tensors. Where its float32 scores for
+    all batch-heads would pass ``PLAIN_SCORES_BYTES`` (the hires pass's
+    [2, 16384, 320] over 8 heads: 17 GB), it runs one sample's heads in
+    groups that fit and concatenates the outputs: every head of every
+    sample is computed, each by the same arithmetic as in one call."""
+    from sdtpu_torch.ops import attention as A
+
+    b, sq, c = q.shape
+    sk, d = k.shape[1], c // heads
+    per = max(1, PLAIN_SCORES_BYTES // (sq * sk * 4))
+    if b * heads <= per:
+        return A.flash_attention_reference(q, k, v, heads)
+    out = []
+    for i in range(b):
+        cols = []
+        for h0 in range(0, heads, per):
+            cs = slice(h0 * d, min(heads, h0 + per) * d)
+            cols.append(A.flash_attention_reference(
+                q[i:i + 1, :, cs], k[i:i + 1, :, cs], v[i:i + 1, :, cs],
+                min(heads, h0 + per) - h0))
+        out.append(torch.cat(cols, dim=-1))
+    return torch.cat(out, dim=0)
+
+
 def phase_kernel(shapes=SHAPES, ragged=FLASH_RAGGED, label="kernel",
                  per_image=None):
     """K1 at the main path's shapes, then at ``FLASH_RAGGED`` (there without
@@ -542,8 +652,7 @@ def phase_kernel(shapes=SHAPES, ragged=FLASH_RAGGED, label="kernel",
                 .to(torch.bfloat16) for _ in range(2))
         out = A.flash_attention_cuda(q, k, v, heads)
         torch.cuda.synchronize()
-        ref = A.flash_attention_reference(q.float(), k.float(), v.float(),
-                                          heads)
+        ref = flash_plain(q.float(), k.float(), v.float(), heads)
         err = (out.float() - ref).abs().max().item()
         ref_max = ref.abs().max().item()
         del ref
@@ -565,8 +674,8 @@ def phase_kernel(shapes=SHAPES, ragged=FLASH_RAGGED, label="kernel",
                "ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "tflops": flop / ms / 1e9}
         if main:
-            row["plain_ms"] = cuda_ms(
-                lambda: A.flash_attention_reference(q, k, v, heads))
+            row["plain_ms"] = cuda_ms(lambda: flash_plain(q, k, v, heads))
+            row["plain_chunks"] = flash_plain_chunks(b, sq, sk, heads)
             row["plain_tflops"] = flop / row["plain_ms"] / 1e9
         if per_image is not None:
             row["per_image"] = per_image.get((b, sq, c, heads), 0)
@@ -601,35 +710,62 @@ def recording(module, name, log):
 
 
 def phase_sites(ctx, batch=1, pinned=PINNED, label="sites"):
-    """The call shapes K2 and K3 get on the main path, and how many times
-    each runs per image: one UNet eval (x STEPS) and one VAE decode under
-    each policy, with the wrappers' arguments logged; for ``batch``
-    requests, the UNet eval at N = 2 x batch and the decode at N = batch
-    (the launches per call do not change)."""
+    """The call shapes K1, K2 and K3 get on the main path, and how many
+    times each runs per image: one UNet eval (x STEPS) and one VAE decode
+    under each policy, with the wrappers' arguments logged
+    (``record_sites``); for ``batch`` requests, the UNet eval at N = 2 x
+    batch and the decode at N = batch (the launches per call do not
+    change)."""
     from sdtpu_torch.models import unet, vae
-    from sdtpu_torch.ops import conv as C
-    from sdtpu_torch.ops import groupnorm as G
 
     cfg = ctx.cfg
     g = torch.Generator(device="cuda").manual_seed(3)
-    dt = cfg.compute_dtype
     x, te, context = unet_inputs(cfg, 3, batch)
     z = torch.randn((batch, cfg.latent_size, cfg.latent_size,
-                     cfg.latent_channels), generator=g, device="cuda").to(dt)
-    gn_sites: dict = {}
-    conv_sites: dict = {}
-    for policy, module, name, sites in (
-            ("cuda_gn", G, "group_norm_cuda", gn_sites),
-            ("cuda_conv", C, "fused_conv_cuda", conv_sites)):
-        for per_image, run in (
-                (STEPS, lambda k: unet.apply(ctx.params["unet"], x, te,
-                                             context, cfg.unet, k)),
-                (1, lambda k: vae.apply(ctx.params["vae"], z, cfg.vae, k))):
+                     cfg.latent_channels), generator=g, device="cuda").to(
+        cfg.compute_dtype)
+    sites = record_sites([
+        (STEPS, lambda k: unet.apply(ctx.params["unet"], x, te, context,
+                                     cfg.unet, k)),
+        (1, lambda k: vae.apply(ctx.params["vae"], z, cfg.vae, k))])
+    gn_sites, conv_sites = sites["group_norm"], sites["conv"]
+    emit({"phase": label, "batch": batch,
+          "flash_per_image": sum(sites["flash"].values()),
+          "group_norm_sites": len(gn_sites),
+          "group_norm_per_image": sum(gn_sites.values()),
+          "conv_sites": len(conv_sites),
+          "conv_per_image": sum(conv_sites.values())})
+    if sum(gn_sites.values()) != pinned["cuda_gn"]["group_norm"] or sum(
+            conv_sites.values()) != pinned["cuda_conv"]["conv"] or sum(
+            sites["flash"].values()) != pinned["cuda"]["flash"]:
+        raise AssertionError("site counts differ from the pinned counts")
+    return sites
+
+
+def record_sites(runs):
+    """K1's, K2's and K3's call shapes in ``runs``, [(launches per image,
+    run(policy)), ...]: each run under cuda (K1), cuda_gn (K2) and
+    cuda_conv (K3) with the wrappers' arguments logged, keyed as
+    ``phase_kernel``, ``phase_kernel_gn`` and ``phase_kernel_conv`` take
+    them."""
+    from sdtpu_torch.ops import attention as A
+    from sdtpu_torch.ops import conv as C
+    from sdtpu_torch.ops import groupnorm as G
+
+    sites = {"flash": {}, "group_norm": {}, "conv": {}}
+    for kernel, module, name, policy in (
+            ("flash", A, "flash_attention_cuda", "cuda"),
+            ("group_norm", G, "group_norm_cuda", "cuda_gn"),
+            ("conv", C, "fused_conv_cuda", "cuda_conv")):
+        for per_image, run in runs:
             log = []
             with torch.inference_mode(), recording(module, name, log):
                 run(policy)
             for args, kwargs in log:
-                if module is G:
+                if kernel == "flash":
+                    q, heads = args[0], args[3]
+                    key = (q.shape[0], q.shape[1], q.shape[2], heads)
+                elif kernel == "group_norm":
                     p, xx, groups, eps, silu = args
                     n = xx.shape[0]
                     key = (n, xx.numel() // (n * xx.shape[-1]),
@@ -641,17 +777,50 @@ def phase_sites(ctx, batch=1, pinned=PINNED, label="sites"):
                                 "affine")
                     key = (tuple(xx.shape), w.shape[0], w.shape[-1],
                            prologue, b.dim() == 2)
-                sites[key] = sites.get(key, 0) + per_image
+                sites[kernel][key] = sites[kernel].get(key, 0) + per_image
     reset_counts()
-    emit({"phase": label, "batch": batch,
-          "group_norm_sites": len(gn_sites),
-          "group_norm_per_image": sum(gn_sites.values()),
-          "conv_sites": len(conv_sites),
-          "conv_per_image": sum(conv_sites.values())})
-    if sum(gn_sites.values()) != pinned["cuda_gn"]["group_norm"] or sum(
-            conv_sites.values()) != pinned["cuda_conv"]["conv"]:
-        raise AssertionError("site counts differ from the pinned counts")
-    return gn_sites, conv_sites
+    return sites
+
+
+def record_mm_sites(ctx, x, te, context, per_image):
+    """K4's and K5's call shapes in one UNet eval at ``x``'s shape, the
+    Context's bf16 UNet quantized on the card as ``int8w_dense`` and as
+    ``int8`` with a static scale at every site (``family_mm_sites``)."""
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import matmul as MM
+    from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
+
+    def scaled(node):
+        if isinstance(node, dict):
+            if "w_q" in node:
+                return {**node, "x_scale": torch.tensor(0.05, device="cuda")}
+            return {k: scaled(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [scaled(v) for v in node]
+        return node
+
+    found = {}
+    for label, fn, flag, quantize in (
+            ("int8w_dense", "matmul_int8w_cuda", False,
+             lambda p: quantize_weights_only(p, include_dense=True)),
+            ("int8+k5", "matmul_w8a8_cuda", True,
+             lambda p: scaled(quantize_unet({"unet": p})["unet"]))):
+        params = quantize(ctx.params["unet"])
+        log = []
+        with torch.inference_mode(), recording(MM, fn, log), w8a8_kernel(
+                flag):
+            unet.apply(params, x, te, context, ctx.cfg.unet, "cuda")
+        del params
+        sites = {}
+        for args, _ in log:
+            xx, w8 = args[0], args[1]
+            key = (xx.numel() // xx.shape[-1], w8.shape[0], w8.shape[1],
+                   args[-1] is not None)
+            sites[key] = sites.get(key, 0) + per_image
+        found[label] = sites
+        torch.cuda.empty_cache()
+    reset_counts()
+    return found
 
 
 def _gn_case(n, hw, c, g):
@@ -981,8 +1150,10 @@ def phase_breakdown(ctx, policy):
         context = pipeline._build_context(ctx.params, ctx._tokens(PROMPT),
                                           ctx._uncond, ctx.cfg, True)
         ev[1].record()
-        x = pipeline.denoise(ctx.params, context, gen, 7.5, ctx.cfg,
-                             ctx.steps, True, ctx.kernels)
+        noise = pipeline.draw_noise(gen, pipeline._latent_shape(1, ctx.cfg),
+                                    ctx.steps, ("noise",), "cuda")["noise"]
+        x = pipeline.denoise(ctx.params, context, 7.5, ctx.cfg, ctx.steps,
+                             True, ctx.kernels, noise=noise)
         ev[2].record()
         pipeline.decode_latents(ctx.params, x, ctx.cfg, ctx.kernels)
         ev[3].record()
@@ -1060,8 +1231,8 @@ def phase_policy(ctx, policy, label=None):
     """The main path under a kernel policy on ``ctx`` (``label`` names its
     pinned counts where they are not the policy's own: a quantized mode):
     one image with the pinned launches of every kernel, the same seed
-    giving the same bytes, s/image as the mean of 2 (the policies and modes
-    are compared in ``ab`` and ``ab_quant``, in turns)."""
+    giving the same bytes, s/image of one more image (the policies and
+    modes are compared in ``ab`` and ``ab_quant``, in turns)."""
     label = label or policy
     before = ctx.kernels
     ctx.kernels = policy
@@ -1077,11 +1248,9 @@ def phase_policy(ctx, policy, label=None):
                              f"expected {PINNED[label]}")
     same = bool(np.array_equal(img, ctx.generate(PROMPT, guidance=7.5,
                                                  seed=11)))
-    times = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        ctx.generate(PROMPT, guidance=7.5)
-        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ctx.generate(PROMPT, guidance=7.5)
+    times = [time.perf_counter() - t0]
     emit({"phase": "main_path", "kernels": policy, "quantize": ctx.quantize,
           "mode": label, "first_image_s": first,
           "s_per_image": statistics.median(times), "image_s": times,
@@ -1096,12 +1265,12 @@ def phase_policy(ctx, policy, label=None):
 
 def phase_ab(ctx):
     """s/image under every policy, in turns (plain, cuda, cuda_gn,
-    cuda_conv, then back, then there again: 3 each) on the same context and
+    cuda_conv, then back: 2 each) on the same context and
     weights. It runs
     right after the main-path phases, before the float32 and profiler
     phases, so every arm sees the state the main-path timing saw."""
     times = {k: [] for k in POLICIES}
-    for k in POLICIES + POLICIES[::-1] + POLICIES:
+    for k in POLICIES + POLICIES[::-1]:
         ctx.kernels = k
         t0 = time.perf_counter()
         ctx.generate(PROMPT, guidance=7.5, seed=9)
@@ -1582,33 +1751,21 @@ def phase_text_surface(native, demo):
 
 def phase_samplers(ctx):
     """One image with each sampler of ``SAMPLER_EVALS`` under ``cuda`` on
-    the main Context: uint8 [512, 512, 3], not constant, finite latents,
-    the same bytes for the same seed, and K1 launched 10 times an eval and
-    once in the VAE, no other kernel."""
+    the main Context (``checked_call``): uint8 [512, 512, 3], not constant,
+    finite latents whose decode gives the same bytes (the same seed), and
+    K1 launched 10 times an eval and once in the VAE, no other kernel."""
     before = ctx.sampler, ctx.kernels
     ctx.kernels = "cuda"
     for name, evals in SAMPLER_EVALS.items():
         ctx.sampler = name
-        reset_counts()
-        t0 = time.perf_counter()
-        img = ctx.generate(PROMPT, guidance=7.5, seed=41)
-        image_s = time.perf_counter() - t0
-        launches = counts()
-        same = bool(np.array_equal(img, ctx.generate(PROMPT, guidance=7.5,
-                                                     seed=41)))
-        lat = ctx.generate(PROMPT, guidance=7.5, seed=41, output="latent")
-        want = pins(flash=10 * evals + 1)
+        img, launches, image_s, lat = checked_call(
+            ctx, lambda **kw: ctx.generate(PROMPT, guidance=7.5, **kw),
+            pins(flash=10 * evals + 1), name, 41)
         emit({"phase": "samplers", "sampler": name, "evals": evals,
               "image_s": image_s, "launches_per_image": launches,
-              "identical": same, "latent_finite": bool(np.isfinite(lat).all()),
+              "identical": True, "latent_finite": True,
               "latent_abs_max": float(np.abs(lat).max()),
               "image_mean": float(img.mean()), "image_std": float(img.std())})
-        check_image(img, ctx.cfg.image_size)
-        if launches != want:
-            raise AssertionError(f"{name}: launches {launches}, expected "
-                                 f"{want}")
-        if not same or not np.isfinite(lat).all():
-            raise AssertionError(f"{name}: not deterministic or not finite")
     ctx.sampler, ctx.kernels = before
 
 
@@ -1672,8 +1829,7 @@ def phase_batch(arms, lat32):
             gap = [float(np.abs(b - a).max()) / m
                    for b, a, m in zip(in_batch, alone, scale)]
             times = {1: [], BATCH: []}
-            for reqs in ([BATCH_TIMED[0]], BATCH_TIMED, BATCH_TIMED,
-                         [BATCH_TIMED[0]]):
+            for reqs in (BATCH_TIMED, [BATCH_TIMED[0]]):
                 t0 = time.perf_counter()
                 ctx.generate_batch(reqs)
                 times[len(reqs)].append((time.perf_counter() - t0)
@@ -1718,7 +1874,8 @@ def phase_batch_kernels(ctx, ctx_d, ctx_w, ctx_i):
     device time."""
     flash = phase_kernel([(2 * BATCH, 4096, 320, 8), (2 * BATCH, 1024, 640, 8),
                           (BATCH, 4096, 512, 1)], [], "kernel_b4")
-    gn_sites, conv_sites = phase_sites(ctx, BATCH)
+    sites = phase_sites(ctx, BATCH)
+    gn_sites, conv_sites = sites["group_norm"], sites["conv"]
     gn = phase_kernel_gn(gn_sites, [], "kernel_gn_b4")
     affine = phase_kernel_gn_affine(conv_sites, [], "kernel_gn_affine_b4")
     conv = phase_kernel_conv(conv_sites, [], 2 * BATCH, "kernel_conv_b4")
@@ -1743,32 +1900,11 @@ def family_context(name, **kw):
 
 def family_image(ctx, name, mode, seed=FAMILY_SEED):
     """One image of a family Context under its current policy, sampler and
-    flags: uint8 [S, S, 3], not constant, every kernel's launches at
-    ``FAMILY_PINNED[name][mode]``; then the same seed's latents, finite, and
-    their decode, which must give the same bytes. Returns (image,
-    launches, first image's seconds)."""
-    from sdtpu_torch.engine import pipeline
-
-    reset_counts()
-    t0 = time.perf_counter()
-    img = ctx.generate(PROMPT, guidance=7.5, seed=seed)
-    seconds = time.perf_counter() - t0
-    launches = counts()
-    check_image(img, ctx.cfg.image_size)
-    if launches != FAMILY_PINNED[name][mode]:
-        raise AssertionError(f"{name} {mode}: launches for one image "
-                             f"{launches}, expected "
-                             f"{FAMILY_PINNED[name][mode]}")
-    lat = ctx.generate(PROMPT, guidance=7.5, seed=seed, output="latent")
-    if not np.isfinite(lat).all():
-        raise AssertionError(f"{name} {mode}: latents not finite")
-    with torch.inference_mode():
-        again = pipeline.decode_latents(
-            ctx.params, torch.from_numpy(lat[None]).to("cuda"), ctx.cfg,
-            ctx.kernels)[0].cpu().numpy()
-    if not np.array_equal(img, again):
-        raise AssertionError(f"{name} {mode}: the same seed gave other "
-                             f"bytes")
+    flags (``checked_call``, held to ``FAMILY_PINNED[name][mode]``).
+    Returns (image, launches, first image's seconds)."""
+    img, launches, seconds, lat = checked_call(
+        ctx, lambda **kw: ctx.generate(PROMPT, guidance=7.5, **kw),
+        FAMILY_PINNED[name][mode], f"{name} {mode}", seed)
     emit({"phase": "family_image", "config": name, "mode": mode,
           "kernels": ctx.kernels, "quantize": ctx.quantize,
           "sampler": ctx.sampler, "first_image_s": seconds,
@@ -1780,46 +1916,9 @@ def family_image(ctx, name, mode, seed=FAMILY_SEED):
 
 def family_mm_sites(ctx, name):
     """The call shapes K4 and K5 get in one UNet eval of the family at the
-    CFG batch of 2, and their launches per image: the Context's bf16 UNet
-    quantized on the card as ``quantize="int8w_dense"`` and as ``"int8"``
-    with a static scale at every site (the scales' values do not change a
-    shape), run with the wrappers' arguments logged. Held to the family's
-    pins."""
-    from sdtpu_torch.models import unet
-    from sdtpu_torch.ops import matmul as MM
-    from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
-
-    def scaled(node):
-        if isinstance(node, dict):
-            if "w_q" in node:
-                return {**node, "x_scale": torch.tensor(0.05, device="cuda")}
-            return {k: scaled(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [scaled(v) for v in node]
-        return node
-
-    x, te, context = unet_inputs(ctx.cfg, 6)
-    found = {}
-    for label, fn, flag, quantize in (
-            ("int8w_dense", "matmul_int8w_cuda", False,
-             lambda p: quantize_weights_only(p, include_dense=True)),
-            ("int8+k5", "matmul_w8a8_cuda", True,
-             lambda p: scaled(quantize_unet({"unet": p})["unet"]))):
-        params = quantize(ctx.params["unet"])
-        log = []
-        with torch.inference_mode(), recording(MM, fn, log), w8a8_kernel(
-                flag):
-            unet.apply(params, x, te, context, ctx.cfg.unet, "cuda")
-        del params
-        sites = {}
-        for args, _ in log:
-            xx, w8 = args[0], args[1]
-            key = (xx.numel() // xx.shape[-1], w8.shape[0], w8.shape[1],
-                   args[-1] is not None)
-            sites[key] = sites.get(key, 0) + STEPS
-        found[label] = sites
-        torch.cuda.empty_cache()
-    reset_counts()
+    CFG batch of 2, and their launches per image (``record_mm_sites``),
+    held to the family's pins."""
+    found = record_mm_sites(ctx, *unet_inputs(ctx.cfg, 6), STEPS)
     pinned = FAMILY_PINNED[name]
     emit({"phase": "family_mm_sites", "config": name, **{
         f"{k}_{what}": v for k, sites in found.items() for what, v in (
@@ -1832,40 +1931,12 @@ def family_mm_sites(ctx, name):
     return found
 
 
-def family_flash_sites(ctx, name):
-    """K1's call shapes in one UNet eval (x STEPS) and one VAE decode under
-    ``cuda``, with launches per image, held to the family's pin."""
-    from sdtpu_torch.models import unet, vae
-    from sdtpu_torch.ops import attention as A
-
-    cfg = ctx.cfg
-    x, te, context = unet_inputs(cfg, 3)
-    sites = {}
-    for per_image, run in (
-            (STEPS, lambda: unet.apply(ctx.params["unet"], x, te, context,
-                                       cfg.unet, "cuda")),
-            (1, lambda: vae.apply(ctx.params["vae"], x[:1], cfg.vae,
-                                  "cuda"))):
-        log = []
-        with torch.inference_mode(), recording(A, "flash_attention_cuda",
-                                               log):
-            run()
-        for (q, _, _, heads), _ in log:
-            key = (q.shape[0], q.shape[1], q.shape[2], heads)
-            sites[key] = sites.get(key, 0) + per_image
-    reset_counts()
-    if sum(sites.values()) != FAMILY_PINNED[name]["cuda"]["flash"]:
-        raise AssertionError(f"{name}: K1 sites {sites}")
-    return sites
-
-
 def family_sites(ctx, name):
     """Every kernel's call shapes on the family's main path, with launches
-    per image: K1 (``cuda``), K2 and K3 (``phase_sites``), K4 and K5."""
-    gn, conv = phase_sites(ctx, pinned=FAMILY_PINNED[name],
-                           label=f"sites_{name}")
-    return {"flash": family_flash_sites(ctx, name), "group_norm": gn,
-            "conv": conv, "mm": family_mm_sites(ctx, name)}
+    per image: K1, K2 and K3 (``phase_sites``), K4 and K5."""
+    sites = phase_sites(ctx, pinned=FAMILY_PINNED[name],
+                        label=f"sites_{name}")
+    return {**sites, "mm": family_mm_sites(ctx, name)}
 
 
 def family_kernel_rows(name, sites):
@@ -1990,7 +2061,7 @@ def phase_families(smi):
     root = tempfile.mkdtemp(prefix="sdtpu-family-")
     out = {"rows": {}, "launches": {}}
     try:
-        # SDXL: the policies on one Context, timed in turns
+        # SDXL: the policies on one Context, timed one image each
         xl = family_context("sdxl", kernels="cuda")
         res = {"phase": "family", "config": "sdxl", "nvidia_smi": smi,
                "init_s": xl.init_seconds}
@@ -2000,6 +2071,7 @@ def phase_families(smi):
             xl.kernels = policy
             imgs[policy], out["launches"][f"sdxl_{policy}"], first[
                 policy] = family_image(xl, "sdxl", policy)
+        # one image a policy in each turn, the turns in opposite orders
         times = {k: [] for k in POLICIES}
         for k in POLICIES[::-1] + POLICIES:
             xl.kernels = k
@@ -2079,10 +2151,9 @@ def phase_families(smi):
                                                           "heun")
         sd2.sampler = "dpm"
         times = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            sd2.generate(PROMPT, guidance=7.5, seed=9)
-            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sd2.generate(PROMPT, guidance=7.5, seed=9)
+        times.append(time.perf_counter() - t0)
         errs, held = family_unet_errors(sd2)
         del held
         res.update({"s_per_image_cuda": statistics.median(times),
@@ -2116,6 +2187,251 @@ def phase_families(smi):
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "families_done", "seconds": time.perf_counter() - start})
     return out
+
+
+IMAGE_SEED = 29
+IMAGE_STRENGTH = 0.6
+DEPTH_STRENGTH = 0.8
+
+
+def image_inputs(size, seed=IMAGE_SEED):
+    """A fixed-seed random uint8 image [size, size, 3], a uint8 mask that
+    repaints its central square and a depth map (a ramp with noise)."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+    mask = np.zeros((size, size), np.uint8)
+    mask[size // 4: 3 * size // 4, size // 4: 3 * size // 4] = 255
+    depth = (np.linspace(1.0, 20.0, size, dtype=np.float32)[:, None]
+             + rng.random((size, size), dtype=np.float32))
+    return img, mask, depth
+
+
+def checked_call(ctx, run, want, what, seed, scale=1):
+    """One call ``run(seed=, output=)`` on ``ctx``: a uint8 [S, S, 3] image
+    (S the Context's size x ``scale``), not constant, with every kernel's
+    launches at ``want``; then the same seed's latents, finite, whose
+    decode must give the same bytes. Returns (image, launches, the call's
+    seconds, latents)."""
+    from sdtpu_torch.engine import pipeline
+
+    reset_counts()
+    t0 = time.perf_counter()
+    img = run(seed=seed, output="image")
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    check_image(img, ctx.cfg.image_size * scale)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    lat = run(seed=seed, output="latent")
+    if not np.isfinite(lat).all():
+        raise AssertionError(f"{what}: latents not finite")
+    with torch.inference_mode():
+        again = pipeline.decode_latents(
+            ctx.params, torch.from_numpy(lat[None]).to("cuda"), ctx.cfg,
+            ctx.kernels)[0].cpu().numpy()
+    if not np.array_equal(img, again):
+        raise AssertionError(f"{what}: the same seed gave other bytes")
+    return img, launches, seconds, lat
+
+
+def image_call(ctx, call, mode, run, scale=1):
+    """One image-conditioned call (``checked_call``, held to
+    ``IMAGE_PINNED[call][mode]``). Returns (image, launches, seconds)."""
+    img, launches, seconds, lat = checked_call(
+        ctx, run, IMAGE_PINNED[call][mode], f"{call} {mode}", IMAGE_SEED,
+        scale)
+    emit({"phase": "image_call", "call": call, "mode": mode,
+          "size": ctx.cfg.image_size * scale, "kernels": ctx.kernels,
+          "quantize": ctx.quantize, "seconds": seconds,
+          "launches_per_image": launches, "identical": True,
+          "latent_abs_max": float(np.abs(lat).max()),
+          "image_mean": float(img.mean()), "image_std": float(img.std())})
+    return img, launches, seconds
+
+
+def phase_image(ctx, ctx_d, smi):
+    """Image-conditioned serving on SD1.5 at full width (module docstring,
+    item 15): img2img under cuda, cuda_gn and cuda_conv, inpaint,
+    hires_fix(scale=2), img2img_batch of 3 requests (a batch of one against
+    img2img) and img2img under ``quantize="int8w_dense"`` on ``ctx_d``, each
+    with its pins; the encoder's device ms; s/image of img2img against
+    generate under cuda, in turns. Returns the launches per call."""
+    from sdtpu_torch.engine import pipeline
+
+    size = ctx.cfg.image_size
+    img, mask, _ = image_inputs(size)
+    res = {"phase": "image", "nvidia_smi": smi, "strength": IMAGE_STRENGTH}
+    launches, seconds = {}, {}
+
+    def img2img(c):
+        return lambda **kw: c.img2img(PROMPT, img, strength=IMAGE_STRENGTH,
+                                      guidance=7.5, **kw)
+
+    for policy in ("cuda", "cuda_gn", "cuda_conv"):
+        ctx.kernels = policy
+        out, launches[f"img2img_{policy}"], seconds[
+            f"img2img_{policy}"] = image_call(ctx, "img2img", policy,
+                                              img2img(ctx))
+        if policy == "cuda":
+            alone = out
+    ctx.kernels = "cuda"
+    _, launches["inpaint_cuda"], seconds["inpaint_cuda"] = image_call(
+        ctx, "inpaint", "cuda",
+        lambda **kw: ctx.inpaint(PROMPT, img, mask, guidance=7.5, **kw))
+    _, launches["hires_cuda"], seconds["hires_cuda"] = image_call(
+        ctx, "hires", "cuda", lambda **kw: ctx.hires_fix(
+            PROMPT, scale=2, strength=IMAGE_STRENGTH, guidance=7.5, **kw),
+        scale=2)
+    _, launches["img2img_int8w_dense"], seconds[
+        "img2img_int8w_dense"] = image_call(ctx_d, "img2img", "int8w_dense",
+                                            img2img(ctx_d))
+    # batched img2img: three requests (padded to four), then one
+    reqs = [{**r, "image": np.roll(img, 37 * i, axis=1)}
+            for i, r in enumerate(BATCH_REQUESTS)]
+    reset_counts()
+    outs = ctx.img2img_batch(reqs, strength=IMAGE_STRENGTH)
+    launches["img2img_batch_cuda"] = counts()
+    for o in outs:
+        check_image(o, size)
+    if launches["img2img_batch_cuda"] != IMAGE_PINNED["img2img"]["cuda"]:
+        raise AssertionError(f"img2img_batch: launches "
+                             f"{launches['img2img_batch_cuda']}")
+    one = ctx.img2img_batch([{"prompt": PROMPT, "image": img,
+                              "seed": IMAGE_SEED, "guidance": 7.5}],
+                            strength=IMAGE_STRENGTH)[0]
+    res["batch_of_one_identical"] = bool(np.array_equal(one, alone))
+    # the encoder alone, device time (CUDA-graph replays), under the
+    # policies that change it
+    x = ctx._image_tensor(img[None]).to(ctx.cfg.compute_dtype)
+    with torch.inference_mode():
+        for policy in ("cuda", "cuda_conv"):
+            res[f"encoder_ms_{policy}"] = cuda_ms(
+                lambda: pipeline._encode_init_latents(ctx.params, x, ctx.cfg,
+                                                      policy), 2, 3)
+    times = {"generate": [], "img2img": []}
+    for k in ("generate", "img2img", "img2img", "generate"):
+        t0 = time.perf_counter()
+        if k == "generate":
+            ctx.generate(PROMPT, guidance=7.5, seed=9)
+        else:
+            ctx.img2img(PROMPT, img, strength=IMAGE_STRENGTH, seed=9)
+        times[k].append(time.perf_counter() - t0)
+    res.update({"launches": launches, "first_call_s": seconds,
+                "s_per_image": {k: statistics.mean(v)
+                                for k, v in times.items()},
+                "image_s": times})
+    emit(res)
+    if not res["batch_of_one_identical"]:
+        raise AssertionError("img2img_batch of one differs from img2img")
+    return launches
+
+
+def phase_image_kernels(ctx):
+    """K1-K5 at every image-conditioned site, against their plain versions
+    with the existing tolerances (``kernel_image_*``): the hires pass (one
+    SD1.5 UNet eval at a 128^2 grid x 12, the 1024^2 decode), ip2p's UNet
+    batch of 3 (x 20; its K2 and K3 sites are the 4-channel UNet's at N =
+    3: conv_in is a cuDNN conv) and the VAE encoder at 512^2, each with
+    launches per image. Returns {group: {kernel: rows}}."""
+    from sdtpu_torch.models import unet, vae
+
+    cfg = ctx.cfg
+    dt = cfg.compute_dtype
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def inputs(n, size):
+        x = torch.randn((n, size, size, 4), generator=g,
+                        device="cuda").to(dt)
+        te = torch.randn((n, cfg.unet.time_embed_dim), generator=g,
+                         device="cuda").to(dt)
+        c = torch.randn((n, cfg.clip.context_len, cfg.unet.context_dim),
+                        generator=g, device="cuda").to(dt)
+        return x, te, c
+
+    def unet_run(args):
+        return lambda k: unet.apply(ctx.params["unet"], *args, cfg.unet, k)
+
+    hires_in = inputs(2, 2 * cfg.latent_size)
+    ip2p_in = inputs(3, cfg.latent_size)
+    z = torch.randn((1, 2 * cfg.latent_size, 2 * cfg.latent_size, 4),
+                    generator=g, device="cuda").to(dt)
+    img = (torch.rand((1, cfg.image_size, cfg.image_size, 3), generator=g,
+                      device="cuda") * 2 - 1).to(dt)
+    groups = {
+        "hires": (record_sites([
+            (IMAGE_EVALS, unet_run(hires_in)),
+            (1, lambda k: vae.apply(ctx.params["vae"], z, cfg.vae, k))]),
+            record_mm_sites(ctx, *hires_in, IMAGE_EVALS), 2),
+        "ip2p": (record_sites([(STEPS, unet_run(ip2p_in))]),
+                 record_mm_sites(ctx, *ip2p_in, STEPS), 3),
+        "encoder": (record_sites([(1, lambda k: vae.apply_encoder(
+            ctx.params["vae_enc"], img, cfg.vae, k))]), None, 1)}
+    out = {}
+    for name, (sites, mm, unet_n) in groups.items():
+        label = f"kernel_image_{name}"
+        emit({"phase": f"sites_image_{name}", **{
+            k: sum(v.values()) for k, v in sites.items()}})
+        rows = {"flash": phase_kernel(
+            sorted(sites["flash"]), [], label, per_image=sites["flash"])}
+        if sites["group_norm"]:
+            rows["group_norm"] = phase_kernel_gn(sites["group_norm"], [],
+                                                 f"{label}_gn")
+        affine = sum(n for k, n in sites["conv"].items() if k[3])
+        rows["group_norm_affine"] = phase_kernel_gn_affine(
+            sites["conv"], [], f"{label}_gn_affine", affine)
+        rows["conv"] = phase_kernel_conv(sites["conv"], [], unet_n,
+                                         f"{label}_conv", int8=False)
+        if mm is not None:
+            rows.update(phase_kernel_mm(mm, [], f"{label}_mm"))
+        out[name] = rows
+    return out
+
+
+def phase_concat(smi):
+    """The concat-conditioned families at full width with demo weights
+    (module docstring, item 16): sd15_inpaint and sd15_ip2p at 20 steps
+    under cuda and cuda_conv, sd2_depth at 20 steps under cuda,
+    sd21_inpaint and sdxl_inpaint at 4 steps under cuda (their kernel
+    sites, not a speed measure). Each call with its pins, the same bytes
+    from the same seed and finite latents. Returns the launches."""
+    from sdtpu_torch import Context
+
+    start = time.perf_counter()
+    launches = {}
+    for name, steps, policies in (
+            ("sd15_inpaint", STEPS, ("cuda", "cuda_conv")),
+            ("sd15_ip2p", STEPS, ("cuda", "cuda_conv")),
+            ("sd2_depth", STEPS, ("cuda",)),
+            ("sd21_inpaint", IMAGE_STEPS_XL, ("cuda",)),
+            ("sdxl_inpaint", IMAGE_STEPS_XL, ("cuda",))):
+        c = Context(config=name, steps=steps, device="cuda", kernels="cuda")
+        img, mask, depth = image_inputs(c.cfg.image_size)
+        run = {
+            "depth": lambda **kw: c.depth2img(
+                PROMPT, img, depth, strength=DEPTH_STRENGTH, guidance=7.5,
+                **kw),
+            "ip2p": lambda **kw: c.instruct_pix2pix(
+                "make it a watercolor", img, guidance=7.5,
+                image_guidance=1.5, **kw),
+        }.get(name.split("_")[-1], lambda **kw: c.inpaint(
+            PROMPT, img, mask, guidance=7.5, **kw))
+        res = {"phase": "concat", "config": name, "steps": steps,
+               "nvidia_smi": smi, "init_s": c.init_seconds}
+        for policy in policies:
+            c.kernels = policy
+            _, launches[f"{name}_{policy}"], res[f"s_{policy}"] = \
+                image_call(c, name, policy, run)
+        emit(res)
+        release(c)
+        del c
+    emit({"phase": "concat_done", "seconds": time.perf_counter() - start})
+    return launches
+
+
+def image_summary(rows, launches):
+    """A kernel's rows at the image sites for the ``kernels`` line, as
+    ``family_summary``; None where the group has no site of it."""
+    return family_summary(rows, launches) if rows else None
 
 
 def family_summary(rows, launches):
@@ -2162,7 +2478,8 @@ def main() -> int:
                   seed=0, device="cuda")
     if ctx.kernels != "cuda":
         raise AssertionError(f"kernels resolved to {ctx.kernels}")
-    gn_sites, conv_sites = phase_sites(ctx)
+    sites = phase_sites(ctx)
+    gn_sites, conv_sites = sites["group_norm"], sites["conv"]
     gn_rows = phase_kernel_gn(gn_sites)
     affine_rows = phase_kernel_gn_affine(conv_sites)
     conv_rows = phase_kernel_conv(conv_sites)
@@ -2216,6 +2533,11 @@ def main() -> int:
     phase_ab_quant(arms)
     phase_quant_model(ctx, arms)
 
+    # image-conditioned serving on the same Contexts, then every kernel at
+    # the sites it brings
+    img_launches = phase_image(ctx, ctx_d, smi)
+    img_rows = phase_image_kernels(ctx)
+
     # the user's model: the demo weights written as checkpoint files and
     # served from them, then the text features on the native file
     demo = demo_images(ctx, ctx_d, ctx_w, ctx_i)
@@ -2247,6 +2569,14 @@ def main() -> int:
     # sites
     fam = phase_families(smi)
     fl = fam["launches"]
+    # the concat-conditioned families, one Context at a time
+    img_launches.update(phase_concat(smi))
+
+    def images(kernel, counter):
+        return {"rows": {g: image_summary(rows.get(kernel), None)
+                         for g, rows in img_rows.items()},
+                "launches": {k: v[counter]
+                             for k, v in img_launches.items()}}
 
     def families(kernel, counter, sdxl_mode, sd21_mode):
         return {"sdxl": family_summary(fam["rows"]["sdxl"][kernel],
@@ -2277,6 +2607,7 @@ def main() -> int:
          "design": rows[0]["design"],
          "batch4": batch_summary(b4["flash"]),
          "families": families("flash", "flash", "cuda", "cuda"),
+         "image": images("flash", "flash"),
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -2294,6 +2625,7 @@ def main() -> int:
          "batch4": batch_summary(b4["group_norm"]),
          "families": families("group_norm", "group_norm", "cuda_gn",
                               "cuda_gn"),
+         "image": images("group_norm", "group_norm"),
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -2315,6 +2647,7 @@ def main() -> int:
          "design": conv_main["design"], "plan": conv_main["plan"],
          "batch4": batch_summary(b4["conv"]),
          "families": families("conv", "conv", "cuda_conv", "cuda_conv"),
+         "image": images("conv", "conv"),
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -2336,6 +2669,7 @@ def main() -> int:
          "batch4": batch_summary(b4["group_norm_affine"]),
          "families": families("group_norm_affine", "group_norm_affine",
                               "cuda_conv", "cuda_conv"),
+         "image": images("group_norm_affine", "group_norm_affine"),
          "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
@@ -2355,6 +2689,7 @@ def main() -> int:
          "batch4": batch_summary(b4["matmul_int8w"]),
          "families": families("matmul_int8w", "matmul_int8w",
                               "int8w_dense", "int8w_dense"),
+         "image": images("matmul_int8w", "matmul_int8w"),
          "timed_shape": [k4_main[d] for d in "mkn"]},
         {"name": "matmul_w8a8", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
@@ -2378,6 +2713,7 @@ def main() -> int:
          "batch4": batch_summary(b4["matmul_w8a8"]),
          "families": families("matmul_w8a8", "matmul_w8a8", "int8+k5",
                               "int8+k5"),
+         "image": images("matmul_w8a8", "matmul_w8a8"),
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""sdtpu_torch: the PyTorch/CUDA port of sdtpu (Stable Diffusion txt2img).
+"""sdtpu_torch: the PyTorch/CUDA port of sdtpu (Stable Diffusion txt2img and
+image-conditioned serving).
 
 The port mirrors the JAX package's module and function names, imports
 ``torch`` and numpy and never ``jax`` or ``sdtpu``. Its hand-written CUDA

@@ -1,10 +1,12 @@
 """Model/pipeline configuration for the PyTorch port.
 
 Carried over from ``sdtpu/config.py`` (the JAX package), cut to the fields
-the txt2img paths of SD v1.5, SD 2.x and SDXL-base read. Field names,
-defaults and the ``SD15``, ``SD21``, ``SD21_BASE``, ``SDXL``, ``TINY`` and
-``TINY_XL`` values are the JAX package's; ``tests/test_torch_slice.py`` and
-``tests/test_torch_families.py`` pin them against it.
+the txt2img and image-conditioned paths of SD v1.5, SD 2.x and SDXL-base
+read, and the concat-conditioned variants (inpaint, depth, InstructPix2Pix)
+whose UNet takes extra input planes. Field names, defaults and the values
+are the JAX package's; ``tests/test_torch_slice.py``,
+``tests/test_torch_families.py`` and ``tests/test_torch_image.py`` pin them
+against it.
 """
 
 from __future__ import annotations
@@ -138,6 +140,26 @@ SDXL = PipelineConfig(
     latent_size=128,
 )
 
+# Concat-conditioned checkpoints: the UNet's conv_in takes the latents plus
+# extra planes at every step (``engine/pipeline.denoise``'s ``x_extra``).
+# Dedicated inpainting (sd-v1-5-inpainting, stable-diffusion-2-inpainting,
+# the SDXL 1.0 inpainting UNet): 9 channels, latents 4 + the latent-res mask
+# 1 + the masked image's latents 4
+SD15_INPAINT = dataclasses.replace(
+    SD15, unet=dataclasses.replace(SD15.unet, in_channels=9))
+SD21_INPAINT = dataclasses.replace(
+    SD21_BASE, unet=dataclasses.replace(SD21_BASE.unet, in_channels=9))
+SDXL_INPAINT = dataclasses.replace(
+    SDXL, unet=dataclasses.replace(SDXL.unet, in_channels=9))
+# depth-conditioned img2img (stable-diffusion-2-depth): latents 4 + a depth
+# plane normalized per sample to [-1, 1], on SD 2.x-base
+SD2_DEPTH = dataclasses.replace(
+    SD21_BASE, unet=dataclasses.replace(SD21_BASE.unet, in_channels=5))
+# InstructPix2Pix (timbrooks/instruct-pix2pix): latents 4 + the edit image's
+# unscaled posterior-mode latents 4, with the dual text/image CFG
+SD15_IP2P = dataclasses.replace(
+    SD15, unet=dataclasses.replace(SD15.unet, in_channels=8))
+
 # Tiny config for CPU tests: same topology, ~1000x fewer FLOPs.
 TINY = PipelineConfig(
     clip=CLIPConfig(vocab_size=512 + 22 + 2, hidden=32, layers=2, heads=2,
@@ -171,24 +193,34 @@ TINY_XL = PipelineConfig(
     dtype="float32",
 )
 
+# the concat-conditioned variants at TINY (CPU tests)
+TINY_INPAINT = dataclasses.replace(
+    TINY, unet=dataclasses.replace(TINY.unet, in_channels=9))
+TINY_DEPTH = dataclasses.replace(
+    TINY, unet=dataclasses.replace(TINY.unet, in_channels=5))
+TINY_IP2P = dataclasses.replace(
+    TINY, unet=dataclasses.replace(TINY.unet, in_channels=8))
+TINY_XL_INPAINT = dataclasses.replace(
+    TINY_XL, unet=dataclasses.replace(TINY_XL.unet, in_channels=9))
+
 #: name -> config registry (Context(config=...))
 CONFIGS = {
     "sd15": SD15,
+    "sd15_inpaint": SD15_INPAINT,
+    "sd15_ip2p": SD15_IP2P,
     "sd21": SD21,
+    "sd21_inpaint": SD21_INPAINT,
     "sd21base": SD21_BASE,
+    "sd2_depth": SD2_DEPTH,
     "sdxl": SDXL,
+    "sdxl_inpaint": SDXL_INPAINT,
     "tiny": TINY,
 }
 
 #: the JAX package's other configurations, and the ROADMAP item of the
 #: port that brings each (``Context`` refuses them by name)
 NOT_PORTED = {
-    "sd15_inpaint": "item 18's concat families, after item 17",
-    "sd15_ip2p": "item 18's concat families, after item 17",
     "sd15_lcm": "item 18 (LCM's guidance embedding)",
-    "sd21_inpaint": "item 18's concat families, after item 17",
-    "sd2_depth": "item 18's concat families, after item 17",
     "sd_x4": "item 18 (the x4 upscaler)",
-    "sdxl_inpaint": "item 18's concat families, after item 17",
     "sdxl_refiner": "item 18 (the refiner, refine and denoising_end)",
 }

@@ -9,9 +9,11 @@ out as ``SdtpuError(RUNTIME_ERROR)`` and latches nothing.
 
 Configurations: ``"sd15"``, ``"sd21"`` (768x768, v-prediction),
 ``"sd21base"`` (512x512) and ``"sdxl"`` (1024x1024, two text towers, the
-pooled and micro-conditioning), or a ``PipelineConfig``. The JAX package's
-other names (inpaint, depth, ip2p, LCM, x4, the refiner) are
-``INVALID_ARGUMENT`` naming the ROADMAP item that brings them.
+pooled and micro-conditioning), their concat-conditioned variants
+``"sd15_inpaint"``, ``"sd21_inpaint"``, ``"sdxl_inpaint"`` (9-channel UNets),
+``"sd2_depth"`` (5) and ``"sd15_ip2p"`` (8), or a ``PipelineConfig``. The
+JAX package's other names (LCM, x4, the refiner) are ``INVALID_ARGUMENT``
+naming the ROADMAP item that brings them.
 
 Weights: ``model_dir=None`` builds random demo weights from a fixed seed;
 else ``model_dir`` is a directory or one file holding a checkpoint of the
@@ -34,13 +36,30 @@ requests with a ``prompt`` and their own ``guidance``, ``seed`` and
 attention syntax and run past the 77-token window (``sdtpu_torch.text``);
 ``generate`` also takes prompt scheduling (``[from:to:when]``, ``[a|b]``)
 within one window, on a single-tower configuration as the reference does.
+A concat-conditioned configuration does not serve ``generate``: its UNet
+needs the extra planes.
+
+Image-conditioned serving (``sdtpu/engine/context.py:1439-1852``):
+``img2img``, ``inpaint`` (a standard UNet re-pins the kept region; a 9-ch
+one takes the mask and the masked image as planes), ``depth2img``
+(``sd2_depth``), ``instruct_pix2pix`` (``sd15_ip2p``, the dual CFG) and
+``hires_fix`` (a second pass at ``scale`` x the latent grid), each on a
+prompt or a list of prompts with a ``negative_prompt``; and
+``img2img_batch``/``inpaint_batch`` (and their ``_async`` forms), requests
+with their own image, mask, ``guidance``, ``seed`` and
+``negative_prompt``, a strength shared by the batch, padded to a power of
+two with one generator a request. Each call's generator makes its draws in
+the order ``pipeline.draw_noise`` fixes.
 ``sampler`` is any name of ``samplers.SAMPLERS`` (``"dpm"`` by default).
 The reference's LoRA, ControlNet, PAG, two-stage and mesh arguments are
 refused with ``INVALID_ARGUMENT`` until their slices of the port.
 
-The device is always explicit: ``Context(..., device="cuda")``. On a CUDA
-device ``kernels="auto"`` selects the hand-written flash-attention kernel
-(``"cuda"``); elsewhere it selects the plain PyTorch path (``"plain"``).
+The device is the card unless the caller asks for another:
+``Context(...)`` runs on ``"cuda"`` and raises ``RUNTIME_ERROR`` where there
+is no card (nothing falls back to the CPU); ``device="cpu"`` runs the plain
+versions on the host. On a CUDA device ``kernels="auto"`` selects the
+hand-written flash-attention kernel (``"cuda"``); elsewhere it selects the
+plain PyTorch path (``"plain"``).
 ``"cuda_gn"`` adds the fused GroupNorm(+SiLU) kernel and ``"cuda_conv"``
 the fused GN-prologue conv kernel, the counterparts of the reference's
 ``"pallas_gn"`` and ``"pallas_conv"``; both keep the flash kernel on.
@@ -95,7 +114,7 @@ class Context:
         seed: int = 0,
         quantize: str = "none",
         *,
-        device,
+        device="cuda",
         mesh=None,
         lora: Optional[str] = None,
         embeddings: Optional[dict] = None,
@@ -104,6 +123,12 @@ class Context:
         self.errors = ErrorTable()
         self._failed = False
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise SdtpuError(
+                ErrorCode.RUNTIME_ERROR,
+                "no CUDA device (torch.cuda.is_available() is false); pass "
+                "device='cpu' to run the plain versions on the host",
+                self.errors)
         if isinstance(config, str):
             if config.lower() in NOT_PORTED:
                 raise SdtpuError(
@@ -373,6 +398,24 @@ class Context:
                              f"{what} failed: {type(e).__name__}: {e}",
                              self.errors) from e
 
+    def _prompts(self, prompt) -> list:
+        prompts = [prompt] if isinstance(prompt, str) else prompt
+        if not isinstance(prompts, (list, tuple)) or not all(
+                isinstance(p, str) for p in prompts):
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                             "prompt must be a string or a list of strings",
+                             self.errors)
+        if not prompts:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, "empty prompt list",
+                             self.errors)
+        return list(prompts)
+
+    def _start_step(self, strength: float) -> int:
+        """The first step a warm start runs: ``round(steps (1 -
+        strength))``, within [0, steps - 1]."""
+        start = int(round(self.steps * (1.0 - strength)))
+        return min(max(start, 0), self.steps - 1)
+
     def _next_seed(self, seed: Optional[int]) -> int:
         if seed is None:
             seed = self.seed
@@ -407,16 +450,8 @@ class Context:
         variant must fit one window; the negative prompt cannot be
         scheduled; the output is an image."""
         self._check_usable()
-        prompts = [prompt] if isinstance(prompt, str) else prompt
-        if not isinstance(prompts, (list, tuple)) or not all(
-                isinstance(p, str) for p in prompts):
-            raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
-                             "prompt must be a string or a list of strings",
-                             self.errors)
-        prompts = list(prompts)
-        if not prompts:
-            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, "empty prompt list",
-                             self.errors)
+        self._check_in_channels("txt2img", "generate")
+        prompts = self._prompts(prompt)
         _refuse_unported(self.errors, lora=lora, control_image=control_image,
                          control=control, denoising_end=denoising_end,
                          pag_scale=pag_scale)
@@ -492,26 +527,9 @@ class Context:
         ``generate``. ``lora`` (or a request's ``lora``/``pag_scale``) is
         not ported yet and refused. ``output="latent"`` returns latents."""
         self._check_usable()
-        if not requests:
-            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, "empty request list",
-                             self.errors)
-        for r in requests:
-            if not isinstance(r, dict) or not isinstance(r.get("prompt"),
-                                                         str):
-                raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
-                                 "each request needs a string 'prompt'",
-                                 self.errors)
-            _refuse_unported(self.errors, lora=r.get("lora"),
-                             pag_scale=r.get("pag_scale"))
-        _refuse_unported(self.errors, lora=lora)
-        self._check_output(output)
+        self._check_in_channels("txt2img", "generate_batch")
+        pad, seeds, guidance = self._batch_requests(requests, lora, output)
         n = len(requests)
-        p = 1 << (n - 1).bit_length()
-        pad = list(requests) + [requests[0]] * (p - n)
-        self._refuse_scheduling([t for r in requests for t in (
-            r["prompt"], r.get("negative_prompt"))])
-        seeds = [self._next_seed(r.get("seed")) for r in pad]
-        guidance = [float(r.get("guidance", 7.5)) for r in pad]
 
         def call():
             tokens, weights, uncond = self._text_inputs(
@@ -533,11 +551,348 @@ class Context:
 
         return finish
 
+    def _batch_requests(self, requests, lora, output, check=None):
+        """Validate a batch (``check(request)`` for a mode's own keys), pad
+        it to the next power of two with copies of the first request ->
+        (padded requests, one seed each, one guidance each)."""
+        if not requests:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, "empty request list",
+                             self.errors)
+        for r in requests:
+            if not isinstance(r, dict) or not isinstance(r.get("prompt"),
+                                                         str):
+                raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                                 "each request needs a string 'prompt'",
+                                 self.errors)
+            _refuse_unported(self.errors, lora=r.get("lora"),
+                             pag_scale=r.get("pag_scale"))
+            if check is not None:
+                check(r)
+        _refuse_unported(self.errors, lora=lora)
+        self._check_output(output)
+        n = len(requests)
+        p = 1 << (n - 1).bit_length()
+        pad = list(requests) + [requests[0]] * (p - n)
+        self._refuse_scheduling([t for r in requests for t in (
+            r["prompt"], r.get("negative_prompt"))])
+        seeds = [self._next_seed(r.get("seed")) for r in pad]
+        return pad, seeds, [float(r.get("guidance", 7.5)) for r in pad]
+
     def generate_batch(self, requests: list[dict],
                        lora: Optional[str] = None,
                        output: str = "image") -> list[np.ndarray]:
         """``generate_batch_async``, finished."""
         return self.generate_batch_async(requests, lora, output)()
+
+    # ------------------------------------------------------------------
+    # image-conditioned serving
+    # ------------------------------------------------------------------
+
+    def img2img(self, prompt: str | list[str], image: np.ndarray,
+                strength: float = 0.6, guidance: float = 7.5,
+                seed: Optional[int] = None,
+                negative_prompt: Optional[str] = None,
+                lora: Optional[str] = None,
+                output: str = "image") -> np.ndarray:
+        """Image to image. ``image``: uint8 [H, W, 3] (or [B, H, W, 3] for
+        a list of prompts) at the Context's resolution. ``strength`` in (0,
+        1]: the share of the trajectory that runs; 1.0 ignores the image,
+        small values stay close to it. The image's latents are a posterior
+        sample of the seed's generator. ``output="latent"`` returns the
+        float32 latents."""
+        return self._image_conditioned(
+            "img2img", prompt, image, None, strength, guidance, seed,
+            negative_prompt, lora, output)
+
+    def inpaint(self, prompt: str | list[str], image: np.ndarray,
+                mask: np.ndarray, strength: float = 1.0,
+                guidance: float = 7.5, seed: Optional[int] = None,
+                negative_prompt: Optional[str] = None,
+                lora: Optional[str] = None,
+                output: str = "image") -> np.ndarray:
+        """Inpainting. ``image``: uint8 [H, W, 3] (or [B, H, W, 3]);
+        ``mask``: [H, W] (or [B, H, W]), uint8 (x / 255) or float in [0, 1]
+        or bool: nonzero pixels are repainted from the prompt, zero pixels
+        keep the image. A standard UNet re-pins the kept region every step;
+        a dedicated 9-ch one (``sd15_inpaint``, ``sd21_inpaint``,
+        ``sdxl_inpaint``) takes the mask and the masked image as planes."""
+        return self._image_conditioned(
+            "inpaint", prompt, image, mask, strength, guidance, seed,
+            negative_prompt, lora, output)
+
+    def depth2img(self, prompt: str | list[str], image: np.ndarray,
+                  depth: np.ndarray, strength: float = 0.8,
+                  guidance: float = 7.5, seed: Optional[int] = None,
+                  negative_prompt: Optional[str] = None,
+                  lora: Optional[str] = None,
+                  output: str = "image") -> np.ndarray:
+        """Depth-conditioned img2img (``sd2_depth``: a 5-ch UNet).
+        ``depth``: [H, W] (or [B, H, W]) float, any monotone depth scale
+        (the caller's estimator); it is normalized per sample to [-1, 1] at
+        latent resolution."""
+        return self._image_conditioned(
+            "depth", prompt, image, None, strength, guidance, seed,
+            negative_prompt, lora, output, depth=depth)
+
+    def instruct_pix2pix(self, prompt: str | list[str], image: np.ndarray,
+                         guidance: float = 7.5, image_guidance: float = 1.5,
+                         seed: Optional[int] = None,
+                         negative_prompt: Optional[str] = None,
+                         lora: Optional[str] = None,
+                         output: str = "image") -> np.ndarray:
+        """Instruction-based editing (``sd15_ip2p``): ``prompt`` is the edit
+        instruction, ``image`` the uint8 input. ``guidance`` steers toward
+        the instruction, ``image_guidance`` toward the image; three UNet
+        slots a step, from pure noise."""
+        return self._image_conditioned(
+            "ip2p", prompt, image, None, 1.0, guidance, seed,
+            negative_prompt, lora, output, image_guidance=image_guidance)
+
+    def _image_conditioned(self, mode, prompt, image, mask, strength,
+                           guidance, seed, negative_prompt, lora, output,
+                           depth=None, image_guidance=None) -> np.ndarray:
+        """The img2img, inpaint, depth2img and instruct-pix2pix path
+        (``sdtpu/engine/context.py:1852-``): validate, encode the text,
+        run the pipeline function on one generator of the seed."""
+        self._check_usable()
+        if not (0.0 < strength <= 1.0):
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                             f"strength must be in (0, 1], got {strength}",
+                             self.errors)
+        prompts = self._prompts(prompt)
+        _refuse_unported(self.errors, lora=lora)
+        self._check_output(output)
+        self._refuse_scheduling(prompts + [negative_prompt])
+        size = self.cfg.image_size
+        img = np.asarray(image)
+        if img.ndim == 3:
+            img = img[None]
+        want = (len(prompts), size, size, 3)
+        if img.shape != want or img.dtype != np.uint8:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"image must be uint8 {want}, got {img.shape}/{img.dtype}",
+                self.errors)
+        self._check_in_channels(mode)
+        plane = None
+        if mode in ("inpaint", "depth"):
+            name = "mask" if mode == "inpaint" else "depth"
+            a = np.asarray(mask if mode == "inpaint" else depth)
+            if a.ndim == 2:
+                a = a[None]
+            if a.shape != (len(prompts), size, size):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"{name} must be [B, {size}, {size}], got {a.shape}",
+                    self.errors)
+            plane = _plane(a, mode == "inpaint")
+        start_step = self._start_step(strength)
+        seed = self._next_seed(seed)
+
+        def call():
+            tokens, weights, (uncond,) = self._text_inputs(
+                prompts, [negative_prompt])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            x = self._image_tensor(img)
+            kw = dict(cfg=self.cfg, sampler=self.sampler, steps=self.steps,
+                      kernels=self.kernels, token_weights=weights,
+                      output=output)
+            if mode == "ip2p":
+                return pipeline.instruct_pix2pix(
+                    self.params, tokens, uncond, gen, float(guidance), x,
+                    float(image_guidance), **kw)
+            kw.update(start_step=start_step, use_cfg=guidance != 1.0)
+            if mode == "inpaint":
+                return pipeline.inpaint(
+                    self.params, tokens, uncond, gen, float(guidance), x,
+                    self._plane_tensor(plane), **kw)
+            if mode == "depth":
+                kw["depth"] = self._plane_tensor(plane)
+            return pipeline.img2img(self.params, tokens, uncond, gen,
+                                    float(guidance), x, **kw)
+
+        res = self._run(mode, lambda: call().cpu().numpy())
+        return res[0] if isinstance(prompt, str) else res
+
+    def _check_in_channels(self, mode: str, what: str = "") -> None:
+        """The UNet input widths each mode takes, the one place they are
+        written (``sdtpu/engine/context.py:943-953, 1888-1913``):
+        "txt2img" (``what``: generate, generate_batch, hires_fix) and
+        "img2img" take plain latents, since a concat-conditioned conv_in
+        needs its extra planes at every step; "inpaint" a standard or a
+        dedicated 9-ch UNet; "depth" 5 channels; "ip2p" 8. The batched
+        paths check their mode here too."""
+        lc = self.cfg.latent_channels
+        ic = self.cfg.unet.in_channels
+        ok, why = {
+            "txt2img": ((lc,), f"{what} needs a standard txt2img UNet; this "
+                        f"config's takes {ic} input channels — use inpaint() "
+                        f"(9-ch) or depth2img() (5-ch) instead"),
+            "img2img": ((lc,), f"this config's UNet takes {ic} input "
+                        f"channels (concat-conditioned checkpoint); use "
+                        f"inpaint() or depth2img()"),
+            "inpaint": ((lc, 2 * lc + 1), f"inpaint needs a standard "
+                        f"({lc}-ch) or dedicated-inpaint ({2 * lc + 1}-ch) "
+                        f"UNet, this config has {ic}"),
+            "depth": ((lc + 1,), f"depth2img needs a depth-conditioned "
+                      f"({lc + 1}-ch) UNet (config sd2_depth), this config "
+                      f"has {ic}"),
+            "ip2p": ((2 * lc,), f"instruct_pix2pix needs an {2 * lc}-ch UNet "
+                     f"(config sd15_ip2p), this config has {ic}"),
+        }[mode]
+        if ic not in ok:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, why, self.errors)
+
+    def _image_tensor(self, img: np.ndarray):
+        """uint8 [B, H, W, 3] -> float32 in [-1, 1] on the device."""
+        return (torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+                .float() / 127.5 - 1.0)
+
+    def _plane_tensor(self, plane: np.ndarray):
+        return torch.from_numpy(plane).to(self.device)
+
+    def hires_fix(self, prompt: str | list[str], scale: int = 2,
+                  strength: float = 0.6, guidance: float = 7.5,
+                  seed: Optional[int] = None,
+                  negative_prompt: Optional[str] = None,
+                  lora: Optional[str] = None,
+                  output: str = "image") -> np.ndarray:
+        """The two-pass "hires fix" (``sdtpu/engine/context.py:1691-1801``):
+        txt2img at the Context's resolution, its clean latents
+        nearest-upscaled by ``scale`` (an int >= 2), then the last
+        ``round(steps * strength)`` steps (``strength`` in (0, 1)) at the
+        larger grid, decoded: uint8 [H*scale, W*scale, 3] (batched for a
+        list). Both passes draw from one generator of the seed, the second
+        after the first (``pipeline.draw_noise``)."""
+        self._check_usable()
+        self._check_in_channels("txt2img", "hires_fix")
+        if isinstance(scale, bool) or not isinstance(scale, int) or scale < 2:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                             f"scale must be an int >= 2, got {scale!r}",
+                             self.errors)
+        if not (0.0 < strength < 1.0):
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                             f"strength must be in (0, 1), got {strength}",
+                             self.errors)
+        prompts = self._prompts(prompt)
+        _refuse_unported(self.errors, lora=lora)
+        self._check_output(output)
+        self._refuse_scheduling(prompts + [negative_prompt])
+        start_step = self._start_step(strength)
+        seed = self._next_seed(seed)
+
+        def call():
+            tokens, weights, (uncond,) = self._text_inputs(
+                prompts, [negative_prompt])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            kw = dict(cfg=self.cfg, sampler=self.sampler, steps=self.steps,
+                      use_cfg=guidance != 1.0, kernels=self.kernels,
+                      token_weights=weights)
+            lat = pipeline.generate(self.params, tokens, uncond, gen,
+                                    float(guidance), output="latent", **kw)
+            return pipeline.hires_refine(
+                self.params, tokens, uncond, gen, float(guidance), lat,
+                scale=scale, start_step=start_step, output=output, **kw)
+
+        res = self._run("hires_fix", lambda: call().cpu().numpy())
+        return res[0] if isinstance(prompt, str) else res
+
+    def img2img_batch_async(self, requests: list[dict],
+                            strength: float = 0.6,
+                            lora: Optional[str] = None,
+                            output: str = "image"):
+        """Enqueue one batched img2img run and return ``finish()``, which
+        returns one array per request, in order
+        (``sdtpu/engine/context.py:1439-1452``). Each request: ``prompt``
+        and ``image`` (uint8 [H, W, 3]) required, and its own ``guidance``,
+        ``seed`` and ``negative_prompt``; ``strength`` is shared by the
+        batch. Padded to the next power of two with copies of the first
+        request, one generator a request (its draws in
+        ``pipeline.draw_noise``'s order): a batch of one gives the bytes of
+        ``img2img``."""
+        return self._image_batch_async("img2img", requests, strength, lora,
+                                       output)
+
+    def img2img_batch(self, requests: list[dict], strength: float = 0.6,
+                      lora: Optional[str] = None,
+                      output: str = "image") -> list[np.ndarray]:
+        """``img2img_batch_async``, finished."""
+        return self.img2img_batch_async(requests, strength, lora, output)()
+
+    def inpaint_batch_async(self, requests: list[dict],
+                            strength: float = 1.0,
+                            lora: Optional[str] = None,
+                            output: str = "image"):
+        """Batched inpainting: ``img2img_batch_async`` with a ``mask``
+        ([H, W], uint8 or float, nonzero = repaint) in each request; a
+        standard or a 9-ch inpaint UNet."""
+        return self._image_batch_async("inpaint", requests, strength, lora,
+                                       output)
+
+    def inpaint_batch(self, requests: list[dict], strength: float = 1.0,
+                      lora: Optional[str] = None,
+                      output: str = "image") -> list[np.ndarray]:
+        """``inpaint_batch_async``, finished."""
+        return self.inpaint_batch_async(requests, strength, lora, output)()
+
+    def _image_batch_async(self, mode, requests, strength, lora, output):
+        """``sdtpu/engine/context.py:1472-1626``: validate every request,
+        pad, run the pipeline function once on the stacked inputs."""
+        self._check_usable()
+        if not (0.0 < strength <= 1.0):
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                             f"strength must be in (0, 1], got {strength}",
+                             self.errors)
+        self._check_in_channels(mode)
+        size = self.cfg.image_size
+
+        def check(r):
+            im = np.asarray(r.get("image"))
+            if im.shape != (size, size, 3) or im.dtype != np.uint8:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"each request needs a uint8 [{size},{size},3] 'image', "
+                    f"got {im.shape}/{im.dtype}", self.errors)
+            if mode == "inpaint" and np.asarray(r.get("mask")).shape != (
+                    size, size):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"each request needs a [{size},{size}] 'mask', got "
+                    f"{np.asarray(r.get('mask')).shape}", self.errors)
+
+        pad, seeds, guidance = self._batch_requests(requests, lora, output,
+                                                    check)
+        n = len(requests)
+        start_step = self._start_step(strength)
+        images = np.stack([np.asarray(r["image"]) for r in pad])
+        masks = (np.stack([_plane(np.asarray(r["mask"]), True) for r in pad])
+                 if mode == "inpaint" else None)
+
+        def call():
+            tokens, weights, uncond = self._text_inputs(
+                [r["prompt"] for r in pad],
+                [r.get("negative_prompt") for r in pad])
+            gens = [torch.Generator(device=self.device).manual_seed(s)
+                    for s in seeds]
+            kw = dict(cfg=self.cfg, sampler=self.sampler, steps=self.steps,
+                      start_step=start_step, use_cfg=True,
+                      kernels=self.kernels, token_weights=weights,
+                      output=output)
+            args = (self.params, tokens, torch.stack(uncond), gens, guidance,
+                    self._image_tensor(images))
+            if mode == "inpaint":
+                return pipeline.inpaint(*args, self._plane_tensor(masks),
+                                        **kw)
+            return pipeline.img2img(*args, **kw)
+
+        res = self._run(f"{mode}_batch", call)
+
+        def finish() -> list[np.ndarray]:
+            host = self._run(f"{mode}_batch",
+                             lambda: res[:n].cpu().numpy())
+            return [host[i] for i in range(n)]
+
+        return finish
 
     def last_error(self, code: ErrorCode) -> Optional[str]:
         return self.errors.last(code)
@@ -633,6 +988,13 @@ class Context:
 
     def embedding_names(self) -> list[str]:
         return sorted(self._embeddings)
+
+
+def _plane(a: np.ndarray, is_mask: bool) -> np.ndarray:
+    """[B, H, W] mask or depth -> float32 [B, H, W, 1]; a uint8 mask is
+    scaled by 1/255 (``sdtpu/engine/context.py:1931-1933``)."""
+    scale = 255.0 if is_mask and a.dtype == np.uint8 else 1.0
+    return (np.asarray(a, np.float32) / scale)[..., None]
 
 
 def _refuse_unported(errors: ErrorTable, **given) -> None:

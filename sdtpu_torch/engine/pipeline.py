@@ -1,7 +1,8 @@
 """The prompt -> image pipeline, the counterpart of
-``sdtpu/engine/pipeline.py``'s txt2img path, for SD1.x, SD2.x (v- or
-eps-prediction) and SDXL (two towers, a packed pooled row, the additive
-conditioning):
+``sdtpu/engine/pipeline.py``'s txt2img and image-conditioned paths, for
+SD1.x, SD2.x (v- or eps-prediction) and SDXL (two towers, a packed pooled
+row, the additive conditioning), and their concat-conditioned UNets
+(inpaint, depth, InstructPix2Pix):
 
     tokens --CLIP--> cond embedding (weighted, chunked) --+
     uncond embedding ("", or a negative prompt a sample) -+
@@ -17,9 +18,17 @@ output converted to eps there, per CFG slot). PyTorch runs the loop
 eagerly: one UNet call a step, two for heun and dpm2, and one more on
 ``plms_exact``'s first step. Every sampler's ``step`` is tensor math with no
 branch on a value.
+
+The image paths (``img2img``, ``inpaint``, ``hires_refine``,
+``instruct_pix2pix``) encode an image with the VAE encoder, start the loop
+at ``start_step`` from its noised latents, and may re-pin a masked region
+or feed extra planes to the UNet at every step (``denoise``); a call's
+random draws follow ``draw_noise``'s rule.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -127,33 +136,59 @@ def decode_latents(params, x, cfg: PipelineConfig, kernels: str = "plain"):
     return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
 
 
-def draw_noise(generator, shape, steps: int, with_steps: bool, device):
-    """The starting latents [B, h, w, C] and, with ``with_steps``, every
-    step's standard-normal draw [steps, B, h, w, C]: float32
-    ``torch.randn`` on ``device``.
+#: the draws of a request's generator, in the order it makes them
+DRAW_ORDER = ("noise", "step_noise", "posterior_noise", "masked_noise",
+              "pin_noise")
+#: the draws with one value a step, [steps, B, h, w, C]
+_PER_STEP = ("step_noise", "pin_noise")
 
-    ``generator``: one ``torch.Generator`` for the batch (``generate``),
-    which draws the latents of all samples, then the step noise; or a list
-    of one a sample (batched serving), each drawing its sample's latents,
-    then its step noise, so that a request's numbers do not depend on its
-    batch-mates (the reference's one PRNG key a sample). A batch of one
-    gets the same numbers either way. The bits are not the JAX package's
-    threefry bits."""
+
+def draw_noise(generator, shape, steps: int, names, device):
+    """The standard-normal draws of a call: float32 ``torch.randn`` on
+    ``device``, a dict of the ``names`` asked for (names of
+    ``DRAW_ORDER``), each of the latent shape ``shape`` [B, h, w, C], or
+    [steps, B, h, w, C] for ``step_noise`` and ``pin_noise``.
+
+    The rule of the draws, which replaces the JAX package's fold_in tags
+    (``sdtpu/engine/pipeline.py:737-746``; the bits are not its threefry
+    bits): a generator makes, in this order and only those the call uses,
+      1. ``noise``: the starting latents (pure noise, or the noise a warm
+         start forward-diffuses its clean latents with);
+      2. ``step_noise``: a ``NEEDS_NOISE`` sampler's step draws;
+      3. ``posterior_noise``: the VAE posterior sample of the init image
+         (img2img, depth, a standard inpaint, a 9-ch inpaint with a warm
+         start);
+      4. ``masked_noise``: the posterior sample of the masked image (a 9-ch
+         inpaint);
+      5. ``pin_noise``: a standard inpaint's re-pin of the kept region at
+         each step.
+
+    ``generator``: one ``torch.Generator`` for the batch (``generate``, the
+    image paths on a list of prompts), which makes each draw for all
+    samples at once; or a list of one a sample (batched serving), each
+    making its sample's draws in the same order, so that a request's
+    numbers do not depend on its batch-mates (the reference's one PRNG key
+    a sample). A batch of one gets the same numbers either way. The hires
+    fix's second pass continues the generator of its first pass, so its
+    draws are not a prefix of the first pass's."""
+    unknown = set(names) - set(DRAW_ORDER)
+    if unknown:
+        raise ValueError(f"unknown draws {sorted(unknown)}")
+    names = [n for n in DRAW_ORDER if n in names]
+
     def draw(g, shp):
-        x = torch.randn(shp, generator=g, device=device, dtype=torch.float32)
-        n = (torch.randn((steps,) + shp, generator=g, device=device,
-                         dtype=torch.float32) if with_steps else None)
-        return x, n
+        return {k: torch.randn((steps,) + shp if k in _PER_STEP else shp,
+                               generator=g, device=device,
+                               dtype=torch.float32) for k in names}
 
-    if isinstance(generator, (list, tuple)):
-        if len(generator) != shape[0]:
-            raise ValueError(f"{len(generator)} generators for a batch of "
-                             f"{shape[0]}")
-        pairs = [draw(g, tuple(shape[1:])) for g in generator]
-        x = torch.stack([x for x, _ in pairs])
-        n = torch.stack([n for _, n in pairs], dim=1) if with_steps else None
-        return x, n
-    return draw(generator, tuple(shape))
+    if not isinstance(generator, (list, tuple)):
+        return draw(generator, tuple(shape))
+    if len(generator) != shape[0]:
+        raise ValueError(f"{len(generator)} generators for a batch of "
+                         f"{shape[0]}")
+    per = [draw(g, tuple(shape[1:])) for g in generator]
+    return {k: torch.stack([p[k] for p in per],
+                           dim=1 if k in _PER_STEP else 0) for k in names}
 
 
 def _seam(a, shape, device, name):
@@ -163,24 +198,51 @@ def _seam(a, shape, device, name):
     return t
 
 
-def denoise(params, context, generator, guidance, cfg: PipelineConfig,
-            steps: int, use_cfg: bool, kernels: str = "plain", noise=None,
-            *, sampler: str = "dpm", step_noise=None, cond_schedule=None):
+def _latent_shape(b, cfg: PipelineConfig):
+    return (b, cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+
+
+def _draws(generator, shape, steps, sampler, device, seams, extra=()):
+    """The draws of a pipeline call, the only place they are made:
+    ``noise``, a ``NEEDS_NOISE`` sampler's ``step_noise`` and the ``extra``
+    ones (names of ``DRAW_ORDER``). Each comes from its seam in ``seams``
+    where the caller gave one (a tensor or an array; for ``step_noise`` and
+    ``pin_noise`` also a callable of the step, checked at each step), else
+    from ``generator`` by ``draw_noise``'s rule (all of them then, so the
+    order never shifts). Returns the dict, float32 on ``device``."""
+    with_steps = getattr(get_sampler(sampler), "NEEDS_NOISE", False)
+    want = ("noise",) + (("step_noise",) if with_steps else ()) + tuple(extra)
+    out = {k: seams.get(k) for k in want}
+    if any(v is None for v in out.values()):
+        drawn = draw_noise(generator, shape, steps, want, device)
+        out = {k: drawn[k] if v is None else v for k, v in out.items()}
+    for k, v in out.items():
+        if not callable(v):
+            full = (steps,) + tuple(shape) if k in _PER_STEP else shape
+            out[k] = _seam(v, full, device, k)
+    return out
+
+
+def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
+            use_cfg: bool, kernels: str = "plain", *, noise,
+            sampler: str = "dpm", step_noise=None, cond_schedule=None,
+            init_latents=None, start_step: int = 0, mask=None,
+            pin_noise=None, x_extra=None, image_guidance=None):
     """Run the denoising loop with ``sampler`` (a name of
     ``samplers.SAMPLERS``). context: [B or 2B, T, D]; with ``use_cfg`` rows
     [0:B] are cond and [B:2B] uncond. ``guidance``: a scalar or one a
     sample, [B].
 
-    ``generator``: see ``draw_noise``. ``noise`` ([B, h, w, C] float32)
-    replaces the starting latents and ``step_noise`` ([steps, B, h, w, C],
-    or a callable of the step index giving [B, h, w, C]) the step noise of
-    a ``NEEDS_NOISE`` sampler: the seams through which tests hand both
-    pipelines the JAX package's draws.
+    The draws are the caller's (``_draws``, which holds the rule of
+    ``draw_noise``): ``noise`` [B, h, w, C] float32, the starting latents,
+    and for a ``NEEDS_NOISE`` sampler ``step_noise`` ([steps, B, h, w, C],
+    or a callable of the step index giving [B, h, w, C]).
 
     Two-eval samplers (``NEEDS_SECOND_EVAL``, heun and dpm2) evaluate the
     UNet again at ``predictor``'s probe point, with the time embeddings of
     the plan's ``model_t2``. ``plms_exact`` spends two evals on step 0
-    (CompVis's pseudo improved Euler) and keeps ``e_t`` in its history.
+    (CompVis's pseudo improved Euler) and keeps ``e_t`` in its history,
+    at ``start_step == 0`` only.
 
     Prompt scheduling: ``cond_schedule`` = (table [V, B, T, D], idx
     [steps] int64 on the device); every UNet eval of step i takes its cond
@@ -190,27 +252,48 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
 
     SDXL: ``context`` is packed (``encode_text``); its pooled rows give the
     additive embedding, added to every eval's time embedding. A
-    v-prediction model's output is turned into eps before the CFG mix."""
+    v-prediction model's output is turned into eps before the CFG mix, from
+    the latents (not the extra planes).
+
+    Warm start (``sdtpu/engine/pipeline.py:283-300``): ``init_latents``
+    (clean, scale-factored, float32) is forward-diffused with ``noise`` to
+    ``start_step``'s marginal and the loop runs steps [start_step, steps);
+    the plan restarts a multistep solver's history there.
+
+    Inpaint with a standard UNet: ``mask`` [B, h, w, 1] float32 (1 =
+    generate, 0 = keep ``init_latents``); at the start of every step the
+    kept region is re-pinned to the init latents at that step's marginal
+    with that step's ``pin_noise`` ([steps, B, h, w, C] or a callable of the
+    step), and after the loop it is pasted back exactly.
+
+    Concat-conditioned UNets: ``x_extra`` [B, h, w, E] rides the channel
+    axis into conv_in at every eval, once a CFG slot. InstructPix2Pix's dual
+    CFG (``image_guidance``): ``context`` holds 3B rows [cond, uncond,
+    uncond], the third slot's extra planes are zeros, and eps = e_un + g (e_txt
+    - e_img) + g_img (e_img - e_un)."""
     device = context.device
     dtype = cfg.compute_dtype
     context, pooled = _unpack_context(context, cfg)
     add_emb = (None if pooled is None
                else _add_embedding(params, pooled, cfg))
     mod = get_sampler(sampler)
-    plan = mod.plan(NoiseSchedule.sd_v1(), steps, device=device)
-    b = context.shape[0] // (2 if use_cfg else 1)
+    plan = mod.plan(NoiseSchedule.sd_v1(), steps, start_step, device=device)
+    reps = 3 if image_guidance is not None else (2 if use_cfg else 1)
+    b = context.shape[0] // reps
     shape = (b, cfg.latent_size, cfg.latent_size, cfg.latent_channels)
     needs_noise = getattr(mod, "NEEDS_NOISE", False)
     needs_second = getattr(mod, "NEEDS_SECOND_EVAL", False)
-    with_steps = needs_noise and step_noise is None
-    if noise is None or with_steps:
-        x, drawn = draw_noise(generator, shape, steps, with_steps, device)
-    if noise is not None:
-        x = _seam(noise, shape, device, "noise")
-    if with_steps:
-        step_noise = drawn
-    elif needs_noise and not callable(step_noise):
-        step_noise = _seam(step_noise, (steps,) + shape, device, "step_noise")
+    if needs_noise and step_noise is None:
+        raise ValueError(f"sampler {sampler} needs step_noise")
+    x = noise
+    if init_latents is not None:
+        init_latents = init_latents.float()
+        x = plan.alpha_s[start_step] * init_latents + (
+            plan.sigma_s[start_step] * x)
+    if mask is not None:
+        if init_latents is None or pin_noise is None:
+            raise ValueError("a mask needs init_latents and pin_noise")
+        mask = mask.float()
     # every step's time embedding in one batched MLP call, before the loop
     t_embs = temb.apply(params["temb"], plan.model_t, cfg.unet, dtype=dtype)
     t_embs2 = (temb.apply(params["temb"], plan.model_t2, cfg.unet,
@@ -218,6 +301,13 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
     g = torch.as_tensor(guidance, dtype=torch.float32, device=device)
     if g.dim():
         g = g.reshape(-1, 1, 1, 1)
+    xe = None
+    if x_extra is not None:
+        xe = x_extra.to(dtype)
+        if image_guidance is not None:
+            xe = torch.cat([xe, xe, torch.zeros_like(xe)], dim=0)
+        elif reps == 2:
+            xe = torch.cat([xe, xe], dim=0)
 
     def rows(i):
         if cond_schedule is None:
@@ -230,24 +320,38 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
         te = (t_embs2 if second else t_embs)[i].expand(context.shape[0], -1)
         if add_emb is not None:
             te = te + add_emb.to(te.dtype)
-        x_rep = torch.cat([x, x], dim=0) if use_cfg else x
-        eps = unet.apply(params["unet"], x_rep.to(dtype), te, rows(i),
-                         cfg.unet, kernels).float()
+        x_rep = torch.cat([x] * reps, dim=0) if reps > 1 else x
+        x_in = x_rep.to(dtype)
+        if xe is not None:
+            x_in = torch.cat([x_in, xe], dim=-1)
+        eps = unet.apply(params["unet"], x_in, te, rows(i), cfg.unet,
+                         kernels).float()
         if cfg.prediction == "v":
             # v = alpha*eps - sigma*x0  =>  eps = alpha*v + sigma*x_t, per
             # CFG slot; the second eval takes the probe point's marginals
             a_i = (plan.alpha_m if second else plan.alpha_s)[i]
             s_i = (plan.sigma_m if second else plan.sigma_s)[i]
             eps = a_i * eps + s_i * x_rep
-        if use_cfg:
+        if image_guidance is not None:
+            gi = torch.as_tensor(image_guidance, dtype=torch.float32,
+                                 device=device)
+            e_txt, e_img, e_un = eps[:b], eps[b:2 * b], eps[2 * b:]
+            eps = e_un + g * (e_txt - e_img) + gi * (e_img - e_un)
+        elif use_cfg:
             eps = g * eps[:b] + (1.0 - g) * eps[b:]
         return eps
 
+    def pin(i):
+        n_i = (_seam(pin_noise(i), shape, device, "pin_noise")
+               if callable(pin_noise) else pin_noise[i])
+        return plan.alpha_s[i] * init_latents + plan.sigma_s[i] * n_i
+
     state = mod.init_state(x)
-    start = 0
-    if sampler.lower() == "plms_exact":
+    start = start_step
+    if sampler.lower() == "plms_exact" and start_step == 0:
         # a second UNet eval at the next time refines eps before the step-0
-        # update; the history takes e_t, not the average
+        # update; the history takes e_t, not the average (no re-pin on this
+        # step, as in the reference)
         e_t = predict_eps(x, 0)
         x_mid, _ = mod.step(plan, 0, x, e_t, state)
         e_next = predict_eps(x_mid, min(1, steps - 1))
@@ -255,6 +359,8 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
         _, state = mod.step(plan, 0, x_mid, e_t, state)
         start = 1
     for i in range(start, steps):
+        if mask is not None:
+            x = mask * x + (1.0 - mask) * pin(i)
         eps = predict_eps(x, i)
         if needs_second:
             eps2 = predict_eps(mod.predictor(plan, i, x, eps), i, second=True)
@@ -265,6 +371,8 @@ def denoise(params, context, generator, guidance, cfg: PipelineConfig,
             x, state = mod.step(plan, i, x, eps, state, noise=n_i)
         else:
             x, state = mod.step(plan, i, x, eps, state)
+    if mask is not None:
+        x = mask * x + (1.0 - mask) * init_latents
     return x
 
 
@@ -276,7 +384,8 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
     """tokens [B, T] (or chunked [B, k, T] with ``token_weights``) -> uint8
     [B, H, W, 3], or with ``output="latent"`` the float32 scale-factored
     latents. ``uncond_embedding``: [T, D] or [B, T, D], encoded by the
-    caller. ``generator``, ``noise``, ``step_noise``: see ``denoise``.
+    caller. Draws (``draw_noise``): noise, step noise; ``noise`` and
+    ``step_noise`` are their seams.
 
     Prompt scheduling (``sdtpu/engine/pipeline.py:653-667``): with
     ``sched_idx`` ([steps] integer, each step's variant), tokens are [V, B,
@@ -299,9 +408,199 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
     else:
         context = _build_context(params, tokens, uncond_embedding, cfg,
                                  use_cfg, weights=token_weights)
-    x = denoise(params, context, generator, guidance, cfg, steps, use_cfg,
-                kernels, noise=noise, sampler=sampler, step_noise=step_noise,
-                cond_schedule=cond_schedule)
-    if output == "latent":
-        return x
-    return decode_latents(params, x, cfg, kernels)
+    shape = _latent_shape(context.shape[0] // (2 if use_cfg else 1), cfg)
+    d = _draws(generator, shape, steps, sampler, context.device,
+               {"noise": noise, "step_noise": step_noise})
+    x = denoise(params, context, guidance, cfg, steps, use_cfg, kernels,
+                noise=d["noise"], sampler=sampler,
+                step_noise=d.get("step_noise"), cond_schedule=cond_schedule)
+    return _finish(params, x, cfg, kernels, output)
+
+
+def _finish(params, x, cfg, kernels, output):
+    return x if output == "latent" else decode_latents(params, x, cfg,
+                                                       kernels)
+
+
+def _encode_init_latents(params, image, cfg: PipelineConfig, kernels,
+                         noise=None, scaled: bool = True):
+    """[B, H, W, 3] float in [-1, 1] -> clean latents [B, h, w, z] float32
+    (``sdtpu/engine/pipeline.py:748-772``): the posterior mode, or with
+    ``noise`` (a standard-normal draw of that shape) the posterior sample
+    ``mean + exp(0.5 logvar) noise`` in float32; times the scale factor
+    unless ``scaled=False`` (InstructPix2Pix's conditioning takes the raw
+    mode)."""
+    mean, logvar = vae.apply_encoder(params["vae_enc"],
+                                     image.to(cfg.compute_dtype), cfg.vae,
+                                     kernels)
+    z = mean.float()
+    if noise is not None:
+        z = z + torch.exp(0.5 * logvar.float()) * noise
+    return z * cfg.vae.scale_factor if scaled else z
+
+
+def _latent_pool(a, cfg: PipelineConfig):
+    """[B, H, W, 1] pixel plane -> its mean over each latent cell [B, h, w,
+    1], float32."""
+    b, s = a.shape[0], cfg.latent_size
+    f = cfg.image_size // s
+    return a.float().reshape(b, s, f, s, f, 1).mean(dim=(2, 4))
+
+
+def img2img(params, tokens, uncond_embedding, generator, guidance, image, *,
+            cfg: PipelineConfig, sampler: str = "dpm", steps: int = 20,
+            start_step: int = 10, use_cfg: bool = True,
+            kernels: str = "plain", token_weights=None, depth=None,
+            output: str = "image", noise=None, step_noise=None,
+            posterior_noise=None):
+    """Image to image (``sdtpu/engine/pipeline.py:775-827``): ``image``
+    [B, H, W, 3] float in [-1, 1] is encoded to a posterior sample, noised
+    to ``start_step``'s marginal, denoised over the remaining steps and
+    decoded (uint8 [B, H, W, 3], or the float32 latents with
+    ``output="latent"``). tokens [B, T] or chunked [B, k, T] with
+    ``token_weights``, as ``generate`` takes them.
+
+    A depth-conditioned UNet (``config.SD2_DEPTH``): ``depth`` [B, H, W, 1]
+    float, any monotone scale, is mean-pooled to latent resolution,
+    normalized per sample to [-1, 1] and concatenated to the latents at
+    every step.
+
+    Draws (``draw_noise``): noise, step noise, posterior noise; ``noise``,
+    ``step_noise``, ``posterior_noise`` are their seams."""
+    context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
+                             weights=token_weights)
+    shape = _latent_shape(tokens.shape[0], cfg)
+    d = _draws(generator, shape, steps, sampler, context.device,
+               {"noise": noise, "step_noise": step_noise,
+                "posterior_noise": posterior_noise}, ("posterior_noise",))
+    init = _encode_init_latents(params, image, cfg, kernels,
+                                noise=d["posterior_noise"])
+    x_extra = None
+    if depth is not None:
+        dp = _latent_pool(depth, cfg)
+        lo = dp.amin(dim=(1, 2, 3), keepdim=True)
+        hi = dp.amax(dim=(1, 2, 3), keepdim=True)
+        x_extra = 2.0 * (dp - lo) / torch.clamp(hi - lo, min=1e-6) - 1.0
+    x = denoise(params, context, guidance, cfg, steps, use_cfg,
+                kernels, noise=d["noise"], sampler=sampler,
+                step_noise=d.get("step_noise"), init_latents=init,
+                start_step=start_step, x_extra=x_extra)
+    return _finish(params, x, cfg, kernels, output)
+
+
+def inpaint(params, tokens, uncond_embedding, generator, guidance, image,
+            mask, *, cfg: PipelineConfig, sampler: str = "dpm",
+            steps: int = 20, start_step: int = 0, use_cfg: bool = True,
+            kernels: str = "plain", token_weights=None,
+            output: str = "image", noise=None, step_noise=None,
+            posterior_noise=None, masked_noise=None, pin_noise=None):
+    """Masked image to image (``sdtpu/engine/pipeline.py:830-896``).
+    ``image`` [B, H, W, 3] float in [-1, 1]; ``mask`` [B, H, W, 1] float in
+    [0, 1], 1 = repaint. The mask is mean-pooled to latent resolution.
+
+    A standard UNet (``unet.in_channels == latent_channels``): the image's
+    posterior sample is the init; the kept region is re-pinned every step
+    and pasted back exactly after the loop. Draws: noise, step noise,
+    posterior noise, pin noise.
+
+    A dedicated inpaint UNet (``in_channels == 2 * latent_channels + 1``):
+    the pooled mask and the latents of the masked image (the repaint region
+    blanked to 0) are extra planes at every step; no pinning. The full
+    image is encoded only for a warm start (``start_step > 0``). Draws:
+    noise, step noise, posterior noise (a warm start only), masked noise.
+
+    ``noise``, ``step_noise``, ``posterior_noise``, ``masked_noise`` and
+    ``pin_noise`` are the draws' seams."""
+    context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
+                             weights=token_weights)
+    shape = _latent_shape(tokens.shape[0], cfg)
+    m = _latent_pool(mask, cfg)
+    seams = {"noise": noise, "step_noise": step_noise,
+             "posterior_noise": posterior_noise,
+             "masked_noise": masked_noise, "pin_noise": pin_noise}
+    dev = context.device
+    if cfg.unet.in_channels == 2 * cfg.latent_channels + 1:
+        extra = (("posterior_noise",) if start_step > 0 else ()) + (
+            "masked_noise",)
+        d = _draws(generator, shape, steps, sampler, dev, seams, extra)
+        masked = _encode_init_latents(params, image * (1.0 - mask), cfg,
+                                      kernels, noise=d["masked_noise"])
+        init = (_encode_init_latents(params, image, cfg, kernels,
+                                     noise=d["posterior_noise"])
+                if start_step > 0 else None)
+        x = denoise(params, context, guidance, cfg, steps,
+                    use_cfg, kernels, noise=d["noise"], sampler=sampler,
+                    step_noise=d.get("step_noise"), init_latents=init,
+                    start_step=start_step,
+                    x_extra=torch.cat([m, masked], dim=-1))
+        return _finish(params, x, cfg, kernels, output)
+    d = _draws(generator, shape, steps, sampler, dev, seams,
+               ("posterior_noise", "pin_noise"))
+    init = _encode_init_latents(params, image, cfg, kernels,
+                                noise=d["posterior_noise"])
+    x = denoise(params, context, guidance, cfg, steps, use_cfg,
+                kernels, noise=d["noise"], sampler=sampler,
+                step_noise=d.get("step_noise"), init_latents=init,
+                start_step=start_step, mask=m, pin_noise=d["pin_noise"])
+    return _finish(params, x, cfg, kernels, output)
+
+
+def upscale_latents(latents, scale: int):
+    """Nearest-neighbour upscale of [B, s, s, C] latents by an integer
+    ``scale`` (``jax.image.resize(..., "nearest")`` at an integer factor:
+    each latent repeated ``scale`` x ``scale`` times)."""
+    up = latents.float().repeat_interleave(scale, dim=1)
+    return up.repeat_interleave(scale, dim=2)
+
+
+def hires_refine(params, tokens, uncond_embedding, generator, guidance,
+                 latents, *, cfg: PipelineConfig, scale: int = 2,
+                 sampler: str = "dpm", steps: int = 20, start_step: int = 8,
+                 use_cfg: bool = True, kernels: str = "plain",
+                 token_weights=None, output: str = "image", noise=None,
+                 step_noise=None):
+    """The hires fix's second pass (``sdtpu/engine/pipeline.py:899-937``):
+    the first pass's clean latents nearest-upscaled by ``scale``,
+    forward-diffused to ``start_step``'s marginal and denoised over the
+    remaining steps at the larger latent grid, then decoded. One parameter
+    tree serves both passes (the UNet and the VAE are convolutional).
+    Draws: noise and step noise at the larger grid, from ``generator``
+    continued after the first pass (``Context.hires_fix``)."""
+    cfg_hi = dataclasses.replace(cfg, latent_size=cfg.latent_size * scale)
+    context = _build_context(params, tokens, uncond_embedding, cfg_hi,
+                             use_cfg, weights=token_weights)
+    shape = _latent_shape(tokens.shape[0], cfg_hi)
+    d = _draws(generator, shape, steps, sampler, context.device,
+               {"noise": noise, "step_noise": step_noise})
+    x = denoise(params, context, guidance, cfg_hi, steps,
+                use_cfg, kernels, noise=d["noise"], sampler=sampler,
+                step_noise=d.get("step_noise"),
+                init_latents=upscale_latents(latents, scale),
+                start_step=start_step)
+    return _finish(params, x, cfg_hi, kernels, output)
+
+
+def instruct_pix2pix(params, tokens, uncond_embedding, generator, guidance,
+                     image, image_guidance, *, cfg: PipelineConfig,
+                     sampler: str = "dpm", steps: int = 20,
+                     kernels: str = "plain", token_weights=None,
+                     output: str = "image", noise=None, step_noise=None):
+    """Instruction-based editing (``sdtpu/engine/pipeline.py:940-979``): an
+    8-channel UNet takes the latents and the edit image's unscaled
+    posterior mode at every step; the dual CFG runs three slots a step,
+    context [cond, uncond, uncond], and steers toward the instruction
+    (``guidance``) and the image (``image_guidance``). Always from pure
+    noise. Draws: noise and step noise."""
+    p_cond = encode_text(params, tokens, cfg, token_weights)
+    p_un = uncond_embedding.to(p_cond.dtype).expand(p_cond.shape)
+    context = torch.cat([p_cond, p_un, p_un], dim=0)
+    shape = _latent_shape(tokens.shape[0], cfg)
+    d = _draws(generator, shape, steps, sampler, context.device,
+               {"noise": noise, "step_noise": step_noise})
+    image_latents = _encode_init_latents(params, image, cfg, kernels,
+                                         scaled=False)
+    x = denoise(params, context, guidance, cfg, steps, True,
+                kernels, noise=d["noise"], sampler=sampler,
+                step_noise=d.get("step_noise"), x_extra=image_latents,
+                image_guidance=image_guidance)
+    return _finish(params, x, cfg, kernels, output)

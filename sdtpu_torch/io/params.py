@@ -9,8 +9,8 @@ quantized site carries ``w8`` + ``w8_scale`` or ``w_q`` + ``w_scale`` (+
 carries the trees of the txt2img path, ``clip``, ``temb``, ``unet`` and
 ``vae`` (the decoder); for SDXL ``clip2`` (the second text tower, with its
 ``text_proj``) and ``add_mlp`` (the additive conditioning); and
-``vae_enc``, the VAE encoder's parameters, which every SD checkpoint
-carries (its forward is not ported yet).
+``vae_enc``, the VAE encoder's parameters (the image paths' encode),
+which every SD checkpoint carries.
 """
 
 from __future__ import annotations

@@ -42,6 +42,10 @@ def disable_tf32() -> None:
 # ---------------------------------------------------------------------------
 
 def _uniform(shape, bound, generator, device):
+    if torch.device(device).type == "meta":
+        # a meta tensor holds no values: skip the draw and its arithmetic,
+        # each a decomposed op there
+        return torch.empty(shape, device=device, dtype=torch.float32)
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
     return u * (2.0 * bound) - bound

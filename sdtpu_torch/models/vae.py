@@ -1,11 +1,22 @@
-"""VAE decoder: latent [B,h,w,4] -> RGB image in [-1, 1], the counterpart of
-``sdtpu/models/vae.py``'s decoder: post-quant 1x1 conv, conv_in to the
-widest width, middle (ResnetBlock, single-head attention, ResnetBlock), one
-level per channel-mult in reverse with ``num_res_blocks + 1`` ResnetBlocks
-and nearest-2x upsample between levels, GroupNorm -> SiLU -> conv_out.
+"""The VAE, the counterpart of ``sdtpu/models/vae.py``.
+
+Decoder: latent [B,h,w,4] -> RGB image in [-1, 1]: post-quant 1x1 conv,
+conv_in to the widest width, middle (ResnetBlock, single-head attention,
+ResnetBlock), one level per channel-mult in reverse with ``num_res_blocks +
+1`` ResnetBlocks and nearest-2x upsample between levels, GroupNorm -> SiLU
+-> conv_out.
+
+Encoder (img2img, inpaint, ip2p): RGB [B,H,W,3] in [-1, 1] -> the diagonal
+Gaussian posterior's (mean, logvar) [B,h,w,z]: conv_in, one level per
+channel-mult with ``num_res_blocks`` ResnetBlocks and a stride-2 downsample
+between levels, the same middle, GroupNorm -> SiLU -> conv_out to 2z
+channels, the 1x1 quant conv.
+
 GroupNorm eps is 1e-6 throughout."""
 
 from __future__ import annotations
+
+import torch.nn.functional as F
 
 from sdtpu_torch.config import VAEConfig
 from sdtpu_torch.models.layers import (
@@ -80,8 +91,7 @@ def init_encoder(cfg: VAEConfig, generator, device):
     conv_in, per-level ResnetBlocks with a stride-2 downsample conv between
     levels, middle (ResnetBlock, attention, ResnetBlock), GroupNorm ->
     conv_out to 2 * z channels (mean, logvar), the 1x1 quant conv. Every SD
-    checkpoint carries them; the encoder's forward (img2img) is not
-    ported yet."""
+    checkpoint carries them; ``apply_encoder`` runs them."""
     gen, dev = generator, device
     params = {"conv_in": init_conv(3, cfg.out_channels, cfg.base_channels,
                                    gen, dev)}
@@ -131,6 +141,41 @@ def _attn(p, x, groups, kernels):
     o = sdpa(q, k, v, heads=1, kernel=attention_kernel(kernels))
     o = o.reshape(b, hh, ww, c)
     return x + conv2d(p["proj"], o, padding=0)
+
+
+def _downsample(p, x):
+    """torch's Downsample: pad (0, 1, 0, 1), then a VALID stride-2 3x3 conv.
+    A cuDNN conv in either policy: the fused conv kernel's contract is
+    stride 1, and the reference leaves this conv to XLA
+    (``sdtpu/models/vae.py:160-171``). The padded NHWC tensor stays
+    channels_last for cuDNN, as the decoder's convs are."""
+    return conv2d(p, F.pad(x, (0, 0, 0, 1, 0, 1)), stride=2, padding=0)
+
+
+def apply_encoder(params, img, cfg: VAEConfig, kernels: str = "plain"):
+    """img: [B, H, W, 3] in [-1, 1] -> (mean, logvar), each [B, H/2^L,
+    W/2^L, z_channels], in ``img``'s dtype (``sdtpu/models/vae.py:174-193``).
+    Under ``"cuda_conv"`` the ResBlocks' convs take the fused GN-prologue
+    conv kernel (with the GroupNorm kernel's statistics mode for each
+    prologue), under ``"cuda_gn"`` they stay plain, as the decoder's do;
+    the mid block's attention goes to the flash kernel under every
+    ``cuda*`` policy (4,096 tokens at d = 512 for a 512x512 image)."""
+    g = cfg.groups
+    h = conv2d(params["conv_in"], img)
+    for level in params["down"]:
+        for blk in level["blocks"]:
+            h = _resblock(blk, h, g, kernels)
+        if "down" in level:
+            h = _downsample(level["down"], h)
+    mid = params["mid"]
+    h = _resblock(mid["res1"], h, g, kernels)
+    h = _attn(mid["attn"], h, g, kernels)
+    h = _resblock(mid["res2"], h, g, kernels)
+    h = silu(group_norm(params["norm_out"], h, g, eps=1e-6))
+    h = conv2d(params["conv_out"], h)
+    h = conv2d(params["quant"], h, padding=0)
+    z = cfg.z_channels
+    return h[..., :z], h[..., z:]
 
 
 def apply(params, z, cfg: VAEConfig, kernels: str = "plain"):

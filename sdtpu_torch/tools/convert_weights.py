@@ -6,7 +6,10 @@ The port's counterpart of ``tools/convert_weights.py``:
     input:  an LDM single-file checkpoint (*.safetensors, or *.ckpt / *.pt /
             *.pth read with ``torch.load(weights_only=True)``): SD1.x, SD
             2.x with its OpenCLIP tower (``--config sd21`` or ``sd21base``)
-            or SDXL in the sgm naming (``--config sdxl``)
+            or SDXL in the sgm naming (``--config sdxl``), or a
+            concat-conditioned variant with its wider ``conv_in``
+            (``--config sd15_inpaint``, ``sd21_inpaint``, ``sdxl_inpaint``,
+            ``sd2_depth``, ``sd15_ip2p``)
     output: <out_dir>/model.sdtpu.safetensors, the JAX package's native
             format (the flattened JAX-layout tree in the target dtype,
             quantized as asked), which both packages load
@@ -16,7 +19,7 @@ Usage (from the repository root):
 
     python3 -m sdtpu_torch.tools.convert_weights \\
         v1-5-pruned-emaonly.safetensors out_dir [--dtype bfloat16] \\
-        [--config sd15|sd21|sd21base|sdxl|tiny] \\
+        [--config sd15|sd21|sd21base|sdxl|<a concat variant>|tiny] \\
         [--tokenizer ctokenizer.txt] [--int8] [--int8w conv|dense] [--force]
 
 Then ``sdtpu_torch.Context(model_dir="out_dir", config=..., device="cuda")``

@@ -161,16 +161,19 @@ def test_config_matches_jax(name):
 
 
 def test_config_registry_covers_the_references():
-    """The port serves sd15, sd21, sd21base and sdxl; every other
-    non-TINY name of the reference is refused by name (``NOT_PORTED``)."""
+    """The port serves sd15, sd21, sd21base and sdxl and their
+    concat-conditioned variants; every other non-TINY name of the reference
+    is refused by name (``NOT_PORTED``)."""
     ref = {n for n in j_config.CONFIGS if not n.startswith("tiny")}
     ours = set(t_config.CONFIGS) - {"tiny"}
-    assert ours == {"sd15", "sd21", "sd21base", "sdxl"}
+    assert ours == {"sd15", "sd21", "sd21base", "sdxl", "sd15_inpaint",
+                    "sd21_inpaint", "sdxl_inpaint", "sd2_depth", "sd15_ip2p"}
     assert ours | set(t_config.NOT_PORTED) == ref
     assert not ours & set(t_config.NOT_PORTED)
     for name in ours:
         assert t_config.CONFIGS[name] == getattr(
-            t_config, {"sd21base": "SD21_BASE"}.get(name, name.upper()))
+            t_config, {"sd21base": "SD21_BASE", "sd2_depth": "SD2_DEPTH"}.get(
+                name, name.upper()))
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +337,9 @@ def test_denoise_v_prediction_matches_jax(v_trees, sampler):
         use_cfg=True, kernels="xla"))(jtree, jnp.asarray(ctx),
                                       jax.random.PRNGKey(9), 7.5)
     x, n = _jax_draws(9, shape)
-    ours = t_pipeline.denoise(ttree, torch.from_numpy(ctx), None, 7.5, V_T,
-                              STEPS, True, noise=x, sampler=sampler,
-                              step_noise=n)
+    ours = t_pipeline.denoise(ttree, torch.from_numpy(ctx), 7.5, V_T, STEPS,
+                              True, noise=torch.from_numpy(x),
+                              sampler=sampler, step_noise=torch.from_numpy(n))
     assert_close(ours, ref, rel=1e-4)
 
 

@@ -8,6 +8,7 @@ plain versions at the shapes the rules could break (this file imports no
 JAX, so they run there: ``python3 -m pytest tests/test_torch_hopper.py -m
 cuda``)."""
 
+import contextlib
 import dataclasses
 import importlib.util
 import math
@@ -1190,6 +1191,7 @@ MODES = {"plain": ("plain", "none", False),
          "cuda": ("cuda", "none", False),
          "cuda_gn": ("cuda_gn", "none", False),
          "cuda_conv": ("cuda_conv", "none", False),
+         "int8w": ("cuda_conv", "int8w", False),
          "int8w_dense": ("cuda", "int8w_dense", False),
          "int8+k5": ("cuda", "int8", True)}
 
@@ -1214,24 +1216,14 @@ def _calibrated(tree):
     return tree
 
 
-def _record_family(name, mode):
-    """{(part, kernel): [call key, ...]} of one UNet eval (part "unet", the
-    CFG batch of 2) and one VAE decode (part "vae", batch 1) of the
-    configuration ``name`` at its full width under ``mode``: the kernel
-    wrappers replaced by recorders that return empty meta tensors of the
-    kernel's output shape. Keys: flash (b, sq, c, heads); group_norm (n,
-    hw, c, groups, eps, silu); group_norm_affine (n, hw, c, groups); conv
-    (n, h, w, c_in, c_out, k, int8); matmul_int8w and matmul_w8a8 (m, k,
-    n)."""
-    from sdtpu_torch.config import CONFIGS
-    from sdtpu_torch.models import unet, vae
-    from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
-
-    cfg = CONFIGS[name]
-    policy, quantize, k5 = MODES[mode]
-    log = {}
-    part = ["unet"]
-
+@contextlib.contextmanager
+def _recorders(mode, log, part):
+    """The kernel wrappers replaced by recorders that return empty meta
+    tensors of the kernel's output shape, appending each call's key to
+    ``log[(part[0], kernel)]``, under ``mode``'s flags. Keys: flash (b,
+    sq, c, heads); group_norm (n, hw, c, groups, eps, silu);
+    group_norm_affine (n, hw, c, groups); conv (n, h, w, c_in, c_out, k,
+    int8); matmul_int8w and matmul_w8a8 (m, k, n)."""
     def put(kernel, key):
         log.setdefault((part[0], kernel), []).append(key)
 
@@ -1277,26 +1269,82 @@ def _record_family(name, mode):
     mp.setattr(t_conv, "fused_conv_cuda", conv)
     mp.setattr(t_mm, "matmul_int8w_cuda", mm("matmul_int8w"))
     mp.setattr(t_mm, "matmul_w8a8_cuda", mm("matmul_w8a8"))
-    mp.setattr(t_mm, "KERNEL_W8A8", k5)
+    mp.setattr(t_mm, "KERNEL_W8A8", MODES[mode][2])
     try:
-        params = _meta_tree(unet.init(cfg.unet, None, "meta"))
-        if quantize == "int8":
-            params = _calibrated(quantize_unet({"unet": params})["unet"])
-        elif quantize == "int8w_dense":
-            params = quantize_weights_only(params, include_dense=True)
-        n, size = 2, cfg.latent_size
-        x = torch.empty((n, size, size, 4), device="meta",
-                        dtype=torch.bfloat16)
-        te = torch.empty((n, cfg.unet.time_embed_dim), device="meta",
-                         dtype=torch.bfloat16)
-        ctx = torch.empty((n, cfg.clip.context_len, cfg.unet.context_dim),
-                          device="meta", dtype=torch.bfloat16)
-        unet.apply(params, x, te, ctx, cfg.unet, policy)
-        part[0] = "vae"
-        vp = _meta_tree(vae.init(cfg.vae, None, "meta"))
-        vae.apply(vp, x[:1], cfg.vae, policy)
+        yield
     finally:
         mp.undo()
+
+
+_META_UNETS = {}
+
+
+def _meta_unet(cfg, mode):
+    """The configuration's UNet on the meta device, bf16, quantized as
+    ``mode`` says (the bf16 tree made once a UNet configuration: the
+    quantizers return new trees)."""
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
+
+    if cfg.unet not in _META_UNETS:
+        _META_UNETS[cfg.unet] = _meta_tree(unet.init(cfg.unet, None, "meta"))
+    params = _META_UNETS[cfg.unet]
+    quantize = MODES[mode][1]
+    if quantize == "int8":
+        params = _calibrated(quantize_unet({"unet": params})["unet"])
+    elif quantize.startswith("int8w"):
+        params = quantize_weights_only(
+            params, include_dense=quantize == "int8w_dense")
+    return params
+
+
+def _run_unet(cfg, mode, n, size):
+    """One UNet eval of ``cfg`` at a batch of ``n`` on a ``size``^2 latent
+    grid (the input planes the config's UNet takes)."""
+    from sdtpu_torch.models import unet
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta", dtype=torch.bfloat16)
+
+    unet.apply(_meta_unet(cfg, mode), meta(n, size, size,
+                                           cfg.unet.in_channels),
+               meta(n, cfg.unet.time_embed_dim),
+               meta(n, cfg.clip.context_len, cfg.unet.context_dim),
+               cfg.unet, MODES[mode][0])
+
+
+def _run_vae(cfg, mode, size, encoder=False):
+    """One VAE decode of a ``size``^2 latent grid, or one encode of the
+    image it decodes to, at batch 1."""
+    from sdtpu_torch.models import vae
+
+    policy = MODES[mode][0]
+    if encoder:
+        img = torch.empty((1, size * cfg.upscale, size * cfg.upscale, 3),
+                          device="meta", dtype=torch.bfloat16)
+        vae.apply_encoder(_meta_tree(vae.init_encoder(cfg.vae, None, "meta")),
+                          img, cfg.vae, policy)
+    else:
+        z = torch.empty((1, size, size, cfg.latent_channels), device="meta",
+                        dtype=torch.bfloat16)
+        vae.apply(_meta_tree(vae.init(cfg.vae, None, "meta")), z, cfg.vae,
+                  policy)
+
+
+def _record_family(name, mode):
+    """{(part, kernel): [call key, ...]} of one UNet eval (part "unet", the
+    CFG batch of 2) and one VAE decode (part "vae", batch 1) of the
+    configuration ``name`` at its full width under ``mode`` (keys: see
+    ``_recorders``)."""
+    from sdtpu_torch.config import CONFIGS
+
+    cfg = CONFIGS[name]
+    log = {}
+    part = ["unet"]
+    with _recorders(mode, log, part):
+        _run_unet(cfg, mode, 2, cfg.latent_size)
+        part[0] = "vae"
+        _run_vae(cfg, mode, cfg.latent_size)
     return log
 
 
@@ -1309,12 +1357,12 @@ def _family_log(name, mode):
     return _FAMILY_LOGS[name, mode]
 
 
-def _per_image(log, evals):
+def _per_image(log, evals, out=None):
     """Launches per image of each counter of ``chip_smoke.KERNEL_NAMES``:
-    ``evals`` UNet evals and one VAE decode; the conv kernel's int8 launches
-    and the GEMM kernels' sum passes (split K on the card's SMs) as the
-    wrappers count them."""
-    out = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0)
+    ``evals`` UNet evals and one VAE decode (added to ``out`` when given);
+    the conv kernel's int8 launches and the GEMM kernels' sum passes (split
+    K on the card's SMs) as the wrappers count them."""
+    out = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0) if out is None else out
     for (part, kernel), keys in log.items():
         times = evals if part == "unet" else 1
         out[kernel] += times * len(keys)
@@ -1418,6 +1466,192 @@ def test_family_sites_reach_the_new_shapes():
     k4 = _family_sites("matmul_int8w")
     assert (154, 2048, 640) in k4 and (2048, 1280, 10240) in k4
     assert any(k == 2048 for _, k, _ in _family_sites("matmul_w8a8"))
+
+
+# ---------------------------------------------------------------------------
+# image-conditioned serving at full width: the VAE encoder at 512^2 and
+# 1024^2, the hires pass's UNet at a 128^2 latent grid and its 1024^2
+# decode, InstructPix2Pix's UNet batch of 3 and the concat families' UNets,
+# recorded on the meta device as the families' sites are
+# ---------------------------------------------------------------------------
+
+_PART_LOGS = {}
+
+
+def _part_log(kind, name, mode, n=2, size=None):
+    """The log (``_recorders``) of one part of an image call: ``kind``
+    "unet" (one eval at a batch of ``n``), "vae" (a decode) or "enc" (an
+    encode) of the configuration ``name`` on a ``size``^2 latent grid (its
+    own by default); the UNet's part is named "unet", the others "vae"."""
+    from sdtpu_torch.config import CONFIGS
+
+    key = (kind, name, mode, n, size)
+    if key not in _PART_LOGS:
+        cfg = CONFIGS[name]
+        size = size or cfg.latent_size
+        log = {}
+        part = ["unet" if kind == "unet" else "vae"]
+        with _recorders(mode, log, part):
+            if kind == "unet":
+                _run_unet(cfg, mode, n, size)
+            else:
+                _run_vae(cfg, mode, size, encoder=kind == "enc")
+        _PART_LOGS[key] = log
+    return _PART_LOGS[key]
+
+
+def _image_call(call, mode):
+    """[(log, UNet evals), ...] of the smoke run's image call ``call``
+    (``chip_smoke.IMAGE_PINNED``): its UNet's evals, one decode and the
+    encodes it makes."""
+    steps, evals = chip_smoke.STEPS, chip_smoke.IMAGE_EVALS
+    name = {"img2img": "sd15", "inpaint": "sd15", "hires": "sd15"}.get(
+        call, call)
+    evals = {"img2img": evals, "hires": steps, "sd2_depth":
+             chip_smoke.DEPTH_EVALS, "sd21_inpaint": chip_smoke.IMAGE_STEPS_XL,
+             "sdxl_inpaint": chip_smoke.IMAGE_STEPS_XL}.get(call, steps)
+    n = 3 if call == "sd15_ip2p" else 2
+    parts = [(_part_log("unet", name, mode, n), evals)]
+    if call == "hires":
+        parts += [(_part_log("unet", name, mode, 2, 128),
+                   chip_smoke.IMAGE_EVALS),
+                  (_part_log("vae", name, mode, size=128), 1)]
+    else:
+        parts += [(_part_log("vae", name, mode), 1),
+                  (_part_log("enc", name, mode), 1)]
+    return parts
+
+
+@pytest.mark.parametrize("call", sorted(chip_smoke.IMAGE_PINNED))
+def test_image_pins_are_the_rules(call):
+    """Each image call's launches under each mode the smoke run takes, from
+    its sites and the rules, are its pins: img2img at strength 0.6 K1 122
+    (12 evals x 10, the encoder and the decoder), inpaint 202, the hires fix
+    381 (pass 1's 200 without a decode, 12 x 15 and its 1024^2 decode),
+    ip2p 202, sd2_depth at strength 0.8 162; under cuda_conv the encoder
+    adds 20 K3 launches and 20 of K2's statistics mode."""
+    for mode, want in chip_smoke.IMAGE_PINNED[call].items():
+        got = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0)
+        for log, evals in _image_call(call, mode):
+            _per_image(log, evals, got)
+        assert got == want, (call, mode)
+    pinned = chip_smoke.IMAGE_PINNED
+    assert [pinned[c]["cuda"]["flash"] for c in (
+        "img2img", "inpaint", "hires", "sd15_ip2p", "sd2_depth")] == [
+        122, 202, 381, 202, 162]
+    assert pinned["img2img"]["cuda_conv"]["conv"] == 60 * 12 + 28 + 20
+
+
+def test_encoder_sites():
+    """The encoder at 512^2: 20 fused convs (8 down ResBlocks and 2 mid ones
+    x 2) each with one launch of the statistics mode under cuda_conv, its
+    GroupNorms plain under cuda_gn, and one flash call (its mid block)
+    under every policy."""
+    conv = _part_log("enc", "sd15", "cuda_conv")
+    assert len(conv["vae", "conv"]) == 20
+    assert len(conv["vae", "group_norm_affine"]) == 20
+    assert conv["vae", "flash"] == [(1, 4096, 512, 1)]
+    assert ("vae", "group_norm") not in _part_log("enc", "sd15", "cuda_gn")
+    assert sorted(set(k[:6] for k in conv["vae", "conv"])) == [
+        (1, 64, 64, 512, 512, 3), (1, 128, 128, 256, 512, 3),
+        (1, 128, 128, 512, 512, 3), (1, 256, 256, 128, 256, 3),
+        (1, 256, 256, 256, 256, 3), (1, 512, 512, 128, 128, 3)]
+
+
+POLICY_MODES = ("cuda", "cuda_gn", "cuda_conv")
+QUANT_MODES = ("int8w", "int8w_dense", "int8+k5")
+
+
+def _image_sites(kernel):
+    """Every site of ``kernel`` at the new shapes: the encoder at 512^2
+    (SD1.5, SD 2.x) and 1024^2 (SDXL) and the hires pass's 1024^2 decode
+    under every policy (the VAE is never quantized); the hires pass's UNet
+    (SD1.5 at a 128^2 grid) and ip2p's UNet at a batch of 3 under every
+    mode. The 9- and 5-channel UNets' kernel sites are their families' own
+    (conv_in is a cuDNN conv)."""
+    sites = set()
+    for mode in POLICY_MODES + QUANT_MODES:
+        logs = [_part_log("unet", "sd15", mode, 2, 128),
+                _part_log("unet", "sd15_ip2p", mode, 3)]
+        if mode in POLICY_MODES:
+            logs += [_part_log("enc", "sd15", mode),
+                     _part_log("enc", "sdxl", mode),
+                     _part_log("vae", "sd15", mode, size=128)]
+        for log in logs:
+            for (_, k), keys in log.items():
+                if k == kernel:
+                    sites.update(keys)
+    return sorted(sites)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "group_norm",
+                                    "group_norm_affine", "conv",
+                                    "matmul_int8w", "matmul_w8a8"])
+def test_rules_take_every_image_site(kernel):
+    """Every new site through its kernel's static rule, and the plan within
+    what the C entry point accepts (its grid's axes, its 32-bit indexing,
+    the split-K scratch, shared memory). New: K1 at head dims 40, 80 and
+    160 (padded to 48, 80 and 256) over 16,384, 4,096 and 1,024 tokens and
+    at 24 batch-heads; K2 and K3 at N = 3, the hires grid's 128^2 planes and
+    the encoder's 512^2 .. 64^2 levels; K4 and K5 at M = 3 x 4,096 and
+    2 x 16,384."""
+    sites = _image_sites(kernel)
+    assert sites
+    for site in sites:
+        if kernel == "flash":
+            b, sq, c, heads = site
+            d = c // heads
+            dpad, rows, bkv = t_attn.plan(d, sq, sq, b * heads, SMS)
+            assert dpad in t_attn.DPADS and d <= dpad < 2 * d + 16
+            assert rows in (64, 128) and b * heads <= 65535
+            assert _flash_smem(dpad, rows, bkv) <= SMEM_CAP
+            assert b * sq * c < 2 ** 31 and sq % 128 == 0
+        elif kernel in ("group_norm", "group_norm_affine"):
+            n, hw, c, groups = site[:4]
+            p = _check_gn_plan(n, hw, c, groups)
+            assert n * groups <= t_gn.MAX_SAMPLE_GROUPS and hw * c < 2 ** 31
+            assert p["grid"][1] <= 65535
+        elif kernel == "conv":
+            n, h, w, c_in, c_out, ks, int8 = site
+            p = _check_conv_plan(n, h, w, c_in, c_out, ks, int8)
+            assert n * h * w * max(c_in, c_out) < 2 ** 31
+            assert p["splits"] * n * h * w * c_out < 2 ** 31
+            assert -(-c_out // 128) <= 65535
+        elif kernel == "matmul_int8w":
+            test_int8w_plan_covers_k_once_and_fills_the_card(*site)
+            m, k, n = site
+            p = t_mm.plan_int8w(m, k, n, SMS)
+            assert p["splits"] * m * n < 2 ** 31
+            assert max(m * k, m * n) < 2 ** 31
+        else:
+            test_w8a8_plan_covers_k_once_and_fills_the_card(*site)
+            m, k, n = site
+            assert n >= m
+            assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
+
+
+def test_image_sites_reach_the_new_shapes():
+    """The image paths' new shapes are among the sites, and K1's head dim
+    160 pads to 256."""
+    flash = _image_sites("flash")
+    for site in ((2, 16384, 320, 8), (2, 4096, 640, 8), (2, 1024, 1280, 8),
+                 (3, 4096, 320, 8), (3, 1024, 640, 8), (1, 4096, 512, 1),
+                 (1, 16384, 512, 1)):
+        assert site in flash
+    assert t_attn.plan(160, 1024, 1024, 16, SMS)[0] == 256
+    assert (3, 4096, 320, 32, 1e-5, True) in _image_sites("group_norm")
+    assert (2, 16384, 320, 32, 1e-5, True) in _image_sites("group_norm")
+    convs = _image_sites("conv")
+    for site in ((1, 512, 512, 128, 128, 3, False),
+                 (1, 256, 256, 128, 256, 3, False),
+                 (1, 128, 128, 256, 512, 3, False),
+                 (2, 128, 128, 320, 320, 3, False),
+                 (3, 64, 64, 320, 320, 3, False),
+                 (3, 64, 64, 320, 320, 3, True)):
+        assert site in convs
+    k4 = _image_sites("matmul_int8w")
+    assert (12288, 320, 320) in k4 and (32768, 320, 320) in k4
+    assert (3 * 77, 768, 320) in k4
 
 
 # ---------------------------------------------------------------------------

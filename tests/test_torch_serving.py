@@ -286,15 +286,16 @@ def test_step_noise_seam_takes_a_callable(trees):
     ctx = torch.randn(4, L, TINY_T.unet.context_dim,
                       generator=torch.Generator().manual_seed(1))
     x, n = (torch.from_numpy(a) for a in _jax_draws(3, 2))
-    run = functools.partial(t_pipeline.denoise, ttree, ctx, None,
-                            [7.5, 3.0], TINY_T, STEPS, True, noise=x,
-                            sampler="euler_a")
+    run = functools.partial(t_pipeline.denoise, ttree, ctx, [7.5, 3.0],
+                            TINY_T, STEPS, True, noise=x, sampler="euler_a")
     assert torch.equal(run(step_noise=n), run(step_noise=lambda i: n[i]))
     gens = [torch.Generator().manual_seed(s) for s in (7, 8)]
-    xb, nb = t_pipeline.draw_noise(gens, (2, *SHAPE), STEPS, True, "cpu")
-    x1, n1 = t_pipeline.draw_noise(torch.Generator().manual_seed(8),
-                                   (1, *SHAPE), STEPS, True, "cpu")
-    assert torch.equal(xb[1:], x1) and torch.equal(nb[:, 1:], n1)
+    names = ("noise", "step_noise")
+    b = t_pipeline.draw_noise(gens, (2, *SHAPE), STEPS, names, "cpu")
+    one = t_pipeline.draw_noise(torch.Generator().manual_seed(8),
+                                (1, *SHAPE), STEPS, names, "cpu")
+    assert torch.equal(b["noise"][1:], one["noise"])
+    assert torch.equal(b["step_noise"][:, 1:], one["step_noise"])
 
 
 # ---------------------------------------------------------------------------
@@ -329,11 +330,11 @@ def test_generate_batch_matches_jax(trees, ctx, monkeypatch):
     jctx = j_context.Context(config="tiny", steps=STEPS, compile_cache=None)
     ref = jctx.generate_batch(REQUESTS)
 
-    def draws(generator, shape, steps, with_steps, device):
-        assert len(generator) == 4 and not with_steps
+    def draws(generator, shape, steps, names, device):
+        assert len(generator) == 4 and tuple(names) == ("noise",)
         seeds = [r["seed"] for r in REQUESTS] + [REQUESTS[0]["seed"]]
-        return torch.from_numpy(np.concatenate(
-            [_jax_draws(s, 1)[0] for s in seeds])), None
+        return {"noise": torch.from_numpy(np.concatenate(
+            [_jax_draws(s, 1)[0] for s in seeds]))}
 
     monkeypatch.setattr(t_pipeline, "draw_noise", draws)
     ours = ctx.generate_batch(REQUESTS)
