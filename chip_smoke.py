@@ -135,7 +135,24 @@ Phases, each printing one JSON object per line:
    and ``sd15_ip2p`` at 20 steps under cuda and cuda_conv, ``sd2_depth``
    at 20 steps (strength 0.8) under cuda, ``sd21_inpaint`` and
    ``sdxl_inpaint`` at 4 steps under cuda (their kernel sites, not a speed
-   measure), each call held as in the image phase.
+   measure), each call held as in the image phase;
+17. knobs, after the image phase, on its Contexts: ``Context``'s knobs on
+   SD1.5 at full width, ``KNOB_STEPS`` DPM-Solver++(2M) steps, CFG 7.5,
+   one arm each (``KNOB_ARMS``): ToMe at 0.5 and at 0.3 (2,868 merged
+   tokens: K1's rule sends them to the plain path), DeepCache 3, PAG 3.0
+   at its default ("mid",) and at ("down", "up"), the CFG interval (0.2,
+   0.8), CFG rescale 0.7, FreeU (1.5, 1.6, 0.9, 0.2), ``size=768``,
+   ``fuse_qkv``, and DeepCache under ``cuda_conv`` and ToMe with PAG under
+   ``quantize="int8w_dense"``. Each arm: uint8, not constant, finite
+   latents whose decode gives the same bytes (the same seed), every
+   kernel's launches per image at ``KNOBS_PINNED`` (derived on the meta
+   device from the port's own loop by tests/test_torch_hopper.py); then
+   s/image and device busy ms of ToMe 0.5, DeepCache 3 and the CFG
+   interval against the knob off, in turns; then kernel_knobs_*: K1-K5 at
+   every new site the knobs make (ToMe's 2,048-token self-attention and
+   its GEMM rows, the batch-1 evals of PAG and of the interval's unguided
+   steps, the 96^2 and 48^2 levels of ``size=768``), against their plain
+   versions with the existing tolerances.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -2189,6 +2206,70 @@ def phase_families(smi):
     return out
 
 
+# the knobs phase: SD1.5 at KNOB_STEPS steps, launches per image of each
+# kernel in each arm, derived from the port's own denoising loop run on the
+# meta device with the kernel wrappers recorded
+# (tests/test_torch_hopper.py::test_knob_pins_are_the_rules):
+#   flash: 10 an eval and the VAE's mid block. ToMe 0.5 merges the five
+#     64x64 self-attentions to 2,048 tokens (still the kernel); ToMe 0.3
+#     to 2,868 (not a multiple of 128: the plain path), 5 an eval left.
+#     DeepCache 3 runs full evals at steps 0, 3, 6 and shallow ones (the
+#     64x64 level's 2 down and 3 up transformers, its 6 + 9 fused convs)
+#     at the other 5. PAG at ("mid",) adds an eval of the cond rows a step
+#     (10 more), at ("down", "up") one whose self-attentions are identity
+#     (none); the interval's unguided steps run the cond rows alone (10);
+#     size=768 takes the 96^2 and 48^2 levels (9,216 and 2,304 tokens) and
+#     the 96^2 VAE mid block;
+#   int8w_dense with ToMe and PAG: K4 at the 228 sites of a CFG eval and the
+#     226 of the perturbed one (the mid block's q and k skipped), 301 of
+#     them a step splitting K (ToMe halves M at the 64x64 attn1 sites, the
+#     batch-1 eval everywhere)
+KNOB_STEPS = 8
+KNOB_SEED = 37
+#: label -> (Context keywords, generate keywords, mode). tome_ratio and
+#: deepcache alone are set on the shared Context of the mode
+#: (set_tome_ratio, set_deepcache); every other arm builds its own Context
+KNOB_ARMS = {
+    "tome_0.5": ({"tome_ratio": 0.5}, {}, "cuda"),
+    "tome_0.3": ({"tome_ratio": 0.3}, {}, "cuda"),
+    "deepcache_3": ({"deepcache": 3}, {}, "cuda"),
+    "pag_mid": ({}, {"pag_scale": 3.0}, "cuda"),
+    "pag_down_up": ({"pag_layers": ("down", "up")}, {"pag_scale": 3.0},
+                    "cuda"),
+    "cfg_interval": ({"cfg_interval": (0.2, 0.8)}, {}, "cuda"),
+    "guidance_rescale": ({"guidance_rescale": 0.7}, {}, "cuda"),
+    "freeu": ({"freeu": (1.5, 1.6, 0.9, 0.2)}, {}, "cuda"),
+    "size_768": ({"size": 768}, {}, "cuda"),
+    "fuse_qkv": ({"fuse_qkv": True}, {}, "cuda"),
+    "deepcache_3_cuda_conv": ({"deepcache": 3}, {}, "cuda_conv"),
+    "tome_pag_int8w_dense": ({"tome_ratio": 0.5}, {"pag_scale": 3.0},
+                             "int8w_dense"),
+}
+KNOB_SETTABLE = ("tome_ratio", "deepcache")
+KNOB_FLASH = 10 * KNOB_STEPS + 1
+KNOB_SHALLOW = 5
+KNOBS_PINNED = {
+    "tome_0.5": pins(flash=KNOB_FLASH),
+    "tome_0.3": pins(flash=5 * KNOB_STEPS + 1),
+    "deepcache_3": pins(flash=10 * 3 + 5 * KNOB_SHALLOW + 1),
+    "pag_mid": pins(flash=20 * KNOB_STEPS + 1),
+    "pag_down_up": pins(flash=KNOB_FLASH),
+    "cfg_interval": pins(flash=KNOB_FLASH),
+    "guidance_rescale": pins(flash=KNOB_FLASH),
+    "freeu": pins(flash=KNOB_FLASH),
+    "size_768": pins(flash=KNOB_FLASH),
+    "fuse_qkv": pins(flash=KNOB_FLASH),
+    "deepcache_3_cuda_conv": pins(flash=10 * 3 + 5 * KNOB_SHALLOW + 1,
+                                  group_norm_affine=60 * 3 + 15 * 5 + 28,
+                                  conv=60 * 3 + 15 * 5 + 28),
+    "tome_pag_int8w_dense": pins(flash=20 * KNOB_STEPS + 1,
+                                 matmul_int8w=(228 + 226) * KNOB_STEPS,
+                                 matmul_int8w_sum=301 * KNOB_STEPS),
+}
+#: the A/B's arms, in turns there and back: the knob off and three that
+#: cut the work of an image
+KNOB_AB = ("off", "tome_0.5", "deepcache_3", "cfg_interval")
+
 IMAGE_SEED = 29
 IMAGE_STRENGTH = 0.6
 DEPTH_STRENGTH = 0.8
@@ -2428,6 +2509,159 @@ def phase_concat(smi):
     return launches
 
 
+def knob_context(shared, label):
+    """(the Context arm ``label`` runs on, whether the arm built it): the
+    shared Context of its mode with the settable knobs set, or a new
+    SD1.5 Context with the arm's keywords."""
+    from sdtpu_torch import Context
+
+    ckw, _, mode = KNOB_ARMS[label]
+    if set(ckw) <= set(KNOB_SETTABLE):
+        c = shared[mode]
+        c.kernels = "cuda_conv" if mode == "cuda_conv" else "cuda"
+        c.set_tome_ratio(ckw.get("tome_ratio", 0))
+        c.set_deepcache(ckw.get("deepcache", 0))
+        return c, False
+    return Context(config="sd15", steps=KNOB_STEPS, device="cuda",
+                   kernels="cuda", **ckw), True
+
+
+def phase_knobs(ctx, ctx_d, smi):
+    """Each arm of ``KNOB_ARMS`` (module docstring, item 17) with its pins,
+    the same bytes from the same seed and finite latents; then s/image and
+    device busy ms of ``KNOB_AB`` in turns on the same weights. The shared
+    Contexts get their steps, knobs and policy back. Returns the launches
+    per arm."""
+    shared = {"cuda": ctx, "cuda_conv": ctx, "int8w_dense": ctx_d}
+    launches, seconds, keep = {}, {}, {}
+    start = time.perf_counter()
+    for c in (ctx, ctx_d):
+        c.set_steps(KNOB_STEPS)
+    try:
+        for label, (_, gkw, mode) in KNOB_ARMS.items():
+            c, own = knob_context(shared, label)
+            img, launches[label], seconds[label], lat = checked_call(
+                c, lambda **kw: c.generate(PROMPT, guidance=7.5, **gkw,
+                                           **kw),
+                KNOBS_PINNED[label], f"knobs {label}", KNOB_SEED)
+            emit({"phase": "knob_arm", "arm": label, "mode": mode,
+                  "steps": KNOB_STEPS, "size": c.cfg.image_size,
+                  "seconds": seconds[label],
+                  "init_s": c.init_seconds if own else None,
+                  "launches_per_image": launches[label], "identical": True,
+                  "latent_abs_max": float(np.abs(lat).max()),
+                  "image_mean": float(img.mean()),
+                  "image_std": float(img.std())})
+            if label in KNOB_AB:
+                keep[label] = c
+            elif own:
+                release(c)
+        keep["off"] = ctx
+        times = {k: [] for k in KNOB_AB}
+        busy = {}
+        for label in KNOB_AB + KNOB_AB[::-1]:
+            c = keep[label]
+            if c is ctx:
+                ctx.kernels = "cuda"
+                ctx.set_tome_ratio(0.5 if label == "tome_0.5" else 0)
+                ctx.set_deepcache(3 if label == "deepcache_3" else 0)
+            t0 = time.perf_counter()
+            c.generate(PROMPT, guidance=7.5, seed=KNOB_SEED)
+            times[label].append(time.perf_counter() - t0)
+            if label not in busy:
+                by_name, kernels, wall_ms = device_profile(
+                    lambda: c.generate(PROMPT, guidance=7.5,
+                                       seed=KNOB_SEED))
+                busy[label] = {"device_busy_ms": sum(by_name.values()),
+                               "device_kernels": kernels,
+                               "profiled_wall_ms": wall_ms}
+        emit({"phase": "knobs", "nvidia_smi": smi, "steps": KNOB_STEPS,
+              "s_per_image": {k: statistics.mean(v)
+                              for k, v in times.items()},
+              "image_s": times, "profile": busy, "launches": launches,
+              "first_call_s": seconds,
+              "seconds": time.perf_counter() - start})
+    finally:
+        for c in (ctx, ctx_d):
+            c.set_tome_ratio(0)
+            c.set_deepcache(0)
+            c.set_steps(STEPS)
+            c.kernels = "cuda"
+        release(*(c for c in keep.values() if c is not ctx))
+    return launches
+
+
+def phase_knob_kernels(ctx, main_sites, main_mm):
+    """K1-K5 at every site the knobs make that the main path does not
+    (``kernel_knobs_*``): one SD1.5 UNet eval with ToMe 0.5 at the CFG
+    batch (x ``KNOB_STEPS``), one of the cond rows alone, as PAG's
+    perturbed eval and the interval's unguided steps run it, and one at
+    size=768 with its 96^2 decode; K2 and K3 at the batch-1 eval (the 96^2
+    planes are SD 2.1 768's, held in the families phase), K4 and K5 at the
+    ToMe and batch-1 GEMM rows of the UNet quantized on the card. Each
+    against its plain version with the existing tolerances. Returns
+    {kernel: rows}."""
+    import dataclasses
+
+    from sdtpu_torch.models import unet, vae
+
+    cfg = ctx.cfg
+    dt = cfg.compute_dtype
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def inputs(n, size):
+        return (torch.randn((n, size, size, 4), generator=g,
+                            device="cuda").to(dt),
+                torch.randn((n, cfg.unet.time_embed_dim), generator=g,
+                            device="cuda").to(dt),
+                torch.randn((n, cfg.clip.context_len, cfg.unet.context_dim),
+                            generator=g, device="cuda").to(dt))
+
+    tome = dataclasses.replace(cfg.unet, tome_ratio=0.5)
+    two, one, big = inputs(2, 64), inputs(1, 64), inputs(2, 96)
+    z = torch.randn((1, 96, 96, 4), generator=g, device="cuda").to(dt)
+    p = ctx.params
+    flash = {}
+    for runs in (
+            [(KNOB_STEPS, lambda k: unet.apply(p["unet"], *two, tome, k))],
+            [(KNOB_STEPS, lambda k: unet.apply(p["unet"], *big, cfg.unet,
+                                               k)),
+             (1, lambda k: vae.apply(p["vae"], z, cfg.vae, k))]):
+        for key, n in record_sites(runs)["flash"].items():
+            flash[key] = flash.get(key, 0) + n
+    batch1 = record_sites([(KNOB_STEPS, lambda k: unet.apply(
+        p["unet"], *one, cfg.unet, k, perturb=("mid",)))])
+    for key, n in batch1["flash"].items():
+        flash[key] = flash.get(key, 0) + n
+
+    def new(found, seen):
+        return {k: v for k, v in found.items() if k not in seen}
+
+    flash = new(flash, main_sites["flash"])
+    gn = new(batch1["group_norm"], main_sites["group_norm"])
+    conv = new(batch1["conv"], main_sites["conv"])
+    emit({"phase": "sites_knobs", "flash": sorted(flash),
+          "group_norm": len(gn), "conv": len(conv)})
+    rows = {"flash": phase_kernel(sorted(flash), [], "kernel_knobs",
+                                  per_image=flash),
+            "group_norm": phase_kernel_gn(gn, [], "kernel_knobs_gn"),
+            "group_norm_affine": phase_kernel_gn_affine(
+                conv, [], "kernel_knobs_gn_affine",
+                sum(n for k, n in conv.items() if k[3])),
+            "conv": phase_kernel_conv(conv, [], 1, "kernel_knobs_conv",
+                                      int8=False)}
+    ctx.set_tome_ratio(0.5)
+    try:
+        merged = record_mm_sites(ctx, *two, KNOB_STEPS)
+    finally:
+        ctx.set_tome_ratio(0)
+    alone = record_mm_sites(ctx, *one, KNOB_STEPS)
+    mm = {label: new({**merged[label], **alone[label]}, main_mm[label])
+          for label in ("int8w_dense", "int8+k5")}
+    rows.update(phase_kernel_mm(mm, [], "kernel_knobs_mm"))
+    return rows
+
+
 def image_summary(rows, launches):
     """A kernel's rows at the image sites for the ``kernels`` line, as
     ``family_summary``; None where the group has no site of it."""
@@ -2514,7 +2748,8 @@ def main() -> int:
                     quantize="int8", device="cuda")
     phase_calibrate(ctx_i)
     phase_widening()
-    mm_rows = phase_kernel_mm(phase_mm_sites(ctx_d, ctx_w, ctx_i))
+    mm_sites = phase_mm_sites(ctx_d, ctx_w, ctx_i)
+    mm_rows = phase_kernel_mm(mm_sites)
     k4_rows, k5_rows = mm_rows["matmul_int8w"], mm_rows["matmul_w8a8"]
     emit({"phase": "kernel_totals_mm", "per_image_ms": {
         "matmul_int8w_kernel": per_image_ms(k4_rows, "ms"),
@@ -2537,6 +2772,10 @@ def main() -> int:
     # the sites it brings
     img_launches = phase_image(ctx, ctx_d, smi)
     img_rows = phase_image_kernels(ctx)
+    # the Context knobs on the same Contexts, then the kernels at the sites
+    # they make
+    knob_launches = phase_knobs(ctx, ctx_d, smi)
+    knob_rows = phase_knob_kernels(ctx, sites, mm_sites)
 
     # the user's model: the demo weights written as checkpoint files and
     # served from them, then the text features on the native file
@@ -2578,6 +2817,11 @@ def main() -> int:
                 "launches": {k: v[counter]
                              for k, v in img_launches.items()}}
 
+    def knobs(kernel, counter):
+        return {"rows": image_summary(knob_rows.get(kernel), None),
+                "launches": {k: v[counter]
+                             for k, v in knob_launches.items()}}
+
     def families(kernel, counter, sdxl_mode, sd21_mode):
         return {"sdxl": family_summary(fam["rows"]["sdxl"][kernel],
                                        fl[f"sdxl_{sdxl_mode}"][counter]),
@@ -2608,6 +2852,7 @@ def main() -> int:
          "batch4": batch_summary(b4["flash"]),
          "families": families("flash", "flash", "cuda", "cuda"),
          "image": images("flash", "flash"),
+         "knobs": knobs("flash", "flash"),
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -2626,6 +2871,7 @@ def main() -> int:
          "families": families("group_norm", "group_norm", "cuda_gn",
                               "cuda_gn"),
          "image": images("group_norm", "group_norm"),
+         "knobs": knobs("group_norm", "group_norm"),
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -2648,6 +2894,7 @@ def main() -> int:
          "batch4": batch_summary(b4["conv"]),
          "families": families("conv", "conv", "cuda_conv", "cuda_conv"),
          "image": images("conv", "conv"),
+         "knobs": knobs("conv", "conv"),
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -2670,6 +2917,7 @@ def main() -> int:
          "families": families("group_norm_affine", "group_norm_affine",
                               "cuda_conv", "cuda_conv"),
          "image": images("group_norm_affine", "group_norm_affine"),
+         "knobs": knobs("group_norm_affine", "group_norm_affine"),
          "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
@@ -2690,6 +2938,7 @@ def main() -> int:
          "families": families("matmul_int8w", "matmul_int8w",
                               "int8w_dense", "int8w_dense"),
          "image": images("matmul_int8w", "matmul_int8w"),
+         "knobs": knobs("matmul_int8w", "matmul_int8w"),
          "timed_shape": [k4_main[d] for d in "mkn"]},
         {"name": "matmul_w8a8", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
@@ -2714,6 +2963,7 @@ def main() -> int:
          "families": families("matmul_w8a8", "matmul_w8a8", "int8+k5",
                               "int8+k5"),
          "image": images("matmul_w8a8", "matmul_w8a8"),
+         "knobs": knobs("matmul_w8a8", "matmul_w8a8"),
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,9 @@
 
 Carried over from ``sdtpu/config.py`` (the JAX package), cut to the fields
 the txt2img and image-conditioned paths of SD v1.5, SD 2.x and SDXL-base
-read, and the concat-conditioned variants (inpaint, depth, InstructPix2Pix)
-whose UNet takes extra input planes. Field names, defaults and the values
+read, the concat-conditioned variants (inpaint, depth, InstructPix2Pix)
+whose UNet takes extra input planes, and the Context knobs (FreeU, ToMe,
+CFG rescale, DeepCache). Field names, defaults and the values
 are the JAX package's; ``tests/test_torch_slice.py``,
 ``tests/test_torch_families.py`` and ``tests/test_torch_image.py`` pin them
 against it.
@@ -56,6 +57,14 @@ class UNetConfig:
     # input width of the additive conditioning MLP (SDXL: 2816 = 1280
     # pooled + 6 x 256 fourier micro-conditions); 0 = none
     adm_in_channels: int = 0
+    # FreeU (Si et al. 2023): (b1, b2, s1, s2) backbone/skip rebalancing at
+    # the two deepest decoder widths; None = off. Set via Context(freeu=...)
+    freeu: Optional[Tuple[float, float, float, float]] = None
+    # ToMe-SD (Bolya & Hoffman 2023): merge this fraction of spatial tokens
+    # before each self-attention of at least tome_min_tokens tokens (4096:
+    # the 64x64 level and up); 0.0 = off. Set via Context(tome_ratio=...)
+    tome_ratio: float = 0.0
+    tome_min_tokens: int = 4096
 
     def depth_at(self, lvl: int) -> int:
         if not self.transformer_depth:
@@ -98,6 +107,14 @@ class PipelineConfig:
     # the SDXL refiner's single-tower layout: a later slice of the port;
     # Context refuses a config that sets it
     refiner: bool = False
+    # CFG rescale (Lin et al. 2023): blend the guided eps toward itself
+    # rescaled to the cond prediction's per-sample std; 0 = off. Set via
+    # Context(guidance_rescale=...)
+    guidance_rescale: float = 0.0
+    # DeepCache (Ma et al. 2023): a full UNet eval every N steps, the cached
+    # deep feature spliced into a shallow eval between; None = off. Set via
+    # Context(deepcache=N)
+    deepcache_interval: Optional[int] = None
 
     @property
     def image_size(self) -> int:

@@ -51,8 +51,24 @@ with their own image, mask, ``guidance``, ``seed`` and
 two with one generator a request. Each call's generator makes its draws in
 the order ``pipeline.draw_noise`` fixes.
 ``sampler`` is any name of ``samplers.SAMPLERS`` (``"dpm"`` by default).
-The reference's LoRA, ControlNet, PAG, two-stage and mesh arguments are
-refused with ``INVALID_ARGUMENT`` until their slices of the port.
+The reference's LoRA, ControlNet, two-stage and mesh arguments are refused
+with ``INVALID_ARGUMENT`` until their slices of the port.
+
+The constructor takes the reference's keywords with its names, defaults
+and positional order (``sdtpu/engine/context.py:60-84``); ``device`` is
+the port's own, keyword-only and last. The knobs
+(``sdtpu/engine/context.py:108-245``), each off by default: ``size`` (the
+image side, a multiple of 8 x the VAE's factor), ``freeu``, ``tome_ratio``
+(``set_tome_ratio``), ``deepcache`` (``set_deepcache``),
+``guidance_rescale``, ``cfg_interval`` and ``pag_layers`` (the sections a
+request's ``pag_scale`` perturbs; ``set_pag_scale`` sets a default);
+``fuse_qkv`` fuses the attention projections of an unquantized UNet. A bad
+value is ``INVALID_ARGUMENT`` with the reference's text; knobs that do not
+compose (``pipeline.check_knobs``) too. ``log_level`` and ``self.logger``
+are the reference's (``engine.logging``); ``threads > 1`` loads the models
+and the tokenizer on two worker threads, as ``_init_mt`` does. The
+reference's ``compile_cache`` (its XLA executable cache) has no effect
+here: the kernels build into ``sdtpu_torch/_build/``.
 
 The device is the card unless the caller asks for another:
 ``Context(...)`` runs on ``"cuda"`` and raises ``RUNTIME_ERROR`` where there
@@ -76,6 +92,7 @@ default.
 
 from __future__ import annotations
 
+import concurrent.futures as _fut
 import dataclasses
 import pickle
 import time
@@ -87,13 +104,16 @@ import torch
 
 from sdtpu_torch import text as text_mod
 from sdtpu_torch.config import CONFIGS, NOT_PORTED, PipelineConfig
+from sdtpu_torch.engine import logging as slog
 from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.errors import ErrorCode, ErrorTable, SdtpuError
 from sdtpu_torch.io import safetensors as st
-from sdtpu_torch.io.params import cast_params, init_tree, tree_names
+from sdtpu_torch.io.params import (cast_params, fuse_attention_projections,
+                                   init_tree, tree_names)
 from sdtpu_torch.io.weights import UnsupportedCheckpoint, load_pipeline_params
 from sdtpu_torch.models.layers import disable_tf32
-from sdtpu_torch.quant.ptq import quantize_unet, quantize_weights_only
+from sdtpu_torch.quant.ptq import (count_quantized, quantize_unet,
+                                   quantize_weights_only)
 from sdtpu_torch.samplers import SAMPLERS
 from sdtpu_torch.tokenizer import DEMO_MERGES, Tokenizer
 
@@ -110,15 +130,26 @@ class Context:
         steps: int = 20,
         sampler: str = "dpm",
         config: PipelineConfig | str = "sd15",
+        log_level: slog.LogLevel = slog.LogLevel.ERROR,
         kernels: str = "auto",
-        seed: int = 0,
         quantize: str = "none",
-        *,
-        device="cuda",
-        mesh=None,
+        threads: int = 3,
+        seed: int = 0,
+        size: Optional[int] = None,
+        fuse_qkv: bool = False,
+        mesh: Optional[tuple[int, int]] = None,
+        compile_cache: Optional[str] = "~/.cache/sdtpu/xla",
         lora: Optional[str] = None,
         embeddings: Optional[dict] = None,
+        cfg_interval: Optional[tuple] = None,
         clip_skip: int = 1,
+        freeu: Optional[tuple] = None,
+        guidance_rescale: float = 0.0,
+        pag_layers: tuple = ("mid",),
+        tome_ratio: float = 0.0,
+        deepcache: Optional[int] = None,
+        *,
+        device="cuda",
     ) -> None:
         self.errors = ErrorTable()
         self._failed = False
@@ -129,48 +160,31 @@ class Context:
                 "no CUDA device (torch.cuda.is_available() is false); pass "
                 "device='cpu' to run the plain versions on the host",
                 self.errors)
-        if isinstance(config, str):
-            if config.lower() in NOT_PORTED:
-                raise SdtpuError(
-                    ErrorCode.INVALID_ARGUMENT,
-                    f"config {config!r} is not ported yet (ROADMAP "
-                    f"{NOT_PORTED[config.lower()]}); available: "
-                    f"{sorted(CONFIGS)}", self.errors)
-            if config.lower() not in CONFIGS:
-                raise SdtpuError(
-                    ErrorCode.INVALID_ARGUMENT,
-                    f"unknown config {config!r}; available: "
-                    f"{sorted(CONFIGS)}", self.errors)
-            config = CONFIGS[config.lower()]
-        if config.refiner:
-            raise SdtpuError(
-                ErrorCode.INVALID_ARGUMENT,
-                f"a refiner config is not ported yet (ROADMAP "
-                f"{NOT_PORTED['sdxl_refiner']})", self.errors)
-        if clip_skip != 1:
-            # A1111 "CLIP skip": tap the text tower clip_skip - 1 blocks
-            # early, then the final LN (sdtpu/engine/context.py:123-139);
-            # single-tower configurations only: XL's towers already tap
-            # their penultimate hidden states
-            if (not isinstance(clip_skip, int) or clip_skip < 1
-                    or clip_skip > config.clip.layers
-                    or config.clip2 is not None):
-                raise SdtpuError(
-                    ErrorCode.INVALID_ARGUMENT,
-                    f"clip_skip must be an int in [1, clip.layers] on a "
-                    f"single-tower config, got {clip_skip!r}", self.errors)
-            config = dataclasses.replace(config, clip=dataclasses.replace(
-                config.clip, skip_last=clip_skip - 1))
-        self.cfg = config
-        self.model_dir = Path(model_dir) if model_dir else None
-        self._embeddings: dict[str, int] = {}   # placeholder -> rows
         _refuse_unported(self.errors, mesh=mesh, lora=lora)
+        self.cfg = self._configure(config, size, clip_skip, freeu,
+                                   tome_ratio, deepcache, guidance_rescale)
+        self.logger = slog.Logger(log_level,
+                                  name=f"sdtpu@{hex(id(self))[-4:]}")
+        self.model_dir = Path(model_dir) if model_dir else None
+        self.fuse_qkv = bool(fuse_qkv)
+        self._embeddings: dict[str, int] = {}   # placeholder -> rows
+        #: the default PAG strength of a generate call that passes none
+        self._default_pag: Optional[float] = None
         if not isinstance(sampler, str) or sampler.lower() not in SAMPLERS:
             raise SdtpuError(
                 ErrorCode.INVALID_ARGUMENT,
                 f"unknown sampler {sampler!r}; available: {sorted(SAMPLERS)}",
                 self.errors)
         self.sampler = sampler
+        self.cfg_interval = self._check_cfg_interval(cfg_interval)
+        pag_layers = ((pag_layers,) if isinstance(pag_layers, str)
+                      else tuple(pag_layers))
+        if not set(pag_layers) <= {"down", "mid", "up"} or not pag_layers:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"pag_layers must be a non-empty subset of "
+                f"('down', 'mid', 'up'), got {pag_layers!r}", self.errors)
+        self.pag_layers = pag_layers
         if kernels == "auto":
             kernels = "cuda" if self.device.type == "cuda" else "plain"
         if kernels not in KERNELS:
@@ -193,19 +207,118 @@ class Context:
         self.tokenizer: Optional[Tokenizer] = None
         self._uncond = None
         disable_tf32()
-        if self.steps < 1:
-            self._fail(ErrorCode.INVALID_ARGUMENT,
-                       f"steps must be >= 1, got {steps}")
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            self._load_models()
-            self._load_tokenizer()
-            self._prepare_buffers()
-            # textual inversion needs the params (rows appended) and the
-            # tokenizer (placeholders registered)
-            for word, src in (embeddings or {}).items():
-                self.load_embedding(word, src)
-        self.init_seconds = time.perf_counter() - t0
+        with slog.logger_scope(self.logger):
+            t0 = time.perf_counter()
+            if self.steps < 1:
+                self._fail(ErrorCode.INVALID_ARGUMENT,
+                           f"steps must be >= 1, got {steps}")
+            self._init_mt(threads, embeddings or {})
+            self.init_seconds = time.perf_counter() - t0
+            n = sum(t.numel() for t in _leaves(self.params or {}))
+            self.logger.info(
+                f"initialized in {self.init_seconds:.2f}s "
+                f"({n / 1e6:.1f}M params, device={self.device.type})")
+
+    def _configure(self, config, size, clip_skip, freeu, tome_ratio,
+                   deepcache, guidance_rescale) -> PipelineConfig:
+        """The configuration by name (or as given) with the init-time knobs
+        applied, each checked with the reference's text
+        (``sdtpu/engine/context.py:108-193``)."""
+        if isinstance(config, str):
+            if config.lower() in NOT_PORTED:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"config {config!r} is not ported yet (ROADMAP "
+                    f"{NOT_PORTED[config.lower()]}); available: "
+                    f"{sorted(CONFIGS)}", self.errors)
+            if config.lower() not in CONFIGS:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"unknown config {config!r}; available: "
+                    f"{sorted(CONFIGS)}", self.errors)
+            config = CONFIGS[config.lower()]
+        if config.refiner:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"a refiner config is not ported yet (ROADMAP "
+                f"{NOT_PORTED['sdxl_refiner']})", self.errors)
+        replace = dataclasses.replace
+        if size is not None:
+            # the UNet and the VAE are convolutional: only the latent grid
+            # changes
+            if (isinstance(size, bool) or not isinstance(size, int)
+                    or size % (8 * config.upscale)
+                    or size < config.upscale * 8):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"size must be a positive multiple of "
+                    f"{8 * config.upscale}, got {size}", self.errors)
+            config = replace(config, latent_size=size // config.upscale)
+        if clip_skip != 1:
+            # A1111 "CLIP skip": tap the text tower clip_skip - 1 blocks
+            # early, then the final LN (sdtpu/engine/context.py:123-139);
+            # single-tower configurations only: XL's towers already tap
+            # their penultimate hidden states
+            if (not isinstance(clip_skip, int) or clip_skip < 1
+                    or clip_skip > config.clip.layers
+                    or config.clip2 is not None):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"clip_skip must be an int in [1, clip.layers] on a "
+                    f"single-tower config, got {clip_skip!r}", self.errors)
+            config = replace(config, clip=replace(
+                config.clip, skip_last=clip_skip - 1))
+        if freeu is not None:
+            if not isinstance(freeu, (tuple, list)) or len(freeu) != 4:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"freeu must be (b1, b2, s1, s2), got {freeu!r}",
+                    self.errors)
+            config = replace(config, unet=replace(
+                config.unet, freeu=tuple(float(v) for v in freeu)))
+        if tome_ratio:
+            config = replace(config, unet=replace(
+                config.unet, tome_ratio=self._check_tome(
+                    tome_ratio, "tome_ratio must be in (0, 0.75] (at most "
+                    "the 3/4 of tokens outside the 2x2 merge targets), "
+                    f"got {tome_ratio}")))
+        if deepcache is not None:
+            if (isinstance(deepcache, bool) or not isinstance(deepcache, int)
+                    or deepcache < 2):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"deepcache must be an int interval >= 2 (full-eval "
+                    f"cadence), got {deepcache!r}", self.errors)
+            config = replace(config, deepcache_interval=deepcache)
+        if guidance_rescale:
+            if not 0.0 <= guidance_rescale <= 1.0:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"guidance_rescale must be in [0, 1], got "
+                    f"{guidance_rescale}", self.errors)
+            config = replace(config,
+                             guidance_rescale=float(guidance_rescale))
+        return config
+
+    def _check_tome(self, ratio, why: str) -> float:
+        if not 0.0 < ratio <= 0.75:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, why, self.errors)
+        return float(ratio)
+
+    def _check_cfg_interval(self, cfg_interval):
+        """(lo, hi) floats with 0 <= lo < hi <= 1, or None."""
+        if cfg_interval is None:
+            return None
+        why = (f"cfg_interval must be 0 <= lo < hi <= 1, got "
+               f"{cfg_interval}")
+        try:
+            lo, hi = cfg_interval
+            ok = 0.0 <= lo < hi <= 1.0
+        except (TypeError, ValueError):
+            ok = False
+        if not ok:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, why, self.errors)
+        return float(lo), float(hi)
 
     # ------------------------------------------------------------------
     # phased init
@@ -215,6 +328,32 @@ class Context:
         self._failed = True
         raise SdtpuError(code, reason, self.errors)
 
+    def _init_mt(self, threads: int, embeddings: dict) -> None:
+        """The phases (``sdtpu/engine/context.py:290-305``): with ``threads
+        > 1`` the models and the tokenizer load on two worker threads, then
+        the buffers; then the textual-inversion embeddings, which need the
+        params (rows appended) and the tokenizer (placeholders
+        registered)."""
+        def phase(fn):
+            def run():
+                with torch.inference_mode(), slog.logger_scope(self.logger):
+                    fn()
+            return run
+
+        if threads > 1:
+            with _fut.ThreadPoolExecutor(max_workers=2) as ex:
+                f_models = ex.submit(phase(self._load_models))
+                f_tok = ex.submit(phase(self._load_tokenizer))
+                f_models.result()
+                f_tok.result()
+        else:
+            phase(self._load_models)()
+            phase(self._load_tokenizer)()
+        with torch.inference_mode():
+            self._prepare_buffers()
+            for word, src in embeddings.items():
+                self.load_embedding(word, src)
+
     def _load_models(self) -> None:
         """The checkpoint under ``model_dir``, converted, cast to the
         compute dtype and moved one leaf at a time; or random demo weights
@@ -222,27 +361,38 @@ class Context:
         model is freed before the next is built). Then quantized as
         ``quantize`` says: after the cast, and the UNet only
         (``sdtpu/engine/context.py:307-386``)."""
+        t0 = time.perf_counter()
         try:
             dtype = self.cfg.compute_dtype
             if self.model_dir is not None:
                 params = load_pipeline_params(self.model_dir, self.cfg,
                                               dtype=dtype, device=self.device)
             else:
+                self.logger.info("no model_dir: random-init demo weights")
                 gen = torch.Generator(device=self.device).manual_seed(0)
                 params = {name: cast_params(init_tree(name, self.cfg, gen,
                                                       self.device), dtype)
                           for name in tree_names(self.cfg)}
             if self.quantize == "int8":
                 params = quantize_unet(params)
+                self.logger.info(f"int8 PTQ: {count_quantized(params)} "
+                                 f"matmul sites quantized")
             elif self.quantize.startswith("int8w"):
+                dense_too = self.quantize == "int8w_dense"
                 params["unet"] = quantize_weights_only(
-                    params["unet"],
-                    include_dense=self.quantize == "int8w_dense")
+                    params["unet"], include_dense=dense_too)
+                self.logger.info(f"weight-only int8 ({self.quantize}): UNet "
+                                 f"convs" + ("+matmuls" if dense_too else ""))
+            elif self.fuse_qkv:
+                # only an unquantized tree: the quantizers and the
+                # checkpoint layout keep the unfused projections
+                params = fuse_attention_projections(params)
             self.params = params
         except UnsupportedCheckpoint as e:
             self._fail(ErrorCode.INVALID_ARGUMENT, str(e))
         except Exception as e:  # noqa: BLE001 - init boundary, latched
             self._fail(ErrorCode.RUNTIME_ERROR, f"model load failed: {e}")
+        self.logger.info(f"models loaded in {time.perf_counter() - t0:.2f}s")
 
     def _load_tokenizer(self) -> None:
         """``model_dir/ctokenizer.txt`` when there is one, else the demo
@@ -367,6 +517,31 @@ class Context:
     def set_seed(self, seed: int) -> None:
         self.seed = int(seed)
 
+    def set_pag_scale(self, scale: float) -> None:
+        """The PAG strength of a ``generate`` call that passes no
+        ``pag_scale`` (and of ``hires_fix``'s first pass); 0 disables
+        (``sdtpu/engine/context.py:502-506``)."""
+        self._default_pag = float(scale) if scale else None
+
+    def set_deepcache(self, interval: int) -> None:
+        """DeepCache's full-eval cadence on a live context; 0 disables."""
+        if interval and (isinstance(interval, bool)
+                         or not isinstance(interval, int) or interval < 2):
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"deepcache must be 0 (off) or an int >= 2, got {interval!r}",
+                self.errors)
+        self.cfg = dataclasses.replace(
+            self.cfg, deepcache_interval=int(interval) if interval else None)
+
+    def set_tome_ratio(self, ratio: float) -> None:
+        """ToMe's merge ratio on a live context; 0 disables."""
+        ratio = (self._check_tome(ratio, f"tome_ratio must be 0 (off) or in "
+                                         f"(0, 0.75], got {ratio!r}")
+                 if ratio else 0.0)
+        self.cfg = dataclasses.replace(self.cfg, unet=dataclasses.replace(
+            self.cfg.unet, tome_ratio=ratio))
+
     # ------------------------------------------------------------------
     # generate
     # ------------------------------------------------------------------
@@ -389,7 +564,7 @@ class Context:
         launch, a torch error) comes out typed as ``RUNTIME_ERROR``,
         recorded, and the context stays usable."""
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), slog.logger_scope(self.logger):
                 return fn()
         except SdtpuError:
             raise
@@ -441,8 +616,13 @@ class Context:
         (and then a ``NEEDS_NOISE`` sampler's step noise). ``out``: optional
         caller buffer to fill. ``output="latent"`` returns the float32
         scale-factored latents [h, w, 4] (or [B, ...]) instead of decoding.
-        ``lora``, ``control_image``, ``control``, ``denoising_end`` and
-        ``pag_scale`` are not ported yet and refused when given.
+        ``pag_scale``: perturbed-attention guidance's strength (Ahn et al.
+        2024): one more UNet eval of the cond rows a step with the
+        self-attention of the context's ``pag_layers`` replaced by the
+        identity, and eps moved by ``pag_scale`` x (cond - perturbed); the
+        context's default (``set_pag_scale``) when omitted. ``lora``,
+        ``control_image``, ``control`` and ``denoising_end`` are not ported
+        yet and refused when given.
 
         A prompt with scheduling (``[from:to:when]``, ``[a|b]``) conditions
         each step on its resolved text: the deduplicated variants encode
@@ -453,8 +633,7 @@ class Context:
         self._check_in_channels("txt2img", "generate")
         prompts = self._prompts(prompt)
         _refuse_unported(self.errors, lora=lora, control_image=control_image,
-                         control=control, denoising_end=denoising_end,
-                         pag_scale=pag_scale)
+                         control=control, denoising_end=denoising_end)
         self._check_output(output)
         if text_mod.has_schedule(negative_prompt or "", self.steps):
             raise SdtpuError(
@@ -474,7 +653,14 @@ class Context:
                     "prompt scheduling composes with plain txt2img only "
                     "(no latent output)", self.errors)
             sched = self._schedule_inputs(prompts)
+        if pag_scale is None:
+            pag_scale = self._default_pag
+        # the scheduled program takes no PAG, as the reference's
+        # (sdtpu/engine/context.py:839-941)
+        pag = pag_scale is not None and sched is None
+        self._check_knobs(pag=pag, scheduled=sched is not None)
         seed = self._next_seed(seed)
+        t0 = time.perf_counter()
 
         def call():
             idx = None
@@ -491,10 +677,14 @@ class Context:
                 self.params, tokens, uncond, gen, float(guidance),
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
                 use_cfg=guidance != 1.0, kernels=self.kernels,
-                output=output, token_weights=weights,
-                sched_idx=idx).cpu().numpy()
+                output=output, token_weights=weights, sched_idx=idx,
+                **self._knob_kwargs(pag_scale if pag else None)
+            ).cpu().numpy()
 
         res = self._run("generate", call)
+        self.logger.info(
+            f"image generation took {time.perf_counter() - t0:.3f}s "
+            f"(steps={self.steps}, sampler={self.sampler}, seed={seed})")
         if isinstance(prompt, str):
             res = res[0]
         if output == "latent":
@@ -524,12 +714,20 @@ class Context:
         two with copies of the first request; only the n real results come
         back. The CFG pair always runs (a guidance of 1.0 mixes in its
         uncond half with weight 0). A batch of one gives the bytes of
-        ``generate``. ``lora`` (or a request's ``lora``/``pag_scale``) is
-        not ported yet and refused. ``output="latent"`` returns latents."""
+        ``generate``. A request's ``pag_scale``: where any request has one,
+        the batch runs PAG's eval and the others take 0.0, an exact no-op
+        (``sdtpu/engine/context.py:1342-1352``). ``lora`` (or a request's
+        ``lora``) is not ported yet and refused. ``output="latent"``
+        returns latents."""
         self._check_usable()
         self._check_in_channels("txt2img", "generate_batch")
-        pad, seeds, guidance = self._batch_requests(requests, lora, output)
+        pad, seeds, guidance = self._batch_requests(requests, lora, output,
+                                                    pag_key=True)
         n = len(requests)
+        pag_on = any("pag_scale" in r for r in requests)
+        pscale = ([float(r.get("pag_scale", 0.0)) for r in pad] if pag_on
+                  else None)
+        t0 = time.perf_counter()
 
         def call():
             tokens, weights, uncond = self._text_inputs(
@@ -541,20 +739,74 @@ class Context:
                 self.params, tokens, torch.stack(uncond), gens, guidance,
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
                 use_cfg=True, kernels=self.kernels, output=output,
-                token_weights=weights)
+                token_weights=weights, **self._knob_kwargs(pscale))
 
         res = self._run("generate_batch", call)
+        self.logger.debug(f"batch of {n} (padded {len(pad)}) dispatched in "
+                          f"{time.perf_counter() - t0:.3f}s")
 
         def finish() -> list[np.ndarray]:
             host = self._run("generate_batch", lambda: res[:n].cpu().numpy())
+            self.logger.info(f"batch of {n} (padded {len(pad)}) took "
+                             f"{time.perf_counter() - t0:.3f}s")
             return [host[i] for i in range(n)]
 
         return finish
 
-    def _batch_requests(self, requests, lora, output, check=None):
-        """Validate a batch (``check(request)`` for a mode's own keys), pad
-        it to the next power of two with copies of the first request ->
-        (padded requests, one seed each, one guidance each)."""
+    def generate_async(self, prompt: str | list[str], guidance: float = 7.5,
+                       seed: Optional[int] = None,
+                       negative_prompt: Optional[str] = None,
+                       lora: Optional[str] = None):
+        """Enqueue one generation and return ``finish()``, which copies the
+        images to the host: uint8 [B, H, W, 3], a batch of one for a
+        string (the reference returns the device array of that shape,
+        ``sdtpu/engine/context.py:2043-2078``). The host may encode further
+        prompts while the card runs. The context's ``cfg_interval`` and
+        DeepCache apply; PAG does not, as in the reference."""
+        self._check_usable()
+        self._check_in_channels("txt2img", "generate_async")
+        prompts = self._prompts(prompt)
+        _refuse_unported(self.errors, lora=lora)
+        self._refuse_scheduling(prompts + [negative_prompt])
+        self._check_knobs()
+        seed = self._next_seed(seed)
+
+        def call():
+            tokens, weights, (uncond,) = self._text_inputs(
+                prompts, [negative_prompt])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            return pipeline.generate(
+                self.params, tokens, uncond, gen, float(guidance),
+                cfg=self.cfg, sampler=self.sampler, steps=self.steps,
+                use_cfg=guidance != 1.0, kernels=self.kernels,
+                token_weights=weights, **self._knob_kwargs(None))
+
+        res = self._run("generate_async", call)
+        return lambda: self._run("generate_async", lambda: res.cpu().numpy())
+
+    def _knob_kwargs(self, pag_scale):
+        """``pipeline.generate``'s knob arguments: the context's
+        ``cfg_interval``, and PAG where ``pag_scale`` (a float or one a
+        sample) is given."""
+        return dict(cfg_interval=self.cfg_interval, pag_scale=pag_scale,
+                    pag_layers=None if pag_scale is None else self.pag_layers)
+
+    def _check_knobs(self, pag=False, scheduled=False, ip2p=False) -> None:
+        """``pipeline.check_knobs`` before any work, its ``ValueError`` as
+        ``INVALID_ARGUMENT`` with the reference's text."""
+        try:
+            pipeline.check_knobs(self.cfg, self.sampler.lower(), pag, ip2p,
+                                 scheduled)
+        except ValueError as e:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, str(e),
+                             self.errors) from e
+
+    def _batch_requests(self, requests, lora, output, check=None,
+                        pag_key=False):
+        """Validate a batch (``check(request)`` for a mode's own keys; with
+        ``pag_key`` a request's ``pag_scale`` turns PAG on), pad it to the
+        next power of two with copies of the first request -> (padded
+        requests, one seed each, one guidance each)."""
         if not requests:
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT, "empty request list",
                              self.errors)
@@ -564,8 +816,7 @@ class Context:
                 raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
                                  "each request needs a string 'prompt'",
                                  self.errors)
-            _refuse_unported(self.errors, lora=r.get("lora"),
-                             pag_scale=r.get("pag_scale"))
+            _refuse_unported(self.errors, lora=r.get("lora"))
             if check is not None:
                 check(r)
         _refuse_unported(self.errors, lora=lora)
@@ -575,6 +826,8 @@ class Context:
         pad = list(requests) + [requests[0]] * (p - n)
         self._refuse_scheduling([t for r in requests for t in (
             r["prompt"], r.get("negative_prompt"))])
+        self._check_knobs(pag=pag_key and any("pag_scale" in r
+                                              for r in requests))
         seeds = [self._next_seed(r.get("seed")) for r in pad]
         return pad, seeds, [float(r.get("guidance", 7.5)) for r in pad]
 
@@ -686,6 +939,7 @@ class Context:
                     f"{name} must be [B, {size}, {size}], got {a.shape}",
                     self.errors)
             plane = _plane(a, mode == "inpaint")
+        self._check_knobs(ip2p=mode == "ip2p")
         start_step = self._start_step(strength)
         seed = self._next_seed(seed)
 
@@ -701,7 +955,8 @@ class Context:
                 return pipeline.instruct_pix2pix(
                     self.params, tokens, uncond, gen, float(guidance), x,
                     float(image_guidance), **kw)
-            kw.update(start_step=start_step, use_cfg=guidance != 1.0)
+            kw.update(start_step=start_step, use_cfg=guidance != 1.0,
+                      cfg_interval=self.cfg_interval)
             if mode == "inpaint":
                 return pipeline.inpaint(
                     self.params, tokens, uncond, gen, float(guidance), x,
@@ -778,6 +1033,9 @@ class Context:
         _refuse_unported(self.errors, lora=lora)
         self._check_output(output)
         self._refuse_scheduling(prompts + [negative_prompt])
+        # pass 1 is the reference's Context.generate: the context's PAG
+        # default applies there (sdtpu/engine/context.py:1737-1739)
+        self._check_knobs(pag=self._default_pag is not None)
         start_step = self._start_step(strength)
         seed = self._next_seed(seed)
 
@@ -789,10 +1047,13 @@ class Context:
                       use_cfg=guidance != 1.0, kernels=self.kernels,
                       token_weights=weights)
             lat = pipeline.generate(self.params, tokens, uncond, gen,
-                                    float(guidance), output="latent", **kw)
+                                    float(guidance), output="latent",
+                                    **self._knob_kwargs(self._default_pag),
+                                    **kw)
             return pipeline.hires_refine(
                 self.params, tokens, uncond, gen, float(guidance), lat,
-                scale=scale, start_step=start_step, output=output, **kw)
+                scale=scale, start_step=start_step, output=output,
+                cfg_interval=self.cfg_interval, **kw)
 
         res = self._run("hires_fix", lambda: call().cpu().numpy())
         return res[0] if isinstance(prompt, str) else res
@@ -877,7 +1138,7 @@ class Context:
             kw = dict(cfg=self.cfg, sampler=self.sampler, steps=self.steps,
                       start_step=start_step, use_cfg=True,
                       kernels=self.kernels, token_weights=weights,
-                      output=output)
+                      output=output, cfg_interval=self.cfg_interval)
             args = (self.params, tokens, torch.stack(uncond), gens, guidance,
                     self._image_tensor(images))
             if mode == "inpaint":
@@ -997,12 +1258,30 @@ def _plane(a: np.ndarray, is_mask: bool) -> np.ndarray:
     return (np.asarray(a, np.float32) / scale)[..., None]
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+#: the reference's arguments of features still to port -> their ROADMAP item
+UNPORTED = {"mesh": "item 23 (parallelism)", "lora": "item 19 (LoRA)",
+            "control_image": "item 18 (ControlNet)",
+            "control": "item 18 (ControlNet)",
+            "denoising_end": "item 18 (the refiner)"}
+
+
 def _refuse_unported(errors: ErrorTable, **given) -> None:
     """Refuse a reference argument whose feature is a later slice of the
-    port (LoRA, ControlNet, PAG, two-stage, the mesh), when it is given."""
+    port (``UNPORTED``), when it is given a value other than its default
+    None."""
     for name, value in given.items():
         if value is not None:
             raise SdtpuError(
                 ErrorCode.INVALID_ARGUMENT,
-                f"{name}= is not ported yet (a later slice of the port)",
+                f"{name}= is not ported yet (ROADMAP {UNPORTED[name]})",
                 errors)

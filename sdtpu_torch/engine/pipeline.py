@@ -24,6 +24,11 @@ The image paths (``img2img``, ``inpaint``, ``hires_refine``,
 at ``start_step`` from its noised latents, and may re-pin a masked region
 or feed extra planes to the UNet at every step (``denoise``); a call's
 random draws follow ``draw_noise``'s rule.
+
+The Context knobs act in ``denoise``: the CFG interval splits the loop into
+segments (``segments``), CFG rescale and PAG change each step's eps,
+DeepCache alternates full and shallow UNet evals; ``check_knobs`` holds
+what does not compose.
 """
 
 from __future__ import annotations
@@ -223,11 +228,53 @@ def _draws(generator, shape, steps, sampler, device, seams, extra=()):
     return out
 
 
+def check_knobs(cfg: PipelineConfig, sampler: str, pag=False, ip2p=False,
+                scheduled=False) -> None:
+    """The reference's incompatibility ``ValueError``s of the denoising
+    loop's knobs, in its order (``sdtpu/engine/pipeline.py:244-266``): PAG
+    with ip2p's dual CFG; DeepCache with ip2p, prompt scheduling, PAG,
+    ``plms_exact`` or a two-eval sampler (its cache would cross an eval
+    batch or a skip it never saw)."""
+    if pag and ip2p:
+        raise ValueError("PAG is incompatible with ip2p's dual CFG")
+    dc_n = cfg.deepcache_interval
+    if dc_n is None:
+        return
+    if int(dc_n) < 2:
+        raise ValueError(f"deepcache_interval must be >= 2, got {dc_n}")
+    for name, bad in (
+            ("ip2p dual CFG", ip2p),
+            ("prompt scheduling", scheduled),
+            ("PAG", pag),
+            ("plms_exact", sampler == "plms_exact"),
+            ("two-eval samplers (heun/dpm2)",
+             getattr(get_sampler(sampler), "NEEDS_SECOND_EVAL", False))):
+        if bad:
+            raise ValueError(f"DeepCache is incompatible with {name}")
+
+
+def segments(steps: int, start: int, cfg_interval=None):
+    """[(first step, end, guided), ...]: the loop's segments
+    (``sdtpu/engine/pipeline.py:588-604``). With ``cfg_interval`` (lo, hi)
+    the CFG pair runs on steps ``round(steps lo) <= i < round(steps hi)``
+    only and the others evaluate the cond rows alone."""
+    if cfg_interval is None:
+        return [(start, steps, True)]
+    lo, hi = cfg_interval
+    a = int(round(steps * lo))
+    c = int(round(steps * hi))
+    segs = [(start, min(a, steps), False),
+            (max(a, start), min(c, steps), True),
+            (max(c, start), steps, False)]
+    return [(s0, s1, g) for s0, s1, g in segs if s1 > s0]
+
+
 def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
             use_cfg: bool, kernels: str = "plain", *, noise,
             sampler: str = "dpm", step_noise=None, cond_schedule=None,
             init_latents=None, start_step: int = 0, mask=None,
-            pin_noise=None, x_extra=None, image_guidance=None):
+            pin_noise=None, x_extra=None, image_guidance=None,
+            cfg_interval=None, pag_scale=None, pag_layers=None):
     """Run the denoising loop with ``sampler`` (a name of
     ``samplers.SAMPLERS``). context: [B or 2B, T, D]; with ``use_cfg`` rows
     [0:B] are cond and [B:2B] uncond. ``guidance``: a scalar or one a
@@ -236,7 +283,7 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     The draws are the caller's (``_draws``, which holds the rule of
     ``draw_noise``): ``noise`` [B, h, w, C] float32, the starting latents,
     and for a ``NEEDS_NOISE`` sampler ``step_noise`` ([steps, B, h, w, C],
-    or a callable of the step index giving [B, h, w, C]).
+    or a callable of the step index giving [B, h, w, C]). No knob draws.
 
     Two-eval samplers (``NEEDS_SECOND_EVAL``, heun and dpm2) evaluate the
     UNet again at ``predictor``'s probe point, with the time embeddings of
@@ -270,7 +317,21 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     axis into conv_in at every eval, once a CFG slot. InstructPix2Pix's dual
     CFG (``image_guidance``): ``context`` holds 3B rows [cond, uncond,
     uncond], the third slot's extra planes are zeros, and eps = e_un + g (e_txt
-    - e_img) + g_img (e_img - e_un)."""
+    - e_img) + g_img (e_img - e_un).
+
+    The knobs (``sdtpu/engine/pipeline.py:165-618``), each off by default:
+    ``cfg_interval`` (``segments``); ``cfg.guidance_rescale``, the guided
+    eps blended toward itself rescaled to the cond eps's per-sample
+    population std; PAG, with ``pag_layers`` (sections of ``unet.apply``'s
+    ``perturb``): one more eval of the cond rows a step with identity
+    self-attention there, and eps + ``pag_scale`` (a scalar or [B]) x (the
+    cond eps - the perturbed eps), in guided and unguided steps alike;
+    DeepCache (``cfg.deepcache_interval`` n): a full eval that captures the
+    deep feature when ``(i - first step of the segment) % n == 0``, a
+    shallow eval that splices it in otherwise, so no cache crosses a
+    segment. ``check_knobs`` raises what does not compose."""
+    check_knobs(cfg, sampler, bool(pag_layers), image_guidance is not None,
+                cond_schedule is not None)
     device = context.device
     dtype = cfg.compute_dtype
     context, pooled = _unpack_context(context, cfg)
@@ -301,45 +362,82 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     g = torch.as_tensor(guidance, dtype=torch.float32, device=device)
     if g.dim():
         g = g.reshape(-1, 1, 1, 1)
-    xe = None
+    xe = {}
     if x_extra is not None:
-        xe = x_extra.to(dtype)
+        xe[1] = x_extra.to(dtype)
         if image_guidance is not None:
-            xe = torch.cat([xe, xe, torch.zeros_like(xe)], dim=0)
-        elif reps == 2:
-            xe = torch.cat([xe, xe], dim=0)
+            xe[3] = torch.cat([xe[1], xe[1], torch.zeros_like(xe[1])], dim=0)
+        xe[2] = torch.cat([xe[1], xe[1]], dim=0)
+    dc_n = cfg.deepcache_interval
 
-    def rows(i):
+    def rows(i, guided):
         if cond_schedule is None:
-            return context
+            return context if guided else context[:b]
         table, idx = cond_schedule
         cond = table.index_select(0, idx[i:i + 1])[0]
-        return torch.cat([cond, context[b:]], dim=0) if use_cfg else cond
+        return (torch.cat([cond, context[b:]], dim=0)
+                if use_cfg and guided else cond)
 
-    def predict_eps(x, i, second=False):
-        te = (t_embs2 if second else t_embs)[i].expand(context.shape[0], -1)
+    def predict_eps(x, i, guided=True, second=False, deep=None):
+        """One step's eps; with ``deep`` (DeepCache) ``(eps, cache)``:
+        "capture" for a full eval, else the cached tensor to splice."""
+        r = reps if guided else 1
+        ctx_i = rows(i, guided)
+        te = (t_embs2 if second else t_embs)[i].expand(ctx_i.shape[0], -1)
         if add_emb is not None:
-            te = te + add_emb.to(te.dtype)
-        x_rep = torch.cat([x] * reps, dim=0) if reps > 1 else x
+            te = te + add_emb.to(te.dtype)[: ctx_i.shape[0]]
+        x_rep = torch.cat([x] * r, dim=0) if r > 1 else x
         x_in = x_rep.to(dtype)
-        if xe is not None:
-            x_in = torch.cat([x_in, xe], dim=-1)
-        eps = unet.apply(params["unet"], x_in, te, rows(i), cfg.unet,
-                         kernels).float()
+        if xe:
+            x_in = torch.cat([x_in, xe[r]], dim=-1)
+        cache = deep
+        if deep is None:
+            eps = unet.apply(params["unet"], x_in, te, ctx_i, cfg.unet,
+                             kernels)
+        elif isinstance(deep, str):
+            eps, cache = unet.apply(params["unet"], x_in, te, ctx_i,
+                                    cfg.unet, kernels, deep="capture")
+        else:
+            eps = unet.apply(params["unet"], x_in, te, ctx_i, cfg.unet,
+                             kernels, deep=deep)
+        eps = eps.float()
         if cfg.prediction == "v":
             # v = alpha*eps - sigma*x0  =>  eps = alpha*v + sigma*x_t, per
             # CFG slot; the second eval takes the probe point's marginals
             a_i = (plan.alpha_m if second else plan.alpha_s)[i]
             s_i = (plan.sigma_m if second else plan.sigma_s)[i]
             eps = a_i * eps + s_i * x_rep
+        e_ptb = None
+        if pag_layers:
+            # the cond rows lead in every slot layout
+            e_ptb = unet.apply(params["unet"], x_in[:b], te[:b], ctx_i[:b],
+                               cfg.unet, kernels, perturb=pag_layers).float()
+            if cfg.prediction == "v":
+                e_ptb = a_i * e_ptb + s_i * x
+            e_cond_raw = eps[:b]
         if image_guidance is not None:
             gi = torch.as_tensor(image_guidance, dtype=torch.float32,
                                  device=device)
             e_txt, e_img, e_un = eps[:b], eps[b:2 * b], eps[2 * b:]
             eps = e_un + g * (e_txt - e_img) + gi * (e_img - e_un)
-        elif use_cfg:
-            eps = g * eps[:b] + (1.0 - g) * eps[b:]
-        return eps
+        elif use_cfg and guided:
+            e_cond = eps[:b]
+            eps = g * e_cond + (1.0 - g) * eps[b:]
+            if cfg.guidance_rescale:
+                axes = tuple(range(1, eps.dim()))
+                std_c = e_cond.std(dim=axes, keepdim=True, correction=0)
+                std_g = eps.std(dim=axes, keepdim=True, correction=0)
+                rescaled = eps * (std_c / torch.clamp(std_g, min=1e-8))
+                rr = torch.tensor(cfg.guidance_rescale, dtype=torch.float32,
+                                  device=device)
+                eps = rr * rescaled + (1.0 - rr) * eps
+        if e_ptb is not None:
+            ps = torch.as_tensor(0.0 if pag_scale is None else pag_scale,
+                                 dtype=torch.float32, device=device)
+            if ps.dim():
+                ps = ps.reshape(-1, 1, 1, 1)
+            eps = eps + ps * (e_cond_raw - e_ptb)
+        return eps if deep is None else (eps, cache)
 
     def pin(i):
         n_i = (_seam(pin_noise(i), shape, device, "pin_noise")
@@ -358,19 +456,30 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
         x, _ = mod.step(plan, 0, x, 0.5 * (e_t + e_next), state)
         _, state = mod.step(plan, 0, x_mid, e_t, state)
         start = 1
-    for i in range(start, steps):
-        if mask is not None:
-            x = mask * x + (1.0 - mask) * pin(i)
-        eps = predict_eps(x, i)
-        if needs_second:
-            eps2 = predict_eps(mod.predictor(plan, i, x, eps), i, second=True)
-            x, state = mod.step(plan, i, x, eps, state, eps2=eps2)
-        elif needs_noise:
-            n_i = (_seam(step_noise(i), shape, device, "step_noise")
-                   if callable(step_noise) else step_noise[i])
-            x, state = mod.step(plan, i, x, eps, state, noise=n_i)
-        else:
-            x, state = mod.step(plan, i, x, eps, state)
+    # the interval is ignored without CFG and under ip2p's dual CFG
+    if not use_cfg or image_guidance is not None:
+        cfg_interval = None
+    for s0, s1, guided in segments(steps, start, cfg_interval):
+        cache = None
+        for i in range(s0, s1):
+            if mask is not None:
+                x = mask * x + (1.0 - mask) * pin(i)
+            if dc_n is None:
+                eps = predict_eps(x, i, guided)
+            else:
+                full = (i - s0) % int(dc_n) == 0
+                eps, cache = predict_eps(x, i, guided,
+                                         deep="capture" if full else cache)
+            if needs_second:
+                eps2 = predict_eps(mod.predictor(plan, i, x, eps), i, guided,
+                                   second=True)
+                x, state = mod.step(plan, i, x, eps, state, eps2=eps2)
+            elif needs_noise:
+                n_i = (_seam(step_noise(i), shape, device, "step_noise")
+                       if callable(step_noise) else step_noise[i])
+                x, state = mod.step(plan, i, x, eps, state, noise=n_i)
+            else:
+                x, state = mod.step(plan, i, x, eps, state)
     if mask is not None:
         x = mask * x + (1.0 - mask) * init_latents
     return x
@@ -380,12 +489,14 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
              cfg: PipelineConfig, sampler: str = "dpm", steps: int = 20,
              use_cfg: bool = True, kernels: str = "plain", noise=None,
              step_noise=None, output: str = "image", token_weights=None,
-             sched_idx=None):
+             sched_idx=None, cfg_interval=None, pag_scale=None,
+             pag_layers=None):
     """tokens [B, T] (or chunked [B, k, T] with ``token_weights``) -> uint8
     [B, H, W, 3], or with ``output="latent"`` the float32 scale-factored
     latents. ``uncond_embedding``: [T, D] or [B, T, D], encoded by the
     caller. Draws (``draw_noise``): noise, step noise; ``noise`` and
-    ``step_noise`` are their seams.
+    ``step_noise`` are their seams. ``cfg_interval``, ``pag_scale`` and
+    ``pag_layers``: ``denoise``'s knobs.
 
     Prompt scheduling (``sdtpu/engine/pipeline.py:653-667``): with
     ``sched_idx`` ([steps] integer, each step's variant), tokens are [V, B,
@@ -413,7 +524,9 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
                {"noise": noise, "step_noise": step_noise})
     x = denoise(params, context, guidance, cfg, steps, use_cfg, kernels,
                 noise=d["noise"], sampler=sampler,
-                step_noise=d.get("step_noise"), cond_schedule=cond_schedule)
+                step_noise=d.get("step_noise"), cond_schedule=cond_schedule,
+                cfg_interval=cfg_interval, pag_scale=pag_scale,
+                pag_layers=pag_layers)
     return _finish(params, x, cfg, kernels, output)
 
 
@@ -452,7 +565,8 @@ def img2img(params, tokens, uncond_embedding, generator, guidance, image, *,
             start_step: int = 10, use_cfg: bool = True,
             kernels: str = "plain", token_weights=None, depth=None,
             output: str = "image", noise=None, step_noise=None,
-            posterior_noise=None):
+            posterior_noise=None, cfg_interval=None, pag_scale=None,
+            pag_layers=None):
     """Image to image (``sdtpu/engine/pipeline.py:775-827``): ``image``
     [B, H, W, 3] float in [-1, 1] is encoded to a posterior sample, noised
     to ``start_step``'s marginal, denoised over the remaining steps and
@@ -466,7 +580,8 @@ def img2img(params, tokens, uncond_embedding, generator, guidance, image, *,
     every step.
 
     Draws (``draw_noise``): noise, step noise, posterior noise; ``noise``,
-    ``step_noise``, ``posterior_noise`` are their seams."""
+    ``step_noise``, ``posterior_noise`` are their seams. ``cfg_interval``,
+    ``pag_scale`` and ``pag_layers``: ``denoise``'s knobs."""
     context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
                              weights=token_weights)
     shape = _latent_shape(tokens.shape[0], cfg)
@@ -484,7 +599,9 @@ def img2img(params, tokens, uncond_embedding, generator, guidance, image, *,
     x = denoise(params, context, guidance, cfg, steps, use_cfg,
                 kernels, noise=d["noise"], sampler=sampler,
                 step_noise=d.get("step_noise"), init_latents=init,
-                start_step=start_step, x_extra=x_extra)
+                start_step=start_step, x_extra=x_extra,
+                cfg_interval=cfg_interval, pag_scale=pag_scale,
+                pag_layers=pag_layers)
     return _finish(params, x, cfg, kernels, output)
 
 
@@ -493,7 +610,8 @@ def inpaint(params, tokens, uncond_embedding, generator, guidance, image,
             steps: int = 20, start_step: int = 0, use_cfg: bool = True,
             kernels: str = "plain", token_weights=None,
             output: str = "image", noise=None, step_noise=None,
-            posterior_noise=None, masked_noise=None, pin_noise=None):
+            posterior_noise=None, masked_noise=None, pin_noise=None,
+            cfg_interval=None):
     """Masked image to image (``sdtpu/engine/pipeline.py:830-896``).
     ``image`` [B, H, W, 3] float in [-1, 1]; ``mask`` [B, H, W, 1] float in
     [0, 1], 1 = repaint. The mask is mean-pooled to latent resolution.
@@ -510,7 +628,7 @@ def inpaint(params, tokens, uncond_embedding, generator, guidance, image,
     noise, step noise, posterior noise (a warm start only), masked noise.
 
     ``noise``, ``step_noise``, ``posterior_noise``, ``masked_noise`` and
-    ``pin_noise`` are the draws' seams."""
+    ``pin_noise`` are the draws' seams; ``cfg_interval`` is ``denoise``'s."""
     context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
                              weights=token_weights)
     shape = _latent_shape(tokens.shape[0], cfg)
@@ -532,7 +650,8 @@ def inpaint(params, tokens, uncond_embedding, generator, guidance, image,
                     use_cfg, kernels, noise=d["noise"], sampler=sampler,
                     step_noise=d.get("step_noise"), init_latents=init,
                     start_step=start_step,
-                    x_extra=torch.cat([m, masked], dim=-1))
+                    x_extra=torch.cat([m, masked], dim=-1),
+                    cfg_interval=cfg_interval)
         return _finish(params, x, cfg, kernels, output)
     d = _draws(generator, shape, steps, sampler, dev, seams,
                ("posterior_noise", "pin_noise"))
@@ -541,7 +660,8 @@ def inpaint(params, tokens, uncond_embedding, generator, guidance, image,
     x = denoise(params, context, guidance, cfg, steps, use_cfg,
                 kernels, noise=d["noise"], sampler=sampler,
                 step_noise=d.get("step_noise"), init_latents=init,
-                start_step=start_step, mask=m, pin_noise=d["pin_noise"])
+                start_step=start_step, mask=m, pin_noise=d["pin_noise"],
+                cfg_interval=cfg_interval)
     return _finish(params, x, cfg, kernels, output)
 
 
@@ -558,14 +678,15 @@ def hires_refine(params, tokens, uncond_embedding, generator, guidance,
                  sampler: str = "dpm", steps: int = 20, start_step: int = 8,
                  use_cfg: bool = True, kernels: str = "plain",
                  token_weights=None, output: str = "image", noise=None,
-                 step_noise=None):
+                 step_noise=None, cfg_interval=None):
     """The hires fix's second pass (``sdtpu/engine/pipeline.py:899-937``):
     the first pass's clean latents nearest-upscaled by ``scale``,
     forward-diffused to ``start_step``'s marginal and denoised over the
     remaining steps at the larger latent grid, then decoded. One parameter
     tree serves both passes (the UNet and the VAE are convolutional).
     Draws: noise and step noise at the larger grid, from ``generator``
-    continued after the first pass (``Context.hires_fix``)."""
+    continued after the first pass (``Context.hires_fix``).
+    ``cfg_interval`` is ``denoise``'s."""
     cfg_hi = dataclasses.replace(cfg, latent_size=cfg.latent_size * scale)
     context = _build_context(params, tokens, uncond_embedding, cfg_hi,
                              use_cfg, weights=token_weights)
@@ -576,7 +697,7 @@ def hires_refine(params, tokens, uncond_embedding, generator, guidance,
                 use_cfg, kernels, noise=d["noise"], sampler=sampler,
                 step_noise=d.get("step_noise"),
                 init_latents=upscale_latents(latents, scale),
-                start_step=start_step)
+                start_step=start_step, cfg_interval=cfg_interval)
     return _finish(params, x, cfg_hi, kernels, output)
 
 

@@ -192,3 +192,29 @@ def to_jax_tree(params):
     return _map_leaves(
         lambda t, _: t.detach().cpu().contiguous().numpy().copy(),
         jax_layout(params))
+
+
+def fuse_attention_projections(params):
+    """Each transformer block's self-attention q, k, v projections as one
+    ``qkv`` product and its cross-attention k, v as one ``kv`` product
+    (``sdtpu/io/params.py:64-104``): the weights concatenate along the
+    output axis. Applied after load and the cast, to an unquantized tree;
+    checkpoints and the quantizers keep the unfused layout."""
+    def walk(node):
+        if isinstance(node, dict):
+            if ("attn1" in node and "attn2" in node
+                    and "w" in node["attn1"].get("q", {})):
+                a1, a2 = node["attn1"], node["attn2"]
+                return {**node,
+                        "attn1": {"qkv": {"w": torch.cat(
+                            [a1["q"]["w"], a1["k"]["w"], a1["v"]["w"]],
+                            dim=1)}, "out": a1["out"]},
+                        "attn2": {"q": a2["q"], "kv": {"w": torch.cat(
+                            [a2["k"]["w"], a2["v"]["w"]], dim=1)},
+                            "out": a2["out"]}}
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)

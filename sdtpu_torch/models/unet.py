@@ -1,6 +1,5 @@
 """The SD1.x, SD2.x and SDXL UNet denoiser, the counterpart of
-``sdtpu/models/unet.py``'s base path (no ControlNet, PAG, DeepCache, ToMe,
-FreeU or cross-only levels).
+``sdtpu/models/unet.py`` (no ControlNet or cross-only levels).
 
     down path:  per level, ``num_res_blocks`` x [ResBlock (+SpatialTransformer
                 at attn levels)], then a stride-2 conv between levels;
@@ -12,6 +11,10 @@ a SpatialTransformer runs ``transformer_depth`` basic blocks (SDXL: 2 and
     up path:    mirrored, with skip-concat from the down path, nearest-2x
                 upsample between levels;
     out:        GroupNorm -> SiLU -> 3x3 conv.
+
+The Context knobs reach it through ``apply``'s ``perturb`` (PAG's identity
+self-attention) and ``deep`` (DeepCache's capture and shallow passes) and
+through the config's ``tome_ratio`` (ToMe) and ``freeu`` (FreeU).
 
 Activations are NHWC; attention flattens HW into the sequence axis, so the
 64x64 level's self-attention is a 4096-token problem for the flash kernel.
@@ -36,6 +39,7 @@ from sdtpu_torch.models.layers import (
 )
 from sdtpu_torch.ops import conv as C
 from sdtpu_torch.ops import groupnorm as G
+from sdtpu_torch.ops import tome as T
 
 
 # ---------------------------------------------------------------------------
@@ -215,12 +219,18 @@ def _resblock(p, x, emb, groups, kernels):
     return x + h
 
 
-def _transformer(p, x, context, heads, groups, kernels):
+def _transformer(p, x, context, heads, groups, kernels, perturb_self=False,
+                 tome=None):
+    """``tome``: (ratio, min_tokens) or None; a plane of at least
+    ``min_tokens`` tokens merges (``sdtpu/models/unet.py:253-262``)."""
     b, hh, ww, c = x.shape
+    if tome is not None:
+        tome = (hh, ww, tome[0]) if hh * ww >= tome[1] else None
     h = _norm_conv(p["norm"], p["proj_in"], x, groups, 1e-6, kernels,
                    fuse_silu=False, padding=0).reshape(b, hh * ww, c)
     for blk in p.get("blocks", (p,)):
-        h = _basic_block(blk, h, context, heads, attention_kernel(kernels))
+        h = _basic_block(blk, h, context, heads, attention_kernel(kernels),
+                         perturb_self, tome)
     h = h.reshape(b, hh, ww, c)
     return x + conv2d(p["proj_out"], h, padding=0)
 
@@ -232,18 +242,52 @@ def attention_kernel(kernels: str) -> str:
     return "cuda" if kernels.startswith("cuda") else "plain"
 
 
-def _basic_block(p, h, context, heads, attn_kernel):
-    """attn1 (self) -> attn2 (cross) -> GEGLU ff, each with a residual."""
+def _split(y, parts):
+    """A fused projection's output split into ``parts`` contiguous tensors:
+    the flash kernel's rule takes contiguous q, k and v only."""
+    return [t.contiguous() for t in torch.chunk(y, parts, dim=-1)]
+
+
+def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
+                 tome=None):
+    """attn1 (self) -> attn2 (cross) -> GEGLU ff, each with a residual
+    (``sdtpu/models/unet.py:291-363``).
+
+    ``perturb_self``: the self-attention map is the identity (PAG), so
+    attn1's output is its value rows: ``out(v)``, the q and k projections
+    skipped. ``tome``: (hh, ww, ratio) or None: ``ln1``'s output merges
+    before attn1 and its output unmerges after the out projection; attn2
+    and the ff run unmerged. The identity attention never merges. A fused
+    ``qkv`` (``io.params.fuse_attention_projections``) or ``kv`` leaf is one
+    product, split."""
     a = p["attn1"]
     hn = layer_norm(p["ln1"], h)
-    o = sdpa(dense(a["q"], hn), dense(a["k"], hn), dense(a["v"], hn), heads,
-             attn_kernel)
-    h = h + dense(a["out"], o)
+    if perturb_self:
+        v = (_split(dense(a["qkv"], hn), 3)[2] if "qkv" in a
+             else dense(a["v"], hn))
+        h = h + dense(a["out"], v)
+    else:
+        unmerge = None
+        if tome is not None:
+            merge, unmerge, r = T.build(h, *tome)
+            if r:
+                hn = merge(hn)
+            else:
+                unmerge = None
+        if "qkv" in a:
+            q, k, v = _split(dense(a["qkv"], hn), 3)
+        else:
+            q, k, v = dense(a["q"], hn), dense(a["k"], hn), dense(a["v"], hn)
+        o = dense(a["out"], sdpa(q, k, v, heads, attn_kernel))
+        h = h + (unmerge(o) if unmerge is not None else o)
     a = p["attn2"]
     hn = layer_norm(p["ln2"], h)
-    o = sdpa(dense(a["q"], hn), dense(a["k"], context),
-             dense(a["v"], context), heads, attn_kernel)
-    h = h + dense(a["out"], o)
+    if "kv" in a:
+        k, v = _split(dense(a["kv"], context), 2)
+    else:
+        k, v = dense(a["k"], context), dense(a["v"], context)
+    h = h + dense(a["out"], sdpa(dense(a["q"], hn), k, v, heads,
+                                 attn_kernel))
     hn = layer_norm(p["ln3"], h)
     return h + dense(p["ff2"], geglu(p["ff1"], hn))
 
@@ -260,8 +304,51 @@ def _upsample_nearest(x):
     return x.reshape(b, h * 2, w * 2, c)
 
 
+def _fourier_lowfreq_scale(x, scale, threshold: int = 1):
+    """FreeU's skip filter: the lowest spatial frequencies of x [B, H, W,
+    C] (a (2 threshold)^2 window around DC after fftshift) scaled by
+    ``scale``, in float32 (a bf16 FFT takes power-of-two sizes only on
+    CUDA), cast back."""
+    f = torch.fft.fftshift(torch.fft.fftn(x.float(), dim=(1, 2)),
+                           dim=(1, 2))
+    _, hh, ww, _ = x.shape
+
+    def band(n):
+        i = torch.arange(n, device=x.device)
+        return (i >= n // 2 - threshold) & (i < n // 2 + threshold)
+
+    m = torch.where(band(hh)[:, None] & band(ww)[None, :], scale, 1.0)
+    f = f * m[None, :, :, None]
+    out = torch.fft.ifftn(torch.fft.ifftshift(f, dim=(1, 2)), dim=(1, 2))
+    return out.real.to(x.dtype)
+
+
+def _freeu(h, s, cfg: UNetConfig):
+    """FreeU (``sdtpu/models/unet.py:401-426``): at the decoder widths of
+    the two deepest levels, ``model_channels * channel_mult[::-1][:2]``,
+    the first half of the backbone's channels times b and the skip's low
+    frequencies times s. The rule is the reference's: where both widths
+    are equal (SD1.x: 1280 and 1280) b2 and s2 never apply."""
+    b1, b2, s1, s2 = cfg.freeu
+    widths = [cfg.model_channels * m for m in cfg.channel_mult[::-1][:2]]
+    c = h.shape[-1]
+    if c == widths[0]:
+        bk, sk = b1, s1
+    elif len(widths) > 1 and c == widths[1]:
+        bk, sk = b2, s2
+    else:
+        return h, s
+    if bk != 1.0:
+        half = c // 2
+        scale = torch.tensor(bk, dtype=h.dtype, device=h.device)
+        h = torch.cat([h[..., :half] * scale, h[..., half:]], dim=-1)
+    if sk != 1.0:
+        s = _fourier_lowfreq_scale(s, sk)
+    return h, s
+
+
 def apply(params, x, t_emb, context, cfg: UNetConfig,
-          kernels: str = "plain"):
+          kernels: str = "plain", perturb=None, deep=None):
     """x: [B,H,W,C_in]; t_emb: [B, time_embed_dim] (already MLP-embedded by
     ``sdtpu_torch.models.temb``); context: [B, T, context_dim] -> eps
     [B,H,W,C_out].
@@ -272,36 +359,71 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
     ``"cuda_conv"`` adds, instead, the fused GN-prologue conv kernel for
     every ResBlock conv and transformer ``proj_in`` (``ops.conv``);
     ``"plain"`` keeps everything on ``layers``.
+
+    perturb: a subset of ("down", "mid", "up"): the self-attention of those
+    sections' transformers is the identity map (perturbed-attention
+    guidance, ``engine.pipeline.denoise``).
+
+    deep: DeepCache's protocol (``sdtpu/models/unet.py:456-464``). None: the
+    plain forward. "capture": the plain forward that also returns the
+    hidden entering the last up level, ``(eps, cache)``. A tensor: the
+    shallow forward: conv_in and the level-0 downs (the skips the last up
+    level takes), the cached tensor in place of the deep stack, then the
+    last up level and the head.
     """
+    perturb = frozenset(perturb or ())
+    if not perturb <= {"down", "mid", "up"}:
+        raise ValueError(f"unknown perturb sections {sorted(perturb)}; "
+                         f"expected a subset of ('down', 'mid', 'up')")
+    capture = isinstance(deep, str)
+    if capture and deep != "capture":
+        raise ValueError(f"deep must be None, 'capture', or a cached "
+                         f"junction tensor, got {deep!r}")
+    shallow = deep is not None and not capture
+    tome = ((cfg.tome_ratio, cfg.tome_min_tokens) if cfg.tome_ratio > 0.0
+            else None)
     g = cfg.groups
     h = conv2d(params["conv_in"], x)
     skips = [h]
-    for level in params["down"]:
+    for level in params["down"][:1] if shallow else params["down"]:
         for blk in level["blocks"]:
             h = _resblock(blk["res"], h, t_emb, g, kernels)
             if "st" in blk:
                 h = _transformer(blk["st"], h, context,
-                                 _heads(cfg, h.shape[-1]), g, kernels)
+                                 _heads(cfg, h.shape[-1]), g, kernels,
+                                 "down" in perturb, tome)
             skips.append(h)
-        if "down" in level:
+        if "down" in level and not shallow:
             h = conv2d(level["down"], h, stride=2)
             skips.append(h)
 
-    mid = params["mid"]
-    h = _resblock(mid["res1"], h, t_emb, g, kernels)
-    h = _transformer(mid["st"], h, context, _heads(cfg, h.shape[-1]), g,
-                     kernels)
-    h = _resblock(mid["res2"], h, t_emb, g, kernels)
+    if shallow:
+        h = deep.to(h.dtype)
+    else:
+        mid = params["mid"]
+        h = _resblock(mid["res1"], h, t_emb, g, kernels)
+        h = _transformer(mid["st"], h, context, _heads(cfg, h.shape[-1]), g,
+                         kernels, "mid" in perturb, tome)
+        h = _resblock(mid["res2"], h, t_emb, g, kernels)
 
-    for level in params["up"]:
+    cache = None
+    up_levels = params["up"][-1:] if shallow else params["up"]
+    for uidx, level in enumerate(up_levels):
+        if capture and uidx == len(up_levels) - 1:
+            cache = h
         for blk in level["blocks"]:
-            h = torch.cat([h, skips.pop()], dim=-1)
+            s = skips.pop()
+            if cfg.freeu is not None:
+                h, s = _freeu(h, s, cfg)
+            h = torch.cat([h, s], dim=-1)
             h = _resblock(blk["res"], h, t_emb, g, kernels)
             if "st" in blk:
                 h = _transformer(blk["st"], h, context,
-                                 _heads(cfg, h.shape[-1]), g, kernels)
+                                 _heads(cfg, h.shape[-1]), g, kernels,
+                                 "up" in perturb, tome)
         if "up" in level:
             h = conv2d(level["up"], _upsample_nearest(h))
 
     h = _gn(params["out_norm"], h, g, 1e-5, True, kernels)
-    return conv2d(params["conv_out"], h)
+    out = conv2d(params["conv_out"], h)
+    return (out, cache) if capture else out

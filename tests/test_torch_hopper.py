@@ -1655,6 +1655,197 @@ def test_image_sites_reach_the_new_shapes():
 
 
 # ---------------------------------------------------------------------------
+# the Context knobs at full width: each arm of the smoke run's knobs phase
+# as the port's own pipeline.generate runs it, on the meta device with the
+# kernel wrappers recorded, and the UNet parts whose shapes the knobs change
+# under every mode
+# ---------------------------------------------------------------------------
+
+_KNOB_LOGS = {}
+
+
+def _knob_context(ckw):
+    """A Context with no weights: the configuration and the knob
+    attributes ``Context.__init__`` makes of the arm's keywords."""
+    from sdtpu_torch.engine.errors import ErrorTable
+
+    c = Context.__new__(Context)
+    c.errors = ErrorTable()
+    c.cfg = c._configure("sd15", ckw.get("size"), 1, ckw.get("freeu"),
+                         ckw.get("tome_ratio", 0.0), ckw.get("deepcache"),
+                         ckw.get("guidance_rescale", 0.0))
+    c.cfg_interval = c._check_cfg_interval(ckw.get("cfg_interval"))
+    c.pag_layers = tuple(ckw.get("pag_layers", ("mid",)))
+    return c
+
+
+def _knob_log(label):
+    """The log (``_recorders``) of one arm of ``chip_smoke.KNOB_ARMS``:
+    ``pipeline.generate`` of SD1.5 at ``KNOB_STEPS`` DPM steps, CFG 7.5,
+    batch 1, to the decoded image, with the arm's knobs as its Context
+    passes them (``_knob_kwargs``), under the arm's mode."""
+    from sdtpu_torch.engine import pipeline
+    from sdtpu_torch.io.params import fuse_attention_projections, init_tree
+
+    if label not in _KNOB_LOGS:
+        ckw, gkw, mode = chip_smoke.KNOB_ARMS[label]
+        c = _knob_context(ckw)
+        cfg = c.cfg
+        params = {name: _meta_tree(init_tree(name, cfg, None, "meta"))
+                  for name in ("clip", "temb", "vae")}
+        params["unet"] = _meta_unet(cfg, mode)
+        if ckw.get("fuse_qkv"):
+            params = fuse_attention_projections(params)
+        n = cfg.clip.context_len
+        s = cfg.latent_size
+
+        def meta(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, device="meta", dtype=dtype)
+
+        log = {}
+        with _recorders(mode, log, ["unet"]):
+            pipeline.generate(
+                params, meta(1, n, dtype=torch.int64),
+                meta(n, cfg.unet.context_dim), None, 7.5, cfg=cfg,
+                steps=chip_smoke.KNOB_STEPS, use_cfg=True,
+                kernels=MODES[mode][0], noise=meta(1, s, s, 4,
+                                                   dtype=torch.float32),
+                **c._knob_kwargs(gkw.get("pag_scale")))
+        _KNOB_LOGS[label] = log
+    return _KNOB_LOGS[label]
+
+
+@pytest.mark.parametrize("label", sorted(chip_smoke.KNOB_ARMS))
+def test_knob_pins_are_the_rules(label):
+    """Each knob arm's launches per image, from the port's loop and the
+    rules, are the smoke run's pins (``chip_smoke.KNOBS_PINNED``)."""
+    assert _per_image(_knob_log(label), 1) == chip_smoke.KNOBS_PINNED[label]
+
+
+def test_knob_pins_are_the_counts_of_the_loop():
+    """K1 at 8 steps: 81 an image with no knob, the same under ToMe 0.5
+    (2,048 tokens take the kernel), 41 under ToMe 0.3 (2,868 do not),
+    161 with PAG at ("mid",), 81 at ("down", "up"), 56 under DeepCache 3
+    (3 full evals, 5 shallow ones of 5), and 81 under fuse_qkv (the split
+    q, k, v are contiguous)."""
+    pinned = {k: v["flash"] for k, v in chip_smoke.KNOBS_PINNED.items()}
+    assert (pinned["tome_0.5"], pinned["tome_0.3"], pinned["pag_mid"],
+            pinned["pag_down_up"], pinned["deepcache_3"],
+            pinned["fuse_qkv"], pinned["size_768"]) == (
+        81, 41, 161, 81, 56, 81, 81)
+
+
+_KNOB_PARTS = {}
+
+
+def _knob_part(part, mode):
+    """The log of one UNet eval whose shapes a knob changes, under
+    ``mode``: "tome" (ToMe 0.5 at the CFG batch), "batch1" (the cond rows
+    alone, perturbed at the mid block as PAG's eval), "size_768" (the CFG
+    batch on a 96^2 grid, and its decode)."""
+    from sdtpu_torch.config import SD15
+
+    if (part, mode) not in _KNOB_PARTS:
+        cfg = SD15
+        n, size, perturb = 2, 64, None
+        if part == "tome":
+            cfg = dataclasses.replace(SD15, unet=dataclasses.replace(
+                SD15.unet, tome_ratio=0.5))
+        elif part == "batch1":
+            n, perturb = 1, ("mid",)
+        else:
+            size = 96
+        log = {}
+        with _recorders(mode, log, ["unet"]):
+            def meta(*shape):
+                return torch.empty(shape, device="meta", dtype=torch.bfloat16)
+
+            from sdtpu_torch.models import unet
+
+            unet.apply(_meta_unet(cfg, mode), meta(n, size, size, 4),
+                       meta(n, cfg.unet.time_embed_dim),
+                       meta(n, cfg.clip.context_len, cfg.unet.context_dim),
+                       cfg.unet, MODES[mode][0], perturb=perturb)
+            if part == "size_768":
+                _run_vae(cfg, mode, size)
+        _KNOB_PARTS[part, mode] = log
+    return _KNOB_PARTS[part, mode]
+
+
+def _knob_sites(kernel):
+    sites = set()
+    logs = [_knob_log(label) for label in chip_smoke.KNOB_ARMS]
+    logs += [_knob_part(part, mode) for part in ("tome", "batch1", "size_768")
+             for mode in POLICY_MODES + QUANT_MODES]
+    for log in logs:
+        for (_, k), keys in log.items():
+            if k == kernel:
+                sites.update(keys)
+    return sorted(sites)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "group_norm",
+                                    "group_norm_affine", "conv",
+                                    "matmul_int8w", "matmul_w8a8"])
+def test_rules_take_every_knob_site(kernel):
+    """Every site of every knob arm, and of the UNet evals whose shapes the
+    knobs change under every mode, through its kernel's static rule, and
+    the plan within what the C entry point accepts. New: K1 at 2,048
+    merged tokens, at batch 1 and at 9,216 and 2,304 tokens with head dims
+    40 and 80; K2 and K3 at N = 1 and 96^2; K4 and K5 at ToMe's M = 4,096
+    and batch 1's M."""
+    sites = _knob_sites(kernel)
+    assert sites
+    for site in sites:
+        if kernel == "flash":
+            b, sq, c, heads = site
+            d = c // heads
+            dpad, rows, bkv = t_attn.plan(d, sq, sq, b * heads, SMS)
+            assert dpad in t_attn.DPADS and d <= dpad < 2 * d + 16
+            assert rows in (64, 128) and b * heads <= 65535
+            assert _flash_smem(dpad, rows, bkv) <= SMEM_CAP
+            assert b * sq * c < 2 ** 31 and sq % 128 == 0 and sq >= 512
+        elif kernel in ("group_norm", "group_norm_affine"):
+            n, hw, c, groups = site[:4]
+            p = _check_gn_plan(n, hw, c, groups)
+            assert n * groups <= t_gn.MAX_SAMPLE_GROUPS and hw * c < 2 ** 31
+            assert p["grid"][1] <= 65535
+        elif kernel == "conv":
+            n, h, w, c_in, c_out, ks, int8 = site
+            p = _check_conv_plan(n, h, w, c_in, c_out, ks, int8)
+            assert n * h * w * max(c_in, c_out) < 2 ** 31
+            assert p["splits"] * n * h * w * c_out < 2 ** 31
+            assert -(-c_out // 128) <= 65535
+        elif kernel == "matmul_int8w":
+            test_int8w_plan_covers_k_once_and_fills_the_card(*site)
+            m, k, n = site
+            p = t_mm.plan_int8w(m, k, n, SMS)
+            assert p["splits"] * m * n < 2 ** 31
+            assert max(m * k, m * n) < 2 ** 31
+        else:
+            test_w8a8_plan_covers_k_once_and_fills_the_card(*site)
+            m, k, n = site
+            assert n >= m
+            assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
+
+
+def test_knob_sites_reach_the_new_shapes():
+    """The knobs' new shapes are among the sites: K1 at ToMe's [2, 2048,
+    320], batch 1's [1, 4096, 320] and [1, 1024, 640], size=768's [2, 9216,
+    320], [2, 2304, 640] and its VAE's [1, 9216, 512]; K2 and K3 at N = 1;
+    K4 at ToMe's M = 2 x 2,048."""
+    flash = _knob_sites("flash")
+    for site in ((2, 2048, 320, 8), (1, 4096, 320, 8), (1, 1024, 640, 8),
+                 (2, 9216, 320, 8), (2, 2304, 640, 8), (1, 9216, 512, 1)):
+        assert site in flash
+    assert not any(sq == 2868 for _, sq, _, _ in flash)
+    assert (1, 4096, 320, 32, 1e-5, True) in _knob_sites("group_norm")
+    assert (1, 64, 64, 320, 320, 3, False) in _knob_sites("conv")
+    k4 = _knob_sites("matmul_int8w")
+    assert (4096, 320, 320) in k4 and (4096, 320, 960) not in k4
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -1688,6 +1879,25 @@ def test_cuda_flash_at_the_shapes_the_tiles_could_break(b, sq, sk, c, heads):
     # or a scale some per cent off does not
     assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs(
         ).max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_tome_merge_is_deterministic():
+    """ToMe's scatter-mean on the card gives the same bits every call,
+    where many rows land in one dst bin (equal tokens: every src token's
+    best dst is the same): ``index_put_`` with ``accumulate`` adds in
+    index order, where ``index_add_`` would add atomically."""
+    from sdtpu_torch.ops import tome
+
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h = torch.ones((2, 4096, 320), device="cuda")
+    x = torch.randn((2, 4096, 320), generator=g, device="cuda")
+    merge, unmerge, r = tome.build(h, 64, 64, 0.5)
+    outs = [merge(x) for _ in range(5)]
+    assert r == 2048 and all(torch.equal(o, outs[0]) for o in outs)
+    assert outs[0].shape == (2, 2048, 320) and outs[0].isfinite().all()
+    assert torch.equal(unmerge(outs[0]), unmerge(outs[0]))
 
 
 @pytest.mark.cuda
