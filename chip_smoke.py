@@ -153,6 +153,27 @@ Phases, each printing one JSON object per line:
    its GEMM rows, the batch-1 evals of PAG and of the interval's unguided
    steps, the 96^2 and 48^2 levels of ``size=768``), against their plain
    versions with the existing tolerances.
+18. stages, after the concat phase: the staged configurations at full
+   width with demo weights, one or two Contexts at a time: ``sd15_lcm``
+   (``sampler="lcm"``, ``LCM_STEPS`` steps, guidance 8 embedded) under cuda
+   and cuda_conv, one image and a ``generate_batch`` of three requests with
+   three guidances (padded to four), one UNet row a request, each request
+   in the batch within ``BATCH_GAP_FACTOR`` of its own bf16 gap to
+   float32; the SDXL two-stage call at 1024x1024, ``sdxl`` with
+   ``denoising_end=STAGE_END`` and ``output="latent"`` then
+   ``sdxl_refiner``'s ``refine(denoising_start=STAGE_END)`` at
+   ``STAGE_STEPS`` steps, under cuda, cuda_conv and ``quantize=
+   "int8w_dense"``, and ``refine`` at ``denoising_start=0`` from
+   ``generate``'s own start latents against ``generate`` (the same bytes,
+   4 steps); ``sd_x4``'s ``upscale`` of a fixed-seed 128x128 image at
+   noise level 20 to 512x512 at ``STAGE_STEPS`` steps under cuda, cuda_conv
+   and int8w_dense. Every call with ``STAGES_PINNED`` (derived on the meta
+   device by tests/test_torch_hopper.py), the same bytes from the same
+   seed, finite latents; ``init_s``, s/image, device busy ms and kernels
+   (torch.profiler), the UNet against float32 under each policy and under
+   int8w_dense. Then kernel_stages_*: K1-K5 at the UNet sites the three
+   bring (LCM's batch of four, the refiner's and the x4 UNet's CFG batch),
+   against their plain versions with the existing tolerances.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -179,6 +200,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -416,6 +438,66 @@ IMAGE_PINNED = {
     "sd21_inpaint": {"cuda": pins(flash=10 * IMAGE_STEPS_XL + 2)},
     "sdxl_inpaint": {"cuda": pins(flash=70 * IMAGE_STEPS_XL + 2)},
 }
+# the stages phase: the staged configurations at full width, launches per
+# call of each kernel under each mode the phase takes, derived from the
+# rules at every site of the UNet evals and the decode the call makes
+# (tests/test_torch_hopper.py::test_stage_pins_are_the_rules):
+#   sd15_lcm at LCM_STEPS lcm steps with the guidance embedded: one UNet row
+#     a request (SD1.5's sites at N = 1, or N = 4 for the batch of three
+#     padded to four), SD1.5's kernel counts an eval;
+#   the two-stage call at STAGE_STEPS steps split at STAGE_END: sdxl's first
+#     STAGE_SPLIT steps with latent output (no decode), then sdxl_refiner's
+#     last ones and its decode;
+#   sd_x4 at STAGE_STEPS steps on a 128^2 image -> 512^2: its UNet runs no
+#     K1 (cross-only attn1 at levels 1 and 2, 256 tokens at level 3 and the
+#     mid block); its f4 VAE's mid block at 16,384 tokens does
+LCM_STEPS = 4
+STAGE_STEPS = 10
+STAGE_END = 0.8
+STAGE_SPLIT = round(STAGE_STEPS * STAGE_END)
+#: call -> (configuration, UNet batch, UNet evals, decodes)
+STAGE_CALLS = {
+    "lcm": ("sd15_lcm", 1, LCM_STEPS, True),
+    "lcm_batch": ("sd15_lcm", 4, LCM_STEPS, True),
+    "base": ("sdxl", 2, STAGE_SPLIT, False),
+    "refine": ("sdxl_refiner", 2, STAGE_STEPS - STAGE_SPLIT, True),
+    "x4": ("sd_x4", 2, STAGE_STEPS, True),
+}
+#   cuda_conv: SD1.5's 60 fused convs an eval and its decoder's 28; SDXL's
+#     45 an eval; the refiner's 55 (22 ResBlocks x 2, 11 proj_in) and the
+#     SDXL decoder's 28; x4's 60 (22 ResBlocks x 2, 16 proj_in) and the f4
+#     decoder's 22 (11 ResBlocks x 2);
+#   int8w_dense: K4 at SDXL's 750 sites an eval (140 split K), the
+#     refiner's 498 (121), x4's 228 (148)
+STAGES_PINNED = {
+    "lcm": {"cuda": pins(flash=10 * LCM_STEPS + 1),
+            "cuda_conv": pins(flash=10 * LCM_STEPS + 1,
+                              group_norm_affine=60 * LCM_STEPS + 28,
+                              conv=60 * LCM_STEPS + 28)},
+    "base": {"cuda": pins(flash=70 * STAGE_SPLIT),
+             "cuda_conv": pins(flash=70 * STAGE_SPLIT,
+                               group_norm_affine=45 * STAGE_SPLIT,
+                               conv=45 * STAGE_SPLIT),
+             "int8w_dense": pins(flash=70 * STAGE_SPLIT,
+                                 matmul_int8w=750 * STAGE_SPLIT,
+                                 matmul_int8w_sum=140 * STAGE_SPLIT)},
+    "refine": {"cuda": pins(flash=40 * (STAGE_STEPS - STAGE_SPLIT) + 1),
+               "cuda_conv": pins(
+                   flash=40 * (STAGE_STEPS - STAGE_SPLIT) + 1,
+                   group_norm_affine=55 * (STAGE_STEPS - STAGE_SPLIT) + 28,
+                   conv=55 * (STAGE_STEPS - STAGE_SPLIT) + 28),
+               "int8w_dense": pins(
+                   flash=40 * (STAGE_STEPS - STAGE_SPLIT) + 1,
+                   matmul_int8w=498 * (STAGE_STEPS - STAGE_SPLIT),
+                   matmul_int8w_sum=121 * (STAGE_STEPS - STAGE_SPLIT))},
+    "x4": {"cuda": pins(flash=1),
+           "cuda_conv": pins(flash=1, group_norm_affine=60 * STAGE_STEPS + 22,
+                             conv=60 * STAGE_STEPS + 22),
+           "int8w_dense": pins(flash=1, matmul_int8w=228 * STAGE_STEPS,
+                               matmul_int8w_sum=148 * STAGE_STEPS)},
+}
+# a batch's launches per call are one call's
+STAGES_PINNED["lcm_batch"] = STAGES_PINNED["lcm"]
 # the samplers phase, under cuda: UNet evals per image (K1 launches 10 times
 # an eval, and once in the VAE): one a step, two on plms_exact's first step,
 # two a step for heun
@@ -1134,7 +1216,9 @@ def phase_model(ctx):
 
 def device_profile(fn):
     """torch.profiler over one call of ``fn``: device ms by kernel name,
-    the number of device kernels, and the call's wall ms on the host."""
+    the number of device kernels, and the call's wall ms on the host. The
+    device events are read from the profiler's raw records: building its
+    Python event tree over the eager loop's CPU ops took 20-35 s a call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1144,11 +1228,11 @@ def device_profile(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
     launches = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
             launches += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+            by_name[e.name()] = (by_name.get(e.name(), 0.0)
+                                 + e.duration_ns() / 1e6)
     return by_name, launches, wall_ms
 
 
@@ -1309,12 +1393,12 @@ def phase_determinism(ctx):
 
 def unet_inputs(cfg, seed, batch=1):
     """The CFG batch of ``batch`` requests' UNet inputs at the
-    configuration's widths."""
+    configuration's widths (the input planes its UNet takes)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = cfg.compute_dtype
     n = 2 * batch
     x = torch.randn((n, cfg.latent_size, cfg.latent_size,
-                     cfg.latent_channels), generator=g, device="cuda").to(dt)
+                     cfg.unet.in_channels), generator=g, device="cuda").to(dt)
     te = torch.randn((n, cfg.unet.time_embed_dim), generator=g,
                      device="cuda").to(dt)
     context = torch.randn((n, cfg.clip.context_len, cfg.unet.context_dim),
@@ -1791,22 +1875,24 @@ def latents_alone(ctx, requests):
     return [ctx.generate_batch([r], output="latent")[0] for r in requests]
 
 
-def float32_latents(ctx):
-    """``BATCH_REQUESTS``' latents from a float32 run of ``ctx``'s weights
-    (the bf16 values widened exactly) at full width: the plain path, each
-    request alone. The float32 Context is freed before returning."""
+def float32_latents(ctx, requests=BATCH_REQUESTS):
+    """The requests' latents from a float32 run of ``ctx``'s weights (the
+    bf16 values widened exactly) at full width, its steps and sampler: the
+    plain path, each request alone. The float32 Context is freed before
+    returning."""
     import dataclasses
 
     from sdtpu_torch import Context
     from sdtpu_torch.io.params import cast_params
 
     c32 = Context(config=dataclasses.replace(ctx.cfg, dtype="float32"),
-                  steps=STEPS, kernels="plain", device=ctx.device)
+                  steps=ctx.steps, sampler=ctx.sampler, kernels="plain",
+                  device=ctx.device)
     c32.params = {k: cast_params(v, torch.float32)
                   for k, v in ctx.params.items()}
     with torch.inference_mode():
         c32._prepare_buffers()
-    lat = latents_alone(c32, BATCH_REQUESTS)
+    lat = latents_alone(c32, requests)
     del c32
     torch.cuda.empty_cache()
     return lat
@@ -2099,7 +2185,6 @@ def phase_families(smi):
         by_name, kernels, wall_ms = device_profile(
             lambda: xl.generate(PROMPT, guidance=7.5, seed=5))
         busy = sum(by_name.values())
-        errs, held = family_unet_errors(xl)
         res.update({
             "first_image_s": first,
             "s_per_image": {k: statistics.median(v)
@@ -2110,14 +2195,8 @@ def phase_families(smi):
             "flash_ms": sum(v for k, v in by_name.items()
                             if "flash_fwd_kernel" in k),
             "top_kernels_ms": [[k[:90], v] for k, v in sorted(
-                by_name.items(), key=lambda kv: -kv[1])[:10]],
-            **errs})
-        for k in POLICIES[1:]:
-            if not (res[f"unet_{k}_finite"] and res[f"unet_{k}_rel_err"]
-                    <= MODEL_FACTOR * res["unet_plain_rel_err"]):
-                emit(res)
-                raise AssertionError(f"sdxl UNet under {k} off the float32 "
-                                     f"run: {res}")
+                by_name.items(), key=lambda kv: -kv[1])[:10]]})
+        held = unet_errors_held(xl, res, "sdxl")
         res["checkpoint"] = family_checkpoint(xl, "sdxl", root, imgs["cuda"])
         release(xl)
         del xl
@@ -2129,8 +2208,7 @@ def phase_families(smi):
         _, out["launches"]["sdxl_int8w_dense"], res[
             "first_image_s_int8w_dense"] = family_image(xd, "sdxl",
                                                         "int8w_dense")
-        res["unet_int8w_dense_finite"], res["unet_int8w_dense_rel_err"] = \
-            quant_unet_error(xd, False, held)
+        quant_error(xd, held, res, "sdxl")
         release(xd)
         xi = family_context("sdxl", kernels="cuda", quantize="int8")
         t0 = time.perf_counter()
@@ -2141,17 +2219,11 @@ def phase_families(smi):
             _, out["launches"]["sdxl_int8+k5"], res[
                 "first_image_s_int8+k5"] = family_image(xi, "sdxl",
                                                         "int8+k5")
-        res["unet_int8+k5_finite"], res["unet_int8+k5_rel_err"] = \
-            quant_unet_error(xi, True, held)
+        quant_error(xi, held, res, "sdxl", "int8+k5", True)
         release(xi)
         del held
         torch.cuda.empty_cache()
         emit(res)
-        for k in ("int8w_dense", "int8+k5"):
-            if not (res[f"unet_{k}_finite"]
-                    and res[f"unet_{k}_rel_err"] <= QUANT_REL_ERR_MAX):
-                raise AssertionError(f"sdxl UNet under {k} is garbage: "
-                                     f"{res}")
 
         # SD 2.1 768-v: cuda, cuda_conv, and heun's second-eval conversion
         sd2 = family_context("sd21", kernels="cuda")
@@ -2171,20 +2243,14 @@ def phase_families(smi):
         t0 = time.perf_counter()
         sd2.generate(PROMPT, guidance=7.5, seed=9)
         times.append(time.perf_counter() - t0)
-        errs, held = family_unet_errors(sd2)
-        del held
         res.update({"s_per_image_cuda": statistics.median(times),
-                    "image_s": times, **errs})
+                    "image_s": times})
+        unet_errors_held(sd2, res, "sd21")
         res["checkpoint"] = family_checkpoint(sd2, "sd21", root,
                                               imgs["cuda"])
         release(sd2)
         del sd2
         emit(res)
-        for k in POLICIES[1:]:
-            if not (res[f"unet_{k}_finite"] and res[f"unet_{k}_rel_err"]
-                    <= MODEL_FACTOR * res["unet_plain_rel_err"]):
-                raise AssertionError(f"sd21 UNet under {k} off the float32 "
-                                     f"run: {res}")
 
         base = family_context("sd21base", kernels="cuda")
         _, out["launches"]["sd21base_cuda"], first_base = family_image(
@@ -2509,6 +2575,351 @@ def phase_concat(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the staged configurations at full width: LCM, the SDXL two-stage call,
+# the x4 upscaler
+# ---------------------------------------------------------------------------
+
+STAGE_SEED = 41
+LCM_GUIDANCE = 8.0
+#: three LCM requests with their own seed and guidance, padded to four
+LCM_REQUESTS = [
+    {"prompt": PROMPT, "seed": 41, "guidance": LCM_GUIDANCE},
+    {"prompt": "a watercolor of a lighthouse at dusk", "seed": 42,
+     "guidance": 4.0},
+    {"prompt": "a vintage car on a coastal road", "seed": 43,
+     "guidance": 1.5}]
+X4_NOISE_LEVEL = 20
+X4_LOW_RES = 128
+
+
+def stage_context(name, **kw):
+    from sdtpu_torch import Context
+
+    return Context(config=name, device="cuda", **kw)
+
+
+@contextlib.contextmanager
+def unet_rows(log):
+    """The batch of every UNet eval of a block, appended to ``log``."""
+    from sdtpu_torch.models import unet
+
+    real = unet.apply
+
+    def apply(params, x, *args, **kwargs):
+        log.append(x.shape[0])
+        return real(params, x, *args, **kwargs)
+
+    unet.apply = apply
+    try:
+        yield
+    finally:
+        unet.apply = real
+
+
+def stage_profile(run, res):
+    """s/image of ``run`` (two calls, the mean) and its device busy ms,
+    device kernels and idle share (torch.profiler, a third call), into
+    ``res``."""
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    by_name, kernels, wall_ms = device_profile(run)
+    busy = sum(by_name.values())
+    res.update({"s_per_image": statistics.mean(times), "image_s": times,
+                "device_busy_ms": busy, "device_kernels": kernels,
+                "profiled_wall_ms": wall_ms,
+                "device_idle_share": 1.0 - busy / wall_ms})
+
+
+def unet_errors_held(ctx, res, label):
+    """``family_unet_errors`` of ``ctx`` into ``res`` (every policy within
+    ``MODEL_FACTOR`` of the plain bf16 path's error), and the float32
+    reference to hold a quantized Context to."""
+    errs, held = family_unet_errors(ctx)
+    res.update(errs)
+    for k in POLICIES[1:]:
+        if not (errs[f"unet_{k}_finite"] and errs[f"unet_{k}_rel_err"]
+                <= MODEL_FACTOR * errs["unet_plain_rel_err"]):
+            emit(res)
+            raise AssertionError(f"{label} UNet under {k} off the float32 "
+                                 f"run: {errs}")
+    return held
+
+
+def quant_error(c, held, res, label, mode="int8w_dense", flag=False):
+    """The quantized Context ``c``'s UNet (``KERNEL_W8A8`` = ``flag``)
+    against the float32 reference ``held``, into ``res``: under
+    ``QUANT_REL_ERR_MAX`` (random weights: garbage only is caught)."""
+    res[f"unet_{mode}_finite"], res[f"unet_{mode}_rel_err"] = \
+        quant_unet_error(c, flag, held)
+    if not (res[f"unet_{mode}_finite"]
+            and res[f"unet_{mode}_rel_err"] <= QUANT_REL_ERR_MAX):
+        emit(res)
+        raise AssertionError(f"{label} UNet under {mode} is garbage: {res}")
+
+
+def stage_sites(ctx, n, evals):
+    """K1-K5's call shapes in ``evals`` UNet evals of ``ctx`` at a batch of
+    ``n``, with launches per call (``record_sites``,
+    ``record_mm_sites``). The decoders' sites are the families' (SDXL's)
+    and the main path's."""
+    from sdtpu_torch.models import unet
+
+    cfg = ctx.cfg
+    x, te, context = (t[:n] for t in unet_inputs(cfg, 14, n))
+    return (record_sites([(evals, lambda k: unet.apply(
+        ctx.params["unet"], x, te, context, cfg.unet, k))]),
+        record_mm_sites(ctx, x, te, context, evals))
+
+
+def phase_stage_lcm(smi):
+    """LCM (``sd15_lcm``) at ``LCM_STEPS`` lcm steps, guidance 8 embedded,
+    under cuda and cuda_conv: one image and a ``generate_batch`` of
+    ``LCM_REQUESTS`` (three guidances, padded to four), each with its pins
+    and one UNet row a request; the same bytes from the same seed, finite
+    latents; each request's latents in the batch against its run alone
+    within ``BATCH_GAP_FACTOR`` times its own gap between bf16 and float32;
+    s/image, device busy ms, the UNet against float32 under each policy
+    and under int8w_dense. Returns (launches, kernel sites)."""
+    from sdtpu_torch.quant.ptq import quantize_weights_only
+
+    c = stage_context("sd15_lcm", sampler="lcm", steps=LCM_STEPS,
+                      kernels="cuda")
+    res = {"phase": "stage", "config": "sd15_lcm", "nvidia_smi": smi,
+           "init_s": c.init_seconds, "steps": LCM_STEPS}
+    launches = {}
+    for policy in ("cuda", "cuda_conv"):
+        c.kernels = policy
+        rows = []
+        with unet_rows(rows):
+            _, launches[f"lcm_{policy}"], res[f"first_image_s_{policy}"], _ = \
+                checked_call(c, lambda **kw: c.generate(
+                    PROMPT, guidance=LCM_GUIDANCE, **kw),
+                    STAGES_PINNED["lcm"][policy], f"sd15_lcm {policy}",
+                    STAGE_SEED)
+        reset_counts()
+        with unet_rows(rows):
+            imgs = c.generate_batch(LCM_REQUESTS)
+        launches[f"lcm_batch_{policy}"] = counts()
+        for img in imgs:
+            check_image(img, c.cfg.image_size)
+        if launches[f"lcm_batch_{policy}"] != STAGES_PINNED["lcm_batch"][
+                policy]:
+            raise AssertionError(f"sd15_lcm batch {policy}: launches "
+                                 f"{launches[f'lcm_batch_{policy}']}")
+        res[f"unet_rows_{policy}"] = sorted(set(rows))
+        if set(rows) != {1, 4}:
+            raise AssertionError(f"sd15_lcm {policy}: UNet rows {rows}, "
+                                 f"expected one a request")
+    c.kernels = "cuda"
+    in_batch = c.generate_batch(LCM_REQUESTS, output="latent")
+    alone = latents_alone(c, LCM_REQUESTS)
+    lat32 = float32_latents(c, LCM_REQUESTS)
+    scale = [float(np.abs(r).max()) for r in lat32]
+    own = [float(np.abs(a - r).max()) / m
+           for a, r, m in zip(alone, lat32, scale)]
+    gap = [float(np.abs(b - a).max()) / m
+           for b, a, m in zip(in_batch, alone, scale)]
+    r0 = LCM_REQUESTS[0]
+    one = c.generate_batch([r0])[0]
+    res.update({"batch_gap": gap, "bf16_gap": own,
+                "batch_of_one_identical": bool(np.array_equal(
+                    one, c.generate(r0["prompt"], guidance=r0["guidance"],
+                                    seed=r0["seed"])))})
+    stage_profile(lambda: c.generate(PROMPT, guidance=LCM_GUIDANCE, seed=9),
+                  res)
+    held = unet_errors_held(c, res, "sd15_lcm")
+    quant_error(types.SimpleNamespace(
+        params={"unet": quantize_weights_only(c.params["unet"],
+                                              include_dense=True)},
+        cfg=c.cfg, kernels="cuda"), held, res, "sd15_lcm")
+    del held
+    sites = stage_sites(c, 4, LCM_STEPS)
+    release(c)
+    emit(res)
+    if not res["batch_of_one_identical"]:
+        raise AssertionError("sd15_lcm: a batch of one differs from generate")
+    if any(g > BATCH_GAP_FACTOR * o for g, o in zip(gap, own)):
+        raise AssertionError(f"sd15_lcm: a request in the batch is off its "
+                             f"run alone: {gap} against {own}")
+    return launches, sites
+
+
+def two_stage(base, ref, mode, res):
+    """``base.generate(denoising_end=STAGE_END, output="latent")`` then
+    ``ref.refine(denoising_start=STAGE_END)``, each with its pins; twice,
+    the same latents and bytes from the same seed; finite latents, a
+    1024^2 uint8 image. Returns the launches of each half."""
+    out = []
+    for _ in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        lat = base.generate(PROMPT, guidance=7.5, seed=STAGE_SEED,
+                            denoising_end=STAGE_END, output="latent")
+        l_base = counts()
+        reset_counts()
+        img = ref.refine(lat, PROMPT, guidance=7.5, seed=STAGE_SEED,
+                         denoising_start=STAGE_END)
+        res.setdefault(f"call_s_{mode}", []).append(
+            time.perf_counter() - t0)
+        out.append((lat, img, l_base, counts()))
+    (lat, img, l_base, l_ref), (lat2, img2, _, _) = out
+    if l_base != STAGES_PINNED["base"][mode] or (
+            l_ref != STAGES_PINNED["refine"][mode]):
+        raise AssertionError(f"two-stage {mode}: launches {l_base}, {l_ref}")
+    check_image(img, ref.cfg.image_size)
+    if not np.isfinite(lat).all():
+        raise AssertionError(f"two-stage {mode}: latents not finite")
+    if not (np.array_equal(lat, lat2) and np.array_equal(img, img2)):
+        raise AssertionError(f"two-stage {mode}: the same seed gave other "
+                             f"bytes")
+    emit({"phase": "stage_call", "call": "two_stage", "mode": mode,
+          "launches_base": l_base, "launches_refine": l_ref,
+          "identical": True, "latent_abs_max": float(np.abs(lat).max()),
+          "image_mean": float(img.mean()), "image_std": float(img.std())})
+    return l_base, l_ref
+
+
+def phase_stage_refiner(smi):
+    """The SDXL two-stage call at 1024^2, ``STAGE_STEPS`` steps split at
+    ``STAGE_END`` (``two_stage``), under cuda and cuda_conv on one pair of
+    Contexts and under int8w_dense on another; ``refine`` at
+    ``denoising_start=0`` from ``generate``'s own start latents against
+    ``generate`` at 4 steps (the same bytes); s/image of the two-stage
+    call, device busy ms; the refiner's UNet against float32 under each
+    policy and under int8w_dense. Returns (launches, kernel sites)."""
+    base = stage_context("sdxl", steps=STAGE_STEPS, kernels="cuda")
+    ref = stage_context("sdxl_refiner", steps=STAGE_STEPS, kernels="cuda")
+    res = {"phase": "stage", "config": "sdxl+sdxl_refiner",
+           "nvidia_smi": smi, "init_s_base": base.init_seconds,
+           "init_s_refiner": ref.init_seconds, "steps": STAGE_STEPS,
+           "split": STAGE_SPLIT}
+    launches = {}
+    for policy in ("cuda", "cuda_conv"):
+        base.kernels = ref.kernels = policy
+        launches[f"base_{policy}"], launches[f"refine_{policy}"] = \
+            two_stage(base, ref, policy, res)
+    base.kernels = ref.kernels = "cuda"
+
+    def call():
+        lat = base.generate(PROMPT, guidance=7.5, seed=9,
+                            denoising_end=STAGE_END, output="latent")
+        ref.refine(lat, PROMPT, guidance=7.5, seed=9,
+                   denoising_start=STAGE_END)
+
+    stage_profile(call, res)
+    ref.set_steps(4)
+    want = ref.generate(PROMPT, guidance=7.5, seed=STAGE_SEED)
+    noise = torch.randn((1, ref.cfg.latent_size, ref.cfg.latent_size,
+                         ref.cfg.latent_channels), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            STAGE_SEED))
+    got = ref.refine(noise[0].cpu().numpy(), PROMPT, guidance=7.5,
+                     seed=STAGE_SEED, denoising_start=0.0)
+    res["refine_from_start_is_generate"] = bool(np.array_equal(got, want))
+    ref.set_steps(STAGE_STEPS)
+    release(base)
+    held = unet_errors_held(ref, res, "sdxl_refiner")
+    sites = stage_sites(ref, 2, STAGE_STEPS - STAGE_SPLIT)
+    release(ref)
+    bd = stage_context("sdxl", steps=STAGE_STEPS, kernels="cuda",
+                       quantize="int8w_dense")
+    rd = stage_context("sdxl_refiner", steps=STAGE_STEPS, kernels="cuda",
+                       quantize="int8w_dense")
+    launches["base_int8w_dense"], launches["refine_int8w_dense"] = \
+        two_stage(bd, rd, "int8w_dense", res)
+    quant_error(rd, held, res, "sdxl_refiner")
+    del held
+    release(bd, rd)
+    emit(res)
+    if not res["refine_from_start_is_generate"]:
+        raise AssertionError("refine from generate's start latents at "
+                             "denoising_start=0 differs from generate")
+    return launches, sites
+
+
+def phase_stage_x4(smi):
+    """The x4 upscaler (``sd_x4``): a fixed-seed 128^2 uint8 image at noise
+    level ``X4_NOISE_LEVEL`` to 512^2 at ``STAGE_STEPS`` steps, guidance 9,
+    under cuda and cuda_conv and on a Context under int8w_dense
+    (``checked_call``: the pins, K1's one launch in the f4 VAE's mid block
+    among them, the same bytes, finite latents); s/image, device busy ms;
+    the UNet against float32 under each policy and under int8w_dense.
+    Returns (launches, kernel sites)."""
+    c = stage_context("sd_x4", steps=STAGE_STEPS, kernels="cuda")
+    low = image_inputs(X4_LOW_RES)[0]
+    res = {"phase": "stage", "config": "sd_x4", "nvidia_smi": smi,
+           "init_s": c.init_seconds, "steps": STAGE_STEPS,
+           "noise_level": X4_NOISE_LEVEL}
+    launches = {}
+
+    def run(ctx):
+        return lambda **kw: ctx.upscale(PROMPT, low,
+                                        noise_level=X4_NOISE_LEVEL, **kw)
+
+    for policy in ("cuda", "cuda_conv"):
+        c.kernels = policy
+        _, launches[f"x4_{policy}"], res[f"first_image_s_{policy}"], _ = \
+            checked_call(c, run(c), STAGES_PINNED["x4"][policy],
+                         f"sd_x4 {policy}", STAGE_SEED)
+    c.kernels = "cuda"
+    stage_profile(lambda: run(c)(seed=9), res)
+    held = unet_errors_held(c, res, "sd_x4")
+    sites = stage_sites(c, 2, STAGE_STEPS)
+    release(c)
+    cd = stage_context("sd_x4", steps=STAGE_STEPS, kernels="cuda",
+                       quantize="int8w_dense")
+    _, launches["x4_int8w_dense"], res["first_image_s_int8w_dense"], _ = \
+        checked_call(cd, run(cd), STAGES_PINNED["x4"]["int8w_dense"],
+                     "sd_x4 int8w_dense", STAGE_SEED)
+    quant_error(cd, held, res, "sd_x4")
+    del held
+    release(cd)
+    emit(res)
+    return launches, sites
+
+
+def phase_stages(smi):
+    """The staged configurations (module docstring, item 18), then K1-K5
+    at their new sites (``kernel_stages_*``): LCM's UNet at N = 4 (its
+    batch; N = 1 is the knobs phase's), the refiner's and the x4 UNet at
+    the CFG batch of 2, each against its plain version with the existing
+    tolerances. Returns (launches, {group: {kernel: rows}})."""
+    start = time.perf_counter()
+    launches, groups = {}, {}
+    for name, phase in (("lcm", phase_stage_lcm),
+                        ("refiner", phase_stage_refiner),
+                        ("x4", phase_stage_x4)):
+        found, groups[name] = phase(smi)
+        launches.update(found)
+    emit({"phase": "stages_calls_done",
+          "seconds": time.perf_counter() - start})
+    rows = {}
+    for name, unet_n in (("lcm", 4), ("refiner", 2), ("x4", 2)):
+        sites, mm = groups[name]
+        label = f"kernel_stages_{name}"
+        emit({"phase": f"sites_stages_{name}", **{
+            k: sum(v.values()) for k, v in sites.items()}})
+        out = {}
+        if sites["flash"]:      # the x4 UNet launches none
+            out["flash"] = phase_kernel(sorted(sites["flash"]), [], label,
+                                        per_image=sites["flash"])
+        out["group_norm"] = phase_kernel_gn(sites["group_norm"], [],
+                                            f"{label}_gn")
+        affine = sum(n for k, n in sites["conv"].items() if k[3])
+        out["group_norm_affine"] = phase_kernel_gn_affine(
+            sites["conv"], [], f"{label}_gn_affine", affine)
+        out["conv"] = phase_kernel_conv(sites["conv"], [], unet_n,
+                                        f"{label}_conv", int8=False)
+        out.update(phase_kernel_mm(mm, [], f"{label}_mm"))
+        rows[name] = out
+    emit({"phase": "stages_done", "seconds": time.perf_counter() - start})
+    return launches, rows
+
+
 def knob_context(shared, label):
     """(the Context arm ``label`` runs on, whether the arm built it): the
     shared Context of its mode with the settable knobs set, or a new
@@ -2810,6 +3221,9 @@ def main() -> int:
     fl = fam["launches"]
     # the concat-conditioned families, one Context at a time
     img_launches.update(phase_concat(smi))
+    # the staged configurations (LCM, the SDXL two-stage call, the x4
+    # upscaler), then the kernels at the sites they bring
+    stage_launches, stage_rows = phase_stages(smi)
 
     def images(kernel, counter):
         return {"rows": {g: image_summary(rows.get(kernel), None)
@@ -2821,6 +3235,12 @@ def main() -> int:
         return {"rows": image_summary(knob_rows.get(kernel), None),
                 "launches": {k: v[counter]
                              for k, v in knob_launches.items()}}
+
+    def stages(kernel, counter):
+        return {"rows": {g: image_summary(rows.get(kernel), None)
+                         for g, rows in stage_rows.items()},
+                "launches": {k: v[counter]
+                             for k, v in stage_launches.items()}}
 
     def families(kernel, counter, sdxl_mode, sd21_mode):
         return {"sdxl": family_summary(fam["rows"]["sdxl"][kernel],
@@ -2853,6 +3273,7 @@ def main() -> int:
          "families": families("flash", "flash", "cuda", "cuda"),
          "image": images("flash", "flash"),
          "knobs": knobs("flash", "flash"),
+         "stages": stages("flash", "flash"),
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -2872,6 +3293,7 @@ def main() -> int:
                               "cuda_gn"),
          "image": images("group_norm", "group_norm"),
          "knobs": knobs("group_norm", "group_norm"),
+         "stages": stages("group_norm", "group_norm"),
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -2895,6 +3317,7 @@ def main() -> int:
          "families": families("conv", "conv", "cuda_conv", "cuda_conv"),
          "image": images("conv", "conv"),
          "knobs": knobs("conv", "conv"),
+         "stages": stages("conv", "conv"),
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -2918,6 +3341,7 @@ def main() -> int:
                               "cuda_conv", "cuda_conv"),
          "image": images("group_norm_affine", "group_norm_affine"),
          "knobs": knobs("group_norm_affine", "group_norm_affine"),
+         "stages": stages("group_norm_affine", "group_norm_affine"),
          "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
@@ -2939,6 +3363,7 @@ def main() -> int:
                               "int8w_dense", "int8w_dense"),
          "image": images("matmul_int8w", "matmul_int8w"),
          "knobs": knobs("matmul_int8w", "matmul_int8w"),
+         "stages": stages("matmul_int8w", "matmul_int8w"),
          "timed_shape": [k4_main[d] for d in "mkn"]},
         {"name": "matmul_w8a8", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
@@ -2964,6 +3389,7 @@ def main() -> int:
                               "int8+k5"),
          "image": images("matmul_w8a8", "matmul_w8a8"),
          "knobs": knobs("matmul_w8a8", "matmul_w8a8"),
+         "stages": stages("matmul_w8a8", "matmul_w8a8"),
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

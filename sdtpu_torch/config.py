@@ -1,13 +1,15 @@
 """Model/pipeline configuration for the PyTorch port.
 
 Carried over from ``sdtpu/config.py`` (the JAX package), cut to the fields
-the txt2img and image-conditioned paths of SD v1.5, SD 2.x and SDXL-base
-read, the concat-conditioned variants (inpaint, depth, InstructPix2Pix)
-whose UNet takes extra input planes, and the Context knobs (FreeU, ToMe,
-CFG rescale, DeepCache). Field names, defaults and the values
-are the JAX package's; ``tests/test_torch_slice.py``,
-``tests/test_torch_families.py`` and ``tests/test_torch_image.py`` pin them
-against it.
+the txt2img and image-conditioned paths of SD v1.5, SD 2.x and SDXL read,
+the concat-conditioned variants (inpaint, depth, InstructPix2Pix) whose
+UNet takes extra input planes, the three staged configurations (LCM's
+guidance embedding, the SDXL refiner's single tower, the x4 upscaler's
+cross-only levels and noise-level classes) and the Context knobs (FreeU,
+ToMe, CFG rescale, DeepCache). Field names, defaults and the values are
+the JAX package's; ``tests/test_torch_slice.py``,
+``tests/test_torch_families.py``, ``tests/test_torch_image.py`` and
+``tests/test_torch_stages.py`` pin them against it.
 """
 
 from __future__ import annotations
@@ -65,6 +67,18 @@ class UNetConfig:
     # the 64x64 level and up); 0.0 = off. Set via Context(tome_ratio=...)
     tome_ratio: float = 0.0
     tome_min_tokens: int = 4096
+    # the x4 upscaler: levels whose transformers' attn1 attends the text
+    # context instead of the hidden (LDM ``disable_self_attentions``; the
+    # mid block keeps its self-attention)
+    cross_only_levels: Tuple[int, ...] = ()
+    # noise-level classes: a learned [num_class_embeds, time_embed_dim]
+    # table whose selected row adds to the time embedding (x4: 1000); 0 =
+    # none
+    num_class_embeds: int = 0
+    # LCM's guidance embedding: the width of the guidance-scale features a
+    # bias-free projection adds to the time features (256); the model
+    # bakes CFG in, so no CFG batch runs. 0 = none
+    time_cond_proj_dim: int = 0
 
     def depth_at(self, lvl: int) -> int:
         if not self.transformer_depth:
@@ -104,9 +118,12 @@ class PipelineConfig:
     upscale: int = 8          # VAE upsampling factor
     dtype: str = "bfloat16"   # activation/compute dtype
     prediction: str = "eps"   # "eps" | "v" (SD 2.x 768-v)
-    # the SDXL refiner's single-tower layout: a later slice of the port;
-    # Context refuses a config that sets it
+    # the SDXL refiner's layout: tower 2 alone is the text conditioning (no
+    # ``clip`` tree; ``clip`` is set to tower 2's config for the token
+    # plumbing), and the micro-conditions are (H, W, 0, 0, aesthetic score)
     refiner: bool = False
+    # the refiner's aesthetic-score micro-condition
+    aesthetic_score: float = 6.0
     # CFG rescale (Lin et al. 2023): blend the guided eps toward itself
     # rescaled to the cond prediction's per-sample std; 0 = off. Set via
     # Context(guidance_rescale=...)
@@ -115,6 +132,9 @@ class PipelineConfig:
     # deep feature spliced into a shallow eval between; None = off. Set via
     # Context(deepcache=N)
     deepcache_interval: Optional[int] = None
+    # the x4 upscaler: the low-res image is noised to a level below this on
+    # an image-space schedule, and that level picks the class row
+    max_noise_level: int = 350
 
     @property
     def image_size(self) -> int:
@@ -177,6 +197,46 @@ SD2_DEPTH = dataclasses.replace(
 SD15_IP2P = dataclasses.replace(
     SD15, unet=dataclasses.replace(SD15.unet, in_channels=8))
 
+# Latent-consistency distilled SD1.5 (LCM-Dreamshaper v7): SD1.5 with a
+# 256-wide guidance embedding in the time MLP; served with sampler="lcm"
+# at 2-8 steps, the CFG batch never runs
+SD15_LCM = dataclasses.replace(
+    SD15, unet=dataclasses.replace(SD15.unet, time_cond_proj_dim=256))
+
+# The SD x4 upscaler (stable-diffusion-x4-upscaler): a 7-channel UNet
+# (latents 4 + the noise-augmented low-res RGB 3) on the low-res grid, the
+# noise level through a 1000-row class table, cross-only attention at
+# levels 1 and 2, an f4 VAE; v-prediction, SD 2.x's OpenCLIP tower
+SD_X4 = PipelineConfig(
+    clip=CLIPConfig(hidden=1024, layers=23, heads=16, act="gelu"),
+    unet=UNetConfig(in_channels=7, model_channels=256,
+                    channel_mult=(1, 2, 2, 4), attn_levels=(1, 2, 3),
+                    num_heads=8, context_dim=1024, time_embed_dim=1024,
+                    cross_only_levels=(1, 2), num_class_embeds=1000),
+    vae=VAEConfig(channel_mult=(1, 2, 4), scale_factor=0.08333),
+    latent_size=128,
+    upscale=4,
+    prediction="v",
+)
+
+# The SDXL refiner (1024x1024, the second stage): one text tower (bigG,
+# 1280-wide context), the pooled embedding and five micro-conditions
+# through the additive MLP (2560 -> 1536), a 384-channel 4-level UNet with
+# depth-4 transformers at levels 1 and 2
+_XL_BIGG = CLIPConfig(hidden=1280, layers=32, heads=20, act="gelu",
+                      projection=1280)
+SDXL_REFINER = PipelineConfig(
+    clip=_XL_BIGG,
+    clip2=_XL_BIGG,
+    unet=UNetConfig(model_channels=384, channel_mult=(1, 2, 4, 4),
+                    attn_levels=(1, 2), transformer_depth=(0, 4, 4, 0),
+                    num_heads=0, head_dim=64, context_dim=1280,
+                    time_embed_dim=1536, adm_in_channels=2560),
+    vae=VAEConfig(scale_factor=0.13025),
+    latent_size=128,
+    refiner=True,
+)
+
 # Tiny config for CPU tests: same topology, ~1000x fewer FLOPs.
 TINY = PipelineConfig(
     clip=CLIPConfig(vocab_size=512 + 22 + 2, hidden=32, layers=2, heads=2,
@@ -210,6 +270,38 @@ TINY_XL = PipelineConfig(
     dtype="float32",
 )
 
+# the refiner's topology at TINY (CPU tests): one tower, five
+# micro-conditions (16 pooled + 5 x 8 = 56)
+TINY_XL_REF = PipelineConfig(
+    clip=CLIPConfig(vocab_size=512 + 22 + 2, hidden=48, layers=3, heads=2,
+                    context_len=16, act="gelu", projection=16),
+    clip2=CLIPConfig(vocab_size=512 + 22 + 2, hidden=48, layers=3, heads=2,
+                     context_len=16, act="gelu", projection=16),
+    unet=UNetConfig(model_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+                    attn_levels=(1,), transformer_depth=(0, 2), num_heads=2,
+                    context_dim=48, time_embed_dim=64, groups=4,
+                    adm_in_channels=56),
+    vae=VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+                  groups=4),
+    latent_size=8,
+    upscale=2,
+    dtype="float32",
+    refiner=True,
+)
+
+# LCM and the x4 upscaler at TINY (CPU tests): an 8-wide guidance
+# embedding; 7 input channels, cross-only attention at level 0, a 20-row
+# class table, an f2 VAE
+TINY_LCM = dataclasses.replace(
+    TINY, unet=dataclasses.replace(TINY.unet, time_cond_proj_dim=8))
+TINY_X4 = dataclasses.replace(
+    TINY,
+    unet=dataclasses.replace(TINY.unet, in_channels=7,
+                             cross_only_levels=(0,), num_class_embeds=20),
+    max_noise_level=16,
+    prediction="v",
+)
+
 # the concat-conditioned variants at TINY (CPU tests)
 TINY_INPAINT = dataclasses.replace(
     TINY, unet=dataclasses.replace(TINY.unet, in_channels=9))
@@ -225,19 +317,15 @@ CONFIGS = {
     "sd15": SD15,
     "sd15_inpaint": SD15_INPAINT,
     "sd15_ip2p": SD15_IP2P,
+    "sd15_lcm": SD15_LCM,
     "sd21": SD21,
     "sd21_inpaint": SD21_INPAINT,
     "sd21base": SD21_BASE,
     "sd2_depth": SD2_DEPTH,
+    "sd_x4": SD_X4,
     "sdxl": SDXL,
     "sdxl_inpaint": SDXL_INPAINT,
+    "sdxl_refiner": SDXL_REFINER,
     "tiny": TINY,
 }
 
-#: the JAX package's other configurations, and the ROADMAP item of the
-#: port that brings each (``Context`` refuses them by name)
-NOT_PORTED = {
-    "sd15_lcm": "item 18 (LCM's guidance embedding)",
-    "sd_x4": "item 18 (the x4 upscaler)",
-    "sdxl_refiner": "item 18 (the refiner, refine and denoising_end)",
-}

@@ -11,20 +11,21 @@ Configurations: ``"sd15"``, ``"sd21"`` (768x768, v-prediction),
 ``"sd21base"`` (512x512) and ``"sdxl"`` (1024x1024, two text towers, the
 pooled and micro-conditioning), their concat-conditioned variants
 ``"sd15_inpaint"``, ``"sd21_inpaint"``, ``"sdxl_inpaint"`` (9-channel UNets),
-``"sd2_depth"`` (5) and ``"sd15_ip2p"`` (8), or a ``PipelineConfig``. The
-JAX package's other names (LCM, x4, the refiner) are ``INVALID_ARGUMENT``
-naming the ROADMAP item that brings them.
+``"sd2_depth"`` (5) and ``"sd15_ip2p"`` (8), the staged ones ``"sd15_lcm"``
+(the guidance embedded: no CFG batch, ``_use_cfg``), ``"sdxl_refiner"``
+(``refine``, after a base's ``generate(denoising_end=, output="latent")``)
+and ``"sd_x4"`` (``upscale``), or a ``PipelineConfig``.
 
 Weights: ``model_dir=None`` builds random demo weights from a fixed seed;
 else ``model_dir`` is a directory or one file holding a checkpoint of the
-configuration's family (SD1.x, SD2.x with its OpenCLIP tower, or SDXL in
-the sgm naming), loaded by ``io.weights.load_pipeline_params`` (the native
+configuration's family (SD1.x, SD2.x with its OpenCLIP tower, SDXL or its
+refiner in the sgm naming), loaded by ``io.weights.load_pipeline_params`` (the native
 ``*.sdtpu.safetensors`` preferred, then LDM-named ``*.safetensors``), with
 ``model_dir/ctokenizer.txt`` as the tokenizer when present. A missing or
 empty ``model_dir`` fails as ``RUNTIME_ERROR`` "model load failed: ..." and
-latches; a checkpoint of a family the port does not load yet (the SDXL
-refiner, ControlNet, orbax), or of another family than the
-configuration's, is ``INVALID_ARGUMENT``. ``embeddings={placeholder:
+latches; a checkpoint of a family the port does not load yet (ControlNet,
+orbax), or of another family than the configuration's, is
+``INVALID_ARGUMENT``. ``embeddings={placeholder:
 source}`` loads textual-inversion embeddings (``load_embedding``);
 ``clip_skip`` taps a single-tower configuration's text tower ``clip_skip -
 1`` blocks early.
@@ -51,8 +52,8 @@ with their own image, mask, ``guidance``, ``seed`` and
 two with one generator a request. Each call's generator makes its draws in
 the order ``pipeline.draw_noise`` fixes.
 ``sampler`` is any name of ``samplers.SAMPLERS`` (``"dpm"`` by default).
-The reference's LoRA, ControlNet, two-stage and mesh arguments are refused
-with ``INVALID_ARGUMENT`` until their slices of the port.
+The reference's LoRA, ControlNet and mesh arguments are refused with
+``INVALID_ARGUMENT`` until their slices of the port.
 
 The constructor takes the reference's keywords with its names, defaults
 and positional order (``sdtpu/engine/context.py:60-84``); ``device`` is
@@ -103,7 +104,7 @@ import numpy as np
 import torch
 
 from sdtpu_torch import text as text_mod
-from sdtpu_torch.config import CONFIGS, NOT_PORTED, PipelineConfig
+from sdtpu_torch.config import CONFIGS, PipelineConfig
 from sdtpu_torch.engine import logging as slog
 from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.errors import ErrorCode, ErrorTable, SdtpuError
@@ -225,23 +226,12 @@ class Context:
         applied, each checked with the reference's text
         (``sdtpu/engine/context.py:108-193``)."""
         if isinstance(config, str):
-            if config.lower() in NOT_PORTED:
-                raise SdtpuError(
-                    ErrorCode.INVALID_ARGUMENT,
-                    f"config {config!r} is not ported yet (ROADMAP "
-                    f"{NOT_PORTED[config.lower()]}); available: "
-                    f"{sorted(CONFIGS)}", self.errors)
             if config.lower() not in CONFIGS:
                 raise SdtpuError(
                     ErrorCode.INVALID_ARGUMENT,
                     f"unknown config {config!r}; available: "
                     f"{sorted(CONFIGS)}", self.errors)
             config = CONFIGS[config.lower()]
-        if config.refiner:
-            raise SdtpuError(
-                ErrorCode.INVALID_ARGUMENT,
-                f"a refiner config is not ported yet (ROADMAP "
-                f"{NOT_PORTED['sdxl_refiner']})", self.errors)
         replace = dataclasses.replace
         if size is not None:
             # the UNet and the VAE are convolutional: only the latent grid
@@ -507,6 +497,17 @@ class Context:
     # knobs
     # ------------------------------------------------------------------
 
+    def _use_cfg(self, guidance=None) -> bool:
+        """Whether a call runs the CFG batch, the one rule every entry point
+        takes (``sdtpu/engine/context.py:480-489``): never on a
+        guidance-embedded (LCM) configuration, whose model takes the scale
+        through its time MLP; else where ``guidance != 1``, and always for a
+        batch (``guidance`` None: a request's 1.0 mixes its uncond half in
+        with weight 0)."""
+        if self.cfg.unet.time_cond_proj_dim:
+            return False
+        return guidance is None or guidance != 1.0
+
     def set_steps(self, steps: int) -> None:
         if steps < 1:
             raise SdtpuError(
@@ -621,8 +622,14 @@ class Context:
         self-attention of the context's ``pag_layers`` replaced by the
         identity, and eps moved by ``pag_scale`` x (cond - perturbed); the
         context's default (``set_pag_scale``) when omitted. ``lora``,
-        ``control_image``, ``control`` and ``denoising_end`` are not ported
-        yet and refused when given.
+        ``control_image`` and ``control`` are not ported yet and refused
+        when given.
+
+        Two-stage calls (SDXL base and refiner): ``denoising_end`` in (0, 1]
+        stops the loop after ``max(1, round(steps * denoising_end))`` steps;
+        with ``output="latent"`` the noisy latents feed a refiner Context's
+        ``refine(latents, prompt, denoising_start=...)`` on the same
+        ``steps``.
 
         A prompt with scheduling (``[from:to:when]``, ``[a|b]``) conditions
         each step on its resolved text: the deduplicated variants encode
@@ -633,7 +640,7 @@ class Context:
         self._check_in_channels("txt2img", "generate")
         prompts = self._prompts(prompt)
         _refuse_unported(self.errors, lora=lora, control_image=control_image,
-                         control=control, denoising_end=denoising_end)
+                         control=control)
         self._check_output(output)
         if text_mod.has_schedule(negative_prompt or "", self.steps):
             raise SdtpuError(
@@ -642,17 +649,28 @@ class Context:
                 self.errors)
         sched = None
         if any(text_mod.has_schedule(p, self.steps) for p in prompts):
+            if denoising_end is not None or output != "image":
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    "prompt scheduling composes with plain txt2img only "
+                    "(no ControlNet/two-stage/latent output yet)",
+                    self.errors)
             if self.cfg.clip2 is not None:
                 raise SdtpuError(
                     ErrorCode.INVALID_ARGUMENT,
                     "prompt scheduling is single-tower only (XL pending)",
                     self.errors)
-            if output != "image":
+            sched = self._schedule_inputs(prompts)
+        end_step = None
+        if denoising_end is not None:
+            if not 0.0 < denoising_end <= 1.0:
                 raise SdtpuError(
                     ErrorCode.INVALID_ARGUMENT,
-                    "prompt scheduling composes with plain txt2img only "
-                    "(no latent output)", self.errors)
-            sched = self._schedule_inputs(prompts)
+                    f"denoising_end must be in (0, 1], got {denoising_end}",
+                    self.errors)
+            end_step = max(1, round(self.steps * denoising_end))
+            if end_step == self.steps:
+                end_step = None
         if pag_scale is None:
             pag_scale = self._default_pag
         # the scheduled program takes no PAG, as the reference's
@@ -676,8 +694,9 @@ class Context:
             return pipeline.generate(
                 self.params, tokens, uncond, gen, float(guidance),
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
-                use_cfg=guidance != 1.0, kernels=self.kernels,
+                use_cfg=self._use_cfg(guidance), kernels=self.kernels,
                 output=output, token_weights=weights, sched_idx=idx,
+                end_step=end_step,
                 **self._knob_kwargs(pag_scale if pag else None)
             ).cpu().numpy()
 
@@ -699,6 +718,67 @@ class Context:
             return out
         return res
 
+    def refine(self, latents, prompt: str | list[str], guidance: float = 7.5,
+               seed: Optional[int] = None, denoising_start: float = 0.0,
+               negative_prompt: Optional[str] = None,
+               lora: Optional[str] = None) -> np.ndarray:
+        """The second stage of a two-stage call (``sdtpu/engine/context.py:
+        1108-1200``): go on denoising noisy latents, then decode.
+
+            base = Context(config="sdxl")
+            ref = Context(config="sdxl_refiner")
+            lat = base.generate(p, denoising_end=0.8, output="latent")
+            img = ref.refine(lat, p, denoising_start=0.8)
+
+        ``latents``: the base's float32 ``output="latent"`` array ([h, w, C]
+        or [B, h, w, C]), at the marginal of step ``round(steps *
+        denoising_start)`` on this Context's ``steps`` (give both Contexts
+        the same). ``denoising_start`` in [0, 1). The seed's generator draws
+        as ``generate``'s does, so ``denoising_start=0`` from ``generate``'s
+        own start latents gives ``generate``'s bytes. Any single-model
+        configuration takes it too. ``lora`` is not ported yet."""
+        self._check_usable()
+        self._check_in_channels("txt2img", "refine")
+        _refuse_unported(self.errors, lora=lora)
+        if not 0.0 <= denoising_start < 1.0:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"denoising_start must be in [0, 1), got {denoising_start}",
+                self.errors)
+        start_step = round(self.steps * denoising_start)
+        prompts = self._prompts(prompt)
+        lat = np.asarray(latents, np.float32)
+        if lat.ndim == 3:
+            lat = lat[None]
+        want = (len(prompts), self.cfg.latent_size, self.cfg.latent_size,
+                self.cfg.latent_channels)
+        if lat.shape != want:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"latents shape {lat.shape} != {want}", self.errors)
+        self._refuse_scheduling(prompts + [negative_prompt])
+        self._check_knobs()
+        seed = self._next_seed(seed)
+        t0 = time.perf_counter()
+
+        def call():
+            tokens, weights, (uncond,) = self._text_inputs(
+                prompts, [negative_prompt])
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            return pipeline.refine(
+                self.params, tokens, uncond, gen, float(guidance),
+                torch.from_numpy(lat).to(self.device), cfg=self.cfg,
+                sampler=self.sampler, steps=self.steps,
+                start_step=start_step, use_cfg=self._use_cfg(guidance),
+                kernels=self.kernels, token_weights=weights,
+                cfg_interval=self.cfg_interval).cpu().numpy()
+
+        res = self._run("refine", call)
+        self.logger.info(
+            f"refine took {time.perf_counter() - t0:.3f}s "
+            f"(steps={start_step}->{self.steps}, sampler={self.sampler})")
+        return res[0] if isinstance(prompt, str) else res
+
     def generate_batch_async(self, requests: list[dict],
                              lora: Optional[str] = None,
                              output: str = "image"):
@@ -713,7 +793,9 @@ class Context:
         uncond embeddings stacked. The batch is padded to the next power of
         two with copies of the first request; only the n real results come
         back. The CFG pair always runs (a guidance of 1.0 mixes in its
-        uncond half with weight 0). A batch of one gives the bytes of
+        uncond half with weight 0), except on a guidance-embedded (LCM)
+        configuration: one UNet row a request, the guidances a [B]
+        embedding (``_use_cfg``). A batch of one gives the bytes of
         ``generate``. A request's ``pag_scale``: where any request has one,
         the batch runs PAG's eval and the others take 0.0, an exact no-op
         (``sdtpu/engine/context.py:1342-1352``). ``lora`` (or a request's
@@ -738,7 +820,7 @@ class Context:
             return pipeline.generate(
                 self.params, tokens, torch.stack(uncond), gens, guidance,
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
-                use_cfg=True, kernels=self.kernels, output=output,
+                use_cfg=self._use_cfg(), kernels=self.kernels, output=output,
                 token_weights=weights, **self._knob_kwargs(pscale))
 
         res = self._run("generate_batch", call)
@@ -778,7 +860,7 @@ class Context:
             return pipeline.generate(
                 self.params, tokens, uncond, gen, float(guidance),
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
-                use_cfg=guidance != 1.0, kernels=self.kernels,
+                use_cfg=self._use_cfg(guidance), kernels=self.kernels,
                 token_weights=weights, **self._knob_kwargs(None))
 
         res = self._run("generate_async", call)
@@ -901,12 +983,36 @@ class Context:
             "ip2p", prompt, image, None, 1.0, guidance, seed,
             negative_prompt, lora, output, image_guidance=image_guidance)
 
+    def upscale(self, prompt: str | list[str], image: np.ndarray,
+                noise_level: int = 20, guidance: float = 9.0,
+                seed: Optional[int] = None,
+                negative_prompt: Optional[str] = None,
+                lora: Optional[str] = None,
+                output: str = "image") -> np.ndarray:
+        """The x4 upscaler (``sd_x4``; ``sdtpu/engine/context.py:1825-1850``):
+        text-guided 4x super-resolution. ``image``: the low-res uint8 [h, w,
+        3] (or [B, h, w, 3]) on the latent grid (``cfg.latent_size``: 128^2
+        -> 512^2). ``noise_level`` in [0, ``cfg.max_noise_level``): the
+        noise augmentation of the low-res input, drawn from the seed's
+        generator after the start latents and the step noise; higher frees
+        the model from the input's artifacts. ``output="latent"`` returns
+        the float32 latents."""
+        if not 0 <= int(noise_level) < self.cfg.max_noise_level:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"noise_level must be in [0, {self.cfg.max_noise_level}), "
+                f"got {noise_level}", self.errors)
+        return self._image_conditioned(
+            "upsc", prompt, image, None, 1.0, guidance, seed,
+            negative_prompt, lora, output, noise_level=int(noise_level))
+
     def _image_conditioned(self, mode, prompt, image, mask, strength,
                            guidance, seed, negative_prompt, lora, output,
-                           depth=None, image_guidance=None) -> np.ndarray:
-        """The img2img, inpaint, depth2img and instruct-pix2pix path
-        (``sdtpu/engine/context.py:1852-``): validate, encode the text,
-        run the pipeline function on one generator of the seed."""
+                           depth=None, image_guidance=None,
+                           noise_level=None) -> np.ndarray:
+        """The img2img, inpaint, depth2img, instruct-pix2pix and upscale
+        path (``sdtpu/engine/context.py:1852-``): validate, encode the
+        text, run the pipeline function on one generator of the seed."""
         self._check_usable()
         if not (0.0 < strength <= 1.0):
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
@@ -916,7 +1022,9 @@ class Context:
         _refuse_unported(self.errors, lora=lora)
         self._check_output(output)
         self._refuse_scheduling(prompts + [negative_prompt])
-        size = self.cfg.image_size
+        # the x4 upscaler takes its low-res input on the latent grid
+        size = (self.cfg.latent_size if mode == "upsc"
+                else self.cfg.image_size)
         img = np.asarray(image)
         if img.ndim == 3:
             img = img[None]
@@ -955,8 +1063,13 @@ class Context:
                 return pipeline.instruct_pix2pix(
                     self.params, tokens, uncond, gen, float(guidance), x,
                     float(image_guidance), **kw)
-            kw.update(start_step=start_step, use_cfg=guidance != 1.0,
+            kw.update(use_cfg=self._use_cfg(guidance),
                       cfg_interval=self.cfg_interval)
+            if mode == "upsc":
+                return pipeline.upscale(
+                    self.params, tokens, uncond, gen, float(guidance), x,
+                    int(noise_level), **kw)
+            kw["start_step"] = start_step
             if mode == "inpaint":
                 return pipeline.inpaint(
                     self.params, tokens, uncond, gen, float(guidance), x,
@@ -972,13 +1085,14 @@ class Context:
     def _check_in_channels(self, mode: str, what: str = "") -> None:
         """The UNet input widths each mode takes, the one place they are
         written (``sdtpu/engine/context.py:943-953, 1888-1913``):
-        "txt2img" (``what``: generate, generate_batch, hires_fix) and
-        "img2img" take plain latents, since a concat-conditioned conv_in
+        "txt2img" (``what``: generate, generate_batch, hires_fix, refine)
+        and "img2img" take plain latents, since a concat-conditioned conv_in
         needs its extra planes at every step; "inpaint" a standard or a
-        dedicated 9-ch UNet; "depth" 5 channels; "ip2p" 8. The batched
-        paths check their mode here too."""
+        dedicated 9-ch UNet; "depth" 5 channels; "ip2p" 8; "upsc" 7 and a
+        class table. The batched paths check their mode here too."""
         lc = self.cfg.latent_channels
         ic = self.cfg.unet.in_channels
+        rows = self.cfg.unet.num_class_embeds
         ok, why = {
             "txt2img": ((lc,), f"{what} needs a standard txt2img UNet; this "
                         f"config's takes {ic} input channels — use inpaint() "
@@ -994,6 +1108,9 @@ class Context:
                       f"has {ic}"),
             "ip2p": ((2 * lc,), f"instruct_pix2pix needs an {2 * lc}-ch UNet "
                      f"(config sd15_ip2p), this config has {ic}"),
+            "upsc": ((lc + 3,) if rows else (), f"upscale needs a {lc + 3}-ch "
+                     f"noise-level-conditioned UNet (config sd_x4), this "
+                     f"config has {ic} channels/{rows} class rows"),
         }[mode]
         if ic not in ok:
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT, why, self.errors)
@@ -1044,7 +1161,7 @@ class Context:
                 prompts, [negative_prompt])
             gen = torch.Generator(device=self.device).manual_seed(seed)
             kw = dict(cfg=self.cfg, sampler=self.sampler, steps=self.steps,
-                      use_cfg=guidance != 1.0, kernels=self.kernels,
+                      use_cfg=self._use_cfg(guidance), kernels=self.kernels,
                       token_weights=weights)
             lat = pipeline.generate(self.params, tokens, uncond, gen,
                                     float(guidance), output="latent",
@@ -1136,7 +1253,7 @@ class Context:
             gens = [torch.Generator(device=self.device).manual_seed(s)
                     for s in seeds]
             kw = dict(cfg=self.cfg, sampler=self.sampler, steps=self.steps,
-                      start_step=start_step, use_cfg=True,
+                      start_step=start_step, use_cfg=self._use_cfg(),
                       kernels=self.kernels, token_weights=weights,
                       output=output, cfg_interval=self.cfg_interval)
             args = (self.params, tokens, torch.stack(uncond), gens, guidance,
@@ -1174,15 +1291,17 @@ class Context:
         read with ``torch.load(weights_only=True)``) or a ``.safetensors``
         file of such a dict. A dual-tower configuration (SDXL) takes the
         keys ``"clip_l"`` and ``"clip_g"``, one [k, D] per tower; a single
-        tower takes ``"clip_l"``, a single entry, or A1111's
+        tower (the refiner's is bigG, ``"clip_g"``) takes its key, a single
+        entry, or A1111's
         ``"emb_params"``. A multi-vector embedding (k > 1) takes k tokens
         of the window. A bad shape, key set or placeholder is
         ``INVALID_ARGUMENT``."""
         self._check_usable()
-        towers = ("clip",) if self.cfg.clip2 is None else ("clip", "clip2")
+        # the refiner's one tower is clip2
+        towers = tuple(t for t in ("clip", "clip2") if t in self.params)
         vecs = self._read_embedding_arrays(source, towers)
         k = int(vecs[0].shape[0]) if vecs[0].dim() == 2 else 0
-        start = int(self.params["clip"]["token_embedding"].shape[0])
+        start = int(self.params[towers[0]]["token_embedding"].shape[0])
         new = {}
         for tower, vec in zip(towers, vecs):
             tp = dict(self.params[tower])
@@ -1271,8 +1390,7 @@ def _leaves(tree):
 #: the reference's arguments of features still to port -> their ROADMAP item
 UNPORTED = {"mesh": "item 23 (parallelism)", "lora": "item 19 (LoRA)",
             "control_image": "item 18 (ControlNet)",
-            "control": "item 18 (ControlNet)",
-            "denoising_end": "item 18 (the refiner)"}
+            "control": "item 18 (ControlNet)"}
 
 
 def _refuse_unported(errors: ErrorTable, **given) -> None:

@@ -1,8 +1,10 @@
 """The prompt -> image pipeline, the counterpart of
 ``sdtpu/engine/pipeline.py``'s txt2img and image-conditioned paths, for
 SD1.x, SD2.x (v- or eps-prediction) and SDXL (two towers, a packed pooled
-row, the additive conditioning), and their concat-conditioned UNets
-(inpaint, depth, InstructPix2Pix):
+row, the additive conditioning), their concat-conditioned UNets (inpaint,
+depth, InstructPix2Pix), and the staged configurations: LCM (the guidance
+embedded, no CFG batch), the SDXL refiner's second stage (``refine``
+after ``generate(end_step=)``) and the x4 upscaler (``upscale``):
 
     tokens --CLIP--> cond embedding (weighted, chunked) --+
     uncond embedding ("", or a negative prompt a sample) -+
@@ -40,7 +42,7 @@ import torch
 from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.models import clip, temb, unet, vae
 from sdtpu_torch.samplers import get_sampler
-from sdtpu_torch.samplers.schedule import NoiseSchedule
+from sdtpu_torch.samplers.schedule import NoiseSchedule, to_f32
 
 
 def encode_text(params, tokens, cfg: PipelineConfig, weights=None):
@@ -61,7 +63,10 @@ def encode_text(params, tokens, cfg: PipelineConfig, weights=None):
     extra trailing row, zero-padded to the context width: [B, T+1, D]
     (``sdtpu/engine/pipeline.py:39-150``). One array thus carries the whole
     text conditioning through batching and negative prompts;
-    ``_unpack_context`` splits it at the UNet."""
+    ``_unpack_context`` splits it at the UNet. The refiner (``cfg.refiner``)
+    has tower 2 alone: its hidden states are the context, its pooled
+    embedding packs as XL's does (``sdtpu/engine/pipeline.py:74-80,
+    118-121``)."""
     chunked = tokens.dim() == 3
     b = tokens.shape[0]
     flat = tokens.reshape(-1, tokens.shape[-1])
@@ -70,11 +75,12 @@ def encode_text(params, tokens, cfg: PipelineConfig, weights=None):
     if cfg.clip2 is None:
         emb = clip.apply(params["clip"], flat, cfg.clip, dtype=dt)
     else:
-        h2, pooled = clip.apply_xl(params["clip2"], flat, cfg.clip2,
-                                   cfg.clip2.vocab_size - 1, dtype=dt)
-        h1, _ = clip.apply_xl(params["clip"], flat, cfg.clip,
-                              cfg.clip.vocab_size - 1, dtype=dt)
-        emb = torch.cat([h1, h2], dim=-1)
+        emb, pooled = clip.apply_xl(params["clip2"], flat, cfg.clip2,
+                                    cfg.clip2.vocab_size - 1, dtype=dt)
+        if not cfg.refiner:
+            h1, _ = clip.apply_xl(params["clip"], flat, cfg.clip,
+                                  cfg.clip.vocab_size - 1, dtype=dt)
+            emb = torch.cat([h1, emb], dim=-1)
         pooled = pooled.reshape(b, -1, pooled.shape[-1])[:, 0]
     emb = emb.reshape(b, -1, emb.shape[-1])
     if chunked and weights is not None:
@@ -110,10 +116,12 @@ def _unpack_context(context, cfg: PipelineConfig):
 
 
 def _add_embedding(params, pooled, cfg: PipelineConfig):
-    """SDXL's additive conditioning: pooled [CB, P] and the six static
-    micro-conditions' fourier features -> [CB, time_embed_dim], added to
-    every step's time embedding."""
-    fdim = (cfg.unet.adm_in_channels - cfg.clip2.projection) // 6
+    """SDXL's additive conditioning: pooled [CB, P] and the static
+    micro-conditions' fourier features (six blocks; the refiner's five,
+    ``temb.micro_features``) -> [CB, time_embed_dim], added to every step's
+    time embedding."""
+    n = 5 if cfg.refiner else 6
+    fdim = (cfg.unet.adm_in_channels - cfg.clip2.projection) // n
     micro = temb.micro_features(cfg, fdim, pooled.device).to(pooled.dtype)
     y = torch.cat([pooled, micro[None].expand(pooled.shape[0], -1)], dim=-1)
     return temb.apply_vec(params["add_mlp"], y, dtype=cfg.compute_dtype)
@@ -143,16 +151,28 @@ def decode_latents(params, x, cfg: PipelineConfig, kernels: str = "plain"):
 
 #: the draws of a request's generator, in the order it makes them
 DRAW_ORDER = ("noise", "step_noise", "posterior_noise", "masked_noise",
-              "pin_noise")
+              "pin_noise", "aug_noise")
 #: the draws with one value a step, [steps, B, h, w, C]
 _PER_STEP = ("step_noise", "pin_noise")
+
+
+def _draw_shape(name, shape, steps):
+    """A draw's shape: the latent ``shape`` [B, h, w, C], [steps, ...] for
+    a per-step draw, [B, h, w, 3] (the low-res image's) for
+    ``aug_noise``."""
+    if name in _PER_STEP:
+        return (steps,) + tuple(shape)
+    if name == "aug_noise":
+        return tuple(shape[:-1]) + (3,)
+    return tuple(shape)
 
 
 def draw_noise(generator, shape, steps: int, names, device):
     """The standard-normal draws of a call: float32 ``torch.randn`` on
     ``device``, a dict of the ``names`` asked for (names of
     ``DRAW_ORDER``), each of the latent shape ``shape`` [B, h, w, C], or
-    [steps, B, h, w, C] for ``step_noise`` and ``pin_noise``.
+    [steps, B, h, w, C] for ``step_noise`` and ``pin_noise``, or the
+    low-res image's [B, h, w, 3] for ``aug_noise``.
 
     The rule of the draws, which replaces the JAX package's fold_in tags
     (``sdtpu/engine/pipeline.py:737-746``; the bits are not its threefry
@@ -166,7 +186,9 @@ def draw_noise(generator, shape, steps: int, names, device):
       4. ``masked_noise``: the posterior sample of the masked image (a 9-ch
          inpaint);
       5. ``pin_noise``: a standard inpaint's re-pin of the kept region at
-         each step.
+         each step;
+      6. ``aug_noise``: the x4 upscaler's noise augmentation of its low-res
+         image.
 
     ``generator``: one ``torch.Generator`` for the batch (``generate``, the
     image paths on a list of prompts), which makes each draw for all
@@ -182,9 +204,9 @@ def draw_noise(generator, shape, steps: int, names, device):
     names = [n for n in DRAW_ORDER if n in names]
 
     def draw(g, shp):
-        return {k: torch.randn((steps,) + shp if k in _PER_STEP else shp,
-                               generator=g, device=device,
-                               dtype=torch.float32) for k in names}
+        return {k: torch.randn(_draw_shape(k, shp, steps), generator=g,
+                               device=device, dtype=torch.float32)
+                for k in names}
 
     if not isinstance(generator, (list, tuple)):
         return draw(generator, tuple(shape))
@@ -223,8 +245,7 @@ def _draws(generator, shape, steps, sampler, device, seams, extra=()):
         out = {k: drawn[k] if v is None else v for k, v in out.items()}
     for k, v in out.items():
         if not callable(v):
-            full = (steps,) + tuple(shape) if k in _PER_STEP else shape
-            out[k] = _seam(v, full, device, k)
+            out[k] = _seam(v, _draw_shape(k, shape, steps), device, k)
     return out
 
 
@@ -253,28 +274,31 @@ def check_knobs(cfg: PipelineConfig, sampler: str, pag=False, ip2p=False,
             raise ValueError(f"DeepCache is incompatible with {name}")
 
 
-def segments(steps: int, start: int, cfg_interval=None):
-    """[(first step, end, guided), ...]: the loop's segments
-    (``sdtpu/engine/pipeline.py:588-604``). With ``cfg_interval`` (lo, hi)
+def segments(steps: int, start: int, cfg_interval=None, end=None):
+    """[(first step, end, guided), ...]: the loop's segments over steps
+    [start, end) (``end`` defaults to ``steps``;
+    ``sdtpu/engine/pipeline.py:588-604``). With ``cfg_interval`` (lo, hi)
     the CFG pair runs on steps ``round(steps lo) <= i < round(steps hi)``
     only and the others evaluate the cond rows alone."""
+    end = steps if end is None else int(end)
     if cfg_interval is None:
-        return [(start, steps, True)]
+        return [(start, end, True)]
     lo, hi = cfg_interval
     a = int(round(steps * lo))
     c = int(round(steps * hi))
-    segs = [(start, min(a, steps), False),
-            (max(a, start), min(c, steps), True),
-            (max(c, start), steps, False)]
+    segs = [(start, min(a, end), False),
+            (max(a, start), min(c, end), True),
+            (max(c, start), end, False)]
     return [(s0, s1, g) for s0, s1, g in segs if s1 > s0]
 
 
 def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
-            use_cfg: bool, kernels: str = "plain", *, noise,
+            use_cfg: bool, kernels: str = "plain", *, noise=None,
             sampler: str = "dpm", step_noise=None, cond_schedule=None,
             init_latents=None, start_step: int = 0, mask=None,
             pin_noise=None, x_extra=None, image_guidance=None,
-            cfg_interval=None, pag_scale=None, pag_layers=None):
+            cfg_interval=None, pag_scale=None, pag_layers=None,
+            end_step=None, x_start=None, class_emb=None):
     """Run the denoising loop with ``sampler`` (a name of
     ``samplers.SAMPLERS``). context: [B or 2B, T, D]; with ``use_cfg`` rows
     [0:B] are cond and [B:2B] uncond. ``guidance``: a scalar or one a
@@ -319,6 +343,19 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     uncond], the third slot's extra planes are zeros, and eps = e_un + g (e_txt
     - e_img) + g_img (e_img - e_un).
 
+    The two-stage handoff (``sdtpu/engine/pipeline.py:219-223``):
+    ``end_step`` stops the loop before that step, so the latents carry the
+    marginal at its time; ``x_start`` are latents already at
+    ``start_step``'s marginal, taken as they are (``noise`` is then not
+    read).
+
+    ``class_emb`` [B, time_embed_dim] (the x4 upscaler's noise-level row, a
+    sample): added to every eval's time embedding, repeated over the CFG
+    slots. LCM (``cfg.unet.time_cond_proj_dim``): the guidance is embedded,
+    ``w = guidance - 1`` through ``temb.guidance_scale_features`` into the
+    time MLP (a scalar, or one a sample for a [steps, B, D] table), and no
+    CFG batch runs: ``use_cfg`` raises the reference's ``ValueError``.
+
     The knobs (``sdtpu/engine/pipeline.py:165-618``), each off by default:
     ``cfg_interval`` (``segments``); ``cfg.guidance_rescale``, the guided
     eps blended toward itself rescaled to the cond eps's per-sample
@@ -332,6 +369,10 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     segment. ``check_knobs`` raises what does not compose."""
     check_knobs(cfg, sampler, bool(pag_layers), image_guidance is not None,
                 cond_schedule is not None)
+    if cfg.unet.time_cond_proj_dim and use_cfg:
+        raise ValueError(
+            "guidance-embedded configs (time_cond_proj_dim > 0) bake "
+            "CFG into the model; run with use_cfg off")
     device = context.device
     dtype = cfg.compute_dtype
     context, pooled = _unpack_context(context, cfg)
@@ -346,19 +387,32 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     needs_second = getattr(mod, "NEEDS_SECOND_EVAL", False)
     if needs_noise and step_noise is None:
         raise ValueError(f"sampler {sampler} needs step_noise")
-    x = noise
     if init_latents is not None:
         init_latents = init_latents.float()
+    if x_start is not None:
+        x = x_start.float()
+    elif noise is None:
+        raise ValueError("denoise needs noise or x_start")
+    elif init_latents is not None:
         x = plan.alpha_s[start_step] * init_latents + (
-            plan.sigma_s[start_step] * x)
+            plan.sigma_s[start_step] * noise)
+    else:
+        x = noise
     if mask is not None:
         if init_latents is None or pin_noise is None:
             raise ValueError("a mask needs init_latents and pin_noise")
         mask = mask.float()
     # every step's time embedding in one batched MLP call, before the loop
-    t_embs = temb.apply(params["temb"], plan.model_t, cfg.unet, dtype=dtype)
+    w_feats = None
+    if cfg.unet.time_cond_proj_dim:
+        w_feats = temb.guidance_scale_features(
+            torch.as_tensor(guidance, dtype=torch.float32, device=device)
+            - 1.0, cfg.unet.time_cond_proj_dim)
+    t_embs = temb.apply(params["temb"], plan.model_t, cfg.unet, dtype=dtype,
+                        cond=w_feats)
     t_embs2 = (temb.apply(params["temb"], plan.model_t2, cfg.unet,
-                          dtype=dtype) if needs_second else None)
+                          dtype=dtype, cond=w_feats)
+               if needs_second else None)
     g = torch.as_tensor(guidance, dtype=torch.float32, device=device)
     if g.dim():
         g = g.reshape(-1, 1, 1, 1)
@@ -386,6 +440,9 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
         te = (t_embs2 if second else t_embs)[i].expand(ctx_i.shape[0], -1)
         if add_emb is not None:
             te = te + add_emb.to(te.dtype)[: ctx_i.shape[0]]
+        if class_emb is not None:
+            ce = class_emb.to(te.dtype)
+            te = te + (torch.cat([ce] * r, dim=0) if r > 1 else ce)
         x_rep = torch.cat([x] * r, dim=0) if r > 1 else x
         x_in = x_rep.to(dtype)
         if xe:
@@ -459,7 +516,7 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     # the interval is ignored without CFG and under ip2p's dual CFG
     if not use_cfg or image_guidance is not None:
         cfg_interval = None
-    for s0, s1, guided in segments(steps, start, cfg_interval):
+    for s0, s1, guided in segments(steps, start, cfg_interval, end_step):
         cache = None
         for i in range(s0, s1):
             if mask is not None:
@@ -490,13 +547,15 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
              use_cfg: bool = True, kernels: str = "plain", noise=None,
              step_noise=None, output: str = "image", token_weights=None,
              sched_idx=None, cfg_interval=None, pag_scale=None,
-             pag_layers=None):
+             pag_layers=None, end_step=None):
     """tokens [B, T] (or chunked [B, k, T] with ``token_weights``) -> uint8
     [B, H, W, 3], or with ``output="latent"`` the float32 scale-factored
     latents. ``uncond_embedding``: [T, D] or [B, T, D], encoded by the
     caller. Draws (``draw_noise``): noise, step noise; ``noise`` and
     ``step_noise`` are their seams. ``cfg_interval``, ``pag_scale`` and
-    ``pag_layers``: ``denoise``'s knobs.
+    ``pag_layers``: ``denoise``'s knobs. ``end_step``: the base half of a
+    two-stage call stops before that step (``denoise``); its latents,
+    noisy at that step's time, are ``refine``'s input.
 
     Prompt scheduling (``sdtpu/engine/pipeline.py:653-667``): with
     ``sched_idx`` ([steps] integer, each step's variant), tokens are [V, B,
@@ -525,6 +584,36 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
     x = denoise(params, context, guidance, cfg, steps, use_cfg, kernels,
                 noise=d["noise"], sampler=sampler,
                 step_noise=d.get("step_noise"), cond_schedule=cond_schedule,
+                cfg_interval=cfg_interval, pag_scale=pag_scale,
+                pag_layers=pag_layers, end_step=end_step)
+    return _finish(params, x, cfg, kernels, output)
+
+
+def refine(params, tokens, uncond_embedding, generator, guidance, latents, *,
+           cfg: PipelineConfig, sampler: str = "dpm", steps: int = 20,
+           start_step: int = 0, use_cfg: bool = True, kernels: str = "plain",
+           token_weights=None, output: str = "image", noise=None,
+           step_noise=None, cfg_interval=None, pag_scale=None,
+           pag_layers=None):
+    """The second stage of a two-stage call (``sdtpu/engine/pipeline.py:
+    701-722``): ``latents`` [B, h, w, C] float32, already at
+    ``start_step``'s marginal on this ``steps`` timeline (the base ran with
+    ``end_step == start_step``), are denoised over steps [start_step,
+    steps) and decoded (or returned with ``output="latent"``).
+
+    The draws are ``generate``'s, by the same rule, and the loop takes the
+    steps' share from ``start_step`` on; the start latents drawn are not
+    read. So ``start_step=0`` with ``generate``'s own start latents gives
+    ``generate``'s result under one generator."""
+    context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
+                             weights=token_weights)
+    shape = _latent_shape(tokens.shape[0], cfg)
+    d = _draws(generator, shape, steps, sampler, context.device,
+               {"noise": noise, "step_noise": step_noise})
+    x = denoise(params, context, guidance, cfg, steps, use_cfg, kernels,
+                sampler=sampler, step_noise=d.get("step_noise"),
+                start_step=start_step,
+                x_start=_seam(latents, shape, context.device, "latents"),
                 cfg_interval=cfg_interval, pag_scale=pag_scale,
                 pag_layers=pag_layers)
     return _finish(params, x, cfg, kernels, output)
@@ -724,4 +813,47 @@ def instruct_pix2pix(params, tokens, uncond_embedding, generator, guidance,
                 kernels, noise=d["noise"], sampler=sampler,
                 step_noise=d.get("step_noise"), x_extra=image_latents,
                 image_guidance=image_guidance)
+    return _finish(params, x, cfg, kernels, output)
+
+
+#: the x4 upscaler's augmentation schedule: image-space, sqrt-linear from
+#: 1e-4 to 2e-2 (x4-upscaling.yaml's ``low_scale_config``)
+AUG_SCHEDULE = dict(lin_start=1e-4, lin_end=2e-2)
+
+
+def upscale(params, tokens, uncond_embedding, generator, guidance, image,
+            noise_level, *, cfg: PipelineConfig, sampler: str = "dpm",
+            steps: int = 20, use_cfg: bool = True, kernels: str = "plain",
+            token_weights=None, output: str = "image", noise=None,
+            step_noise=None, aug_noise=None, cfg_interval=None):
+    """The x4 upscaler (``sdtpu/engine/pipeline.py:985-1046``): ``image``,
+    the low-res [B, h, w, 3] float in [-1, 1] on the latent grid, is noised
+    to ``noise_level`` (an int, or [B] ints, below ``cfg.max_noise_level``)
+    on the image-space schedule (``AUG_SCHEDULE``, alpha-bar gathered at
+    the level) and rides the UNet's channel axis at every step; the level's
+    row of ``params["unet"]["label_emb"]`` adds to the time embedding. A
+    full trajectory from pure noise, decoded by the f4 VAE to [B, 4h, 4w,
+    3]. Draws: noise, step noise, then ``aug_noise`` in the image's shape;
+    ``noise``, ``step_noise`` and ``aug_noise`` are their seams."""
+    context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
+                             weights=token_weights)
+    dev = context.device
+    shape = _latent_shape(tokens.shape[0], cfg)
+    d = _draws(generator, shape, steps, sampler, dev,
+               {"noise": noise, "step_noise": step_noise,
+                "aug_noise": aug_noise}, ("aug_noise",))
+    # gathered on the device: one level, or one a sample
+    nl = torch.as_tensor(noise_level, dtype=torch.int64,
+                         device=dev).reshape(-1)
+    aug = NoiseSchedule.sd_v1(**AUG_SCHEDULE)
+    ab = to_f32(aug.alphas_cumprod, dev).index_select(0, nl).reshape(
+        -1, 1, 1, 1)
+    z_lr = (torch.sqrt(ab) * image.float()
+            + torch.sqrt(1.0 - ab) * d["aug_noise"])
+    lab = params["unet"]["label_emb"].index_select(0, nl).expand(
+        image.shape[0], -1)
+    x = denoise(params, context, guidance, cfg, steps, use_cfg, kernels,
+                noise=d["noise"], sampler=sampler,
+                step_noise=d.get("step_noise"), x_extra=z_lr,
+                cfg_interval=cfg_interval, class_emb=lab)
     return _finish(params, x, cfg, kernels, output)

@@ -10,7 +10,9 @@ carries the trees of the txt2img path, ``clip``, ``temb``, ``unet`` and
 ``vae`` (the decoder); for SDXL ``clip2`` (the second text tower, with its
 ``text_proj``) and ``add_mlp`` (the additive conditioning); and
 ``vae_enc``, the VAE encoder's parameters (the image paths' encode),
-which every SD checkpoint carries.
+which every SD checkpoint carries. The SDXL refiner has no ``clip`` tree
+(``sdtpu/io/params.py:25-40``); LCM's ``temb`` carries ``cond_proj`` and
+the x4 upscaler's ``unet`` its ``label_emb`` table.
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ def _builders(cfg: PipelineConfig) -> dict:
     }
     if cfg.clip2 is None:
         del out["clip2"], out["add_mlp"]
+    if cfg.refiner:
+        # tower 2 alone conditions the refiner
+        del out["clip"]
     return out
 
 
@@ -198,20 +203,27 @@ def fuse_attention_projections(params):
     """Each transformer block's self-attention q, k, v projections as one
     ``qkv`` product and its cross-attention k, v as one ``kv`` product
     (``sdtpu/io/params.py:64-104``): the weights concatenate along the
-    output axis. Applied after load and the cast, to an unquantized tree;
-    checkpoints and the quantizers keep the unfused layout."""
+    output axis. A cross-only attn1 (the x4 upscaler), whose k and v take
+    the context's width, fuses them into ``kv`` as attn2 does; the
+    reference tells it by k's input width. Applied after load and the
+    cast, to an unquantized tree; checkpoints and the quantizers keep the
+    unfused layout."""
+    def kv(a):
+        return {"q": a["q"], "kv": {"w": torch.cat(
+            [a["k"]["w"], a["v"]["w"]], dim=1)}, "out": a["out"]}
+
     def walk(node):
         if isinstance(node, dict):
             if ("attn1" in node and "attn2" in node
                     and "w" in node["attn1"].get("q", {})):
-                a1, a2 = node["attn1"], node["attn2"]
-                return {**node,
-                        "attn1": {"qkv": {"w": torch.cat(
-                            [a1["q"]["w"], a1["k"]["w"], a1["v"]["w"]],
-                            dim=1)}, "out": a1["out"]},
-                        "attn2": {"q": a2["q"], "kv": {"w": torch.cat(
-                            [a2["k"]["w"], a2["v"]["w"]], dim=1)},
-                            "out": a2["out"]}}
+                a1 = node["attn1"]
+                if a1["k"]["w"].shape[0] == a1["q"]["w"].shape[0]:
+                    a1 = {"qkv": {"w": torch.cat(
+                        [a1["q"]["w"], a1["k"]["w"], a1["v"]["w"]],
+                        dim=1)}, "out": a1["out"]}
+                else:
+                    a1 = kv(a1)
+                return {**node, "attn1": a1, "attn2": kv(node["attn2"])}
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]

@@ -1,4 +1,5 @@
-"""Checkpoint loading: Stable Diffusion v1.x, v2.x and XL weights -> the
+"""Checkpoint loading: Stable Diffusion v1.x, v2.x and XL weights (and the
+staged configurations': LCM, the x4 upscaler, the SDXL refiner) -> the
 port's tree.
 
 Carried over from ``sdtpu/io/weights.py`` (the JAX package), cut to the
@@ -7,7 +8,10 @@ CompVis/LDM key names (``model.diffusion_model.*``,
 ``cond_stage_model.transformer.*``, ``first_stage_model.*``) onto the JAX
 package's tree; SD 2.x's OpenCLIP tower (``cond_stage_model.model.*``, one
 fused ``in_proj`` a block) and SDXL's two (``conditioner.embedders.0``
-HF-CLIP, ``.1`` OpenCLIP bigG with its ``text_projection``); the inverse
+HF-CLIP, ``.1`` OpenCLIP bigG with its ``text_projection``; the refiner's
+one bigG under ``conditioner.embedders.0.model``); LCM's
+``time_embed.cond_proj`` and the x4 upscaler's ``label_emb`` table; the
+inverse
 (``params_to_ldm``); and the native file (``*.sdtpu.safetensors``: the
 flattened JAX-layout tree, the JAX package's format, so a file written by
 either package loads in both). The rules are generated from the same loops
@@ -19,9 +23,8 @@ conv HWIO) as views, and ``io.params.from_jax_tree`` makes the port's tree
 of it, one leaf at a time: one layout rule, not two.
 
 Files are read and written by ``io.safetensors``; the ``safetensors``
-package is not needed. SDXL refiner checkpoints, ControlNets and orbax
-directories are families and formats the port does not have yet:
-``UnsupportedCheckpoint`` names them.
+package is not needed. ControlNets and orbax directories are a family and a
+format the port does not have yet: ``UnsupportedCheckpoint`` names them.
 """
 
 from __future__ import annotations
@@ -102,6 +105,14 @@ def unet_rules(cfg: PipelineConfig) -> list[Rule]:
         Rule(pre + "time_embed.2", ("temb", "fc1"), "linear"),
         Rule(pre + "input_blocks.0.0", ("unet", "conv_in"), "conv"),
     ]
+    if u.time_cond_proj_dim:
+        # LCM's bias-free guidance projection: LDM has no such layer, so
+        # the name is the JAX package's (diffusers: time_embedding.cond_proj)
+        rules.append(Rule(pre + "time_embed.cond_proj", ("temb", "cond_proj"),
+                          "linear"))
+    if u.num_class_embeds:
+        # the x4 upscaler's noise-level table (an nn.Embedding)
+        rules.append(Rule(pre + "label_emb", ("unet", "label_emb"), "embed"))
     ch = u.model_channels
     cur = ch
     idx = 1
@@ -288,6 +299,8 @@ OPENCLIP_PREFIX = "cond_stage_model.model."
 #: SDXL's tower prefixes (the sgm conditioner layout)
 XL_CLIP_PREFIX = "conditioner.embedders.0.transformer.text_model."
 XL_CLIP2_PREFIX = "conditioner.embedders.1.model."
+#: the refiner's bigG is its first and only embedder
+XL_REFINER_CLIP2_PREFIX = "conditioner.embedders.0.model."
 
 
 def openclip_text_to_tree(tensors: dict, ccfg, pre: str = OPENCLIP_PREFIX):
@@ -422,8 +435,6 @@ def _tree_get(tree, path):
 
 #: LDM key prefix -> the family it marks, and where the port takes it up
 _FAMILIES = (
-    ("conditioner.embedders.0.model.", "an SDXL refiner checkpoint (its "
-     "one bigG tower)", "ROADMAP item 18"),
     ("control_model.", "a ControlNet checkpoint", "ROADMAP item 18"),
 )
 
@@ -432,7 +443,8 @@ def refuse_families(keys, cfg: PipelineConfig) -> None:
     """Raise ``UnsupportedCheckpoint`` when the LDM ``keys`` belong to a
     family the port does not load yet, or to one that is not ``cfg``'s
     (SDXL keys on a single-tower configuration, an OpenCLIP tower on a
-    quick-GELU one, SD1.x/2.x text keys on SDXL), before any weight is
+    quick-GELU one, SD1.x/2.x text keys on SDXL, the refiner's one tower on
+    the base or the base's towers on the refiner), before any weight is
     converted."""
     keys = list(keys)
     for prefix, what, where in _FAMILIES:
@@ -443,13 +455,21 @@ def refuse_families(keys, cfg: PipelineConfig) -> None:
                 f"native files are")
     if cfg.clip2 is None:
         marks = (("conditioner.embedders.", "an SDXL checkpoint",
-                  "config='sdxl'"),)
+                  "config='sdxl' or 'sdxl_refiner'"),)
         if cfg.clip.act == "quick_gelu":
             marks += ((OPENCLIP_PREFIX, "an SD 2.x checkpoint (OpenCLIP "
                        "text tower)", "config='sd21' or 'sd21base'"),)
     else:
         marks = (("cond_stage_model.", "an SD1.x/2.x checkpoint",
                   "config='sd15', 'sd21' or 'sd21base'"),)
+        if cfg.refiner:
+            marks += ((XL_CLIP2_PREFIX, "an SDXL base checkpoint (two "
+                       "towers)", "config='sdxl'"),
+                      (XL_CLIP_PREFIX, "an SDXL base checkpoint (two "
+                       "towers)", "config='sdxl'"))
+        else:
+            marks += ((XL_REFINER_CLIP2_PREFIX, "an SDXL refiner checkpoint "
+                       "(its one bigG tower)", "config='sdxl_refiner'"),)
     for prefix, what, fits in marks:
         if any(k.startswith(prefix) for k in keys):
             raise UnsupportedCheckpoint(
@@ -462,11 +482,16 @@ def refuse_families(keys, cfg: PipelineConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _layout_rules(tensors, cfg: PipelineConfig):
-    """(rules, {tree name: OpenCLIP prefix}) of a checkpoint's layout: SDXL
+    """(rules, {tree name: (OpenCLIP prefix, tower config)}) of a
+    checkpoint's layout: the refiner reads its one bigG tower by the
+    OpenCLIP rules under ``conditioner.embedders.0.model``; SDXL
     (cfg.clip2) reads tower 1 by the HF-CLIP rules under its sgm prefix and
     bigG by the OpenCLIP ones; a single-tower configuration reads an
     OpenCLIP tower where the keys have one (SD 2.x), else the HF-CLIP
-    rules (``sdtpu/io/weights.py:523-569``)."""
+    rules (``sdtpu/io/weights.py:523-575``)."""
+    if cfg.refiner:
+        return (unet_rules(cfg) + vae_rules(cfg),
+                {"clip2": (XL_REFINER_CLIP2_PREFIX, cfg.clip2)})
     if cfg.clip2 is not None:
         return (unet_rules(cfg) + vae_rules(cfg)
                 + clip_rules(cfg, pre=XL_CLIP_PREFIX),
@@ -522,16 +547,17 @@ def params_to_ldm(params, cfg: PipelineConfig, dtype=torch.float32) -> dict:
     (export and round trips), each leaf cast to ``dtype`` (float32, as the JAX
     package's inverse gives; ``None`` keeps each leaf's dtype). A quantized
     site has no ``w`` and gives no weight, as in the JAX package. As there,
-    SDXL's towers take the sgm naming (bigG through
+    SDXL's towers and the refiner's take the sgm naming (bigG through
     ``tree_to_openclip_text``) and a single tower the HF-CLIP one; an SD
     2.x file in OpenCLIP naming is ``tree_to_openclip_text`` of the
     ``clip`` tree in place of the ``cond_stage_model.transformer`` keys."""
     tree = jax_layout(params)
+    rules, openclip = _layout_rules(None, cfg)
     raw = {}
-    if cfg.clip2 is not None:
-        raw.update(tree_to_openclip_text(tree["clip2"], XL_CLIP2_PREFIX))
+    for name, (pre, _) in openclip.items():
+        raw.update(tree_to_openclip_text(tree[name], pre))
     out = {}
-    for rule in _layout_rules(None, cfg)[0]:
+    for rule in rules:
         node = _tree_get(tree, rule.path)
         for ldm_suffix, ours in _SUFFIX[rule.kind]:
             if ours is not None and ours not in node:
@@ -610,7 +636,7 @@ def is_orbax_checkpoint(path) -> bool:
 def load_pipeline_params(model_dir, cfg: PipelineConfig, dtype=None,
                          device=None):
     """Load from a directory holding a checkpoint of ``cfg``'s family (SD
-    v1.x, v2.x or XL), or from one
+    v1.x, v2.x, XL or one of the staged configurations), or from one
     file: the native file (``*.sdtpu.safetensors``, written by
     ``sdtpu_torch.tools.convert_weights`` or the JAX package's converter)
     is preferred, then LDM-named ``*.safetensors``. ``dtype``: the compute

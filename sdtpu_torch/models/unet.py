@@ -1,5 +1,6 @@
 """The SD1.x, SD2.x and SDXL UNet denoiser, the counterpart of
-``sdtpu/models/unet.py`` (no ControlNet or cross-only levels).
+``sdtpu/models/unet.py`` (no ControlNet), with the x4 upscaler's
+cross-only levels and noise-level class table.
 
     down path:  per level, ``num_res_blocks`` x [ResBlock (+SpatialTransformer
                 at attn levels)], then a stride-2 conv between levels;
@@ -69,11 +70,13 @@ def _init_attn(c, kv_in, gen, dev):
     }
 
 
-def _init_basic(c, ctx_dim, gen, dev):
-    """One attn1 / attn2 / GEGLU-ff block, the transformer's depth unit."""
+def _init_basic(c, ctx_dim, gen, dev, cross_only=False):
+    """One attn1 / attn2 / GEGLU-ff block, the transformer's depth unit.
+    ``cross_only`` (the x4 upscaler): attn1's k and v take the context
+    (``sdtpu/models/unet.py:61-68``)."""
     return {
         "ln1": init_norm(c, dev),
-        "attn1": _init_attn(c, c, gen, dev),
+        "attn1": _init_attn(c, ctx_dim if cross_only else c, gen, dev),
         "ln2": init_norm(c, dev),
         "attn2": _init_attn(c, ctx_dim, gen, dev),
         "ln3": init_norm(c, dev),
@@ -82,7 +85,8 @@ def _init_basic(c, ctx_dim, gen, dev):
     }
 
 
-def _init_transformer(c, ctx_dim, zero_init_outs, gen, dev, depth=1):
+def _init_transformer(c, ctx_dim, zero_init_outs, gen, dev, depth=1,
+                      cross_only=False):
     """Spatial transformer: GroupNorm + proj_in, ``depth`` basic blocks,
     proj_out. Depth 1 keeps the basic block's leaves flat in this dict (the
     SD1.x/2.x layout); deeper ones (SDXL) nest them under ``"blocks"``, as
@@ -93,9 +97,9 @@ def _init_transformer(c, ctx_dim, zero_init_outs, gen, dev, depth=1):
         "proj_out": init_conv(1, c, c, gen, dev, zero_init=zero_init_outs),
     }
     if depth == 1:
-        p.update(_init_basic(c, ctx_dim, gen, dev))
+        p.update(_init_basic(c, ctx_dim, gen, dev, cross_only))
     else:
-        p["blocks"] = [_init_basic(c, ctx_dim, gen, dev)
+        p["blocks"] = [_init_basic(c, ctx_dim, gen, dev, cross_only)
                        for _ in range(depth)]
     return p
 
@@ -121,9 +125,9 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
                                          gen, dev)}
             cur = out_ch
             if lvl in cfg.attn_levels:
-                blk["st"] = _init_transformer(cur, cfg.context_dim,
-                                              zero_init_outs, gen, dev,
-                                              cfg.depth_at(lvl))
+                blk["st"] = _init_transformer(
+                    cur, cfg.context_dim, zero_init_outs, gen, dev,
+                    cfg.depth_at(lvl), lvl in cfg.cross_only_levels)
             blocks.append(blk)
             skip_chs.append(cur)
         level = {"blocks": blocks}
@@ -150,9 +154,9 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
                                          zero_init_outs, gen, dev)}
             cur = out_ch
             if lvl in cfg.attn_levels:
-                blk["st"] = _init_transformer(cur, cfg.context_dim,
-                                              zero_init_outs, gen, dev,
-                                              cfg.depth_at(lvl))
+                blk["st"] = _init_transformer(
+                    cur, cfg.context_dim, zero_init_outs, gen, dev,
+                    cfg.depth_at(lvl), lvl in cfg.cross_only_levels)
             blocks.append(blk)
         level = {"blocks": blocks}
         if lvl != 0:
@@ -160,6 +164,12 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
         up.append(level)
     params["up"] = up
 
+    if cfg.num_class_embeds:
+        # the noise-level class table (LDM ``label_emb``, an nn.Embedding:
+        # N(0, 1) init); its selected row adds to the time embedding
+        params["label_emb"] = torch.randn(
+            (cfg.num_class_embeds, cfg.time_embed_dim), generator=gen,
+            device=dev, dtype=torch.float32)
     params["out_norm"] = init_norm(cur, dev)
     params["conv_out"] = init_conv(3, cur, cfg.out_channels, gen, dev,
                                    zero_init=zero_init_outs)
@@ -220,9 +230,10 @@ def _resblock(p, x, emb, groups, kernels):
 
 
 def _transformer(p, x, context, heads, groups, kernels, perturb_self=False,
-                 tome=None):
+                 tome=None, cross_only=False):
     """``tome``: (ratio, min_tokens) or None; a plane of at least
-    ``min_tokens`` tokens merges (``sdtpu/models/unet.py:253-262``)."""
+    ``min_tokens`` tokens merges (``sdtpu/models/unet.py:253-262``).
+    ``cross_only``: the blocks' attn1 attends the context."""
     b, hh, ww, c = x.shape
     if tome is not None:
         tome = (hh, ww, tome[0]) if hh * ww >= tome[1] else None
@@ -230,7 +241,7 @@ def _transformer(p, x, context, heads, groups, kernels, perturb_self=False,
                    fuse_silu=False, padding=0).reshape(b, hh * ww, c)
     for blk in p.get("blocks", (p,)):
         h = _basic_block(blk, h, context, heads, attention_kernel(kernels),
-                         perturb_self, tome)
+                         perturb_self, tome, cross_only)
     h = h.reshape(b, hh, ww, c)
     return x + conv2d(p["proj_out"], h, padding=0)
 
@@ -249,9 +260,14 @@ def _split(y, parts):
 
 
 def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
-                 tome=None):
+                 tome=None, cross_only=False):
     """attn1 (self) -> attn2 (cross) -> GEGLU ff, each with a residual
     (``sdtpu/models/unet.py:291-363``).
+
+    ``cross_only`` (the x4 upscaler): attn1 takes its keys and values from
+    ``context``, so the block has no self-attention: PAG leaves it alone,
+    ToMe merges its query rows only, and a fused projection is attn1's
+    ``kv`` leaf, as attn2's.
 
     ``perturb_self``: the self-attention map is the identity (PAG), so
     attn1's output is its value rows: ``out(v)``, the q and k projections
@@ -262,7 +278,19 @@ def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
     product, split."""
     a = p["attn1"]
     hn = layer_norm(p["ln1"], h)
-    if perturb_self:
+    if cross_only:
+        unmerge = None
+        if tome is not None:
+            merge, unmerge, r = T.build(h, *tome)
+            if r:
+                hn = merge(hn)
+            else:
+                unmerge = None
+        k, v = _kv(a, context)
+        o = dense(a["out"], sdpa(dense(a["q"], hn), k, v, heads,
+                                 attn_kernel))
+        h = h + (unmerge(o) if unmerge is not None else o)
+    elif perturb_self:
         v = (_split(dense(a["qkv"], hn), 3)[2] if "qkv" in a
              else dense(a["v"], hn))
         h = h + dense(a["out"], v)
@@ -282,14 +310,19 @@ def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
         h = h + (unmerge(o) if unmerge is not None else o)
     a = p["attn2"]
     hn = layer_norm(p["ln2"], h)
-    if "kv" in a:
-        k, v = _split(dense(a["kv"], context), 2)
-    else:
-        k, v = dense(a["k"], context), dense(a["v"], context)
+    k, v = _kv(a, context)
     h = h + dense(a["out"], sdpa(dense(a["q"], hn), k, v, heads,
                                  attn_kernel))
     hn = layer_norm(p["ln3"], h)
     return h + dense(p["ff2"], geglu(p["ff1"], hn))
+
+
+def _kv(a, context):
+    """An attention's keys and values of the text context, from its fused
+    ``kv`` leaf or its ``k`` and ``v``."""
+    if "kv" in a:
+        return _split(dense(a["kv"], context), 2)
+    return dense(a["k"], context), dense(a["v"], context)
 
 
 def _heads(cfg: UNetConfig, c: int) -> int:
@@ -385,13 +418,15 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
     g = cfg.groups
     h = conv2d(params["conv_in"], x)
     skips = [h]
-    for level in params["down"][:1] if shallow else params["down"]:
+    for lvl, level in enumerate(params["down"][:1] if shallow
+                                else params["down"]):
         for blk in level["blocks"]:
             h = _resblock(blk["res"], h, t_emb, g, kernels)
             if "st" in blk:
                 h = _transformer(blk["st"], h, context,
                                  _heads(cfg, h.shape[-1]), g, kernels,
-                                 "down" in perturb, tome)
+                                 "down" in perturb, tome,
+                                 lvl in cfg.cross_only_levels)
             skips.append(h)
         if "down" in level and not shallow:
             h = conv2d(level["down"], h, stride=2)
@@ -409,6 +444,9 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
     cache = None
     up_levels = params["up"][-1:] if shallow else params["up"]
     for uidx, level in enumerate(up_levels):
+        # the tree's up levels run deepest first; the shallow pass runs
+        # level 0 only
+        lvl = 0 if shallow else len(cfg.channel_mult) - 1 - uidx
         if capture and uidx == len(up_levels) - 1:
             cache = h
         for blk in level["blocks"]:
@@ -420,7 +458,8 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
             if "st" in blk:
                 h = _transformer(blk["st"], h, context,
                                  _heads(cfg, h.shape[-1]), g, kernels,
-                                 "up" in perturb, tome)
+                                 "up" in perturb, tome,
+                                 lvl in cfg.cross_only_levels)
         if "up" in level:
             h = conv2d(level["up"], _upsample_nearest(h))
 

@@ -10,8 +10,8 @@ step (diffusers' ``LCMScheduler``, matched exactly):
   alpha_next * denoised + sigma_next * noise`` (``NEEDS_NOISE``); the last
   step returns ``denoised`` (alpha_next 1, sigma_next 0 in the tables).
 
-Guidance is not applied here: distilled checkpoints take the scale through
-the UNet's guidance embedding, a configuration the port has not ported yet.
+Guidance is not applied here: distilled checkpoints (``sd15_lcm``) take the
+scale through the UNet's guidance embedding (``engine/pipeline.denoise``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Offline checkpoint converter: SD v1.x, v2.x or XL checkpoint -> model
-directory.
+"""Offline checkpoint converter: SD v1.x, v2.x, XL, LCM, x4-upscaler or
+SDXL-refiner checkpoint -> model directory.
 
 The port's counterpart of ``tools/convert_weights.py``:
 
@@ -9,7 +9,10 @@ The port's counterpart of ``tools/convert_weights.py``:
             or SDXL in the sgm naming (``--config sdxl``), or a
             concat-conditioned variant with its wider ``conv_in``
             (``--config sd15_inpaint``, ``sd21_inpaint``, ``sdxl_inpaint``,
-            ``sd2_depth``, ``sd15_ip2p``)
+            ``sd2_depth``, ``sd15_ip2p``), or a staged one: LCM with its
+            ``time_embed.cond_proj`` (``--config sd15_lcm``), the x4
+            upscaler with its ``label_emb`` (``sd_x4``), the SDXL refiner
+            with its one bigG tower (``sdxl_refiner``)
     output: <out_dir>/model.sdtpu.safetensors, the JAX package's native
             format (the flattened JAX-layout tree in the target dtype,
             quantized as asked), which both packages load
@@ -19,7 +22,7 @@ Usage (from the repository root):
 
     python3 -m sdtpu_torch.tools.convert_weights \\
         v1-5-pruned-emaonly.safetensors out_dir [--dtype bfloat16] \\
-        [--config sd15|sd21|sd21base|sdxl|<a concat variant>|tiny] \\
+        [--config sd15|sd21|sd21base|sdxl|<a concat or staged one>|tiny] \\
         [--tokenizer ctokenizer.txt] [--int8] [--int8w conv|dense] [--force]
 
 Then ``sdtpu_torch.Context(model_dir="out_dir", config=..., device="cuda")``

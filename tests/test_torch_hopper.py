@@ -1179,6 +1179,42 @@ def test_rules_take_every_batch_site(kernel, site):
         assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
 
 
+def _check_site(kernel, site):
+    """One recorded site (``_recorders``' key) through its kernel's static
+    rule, and the plan within what the C entry point accepts: its grid's
+    axes, its 32-bit indexing, the split-K scratch, shared memory."""
+    if kernel == "flash":
+        b, sq, c, heads = site
+        d = c // heads
+        dpad, rows, bkv = t_attn.plan(d, sq, sq, b * heads, SMS)
+        assert dpad in t_attn.DPADS and d <= dpad < 2 * d + 16
+        assert rows in (64, 128) and b * heads <= 65535
+        assert _flash_smem(dpad, rows, bkv) <= SMEM_CAP
+        assert b * sq * c < 2 ** 31 and sq % 128 == 0 and sq >= 512
+    elif kernel in ("group_norm", "group_norm_affine"):
+        n, hw, c, groups = site[:4]
+        p = _check_gn_plan(n, hw, c, groups)
+        assert n * groups <= t_gn.MAX_SAMPLE_GROUPS and hw * c < 2 ** 31
+        assert p["grid"][1] <= 65535
+    elif kernel == "conv":
+        n, h, w, c_in, c_out, ks, int8 = site
+        p = _check_conv_plan(n, h, w, c_in, c_out, ks, int8)
+        assert n * h * w * max(c_in, c_out) < 2 ** 31
+        assert p["splits"] * n * h * w * c_out < 2 ** 31
+        assert -(-c_out // 128) <= 65535
+    elif kernel == "matmul_int8w":
+        test_int8w_plan_covers_k_once_and_fills_the_card(*site)
+        m, k, n = site
+        p = t_mm.plan_int8w(m, k, n, SMS)
+        assert p["splits"] * m * n < 2 ** 31
+        assert max(m * k, m * n) < 2 ** 31
+    else:
+        test_w8a8_plan_covers_k_once_and_fills_the_card(*site)
+        m, k, n = site
+        assert n >= m
+        assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
+
+
 # ---------------------------------------------------------------------------
 # the families (sd21, sd21base, sdxl) at full width: every site the main
 # path gives each kernel, recorded from the port's own code on the meta
@@ -1331,30 +1367,12 @@ def _run_vae(cfg, mode, size, encoder=False):
                   policy)
 
 
-def _record_family(name, mode):
+def _family_log(name, mode):
     """{(part, kernel): [call key, ...]} of one UNet eval (part "unet", the
     CFG batch of 2) and one VAE decode (part "vae", batch 1) of the
     configuration ``name`` at its full width under ``mode`` (keys: see
-    ``_recorders``)."""
-    from sdtpu_torch.config import CONFIGS
-
-    cfg = CONFIGS[name]
-    log = {}
-    part = ["unet"]
-    with _recorders(mode, log, part):
-        _run_unet(cfg, mode, 2, cfg.latent_size)
-        part[0] = "vae"
-        _run_vae(cfg, mode, cfg.latent_size)
-    return log
-
-
-_FAMILY_LOGS = {}
-
-
-def _family_log(name, mode):
-    if (name, mode) not in _FAMILY_LOGS:
-        _FAMILY_LOGS[name, mode] = _record_family(name, mode)
-    return _FAMILY_LOGS[name, mode]
+    ``_recorders``): its ``_part_log``s."""
+    return {**_part_log("unet", name, mode), **_part_log("vae", name, mode)}
 
 
 def _per_image(log, evals, out=None):
@@ -1418,36 +1436,12 @@ def test_rules_take_every_family_site(kernel):
     sites = _family_sites(kernel)
     assert sites
     for site in sites:
+        _check_site(kernel, site)
         if kernel == "flash":
             b, sq, c, heads = site
-            d = c // heads
-            assert d in (64, 512) and sq % 128 == 0 and sq >= 512
-            dpad, rows, bkv = t_attn.plan(d, sq, sq, b * heads, SMS)
-            assert dpad == d and b * heads <= 65535
-            assert _flash_smem(dpad, rows, bkv) <= SMEM_CAP
-            assert b * sq * c < 2 ** 31
-        elif kernel in ("group_norm", "group_norm_affine"):
-            n, hw, c, groups = site[:4]
-            p = _check_gn_plan(n, hw, c, groups)
-            assert n * groups <= t_gn.MAX_SAMPLE_GROUPS and hw * c < 2 ** 31
-            assert p["grid"][1] <= 65535
-        elif kernel == "conv":
-            n, h, w, c_in, c_out, ks, int8 = site
-            p = _check_conv_plan(n, h, w, c_in, c_out, ks, int8)
-            assert n * h * w * max(c_in, c_out) < 2 ** 31
-            assert p["splits"] * n * h * w * c_out < 2 ** 31
-            assert -(-c_out // 128) <= 65535
-        elif kernel == "matmul_int8w":
-            test_int8w_plan_covers_k_once_and_fills_the_card(*site)
-            m, k, n = site
-            p = t_mm.plan_int8w(m, k, n, SMS)
-            assert p["splits"] * m * n < 2 ** 31
-            assert max(m * k, m * n) < 2 ** 31
-        else:
-            test_w8a8_plan_covers_k_once_and_fills_the_card(*site)
-            m, k, n = site
-            assert n >= m
-            assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
+            assert c // heads in (64, 512)
+            assert t_attn.plan(c // heads, sq, sq, b * heads, SMS)[0] == (
+                c // heads)
 
 
 def test_family_sites_reach_the_new_shapes():
@@ -1598,36 +1592,7 @@ def test_rules_take_every_image_site(kernel):
     sites = _image_sites(kernel)
     assert sites
     for site in sites:
-        if kernel == "flash":
-            b, sq, c, heads = site
-            d = c // heads
-            dpad, rows, bkv = t_attn.plan(d, sq, sq, b * heads, SMS)
-            assert dpad in t_attn.DPADS and d <= dpad < 2 * d + 16
-            assert rows in (64, 128) and b * heads <= 65535
-            assert _flash_smem(dpad, rows, bkv) <= SMEM_CAP
-            assert b * sq * c < 2 ** 31 and sq % 128 == 0
-        elif kernel in ("group_norm", "group_norm_affine"):
-            n, hw, c, groups = site[:4]
-            p = _check_gn_plan(n, hw, c, groups)
-            assert n * groups <= t_gn.MAX_SAMPLE_GROUPS and hw * c < 2 ** 31
-            assert p["grid"][1] <= 65535
-        elif kernel == "conv":
-            n, h, w, c_in, c_out, ks, int8 = site
-            p = _check_conv_plan(n, h, w, c_in, c_out, ks, int8)
-            assert n * h * w * max(c_in, c_out) < 2 ** 31
-            assert p["splits"] * n * h * w * c_out < 2 ** 31
-            assert -(-c_out // 128) <= 65535
-        elif kernel == "matmul_int8w":
-            test_int8w_plan_covers_k_once_and_fills_the_card(*site)
-            m, k, n = site
-            p = t_mm.plan_int8w(m, k, n, SMS)
-            assert p["splits"] * m * n < 2 ** 31
-            assert max(m * k, m * n) < 2 ** 31
-        else:
-            test_w8a8_plan_covers_k_once_and_fills_the_card(*site)
-            m, k, n = site
-            assert n >= m
-            assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
+        _check_site(kernel, site)
 
 
 def test_image_sites_reach_the_new_shapes():
@@ -1797,36 +1762,7 @@ def test_rules_take_every_knob_site(kernel):
     sites = _knob_sites(kernel)
     assert sites
     for site in sites:
-        if kernel == "flash":
-            b, sq, c, heads = site
-            d = c // heads
-            dpad, rows, bkv = t_attn.plan(d, sq, sq, b * heads, SMS)
-            assert dpad in t_attn.DPADS and d <= dpad < 2 * d + 16
-            assert rows in (64, 128) and b * heads <= 65535
-            assert _flash_smem(dpad, rows, bkv) <= SMEM_CAP
-            assert b * sq * c < 2 ** 31 and sq % 128 == 0 and sq >= 512
-        elif kernel in ("group_norm", "group_norm_affine"):
-            n, hw, c, groups = site[:4]
-            p = _check_gn_plan(n, hw, c, groups)
-            assert n * groups <= t_gn.MAX_SAMPLE_GROUPS and hw * c < 2 ** 31
-            assert p["grid"][1] <= 65535
-        elif kernel == "conv":
-            n, h, w, c_in, c_out, ks, int8 = site
-            p = _check_conv_plan(n, h, w, c_in, c_out, ks, int8)
-            assert n * h * w * max(c_in, c_out) < 2 ** 31
-            assert p["splits"] * n * h * w * c_out < 2 ** 31
-            assert -(-c_out // 128) <= 65535
-        elif kernel == "matmul_int8w":
-            test_int8w_plan_covers_k_once_and_fills_the_card(*site)
-            m, k, n = site
-            p = t_mm.plan_int8w(m, k, n, SMS)
-            assert p["splits"] * m * n < 2 ** 31
-            assert max(m * k, m * n) < 2 ** 31
-        else:
-            test_w8a8_plan_covers_k_once_and_fills_the_card(*site)
-            m, k, n = site
-            assert n >= m
-            assert t_mm.plan_w8a8(m, k, n, SMS)["splits"] * m * n < 2 ** 31
+        _check_site(kernel, site)
 
 
 def test_knob_sites_reach_the_new_shapes():
@@ -1843,6 +1779,185 @@ def test_knob_sites_reach_the_new_shapes():
     assert (1, 64, 64, 320, 320, 3, False) in _knob_sites("conv")
     k4 = _knob_sites("matmul_int8w")
     assert (4096, 320, 320) in k4 and (4096, 320, 960) not in k4
+
+
+# ---------------------------------------------------------------------------
+# the staged configurations at full width: LCM (sd15_lcm, one call and a
+# batch of four), the SDXL two-stage call (sdxl stopped at the split, then
+# sdxl_refiner) and the x4 upscaler (sd_x4), each call of the smoke run's
+# stages phase as its parts recorded on the meta device, and once through
+# the port's own pipeline functions
+# ---------------------------------------------------------------------------
+
+def _stage_call(stage, mode):
+    """[(log, UNet evals), ...] of one call of the stages phase
+    (``chip_smoke.STAGE_CALLS``: its configuration, UNet batch and evals,
+    and whether it decodes)."""
+    name, n, evals, decodes = chip_smoke.STAGE_CALLS[stage]
+    parts = [(_part_log("unet", name, mode, n), evals)]
+    if decodes:
+        parts.append((_part_log("vae", name, mode), 1))
+    return parts
+
+
+@pytest.mark.parametrize("stage", sorted(chip_smoke.STAGES_PINNED))
+def test_stage_pins_are_the_rules(stage):
+    """Each stage call's launches under each mode the smoke run takes, from
+    its sites and the rules, are its pins (``chip_smoke.STAGES_PINNED``):
+    K1 41 an LCM call (10 an eval at 4 steps, the decoder's mid block) and
+    the same for its batch of four, 560 the SDXL base's 8 steps of 10 (no
+    decode), 81 the refiner's 2 (40 an eval: its 256-token mid block takes
+    the plain path) and its decode, 1 an upscale (the x4 UNet's attn1 is
+    cross-only at 4,096 and 1,024 tokens, its 256-token level and mid block
+    take the plain path: the f4 VAE's 16,384-token mid block alone)."""
+    for mode, want in chip_smoke.STAGES_PINNED[stage].items():
+        got = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0)
+        for log, evals in _stage_call(stage, mode):
+            _per_image(log, evals, got)
+        assert got == want, (stage, mode)
+    assert {s: chip_smoke.STAGES_PINNED[s]["cuda"]["flash"]
+            for s in chip_smoke.STAGES_PINNED} == {
+        "lcm": 41, "lcm_batch": 41, "base": 560, "refine": 81, "x4": 1}
+
+
+_STAGE_RUNS = {}
+
+
+def _stage_pipeline_run(stage):
+    """(the UNet batch of each eval, the decodes) of the stage call as the
+    port's pipeline function runs it on the meta device, the UNet and the
+    VAE replaced by recorders: ``generate`` of LCM (guidance embedded, no
+    CFG batch; four requests with a guidance each for the batch),
+    ``generate(end_step=, output="latent")`` of SDXL, ``refine`` of the
+    refiner from the split, ``upscale`` of a 128^2 image."""
+    from sdtpu_torch.config import CONFIGS
+    from sdtpu_torch.engine import pipeline
+    from sdtpu_torch.io.params import init_tree, tree_names
+    from sdtpu_torch.models import unet, vae
+
+    if stage not in _STAGE_RUNS:
+        name = chip_smoke.STAGE_CALLS[stage][0]
+        cfg = CONFIGS[name]
+        params = {t: _meta_tree(init_tree(t, cfg, None, "meta"))
+                  for t in tree_names(cfg) if t != "vae_enc"}
+        b = 4 if stage == "lcm_batch" else 1
+        s, L = cfg.latent_size, cfg.clip.context_len
+
+        def meta(*shape, dtype=torch.float32):
+            return torch.empty(shape, device="meta", dtype=dtype)
+
+        rows, decodes = [], []
+
+        def unet_apply(p, x, te, ctx, ucfg, kernels="plain", **kw):
+            assert te.shape[0] == ctx.shape[0] == x.shape[0]
+            rows.append(x.shape[0])
+            return x.new_empty((*x.shape[:3], ucfg.out_channels))
+
+        def vae_apply(p, z, vcfg, kernels="plain"):
+            decodes.append(z.shape[0])
+            f = 2 ** (len(vcfg.channel_mult) - 1)
+            return z.new_empty((z.shape[0], z.shape[1] * f, z.shape[2] * f,
+                                3))
+
+        tokens = meta(b, L, dtype=torch.int64)
+        lat = meta(b, s, s, cfg.latent_channels)
+        kw = dict(cfg=cfg, kernels="cuda", noise=lat)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(unet, "apply", unet_apply)
+            mp.setattr(vae, "apply", vae_apply)
+            uncond = pipeline.encode_text(params, tokens[:1], cfg)[0]
+            if stage.startswith("lcm"):
+                pipeline.generate(
+                    params, tokens, uncond, None, [8.0, 4.0, 1.5, 8.0][:b],
+                    sampler="lcm", steps=chip_smoke.LCM_STEPS, use_cfg=False,
+                    step_noise=meta(chip_smoke.LCM_STEPS, b, s, s, 4), **kw)
+            elif stage == "base":
+                pipeline.generate(params, tokens, uncond, None, 7.5,
+                                  steps=chip_smoke.STAGE_STEPS,
+                                  end_step=chip_smoke.STAGE_SPLIT,
+                                  output="latent", **kw)
+            elif stage == "refine":
+                pipeline.refine(params, tokens, uncond, None, 7.5, lat,
+                                steps=chip_smoke.STAGE_STEPS,
+                                start_step=chip_smoke.STAGE_SPLIT, **kw)
+            else:
+                pipeline.upscale(params, tokens, uncond, None, 9.0,
+                                 meta(b, s, s, 3), 20,
+                                 steps=chip_smoke.STAGE_STEPS,
+                                 aug_noise=meta(b, s, s, 3), **kw)
+        _STAGE_RUNS[stage] = (rows, decodes)
+    return _STAGE_RUNS[stage]
+
+
+@pytest.mark.parametrize("stage", sorted(chip_smoke.STAGE_CALLS))
+def test_stage_calls_are_the_pipelines_loops(stage):
+    """The port's pipeline functions run what each stage call's parts say:
+    its evals, each on its batch (LCM one row a request, no CFG pair; the
+    others the CFG pair), and its decode (none for the base's latent
+    output)."""
+    _, n, evals, decodes = chip_smoke.STAGE_CALLS[stage]
+    rows, decoded = _stage_pipeline_run(stage)
+    assert rows == [n] * evals
+    assert decoded == ([n if stage == "lcm_batch" else 1] if decodes else [])
+
+
+def _stage_sites(kernel):
+    """Every site of ``kernel`` of the stages: the LCM UNet at N = 1 and 4,
+    the refiner's and the x4 upscaler's UNets at the CFG batch of 2 under
+    every mode, their decoders (the refiner's is SDXL's) under every
+    policy."""
+    sites = set()
+    for mode in POLICY_MODES + QUANT_MODES:
+        logs = [_part_log("unet", "sd15_lcm", mode, 1),
+                _part_log("unet", "sd15_lcm", mode, 4),
+                _part_log("unet", "sdxl_refiner", mode, 2),
+                _part_log("unet", "sd_x4", mode, 2)]
+        if mode in POLICY_MODES:
+            logs.append(_part_log("vae", "sd_x4", mode))
+        for log in logs:
+            for (_, k), keys in log.items():
+                if k == kernel:
+                    sites.update(keys)
+    return sorted(sites)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "group_norm",
+                                    "group_norm_affine", "conv",
+                                    "matmul_int8w", "matmul_w8a8"])
+def test_rules_take_every_stage_site(kernel):
+    """Every site of the stages through its kernel's static rule, and the
+    plan within what the C entry point accepts (its grid's axes, its
+    32-bit indexing, the split-K scratch, shared memory). New: K1 at 24 and
+    48 batch-heads of head dim 64 (the refiner) and at N = 4 (LCM's batch);
+    K2 at 12 and 8 channels a group (the refiner's 384, x4's 256) on 128^2
+    planes; K3 at Cin 384 and 256 over 128^2 planes; K4 and K5 at K = 384
+    and 768 (the refiner) and 256 and 512 (x4)."""
+    sites = _stage_sites(kernel)
+    assert sites
+    for site in sites:
+        _check_site(kernel, site)
+
+
+def test_stage_sites_reach_the_new_shapes():
+    """The shapes the stages bring are among the sites: K1 at the
+    refiner's [2, 4096, 768] / 12 and [2, 1024, 1536] / 24, LCM's [4, 4096,
+    320] and the f4 VAE's [1, 16384, 512] (the x4 UNet's cross-only levels
+    never reach it); K2 at 12 (384 / 32) and 8 (256 / 32) channels a group
+    on 128^2 planes; K3 at [2, 128, 128, 384] -> 384 and [2, 128, 128, 256]
+    -> 256; K4 at K = 384 and 768."""
+    flash = _stage_sites("flash")
+    for site in ((2, 4096, 768, 12), (2, 1024, 1536, 24), (4, 4096, 320, 8),
+                 (1, 4096, 320, 8), (1, 16384, 512, 1)):
+        assert site in flash
+    assert not any(c == 512 and sq == 4096 for _, sq, c, _ in flash)
+    gn = _stage_sites("group_norm")
+    assert (2, 16384, 384, 32, 1e-5, True) in gn
+    assert (2, 16384, 256, 32, 1e-5, True) in gn
+    convs = _stage_sites("conv")
+    assert (2, 128, 128, 384, 384, 3, False) in convs
+    assert (2, 128, 128, 256, 256, 3, False) in convs
+    k4 = {k for _, k, _ in _stage_sites("matmul_int8w")}
+    assert {384, 768, 256, 512} <= k4
 
 
 # ---------------------------------------------------------------------------

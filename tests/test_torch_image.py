@@ -294,7 +294,7 @@ def test_context_takes_the_concat_config_names(name, monkeypatch):
         monkeypatch.setattr(Context, phase, lambda self: None)
     ctx = Context(config=name, device="cpu")
     cfg = t_config.CONFIGS[name]
-    assert ctx.cfg is cfg and name not in t_config.NOT_PORTED
+    assert ctx.cfg is cfg
     w = t_unet.init(cfg.unet, None, "meta")["conv_in"]["w"]
     assert tuple(w.shape[:2]) == (cfg.unet.model_channels,
                                   cfg.unet.in_channels)
@@ -546,17 +546,19 @@ def test_instruct_pix2pix_matches_jax(ref, monkeypatch, sampler,
 
 def test_draw_order_is_the_documented_one():
     """One generator makes the start latents, the step noise, the posterior,
-    the masked-image and the pin draws, in that order whatever the order
-    they are asked in; a list of one a sample makes each sample's in the
-    same order, so that sample 1 of a batch draws what it draws alone."""
+    the masked-image, the pin draws and the x4 upscaler's augmentation (in
+    the low-res image's shape), in that order whatever the order they are
+    asked in; a list of one a sample makes each sample's in the same order,
+    so that sample 1 of a batch draws what it draws alone."""
     shape, steps = (2, 3, 3, 4), 4
     g = torch.Generator().manual_seed(3)
     got = t_pipeline.draw_noise(
-        g, shape, steps, ("pin_noise", "posterior_noise", "masked_noise",
-                          "step_noise", "noise"), "cpu")
+        g, shape, steps, ("pin_noise", "aug_noise", "posterior_noise",
+                          "masked_noise", "step_noise", "noise"), "cpu")
     g = torch.Generator().manual_seed(3)
     want = [torch.randn(s, generator=g) for s in (
-        shape, (steps,) + shape, shape, shape, (steps,) + shape)]
+        shape, (steps,) + shape, shape, shape, (steps,) + shape,
+        shape[:-1] + (3,))]
     assert list(got) == list(t_pipeline.DRAW_ORDER)
     assert all(torch.equal(got[k], w)
                for k, w in zip(t_pipeline.DRAW_ORDER, want))

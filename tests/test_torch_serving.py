@@ -389,7 +389,7 @@ def test_unknown_sampler_has_the_references_text():
     lambda c: c.generate_batch([{"prompt": "[cat:dog:2]"}]),
     lambda c: c.generate("a photo", output="png"),
     lambda c: c.generate("a photo", lora="style"),
-    lambda c: c.generate("a photo", denoising_end=0.8),
+    lambda c: c.generate("a photo", denoising_end=1.5),
     lambda c: c.generate("a photo", control_image=np.zeros((16, 16, 3))),
     lambda c: c.generate_batch([{"prompt": "a", "lora": "style"}]),
     lambda c: Context(config="tiny", device="cpu", mesh=(1, 1)),

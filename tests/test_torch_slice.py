@@ -344,7 +344,7 @@ def test_context_generate(ctx):
 
 @pytest.mark.parametrize("kwargs", [
     {"sampler": "nope"}, {"steps": 0}, {"clip_skip": 0},
-    {"kernels": "pallas"}, {"config": "sdxl_refiner"}])
+    {"kernels": "pallas"}, {"cfg_interval": (0.8, 0.2)}])
 def test_context_invalid_arguments(kwargs):
     with pytest.raises(SdtpuError) as ei:
         Context(**{"config": "tiny", **kwargs}, device="cpu")
