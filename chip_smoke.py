@@ -174,6 +174,28 @@ Phases, each printing one JSON object per line:
    int8w_dense. Then kernel_stages_*: K1-K5 at the UNet sites the three
    bring (LCM's batch of four, the refiner's and the x4 UNet's CFG batch),
    against their plain versions with the existing tolerances.
+19. adapters, after the knobs phase, on its Contexts: per-request adapters
+   on SD1.5 at full width, ``ADAPTER_STEPS`` DPM-Solver++(2M) steps, CFG
+   7.5: a "random" ControlNet (``Context.load_controlnet``) and a seeded
+   512x512 uint8 control image under cuda, cuda_gn, cuda_conv and
+   int8w_dense, two ControlNets with a list of scales, ``control_scale=0``
+   (the bytes without control); a rank-``ADAPTER_RANK`` LoRA over every
+   attention projection, feed-forward product, proj_in/proj_out and the
+   text tower, written by the port's writers as a kohya file and an
+   ``.npz`` and loaded by ``Context.load_lora``, each under cuda,
+   cuda_conv, int8w_dense and calibrated int8 with ``KERNEL_W8A8``; the
+   same LoRA with every ResBlock conv too (a "LoCon" kohya file) under
+   cuda_conv, each adapted conv the fused conv kernel's twice (the base
+   and the delta's down conv); ``lora=""`` (the base's bytes). Every arm with ``ADAPTER_PINNED``
+   (derived on the meta device by tests/test_torch_hopper.py), the same
+   bytes from the same seed, finite latents; the UNet with each adapter
+   against float32 under each policy (within ``MODEL_FACTOR`` of the plain
+   bf16 path's error; the quantized LoRA'd UNets under
+   ``QUANT_REL_ERR_MAX``); s/image and device busy ms of one ControlNet
+   and of the LoRA against none, in turns; K1-K5 at the most-launched
+   site the adapters bring (``kernel_adapters_*``). After the stages, SDXL
+   at 1024x1024 with one ControlNet at ``ADAPTER_XL_STEPS`` steps under
+   cuda, one call, with its pins.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -2336,6 +2358,95 @@ KNOBS_PINNED = {
 #: cut the work of an image
 KNOB_AB = ("off", "tome_0.5", "deepcache_3", "cfg_interval")
 
+# the adapters phase: SD1.5 at 512^2, ADAPTER_STEPS DPM-Solver++(2M) steps,
+# CFG 7.5, demo weights, launches per call of each kernel in each arm,
+# derived on the meta device from the port's own loop and the rules
+# (tests/test_torch_hopper.py::test_adapter_pins_are_the_rules):
+#   a ControlNet's encoder copy runs beside every UNet eval, on its CFG
+#     batch: K1 at its 4 self-attentions of 4,096 and 1,024 tokens (its
+#     256-token level and 64-token mid block take the plain path), K2 at its
+#     27 GroupNorms (10 ResBlocks x 2, 7 transformers), K3 and K2's
+#     statistics mode at its 27 fused convs (20 ResBlock convs, 7 proj_in);
+#     the hint network's and the zero convs are cuDNN convs; it stays bf16
+#     under int8w_dense (no K4); two ControlNets run two copies;
+#   a LoRA at every attention projection, feed-forward product and
+#     proj_in/proj_out (and the text tower's sites) leaves K1, K2, K4 and K5
+#     as they are (its delta is two library products beside each site) and
+#     launches K3 a second time at each of the 16 proj_in convs it adapts
+#     (the delta's down conv, Cout the rank): 76 K3 launches an eval, the
+#     statistics mode's 60; the LoCon adapts the 44 ResBlock convs too: 120;
+#   SDXL at 1024^2, ADAPTER_XL_STEPS steps: its ControlNet's 4 self-attentions
+#     at 4,096 tokens (level 1, depth 2) and 30 at 1,024 (level 2 and the mid
+#     block, depth 10) beside the UNet's 70: 104 an eval
+ADAPTER_STEPS = 8
+ADAPTER_XL_STEPS = 4
+ADAPTER_SEED = 43
+ADAPTER_RANK = 16
+ADAPTER_CN_FLASH = (10 + 4) * ADAPTER_STEPS + 1
+ADAPTER_FLASH = 10 * ADAPTER_STEPS + 1
+#: arm -> (mode, the adapter: "cn" one ControlNet, "cn2" two, "cn0" one at
+#: control_scale 0, "kohya" or "npz" a LoRA, "base" lora="")
+ADAPTER_ARMS = {
+    "cn_cuda": ("cuda", "cn"), "cn_cuda_gn": ("cuda_gn", "cn"),
+    "cn_cuda_conv": ("cuda_conv", "cn"),
+    "cn_int8w_dense": ("int8w_dense", "cn"), "cn_two": ("cuda", "cn2"),
+    "cn_scale_0": ("cuda", "cn0"),
+    "kohya_cuda": ("cuda", "kohya"), "kohya_cuda_conv": ("cuda_conv", "kohya"),
+    "kohya_int8w_dense": ("int8w_dense", "kohya"),
+    "kohya_int8+k5": ("int8+k5", "kohya"),
+    "npz_cuda": ("cuda", "npz"), "npz_cuda_conv": ("cuda_conv", "npz"),
+    "npz_int8w_dense": ("int8w_dense", "npz"),
+    "npz_int8+k5": ("int8+k5", "npz"),
+    "locon_cuda_conv": ("cuda_conv", "locon"),
+    "lora_base": ("cuda", "base"),
+}
+
+
+def _lora_pins(mode, adapted=16):
+    """A LoRA arm's pins: K3 takes the UNet's 60 GroupNorm-conv sites an
+    eval (44 ResBlock convs, 16 proj_in) and the decoder's 28, and a second
+    launch at each of the ``adapted`` LoRA'd ones (16 proj_in; a LoCon's
+    60), the statistics mode one a site."""
+    return {"cuda": pins(flash=ADAPTER_FLASH),
+            "cuda_conv": pins(flash=ADAPTER_FLASH,
+                              group_norm_affine=60 * ADAPTER_STEPS + 28,
+                              conv=(60 + adapted) * ADAPTER_STEPS + 28),
+            "int8w_dense": pins(
+                flash=ADAPTER_FLASH,
+                matmul_int8w=MM_INT8W_PER_EVAL * ADAPTER_STEPS,
+                matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL * ADAPTER_STEPS),
+            "int8+k5": pins(
+                flash=ADAPTER_FLASH,
+                matmul_w8a8=MM_W8A8_PER_EVAL * ADAPTER_STEPS,
+                matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL * ADAPTER_STEPS)}[mode]
+
+
+# K1 at 8 steps: 113 with a ControlNet (10 + 4 an eval and the decoder's
+# mid block), 145 with two, 81 with a LoRA; K2 704 (88 an eval) with a
+# ControlNet under cuda_gn; K3 724 (87 an eval and the decoder's 28) with
+# one under cuda_conv, 636 (76 an eval) with the LoRA, 988 (120) with the
+# LoCon; K4 1,824 under int8w_dense either way; K5 680 with the LoRA;
+# SDXL with a ControlNet at 4 steps K1 417 ((70 + 34) an eval + 1)
+ADAPTER_PINNED = {
+    "cn_cuda": pins(flash=ADAPTER_CN_FLASH),
+    "cn_cuda_gn": pins(flash=ADAPTER_CN_FLASH,
+                       group_norm=(61 + 27) * ADAPTER_STEPS),
+    "cn_cuda_conv": pins(flash=ADAPTER_CN_FLASH,
+                         group_norm_affine=(60 + 27) * ADAPTER_STEPS + 28,
+                         conv=(60 + 27) * ADAPTER_STEPS + 28),
+    "cn_int8w_dense": pins(
+        flash=ADAPTER_CN_FLASH,
+        matmul_int8w=MM_INT8W_PER_EVAL * ADAPTER_STEPS,
+        matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL * ADAPTER_STEPS),
+    "cn_two": pins(flash=(10 + 2 * 4) * ADAPTER_STEPS + 1),
+    "cn_scale_0": pins(flash=ADAPTER_CN_FLASH),
+    **{arm: _lora_pins(mode) for arm, (mode, kind) in ADAPTER_ARMS.items()
+       if kind in ("kohya", "npz")},
+    "locon_cuda_conv": _lora_pins("cuda_conv", 60),
+    "lora_base": pins(flash=ADAPTER_FLASH),
+    "cn_sdxl": pins(flash=(70 + 34) * ADAPTER_XL_STEPS + 1),
+}
+
 IMAGE_SEED = 29
 IMAGE_STRENGTH = 0.6
 DEPTH_STRENGTH = 0.8
@@ -3073,6 +3184,341 @@ def phase_knob_kernels(ctx, main_sites, main_mm):
     return rows
 
 
+def lora_site(name: str, locon: bool = False) -> bool:
+    """The kohya sites the phase's LoRA takes: every attention projection,
+    both feed-forward products, proj_in and proj_out in the UNet, and every
+    site of the text tower(s); with ``locon`` also each ResBlock's two 3x3
+    convs (LDM ``in_layers.2``, ``out_layers.3``)."""
+    return name.startswith("lora_te") or any(
+        k in name for k in ("_attn1_", "_attn2_", "_ff_net_", "_proj_in",
+                            "_proj_out")) or (locon and name.endswith(
+                                ("_in_layers_2", "_out_layers_3")))
+
+
+def write_lora_files(ctx, root):
+    """A rank-``ADAPTER_RANK`` LoRA over ``lora_site``'s LoCon sites of
+    ``ctx``'s configuration, drawn from ``ADAPTER_SEED`` on the card
+    (lora_down at 1/sqrt(fan-in), lora_up at 0.1/sqrt(rank), alpha = rank:
+    a delta of some tenths of the base's output), written by the port's
+    writers as a kohya file and an ``.npz`` (the UNet's sites) of the
+    LoRA's sites, and a kohya file of them all. Returns (kohya path, npz
+    path, LoCon path, seconds)."""
+    from sdtpu_torch.io.kohya import load_lora_kohya, save_lora_kohya, \
+        site_map
+    from sdtpu_torch.train.lora import save_lora_npz
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(ADAPTER_SEED)
+    r = ADAPTER_RANK
+    flat, seen = {}, set()
+    for name, (path, kind) in sorted(site_map(ctx.cfg).items()):
+        if not lora_site(name, True) or path in seen:
+            continue
+        seen.add(path)
+        node = ctx.params
+        for k in path:
+            node = node[k]
+        w = node["w"]
+        if kind == "linear":
+            d_in, d_out = w.shape
+            down = torch.randn((r, d_in), generator=g, device="cuda")
+            up = torch.randn((d_out, r), generator=g, device="cuda")
+        else:
+            d_out, d_in, kh, kw = w.shape
+            down = torch.randn((r, d_in, kh, kw), generator=g, device="cuda")
+            up = torch.randn((d_out, r, 1, 1), generator=g, device="cuda")
+        flat[name + ".lora_down.weight"] = down / (down[0].numel() ** 0.5)
+        flat[name + ".lora_up.weight"] = up * (0.1 / r ** 0.5)
+        flat[name + ".alpha"] = torch.tensor(float(r))
+    locon = os.path.join(root, "locon.safetensors")
+    save_lora_kohya(load_lora_kohya(flat, ctx.cfg), ctx.cfg, locon)
+    overlay = load_lora_kohya({k: v for k, v in flat.items()
+                               if lora_site(k.split(".")[0])}, ctx.cfg)
+    kohya = os.path.join(root, "style.safetensors")
+    npz = os.path.join(root, "style.npz")
+    save_lora_kohya(overlay, ctx.cfg, kohya)
+    save_lora_npz(overlay["unet"], npz)
+    return kohya, npz, locon, time.perf_counter() - t0
+
+
+def control_images(size, n=2):
+    """``n`` fixed-seed random uint8 control images [size, size, 3]."""
+    return [image_inputs(size, ADAPTER_SEED + i)[0] for i in range(n)]
+
+
+def adapter_kwargs(kind, images):
+    """``generate``'s keywords of an arm's adapter."""
+    return {"cn": dict(control_image=images[0], control="cn"),
+            "cn2": dict(control_image=images, control=["cn", "cn2"],
+                        control_scale=[1.0, 0.5]),
+            "cn0": dict(control_image=images[0], control="cn",
+                        control_scale=0.0),
+            "kohya": dict(lora="kohya"), "npz": dict(lora="npz"),
+            "locon": dict(lora="locon"),
+            "base": dict(lora="")}[kind]
+
+
+def adapter_unet_errors(ctx, images, res):
+    """One full-width UNet eval at the CFG batch of 2 with each adapter,
+    under each policy (bf16), against a float32 eval of the same weights
+    (the bf16 values widened exactly) on the same inputs: the UNet with the
+    ControlNet "cn"'s residuals (its hint embedded from the first control
+    image, its copy on the same batch), and the UNet overlaid with the
+    kohya LoRA and with the LoCon. Every policy within ``MODEL_FACTOR`` of the plain bf16
+    path's error. Returns the float32 LoRA'd eval and its inputs, to hold
+    the quantized Contexts' LoRA'd UNets to."""
+    from sdtpu_torch.io.params import cast_params
+    from sdtpu_torch.models import controlnet, unet
+
+    cfg = ctx.cfg
+    x, te, context = unet_inputs(cfg, 6)
+    hint = torch.from_numpy(np.stack([images[0]] * 2)).to("cuda").float() / 255
+
+    def with_cn(up, cn, k, f):
+        feats = controlnet.embed_hint(cn, f(hint), cfg.upscale)
+        ctrl = controlnet.apply(cn, f(x), feats, f(te), f(context), cfg.unet,
+                                k)
+        return unet.apply(up, f(x), f(te), f(context), cfg.unet, k,
+                          control=ctrl)
+
+    def with_lora(up, _, k, f):
+        return unet.apply(up, f(x), f(te), f(context), cfg.unet, k)
+
+    held = None
+    for label, run, up, cn in (
+            ("cn", with_cn, ctx.params["unet"], ctx._controlnets["cn"]),
+            ("kohya", with_lora, ctx._params_for("kohya")["unet"], None),
+            ("locon", with_lora, ctx._params_for("locon")["unet"], None)):
+        with torch.inference_mode():
+            ref = run(cast_params(up, torch.float32),
+                      None if cn is None else cast_params(cn, torch.float32),
+                      "plain", lambda t: t.float())
+            for k in POLICIES:
+                out = run(up, cn, k, lambda t: t.to(cfg.compute_dtype))
+                res[f"unet_{label}_{k}_finite"] = bool(
+                    torch.isfinite(out).all())
+                res[f"unet_{label}_{k}_rel_err"] = rel_err(out, ref)
+                del out
+        if label == "kohya":
+            held = (x, te, context, ref)
+        del ref
+        torch.cuda.empty_cache()
+    for label in ("cn", "kohya", "locon"):
+        for k in POLICIES[1:]:
+            if not (res[f"unet_{label}_{k}_finite"]
+                    and res[f"unet_{label}_{k}_rel_err"]
+                    <= MODEL_FACTOR * res[f"unet_{label}_plain_rel_err"]):
+                emit(res)
+                raise AssertionError(f"the UNet with {label} under {k} off "
+                                     f"the float32 run: {res}")
+    return held
+
+
+def adapter_ab(ctx, images, res):
+    """s/image and device busy ms of one image with no adapter, with one
+    ControlNet and with the kohya LoRA, in turns there and back on one
+    Context under cuda (two images each), and one profiled image each."""
+    arms = (("none", {}), ("cn", adapter_kwargs("cn", images)),
+            ("lora", adapter_kwargs("kohya", images)))
+    times = {a: [] for a, _ in arms}
+    busy = {}
+    for label, kw in arms + arms[::-1]:
+        t0 = time.perf_counter()
+        ctx.generate(PROMPT, guidance=7.5, seed=ADAPTER_SEED, **kw)
+        times[label].append(time.perf_counter() - t0)
+        if label not in busy:
+            by_name, kernels, wall_ms = device_profile(
+                lambda: ctx.generate(PROMPT, guidance=7.5, seed=ADAPTER_SEED,
+                                     **kw))
+            busy[label] = {"device_busy_ms": sum(by_name.values()),
+                           "device_kernels": kernels,
+                           "profiled_wall_ms": wall_ms}
+    res.update({"ab_s_per_image": {k: statistics.mean(v)
+                                   for k, v in times.items()},
+                "ab_image_s": times, "ab_profile": busy})
+
+
+def adapter_kernel_rows(ctx, ctx_d, ctx_i, images):
+    """K1-K5 each at the most-launched site the adapters bring, against its
+    plain version with the existing tolerances (``kernel_adapters_*``):
+    K1, K2, K3 and K2's statistics mode at the ControlNet copy's sites (one
+    eval at the CFG batch, x ``ADAPTER_STEPS``), K3 also at the LoCon's
+    delta down convs (Cout ``ADAPTER_RANK``), K4 and K5 at the LoRA'd
+    UNet's sites on the quantized Contexts (the int8w_dense one's, the
+    calibrated int8 one's with ``KERNEL_W8A8``). Returns ({kernel: rows},
+    the sites' launch counts)."""
+    from sdtpu_torch.models import controlnet, unet
+    from sdtpu_torch.ops import matmul as MM
+
+    cfg = ctx.cfg
+    cn = ctx._controlnets["cn"]
+    x, te, context = unet_inputs(cfg, 7)
+    hint = torch.from_numpy(np.stack([images[0]] * 2)).to("cuda").to(
+        cfg.compute_dtype) / 255
+    with torch.inference_mode():
+        feats = controlnet.embed_hint(cn, hint, cfg.upscale)
+    sites = record_sites([(ADAPTER_STEPS, lambda k: controlnet.apply(
+        cn, x, feats, te, context, cfg.unet, k))])
+    locon = record_sites([(ADAPTER_STEPS, lambda k: unet.apply(
+        ctx._params_for("locon")["unet"], x, te, context, cfg.unet, k))])
+
+    def top(found):
+        key = max(found, key=lambda k: (found[k], str(k)))
+        return {key: found[key]}
+
+    mm = {}
+    for label, c, fn, flag in (
+            ("int8w_dense", ctx_d, "matmul_int8w_cuda", False),
+            ("int8+k5", ctx_i, "matmul_w8a8_cuda", True)):
+        log = []
+        with torch.inference_mode(), recording(MM, fn, log), w8a8_kernel(
+                flag):
+            unet.apply(c._params_for("kohya")["unet"], x, te, context,
+                       cfg.unet, "cuda")
+        found = {}
+        for args, _ in log:
+            xx, w8 = args[0], args[1]
+            key = (xx.numel() // xx.shape[-1], w8.shape[0], w8.shape[1],
+                   args[-1] is not None)
+            found[key] = found.get(key, 0) + ADAPTER_STEPS
+        mm[label] = top(found)
+    reset_counts()
+    conv = top({k: n for k, n in sites["conv"].items() if k[3]})
+    down = top({k: n for k, n in locon["conv"].items()
+                if k[1] == ADAPTER_RANK})
+    flash = top(sites["flash"])
+    emit({"phase": "sites_adapters",
+          "flash_per_image": sum(sites["flash"].values()),
+          "group_norm_per_image": sum(sites["group_norm"].values()),
+          "conv_per_image": sum(sites["conv"].values()),
+          "timed": {"flash": list(flash), "conv": list(conv),
+                    "lora_down": list(down),
+                    "mm": {k: list(v) for k, v in mm.items()}}})
+    rows = {"flash": phase_kernel(sorted(flash), [], "kernel_adapters",
+                                  per_image=flash),
+            "group_norm": phase_kernel_gn(top(sites["group_norm"]), [],
+                                          "kernel_adapters_gn"),
+            "group_norm_affine": phase_kernel_gn_affine(
+                conv, [], "kernel_adapters_gn_affine", sum(conv.values())),
+            "conv": phase_kernel_conv({**conv, **down}, [], 2,
+                                      "kernel_adapters_conv", int8=False)}
+    rows.update(phase_kernel_mm(mm, [], "kernel_adapters_mm"))
+    return rows
+
+
+def phase_adapters(ctx, ctx_d, ctx_i, smi):
+    """Per-request adapters on SD1.5 at full width (module docstring, item
+    19), on the demo Contexts: a "random" ControlNet (and a second) and a
+    LoRA written as a kohya file and an ``.npz`` by the port's writers,
+    each arm of ``ADAPTER_ARMS`` with its pins, the same bytes from the
+    same seed and finite latents (``checked_call``); ``control_scale=0``
+    and ``lora=""`` give the base's bytes; the UNet with each adapter
+    against float32 (``adapter_unet_errors``, the quantized LoRA'd UNets
+    under ``QUANT_REL_ERR_MAX``); the A/B of ``adapter_ab``; then K1-K5 at
+    the adapters' sites (``adapter_kernel_rows``). Returns (launches per
+    arm, kernel rows)."""
+    start = time.perf_counter()
+    images = control_images(ctx.cfg.image_size)
+    contexts = {"cuda": ctx, "cuda_gn": ctx, "cuda_conv": ctx,
+                "int8w_dense": ctx_d, "int8+k5": ctx_i}
+    res = {"phase": "adapters", "nvidia_smi": smi, "steps": ADAPTER_STEPS,
+           "rank": ADAPTER_RANK}
+    launches, seconds = {}, {}
+    root = tempfile.mkdtemp(prefix="sdtpu-lora-")
+    for c in (ctx, ctx_d, ctx_i):
+        c.set_steps(ADAPTER_STEPS)
+    try:
+        t0 = time.perf_counter()
+        ctx.load_controlnet("cn", "random")
+        ctx.load_controlnet("cn2", "random")
+        res["load_controlnet_s"] = (time.perf_counter() - t0) / 2
+        # the int8w_dense Context serves the same ControlNet tree, unquantized
+        ctx_d.load_controlnet("cn", ctx._controlnets["cn"])
+        kohya, npz, locon, res["write_lora_s"] = write_lora_files(ctx, root)
+        res["lora_file_bytes"] = {"kohya": os.path.getsize(kohya),
+                                  "npz": os.path.getsize(npz),
+                                  "locon": os.path.getsize(locon)}
+        t0 = time.perf_counter()
+        for c in (ctx, ctx_d, ctx_i):
+            c.load_lora("kohya", kohya)
+            c.load_lora("npz", npz)
+        res["load_lora_s"] = (time.perf_counter() - t0) / 6
+        ctx.load_lora("locon", locon)
+        ctx.kernels = "cuda"
+        base = ctx.generate(PROMPT, guidance=7.5, seed=ADAPTER_SEED)
+        for arm, (mode, kind) in ADAPTER_ARMS.items():
+            c = contexts[mode]
+            c.kernels = mode if mode in ("cuda_gn", "cuda_conv") else "cuda"
+            kw = adapter_kwargs(kind, images)
+            with w8a8_kernel(mode == "int8+k5"):
+                img, launches[arm], seconds[arm], lat = checked_call(
+                    c, lambda _kw=kw, _c=c, **k: _c.generate(
+                        PROMPT, guidance=7.5, **_kw, **k),
+                    ADAPTER_PINNED[arm], f"adapters {arm}", ADAPTER_SEED)
+            same = bool(np.array_equal(img, base))
+            want_base = kind in ("cn0", "base")
+            emit({"phase": "adapter_arm", "arm": arm, "mode": mode,
+                  "steps": ADAPTER_STEPS, "seconds": seconds[arm],
+                  "launches_per_image": launches[arm], "identical": True,
+                  "base_bytes": same,
+                  "latent_abs_max": float(np.abs(lat).max()),
+                  "image_mean": float(img.mean()),
+                  "image_std": float(img.std())})
+            if mode == "cuda" and same != want_base:
+                raise AssertionError(
+                    f"adapters {arm}: the image is "
+                    f"{'not ' if want_base else ''}the base's")
+        ctx.kernels = "cuda"
+        held = adapter_unet_errors(ctx, images, res)
+        for label, c, flag in (("int8w_dense", ctx_d, False),
+                               ("int8+k5", ctx_i, True)):
+            quant = types.SimpleNamespace(
+                params={"unet": c._params_for("kohya")["unet"]}, cfg=c.cfg,
+                kernels="cuda")
+            quant_error(quant, held, res, f"adapters kohya {label}", label,
+                        flag)
+        del held
+        adapter_ab(ctx, images, res)
+        rows = adapter_kernel_rows(ctx, ctx_d, ctx_i, images)
+    finally:
+        for c in (ctx, ctx_d, ctx_i):
+            c.set_steps(STEPS)
+            c.kernels = "cuda"
+            c._controlnets.clear()
+            c._adapters.clear()
+            c._lora_params.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res.update({"launches": launches, "first_call_s": seconds,
+                "seconds": time.perf_counter() - start})
+    emit(res)
+    return launches, rows
+
+
+def phase_adapters_xl(smi):
+    """SDXL at 1024^2 with one "random" ControlNet, ``ADAPTER_XL_STEPS``
+    steps under cuda, one call (``checked_call``, ``ADAPTER_PINNED``): its
+    sites, not a speed measure. Returns the call's launches."""
+    c = stage_context("sdxl", steps=ADAPTER_XL_STEPS, kernels="cuda")
+    t0 = time.perf_counter()
+    c.load_controlnet("cn", "random")
+    load_s = time.perf_counter() - t0
+    image = control_images(c.cfg.image_size, 1)[0]
+    img, launches, seconds, lat = checked_call(
+        c, lambda **k: c.generate(PROMPT, guidance=7.5, control_image=image,
+                                  **k),
+        ADAPTER_PINNED["cn_sdxl"], "adapters cn_sdxl", ADAPTER_SEED)
+    c._controlnets.clear()
+    release(c)
+    emit({"phase": "adapter_arm", "arm": "cn_sdxl", "mode": "cuda",
+          "nvidia_smi": smi, "steps": ADAPTER_XL_STEPS, "seconds": seconds,
+          "load_controlnet_s": load_s, "launches_per_image": launches,
+          "identical": True, "latent_abs_max": float(np.abs(lat).max()),
+          "image_mean": float(img.mean()), "image_std": float(img.std())})
+    return {"cn_sdxl": launches}
+
+
 def image_summary(rows, launches):
     """A kernel's rows at the image sites for the ``kernels`` line, as
     ``family_summary``; None where the group has no site of it."""
@@ -3187,6 +3633,9 @@ def main() -> int:
     # they make
     knob_launches = phase_knobs(ctx, ctx_d, smi)
     knob_rows = phase_knob_kernels(ctx, sites, mm_sites)
+    # per-request adapters (ControlNet, LoRA) on the same Contexts, then the
+    # kernels at the sites they bring
+    adapter_launches, adapter_rows = phase_adapters(ctx, ctx_d, ctx_i, smi)
 
     # the user's model: the demo weights written as checkpoint files and
     # served from them, then the text features on the native file
@@ -3224,6 +3673,8 @@ def main() -> int:
     # the staged configurations (LCM, the SDXL two-stage call, the x4
     # upscaler), then the kernels at the sites they bring
     stage_launches, stage_rows = phase_stages(smi)
+    # a ControlNet on SDXL, for its sites
+    adapter_launches.update(phase_adapters_xl(smi))
 
     def images(kernel, counter):
         return {"rows": {g: image_summary(rows.get(kernel), None)
@@ -3241,6 +3692,11 @@ def main() -> int:
                          for g, rows in stage_rows.items()},
                 "launches": {k: v[counter]
                              for k, v in stage_launches.items()}}
+
+    def adapters(kernel, counter):
+        return {"rows": image_summary(adapter_rows.get(kernel), None),
+                "launches": {k: v[counter]
+                             for k, v in adapter_launches.items()}}
 
     def families(kernel, counter, sdxl_mode, sd21_mode):
         return {"sdxl": family_summary(fam["rows"]["sdxl"][kernel],
@@ -3274,6 +3730,7 @@ def main() -> int:
          "image": images("flash", "flash"),
          "knobs": knobs("flash", "flash"),
          "stages": stages("flash", "flash"),
+         "adapters": adapters("flash", "flash"),
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -3294,6 +3751,7 @@ def main() -> int:
          "image": images("group_norm", "group_norm"),
          "knobs": knobs("group_norm", "group_norm"),
          "stages": stages("group_norm", "group_norm"),
+         "adapters": adapters("group_norm", "group_norm"),
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -3318,6 +3776,7 @@ def main() -> int:
          "image": images("conv", "conv"),
          "knobs": knobs("conv", "conv"),
          "stages": stages("conv", "conv"),
+         "adapters": adapters("conv", "conv"),
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -3342,6 +3801,7 @@ def main() -> int:
          "image": images("group_norm_affine", "group_norm_affine"),
          "knobs": knobs("group_norm_affine", "group_norm_affine"),
          "stages": stages("group_norm_affine", "group_norm_affine"),
+         "adapters": adapters("group_norm_affine", "group_norm_affine"),
          "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
@@ -3364,6 +3824,7 @@ def main() -> int:
          "image": images("matmul_int8w", "matmul_int8w"),
          "knobs": knobs("matmul_int8w", "matmul_int8w"),
          "stages": stages("matmul_int8w", "matmul_int8w"),
+         "adapters": adapters("matmul_int8w", "matmul_int8w"),
          "timed_shape": [k4_main[d] for d in "mkn"]},
         {"name": "matmul_w8a8", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
@@ -3390,6 +3851,7 @@ def main() -> int:
          "image": images("matmul_w8a8", "matmul_w8a8"),
          "knobs": knobs("matmul_w8a8", "matmul_w8a8"),
          "stages": stages("matmul_w8a8", "matmul_w8a8"),
+         "adapters": adapters("matmul_w8a8", "matmul_w8a8"),
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

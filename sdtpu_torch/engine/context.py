@@ -23,9 +23,9 @@ refiner in the sgm naming), loaded by ``io.weights.load_pipeline_params`` (the n
 ``*.sdtpu.safetensors`` preferred, then LDM-named ``*.safetensors``), with
 ``model_dir/ctokenizer.txt`` as the tokenizer when present. A missing or
 empty ``model_dir`` fails as ``RUNTIME_ERROR`` "model load failed: ..." and
-latches; a checkpoint of a family the port does not load yet (ControlNet,
-orbax), or of another family than the configuration's, is
-``INVALID_ARGUMENT``. ``embeddings={placeholder:
+latches; an orbax directory, a ControlNet (an adapter:
+``load_controlnet``), or a checkpoint of another family than the
+configuration's, is ``INVALID_ARGUMENT``. ``embeddings={placeholder:
 source}`` loads textual-inversion embeddings (``load_embedding``);
 ``clip_skip`` taps a single-tower configuration's text tower ``clip_skip -
 1`` blocks early.
@@ -52,8 +52,17 @@ with their own image, mask, ``guidance``, ``seed`` and
 two with one generator a request. Each call's generator makes its draws in
 the order ``pipeline.draw_noise`` fixes.
 ``sampler`` is any name of ``samplers.SAMPLERS`` (``"dpm"`` by default).
-The reference's LoRA, ControlNet and mesh arguments are refused with
-``INVALID_ARGUMENT`` until their slices of the port.
+
+Per-request adapters (``sdtpu/engine/context.py:544-609, 701-788``):
+``load_controlnet(name, source)`` registers a ControlNet (a tree,
+``"random"`` demo weights, an LDM ``control_model.*`` file or a native
+flat-tree file) that ``generate(control_image=, control=,
+control_scale=)`` runs, one or several at once; ``load_lora(name, path)``
+registers a LoRA adapter (a native ``.npz`` or a kohya ``.safetensors``),
+and ``lora=`` selects it on every entry point (the constructor's ``lora=``
+loads one as the default, or a dict of them). An adapter's overlay of the
+towers is built once and shares every base tensor. The reference's
+``mesh`` is refused with ``INVALID_ARGUMENT`` until its slice of the port.
 
 The constructor takes the reference's keywords with its names, defaults
 and positional order (``sdtpu/engine/context.py:60-84``); ``device`` is
@@ -109,14 +118,20 @@ from sdtpu_torch.engine import logging as slog
 from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.errors import ErrorCode, ErrorTable, SdtpuError
 from sdtpu_torch.io import safetensors as st
-from sdtpu_torch.io.params import (cast_params, fuse_attention_projections,
-                                   init_tree, tree_names)
-from sdtpu_torch.io.weights import UnsupportedCheckpoint, load_pipeline_params
+from sdtpu_torch.io.kohya import load_lora_kohya
+from sdtpu_torch.io.params import (cast_params, from_jax_tree,
+                                   fuse_attention_projections, init_tree,
+                                   tree_names)
+from sdtpu_torch.io.weights import (UnsupportedCheckpoint, _unflatten_tree,
+                                    load_controlnet_state_dict,
+                                    load_pipeline_params)
+from sdtpu_torch.models import controlnet
 from sdtpu_torch.models.layers import disable_tf32
 from sdtpu_torch.quant.ptq import (count_quantized, quantize_unet,
                                    quantize_weights_only)
 from sdtpu_torch.samplers import SAMPLERS
 from sdtpu_torch.tokenizer import DEMO_MERGES, Tokenizer
+from sdtpu_torch.train.lora import apply_lora, load_lora_npz
 
 KERNELS = ("cuda", "cuda_gn", "cuda_conv", "plain")
 QUANTIZE = ("none", "int8", "int8w", "int8w_dense")
@@ -161,7 +176,7 @@ class Context:
                 "no CUDA device (torch.cuda.is_available() is false); pass "
                 "device='cpu' to run the plain versions on the host",
                 self.errors)
-        _refuse_unported(self.errors, mesh=mesh, lora=lora)
+        _refuse_unported(self.errors, mesh=mesh)
         self.cfg = self._configure(config, size, clip_skip, freeu,
                                    tome_ratio, deepcache, guidance_rescale)
         self.logger = slog.Logger(log_level,
@@ -169,6 +184,11 @@ class Context:
         self.model_dir = Path(model_dir) if model_dir else None
         self.fuse_qkv = bool(fuse_qkv)
         self._embeddings: dict[str, int] = {}   # placeholder -> rows
+        self.lora = lora
+        self._adapters: dict = {}          # LoRA name -> adapter tree
+        self._lora_params: dict = {}       # LoRA name -> overlaid tree
+        self._lora_default: Optional[str] = None
+        self._controlnets: dict = {}       # ControlNet name -> tree
         #: the default PAG strength of a generate call that passes none
         self._default_pag: Optional[float] = None
         if not isinstance(sampler, str) or sampler.lower() not in SAMPLERS:
@@ -378,6 +398,15 @@ class Context:
                 # checkpoint layout keep the unfused projections
                 params = fuse_attention_projections(params)
             self.params = params
+            if self.lora is not None:
+                # a string is the default adapter of every request that
+                # selects none (``lora=""`` selects the base)
+                spec = ({"default": self.lora} if isinstance(self.lora, str)
+                        else dict(self.lora))
+                if isinstance(self.lora, str):
+                    self._lora_default = "default"
+                for name, path in spec.items():
+                    self.load_lora(name, path)
         except UnsupportedCheckpoint as e:
             self._fail(ErrorCode.INVALID_ARGUMENT, str(e))
         except Exception as e:  # noqa: BLE001 - init boundary, latched
@@ -544,6 +573,143 @@ class Context:
             self.cfg.unet, tome_ratio=ratio))
 
     # ------------------------------------------------------------------
+    # per-request adapters
+    # ------------------------------------------------------------------
+
+    def load_lora(self, name: str, path) -> None:
+        """Register (or replace) the LoRA adapter ``name``: a kohya
+        ``.safetensors`` file (UNet and text-tower sites, ``io.kohya``) or
+        a native ``.npz`` (``train.lora``). The adapter tree is read once,
+        onto the device in the compute dtype (the delta rounds its leaves
+        to that dtype at every call, so a cast at load gives the same
+        bytes); the overlay a request runs is built at its first use and
+        shares every base tensor, so N adapters cost N adapter trees, not N
+        models."""
+        if str(path).endswith(".safetensors"):
+            tree = load_lora_kohya(path, self.cfg)
+        else:
+            tree = load_lora_npz(path)
+        self._adapters[name] = cast_params(_on(tree, self.device),
+                                           self.cfg.compute_dtype)
+        self._lora_params.pop(name, None)
+        self.logger.info(f"LoRA adapter {name!r} loaded from {path}")
+
+    def lora_names(self) -> list[str]:
+        return sorted(self._adapters)
+
+    def _params_for(self, lora: Optional[str]):
+        """The tree a request runs (``sdtpu/engine/context.py:752-788``):
+        ``None`` selects the context's default adapter, ``""`` the base;
+        an adapter's overlay of the ``unet``, ``clip`` and ``clip2`` towers
+        (a native adapter's of the UNet) is built once."""
+        if lora is None:
+            lora = self._lora_default
+        if not lora:
+            return self.params
+        if lora not in self._adapters:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"unknown LoRA adapter {lora!r}; loaded: "
+                f"{sorted(self._adapters)}", self.errors)
+        p = self._lora_params.get(lora)
+        if p is None:
+            adapters = self._adapters[lora]
+            p = dict(self.params)
+            if isinstance(adapters, dict) and set(adapters) <= {
+                    "unet", "clip", "clip2"}:
+                for tower, overlay in adapters.items():
+                    if overlay and tower in p:
+                        p[tower] = apply_lora(p[tower], overlay)
+            else:
+                p["unet"] = apply_lora(p["unet"], adapters)
+            self._lora_params[lora] = p
+        return p
+
+    def load_controlnet(self, name: str, source) -> None:
+        """Register the ControlNet ``name`` (``sdtpu/engine/context.py:
+        569-606``). ``source``: a tree of ``models.controlnet`` (the port's
+        layout), ``"random"`` (demo weights, the zero convs drawn too, from
+        a generator seeded with the count of loaded ControlNets plus one),
+        or a ``.safetensors`` path: an LDM ``control_model.*`` checkpoint
+        or a native flat tree (the JAX package's layout). Cast to the
+        compute dtype on the device; neither quantized nor fused. A request
+        selects it with ``generate(control=name, control_image=...)``."""
+        dtype = self.cfg.compute_dtype
+        if isinstance(source, dict):
+            cn = _on(source, self.device)
+        elif isinstance(source, str) and source == "random":
+            gen = torch.Generator(device=self.device).manual_seed(
+                len(self._controlnets) + 1)
+            cn = controlnet.init(self.cfg.unet, gen, self.device,
+                                 zero_init_outs=False)
+        else:
+            tensors = st.load_file(source)
+            if any(k.startswith("control_model.") for k in tensors):
+                cn = load_controlnet_state_dict(tensors, self.cfg, dtype=dtype,
+                                                device=self.device)
+            else:
+                cn = from_jax_tree({"controlnet": _unflatten_tree(tensors)},
+                                   self.cfg, dtype=dtype,
+                                   device=self.device)["controlnet"]
+        self._controlnets[name] = cast_params(cn, dtype)
+        self.logger.info(f"ControlNet {name!r} loaded")
+
+    def controlnet_names(self) -> list[str]:
+        return sorted(self._controlnets)
+
+    def _resolve_control(self, control, control_image):
+        """-> (a tuple of adapter trees, their hints float32 [N, B, H, W, C]
+        on the host) or (None, None) (``sdtpu/engine/context.py:701-750``).
+        Single values or parallel lists (multi-ControlNet); a uint8 image
+        is scaled by 1/255; hints of batch 1 and B broadcast to B."""
+        if control_image is None:
+            if control:
+                raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                                 "control= given without control_image",
+                                 self.errors)
+            return None, None
+        imgs = (list(control_image) if isinstance(control_image,
+                                                  (list, tuple))
+                else [control_image])
+        names = (list(control) if isinstance(control, (list, tuple))
+                 else [control] * len(imgs))
+        if len(names) != len(imgs):
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"{len(names)} control names for {len(imgs)} control "
+                f"images", self.errors)
+        cns, hints = [], []
+        for name, image in zip(names, imgs):
+            if name is None:
+                if len(self._controlnets) != 1:
+                    raise SdtpuError(
+                        ErrorCode.INVALID_ARGUMENT,
+                        f"control adapter name required (loaded: "
+                        f"{sorted(self._controlnets)})", self.errors)
+                name = next(iter(self._controlnets))
+            if name not in self._controlnets:
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"unknown ControlNet {name!r}; loaded: "
+                    f"{sorted(self._controlnets)}", self.errors)
+            img = np.asarray(image)
+            if img.ndim == 3:
+                img = img[None]
+            size = self.cfg.image_size
+            if img.shape[1:3] != (size, size):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"control_image must be {size}x{size}, got "
+                    f"{img.shape[1:3]}", self.errors)
+            if img.dtype == np.uint8:
+                img = img.astype(np.float32) / 255.0
+            cns.append(self._controlnets[name])
+            hints.append(np.asarray(img, np.float32))
+        b = max(h.shape[0] for h in hints)
+        hints = [np.broadcast_to(h, (b,) + h.shape[1:]) for h in hints]
+        return tuple(cns), torch.from_numpy(np.stack(hints))
+
+    # ------------------------------------------------------------------
     # generate
     # ------------------------------------------------------------------
 
@@ -621,9 +787,16 @@ class Context:
         2024): one more UNet eval of the cond rows a step with the
         self-attention of the context's ``pag_layers`` replaced by the
         identity, and eps moved by ``pag_scale`` x (cond - perturbed); the
-        context's default (``set_pag_scale``) when omitted. ``lora``,
-        ``control_image`` and ``control`` are not ported yet and refused
-        when given.
+        context's default (``set_pag_scale``) when omitted. ``lora``: an
+        adapter of ``load_lora``; ``""`` runs the base model, None the
+        context's default adapter (the constructor's string ``lora=``).
+
+        ControlNet: ``control_image`` ([H, W, C] or [B, H, W, C], uint8 or
+        float in [0, 1], at the output size; a batch of one serves every
+        prompt) conditions the call through the adapter ``control`` names
+        (``load_controlnet``; optional where one is loaded), weighted by
+        ``control_scale``. Lists of images and names (and of scales) run
+        several ControlNets at once, their residuals summed.
 
         Two-stage calls (SDXL base and refiner): ``denoising_end`` in (0, 1]
         stops the loop after ``max(1, round(steps * denoising_end))`` steps;
@@ -639,8 +812,15 @@ class Context:
         self._check_usable()
         self._check_in_channels("txt2img", "generate")
         prompts = self._prompts(prompt)
-        _refuse_unported(self.errors, lora=lora, control_image=control_image,
-                         control=control)
+        params = self._params_for(lora)
+        cns, hint = self._resolve_control(control, control_image)
+        if cns is not None:
+            if hint.shape[1] not in (1, len(prompts)):
+                raise SdtpuError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    f"control_image batch {hint.shape[1]} != prompt batch "
+                    f"{len(prompts)}", self.errors)
+            params = {**params, "controlnet": cns}
         self._check_output(output)
         if text_mod.has_schedule(negative_prompt or "", self.steps):
             raise SdtpuError(
@@ -649,7 +829,8 @@ class Context:
                 self.errors)
         sched = None
         if any(text_mod.has_schedule(p, self.steps) for p in prompts):
-            if denoising_end is not None or output != "image":
+            if (cns is not None or denoising_end is not None
+                    or output != "image"):
                 raise SdtpuError(
                     ErrorCode.INVALID_ARGUMENT,
                     "prompt scheduling composes with plain txt2img only "
@@ -676,12 +857,15 @@ class Context:
         # the scheduled program takes no PAG, as the reference's
         # (sdtpu/engine/context.py:839-941)
         pag = pag_scale is not None and sched is None
-        self._check_knobs(pag=pag, scheduled=sched is not None)
+        self._check_knobs(pag=pag, scheduled=sched is not None,
+                          control=cns is not None)
         seed = self._next_seed(seed)
         t0 = time.perf_counter()
 
         def call():
             idx = None
+            h = None if hint is None else hint.to(self.device).expand(
+                -1, len(prompts), -1, -1, -1)
             if sched is None:
                 tokens, weights, (uncond,) = self._text_inputs(
                     prompts, [negative_prompt])
@@ -692,11 +876,11 @@ class Context:
                 uncond = self._negative_embedding(negative_prompt)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             return pipeline.generate(
-                self.params, tokens, uncond, gen, float(guidance),
+                params, tokens, uncond, gen, float(guidance),
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
                 use_cfg=self._use_cfg(guidance), kernels=self.kernels,
                 output=output, token_weights=weights, sched_idx=idx,
-                end_step=end_step,
+                end_step=end_step, hint=h, control_scale=control_scale,
                 **self._knob_kwargs(pag_scale if pag else None)
             ).cpu().numpy()
 
@@ -736,10 +920,10 @@ class Context:
         the same). ``denoising_start`` in [0, 1). The seed's generator draws
         as ``generate``'s does, so ``denoising_start=0`` from ``generate``'s
         own start latents gives ``generate``'s bytes. Any single-model
-        configuration takes it too. ``lora`` is not ported yet."""
+        configuration takes it too. ``lora`` as ``generate``'s."""
         self._check_usable()
         self._check_in_channels("txt2img", "refine")
-        _refuse_unported(self.errors, lora=lora)
+        params = self._params_for(lora)
         if not 0.0 <= denoising_start < 1.0:
             raise SdtpuError(
                 ErrorCode.INVALID_ARGUMENT,
@@ -766,7 +950,7 @@ class Context:
                 prompts, [negative_prompt])
             gen = torch.Generator(device=self.device).manual_seed(seed)
             return pipeline.refine(
-                self.params, tokens, uncond, gen, float(guidance),
+                params, tokens, uncond, gen, float(guidance),
                 torch.from_numpy(lat).to(self.device), cfg=self.cfg,
                 sampler=self.sampler, steps=self.steps,
                 start_step=start_step, use_cfg=self._use_cfg(guidance),
@@ -798,13 +982,14 @@ class Context:
         embedding (``_use_cfg``). A batch of one gives the bytes of
         ``generate``. A request's ``pag_scale``: where any request has one,
         the batch runs PAG's eval and the others take 0.0, an exact no-op
-        (``sdtpu/engine/context.py:1342-1352``). ``lora`` (or a request's
-        ``lora``) is not ported yet and refused. ``output="latent"``
+        (``sdtpu/engine/context.py:1342-1352``). ``lora`` selects one
+        adapter for the whole batch; requests may carry one ``lora`` key
+        instead, the same in each (``_batch_requests``). ``output="latent"``
         returns latents."""
         self._check_usable()
         self._check_in_channels("txt2img", "generate_batch")
-        pad, seeds, guidance = self._batch_requests(requests, lora, output,
-                                                    pag_key=True)
+        pad, seeds, guidance, params = self._batch_requests(
+            requests, lora, output, pag_key=True)
         n = len(requests)
         pag_on = any("pag_scale" in r for r in requests)
         pscale = ([float(r.get("pag_scale", 0.0)) for r in pad] if pag_on
@@ -818,7 +1003,7 @@ class Context:
             gens = [torch.Generator(device=self.device).manual_seed(s)
                     for s in seeds]
             return pipeline.generate(
-                self.params, tokens, torch.stack(uncond), gens, guidance,
+                params, tokens, torch.stack(uncond), gens, guidance,
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
                 use_cfg=self._use_cfg(), kernels=self.kernels, output=output,
                 token_weights=weights, **self._knob_kwargs(pscale))
@@ -844,11 +1029,12 @@ class Context:
         string (the reference returns the device array of that shape,
         ``sdtpu/engine/context.py:2043-2078``). The host may encode further
         prompts while the card runs. The context's ``cfg_interval`` and
-        DeepCache apply; PAG does not, as in the reference."""
+        DeepCache apply; PAG does not, as in the reference. ``lora`` as
+        ``generate``'s."""
         self._check_usable()
         self._check_in_channels("txt2img", "generate_async")
         prompts = self._prompts(prompt)
-        _refuse_unported(self.errors, lora=lora)
+        params = self._params_for(lora)
         self._refuse_scheduling(prompts + [negative_prompt])
         self._check_knobs()
         seed = self._next_seed(seed)
@@ -858,7 +1044,7 @@ class Context:
                 prompts, [negative_prompt])
             gen = torch.Generator(device=self.device).manual_seed(seed)
             return pipeline.generate(
-                self.params, tokens, uncond, gen, float(guidance),
+                params, tokens, uncond, gen, float(guidance),
                 cfg=self.cfg, sampler=self.sampler, steps=self.steps,
                 use_cfg=self._use_cfg(guidance), kernels=self.kernels,
                 token_weights=weights, **self._knob_kwargs(None))
@@ -873,12 +1059,13 @@ class Context:
         return dict(cfg_interval=self.cfg_interval, pag_scale=pag_scale,
                     pag_layers=None if pag_scale is None else self.pag_layers)
 
-    def _check_knobs(self, pag=False, scheduled=False, ip2p=False) -> None:
+    def _check_knobs(self, pag=False, scheduled=False, ip2p=False,
+                     control=False) -> None:
         """``pipeline.check_knobs`` before any work, its ``ValueError`` as
         ``INVALID_ARGUMENT`` with the reference's text."""
         try:
             pipeline.check_knobs(self.cfg, self.sampler.lower(), pag, ip2p,
-                                 scheduled)
+                                 scheduled, control)
         except ValueError as e:
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT, str(e),
                              self.errors) from e
@@ -888,7 +1075,12 @@ class Context:
         """Validate a batch (``check(request)`` for a mode's own keys; with
         ``pag_key`` a request's ``pag_scale`` turns PAG on), pad it to the
         next power of two with copies of the first request -> (padded
-        requests, one seed each, one guidance each)."""
+        requests, one seed each, one guidance each, the parameters of the
+        batch's adapter).
+
+        One adapter serves a batch (``sdtpu/engine/context.py:1342-1352``):
+        ``lora``, or the ``lora`` key the requests carry, which must be the
+        same in each and agree with ``lora`` where both are given."""
         if not requests:
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT, "empty request list",
                              self.errors)
@@ -898,10 +1090,19 @@ class Context:
                 raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
                                  "each request needs a string 'prompt'",
                                  self.errors)
-            _refuse_unported(self.errors, lora=r.get("lora"))
             if check is not None:
                 check(r)
-        _refuse_unported(self.errors, lora=lora)
+        req_loras = {r.get("lora") for r in requests if "lora" in r}
+        if len(req_loras) > 1 or (req_loras and lora is not None
+                                  and lora not in req_loras):
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"mixed LoRA adapters in one batch: "
+                f"{sorted(map(str, req_loras))} — group requests by adapter",
+                self.errors)
+        if lora is None and req_loras:
+            lora = next(iter(req_loras))
+        params = self._params_for(lora)
         self._check_output(output)
         n = len(requests)
         p = 1 << (n - 1).bit_length()
@@ -911,7 +1112,8 @@ class Context:
         self._check_knobs(pag=pag_key and any("pag_scale" in r
                                               for r in requests))
         seeds = [self._next_seed(r.get("seed")) for r in pad]
-        return pad, seeds, [float(r.get("guidance", 7.5)) for r in pad]
+        return (pad, seeds, [float(r.get("guidance", 7.5)) for r in pad],
+                params)
 
     def generate_batch(self, requests: list[dict],
                        lora: Optional[str] = None,
@@ -1019,7 +1221,7 @@ class Context:
                              f"strength must be in (0, 1], got {strength}",
                              self.errors)
         prompts = self._prompts(prompt)
-        _refuse_unported(self.errors, lora=lora)
+        params = self._params_for(lora)
         self._check_output(output)
         self._refuse_scheduling(prompts + [negative_prompt])
         # the x4 upscaler takes its low-res input on the latent grid
@@ -1061,22 +1263,22 @@ class Context:
                       output=output)
             if mode == "ip2p":
                 return pipeline.instruct_pix2pix(
-                    self.params, tokens, uncond, gen, float(guidance), x,
+                    params, tokens, uncond, gen, float(guidance), x,
                     float(image_guidance), **kw)
             kw.update(use_cfg=self._use_cfg(guidance),
                       cfg_interval=self.cfg_interval)
             if mode == "upsc":
                 return pipeline.upscale(
-                    self.params, tokens, uncond, gen, float(guidance), x,
+                    params, tokens, uncond, gen, float(guidance), x,
                     int(noise_level), **kw)
             kw["start_step"] = start_step
             if mode == "inpaint":
                 return pipeline.inpaint(
-                    self.params, tokens, uncond, gen, float(guidance), x,
+                    params, tokens, uncond, gen, float(guidance), x,
                     self._plane_tensor(plane), **kw)
             if mode == "depth":
                 kw["depth"] = self._plane_tensor(plane)
-            return pipeline.img2img(self.params, tokens, uncond, gen,
+            return pipeline.img2img(params, tokens, uncond, gen,
                                     float(guidance), x, **kw)
 
         res = self._run(mode, lambda: call().cpu().numpy())
@@ -1147,7 +1349,7 @@ class Context:
                              f"strength must be in (0, 1), got {strength}",
                              self.errors)
         prompts = self._prompts(prompt)
-        _refuse_unported(self.errors, lora=lora)
+        params = self._params_for(lora)
         self._check_output(output)
         self._refuse_scheduling(prompts + [negative_prompt])
         # pass 1 is the reference's Context.generate: the context's PAG
@@ -1163,12 +1365,12 @@ class Context:
             kw = dict(cfg=self.cfg, sampler=self.sampler, steps=self.steps,
                       use_cfg=self._use_cfg(guidance), kernels=self.kernels,
                       token_weights=weights)
-            lat = pipeline.generate(self.params, tokens, uncond, gen,
+            lat = pipeline.generate(params, tokens, uncond, gen,
                                     float(guidance), output="latent",
                                     **self._knob_kwargs(self._default_pag),
                                     **kw)
             return pipeline.hires_refine(
-                self.params, tokens, uncond, gen, float(guidance), lat,
+                params, tokens, uncond, gen, float(guidance), lat,
                 scale=scale, start_step=start_step, output=output,
                 cfg_interval=self.cfg_interval, **kw)
 
@@ -1238,8 +1440,8 @@ class Context:
                     f"each request needs a [{size},{size}] 'mask', got "
                     f"{np.asarray(r.get('mask')).shape}", self.errors)
 
-        pad, seeds, guidance = self._batch_requests(requests, lora, output,
-                                                    check)
+        pad, seeds, guidance, params = self._batch_requests(
+            requests, lora, output, check)
         n = len(requests)
         start_step = self._start_step(strength)
         images = np.stack([np.asarray(r["image"]) for r in pad])
@@ -1256,7 +1458,7 @@ class Context:
                       start_step=start_step, use_cfg=self._use_cfg(),
                       kernels=self.kernels, token_weights=weights,
                       output=output, cfg_interval=self.cfg_interval)
-            args = (self.params, tokens, torch.stack(uncond), gens, guidance,
+            args = (params, tokens, torch.stack(uncond), gens, guidance,
                     self._image_tensor(images))
             if mode == "inpaint":
                 return pipeline.inpaint(*args, self._plane_tensor(masks),
@@ -1323,6 +1525,8 @@ class Context:
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT, str(e),
                              self.errors) from e
         self.params = {**self.params, **new}
+        # the overlays hold the old tables
+        self._lora_params.clear()
         self._embeddings[placeholder] = k
 
     def _read_embedding_arrays(self, source, towers):
@@ -1377,6 +1581,16 @@ def _plane(a: np.ndarray, is_mask: bool) -> np.ndarray:
     return (np.asarray(a, np.float32) / scale)[..., None]
 
 
+def _on(tree, device):
+    """Every tensor of ``tree`` on ``device`` (a tensor already there is
+    kept)."""
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_on(v, device) for v in tree]
+    return tree.to(device)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         tree = list(tree.values())
@@ -1388,9 +1602,7 @@ def _leaves(tree):
 
 
 #: the reference's arguments of features still to port -> their ROADMAP item
-UNPORTED = {"mesh": "item 23 (parallelism)", "lora": "item 19 (LoRA)",
-            "control_image": "item 18 (ControlNet)",
-            "control": "item 18 (ControlNet)"}
+UNPORTED = {"mesh": "item 23 (parallelism)"}
 
 
 def _refuse_unported(errors: ErrorTable, **given) -> None:

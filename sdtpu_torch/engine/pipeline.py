@@ -30,7 +30,9 @@ random draws follow ``draw_noise``'s rule.
 The Context knobs act in ``denoise``: the CFG interval splits the loop into
 segments (``segments``), CFG rescale and PAG change each step's eps,
 DeepCache alternates full and shallow UNet evals; ``check_knobs`` holds
-what does not compose.
+what does not compose. ControlNet (``denoise``'s ``hint``) runs each
+adapter's encoder copy beside every UNet eval and adds its residuals to
+the UNet's skips.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import dataclasses
 import torch
 
 from sdtpu_torch.config import PipelineConfig
-from sdtpu_torch.models import clip, temb, unet, vae
+from sdtpu_torch.models import clip, controlnet, temb, unet, vae
 from sdtpu_torch.samplers import get_sampler
 from sdtpu_torch.samplers.schedule import NoiseSchedule, to_f32
 
@@ -250,12 +252,13 @@ def _draws(generator, shape, steps, sampler, device, seams, extra=()):
 
 
 def check_knobs(cfg: PipelineConfig, sampler: str, pag=False, ip2p=False,
-                scheduled=False) -> None:
+                scheduled=False, control=False) -> None:
     """The reference's incompatibility ``ValueError``s of the denoising
     loop's knobs, in its order (``sdtpu/engine/pipeline.py:244-266``): PAG
-    with ip2p's dual CFG; DeepCache with ip2p, prompt scheduling, PAG,
-    ``plms_exact`` or a two-eval sampler (its cache would cross an eval
-    batch or a skip it never saw)."""
+    with ip2p's dual CFG; DeepCache with ip2p, ControlNet hints
+    (``control``: a shallow eval has no deep skips for the residuals),
+    prompt scheduling, PAG, ``plms_exact`` or a two-eval sampler (its cache
+    would cross an eval batch or a skip it never saw)."""
     if pag and ip2p:
         raise ValueError("PAG is incompatible with ip2p's dual CFG")
     dc_n = cfg.deepcache_interval
@@ -265,6 +268,7 @@ def check_knobs(cfg: PipelineConfig, sampler: str, pag=False, ip2p=False,
         raise ValueError(f"deepcache_interval must be >= 2, got {dc_n}")
     for name, bad in (
             ("ip2p dual CFG", ip2p),
+            ("ControlNet hints", control),
             ("prompt scheduling", scheduled),
             ("PAG", pag),
             ("plms_exact", sampler == "plms_exact"),
@@ -272,6 +276,60 @@ def check_knobs(cfg: PipelineConfig, sampler: str, pag=False, ip2p=False,
              getattr(get_sampler(sampler), "NEEDS_SECOND_EVAL", False))):
         if bad:
             raise ValueError(f"DeepCache is incompatible with {name}")
+
+
+def _control_tables(params, hint, cfg: PipelineConfig, plan, use_cfg,
+                    needs_second):
+    """[(adapter tree, hint features, time table, second time table or
+    None), ...] of a call's ControlNets, made once before the loop: each
+    control image embedded (doubled under CFG) and the steps through each
+    adapter's own time MLP; None without a ``hint``."""
+    if hint is None:
+        return None
+    cns = params.get("controlnet")
+    if cns is None:
+        raise ValueError("hint given but params has no 'controlnet' tree")
+    if isinstance(cns, dict):
+        cns, hint = (cns,), hint[None]
+    dtype = cfg.compute_dtype
+    factor = hint.shape[2] // cfg.latent_size
+    out = []
+    for j, cn in enumerate(cns):
+        h_in = hint[j].to(dtype)
+        if use_cfg:
+            h_in = torch.cat([h_in, h_in], dim=0)
+        out.append((cn, controlnet.embed_hint(cn, h_in, factor),
+                    temb.apply(cn["temb"], plan.model_t, cfg.unet,
+                               dtype=dtype),
+                    temb.apply(cn["temb"], plan.model_t2, cfg.unet,
+                               dtype=dtype) if needs_second else None))
+    return out
+
+
+def _control(adapters, scales, x_in, ctx, i, second, add_emb,
+             cfg: PipelineConfig, kernels):
+    """The scaled residuals of every ControlNet at one UNet eval (its input
+    ``x_in`` and context rows ``ctx`` at step ``i``), summed over the
+    adapters: ``unet.apply``'s ``control``; None without adapters."""
+    if adapters is None:
+        return None
+    n = x_in.shape[0]
+    acc_d = acc_m = None
+    for j, (cn, feats, tab, tab2) in enumerate(adapters):
+        te = (tab2 if second else tab)[i].expand(n, -1)
+        if add_emb is not None:
+            te = te + add_emb.to(te.dtype)[:n]
+        dres, mres = controlnet.apply(cn, x_in, feats[:n], te, ctx, cfg.unet,
+                                      kernels)
+        s = scales[j % scales.shape[0]]
+        dres = [r * s.to(r.dtype) for r in dres]
+        mres = mres * s.to(mres.dtype)
+        if acc_d is None:
+            acc_d, acc_m = dres, mres
+        else:
+            acc_d = [a + r for a, r in zip(acc_d, dres)]
+            acc_m = acc_m + mres
+    return tuple(acc_d), acc_m
 
 
 def segments(steps: int, start: int, cfg_interval=None, end=None):
@@ -298,7 +356,8 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
             init_latents=None, start_step: int = 0, mask=None,
             pin_noise=None, x_extra=None, image_guidance=None,
             cfg_interval=None, pag_scale=None, pag_layers=None,
-            end_step=None, x_start=None, class_emb=None):
+            end_step=None, x_start=None, class_emb=None, hint=None,
+            control_scale=None):
     """Run the denoising loop with ``sampler`` (a name of
     ``samplers.SAMPLERS``). context: [B or 2B, T, D]; with ``use_cfg`` rows
     [0:B] are cond and [B:2B] uncond. ``guidance``: a scalar or one a
@@ -366,9 +425,22 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     DeepCache (``cfg.deepcache_interval`` n): a full eval that captures the
     deep feature when ``(i - first step of the segment) % n == 0``, a
     shallow eval that splices it in otherwise, so no cache crosses a
-    segment. ``check_knobs`` raises what does not compose."""
+    segment. ``check_knobs`` raises what does not compose.
+
+    ControlNet (``sdtpu/engine/pipeline.py:326-353, 397-431``): ``hint``
+    [B, H, W, C] float in [0, 1] with one adapter tree in
+    ``params["controlnet"]``, or [N, B, H, W, C] with a tuple of N
+    (multi-ControlNet). Each control image is embedded once, before the
+    loop (doubled under CFG), and each adapter embeds the steps with its
+    own time MLP (``model_t``, and ``model_t2`` for a second eval), SDXL's
+    additive embedding added. Every UNet eval runs each adapter on its
+    input, rows and context (the cond rows alone where the eval has them
+    alone: the CFG interval, PAG), weights its residuals by
+    ``control_scale[j % len]`` (a scalar or a list; 1.0 by default), sums
+    them over the adapters and adds them to the UNet's skips and mid
+    output."""
     check_knobs(cfg, sampler, bool(pag_layers), image_guidance is not None,
-                cond_schedule is not None)
+                cond_schedule is not None, hint is not None)
     if cfg.unet.time_cond_proj_dim and use_cfg:
         raise ValueError(
             "guidance-embedded configs (time_cond_proj_dim > 0) bake "
@@ -416,6 +488,11 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
     g = torch.as_tensor(guidance, dtype=torch.float32, device=device)
     if g.dim():
         g = g.reshape(-1, 1, 1, 1)
+    adapters = _control_tables(params, hint, cfg, plan, use_cfg,
+                               needs_second)
+    scales = None if adapters is None else torch.atleast_1d(torch.as_tensor(
+        1.0 if control_scale is None else control_scale, dtype=torch.float32,
+        device=device))
     xe = {}
     if x_extra is not None:
         xe[1] = x_extra.to(dtype)
@@ -447,10 +524,12 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
         x_in = x_rep.to(dtype)
         if xe:
             x_in = torch.cat([x_in, xe[r]], dim=-1)
+        ctrl = _control(adapters, scales, x_in, ctx_i, i, second, add_emb,
+                        cfg, kernels)
         cache = deep
         if deep is None:
             eps = unet.apply(params["unet"], x_in, te, ctx_i, cfg.unet,
-                             kernels)
+                             kernels, control=ctrl)
         elif isinstance(deep, str):
             eps, cache = unet.apply(params["unet"], x_in, te, ctx_i,
                                     cfg.unet, kernels, deep="capture")
@@ -467,8 +546,11 @@ def denoise(params, context, guidance, cfg: PipelineConfig, steps: int,
         e_ptb = None
         if pag_layers:
             # the cond rows lead in every slot layout
+            ctrl_b = None if ctrl is None else (
+                tuple(d[:b] for d in ctrl[0]), ctrl[1][:b])
             e_ptb = unet.apply(params["unet"], x_in[:b], te[:b], ctx_i[:b],
-                               cfg.unet, kernels, perturb=pag_layers).float()
+                               cfg.unet, kernels, control=ctrl_b,
+                               perturb=pag_layers).float()
             if cfg.prediction == "v":
                 e_ptb = a_i * e_ptb + s_i * x
             e_cond_raw = eps[:b]
@@ -547,7 +629,7 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
              use_cfg: bool = True, kernels: str = "plain", noise=None,
              step_noise=None, output: str = "image", token_weights=None,
              sched_idx=None, cfg_interval=None, pag_scale=None,
-             pag_layers=None, end_step=None):
+             pag_layers=None, end_step=None, hint=None, control_scale=None):
     """tokens [B, T] (or chunked [B, k, T] with ``token_weights``) -> uint8
     [B, H, W, 3], or with ``output="latent"`` the float32 scale-factored
     latents. ``uncond_embedding``: [T, D] or [B, T, D], encoded by the
@@ -555,7 +637,9 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
     ``step_noise`` are their seams. ``cfg_interval``, ``pag_scale`` and
     ``pag_layers``: ``denoise``'s knobs. ``end_step``: the base half of a
     two-stage call stops before that step (``denoise``); its latents,
-    noisy at that step's time, are ``refine``'s input.
+    noisy at that step's time, are ``refine``'s input. ``hint`` and
+    ``control_scale``: ControlNet (``denoise``), with the adapter trees in
+    ``params["controlnet"]``.
 
     Prompt scheduling (``sdtpu/engine/pipeline.py:653-667``): with
     ``sched_idx`` ([steps] integer, each step's variant), tokens are [V, B,
@@ -585,7 +669,8 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
                 noise=d["noise"], sampler=sampler,
                 step_noise=d.get("step_noise"), cond_schedule=cond_schedule,
                 cfg_interval=cfg_interval, pag_scale=pag_scale,
-                pag_layers=pag_layers, end_step=end_step)
+                pag_layers=pag_layers, end_step=end_step, hint=hint,
+                control_scale=control_scale)
     return _finish(params, x, cfg, kernels, output)
 
 

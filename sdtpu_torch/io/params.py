@@ -13,6 +13,14 @@ carries the trees of the txt2img path, ``clip``, ``temb``, ``unet`` and
 which every SD checkpoint carries. The SDXL refiner has no ``clip`` tree
 (``sdtpu/io/params.py:25-40``); LCM's ``temb`` carries ``cond_proj`` and
 the x4 upscaler's ``unet`` its ``label_emb`` table.
+
+Per-request adapters: a ``controlnet`` tree (``models.controlnet``),
+converted where a tree holds one but never built with the pipeline's
+(``ADAPTER_TREES``); and LoRA leaves at a dense or conv site (``lora_a``,
+``lora_b``, ``lora_s``, ``train.lora``). A conv site's ``lora_a`` is, like
+its weight, OIHW here ([r, in, kh, kw]) and HWIO in the JAX package's
+layout ([kh, kw, in, r]); a dense site's ``lora_a`` [in, r], ``lora_b`` [r,
+out] and the 0-d ``lora_s`` map 1:1.
 """
 
 from __future__ import annotations
@@ -21,10 +29,14 @@ import numpy as np
 import torch
 
 from sdtpu_torch.config import PipelineConfig
-from sdtpu_torch.models import clip, temb, unet, vae
+from sdtpu_torch.models import clip, controlnet, temb, unet, vae
 from sdtpu_torch.ops.matmul import column_major
+from sdtpu_torch.train.lora import ADAPTER_KEYS
 
 PORTED = ("clip", "clip2", "temb", "unet", "add_mlp", "vae", "vae_enc")
+#: the trees of a per-request adapter: converted where a tree holds them,
+#: never part of a pipeline's own
+ADAPTER_TREES = ("controlnet",)
 
 
 def init_pipeline_params(cfg: PipelineConfig, generator, device,
@@ -40,9 +52,9 @@ def init_pipeline_params(cfg: PipelineConfig, generator, device,
             for name, build in _builders(cfg).items()}
 
 
-def _builders(cfg: PipelineConfig) -> dict:
+def _builders(cfg: PipelineConfig, adapters: bool = False) -> dict:
     """name -> builder of each tree the configuration has, in ``PORTED``
-    order."""
+    order; with ``adapters`` also of ``ADAPTER_TREES``."""
     out = {
         "clip": lambda c, g, d, demo: clip.init(c.clip, g, d),
         "clip2": lambda c, g, d, demo: clip.init(c.clip2, g, d),
@@ -58,6 +70,9 @@ def _builders(cfg: PipelineConfig) -> dict:
     if cfg.refiner:
         # tower 2 alone conditions the refiner
         del out["clip"]
+    if adapters:
+        out["controlnet"] = lambda c, g, d, demo: controlnet.init(
+            c.unet, g, d, zero_init_outs=not demo)
     return out
 
 
@@ -106,7 +121,7 @@ def _convert(node, key=None, dtype=None, device=None):
     if (dtype is not None and key not in KEEP_FLOAT32
             and t.is_floating_point()):
         t = t.float().to(dtype)
-    if key in ("w", "w8") and t.dim() == 4:   # conv: HWIO -> OIHW
+    if key in ("w", "w8", "lora_a") and t.dim() == 4:   # conv: HWIO -> OIHW
         t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     elif key in ("w8", "w_q") and t.dim() == 2:
         t = column_major(t)   # (in, out) stays; the int8 kernels' memory
@@ -132,7 +147,11 @@ def _quantized_like(want, got):
 
 
 def _check_shapes(got, want, path="params"):
+    """``got``'s keys and shapes are ``want``'s; a site's LoRA leaves are
+    the adapter's own and not compared."""
     if isinstance(want, dict):
+        if isinstance(got, dict):
+            got = {k: v for k, v in got.items() if k not in ADAPTER_KEYS}
         if (isinstance(got, dict) and "w" in want and "w" not in got
                 and ("w8" in got or "w_q" in got)):
             want = _quantized_like(want, got)
@@ -153,20 +172,38 @@ def _check_shapes(got, want, path="params"):
 def from_jax_tree(tree, cfg: PipelineConfig, dtype=None, device=None):
     """The JAX package's parameter tree (nested dicts and lists of numpy
     arrays or tensors, as from ``sdtpu.io.params.init_pipeline_params``) ->
-    the port's tree. Conv weights (``w``, or int8 ``w8``) go from HWIO to
-    OIHW; dense weights stay ``(in, out)``, the int8 ones (``w8``, ``w_q``)
-    in column-major memory; every other path maps 1:1, so a tree that the
-    JAX package quantized or calibrated carries its int8 leaves and scales
-    over as they are. Raises if a shape differs from the port's own tree
-    for ``cfg`` quantized the same way.
+    the port's tree. Conv weights (``w``, int8 ``w8``, a conv site's
+    ``lora_a``) go from HWIO to OIHW; dense weights stay ``(in, out)``, the
+    int8 ones (``w8``, ``w_q``) in column-major memory; every other path
+    maps 1:1, so a tree that the JAX package quantized or calibrated carries
+    its int8 leaves and scales over as they are, and an overlaid one its
+    LoRA leaves. Raises if a shape differs from the port's own tree for
+    ``cfg`` quantized the same way.
+
+    The trees converted: the configuration's (``tree_names``), and a
+    ``controlnet`` tree where ``tree`` has one; ``{"controlnet": ...}``
+    alone converts that tree alone. The JAX package's ControlNet for a
+    guidance-embedded configuration carries its time MLP's ``cond_proj``,
+    which no ControlNet eval reads and no LDM ``control_model.*`` file
+    holds; the port's tree (``models.controlnet.init``) leaves it out, so
+    a tree from either source has the same keys.
 
     Leaf by leaf, each is moved to ``device`` (the host when None) and,
     with ``dtype``, every floating leaf but the quantization scales is cast
     to ``dtype`` through float32; without it dtypes are kept. So a tree on
     the host in another dtype never has a second whole copy beside it."""
-    out = {name: _convert(tree[name], None, dtype, device)
-           for name in tree_names(cfg)}
-    _check_shapes(out, init_pipeline_params(cfg, None, torch.device("meta")))
+    names = tree_names(cfg) if set(tree) - set(ADAPTER_TREES) else ()
+    names += tuple(n for n in ADAPTER_TREES if n in tree)
+    tree = dict(tree)
+    if "controlnet" in tree:
+        cn = tree["controlnet"]
+        tree["controlnet"] = {**cn, "temb": {
+            k: v for k, v in cn["temb"].items() if k != "cond_proj"}}
+    out = {name: _convert(tree[name], None, dtype, device) for name in names}
+    meta = torch.device("meta")
+    _check_shapes(out, {name: build(cfg, None, meta, True)
+                        for name, build in _builders(cfg, True).items()
+                        if name in names})
     return out
 
 
@@ -184,7 +221,7 @@ def jax_layout(params):
     to HWIO; every other leaf keeps its shape. The JAX package's native
     file (``io.weights.save_native``) holds this tree."""
     def leaf(t, key):
-        if key in ("w", "w8") and t.dim() == 4:   # conv: OIHW -> HWIO
+        if key in ("w", "w8", "lora_a") and t.dim() == 4:   # OIHW -> HWIO
             return t.permute(2, 3, 1, 0)
         return t
 

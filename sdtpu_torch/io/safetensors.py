@@ -87,9 +87,10 @@ def load_file(path, device=None) -> dict:
     return out
 
 
-def save_file(tensors: dict, path) -> None:
-    """Write {name: tensor} (on any device, any memory layout) to ``path``.
-    Each tensor is copied to the host one at a time, as it is written."""
+def save_file(tensors: dict, path, metadata: dict | None = None) -> None:
+    """Write {name: tensor} (on any device, any memory layout) to ``path``,
+    with the format's optional ``__metadata__`` ({str: str}). Each tensor
+    is copied to the host one at a time, as it is written."""
     items = []
     for name, t in tensors.items():
         if not torch.is_tensor(t):
@@ -98,7 +99,8 @@ def save_file(tensors: dict, path) -> None:
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
         items.append((name, t))
     items.sort(key=lambda kv: (-kv[1].element_size(), kv[0]))
-    header = {}
+    header = {} if metadata is None else {"__metadata__": {
+        str(k): str(v) for k, v in metadata.items()}}
     offset = 0
     for name, t in items:
         nbytes = t.numel() * t.element_size()

@@ -22,9 +22,16 @@ checkpoint; the rules build the JAX package's layout (dense ``(in, out)``,
 conv HWIO) as views, and ``io.params.from_jax_tree`` makes the port's tree
 of it, one leaf at a time: one layout rule, not two.
 
+ControlNet checkpoints (``control_model.*``) map onto the
+``models.controlnet`` tree by ``controlnet_rules``, which reuse the UNet's
+ResBlock and transformer rules (``load_controlnet_state_dict``,
+``controlnet_to_ldm``); they are adapters, loaded by
+``Context.load_controlnet``, not a base model for ``model_dir``.
+
 Files are read and written by ``io.safetensors``; the ``safetensors``
-package is not needed. ControlNets and orbax directories are a family and a
-format the port does not have yet: ``UnsupportedCheckpoint`` names them.
+package is not needed. Orbax directories are a format the port does not
+have yet: ``UnsupportedCheckpoint`` names them, and a ControlNet handed to
+``model_dir``.
 """
 
 from __future__ import annotations
@@ -36,8 +43,8 @@ import torch
 
 from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.io import safetensors as st
-from sdtpu_torch.io.params import (PORTED, from_jax_tree, jax_layout,
-                                   tree_names)
+from sdtpu_torch.io.params import (ADAPTER_TREES, PORTED, _convert,
+                                   from_jax_tree, jax_layout, tree_names)
 
 
 class UnsupportedCheckpoint(ValueError):
@@ -291,6 +298,106 @@ def all_rules(cfg: PipelineConfig, include_clip: bool = True) -> list[Rule]:
     return rules
 
 
+def controlnet_rules(cfg: PipelineConfig,
+                     pre: str = "control_model.") -> list[Rule]:
+    """LDM ControlNet keys (``control_model.*``) -> the ``models.controlnet``
+    tree, paths relative to its root (``sdtpu/io/weights.py:279-323``): the
+    encoder mirrors ``unet_rules``' input and middle loops; on top, the
+    ``input_hint_block`` convs (even submodule indices; the odd ones are
+    SiLUs), ``zero_convs.N.0`` (one a skip, in push order) and
+    ``middle_block_out.0``."""
+    u = cfg.unet
+    rules = [
+        Rule(pre + "time_embed.0", ("temb", "fc0"), "linear"),
+        Rule(pre + "time_embed.2", ("temb", "fc1"), "linear"),
+        Rule(pre + "input_blocks.0.0", ("conv_in",), "conv"),
+    ]
+    for k in range(8):  # 7 body convs + the projection
+        rules.append(Rule(f"{pre}input_hint_block.{2 * k}", ("hint", k),
+                          "conv"))
+    z = 0
+
+    def zero():
+        nonlocal z
+        rules.append(Rule(f"{pre}zero_convs.{z}.0", ("zero", z), "conv"))
+        z += 1
+
+    zero()
+    ch = u.model_channels
+    cur = ch
+    idx = 1
+    for lvl, mult in enumerate(u.channel_mult):
+        out_ch = ch * mult
+        for b in range(u.num_res_blocks):
+            p = ("down", lvl, "blocks", b)
+            rules += _res_rules(f"{pre}input_blocks.{idx}.0.", p + ("res",),
+                                has_skip=cur != out_ch)
+            cur = out_ch
+            if lvl in u.attn_levels:
+                rules += _st_rules(f"{pre}input_blocks.{idx}.1.", p + ("st",),
+                                   u.depth_at(lvl))
+            zero()
+            idx += 1
+        if lvl != len(u.channel_mult) - 1:
+            rules.append(Rule(f"{pre}input_blocks.{idx}.0.op",
+                              ("down", lvl, "down"), "conv"))
+            zero()
+            idx += 1
+    rules += _res_rules(pre + "middle_block.0.", ("mid", "res1"), False)
+    rules += _st_rules(pre + "middle_block.1.", ("mid", "st"), u.mid_depth())
+    rules += _res_rules(pre + "middle_block.2.", ("mid", "res2"), False)
+    rules.append(Rule(pre + "middle_block_out.0", ("zero_mid",), "conv"))
+    return rules
+
+
+def load_controlnet_state_dict(tensors: dict, cfg: PipelineConfig,
+                               strict: bool = True, dtype=torch.float32,
+                               device=None):
+    """LDM-named ControlNet {key: tensor} -> the port's ``controlnet`` tree,
+    each leaf through float32 to ``dtype`` on ``device`` (the host by
+    default). With ``strict`` a missing key raises the reference's
+    ``KeyError``; without it the keys there are converted (the partial
+    tree of the reference's non-strict load)."""
+    tree: dict = {}
+    missing = []
+    for rule in controlnet_rules(cfg):
+        for ldm_suffix, ours in _SUFFIX[rule.kind]:
+            key = f"{rule.ldm}.{ldm_suffix}"
+            if key not in tensors:
+                if ldm_suffix == "bias":
+                    continue
+                missing.append(key)
+                continue
+            t = tensors[key]
+            val = _from_ldm(rule.kind, ours, t) if ours else t
+            _tree_set(tree, rule.path + ((ours,) if ours else ()), val)
+    if missing:
+        if strict:
+            raise KeyError(f"{len(missing)} ControlNet keys missing, first: "
+                           f"{missing[:5]}")
+        # a partial tree: converted leaf by leaf, no shape check
+        return _convert(tree, None, dtype or torch.float32, device)
+    return from_jax_tree({"controlnet": tree}, cfg, dtype=dtype or
+                         torch.float32, device=device)["controlnet"]
+
+
+def controlnet_to_ldm(params, cfg: PipelineConfig, pre: str = "control_model.",
+                      dtype=torch.float32) -> dict:
+    """The port's ``controlnet`` tree -> LDM-named {key: contiguous tensor}
+    on the host, each leaf cast to ``dtype`` (export and round trips)."""
+    tree = jax_layout(params)
+    out = {}
+    for rule in controlnet_rules(cfg, pre):
+        node = _tree_get(tree, rule.path)
+        for ldm_suffix, ours in _SUFFIX[rule.kind]:
+            if ours is not None and ours not in node:
+                continue
+            t = _to_ldm(rule.kind, ours or "w", node[ours] if ours else node)
+            out[f"{rule.ldm}.{ldm_suffix}"] = t.detach().to(
+                "cpu", dtype).contiguous()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # OpenCLIP text towers (SD 2.x: cond_stage_model.model.*; SDXL's bigG)
 # ---------------------------------------------------------------------------
@@ -430,29 +537,23 @@ def _tree_get(tree, path):
 
 
 # ---------------------------------------------------------------------------
-# families the port does not load yet
+# families that are not this configuration's base model
 # ---------------------------------------------------------------------------
 
-#: LDM key prefix -> the family it marks, and where the port takes it up
-_FAMILIES = (
-    ("control_model.", "a ControlNet checkpoint", "ROADMAP item 18"),
-)
-
-
 def refuse_families(keys, cfg: PipelineConfig) -> None:
-    """Raise ``UnsupportedCheckpoint`` when the LDM ``keys`` belong to a
-    family the port does not load yet, or to one that is not ``cfg``'s
-    (SDXL keys on a single-tower configuration, an OpenCLIP tower on a
-    quick-GELU one, SD1.x/2.x text keys on SDXL, the refiner's one tower on
-    the base or the base's towers on the refiner), before any weight is
-    converted."""
+    """Raise ``UnsupportedCheckpoint`` when the LDM ``keys`` are not a base
+    model of ``cfg``'s family: a ControlNet (an adapter:
+    ``Context.load_controlnet`` takes it), SDXL keys on a single-tower
+    configuration, an OpenCLIP tower on a quick-GELU one, SD1.x/2.x text
+    keys on SDXL, the refiner's one tower on the base or the base's towers
+    on the refiner; before any weight is converted."""
     keys = list(keys)
-    for prefix, what, where in _FAMILIES:
-        if any(k.startswith(prefix) for k in keys):
-            raise UnsupportedCheckpoint(
-                f"{what} ({prefix}* keys) is not loaded by the port yet "
-                f"({where}); SD1.x, SD2.x and SDXL LDM checkpoints and "
-                f"native files are")
+    if any(k.startswith("control_model.") for k in keys):
+        raise UnsupportedCheckpoint(
+            "a ControlNet checkpoint (control_model.* keys) is an adapter, "
+            "not a base model: load it with Context.load_controlnet(name, "
+            "path); SD1.x, SD2.x and SDXL LDM checkpoints and native files "
+            "are what model_dir takes")
     if cfg.clip2 is None:
         marks = (("conditioner.embedders.", "an SDXL checkpoint",
                   "config='sdxl' or 'sdxl_refiner'"),)
@@ -613,10 +714,13 @@ def load_native(path, cfg: PipelineConfig, dtype=None, device=None):
     tree = _unflatten_tree(st.load_file(path))
     extra = sorted(set(tree) - set(PORTED))
     if extra:
+        adapters = set(extra) & set(ADAPTER_TREES)
         raise UnsupportedCheckpoint(
-            f"native file {path} carries {extra}, trees of a family the "
-            f"port does not load yet (ROADMAP item 18); it loads "
-            f"{list(PORTED)}")
+            f"native file {path} carries {extra}, trees the port does not "
+            f"serve from model_dir" + (" (a ControlNet is loaded with "
+                                       "Context.load_controlnet)"
+                                       if adapters else "")
+            + f"; it loads {list(PORTED)}")
     other = sorted(set(tree) - set(tree_names(cfg)))
     if other:
         raise UnsupportedCheckpoint(

@@ -183,7 +183,26 @@ def _int8w_gemm_ok(w8, x) -> bool:
 def dense(p, x, dtype=None):
     """``x @ w + b``, dispatched on the site's leaf names as
     ``sdtpu/models/layers.py:199-227``: ``w_q`` is a W8A8 site, ``w8`` a
-    weight-only-int8 one, ``w`` a plain one."""
+    weight-only-int8 one, ``w`` a plain one. A site with a LoRA adapter
+    (``lora_a`` [in, r], ``lora_b`` [r, out], ``lora_s``) adds ``(x A) B s``
+    in the output's dtype to whichever of them ran (``lora_delta``)."""
+    y = _dense_base(p, x, dtype)
+    if "lora_a" in p:
+        dt = y.dtype
+        y = y + lora_delta(p, x.to(dt) @ p["lora_a"].to(dt))
+    return y
+
+
+def lora_delta(p, xa):
+    """A LoRA site's delta from ``xa``, its input times ``lora_a`` (a
+    product, or a conv for a conv site): ``(xa @ lora_b) * lora_s`` in
+    ``xa``'s dtype, as ``sdtpu/models/layers.py:198-208, 282-289`` compute
+    it, outside any kernel."""
+    dt = xa.dtype
+    return (xa @ p["lora_b"].to(dt)) * p["lora_s"].to(dt)
+
+
+def _dense_base(p, x, dtype=None):
     dtype = dtype or x.dtype
     if "w_q" in p:
         return _dense_int8(p, x, dtype)
@@ -201,18 +220,28 @@ def conv2d(p, x, stride=1, padding=1, dtype=None):
     A weight-only-int8 1x1 conv (stride 1, no padding) is a matmul over
     ``[N*H*W, Cin]`` and goes to ``ops.matmul.matmul_int8w`` where that is
     eligible; any other ``w8`` conv dequantizes first
-    (``sdtpu/models/layers.py:268-281``)."""
+    (``sdtpu/models/layers.py:268-281``). A LoRA adapter (``lora_a`` an
+    OIHW [r, in, kh, kw] down conv with the base's stride and padding,
+    ``lora_b`` a [r, out] up mix) adds its delta on every path, the int8
+    GEMM's too (the reference's returns before it there)."""
     dtype = dtype or x.dtype
+    y = None
     if ("w8" in p and p["w8"].shape[-1] == 1 and p["w8"].shape[-2] == 1
             and stride == 1 and padding == 0):
         # OIHW [Cout, Cin, 1, 1] in channels_last memory is the (in, out)
         # weight in column-major memory
         w8 = p["w8"].reshape(p["w8"].shape[:2]).t()
         if _int8w_gemm_ok(w8, x.to(dtype)):
-            return MM.matmul_int8w(x.to(dtype), w8, p["w8_scale"], p.get("b"))
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), _weight(p, dtype),
-                 p["b"].to(dtype), stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1)
+            y = MM.matmul_int8w(x.to(dtype), w8, p["w8_scale"], p.get("b"))
+    if y is None:
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), _weight(p, dtype),
+                     p["b"].to(dtype), stride=stride,
+                     padding=padding).permute(0, 2, 3, 1)
+    if "lora_a" in p:
+        d = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), p["lora_a"].to(dtype),
+                     stride=stride, padding=padding)
+        y = y + lora_delta(p, d.permute(0, 2, 3, 1))
+    return y
 
 
 def layer_norm(p, x, eps=1e-5):

@@ -1,6 +1,7 @@
 """The SD1.x, SD2.x and SDXL UNet denoiser, the counterpart of
-``sdtpu/models/unet.py`` (no ControlNet), with the x4 upscaler's
-cross-only levels and noise-level class table.
+``sdtpu/models/unet.py``, with the x4 upscaler's cross-only levels and
+noise-level class table, and ControlNet's residuals (``apply``'s
+``control``).
 
     down path:  per level, ``num_res_blocks`` x [ResBlock (+SpatialTransformer
                 at attn levels)], then a stride-2 conv between levels;
@@ -35,6 +36,7 @@ from sdtpu_torch.models.layers import (
     init_dense,
     init_norm,
     layer_norm,
+    lora_delta,
     sdpa,
     silu,
 )
@@ -206,15 +208,35 @@ def _norm_conv(pn, pc, x, groups, eps, kernels, *, fuse_silu=True,
     kernel launch: the GroupNorm folded into the conv's prologue
     (``gn_affine``), ``pc["b"] + t`` added in float32 in its epilogue
     (``sdtpu/models/unet.py:224-244,266-275``). A weight-only-int8 site
-    hands the kernel its int8 weight and scale."""
+    hands the kernel its int8 weight and scale.
+
+    A conv that carries a LoRA adapter (``lora_a``, its down conv) keeps
+    the kernel where the down conv is ``eligible`` too: a second launch
+    with ``lora_a`` as the weight, the same prologue and a zero bias gives
+    the delta's input, which ``layers.lora_delta`` mixes up. Otherwise
+    the site takes the unfused chain and its delta (``layers.conv2d``).
+    The reference's fused path drops the delta there instead
+    (``sdtpu/models/unet.py:225-242, 266-275``); its ``xla`` path, which
+    the port matches, applies it."""
     w, w_scale = _conv_wq(pc)
-    if kernels == "cuda_conv" and C.eligible(x, w, 1, padding):
+    lora_a = pc.get("lora_a")
+    if lora_a is not None:
+        # the loaders keep it in channels_last memory, where this is no copy
+        lora_a = lora_a.to(x.dtype).contiguous(
+            memory_format=torch.channels_last)
+    if (kernels == "cuda_conv" and C.eligible(x, w, 1, padding)
+            and (lora_a is None or C.eligible(x, lora_a, 1, padding))):
         a, d = C.gn_affine(pn, x, groups, eps)
         b = pc["b"].float()
         if t is not None:
             b = b[None, :] + t.float()
-        return C.fused_conv(x, w, b, a=a, d=d, silu=fuse_silu,
-                            w_scale=w_scale)
+        y = C.fused_conv(x, w, b, a=a, d=d, silu=fuse_silu, w_scale=w_scale)
+        if lora_a is not None:
+            zero = torch.zeros(lora_a.shape[0], dtype=torch.float32,
+                               device=x.device)
+            y = y + lora_delta(pc, C.fused_conv(x, lora_a, zero, a=a, d=d,
+                                                 silu=fuse_silu))
+        return y
     h = conv2d(pc, _gn(pn, x, groups, eps, fuse_silu, kernels),
                padding=padding)
     return h if t is None else h + t[:, None, None, :]
@@ -381,7 +403,7 @@ def _freeu(h, s, cfg: UNetConfig):
 
 
 def apply(params, x, t_emb, context, cfg: UNetConfig,
-          kernels: str = "plain", perturb=None, deep=None):
+          kernels: str = "plain", control=None, perturb=None, deep=None):
     """x: [B,H,W,C_in]; t_emb: [B, time_embed_dim] (already MLP-embedded by
     ``sdtpu_torch.models.temb``); context: [B, T, context_dim] -> eps
     [B,H,W,C_out].
@@ -392,6 +414,11 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
     ``"cuda_conv"`` adds, instead, the fused GN-prologue conv kernel for
     every ResBlock conv and transformer ``proj_in`` (``ops.conv``);
     ``"plain"`` keeps everything on ``layers``.
+
+    control: ``(down residuals, mid residual)`` of
+    ``models.controlnet.apply``, already scaled, or None: one residual a
+    skip tensor in push order, added to the skip as the up path takes it,
+    and one added to the mid output (``sdtpu/models/unet.py:436-530``).
 
     perturb: a subset of ("down", "mid", "up"): the self-attention of those
     sections' transformers is the identity map (perturbed-attention
@@ -413,6 +440,9 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
         raise ValueError(f"deep must be None, 'capture', or a cached "
                          f"junction tensor, got {deep!r}")
     shallow = deep is not None and not capture
+    if shallow and control is not None:
+        raise ValueError("DeepCache shallow pass is incompatible with "
+                         "ControlNet residuals (they enter the deep skips)")
     tome = ((cfg.tome_ratio, cfg.tome_min_tokens) if cfg.tome_ratio > 0.0
             else None)
     g = cfg.groups
@@ -432,6 +462,15 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
             h = conv2d(level["down"], h, stride=2)
             skips.append(h)
 
+    ctrl_down = None
+    if control is not None:
+        ctrl_down, ctrl_mid = control
+        if len(ctrl_down) != len(skips):
+            raise ValueError(
+                f"control residual count {len(ctrl_down)} != skip count "
+                f"{len(skips)}")
+        ctrl_down = list(ctrl_down)
+
     if shallow:
         h = deep.to(h.dtype)
     else:
@@ -440,6 +479,8 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
         h = _transformer(mid["st"], h, context, _heads(cfg, h.shape[-1]), g,
                          kernels, "mid" in perturb, tome)
         h = _resblock(mid["res2"], h, t_emb, g, kernels)
+        if control is not None:
+            h = h + ctrl_mid.to(h.dtype)
 
     cache = None
     up_levels = params["up"][-1:] if shallow else params["up"]
@@ -451,6 +492,8 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
             cache = h
         for blk in level["blocks"]:
             s = skips.pop()
+            if ctrl_down is not None:
+                s = s + ctrl_down.pop().to(s.dtype)
             if cfg.freeu is not None:
                 h, s = _freeu(h, s, cfg)
             h = torch.cat([h, s], dim=-1)

@@ -1961,6 +1961,169 @@ def test_stage_sites_reach_the_new_shapes():
 
 
 # ---------------------------------------------------------------------------
+# per-request adapters at full width: each arm of the smoke run's adapters
+# phase (a ControlNet, two, a LoRA over the attention, feed-forward and
+# proj_in/proj_out sites) as the port's own loop runs it on the meta device
+# ---------------------------------------------------------------------------
+
+_ADAPTER_LOGS = {}
+
+
+def _meta_lora(cfg, params, locon=False):
+    """The smoke run's LoRA (``chip_smoke.lora_site``'s sites, its LoCon's
+    with ``locon``) as an overlay of meta tensors over ``params``' towers,
+    read by the port's kohya loader from a file's tensors of the right
+    shapes."""
+    from sdtpu_torch.io import kohya
+
+    r = chip_smoke.ADAPTER_RANK
+    flat, seen = {}, set()
+    for name, (path, kind) in sorted(kohya.site_map(cfg).items()):
+        if not chip_smoke.lora_site(name, locon) or path in seen:
+            continue
+        seen.add(path)
+        node = params
+        for k in path:
+            node = node[k]
+        w = node["w"] if "w" in node else node.get("w8", node.get("w_q"))
+        if kind == "linear":
+            d_in, d_out = w.shape
+            down, up = (r, d_in), (d_out, r)
+        else:
+            d_out, d_in, kh, kw = w.shape
+            down, up = (r, d_in, kh, kw), (d_out, r, 1, 1)
+        flat[name + ".lora_down.weight"] = torch.empty(down, device="meta")
+        flat[name + ".lora_up.weight"] = torch.empty(up, device="meta")
+        flat[name + ".alpha"] = torch.tensor(float(r))
+
+    def meta(node):
+        if isinstance(node, dict):
+            return {k: meta(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [meta(v) for v in node]
+        return node.to("meta")
+
+    return meta(kohya.load_lora_kohya(flat, cfg))
+
+
+def _adapter_arm(arm):
+    """(configuration name, mode, adapter kind, steps) of an arm of
+    ``chip_smoke.ADAPTER_ARMS`` or "cn_sdxl"."""
+    if arm == "cn_sdxl":
+        return "sdxl", "cuda", "cn", chip_smoke.ADAPTER_XL_STEPS
+    return ("sd15", *chip_smoke.ADAPTER_ARMS[arm], chip_smoke.ADAPTER_STEPS)
+
+
+def _adapter_log(arm):
+    """The log (``_recorders``) of one arm (``_adapter_arm``):
+    ``pipeline.generate`` of one step at the arm's configuration, CFG 7.5,
+    batch 1, to the latents (part "unet": the hints' embedding, then every
+    eval of a step: the ControlNets' copies and the UNet), with the arm's
+    ControlNets (random trees on the meta device, the hints at the image
+    size) or its LoRA overlaid as ``Context._params_for`` overlays it,
+    under the arm's mode; and its decode (part "vae"). A DPM step is one
+    eval, so the arm's steps are that step's launches times its steps
+    (``_per_image``)."""
+    from sdtpu_torch.config import CONFIGS
+    from sdtpu_torch.engine import pipeline
+    from sdtpu_torch.io.params import init_tree, tree_names
+    from sdtpu_torch.models import controlnet
+    from sdtpu_torch.train.lora import apply_lora
+
+    if arm not in _ADAPTER_LOGS:
+        name, mode, kind, _ = _adapter_arm(arm)
+        cfg = CONFIGS[name]
+        params = {t: _meta_tree(init_tree(t, cfg, None, "meta"))
+                  for t in tree_names(cfg) if t not in ("unet", "vae_enc")}
+        params["unet"] = _meta_unet(cfg, mode)
+        n_cn = {"cn": 1, "cn0": 1, "cn2": 2}.get(kind, 0)
+        if n_cn:
+            trees = tuple(_meta_tree(controlnet.init(cfg.unet, None, "meta"))
+                          for _ in range(n_cn))
+            params["controlnet"] = trees[0] if n_cn == 1 else trees
+        if kind in ("kohya", "npz", "locon"):
+            overlay = _meta_lora(cfg, params, kind == "locon")
+            if kind == "npz":
+                overlay = {"unet": overlay["unet"]}
+            params = {**params, **{t: apply_lora(params[t], o)
+                                   for t, o in overlay.items()}}
+        n, s = cfg.clip.context_len, cfg.latent_size
+        size = cfg.image_size
+
+        def meta(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, device="meta", dtype=dtype)
+
+        kw = {}
+        if n_cn:
+            kw = dict(hint=meta(*(((2,) if n_cn == 2 else ()) + (
+                1, size, size, 3)), dtype=torch.float32),
+                control_scale={"cn": 1.0, "cn0": 0.0,
+                               "cn2": [1.0, 0.5]}[kind])
+        log = {}
+        with _recorders(mode, log, ["unet"]):
+            pipeline.generate(
+                params, meta(1, n, dtype=torch.int64),
+                meta(n + (1 if cfg.clip2 is not None else 0),
+                     cfg.unet.context_dim), None, 7.5, cfg=cfg,
+                steps=1, use_cfg=True, kernels=MODES[mode][0],
+                noise=meta(1, s, s, 4, dtype=torch.float32),
+                output="latent", **kw)
+        # the hints are embedded once a call, by cuDNN convs: no kernel
+        _ADAPTER_LOGS[arm] = {**log, **_part_log("vae", name, mode)}
+    return _ADAPTER_LOGS[arm]
+
+
+@pytest.mark.parametrize("arm", sorted(chip_smoke.ADAPTER_PINNED))
+def test_adapter_pins_are_the_rules(arm):
+    """Each adapter arm's launches per image, from the port's loop and the
+    rules, are the smoke run's pins (``chip_smoke.ADAPTER_PINNED``)."""
+    assert _per_image(_adapter_log(arm), _adapter_arm(arm)[3]) == (
+        chip_smoke.ADAPTER_PINNED[arm])
+
+
+def _adapter_sites(kernel):
+    sites = set()
+    for arm in chip_smoke.ADAPTER_PINNED:
+        for (_, k), keys in _adapter_log(arm).items():
+            if k == kernel:
+                sites.update(keys)
+    return sorted(sites)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "group_norm",
+                                    "group_norm_affine", "conv",
+                                    "matmul_int8w", "matmul_w8a8"])
+def test_rules_take_every_adapter_site(kernel):
+    """Every site of every adapter arm through its kernel's static rule,
+    and the plan within what the C entry point accepts (its grid's axes,
+    its 32-bit indexing, the split-K scratch, shared memory): the
+    ControlNet copy's at SD1.5's and SDXL's widths, the LoRA'd UNet's.
+    And the adapter rule: an adapted conv keeps K3 and launches it a
+    second time for its delta's down conv (Cout the rank) on the same
+    input, the LoRA's 16 proj_in (1x1) and the LoCon's every ResBlock conv
+    (3x3) too; the statistics mode runs once a site."""
+    sites = _adapter_sites(kernel)
+    assert sites
+    for site in sites:
+        _check_site(kernel, site)
+    if kernel == "conv":
+        r = chip_smoke.ADAPTER_RANK
+        for arm, adapted in (("cn_cuda_conv", {}),
+                             ("kohya_cuda_conv", {1: 16}),
+                             ("locon_cuda_conv", {1: 16, 3: 44})):
+            log = _adapter_log(arm)
+            convs = log[("unet", "conv")]
+            base = [k for k in convs if k[4] != r]
+            downs = [k for k in convs if k[4] == r]
+            assert sum(k[5] == 1 for k in base) == 16 + (7 if arm[0] == "c"
+                                                         else 0)
+            assert {ks: sum(k[5] == ks for k in downs)
+                    for ks in adapted} == adapted
+            assert {k[:4] for k in downs} <= {k[:4] for k in base}
+            assert len(log[("unet", "group_norm_affine")]) == len(base)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -2142,6 +2305,39 @@ def test_cuda_conv_at_the_ragged_cases(case):
     again = t_conv.fused_conv_cuda(x, w, b, w_scale=scale, **kw)
     torch.cuda.synchronize()
     ref = t_conv.fused_conv_reference(x.float(), w, b, w_scale=scale, **kw)
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max(
+        ).item()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c_out,ks,prologue", [
+    ((2, 64, 64, 320), 16, 3, "silu"),      # a LoCon's ResBlock conv
+    ((2, 64, 64, 320), 16, 1, "affine"),    # a LoRA's proj_in
+    ((2, 8, 8, 1280), 16, 3, "silu"),
+    ((2, 32, 32, 640), 4, 1, "affine"),     # rank 4: one short column
+])
+def test_cuda_conv_at_a_lora_down_conv(shape, c_out, ks, prologue):
+    """The conv kernel with a LoRA's down conv as its weight (Cout the
+    rank: a part of one column tile), a zero bias and the site's
+    GroupNorm prologue, as ``unet._norm_conv`` launches it: within one bf16
+    rounding of the float32 plain version, the same bytes twice."""
+    _needs_card()
+    n, h, w_, c_in = shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((c_out, c_in, ks, ks), generator=g, device="cuda")
+         / (ks * ks * c_in) ** 0.5).to(torch.bfloat16).contiguous(
+             memory_format=torch.channels_last)
+    b = torch.zeros(c_out, device="cuda")
+    kw = {"a": torch.rand((n, c_in), generator=g, device="cuda") + 0.5,
+          "d": torch.randn((n, c_in), generator=g, device="cuda"),
+          "silu": prologue == "silu"}
+    assert t_conv.eligible(x, w, 1, ks // 2)
+    out = t_conv.fused_conv_cuda(x, w, b, **kw)
+    again = t_conv.fused_conv_cuda(x, w, b, **kw)
+    torch.cuda.synchronize()
+    ref = t_conv.fused_conv_reference(x.float(), w, b, **kw)
     assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max(
         ).item()
     assert torch.equal(out, again)

@@ -659,6 +659,7 @@ def _call(kind):
             [{"prompt": "x", "image": IMG}])),
         "batch_prompt": ("tiny", lambda c: c.img2img_batch(
             [{"image": IMG}])),
+        # an adapter that is not loaded
         "lora": ("tiny", lambda c: c.img2img("x", IMG, lora="style")),
         "batch_lora": ("tiny", lambda c: c.inpaint_batch(
             [{"prompt": "x", "image": IMG, "mask": MASK, "lora": "s"}])),

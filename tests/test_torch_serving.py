@@ -388,8 +388,10 @@ def test_unknown_sampler_has_the_references_text():
     lambda c: c.generate("a photo", negative_prompt="[a|b]"),
     lambda c: c.generate_batch([{"prompt": "[cat:dog:2]"}]),
     lambda c: c.generate("a photo", output="png"),
+    # an adapter that is not loaded (its text: test_torch_adapters.py)
     lambda c: c.generate("a photo", lora="style"),
     lambda c: c.generate("a photo", denoising_end=1.5),
+    # a control image with no ControlNet loaded
     lambda c: c.generate("a photo", control_image=np.zeros((16, 16, 3))),
     lambda c: c.generate_batch([{"prompt": "a", "lora": "style"}]),
     lambda c: Context(config="tiny", device="cpu", mesh=(1, 1)),
