@@ -196,6 +196,29 @@ Phases, each printing one JSON object per line:
    site the adapters bring (``kernel_adapters_*``). After the stages, SDXL
    at 1024x1024 with one ControlNet at ``ADAPTER_XL_STEPS`` steps under
    cuda, one call, with its pins.
+20. serving, after the adapters phase, on its Context: the serving
+   infrastructure on SD1.5 at full width, ``SERVING_STEPS`` steps: the
+   HTTP service (``engine.server.serve`` on an ephemeral port, max_batch
+   4): /healthz with the reference's keys and the card as its backend;
+   four concurrent /generate requests held by the device lock until the
+   micro-batcher has taken them as one batch of 4, under cuda and under
+   cuda_conv, each PNG ``generate_batch``'s bytes for the same four
+   requests; one /img2img at strength 0.6 (``img2img``'s bytes); two
+   malformed bodies with the reference's 400 texts; the stream pool
+   (``engine.stream.StreamScheduler``, 4 slots, 8 and 4 steps) driven tick
+   by tick through ``STREAM_REQUESTS``, two of them admitted mid-flight:
+   ticks and decode batches as planned, each request's latents against
+   the float32 single path within ``BATCH_GAP_FACTOR`` times its own bf16
+   gap, the largest uint8 difference from ``generate`` recorded; the same
+   six through the pool and through the micro-batcher in turns (s/image,
+   latency p50/p95); the stream server over HTTP with a /preview; the CLI
+   (``sdtpu_torch.cli generate`` in-process and as ``python -m``, both
+   ``generate``'s bytes; ``info`` names the card); the C API built with
+   g++ on the host, loaded here, ``sdtpu_setup("sd15", 8, use_tpu=1)`` on
+   the card and ``sdtpu_generate_image`` (``generate``'s bytes). Every arm
+   with ``SERVING_PINNED`` (the stream server's from its ticks and
+   decodes); s/image, device busy ms; then kernel_serving: K1 at the
+   pool's N = 8 and the decodes of 1 to 4 slots against its plain version.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -212,8 +235,11 @@ Without a CUDA card it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import base64
 import contextlib
+import ctypes
 import gc
+import io
 import json
 import os
 import shutil
@@ -221,8 +247,11 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -3519,6 +3548,531 @@ def phase_adapters_xl(smi):
     return {"cn_sdxl": launches}
 
 
+# ---------------------------------------------------------------------------
+# serving: the HTTP service, the stream pool, the CLI and the C API
+# ---------------------------------------------------------------------------
+
+SERVING_CONFIG = "sd15"
+SERVING_STEPS = 8
+SERVING_DRAFT = 4          # the stream's second step count
+SERVING_SLOTS = 4
+SERVING_SEED = 47
+SERVING_STRENGTH = 0.6
+# img2img at strength 0.6 over 8 steps runs round(8 x 0.4) = 3 ... 7: 5
+SERVING_IMG2IMG_EVALS = 5
+# four requests with their own seed, guidance and negative prompt: one
+# batch of 4 through the micro-batcher
+SERVING_REQUESTS = [
+    {"prompt": PROMPT, "seed": 0, "guidance": 7.5},
+    {"prompt": "a watercolor of a lighthouse at dusk", "seed": 1,
+     "guidance": 5.0, "negative_prompt": "blurry"},
+    {"prompt": "a vintage car on a coastal road", "seed": 2,
+     "guidance": 6.0},
+    {"prompt": "a bowl of fruit on a wooden table", "seed": 3,
+     "guidance": 7.5}]
+# the stream arm: (prompt, steps, seed, guidance, the tick before which it
+# is submitted). Four fill the pool at tick 0 (two drafts of 4 steps, two
+# finals of 8); two more arrive at tick 2 and wait for the drafts' slots,
+# so they are admitted mid-flight at tick 4. The drafts finish after tick
+# 4 (one decode of 2), the finals and the third draft after tick 8 (a
+# decode of 3), the last final after tick 12 (a decode of 1): 12 pooled
+# UNet evals at N = 2 x 4 and three decodes
+STREAM_REQUESTS = [
+    (PROMPT, SERVING_STEPS, 10, 7.5, 0),
+    ("a watercolor of a lighthouse at dusk", SERVING_DRAFT, 11, 5.0, 0),
+    ("a vintage car on a coastal road", SERVING_STEPS, 12, 6.0, 0),
+    ("a bowl of fruit on a wooden table", SERVING_DRAFT, 13, 7.5, 0),
+    ("a red fox in the snow", SERVING_DRAFT, 14, 7.5, 2),
+    ("a castle on a hill at sunset", SERVING_STEPS, 15, 7.5, 2)]
+STREAM_TICKS = 12
+STREAM_DECODES = (2, 3, 1)
+# K1 at SD1.5: 10 launches a UNet eval at any batch (5 self-attentions at
+# 64x64, 5 at 32x32; 16x16 and 8x8 take the plain path) and one a VAE
+# decode or encode (the mid block); K3 and K2's statistics mode 60 a UNet
+# eval and 28 a decode (tests/test_torch_hopper.py::
+# test_serving_pins_are_the_rules, on the meta device)
+SERVING_FLASH = 10 * SERVING_STEPS + 1
+SERVING_PINNED = {
+    "batch_cuda": pins(flash=SERVING_FLASH),
+    "batch_cuda_conv": pins(flash=SERVING_FLASH,
+                            group_norm_affine=60 * SERVING_STEPS + 28,
+                            conv=60 * SERVING_STEPS + 28),
+    "img2img": pins(flash=10 * SERVING_IMG2IMG_EVALS + 2),
+    "stream": pins(flash=10 * STREAM_TICKS + len(STREAM_DECODES)),
+    "cli": pins(flash=SERVING_FLASH),
+    "capi": pins(flash=SERVING_FLASH),
+}
+# the reference's texts of two malformed bodies (sdtpu/engine/server.py:
+# 433-434, 452-453)
+SERVING_MALFORMED = [
+    (b"[1, 2, 3]", {"error": "body must be a JSON object"}),
+    (json.dumps({"prompt": "x", "seed": 1.5}).encode(),
+     {"error": "'seed' must be an int"})]
+HEALTHZ_KEYS = {"status", "backend", "image_size", "steps", "sampler",
+                "max_batch", "stream_slots", "stream_step_choices",
+                "lora_adapters", "controlnets"}
+
+
+def start_server(ctx, **kw):
+    """``engine.server.serve`` on an ephemeral port, in a thread -> (the
+    server, its micro-batcher, its stream worker, the base URL)."""
+    from sdtpu_torch.engine.server import serve
+
+    ready = threading.Event()
+    threading.Thread(target=serve, args=(ctx,), daemon=True,
+                     kwargs={"port": 0, "ready_event": ready, **kw}).start()
+    if not ready.wait(60):
+        raise AssertionError("the server did not start")
+    httpd = serve.last_server
+    return (httpd, serve.last_batcher, serve.last_stream,
+            f"http://127.0.0.1:{httpd.server_address[1]}")
+
+
+def http(url, body=None):
+    """GET (``body`` None) or POST (a dict as JSON, or bytes) -> (status,
+    content type, body bytes)."""
+    data = body if isinstance(body, (bytes, type(None))) else json.dumps(
+        body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None
+                                 else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def png_array(body):
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)))
+
+
+def png_b64(img):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def posted(base, bodies, route="/generate", between=None):
+    """POST each body from its own thread, in order (``between(i)``, if
+    given, waits before the i-th) -> ([(status, type, body, seconds)],
+    the wall seconds from the first POST to the last answer)."""
+    out = [None] * len(bodies)
+
+    def one(i):
+        t0 = time.perf_counter()
+        out[i] = (*http(base + route, bodies[i]), time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for i, t in enumerate(threads):
+        if between is not None:
+            between(i)
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+def wait_for(cond, what, seconds=120.0):
+    deadline = time.monotonic() + seconds
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serving: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def served_batch(ctx, batcher, base, policy):
+    """``SERVING_REQUESTS`` as four concurrent /generate calls that form one
+    batch of 4: the device lock is held until the batcher has queued them
+    in order and taken them as one batch, the counts are zeroed, the lock
+    is released. Each PNG must decode to ``generate_batch``'s bytes for the
+    same four requests; the launches are pinned. Returns the arm's row."""
+    ctx.kernels = policy
+    # the same four on the Context: the bytes to hold the PNGs to, and a
+    # warm call at the batch's shapes before the timed one
+    want = ctx.generate_batch(SERVING_REQUESTS)
+    key = ("gen", len(SERVING_REQUESTS))
+    before = batcher.batch_sizes[key]
+    old, batcher.max_wait = batcher.max_wait, 60.0
+    try:
+        with batcher.device_lock:
+            def between(i):
+                wait_for(lambda: len(batcher._queue) == i, f"request {i}")
+
+            res = {}
+            worker = threading.Thread(target=lambda: res.update(
+                out=posted(base, SERVING_REQUESTS, between=between)))
+            worker.start()
+            wait_for(lambda: batcher.batch_sizes[key] == before + 1,
+                     "one batch of 4")
+            reset_counts()
+        worker.join()
+    finally:
+        batcher.max_wait = old
+    launches = counts()
+    answers, wall = res["out"]
+    for (status, ctype, body, _), w in zip(answers, want):
+        if status != 200 or ctype != "image/png":
+            raise AssertionError(f"serving {policy}: {status} {body[:200]}")
+        got = png_array(body)
+        check_image(got, ctx.cfg.image_size)
+        if not np.array_equal(got, w):
+            raise AssertionError(f"serving {policy}: a PNG is not "
+                                 f"generate_batch's bytes")
+    label = f"batch_{policy}"
+    if launches != SERVING_PINNED[label]:
+        raise AssertionError(f"serving {label}: launches {launches}, "
+                             f"expected {SERVING_PINNED[label]}")
+    by_name, kernels, _ = device_profile(
+        lambda: ctx.generate_batch(SERVING_REQUESTS))
+    return {"arm": label, "launches": launches, "batches_of_4": 1,
+            "wall_s": wall, "s_per_image": wall / len(SERVING_REQUESTS),
+            "request_s": [a[3] for a in answers],
+            "device_busy_ms_per_image": sum(by_name.values())
+            / len(SERVING_REQUESTS), "device_kernels": kernels,
+            "identical_to_generate_batch": True}
+
+
+def run_stream(ctx, capture=False):
+    """``STREAM_REQUESTS`` through a ``StreamScheduler`` on ``ctx`` (4
+    slots, step counts 8 and 4), submitted at their ticks -> (images by
+    request, latents by request (with ``capture``), per-request seconds
+    from submission to the image on the host, decode batch sizes, the
+    scheduler, the wall seconds)."""
+    from sdtpu_torch.engine.stream import StreamScheduler
+
+    sched = StreamScheduler(ctx, SERVING_SLOTS, step_choices=(SERVING_DRAFT,))
+    index, submitted, seconds, images, latents = {}, {}, {}, {}, {}
+    decodes = []
+    tick = 0
+    t0 = time.perf_counter()
+    while len(images) < len(STREAM_REQUESTS):
+        for j, (prompt, steps, seed, g, at) in enumerate(STREAM_REQUESTS):
+            if at == tick:
+                index[sched.submit(prompt, guidance=g, seed=seed,
+                                   steps=steps)] = j
+                submitted[j] = time.perf_counter()
+        live = {slot: rec.req_id for slot, rec in sched._live.items()}
+        sched.tick()
+        tick += 1
+        if capture:
+            # a finished slot keeps its latents until the next admission
+            for slot, rid in live.items():
+                if slot not in sched._live:
+                    latents[index[rid]] = sched._x[slot].cpu().numpy().copy()
+        done = sched.completed()
+        if done:
+            decodes.append(len(done))
+        for rid, img in done.items():
+            images[index[rid]] = img
+            seconds[index[rid]] = time.perf_counter() - submitted[index[rid]]
+    return (images, latents, seconds, decodes, sched,
+            time.perf_counter() - t0)
+
+
+def quantiles(xs):
+    xs = np.asarray(xs, np.float64)
+    return {"p50": float(np.percentile(xs, 50)),
+            "p95": float(np.percentile(xs, 95))}
+
+
+def stream_checks(ctx, images, latents, res):
+    """Each stream request's latents against the float32 single path with
+    its seed and steps, within ``BATCH_GAP_FACTOR`` times its own gap
+    between the bf16 single path (``cuda``) and float32, relative to the
+    float32 run's max-abs (the rule the batch phase holds); the largest
+    uint8 difference of its image from ``Context.generate``'s."""
+    import dataclasses
+
+    from sdtpu_torch import Context
+    from sdtpu_torch.io.params import cast_params
+
+    c32 = Context(config=dataclasses.replace(ctx.cfg, dtype="float32"),
+                  steps=SERVING_STEPS, kernels="plain", device=ctx.device)
+    c32.params = {k: cast_params(v, torch.float32)
+                  for k, v in ctx.params.items()}
+    with torch.inference_mode():
+        c32._prepare_buffers()
+    gaps, bounds, uint8 = [], [], []
+    try:
+        for j, (prompt, steps, seed, g, _) in enumerate(STREAM_REQUESTS):
+            kw = dict(guidance=g, seed=seed)
+            for c in (ctx, c32):
+                c.set_steps(steps)
+            ref = c32.generate(prompt, output="latent", **kw)
+            alone = ctx.generate(prompt, output="latent", **kw)
+            img = ctx.generate(prompt, **kw)
+            scale = float(np.abs(ref).max())
+            gaps.append(float(np.abs(latents[j] - ref).max()) / scale)
+            bounds.append(float(np.abs(alone - ref).max()) / scale)
+            uint8.append(int(np.abs(images[j].astype(int)
+                                    - img.astype(int)).max()))
+    finally:
+        ctx.set_steps(SERVING_STEPS)
+        release(c32)
+    res.update({"stream_gap": gaps, "stream_bound": bounds,
+                "stream_bound_factor": BATCH_GAP_FACTOR,
+                "stream_max_uint8_diff_from_generate": uint8})
+    if any(gap > BATCH_GAP_FACTOR * b for gap, b in zip(gaps, bounds)):
+        raise AssertionError(f"serving stream: a request is off the "
+                             f"float32 path: {gaps} > {bounds}")
+
+
+def phase_serving(ctx, smi):
+    """The serving infrastructure on SD1.5 at full width (module docstring,
+    item 20), on the demo Context at ``SERVING_STEPS`` steps. Returns
+    (launches per arm, K1's rows at the serving shapes)."""
+    from sdtpu_torch import cli
+    from sdtpu_torch.io import native
+
+    start = time.perf_counter()
+    size = ctx.cfg.image_size
+    res = {"phase": "serving", "nvidia_smi": smi, "steps": SERVING_STEPS,
+           "slots": SERVING_SLOTS}
+    launches, arms = {}, []
+    ctx.set_steps(SERVING_STEPS)
+    servers = []
+    try:
+        # 1. the micro-batched server
+        httpd, batcher, _, base = start_server(ctx, max_batch=4)
+        servers.append(httpd)
+        status, _, body = http(base + "/healthz")
+        info = json.loads(body)
+        if status != 200 or set(info) != HEALTHZ_KEYS or info[
+                "backend"] != ctx.device.type:
+            raise AssertionError(f"serving /healthz: {status} {info}")
+        res["healthz"] = info
+        for policy in ("cuda", "cuda_conv"):
+            row = served_batch(ctx, batcher, base, policy)
+            launches[row["arm"]] = row["launches"]
+            arms.append(row)
+            emit({"phase": "serving_arm", "nvidia_smi": smi, **row})
+        ctx.kernels = "cuda"
+        image = image_inputs(size, SERVING_SEED)[0]
+        reset_counts()
+        status, _, body = http(base + "/img2img", {
+            "prompt": PROMPT, "seed": SERVING_SEED,
+            "strength": SERVING_STRENGTH, "image_b64": png_b64(image),
+            "format": "raw"})
+        launches["img2img"] = counts()
+        if status != 200:
+            raise AssertionError(f"serving /img2img: {status} {body[:200]}")
+        got = np.frombuffer(body, np.uint8).reshape(size, size, 3)
+        if not np.array_equal(got, ctx.img2img(
+                PROMPT, image, strength=SERVING_STRENGTH, seed=SERVING_SEED)):
+            raise AssertionError("serving /img2img: not img2img's bytes")
+        if launches["img2img"] != SERVING_PINNED["img2img"]:
+            raise AssertionError(f"serving img2img: launches "
+                                 f"{launches['img2img']}")
+        for body, want in SERVING_MALFORMED:
+            status, _, got = http(base + "/generate", body)
+            if status != 400 or json.loads(got) != want:
+                raise AssertionError(f"serving malformed {body}: {status} "
+                                     f"{got[:200]}")
+        res["malformed"] = [w["error"] for _, w in SERVING_MALFORMED]
+
+        # 2. the stream pool, driven tick by tick: pins, the latents
+        # against float32, the images against generate
+        reset_counts()
+        images, latents, seconds, decodes, sched, wall = run_stream(
+            ctx, capture=True)
+        launches["stream"] = counts()
+        for img in images.values():
+            check_image(img, size)
+        if (sched.ticks, tuple(decodes)) != (STREAM_TICKS, STREAM_DECODES):
+            raise AssertionError(f"serving stream: {sched.ticks} ticks, "
+                                 f"decodes {decodes}")
+        if launches["stream"] != SERVING_PINNED["stream"]:
+            raise AssertionError(f"serving stream: launches "
+                                 f"{launches['stream']}")
+        stream_checks(ctx, images, latents, res)
+        by_name, kernels, _ = device_profile(lambda: run_stream(ctx))
+        res.update({"stream_ticks": sched.ticks, "stream_decodes": decodes,
+                    "stream_request_s": [seconds[j]
+                                         for j in sorted(seconds)],
+                    "stream_latency_s": quantiles(list(seconds.values())),
+                    "stream_s_per_image": wall / len(STREAM_REQUESTS),
+                    "stream_device_busy_ms_per_image":
+                        sum(by_name.values()) / len(STREAM_REQUESTS),
+                    "stream_device_kernels": kernels})
+        # the same six through the micro-batcher (no per-request step
+        # count there: each runs the context's 8), in turns with the pool
+        six = [{"prompt": p, "seed": s, "guidance": g, "format": "raw"}
+               for p, _, s, g, _ in STREAM_REQUESTS]
+        turns = {"stream": [], "batcher": []}
+        for arm in ("stream", "batcher", "batcher", "stream"):
+            if arm == "stream":
+                _, _, secs, _, _, w = run_stream(ctx)
+                turns[arm].append({"s_per_image": w / len(six),
+                                   "latency_s": quantiles(
+                                       list(secs.values()))})
+            else:
+                answers, w = posted(base, six)
+                if any(a[0] != 200 for a in answers):
+                    raise AssertionError("serving: a batcher request failed")
+                turns[arm].append({"s_per_image": w / len(six),
+                                   "latency_s": quantiles(
+                                       [a[3] for a in answers])})
+        res["in_turns"] = turns
+
+        # 3. the stream server: six staggered requests over HTTP, one
+        # tagged for /preview
+        httpd_s, _, stream, base_s = start_server(
+            ctx, stream_slots=SERVING_SLOTS, stream_steps=(SERVING_DRAFT,))
+        servers.append(httpd_s)
+        bodies = [{"prompt": p, "seed": s, "guidance": g, "steps": n,
+                   "format": "raw"} for p, n, s, g, _ in STREAM_REQUESTS]
+        bodies[5]["tag"] = "t5"
+        preview = {}
+
+        def between(i):
+            if i == 4:
+                wait_for(lambda: stream.sched.ticks >= 2, "two ticks")
+
+        def poll():
+            def got():
+                status, ctype, body = http(base_s + "/preview?tag=t5")
+                if status == 200:
+                    preview["png"] = body
+                return status == 200
+            wait_for(got, "a /preview")
+
+        reset_counts()
+        poller = threading.Thread(target=poll)
+        poller.start()
+        answers, w = posted(base_s, bodies, between=between)
+        poller.join()
+        launches["stream_http"] = counts()
+        sched = stream.sched
+        want = pins(flash=10 * sched.ticks + sched.decodes)
+        if launches["stream_http"] != want or any(a[0] != 200
+                                                  for a in answers):
+            raise AssertionError(f"serving stream over HTTP: launches "
+                                 f"{launches['stream_http']}, expected "
+                                 f"{want}, {[a[0] for a in answers]}")
+        prev = png_array(preview["png"])
+        if prev.shape != (ctx.cfg.latent_size,) * 2 + (3,):
+            raise AssertionError(f"serving /preview: {prev.shape}")
+        http_diff = [int(np.abs(np.frombuffer(a[2], np.uint8).reshape(
+            size, size, 3).astype(int) - images[j].astype(int)).max())
+            for j, a in enumerate(answers)]
+        res.update({"stream_http_ticks": sched.ticks,
+                    "stream_http_decodes": sched.decodes,
+                    "stream_http_latency_s": quantiles(
+                        [a[3] for a in answers]),
+                    "stream_http_s_per_image": w / len(bodies),
+                    "stream_http_max_uint8_diff_from_pool": http_diff,
+                    "preview_shape": list(prev.shape)})
+
+        # 4. the CLI: in-process with the pins, then as a user runs it
+        want = ctx.generate(PROMPT, guidance=7.5, seed=0)
+        tmp = tempfile.mkdtemp(prefix="sdtpu-cli-")
+        try:
+            argv = ["generate", "--config", SERVING_CONFIG, "--steps",
+                    str(SERVING_STEPS), "--seed", "0", "--log-level", "0"]
+            out = os.path.join(tmp, "in.png")
+            reset_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(argv + ["--out", out])
+            launches["cli"] = counts()
+            t0 = time.perf_counter()
+            here = os.path.dirname(os.path.abspath(__file__))
+            proc = subprocess.run(
+                [sys.executable, "-m", "sdtpu_torch.cli", *argv, "--out",
+                 os.path.join(tmp, "sub.png")], cwd=here,
+                capture_output=True, text=True, timeout=600,
+                env={**os.environ, "PYTHONPATH": here})
+            res["cli_subprocess_s"] = time.perf_counter() - t0
+            if rc != 0 or proc.returncode != 0:
+                raise AssertionError(f"serving cli: {rc}, "
+                                     f"{proc.returncode}: {proc.stderr}")
+            for name in ("in.png", "sub.png"):
+                with open(os.path.join(tmp, name), "rb") as f:
+                    got = png_array(f.read())
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"serving cli {name}: not "
+                                         f"generate's bytes")
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                cli.main(["info"])
+            if torch.cuda.get_device_name(0) not in text.getvalue():
+                raise AssertionError("serving cli info: no card name")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if launches["cli"] != SERVING_PINNED["cli"]:
+            raise AssertionError(f"serving cli: launches {launches['cli']}")
+
+        # 5. the C API: built on the host, loaded here, its embedded
+        # Context on the card (the device variable unset)
+        t0 = time.perf_counter()
+        lib = native.load_library()
+        res["capi_build_s"] = time.perf_counter() - t0
+        os.environ.pop(native.DEVICE_VAR, None)
+        vp = ctypes.c_void_p
+        lib.sdtpu_setup.argtypes = [ctypes.POINTER(vp), ctypes.c_char_p,
+                                    ctypes.c_char_p, ctypes.c_int32,
+                                    ctypes.c_int32, ctypes.c_int32]
+        lib.sdtpu_generate_image.argtypes = [
+            vp, ctypes.c_char_p, ctypes.c_float, ctypes.POINTER(vp),
+            ctypes.POINTER(ctypes.c_size_t)]
+        lib.sdtpu_release.argtypes = [vp]
+        lib.sdtpu_free_buffer.argtypes = [vp]
+        handle = vp()
+        t0 = time.perf_counter()
+        rc = lib.sdtpu_setup(ctypes.byref(handle), None,
+                             SERVING_CONFIG.encode(), SERVING_STEPS, 0, 1)
+        res["capi_setup_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"serving sdtpu_setup: status {rc}")
+        try:
+            buf, n = vp(), ctypes.c_size_t()
+            reset_counts()
+            rc = lib.sdtpu_generate_image(handle, PROMPT.encode(), 7.5,
+                                          ctypes.byref(buf), ctypes.byref(n))
+            launches["capi"] = counts()
+            if rc != 0:
+                raise AssertionError(f"serving sdtpu_generate_image: {rc}")
+            got = np.ctypeslib.as_array(
+                ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8)),
+                (n.value,)).copy().reshape(size, size, 3)
+            lib.sdtpu_free_buffer(buf)
+        finally:
+            lib.sdtpu_release(handle)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if not np.array_equal(got, want):
+            raise AssertionError("serving capi: not generate's bytes")
+        if launches["capi"] != SERVING_PINNED["capi"]:
+            raise AssertionError(f"serving capi: launches "
+                                 f"{launches['capi']}")
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        ctx.set_steps(STEPS)
+        ctx.kernels = "cuda"
+    # K1 at the shapes serving brings: the pool's UNet at N = 2 x 4 and
+    # the batched decodes of 1 to 4 finishing slots, each row with its
+    # launches per image of the stream arm
+    n = len(STREAM_REQUESTS)
+    unet = [(2 * SERVING_SLOTS, 4096, 320, 8),
+            (2 * SERVING_SLOTS, 1024, 640, 8)]
+    decode = [(k, 4096, 512, 1) for k in range(1, SERVING_SLOTS + 1)]
+    per_image = {**{s: 5 * STREAM_TICKS / n for s in unet},
+                 **{s: STREAM_DECODES.count(s[0]) / n for s in decode}}
+    rows = phase_kernel(unet + decode, [], "kernel_serving", per_image)
+    res.update({"launches": launches, "arms": arms,
+                "seconds": time.perf_counter() - start})
+    emit(res)
+    return launches, rows
+
+
 def image_summary(rows, launches):
     """A kernel's rows at the image sites for the ``kernels`` line, as
     ``family_summary``; None where the group has no site of it."""
@@ -3636,6 +4190,9 @@ def main() -> int:
     # per-request adapters (ControlNet, LoRA) on the same Contexts, then the
     # kernels at the sites they bring
     adapter_launches, adapter_rows = phase_adapters(ctx, ctx_d, ctx_i, smi)
+    # the serving infrastructure (the HTTP service, the stream pool, the
+    # CLI, the C API) on the same Context, then K1 at the shapes it brings
+    serving_launches, serving_rows = phase_serving(ctx, smi)
 
     # the user's model: the demo weights written as checkpoint files and
     # served from them, then the text features on the native file
@@ -3698,6 +4255,12 @@ def main() -> int:
                 "launches": {k: v[counter]
                              for k, v in adapter_launches.items()}}
 
+    def serving(kernel, counter):
+        return {"rows": image_summary(serving_rows, None)
+                if kernel == "flash" else None,
+                "launches": {k: v[counter]
+                             for k, v in serving_launches.items()}}
+
     def families(kernel, counter, sdxl_mode, sd21_mode):
         return {"sdxl": family_summary(fam["rows"]["sdxl"][kernel],
                                        fl[f"sdxl_{sdxl_mode}"][counter]),
@@ -3731,6 +4294,7 @@ def main() -> int:
          "knobs": knobs("flash", "flash"),
          "stages": stages("flash", "flash"),
          "adapters": adapters("flash", "flash"),
+         "serving": serving("flash", "flash"),
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "group_norm_silu", "route": "cuda",
@@ -3752,6 +4316,7 @@ def main() -> int:
          "knobs": knobs("group_norm", "group_norm"),
          "stages": stages("group_norm", "group_norm"),
          "adapters": adapters("group_norm", "group_norm"),
+         "serving": serving("group_norm", "group_norm"),
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -3777,6 +4342,7 @@ def main() -> int:
          "knobs": knobs("conv", "conv"),
          "stages": stages("conv", "conv"),
          "adapters": adapters("conv", "conv"),
+         "serving": serving("conv", "conv"),
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -3802,6 +4368,7 @@ def main() -> int:
          "knobs": knobs("group_norm_affine", "group_norm_affine"),
          "stages": stages("group_norm_affine", "group_norm_affine"),
          "adapters": adapters("group_norm_affine", "group_norm_affine"),
+         "serving": serving("group_norm_affine", "group_norm_affine"),
          "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
@@ -3825,6 +4392,7 @@ def main() -> int:
          "knobs": knobs("matmul_int8w", "matmul_int8w"),
          "stages": stages("matmul_int8w", "matmul_int8w"),
          "adapters": adapters("matmul_int8w", "matmul_int8w"),
+         "serving": serving("matmul_int8w", "matmul_int8w"),
          "timed_shape": [k4_main[d] for d in "mkn"]},
         {"name": "matmul_w8a8", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_w8a8.cu",
@@ -3852,6 +4420,7 @@ def main() -> int:
          "knobs": knobs("matmul_w8a8", "matmul_w8a8"),
          "stages": stages("matmul_w8a8", "matmul_w8a8"),
          "adapters": adapters("matmul_w8a8", "matmul_w8a8"),
+         "serving": serving("matmul_w8a8", "matmul_w8a8"),
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,513 @@
+"""The command line, the counterpart of ``sdtpu/cli.py``, with its
+subcommands' flags and defaults:
+
+    python -m sdtpu_torch.cli generate --prompt "..." --out out.png
+    python -m sdtpu_torch.cli show out.bin
+    python -m sdtpu_torch.cli serve --port 8000 [--stream-slots 4]
+    python -m sdtpu_torch.cli warmup --configs sd15 --batch-sizes 1,2,4
+    python -m sdtpu_torch.cli info
+
+(``sdtpu-torch`` once installed). ``--platform`` takes ``auto|cpu|cuda``:
+``auto`` is the card, the port's default device, and raises
+``RUNTIME_ERROR`` without one, as ``Context`` does; ``cpu`` runs the plain
+versions on the host. ``warmup``'s counterpart of the reference's XLA
+compile cache is the port's kernel library (``ops/_build.py``): it builds
+the kernels into ``--cache-dir`` (the build directory by default), serves
+the first image of each configuration and batch size, and ``--pack`` /
+``--unpack`` carry the built library as a gzip tar. ``bench``,
+``profile``, ``sweep``, ``analyze`` and ``train`` are refused, naming
+their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+DEFAULT_PROMPT = "a photograph of an astronaut riding a horse"
+
+# a literal copy of sorted(sdtpu_torch.samplers.SAMPLERS): --help imports no
+# sampler module (tests pin the two lists equal)
+SAMPLER_CHOICES = ["ddim", "dpm", "dpm++", "dpm2", "dpm2_karras",
+                   "dpm_karras", "dpm_sde", "dpm_sde_karras", "euler",
+                   "euler_a", "euler_a_karras", "euler_karras", "heun",
+                   "heun_karras", "lcm", "lms", "lms_karras", "plms",
+                   "plms_exact", "unipc", "unipc_karras"]
+
+PLATFORMS = ["auto", "cpu", "cuda"]
+KERNEL_CHOICES = ["auto", "cuda", "cuda_gn", "cuda_conv", "plain"]
+
+#: the reference's subcommands of later slices -> their ROADMAP item
+UNPORTED = {"bench": "item 25 (bench tooling)",
+            "profile": "item 25 (bench tooling)",
+            "sweep": "item 25 (bench tooling)",
+            "analyze": "item 25 (bench tooling)",
+            "train": "item 22 (training)"}
+
+
+def _device(platform: str) -> str:
+    """``--platform`` -> the Context's device: ``auto`` is the card."""
+    return "cpu" if platform == "cpu" else "cuda"
+
+
+def _interval(spec):
+    if not spec:
+        return None
+    lo, _, hi = spec.partition(",")
+    return float(lo), float(hi)
+
+
+def _cmd_generate(args) -> int:
+    import sdtpu_torch
+    from sdtpu_torch.engine.logging import LogLevel
+
+    ctx = sdtpu_torch.Context(
+        model_dir=args.model_dir,
+        steps=args.steps,
+        sampler=args.sampler,
+        config=args.config,
+        log_level=LogLevel(args.log_level),
+        kernels=args.kernels,
+        quantize=args.quantize,
+        seed=args.seed,
+        size=args.size,
+        lora=args.lora,
+        cfg_interval=_interval(args.cfg_interval),
+        clip_skip=args.clip_skip,
+        guidance_rescale=args.guidance_rescale,
+        freeu=(tuple(float(v) for v in args.freeu.split(","))
+               if args.freeu else None),
+        tome_ratio=args.tome_ratio,
+        deepcache=args.deepcache,
+        device=_device(args.platform),
+    )
+    if args.controlnet:
+        # --controlnet [name=]path (or "random" for demo weights)
+        for spec in args.controlnet:
+            name, _, src = spec.rpartition("=")
+            ctx.load_controlnet(name or "default", src or spec)
+    if args.embedding:
+        for spec in args.embedding:
+            word, sep, src = spec.partition("=")
+            if not sep:
+                print(f"error: --embedding expects WORD=PATH, got {spec!r}",
+                      file=sys.stderr)
+                return 2
+            ctx.load_embedding(word, src)
+    t0 = time.perf_counter()
+    common = dict(guidance=args.guidance, seed=args.seed,
+                  negative_prompt=args.negative_prompt)
+    if args.init_image:
+        from PIL import Image
+
+        init = np.asarray(Image.open(args.init_image).convert("RGB"))
+        unet = ctx.cfg.unet
+        lc = ctx.cfg.latent_channels
+        if args.mask_image:
+            mask = np.asarray(Image.open(args.mask_image).convert("L"))
+            img = ctx.inpaint(args.prompt, init, mask,
+                              strength=args.strength or 1.0, **common)
+        elif unet.num_class_embeds and unet.in_channels == lc + 3:
+            # the x4 upscaler (7-ch): --init-image is the low-res input
+            img = ctx.upscale(args.prompt, init,
+                              noise_level=args.noise_level, **common)
+        elif unet.in_channels == 2 * lc:
+            # InstructPix2Pix (8-ch): the prompt is an edit instruction
+            img = ctx.instruct_pix2pix(
+                args.prompt, init, image_guidance=args.image_guidance,
+                **common)
+        elif args.depth_image:
+            # any monotone depth map: an 8/16-bit grayscale png
+            depth = np.asarray(Image.open(args.depth_image)).astype(
+                np.float32)
+            if depth.ndim == 3:
+                depth = depth.mean(axis=-1)
+            img = ctx.depth2img(args.prompt, init, depth,
+                                strength=args.strength or 0.8, **common)
+        else:
+            img = ctx.img2img(args.prompt, init,
+                              strength=args.strength or 0.6, **common)
+    elif args.control_image:
+        from PIL import Image
+
+        hint = np.asarray(Image.open(args.control_image).convert("RGB"))
+        img = ctx.generate(args.prompt, control_image=hint,
+                           control=args.control or None,
+                           control_scale=args.control_scale, **common)
+    elif args.hires_scale:
+        img = ctx.hires_fix(args.prompt, scale=args.hires_scale,
+                            strength=args.hires_strength, **common)
+    else:
+        img = ctx.generate(args.prompt, pag_scale=args.pag_scale, **common)
+    dt = time.perf_counter() - t0
+    print(f"generated {img.shape[0]}x{img.shape[1]} image in {dt:.3f}s "
+          f"(steps={args.steps}, sampler={args.sampler}, seed={args.seed})")
+    if args.out.endswith(".bin"):
+        img.tofile(args.out)  # raw uint8, the reference's output.bin format
+    else:
+        from PIL import Image
+
+        Image.fromarray(img).save(args.out)
+    print(f"wrote {args.out}")
+    return 0
+
+
+def _cmd_show(args) -> int:
+    data = np.fromfile(args.path, np.uint8)
+    side = int(round((data.size / 3) ** 0.5))
+    img = data.reshape(side, side, 3)
+    from PIL import Image
+
+    out = args.path.rsplit(".", 1)[0] + ".png"
+    Image.fromarray(img).save(out)
+    print(f"wrote {out} ({side}x{side})")
+    return 0
+
+
+def _cmd_serve(args) -> int:
+    import sdtpu_torch
+    from sdtpu_torch.engine.logging import LogLevel
+    from sdtpu_torch.engine.server import serve
+
+    mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
+    lora = None
+    if args.lora:
+        lora = {}
+        for spec in args.lora:
+            if "=" not in spec:
+                print(f"error: --lora expects name=path, got {spec!r}",
+                      file=sys.stderr)
+                return 2
+            name, path = spec.split("=", 1)
+            lora[name] = path
+    ctx = sdtpu_torch.Context(
+        model_dir=args.model_dir, steps=args.steps, sampler=args.sampler,
+        config=args.config, log_level=LogLevel(args.log_level),
+        kernels=args.kernels, mesh=mesh, lora=lora,
+        cfg_interval=_interval(args.cfg_interval), deepcache=args.deepcache,
+        tome_ratio=args.tome_ratio, device=_device(args.platform))
+    stream_steps = (tuple(int(s) for s in args.stream_steps.split(","))
+                    if args.stream_steps else ())
+    serve(ctx, host=args.host, port=args.port,
+          max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+          stream_slots=args.stream_slots, max_queue=args.max_queue,
+          stream_steps=stream_steps)
+    return 0
+
+
+def _library_files(cache_dir):
+    """The built kernel libraries under ``cache_dir``: ``<hash>/<lib>``."""
+    from sdtpu_torch.ops import _build
+
+    return sorted(p for p in cache_dir.glob(f"*/{_build.LIB_NAME}")
+                  if p.is_file())
+
+
+def _cmd_warmup(args) -> int:
+    """Build the kernel library and serve the first image of every
+    configuration and batch size, so that a deployment starts warm; or
+    pack the built library as a gzip tar artifact, or unpack one. The
+    library is valid for the nvcc and the card it was built with (its
+    directory is the hash of the sources and flags); the emitted JSON
+    records torch's and CUDA's versions."""
+    import gc
+    import json
+    import tarfile
+    from pathlib import Path
+
+    import torch
+
+    from sdtpu_torch.ops import _build
+
+    cache_dir = Path(args.cache_dir).expanduser()
+    if args.unpack:
+        cache_dir.mkdir(parents=True, exist_ok=True)
+        root = cache_dir.resolve()
+        with tarfile.open(args.unpack, "r:gz") as tf:
+            for m in tf.getmembers():
+                # --pack writes <hash>/<library> members, so a legitimate
+                # member resolves to a file two levels under the cache dir;
+                # a str-prefix check would admit '../_build2/x/f'
+                p = (cache_dir / m.name).resolve()
+                if not m.isfile() or p.parent.parent != root:
+                    raise SystemExit(f"unsafe archive member {m.name!r}")
+            tf.extractall(cache_dir, filter="data")
+        n = len(_library_files(cache_dir))
+        print(json.dumps({"unpacked_to": str(cache_dir), "entries": n}))
+        return 0
+
+    import sdtpu_torch
+    from sdtpu_torch.engine.logging import LogLevel
+
+    device = _device(args.platform)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    # the build goes to the artifact directory (the build directory itself
+    # by default)
+    _build.BUILD_DIR = cache_dir
+    report = []
+    if device == "cuda":
+        t0 = time.perf_counter()
+        _build.library()
+        report.append({"kernels": str(_build.library_path()),
+                       "build_s": round(time.perf_counter() - t0, 1)})
+        print(json.dumps(report[-1]), flush=True)
+    batches = [int(x) for x in args.batch_sizes.split(",")]
+    for name in args.configs.split(","):
+        t0 = time.perf_counter()
+        try:
+            ctx = sdtpu_torch.Context(
+                model_dir=args.model_dir, steps=args.steps,
+                sampler=args.sampler, config=name,
+                log_level=LogLevel(args.log_level), device=device)
+            r = {"config": name,
+                 "init_s": round(time.perf_counter() - t0, 1),
+                 "first_image_s": {}}
+            for b in batches:
+                t0 = time.perf_counter()
+                if b == 1:
+                    ctx.generate("warmup", seed=0)
+                else:
+                    ctx.generate_batch(
+                        [{"prompt": "warmup", "seed": i} for i in range(b)])
+                r["first_image_s"][str(b)] = round(
+                    time.perf_counter() - t0, 1)
+            del ctx
+        except Exception as e:  # noqa: BLE001 - the fleet goes on a config
+            r = {"config": name, "error": f"{type(e).__name__}: {e}"}
+        report.append(r)
+        print(json.dumps(r), flush=True)
+        gc.collect()
+    entries = _library_files(cache_dir)
+    out = {"cache_dir": str(cache_dir), "entries": len(entries),
+           "bytes": sum(p.stat().st_size for p in entries),
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "backend": device}
+    if args.pack:
+        with tarfile.open(args.pack, "w:gz") as tf:
+            for p in entries:
+                tf.add(p, arcname=f"{p.parent.name}/{p.name}")
+        out["artifact"] = args.pack
+    print(json.dumps(out))
+    return 0 if not any("error" in r for r in report) else 1
+
+
+def _cmd_info(args) -> int:
+    import torch
+
+    from sdtpu_torch.config import CONFIGS
+
+    print(f"sdtpu_torch (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda})")
+    if torch.cuda.is_available():
+        n = torch.cuda.device_count()
+        names = ", ".join(torch.cuda.get_device_name(i) for i in range(n))
+        print(f"backend: cuda, devices: {n} ({names})")
+    else:
+        print("backend: cpu, devices: 0 (no CUDA device)")
+    for name, cfg in CONFIGS.items():
+        print(f"config {name}: {cfg.image_size}x{cfg.image_size}, "
+              f"latent {cfg.latent_size}, unet ch {cfg.unet.model_channels}, "
+              f"dtype {cfg.dtype}")
+    return 0
+
+
+def _cmd_unported(args) -> int:
+    print(f"error: `{args.cmd}` is not ported yet (ROADMAP "
+          f"{UNPORTED[args.cmd]}); the JAX package's `sdtpu {args.cmd}` "
+          f"has it", file=sys.stderr)
+    return 2
+
+
+def main(argv=None) -> int:
+    from sdtpu_torch.config import CONFIGS
+
+    p = argparse.ArgumentParser(
+        prog="sdtpu-torch",
+        description="Stable Diffusion txt2img engine (PyTorch/CUDA)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    g = sub.add_parser("generate", help="prompt -> image")
+    g.add_argument("--prompt", default=DEFAULT_PROMPT)
+    g.add_argument("--guidance", type=float, default=7.5)
+    g.add_argument("--negative-prompt", default=None)
+    g.add_argument("--init-image", default=None,
+                   help="img2img: starting image (png/jpg at the output size)")
+    g.add_argument("--strength", type=float, default=None,
+                   help="img2img/inpaint strength in (0, 1] "
+                        "(default 0.6 img2img, 1.0 inpaint)")
+    g.add_argument("--mask-image", default=None,
+                   help="inpainting: grayscale mask (white = repaint); "
+                        "requires --init-image")
+    g.add_argument("--noise-level", type=int, default=20,
+                   help="x4 upscaler (config sd_x4): conditioning noise "
+                        "augmentation level in [0, max_noise_level); "
+                        "--init-image is the low-res input")
+    g.add_argument("--depth-image", default=None,
+                   help="depth2img (config sd2_depth): grayscale depth map "
+                        "(any monotone scale); requires --init-image")
+    g.add_argument("--deepcache", type=int, default=None, metavar="N",
+                   help="DeepCache: run the full UNet every N steps and "
+                        "splice the cached deep feature on the others")
+    g.add_argument("--tome-ratio", type=float, default=0.0,
+                   help="ToMe-SD token merging: merge this fraction of "
+                        "spatial tokens before the large self-attentions "
+                        "(0 = off)")
+    g.add_argument("--guidance-rescale", type=float, default=0.0,
+                   help="CFG rescale in [0,1]")
+    g.add_argument("--clip-skip", type=int, default=1,
+                   help="A1111 CLIP skip: tap the text tower N-1 blocks "
+                        "early (1 = default tap)")
+    g.add_argument("--freeu", default=None, metavar="B1,B2,S1,S2",
+                   help="FreeU decoder rebalancing, e.g. 1.5,1.6,0.9,0.2")
+    g.add_argument("--hires-scale", type=int, default=None,
+                   help="hires fix: second denoise pass at N x the base "
+                        "resolution (latent upscale)")
+    g.add_argument("--hires-strength", type=float, default=0.6,
+                   help="denoising strength of the hires second pass")
+    g.add_argument("--pag-scale", type=float, default=None,
+                   help="perturbed-attention guidance strength (plain "
+                        "txt2img path)")
+    g.add_argument("--cfg-interval", default=None, metavar="LO,HI",
+                   help="apply CFG only on the middle LO..HI fraction of the "
+                        "trajectory")
+    g.add_argument("--image-guidance", type=float, default=1.5,
+                   help="InstructPix2Pix (config sd15_ip2p) image-side CFG "
+                        "scale (requires --init-image)")
+    g.add_argument("--steps", type=int, default=20)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--sampler", default="dpm", choices=SAMPLER_CHOICES)
+    g.add_argument("--config", default="sd15", choices=sorted(CONFIGS))
+    g.add_argument("--model-dir", default=None,
+                   help="weights dir or file (omit for random-init demo)")
+    g.add_argument("--kernels", default="auto", choices=KERNEL_CHOICES)
+    g.add_argument("--quantize", default="none",
+                   choices=["none", "int8", "int8w", "int8w_dense"])
+    g.add_argument("--size", type=int, default=None,
+                   help="output resolution override (e.g. 768)")
+    g.add_argument("--lora", default=None,
+                   help="LoRA adapter (.npz or kohya .safetensors) applied "
+                        "to every request")
+    g.add_argument("--controlnet", action="append", default=None,
+                   metavar="[NAME=]PATH",
+                   help="register a ControlNet (LDM control_model.* "
+                        "safetensors, or 'random' for demo weights); "
+                        "repeatable")
+    g.add_argument("--embedding", action="append", default=None,
+                   metavar="WORD=PATH",
+                   help="textual-inversion embedding: trigger word = "
+                        ".npz/.pt/.safetensors vector file; repeatable")
+    g.add_argument("--control-image", default=None,
+                   help="ControlNet conditioning image (png/jpg at the "
+                        "output size); requires --controlnet")
+    g.add_argument("--control", default=None,
+                   help="ControlNet name to use (default: the only one "
+                        "loaded)")
+    g.add_argument("--control-scale", type=float, default=1.0)
+    g.add_argument("--log-level", type=int, default=2,
+                   help="0=nothing .. 4=abusive")
+    g.add_argument("--platform", default="auto", choices=PLATFORMS,
+                   help="the device (auto = the CUDA card)")
+    g.add_argument("--out", default="output.png")
+    g.set_defaults(fn=_cmd_generate)
+
+    for name, help_ in (("bench", "per-part steady-state benchmark"),
+                        ("profile", "per-op device profile of one part"),
+                        ("sweep", "sampler/steps/CFG/size config sweep"),
+                        ("analyze", "analyze benchmark results"),
+                        ("train", "LDM fine-tune the UNet")):
+        u = sub.add_parser(name, help=f"{help_} (not ported yet: ROADMAP "
+                                      f"{UNPORTED[name]})")
+        u.set_defaults(fn=_cmd_unported)
+
+    s = sub.add_parser("show", help="render a raw output.bin to png")
+    s.add_argument("path")
+    s.set_defaults(fn=_cmd_show)
+
+    sv = sub.add_parser("serve", help="HTTP txt2img service")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8000)
+    sv.add_argument("--config", default="sd15", choices=sorted(CONFIGS))
+    sv.add_argument("--steps", type=int, default=20)
+    sv.add_argument("--sampler", default="dpm", choices=SAMPLER_CHOICES)
+    sv.add_argument("--model-dir", default=None)
+    sv.add_argument("--mesh", default=None,
+                    help="multi-card serving mesh as 'data,model' (not "
+                         "ported yet: ROADMAP item 23)")
+    sv.add_argument("--lora", action="append", default=None,
+                    metavar="NAME=PATH",
+                    help="register a LoRA adapter for per-request selection "
+                         "(repeatable; requests pick one via the 'lora' "
+                         "field)")
+    sv.add_argument("--cfg-interval", default=None, metavar="LO,HI",
+                    help="guidance interval for every request (see "
+                         "generate --cfg-interval)")
+    sv.add_argument("--deepcache", type=int, default=None, metavar="N",
+                    help="DeepCache full-eval cadence for every request")
+    sv.add_argument("--tome-ratio", type=float, default=0.0,
+                    help="ToMe token-merge ratio (see generate --tome-ratio)")
+    sv.add_argument("--kernels", default="auto", choices=KERNEL_CHOICES)
+    sv.add_argument("--log-level", type=int, default=2)
+    sv.add_argument("--max-batch", type=int, default=4,
+                    help="micro-batching: max concurrent /generate requests "
+                         "fused into one batched call")
+    sv.add_argument("--max-wait-ms", type=float, default=25.0,
+                    help="micro-batching: max added latency while waiting "
+                         "for batch-mates")
+    sv.add_argument("--stream-slots", type=int, default=0,
+                    help="continuous batching: serve plain /generate "
+                         "requests through an N-slot iteration-level pool "
+                         "(no batch barriers; live /preview); 0 keeps the "
+                         "micro-batcher")
+    sv.add_argument("--stream-steps", default=None, metavar="K1,K2,...",
+                    help="stream mode: extra per-request step counts the "
+                         "pool schedules (clients pass \"steps\")")
+    sv.add_argument("--max-queue", type=int, default=64,
+                    help="backpressure: max waiting requests per worker; "
+                         "excess requests get 503 + Retry-After")
+    sv.add_argument("--platform", default="auto", choices=PLATFORMS)
+    sv.set_defaults(fn=_cmd_serve)
+
+    wu = sub.add_parser(
+        "warmup",
+        help="build the kernel library and serve each config's first "
+             "image; optionally pack the library into a deployable "
+             "artifact (or --unpack one)")
+    wu.add_argument("--configs", default="sd15",
+                    help="comma list of configs to warm up")
+    wu.add_argument("--steps", type=int, default=20)
+    wu.add_argument("--sampler", default="dpm", choices=SAMPLER_CHOICES)
+    wu.add_argument("--batch-sizes", default="1",
+                    help="comma list of serving batch sizes (the "
+                         "micro-batcher pads to powers of two: 1,2,4)")
+    wu.add_argument("--model-dir", default=None)
+    wu.add_argument("--cache-dir", default=None,
+                    help="where the kernel library is built (default: the "
+                         "package's build directory, sdtpu_torch/_build)")
+    wu.add_argument("--pack", default=None, metavar="TAR_GZ",
+                    help="write the built library as a gzip tar artifact")
+    wu.add_argument("--unpack", default=None, metavar="TAR_GZ",
+                    help="deploy: extract a packed artifact into "
+                         "--cache-dir and exit")
+    wu.add_argument("--log-level", type=int, default=2)
+    wu.add_argument("--platform", default="auto", choices=PLATFORMS)
+    wu.set_defaults(fn=_cmd_warmup)
+
+    i = sub.add_parser("info", help="print version/device/config info")
+    i.set_defaults(fn=_cmd_info)
+
+    # a refused subcommand takes the reference's flags without naming them
+    args, extra = p.parse_known_args(argv)
+    if extra and args.fn is not _cmd_unported:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    if getattr(args, "cache_dir", "") is None:
+        from sdtpu_torch.ops import _build
+
+        args.cache_dir = str(_build.BUILD_DIR)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -327,5 +327,13 @@ CONFIGS = {
     "sdxl_inpaint": SDXL_INPAINT,
     "sdxl_refiner": SDXL_REFINER,
     "tiny": TINY,
+    "tiny_inpaint": TINY_INPAINT,
+    "tiny_lcm": TINY_LCM,
+    "tiny_x4": TINY_X4,
+    "tiny_depth": TINY_DEPTH,
+    "tiny_ip2p": TINY_IP2P,
+    "tiny_xl": TINY_XL,
+    "tiny_xl_inpaint": TINY_XL_INPAINT,
+    "tiny_xl_ref": TINY_XL_REF,
 }
 

@@ -1,0 +1,410 @@
+"""Iteration-level (continuous) batching, the counterpart of
+``sdtpu/engine/stream.py``'s ``StreamScheduler``.
+
+The micro-batcher (``engine.server``) admits requests at a barrier: a batch
+forms, its whole loop runs, late arrivals wait for the next batch. Here the
+unit of scheduling is one denoising step:
+
+* a fixed pool of ``slots`` request slots lives on the Context's device:
+  float32 latents, the sampler state, the cond and uncond rows, each slot's
+  step index ``t_idx``, its step count, its plan and its guidance;
+* every ``tick()`` runs one pooled UNet eval over the whole pool (batch
+  2 x slots under CFG), each slot at its own step: the time embeddings,
+  the v-prediction conversion, the CFG mix and the sampler's coefficients
+  are gathered per slot from that slot's plan row;
+* a slot that reaches its step count is decoded (slots finishing on the
+  same tick share one VAE decode) and freed, and the queue refills it on
+  the next tick.
+
+The sampler step per slot: every registry sampler's ``step`` (and
+``predictor``) reads its plan as ``p.field[i]`` and is elementwise in the
+latents, so the unchanged function acts per slot on a plan view whose row
+0 holds each slot's coefficients along the batch axis (``_lane_view``): the
+same float32 products as the single path's scalar coefficients, slot by
+slot. No sampler branches on ``i``; ``plms_exact``'s engine-driven first
+step is refused, as is DeepCache (its cache crosses steps).
+
+Draws: a request's own ``torch.Generator`` of its seed makes, at
+admission, exactly what ``pipeline._draws`` makes for ``Context.generate``
+with that sampler and step count (the start latents, then a
+``NEEDS_NOISE`` sampler's whole step-noise table, kept per slot); the
+reference's ``fold_in`` of a PRNG key has no counterpart in torch. A
+request's image thus depends on its seed and its own step index only,
+never on the pool's make-up, and reproduces ``Context.generate`` within
+one uint8 level (the pooled UNet runs at another batch shape, so a
+reduction may round otherwise). ``submit``'s ``noise=`` and
+``step_noise=`` are the draws' seams.
+
+Step counts: ``step_choices`` adds per-request step counts to the
+context's; each gets its plan, padded to the longest one (padding rows are
+never run: ``t_idx < n_steps`` gates every slot). ``max_block`` advances a
+full pool by up to that many steps per ``tick`` (a power of two, never past
+the earliest completion): a Python loop of pooled steps, whose results are
+those of single ticks.
+
+Scope: txt2img with a prompt, negative prompt, guidance and seed per
+request (a guidance-embedded LCM configuration takes the guidance through
+its time MLP, one UNet row a slot); long or weighted prompts, LoRA,
+ControlNet, PAG and the image paths stay on ``Context``'s static paths.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from sdtpu_torch import text as text_mod
+from sdtpu_torch.engine import logging as slog
+from sdtpu_torch.engine.pipeline import (_add_embedding, _draws,
+                                         _unpack_context, decode_latents)
+from sdtpu_torch.models import temb, unet
+from sdtpu_torch.samplers import get_sampler
+from sdtpu_torch.samplers.schedule import NoiseSchedule
+
+
+class _Slot(NamedTuple):
+    req_id: int
+    steps_done: int      # host mirror of t_idx (deterministic: no fetch)
+    steps: int           # this request's step count (one of step_choices)
+
+
+def _lane_view(t: torch.Tensor, latent_dims: int) -> torch.Tensor:
+    """A per-slot coefficient table [N, *rest] -> [1, *rest, N, 1, ...]:
+    row 0 of the view is each slot's value along the batch axis, so a
+    sampler's ``p.field[0]`` (and ``c[k]`` of a [4]-wide row) broadcasts
+    against pool latents [N, h, w, C]."""
+    t = t.movedim(0, -1)
+    return t.reshape((1,) + tuple(t.shape) + (1,) * latent_dims)
+
+
+class StreamScheduler:
+    """Continuous-batching scheduler over a Context's model and params.
+
+    Usage::
+
+        sched = StreamScheduler(ctx, slots=4)
+        ids = [sched.submit("a fox", seed=i) for i in range(16)]
+        images = sched.drain()          # {req_id: uint8 [H, W, 3]}
+
+    or incrementally: ``submit()`` any time, ``tick()`` once a step,
+    ``completed()`` to harvest finished images without blocking new work.
+    """
+
+    def __init__(self, ctx, slots: int = 4,
+                 step_choices: Optional[tuple] = None,
+                 max_block: int = 1):
+        if ctx.sampler.lower() == "plms_exact":
+            raise ValueError("plms_exact's engine-driven first step is not "
+                             "step-schedulable; use plms")
+        if ctx.cfg.deepcache_interval is not None:
+            raise ValueError("DeepCache's scan-carry cache is incompatible "
+                             "with iteration-level scheduling")
+        self.ctx = ctx
+        self.cfg = cfg = ctx.cfg
+        self.device = dev = ctx.device
+        self.slots = n = int(slots)
+        self.steps = int(ctx.steps)
+        self._mod = get_sampler(ctx.sampler)
+        choices = {self.steps} | {int(s) for s in (step_choices or ())}
+        if min(choices) < 1:
+            raise ValueError(f"step counts must be >= 1, got {choices}")
+        self.step_choices = tuple(sorted(choices))
+        self.max_steps = max(self.step_choices)
+        self._needs_noise = getattr(self._mod, "NEEDS_NOISE", False)
+        self._needs_second = getattr(self._mod, "NEEDS_SECOND_EVAL", False)
+        self._lcm = bool(cfg.unet.time_cond_proj_dim)
+        self._use_cfg = not self._lcm
+        shape = (n, cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+        with torch.inference_mode():
+            plans = [self._mod.plan(NoiseSchedule.sd_v1(), s, device=dev)
+                     for s in self.step_choices]
+
+            def pad(t):
+                if t.shape[0] < self.max_steps:
+                    reps = t[-1:].expand(
+                        (self.max_steps - t.shape[0],) + tuple(t.shape[1:]))
+                    t = torch.cat([t, reps], dim=0)
+                return t
+
+            # [P, max_steps, ...] a field: one plan a step count
+            self._plans = type(plans[0])(*(
+                torch.stack([pad(getattr(p, f)) for p in plans])
+                for f in plans[0]._fields))
+            self._x = torch.zeros(shape, dtype=torch.float32, device=dev)
+            # every sampler zero-inits its state, so a slot's reset is a
+            # zero fill of its row (checked here, not assumed)
+            self._state = self._mod.init_state(self._x)
+            assert all(not bool(leaf.any()) for leaf in self._state)
+            probe = ctx._uncond   # [T, D] (XL: the packed pooled row too)
+            self._cond = probe.new_zeros((n,) + tuple(probe.shape))
+            self._un = probe.new_zeros((n,) + tuple(probe.shape))
+            # a free slot has n_steps 0, so it is inactive at any t_idx
+            self._t_idx = torch.zeros(n, dtype=torch.int64, device=dev)
+            self._n_steps = torch.zeros(n, dtype=torch.int64, device=dev)
+            self._plan_idx = torch.zeros(n, dtype=torch.int64, device=dev)
+            self._guidance = torch.ones(n, dtype=torch.float32, device=dev)
+            self._lanes = torch.arange(n, device=dev)
+            # a NEEDS_NOISE sampler's step draws, one table a slot
+            self._step_noise = (
+                torch.zeros((n, self.max_steps) + shape[1:],
+                            dtype=torch.float32, device=dev)
+                if self._needs_noise else None)
+        self._free = list(range(n))
+        self._live: dict[int, _Slot] = {}          # slot -> record
+        self._queue: list[tuple] = []
+        # pending decodes: ([req_id, ...], device images); the slots that
+        # finish on one tick share one decode
+        self._pending: list[tuple[list, torch.Tensor]] = []
+        self._done: dict[int, np.ndarray] = {}
+        self._next_id = 0
+        self.ticks = 0          # pooled denoising steps run
+        self.dispatches = 0     # tick() calls that ran steps (<= ticks)
+        self.decodes = 0        # batched VAE decodes launched
+        # with max_block > 1 a full pool advances k = min(max_block, the
+        # fewest steps left) steps a tick, k a power of two
+        self.max_block = max(1, int(max_block))
+
+    # ------------------------------------------------------------------
+    # the pooled step
+    # ------------------------------------------------------------------
+
+    def _predict(self, params, x, pn, rows, te, add_emb, second):
+        """One pooled UNet eval -> the guided eps [N, h, w, C] float32.
+        ``rows`` are CFG-stacked; ``te`` is one a slot [N, D] and
+        duplicates across the CFG halves here."""
+        cfg, n = self.cfg, self.slots
+        r = 2 if self._use_cfg else 1
+        if r == 2:
+            te = torch.cat([te, te], dim=0)
+        if add_emb is not None:
+            te = te + add_emb.to(te.dtype)
+        x_rep = torch.cat([x, x], dim=0) if r == 2 else x
+        eps = unet.apply(params["unet"], x_rep.to(cfg.compute_dtype), te,
+                         rows, cfg.unet, self.ctx.kernels).float()
+        if cfg.prediction == "v":
+            # eps = alpha v + sigma x_t, each slot at its own marginal
+            a = pn.alpha_m if second else pn.alpha_s
+            s = pn.sigma_m if second else pn.sigma_s
+            if r == 2:
+                a, s = torch.cat([a, a]), torch.cat([s, s])
+            eps = a.reshape(-1, 1, 1, 1) * eps + s.reshape(-1, 1, 1, 1) * x_rep
+        if self._use_cfg:
+            g = self._guidance.reshape(-1, 1, 1, 1)
+            e_cond = eps[:n]
+            eps = g * e_cond + (1.0 - g) * eps[n:]
+            if cfg.guidance_rescale:
+                axes = tuple(range(1, eps.dim()))
+                std_c = e_cond.std(dim=axes, keepdim=True, correction=0)
+                std_g = eps.std(dim=axes, keepdim=True, correction=0)
+                rescaled = eps * (std_c / torch.clamp(std_g, min=1e-8))
+                rr = torch.tensor(cfg.guidance_rescale, dtype=torch.float32,
+                                  device=self.device)
+                eps = rr * rescaled + (1.0 - rr) * eps
+        return eps
+
+    def _step(self) -> None:
+        """Advance every active slot by one step (inactive slots are
+        computed on and discarded)."""
+        cfg, mod = self.cfg, self._mod
+        params = self.ctx.params
+        dtype = cfg.compute_dtype
+        x, state = self._x, self._state
+        active = self._t_idx < self._n_steps
+        # clamp, so that inactive slots index valid rows
+        i = torch.minimum(self._t_idx, (self._n_steps - 1).clamp(min=0))
+        # each slot's row of its plan: [N, *rest] a field
+        pn = type(self._plans)(*(t[self._plan_idx, i] for t in self._plans))
+        view = type(pn)(*(_lane_view(t, x.dim() - 1) for t in pn))
+        w_feats = (temb.guidance_scale_features(
+            self._guidance - 1.0, cfg.unet.time_cond_proj_dim)
+            if self._lcm else None)
+        rows = (torch.cat([self._cond, self._un], dim=0) if self._use_cfg
+                else self._cond)
+        rows, pooled = _unpack_context(rows, cfg)
+        add_emb = (None if pooled is None
+                   else _add_embedding(params, pooled, cfg))
+
+        def te_of(mt):
+            if w_feats is None:
+                return temb.apply(params["temb"], mt, cfg.unet, dtype=dtype)
+            return temb.apply(params["temb"], mt, cfg.unet, dtype=dtype,
+                              cond=w_feats, cond_align="aligned")
+
+        eps = self._predict(params, x, pn, rows, te_of(pn.model_t), add_emb,
+                            second=False)
+        if self._needs_second:
+            x_mid = mod.predictor(view, 0, x, eps)
+            eps2 = self._predict(params, x_mid, pn, rows, te_of(pn.model_t2),
+                                 add_emb, second=True)
+            x_new, st_new = mod.step(view, 0, x, eps, state, eps2=eps2)
+        elif self._needs_noise:
+            noise = self._step_noise[self._lanes, i]
+            x_new, st_new = mod.step(view, 0, x, eps, state, noise=noise)
+        else:
+            x_new, st_new = mod.step(view, 0, x, eps, state)
+
+        def keep(new, old):
+            if not old.dim():          # a stateless sampler's placeholder
+                return old
+            return torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)),
+                               new, old)
+
+        self._x = keep(x_new, x)
+        self._state = type(state)(*(keep(a, b)
+                                    for a, b in zip(st_new, state)))
+        self._t_idx = torch.where(active, self._t_idx + 1, self._t_idx)
+
+    def _admit(self, slot: int, rec: tuple) -> None:
+        """Install one request into ``slot``: its draws (``pipeline._draws``
+        for a batch of one, as ``Context.generate`` makes them), a zeroed
+        state row, its rows, plan, step count and guidance."""
+        rid, cond, un, g, seed, steps, seams = rec
+        cfg, dev = self.cfg, self.device
+        shape = (1, cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        d = _draws(gen, shape, steps, self.ctx.sampler, dev, seams)
+        self._x[slot] = d["noise"][0]
+        for leaf in self._state:
+            if leaf.dim():
+                leaf[slot] = 0
+        self._cond[slot] = cond.to(self._cond.dtype)
+        self._un[slot] = un.to(self._un.dtype)
+        self._t_idx[slot] = 0
+        self._n_steps[slot] = steps
+        self._plan_idx[slot] = self.step_choices.index(steps)
+        self._guidance[slot] = g
+        if self._step_noise is not None:
+            self._step_noise[slot].zero_()
+            self._step_noise[slot, :steps] = d["step_noise"][:, 0]
+        self._live[slot] = _Slot(req_id=rid, steps_done=0, steps=steps)
+
+    # ------------------------------------------------------------------
+    # host-side scheduling
+    # ------------------------------------------------------------------
+
+    def submit(self, prompt: str, guidance: float = 7.5,
+               seed: Optional[int] = None,
+               negative_prompt: Optional[str] = None,
+               steps: Optional[int] = None, *, noise=None,
+               step_noise=None) -> int:
+        """Enqueue a request; returns its id (the images are keyed by it).
+
+        ``steps``: the request's step count, one of ``step_choices`` (the
+        context's by default). ``seed``: the context's (incremented) when
+        omitted, as ``Context.generate`` takes it. ``noise`` [1, h, w, C]
+        and ``step_noise`` [steps, 1, h, w, C] are the draws' seams."""
+        ctx = self.ctx
+        steps = self.steps if steps is None else int(steps)
+        if steps not in self.step_choices:
+            raise ValueError(
+                f"steps={steps} is not schedulable; this pool was built "
+                f"with step_choices={self.step_choices}")
+        L = self.cfg.clip.context_len
+        for p in (prompt, negative_prompt or ""):
+            if text_mod.needs_chunking(ctx.tokenizer, p, L):
+                raise ValueError("long/weighted prompts are not stream-"
+                                 "schedulable; use Context.generate")
+        seed = ctx._next_seed(seed)
+        with torch.inference_mode():
+            cond = ctx._embed_prompt(
+                text_mod.strip_syntax(prompt)
+                if text_mod.has_attention_syntax(prompt) else prompt)
+            un = ctx._negative_embedding(negative_prompt)
+        rid = self._next_id
+        self._next_id += 1
+        self._queue.append((rid, cond, un, float(guidance), seed, steps,
+                            {"noise": noise, "step_noise": step_noise}))
+        return rid
+
+    def _admit_from_queue(self) -> None:
+        while self._free and self._queue:
+            self._admit(self._free.pop(), self._queue.pop(0))
+
+    def tick(self) -> None:
+        """One scheduling iteration: admit, run the pooled step (k of them
+        with ``max_block`` > 1), retire the finished slots: their decode is
+        launched here and fetched in ``completed()``/``drain()``."""
+        with torch.inference_mode(), slog.logger_scope(self.ctx.logger):
+            self._admit_from_queue()
+            if not self._live:
+                return
+            k = 1
+            if self.max_block > 1:
+                min_rem = min(rec.steps - rec.steps_done
+                              for rec in self._live.values())
+                k = min(self.max_block, min_rem)
+                k = 1 << (k.bit_length() - 1)
+            for _ in range(k):
+                self._step()
+            self.ticks += k
+            self.dispatches += 1
+            finishing: list[tuple[int, int]] = []
+            for slot, rec in list(self._live.items()):
+                done = rec.steps_done + k
+                if done >= rec.steps:
+                    finishing.append((slot, rec.req_id))
+                    del self._live[slot]
+                    self._free.append(slot)
+                else:
+                    self._live[slot] = rec._replace(steps_done=done)
+            if finishing:
+                # the slots finishing on this tick share one decode
+                idx = torch.tensor([s for s, _ in finishing],
+                                   device=self.device)
+                imgs = decode_latents(self.ctx.params, self._x[idx],
+                                      self.cfg, self.ctx.kernels)
+                self.decodes += 1
+                self._pending.append(([rid for _, rid in finishing], imgs))
+
+    def completed(self) -> dict[int, np.ndarray]:
+        """Harvest finished images (waits only for their copies to the
+        host)."""
+        for rids, dev in self._pending:
+            arr = dev.cpu().numpy()
+            for j, rid in enumerate(rids):
+                self._done[rid] = arr[j]
+        self._pending.clear()
+        out, self._done = self._done, {}
+        return out
+
+    def drain(self) -> dict[int, np.ndarray]:
+        """Run until the queue and the pool are empty; return every
+        image."""
+        out: dict[int, np.ndarray] = {}
+        while self._queue or self._live:
+            self.tick()
+            out.update(self.completed())
+        out.update(self.completed())
+        return out
+
+    # ------------------------------------------------------------------
+    # progressive previews
+    # ------------------------------------------------------------------
+
+    #: latent -> RGB linear approximation (the community "taesd-free"
+    #: preview map of A1111's cheap live preview): rgb = L @ M, then the
+    #: usual [-1, 1] -> uint8 ramp. Rows are the 4 SD latent channels.
+    _PREVIEW_M = np.array(
+        [[0.298, 0.207, 0.208],
+         [0.187, 0.286, 0.173],
+         [-0.158, 0.189, 0.264],
+         [-0.184, -0.271, -0.473]], np.float32)
+
+    def previews(self) -> dict[int, np.ndarray]:
+        """Cheap in-flight previews of every live request: the linear
+        latent -> RGB map at latent resolution (h x w x 3 uint8), a [h w,
+        4] x [4, 3] product a slot, no VAE; one small copy to the host."""
+        if not self._live:
+            return {}
+        if self.cfg.latent_channels != self._PREVIEW_M.shape[0]:
+            raise ValueError("previews need 4-channel SD latents")
+        with torch.inference_mode():
+            m = torch.from_numpy(self._PREVIEW_M).to(self.device)
+            rgb = torch.clamp(torch.round(
+                (torch.einsum("nhwc,cd->nhwd",
+                              self._x / self.cfg.vae.scale_factor, m)
+                 + 1.0) * 127.5), 0, 255).to(torch.uint8)
+            arr = rgb.cpu().numpy()
+        return {rec.req_id: arr[slot] for slot, rec in self._live.items()}

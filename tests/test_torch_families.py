@@ -161,11 +161,13 @@ def test_config_matches_jax(name):
 
 
 def test_config_registry_covers_the_references():
-    """The port serves every non-TINY name of the reference's registry:
-    sd15, sd21, sd21base and sdxl, their concat-conditioned variants, and
-    the staged sd15_lcm, sd_x4 and sdxl_refiner."""
+    """The port serves every name of the reference's registry: sd15, sd21,
+    sd21base and sdxl, their concat-conditioned variants, the staged
+    sd15_lcm, sd_x4 and sdxl_refiner, and the TINY test configurations
+    (the C API and the CLI take them by name)."""
+    assert set(t_config.CONFIGS) == set(j_config.CONFIGS)
     ref = {n for n in j_config.CONFIGS if not n.startswith("tiny")}
-    ours = set(t_config.CONFIGS) - {"tiny"}
+    ours = {n for n in t_config.CONFIGS if not n.startswith("tiny")}
     assert ours == ref == {
         "sd15", "sd21", "sd21base", "sdxl", "sd15_inpaint", "sd21_inpaint",
         "sdxl_inpaint", "sd2_depth", "sd15_ip2p", "sd15_lcm", "sd_x4",

@@ -2124,6 +2124,154 @@ def test_rules_take_every_adapter_site(kernel):
 
 
 # ---------------------------------------------------------------------------
+# serving: the HTTP service's batch of four, the stream pool's ticks and
+# batched decodes, the CLI and the C API (one image each), at SD1.5's full
+# width: every site through the rules, the smoke run's pins from them
+# ---------------------------------------------------------------------------
+
+_VAE_LOGS = {}
+
+
+def _vae_log(name, mode, batch):
+    """The log (``_recorders``, part "vae") of one VAE decode of ``batch``
+    latents of the configuration ``name`` under ``mode``."""
+    from sdtpu_torch.config import CONFIGS
+    from sdtpu_torch.models import vae
+
+    key = (name, mode, batch)
+    if key not in _VAE_LOGS:
+        cfg = CONFIGS[name]
+        s = cfg.latent_size
+        z = torch.empty((batch, s, s, cfg.latent_channels), device="meta",
+                        dtype=torch.bfloat16)
+        log = {}
+        with _recorders(mode, log, ["vae"]):
+            vae.apply(_meta_tree(vae.init(cfg.vae, None, "meta")), z,
+                      cfg.vae, MODES[mode][0])
+        _VAE_LOGS[key] = log
+    return _VAE_LOGS[key]
+
+
+def test_serving_stream_is_the_planned_schedule(monkeypatch):
+    """The smoke run's stream arm (``chip_smoke.run_stream``) through the
+    port's pool at TINY on the CPU, the prompts cut to TINY's window (the
+    schedule is the host's, whatever the width): one UNet eval a tick at
+    N = 2 x slots, ``STREAM_TICKS`` ticks and the decode batches of
+    ``STREAM_DECODES``; each image is ``generate``'s at its step count
+    within one level. The img2img arm's evals are the Context's rule."""
+    from sdtpu_torch.engine import stream
+    from sdtpu_torch.models import unet
+
+    evals, decodes = [], []
+    apply, decode = unet.apply, stream.decode_latents
+
+    def apply_rec(params, x, *args, **kwargs):
+        evals.append(x.shape[0])
+        return apply(params, x, *args, **kwargs)
+
+    def decode_rec(params, x, *args):
+        decodes.append(x.shape[0])
+        return decode(params, x, *args)
+
+    monkeypatch.setattr(unet, "apply", apply_rec)
+    monkeypatch.setattr(stream, "decode_latents", decode_rec)
+    monkeypatch.setattr(chip_smoke, "STREAM_REQUESTS", [
+        ("a fox", *r[1:]) for r in chip_smoke.STREAM_REQUESTS])
+    ctx = Context(config="tiny", steps=chip_smoke.SERVING_STEPS,
+                  device="cpu")
+    images, _, _, done, sched, _ = chip_smoke.run_stream(ctx)
+    monkeypatch.undo()
+    slots = chip_smoke.SERVING_SLOTS
+    assert evals == [2 * slots] * chip_smoke.STREAM_TICKS == (
+        [2 * slots] * sched.ticks)
+    assert tuple(decodes) == tuple(done) == chip_smoke.STREAM_DECODES
+    assert sched.decodes == len(chip_smoke.STREAM_DECODES)
+    for j, (_, steps, seed, g, _) in enumerate(chip_smoke.STREAM_REQUESTS):
+        ctx.set_steps(steps)
+        want = ctx.generate("a fox", guidance=g, seed=seed)
+        assert np.abs(images[j].astype(int) - want.astype(int)).max() <= 1
+    steps = chip_smoke.SERVING_STEPS
+    start = Context._start_step(types.SimpleNamespace(steps=steps),
+                                chip_smoke.SERVING_STRENGTH)
+    assert chip_smoke.SERVING_IMG2IMG_EVALS == steps - start == 5
+
+
+def _serving_parts(arm):
+    """[(log, UNet evals), ...] of a serving arm of
+    ``chip_smoke.SERVING_PINNED``: a batch of four's UNet at N = 8 and its
+    decode at 4; the img2img call's evals, decode and encode; the pool's
+    ticks at N = 2 x slots and its decodes; one image's (CLI, C API)."""
+    cs = chip_smoke
+    name, steps = cs.SERVING_CONFIG, cs.SERVING_STEPS
+    mode = "cuda_conv" if arm == "batch_cuda_conv" else "cuda"
+    if arm.startswith("batch"):
+        n = len(cs.SERVING_REQUESTS)
+        return [(_part_log("unet", name, mode, 2 * n), steps),
+                (_vae_log(name, mode, n), 1)]
+    if arm == "img2img":
+        return [(_part_log("unet", name, mode), cs.SERVING_IMG2IMG_EVALS),
+                (_part_log("vae", name, mode), 1),
+                (_part_log("enc", name, mode), 1)]
+    if arm == "stream":
+        return ([(_part_log("unet", name, mode, 2 * cs.SERVING_SLOTS),
+                  cs.STREAM_TICKS)]
+                + [(_vae_log(name, mode, k), 1) for k in cs.STREAM_DECODES])
+    return [(_part_log("unet", name, mode), steps),
+            (_part_log("vae", name, mode), 1)]
+
+
+@pytest.mark.parametrize("arm", sorted(chip_smoke.SERVING_PINNED))
+def test_serving_pins_are_the_rules(arm):
+    """Each serving arm's launches, from its sites and the rules, are the
+    smoke run's pins (``chip_smoke.SERVING_PINNED``): K1 81 an image at 8
+    steps (a batch of four too), 52 for img2img at 0.6, 123 for the
+    pool's 12 ticks and 3 decodes; under ``cuda_conv`` K3 and K2's
+    statistics mode 508 a batch."""
+    got = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0)
+    for log, evals in _serving_parts(arm):
+        _per_image(log, evals, got)
+    assert got == chip_smoke.SERVING_PINNED[arm]
+    assert [chip_smoke.SERVING_PINNED[a]["flash"] for a in (
+        "batch_cuda", "img2img", "stream", "cli", "capi")] == [
+        81, 52, 123, 81, 81]
+
+
+def _serving_sites(kernel):
+    """Every site of ``kernel`` the serving paths can give: the pool's UNet
+    at 1 to 4 slots (N = 2 to 8; the micro-batcher's batches of 1 to 4 are
+    the same evals) under every mode, and the decodes of 1 to 4 finishing
+    slots under every policy (the VAE is never quantized)."""
+    sites = set()
+    logs = [_part_log("unet", "sd15", mode, 2 * slots)
+            for slots in range(1, 5) for mode in POLICY_MODES + QUANT_MODES]
+    logs += [_vae_log("sd15", mode, k) for k in range(1, 5)
+             for mode in POLICY_MODES]
+    for log in logs:
+        for (_, k), keys in log.items():
+            if k == kernel:
+                sites.update(keys)
+    return sorted(sites)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "group_norm",
+                                    "group_norm_affine", "conv",
+                                    "matmul_int8w", "matmul_w8a8"])
+def test_rules_take_every_serving_site(kernel):
+    """Every serving site through its kernel's static rule, and the plan
+    within what the C entry point accepts (its grid's axes, its 32-bit
+    indexing, the split-K scratch, shared memory); K1 takes the pool's
+    self-attentions at every slot count and every decode batch."""
+    sites = _serving_sites(kernel)
+    assert sites
+    for site in sites:
+        _check_site(kernel, site)
+    if kernel == "flash":
+        assert {(2 * n, 4096, 320, 8) for n in range(1, 5)} | {
+            (2 * n, 1024, 640, 8) for n in range(1, 5)} | {
+            (k, 4096, 512, 1) for k in range(1, 5)} <= set(sites)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -2155,6 +2303,27 @@ def test_cuda_flash_at_the_shapes_the_tiles_could_break(b, sq, sk, c, heads):
     # relative to the output's largest value: the bf16 output (2^-9) and
     # bf16 P before P.V leave it near 2^-8; a dropped key tile, a coarser P
     # or a scale some per cent off does not
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs(
+        ).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,c,heads", [
+    (6, 4096, 320, 8), (6, 1024, 640, 8),     # the pool at 3 slots
+    (2, 4096, 512, 1), (3, 4096, 512, 1),     # batched decodes of 2, 3
+])
+def test_cuda_flash_at_the_serving_shapes(b, sq, c, heads):
+    """K1 at the serving shapes no other case takes, against its plain
+    version with the kernel's tolerance (relative to the output's largest
+    value)."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((b, sq, c), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out = t_attn.flash_attention_cuda(q, k, v, heads)
+    torch.cuda.synchronize()
+    ref = t_attn.flash_attention_reference(q.float(), k.float(), v.float(),
+                                           heads)
     assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs(
         ).max().item()
 
