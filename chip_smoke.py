@@ -219,6 +219,23 @@ Phases, each printing one JSON object per line:
    with ``SERVING_PINNED`` (the stream server's from its ticks and
    decodes); s/image, device busy ms; then kernel_serving: K1 at the
    pool's N = 8 and the decodes of 1 to 4 slots against its plain version.
+21. train, after the serving phase: K1-bwd (``flash_attn_bwd.cu``) against
+   its plain version at the training sites (SD1.5's 64x64 and 32x32
+   self-attention at batch 2, d = 64) and ragged shapes of its contract,
+   each of dq, dk, dv within ``KERNEL_TOL``, the same bytes twice, device
+   ms beside the bound, the plain version and SDPA's backward; then SD1.5
+   at full width, 512^2, demo weights, float32 masters, bf16 compute, batch
+   2, through ``train.make_train_step``: one step's gradients from the same
+   draws under cuda and plain, remat off and on, each against a float32
+   plain step (cuda within ``MODEL_FACTOR`` of the plain bf16 error, remat
+   within it of no remat), s/step in turns, peak memory, device busy ms and
+   kernels a step, every step's K1 and K1-bwd launches at
+   ``TRAIN_PINNED``; two runs of ``TRAIN_STEPS`` from one seed with the
+   same bytes of params, moments and EMA; the images path (the encoder in
+   the loss); ``TRAIN_STEPS`` of the LoRA optimizer at rank 16 (only the
+   adapters move); the CLI: ``train --ema`` as ``python -m``,
+   ``--resume``, ``--data`` over two ``.npz`` shards and over an image
+   folder, each state read back.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -242,6 +259,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -719,10 +737,14 @@ def phase_device():
     return name, smi
 
 
+WGMMA_SOURCES = ("flash_attn_fwd.cu", "conv_gn_silu.cu", "matmul_int8w.cu",
+                 "matmul_w8a8.cu")
+
+
 def phase_build():
     """Build and load the kernels; beside the build, ``nvcc -Xptxas -v`` on
-    the wgmma kernels' sources (K1, K3, K4, K5) for their registers and
-    spills."""
+    the wgmma kernels' sources (K1, K3, K4, K5), none of which may spill,
+    and on K1-bwd's, for their registers and spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from sdtpu_torch.ops import _build
@@ -730,8 +752,7 @@ def phase_build():
     t0 = time.perf_counter()
     path = _build.library_path()
     fresh = not path.exists()
-    names = ("flash_attn_fwd.cu", "conv_gn_silu.cu", "matmul_int8w.cu",
-             "matmul_w8a8.cu")
+    names = WGMMA_SOURCES + ("flash_attn_bwd.cu",)
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [pool.submit(_build.ptxas_report, _build.SRC_DIR / n)
                    for n in names]
@@ -743,7 +764,8 @@ def phase_build():
         reports = [r.result() for r in reports]
     for name, report in zip(names, reports):
         emit({"phase": "resources", "source": name, "kernels": report})
-        if not report or any(r["spill_store_bytes"] for r in report):
+        if not report or (name in WGMMA_SOURCES and any(
+                r["spill_store_bytes"] for r in report)):
             raise AssertionError(f"{name}: a kernel spills: {report}")
 
 
@@ -4073,6 +4095,537 @@ def phase_serving(ctx, smi):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# 21. train: the LDM train step on SD1.5 at full width (module docstring)
+# ---------------------------------------------------------------------------
+
+TRAIN_CONFIG = "sd15"
+TRAIN_BATCH = 2
+TRAIN_SEED = 53
+TRAIN_LR = 1e-5
+TRAIN_STEPS = 3            # the determinism runs and the LoRA run
+TRAIN_LORA_RANK = 16
+# K1 a train step of SD1.5 at 512^2: 5 self-attentions at 64x64 and 5 at
+# 32x32 (16x16, 8x8 and cross-attention stay plain), each one forward and
+# one backward; under remat each forward runs again in the backward; the
+# images path adds the encoder's mid block, a forward with no backward
+# (tests/test_torch_hopper.py::test_train_pins_are_the_rules)
+TRAIN_FLASH = 5 + 5
+TRAIN_ENCODER_FLASH = 1
+
+
+def train_pins(flash=0, flash_bwd=0):
+    return {**dict.fromkeys(KERNEL_NAMES, 0), "flash": flash,
+            "flash_bwd": flash_bwd}
+
+
+TRAIN_PINNED = {
+    "plain": train_pins(),
+    "plain_remat": train_pins(),
+    "cuda": train_pins(TRAIN_FLASH, TRAIN_FLASH),
+    "cuda_remat": train_pins(2 * TRAIN_FLASH, TRAIN_FLASH),
+    "cuda_images": train_pins(TRAIN_FLASH + TRAIN_ENCODER_FLASH,
+                              TRAIN_FLASH),
+}
+# K1-bwd at the training sites (batch, seq, channels, heads): SD1.5's 64x64
+# and 32x32 levels (d 40, 80), SD 2.x / SDXL's d = 64; then ragged shapes
+# of its contract: a sequence no tile divides, d = 8, 96 (padded to 128),
+# 128
+TRAIN_SITES = [(2, 4096, 320, 8), (2, 1024, 640, 8), (2, 1024, 1280, 20)]
+TRAIN_RAGGED = [(2, 1000, 512, 8), (1, 129, 16, 2), (1, 77, 96, 1),
+                (1, 200, 128, 1)]
+
+
+def train_counts():
+    """``counts()`` and K1-bwd's, whose counter only training moves."""
+    from sdtpu_torch.ops import attention as A
+
+    return {**counts(), "flash_bwd": A.flash_attention_bwd_cuda.launches}
+
+
+def reset_train_counts():
+    from sdtpu_torch.ops import attention as A
+
+    reset_counts()
+    A.flash_attention_bwd_cuda.launches = 0
+
+
+def phase_train_kernels():
+    """K1-bwd against its plain version (``flash_attention_bwd_reference``,
+    float32 on the same bf16 inputs) at ``TRAIN_SITES`` and
+    ``TRAIN_RAGGED``: dq, dk and dv each within ``KERNEL_TOL`` of the plain
+    version's max-abs; at the sites the device times of the kernel, the
+    plain version and the library's backward (``F.scaled_dot_product_
+    attention`` forward and backward less its forward), beside the bound:
+    the larger of the five products' 10 BH S^2 d operations at the bf16
+    peak, the S^2 exponentials a head at ``PEAK_EXP`` and the bytes
+    (q, k, v, o, do, lse in; dq, dk, dv out)."""
+    from sdtpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    rows = []
+    cases = ([(*c, True) for c in TRAIN_SITES]
+             + [(*c, False) for c in TRAIN_RAGGED])
+    for b, s, c, heads, main in cases:
+        d = c // heads
+        q, k, v, do = (torch.randn((b, s, c), generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        out, lse = A.flash_attention_cuda(q, k, v, heads, with_lse=True)
+        grads = A.flash_attention_bwd_cuda(q, k, v, out, lse, do, heads)
+        again = A.flash_attention_bwd_cuda(q, k, v, out, lse, do, heads)
+        torch.cuda.synchronize()
+        refs = A.flash_attention_bwd_reference(q.float(), k.float(),
+                                               v.float(), do.float(), heads)
+        errs = {n: (x.float() - r).abs().max().item()
+                for n, x, r in zip(("dq", "dk", "dv"), grads, refs)}
+        maxes = {n: r.abs().max().item()
+                 for n, r in zip(("dq", "dk", "dv"), refs)}
+        del refs
+        ops = 10.0 * b * heads * s * s * d
+        nbytes = 2 * (5 * q.numel() + 3 * q.numel()) + 4 * lse.numel()
+        by_ops = ops / PEAK_OPS["bf16"] * 1e3
+        exp_ms = b * heads * s * s / PEAK_EXP * 1e3
+        by_bytes = nbytes / PEAK_BYTES * 1e3
+        row = {"shape": [b, s, c], "heads": heads, "head_dim": d,
+               "plan": list(A.plan_bwd(d, s, b * heads)),
+               "max_abs_err": max(errs.values()), "errs": errs,
+               "ref_abs_max": maxes,
+               "deterministic": all(torch.equal(x, y)
+                                    for x, y in zip(grads, again)),
+               "bound_ms": max(by_ops, exp_ms, by_bytes),
+               "bound_by": "bytes" if by_bytes > max(by_ops, exp_ms)
+               else "operations",
+               "ops_bound_ms": by_ops, "exp_bound_ms": exp_ms}
+        if main:
+            row["ms"] = cuda_ms(lambda: A.flash_attention_bwd_cuda(
+                q, k, v, out, lse, do, heads))
+            row["plain_ms"] = cuda_ms(lambda: A.flash_attention_bwd_reference(
+                q, k, v, do, heads))
+            row["tflops"] = ops / row["ms"] / 1e9
+            # the one PyTorch call with the same function, as a yardstick
+            # only: the backward of SDPA, its forward and backward less its
+            # forward (the port never calls it)
+            qh, kh, vh = (t.view(b, s, heads, d).transpose(1, 2).detach()
+                          .requires_grad_(True) for t in (q, k, v))
+            doh = do.view(b, s, heads, d).transpose(1, 2)
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(qh, kh, vh)
+
+            def lib_both():
+                torch.autograd.grad(lib_fwd(), (qh, kh, vh), doh)
+
+            row["library_fwd_bwd_ms"] = cuda_ms(lib_both)
+            row["library_fwd_ms"] = cuda_ms(lib_fwd)
+            row["library_ms"] = row["library_fwd_bwd_ms"] - row[
+                "library_fwd_ms"]
+        emit({"phase": "kernel_bwd" if main else "kernel_bwd_ragged", **row})
+        if not (row["deterministic"] and all(
+                errs[n] <= KERNEL_TOL * maxes[n] for n in errs)):
+            raise AssertionError(f"K1-bwd disagrees at {row}")
+        rows.append(row)
+        del q, k, v, do, out, lse, grads, again
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_models(cfg, images=False):
+    """The demo pipeline of ``cfg`` on the card as ``sdtpu-torch train``
+    makes it (seed ``TRAIN_SEED``): float32 UNet masters, the frozen trees
+    in float32 (cast to bf16 by the caller)."""
+    from sdtpu_torch.io.params import init_tree, tree_names
+
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    trees = {n: init_tree(n, cfg, gen, "cuda") for n in tree_names(cfg)}
+    trees.pop("vae")
+    if not images:
+        trees.pop("vae_enc")
+    return trees
+
+
+def train_batch(cfg, seed, images=False, n=TRAIN_BATCH):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.clip.vocab_size, (n, cfg.clip.context_len),
+                           generator=g, device="cuda", dtype=torch.int32)
+    if images:
+        s = cfg.image_size
+        return {"images": torch.rand((n, s, s, 3), generator=g,
+                                     device="cuda") * 2 - 1,
+                "tokens": tokens}
+    s = cfg.latent_size
+    return {"latents": torch.randn((n, s, s, cfg.latent_channels),
+                                   generator=g, device="cuda"),
+            "tokens": tokens}
+
+
+def grad_rel_err(grads, ref):
+    """|g - g_ref| / |g_ref| over every leaf (global L2 norms)."""
+    num = torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(a.float() - b) for a, b in zip(grads, ref)]))
+    den = torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(b) for b in ref]))
+    return (num / den).item()
+
+
+def same_bytes(a, b):
+    from sdtpu_torch.train.step import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        pa == pb and torch.equal(x, y) for (pa, x), (pb, y) in zip(la, lb))
+
+
+def phase_train(smi):
+    """Training on SD1.5 at its published widths and depth, 512^2, demo
+    weights, float32 masters, bf16 compute, batch ``TRAIN_BATCH`` (module
+    docstring, item 21). Returns (launches per arm, K1-bwd's rows)."""
+    from sdtpu_torch.models.layers import disable_tf32
+
+    start = time.perf_counter()
+    disable_tf32()
+    # the train step is bitwise reproducible with cuDNN's deterministic
+    # algorithms, as the CLI sets them; the inference phases after this one
+    # keep the setting they ran with
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _phase_train(smi, start)
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _phase_train(smi, start):
+    import dataclasses
+
+    from sdtpu_torch.config import CONFIGS
+    from sdtpu_torch.io.params import cast_params
+    from sdtpu_torch.train import lora as L
+    from sdtpu_torch.train import step as T
+
+    rows = phase_train_kernels()
+    cfg = CONFIGS[TRAIN_CONFIG]
+    res = {"phase": "train", "nvidia_smi": smi, "config": TRAIN_CONFIG,
+           "batch": TRAIN_BATCH, "lr": TRAIN_LR}
+    launches = {}
+    trees = train_models(cfg, images=True)
+    frozen32 = {n: trees.pop(n) for n in ("clip", "temb", "vae_enc")}
+    frozen = {n: cast_params(t, cfg.compute_dtype)
+              for n, t in frozen32.items()}
+    masters = trees.pop("unet")
+    res["unet_parameters"] = sum(t.numel() for _, t in T.leaves(masters))
+    opt = T.make_optimizer(lr=TRAIN_LR)
+    batch = train_batch(cfg, 1)
+
+    # 1. one step's gradients from the same draws: cuda and plain in bf16,
+    # remat off and on, against a float32 plain step
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    shape = (TRAIN_BATCH, cfg.latent_size, cfg.latent_size,
+             cfg.latent_channels)
+    draws = {"t": torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                                device="cuda"),
+             "eps": torch.randn(shape, generator=gen, device="cuda")}
+    named = [p.requires_grad_(True) for _, p in T.leaves(masters)]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    grads = {}
+    for arm, c, kernels, remat in (
+            ("f32", cfg32, "plain", False), ("plain", cfg, "plain", False),
+            ("cuda", cfg, "cuda", False), ("cuda_remat", cfg, "cuda", True),
+            ("plain_remat", cfg, "plain", True)):
+        fz = frozen32 if c is cfg32 else frozen
+        reset_train_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss = T.ldm_loss(masters, fz, batch, None, c, kernels, remat,
+                          draws=draws)
+        g = torch.autograd.grad(loss, named)
+        torch.cuda.synchronize()
+        got = train_counts()
+        if arm != "f32":
+            launches[f"grad_{arm}"] = got
+        if got != TRAIN_PINNED["plain" if arm == "f32" else arm]:
+            raise AssertionError(f"train grads {arm}: launches {got}")
+        res[f"grad_{arm}_loss"] = loss.item()
+        res[f"grad_{arm}_grad_norm"] = T.global_norm(g).item()
+        res[f"grad_{arm}_max_memory_gb"] = (
+            torch.cuda.max_memory_allocated() / 1e9)
+        grads[arm] = g
+        del loss, g
+    for arm in ("plain", "cuda", "cuda_remat", "plain_remat"):
+        res[f"grad_{arm}_rel_err"] = grad_rel_err(grads[arm], grads["f32"])
+        res[f"grad_{arm}_finite"] = all(bool(torch.isfinite(x).all())
+                                        for x in grads[arm])
+    res["grad_cuda_remat_vs_cuda_rel_err"] = grad_rel_err(
+        grads["cuda_remat"], [x.float() for x in grads["cuda"]])
+    res["grad_remat_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+        grads["cuda_remat"], grads["cuda"]))
+    del grads
+    torch.cuda.empty_cache()
+    emit(res)
+    plain_err = res["grad_plain_rel_err"]
+    for arm in ("cuda", "cuda_remat"):
+        if not (res[f"grad_{arm}_finite"] and res[f"grad_{arm}_rel_err"]
+                <= MODEL_FACTOR * plain_err):
+            raise AssertionError(f"train {arm} off the float32 step: {res}")
+    if not res["grad_cuda_remat_vs_cuda_rel_err"] <= MODEL_FACTOR * plain_err:
+        raise AssertionError(f"train remat's gradients off cuda's: {res}")
+
+    # 2. s/step in turns, plain and cuda, remat off and on, each with its
+    # peak memory (the state, 860 M parameters in f32 with two moments and
+    # the EMA and the gradients, and the step's activations); then device
+    # busy ms and kernels a step
+    state = T.init_train_state(masters, opt, ema=True)
+    arms = ("plain", "cuda", "cuda_remat", "plain_remat")
+    steps = {a: T.make_train_step(cfg, opt, kernels=a.split("_")[0],
+                                  remat=a.endswith("remat")) for a in arms}
+    times = {a: [] for a in arms}
+    losses = []
+    n = 0
+
+    def one(arm, timed=True):
+        nonlocal n
+        torch.cuda.reset_peak_memory_stats()
+        reset_train_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = steps[arm](state, frozen, batch,
+                          T.step_generator(TRAIN_SEED, n, "cuda"))
+        losses.append(m["loss"].item())
+        w = time.perf_counter() - t0
+        n += 1
+        if timed:
+            times[arm].append(w)
+        res[f"step_{arm}_max_memory_gb"] = (
+            torch.cuda.max_memory_allocated() / 1e9)
+        got = train_counts()
+        if got != TRAIN_PINNED[arm]:
+            raise AssertionError(f"train step {arm}: launches {got} != "
+                                 f"{TRAIN_PINNED[arm]}")
+        launches[f"step_{arm}"] = got
+
+    for arm in arms:
+        one(arm, timed=False)
+    for arm in arms + arms[::-1]:
+        one(arm)
+    res["s_per_step"] = {a: times[a] for a in arms}
+    res["losses"] = losses
+    for arm in ("cuda", "plain"):
+        by_name, kernels, wall = device_profile(
+            lambda: steps[arm](state, frozen, batch,
+                               T.step_generator(TRAIN_SEED, n, "cuda")))
+        res[f"profile_{arm}_busy_ms"] = sum(by_name.values())
+        res[f"profile_{arm}_kernels"] = kernels
+        res[f"profile_{arm}_wall_ms"] = wall
+        res[f"profile_{arm}_top"] = sorted(by_name.items(),
+                                           key=lambda kv: -kv[1])[:6]
+    emit({**res, "phase": "train_steps"})
+
+    # 3. determinism: two runs of TRAIN_STEPS from the same seed and state
+    # give the same bytes of params, moments and EMA
+    finals = []
+    for run in range(2):
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = T.init_train_state(T._map(lambda t: t.detach().clone(),
+                                          masters), opt, ema=True)
+        for i in range(TRAIN_STEPS):
+            steps["cuda"](state, frozen, train_batch(cfg, 100 + i),
+                          T.step_generator(TRAIN_SEED, i, "cuda"))
+        finals.append(state if run == 0 else None)
+    first = finals[0]
+    same = (same_bytes(first.params, state.params)
+            and same_bytes(first.ema, state.ema)
+            and all(torch.equal(first.opt_state[m][k], state.opt_state[m][k])
+                    for m in ("mu", "nu") for k in state.opt_state[m]))
+    res["deterministic"] = same
+    del first, finals, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError("train: two runs of the same seed differ")
+
+    # 4. the images path: the encoder and its posterior inside the loss
+    state = T.init_train_state(masters, opt)
+    reset_train_counts()
+    _, m = T.train_step(state, frozen, train_batch(cfg, 2, images=True),
+                        T.step_generator(TRAIN_SEED, 0, "cuda"), cfg, opt)
+    launches["cuda_images"] = train_counts()
+    res["images_loss"] = m["loss"].item()
+    if launches["cuda_images"] != TRAIN_PINNED["cuda_images"]:
+        raise AssertionError(f"train images: {launches['cuda_images']}")
+
+    # 5. LoRA: TRAIN_STEPS of make_lora_optimizer at rank 16: the adapters
+    # move, every base leaf keeps its bytes
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora = L.inject_lora(masters, TRAIN_LORA_RANK,
+                         torch.Generator(device="cuda").manual_seed(3))
+    base = {T.flat_key(p): t.detach().clone() for p, t in T.leaves(lora)
+            if not L.is_adapter(p)}
+    lopt = L.make_lora_optimizer()
+    state = T.init_train_state(lora, lopt)
+    lstep = T.make_train_step(cfg, lopt)
+    for i in range(TRAIN_STEPS):
+        reset_train_counts()
+        _, m = lstep(state, frozen, train_batch(cfg, 200 + i),
+                     T.step_generator(TRAIN_SEED, i, "cuda"))
+        launches["lora"] = train_counts()
+        if launches["lora"] != TRAIN_PINNED["cuda"]:
+            raise AssertionError(f"train lora: {launches['lora']}")
+    bs = [t for p, t in T.leaves(state.params) if p[-1] == "lora_b"]
+    res["lora_sites"] = len(bs)
+    res["lora_moment_leaves"] = len(state.opt_state["mu"])
+    res["lora_b_moved"] = sum(bool(t.any()) for t in bs)
+    res["lora_base_leaves_changed"] = sum(
+        not torch.equal(t.detach(), base[T.flat_key(p)])
+        for p, t in T.leaves(state.params) if not L.is_adapter(p))
+    res["lora_loss"] = m["loss"].item()
+    del state, lora, base, bs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (res["lora_base_leaves_changed"] or not res["lora_sites"]
+            or res["lora_b_moved"] != res["lora_sites"]
+            or res["lora_moment_leaves"] != 2 * res["lora_sites"]):
+        raise AssertionError(f"train lora: {res}")
+    del masters, frozen, frozen32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. the CLI: the demo batches with --ema, then --resume; --data over a
+    # two-shard .npz and over an image folder (the encoder in the loss)
+    res.update(train_cli(cfg, launches))
+    res["seconds"] = time.perf_counter() - start
+    emit({**res, "phase": "train_done"})
+    return launches, rows
+
+
+TRAIN_LINE = re.compile(r"^step +\d+  loss \d+\.\d{4}  gnorm \d+\.\d{3}  "
+                        r"\(\d+\.\d+s\)$")
+
+
+def cli_train(argv, launches=None, arm=None):
+    """``sdtpu_torch.cli train`` in this process: (rc, stdout lines), the
+    launches of the run under ``launches[arm]``."""
+    from sdtpu_torch import cli
+
+    reset_train_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["train", *argv])
+    if launches is not None:
+        launches[arm] = train_counts()
+    return rc, buf.getvalue().splitlines()
+
+
+def train_state_like(cfg, ema):
+    from sdtpu_torch.train import step as T
+
+    unet = train_models(cfg)["unet"]
+    return T.init_train_state(unet, T.make_optimizer(), ema=ema)
+
+
+def train_cli(cfg, launches):
+    """The train CLI at SD1.5 (checks, not a benchmark): ``--steps 3 --ema``
+    as ``python -m``, then ``--resume`` for 2 more in this process; both
+    states read back by ``load_train_state``; ``--data`` over a two-shard
+    ``.npz`` of latents made from the seed and over a four-image folder
+    with ``captions.txt`` (the encoder in the loss). Each run's launches are
+    its steps' pins."""
+    from sdtpu_torch.train import step as T
+
+    res = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="sdtpu-train-")
+    try:
+        res["cli_tmp_free_gb"] = shutil.disk_usage(tmp).free / 1e9
+        argv = ["--config", TRAIN_CONFIG, "--batch", str(TRAIN_BATCH),
+                "--seed", str(TRAIN_SEED), "--lr", str(TRAIN_LR),
+                "--log-every", "1"]
+        ck, ck2 = os.path.join(tmp, "ck"), os.path.join(tmp, "ck2")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sdtpu_torch.cli", "train", *argv,
+             "--steps", "3", "--ema", "--out", ck], cwd=here,
+            capture_output=True, text=True, timeout=900,
+            env={**os.environ, "PYTHONPATH": here})
+        res["cli_subprocess_s"] = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        steps = [ln for ln in lines if ln.startswith("step")]
+        if (proc.returncode != 0 or len(steps) != 3
+                or not all(TRAIN_LINE.match(ln) for ln in steps)
+                or lines[-1] != f"saved train state (step 3, ema) to {ck}"):
+            raise AssertionError(f"train cli: {proc.returncode} {lines} "
+                                 f"{proc.stderr[-2000:]}")
+        res["cli_lines"] = lines
+        rc, lines = cli_train(argv + ["--steps", "2", "--ema", "--resume",
+                                      ck, "--out", ck2], launches,
+                              "cli_resume")
+        if (rc != 0 or f"resumed at step 3 from {ck}" not in lines
+                or lines[-1] != f"saved train state (step 5, ema) to {ck2}"
+                or launches["cli_resume"] != {
+                    k: 2 * v for k, v in TRAIN_PINNED["cuda"].items()}):
+            raise AssertionError(f"train cli --resume: {rc} {lines} "
+                                 f"{launches['cli_resume']}")
+        res["cli_resume_lines"] = lines
+        shutil.rmtree(ck)
+        like = train_state_like(cfg, ema=True)
+        res["cli_state_step"] = int(T.load_train_state(ck2, like).step)
+        res["cli_state_bytes"] = os.path.getsize(
+            os.path.join(ck2, T.STATE_FILE))
+        del like
+        shutil.rmtree(ck2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if res["cli_state_step"] != 5:
+            raise AssertionError(f"train cli state: {res}")
+
+        rng = np.random.default_rng(TRAIN_SEED)
+        shards = os.path.join(tmp, "shards")
+        os.makedirs(shards)
+        s = cfg.latent_size
+        for i in range(2):
+            np.savez(os.path.join(shards, f"part{i}.npz"),
+                     latents=rng.standard_normal(
+                         (4, s, s, cfg.latent_channels)).astype(np.float32),
+                     tokens=rng.integers(0, cfg.clip.vocab_size,
+                                         (4, cfg.clip.context_len)
+                                         ).astype(np.int32))
+        ck3 = os.path.join(tmp, "ck3")
+        rc, lines = cli_train(argv + ["--steps", "2", "--data", shards,
+                                      "--out", ck3], launches, "cli_data")
+        if (rc != 0 or "dataset: 8 examples (latents), 4 steps/epoch, "
+                "resuming epoch 0" not in lines
+                or launches["cli_data"] != {
+                    k: 2 * v for k, v in TRAIN_PINNED["cuda"].items()}):
+            raise AssertionError(f"train cli --data shards: {rc} {lines} "
+                                 f"{launches['cli_data']}")
+        shutil.rmtree(ck3)
+
+        from PIL import Image
+
+        folder = os.path.join(tmp, "images")
+        os.makedirs(folder)
+        size = cfg.image_size
+        with open(os.path.join(folder, "captions.txt"), "w") as f:
+            for i in range(4):
+                Image.fromarray(rng.integers(0, 256, (size, size, 3),
+                                             dtype=np.uint8)).save(
+                    os.path.join(folder, f"{i}.png"))
+                f.write(f"{i}.png\t{PROMPT} number {i}\n")
+        ck4 = os.path.join(tmp, "ck4")
+        rc, lines = cli_train(argv + ["--steps", "1", "--data", folder,
+                                      "--out", ck4], launches, "cli_images")
+        if (rc != 0 or "dataset: 4 examples (images), 2 steps/epoch, "
+                "resuming epoch 0" not in lines
+                or launches["cli_images"] != TRAIN_PINNED["cuda_images"]):
+            raise AssertionError(f"train cli --data images: {rc} {lines} "
+                                 f"{launches['cli_images']}")
+        res["cli_images_lines"] = lines
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def image_summary(rows, launches):
     """A kernel's rows at the image sites for the ``kernels`` line, as
     ``family_summary``; None where the group has no site of it."""
@@ -4193,6 +4746,10 @@ def main() -> int:
     # the serving infrastructure (the HTTP service, the stream pool, the
     # CLI, the C API) on the same Context, then K1 at the shapes it brings
     serving_launches, serving_rows = phase_serving(ctx, smi)
+    # training: K1-bwd at the training sites, the SD1.5 train step (cuda
+    # and plain, remat off and on) against float32, its pins, determinism,
+    # LoRA, the CLI
+    train_launches, train_rows = phase_train(smi)
 
     # the user's model: the demo weights written as checkpoint files and
     # served from them, then the text features on the native file
@@ -4277,6 +4834,7 @@ def main() -> int:
     conv_main_int8 = max(conv_rows, key=lambda r: (r["per_image_int8"],
                                                    r["x"][1]))
     k4_main, k5_main = main_row(k4_rows), main_row(k5_rows)
+    bwd_main = train_rows[0]
     emit({"kernels": [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "sdtpu_torch/csrc/flash_attn_fwd.cu",
@@ -4295,8 +4853,26 @@ def main() -> int:
          "stages": stages("flash", "flash"),
          "adapters": adapters("flash", "flash"),
          "serving": serving("flash", "flash"),
+         "train": {k: v["flash"] for k, v in train_launches.items()},
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
+        {"name": "flash_attn_bwd", "route": "cuda",
+         "source": "sdtpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "sdtpu/ops/attention.py:147",
+         "note": "plain JAX under custom_vjp (_flash_self) in the "
+                 "reference: the backward of K1, the training path's",
+         "launches": train_launches["step_cuda"]["flash_bwd"],
+         "launches_per_arm": {k: v["flash_bwd"]
+                              for k, v in train_launches.items()},
+         "max_abs_err": max(r["max_abs_err"] for r in train_rows),
+         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
+         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
+         "library_ms": bwd_main["library_ms"],
+         "library": "F.scaled_dot_product_attention's backward: its "
+                    "forward and backward less its forward",
+         "plan": bwd_main["plan"],
+         "timed_shape": bwd_main["shape"] + [bwd_main["heads"]],
+         "shapes": train_rows},
         {"name": "group_norm_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/group_norm_silu.cu",
          "replaces": "sdtpu/ops/groupnorm.py:38",

@@ -6,6 +6,7 @@ subcommands' flags and defaults:
     python -m sdtpu_torch.cli serve --port 8000 [--stream-slots 4]
     python -m sdtpu_torch.cli warmup --configs sd15 --batch-sizes 1,2,4
     python -m sdtpu_torch.cli info
+    python -m sdtpu_torch.cli train --steps 100 --batch 2 [--data DIR]
 
 (``sdtpu-torch`` once installed). ``--platform`` takes ``auto|cpu|cuda``:
 ``auto`` is the card, the port's default device, and raises
@@ -14,9 +15,13 @@ versions on the host. ``warmup``'s counterpart of the reference's XLA
 compile cache is the port's kernel library (``ops/_build.py``): it builds
 the kernels into ``--cache-dir`` (the build directory by default), serves
 the first image of each configuration and batch size, and ``--pack`` /
-``--unpack`` carry the built library as a gzip tar. ``bench``,
-``profile``, ``sweep``, ``analyze`` and ``train`` are refused, naming
-their ROADMAP item.
+``--unpack`` carry the built library as a gzip tar. ``train``'s
+``--kernels`` takes ``auto|plain|cuda`` (``auto`` is ``cuda`` on the card,
+as the reference's is ``pallas`` on a TPU: the policies whose kernels have
+a backward) and writes the port's train-state file (``--out``, read back by
+``--resume``; an orbax directory is refused, ROADMAP item 24). ``bench``,
+``profile``, ``sweep`` and ``analyze`` are refused, naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -44,8 +49,10 @@ KERNEL_CHOICES = ["auto", "cuda", "cuda_gn", "cuda_conv", "plain"]
 UNPORTED = {"bench": "item 25 (bench tooling)",
             "profile": "item 25 (bench tooling)",
             "sweep": "item 25 (bench tooling)",
-            "analyze": "item 25 (bench tooling)",
-            "train": "item 22 (training)"}
+            "analyze": "item 25 (bench tooling)"}
+
+#: a literal copy of sdtpu_torch.train.step.TRAIN_KERNELS (tests pin them)
+TRAIN_KERNEL_CHOICES = ["auto", "plain", "cuda"]
 
 
 def _device(platform: str) -> str:
@@ -314,6 +321,149 @@ def _cmd_info(args) -> int:
     return 0
 
 
+def _cmd_train(args) -> int:
+    """LDM fine-tune loop (``sdtpu_torch.train``), the reference's
+    ``_cmd_train`` (``sdtpu/cli.py:374-507``): data in, the train state
+    (params, AdamW moments, EMA) out, resumable."""
+    from pathlib import Path
+
+    import torch
+
+    from sdtpu_torch.config import CONFIGS
+    from sdtpu_torch.engine.errors import ErrorCode, SdtpuError
+    from sdtpu_torch.io.params import cast_params, init_tree, tree_names
+    from sdtpu_torch.train import (
+        init_train_state,
+        load_train_state,
+        make_optimizer,
+        make_train_step,
+        save_train_state,
+    )
+    from sdtpu_torch.train.step import OrbaxCheckpointError, step_generator
+
+    cfg = CONFIGS[args.config]
+    if args.objective != "auto" and args.objective != cfg.prediction:
+        # a checkpoint trained against the "wrong" objective silently
+        # disagrees with cfg.prediction at inference
+        print(f"WARNING: --objective {args.objective} differs from the "
+              f"{args.config} config's prediction={cfg.prediction!r}; the "
+              f"resulting checkpoint will NOT sample correctly under "
+              f"config={args.config} unless you know what you are doing",
+              file=sys.stderr)
+    device = torch.device(_device(args.platform))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SdtpuError(ErrorCode.RUNTIME_ERROR,
+                         "no CUDA device (torch.cuda.is_available() is "
+                         "false); pass --platform cpu")
+    # cuDNN's deterministic algorithms: a run is bitwise reproducible from
+    # its seed (the default backward-weight algorithms sum in any order)
+    torch.backends.cudnn.deterministic = True
+
+    t0 = time.time()
+    dt = cfg.compute_dtype
+    if args.model_dir is None:
+        print("no --model-dir: random-init demo weights")
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        pipeline = {name: init_tree(name, cfg, gen, device)
+                    for name in tree_names(cfg)}
+        pipeline.pop("vae")
+    else:
+        from sdtpu_torch.io.weights import load_pipeline_params
+
+        pipeline = load_pipeline_params(args.model_dir, cfg, device=device)
+    # frozen models run in the compute dtype; the trainable UNet keeps
+    # float32 master params (ldm_loss casts them for the forward and
+    # backward), so lr-scale updates and the EMA do not round away in bf16
+    frozen = {name: cast_params(pipeline[name], dt)
+              for name in ("clip", "clip2", "temb", "add_mlp")
+              if name in pipeline}
+    unet_params = cast_params(pipeline["unet"], torch.float32)
+    print(f"params ready in {time.time() - t0:.1f}s")
+
+    opt = make_optimizer(lr=args.lr)
+    state = init_train_state(unet_params, opt, ema=args.ema)
+    if args.resume:
+        try:
+            load_train_state(args.resume, state)
+        except OrbaxCheckpointError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(f"resumed at step {int(state.step)} from {args.resume}")
+
+    if args.data:
+        # streaming input: sharded .npz or an image folder, epoch shuffle,
+        # background device prefetch (sdtpu_torch.train.data)
+        from sdtpu_torch.tokenizer import DEMO_MERGES, Tokenizer
+        from sdtpu_torch.train.data import make_dataset, stream
+
+        flat = (Path(args.model_dir) / "ctokenizer.txt"
+                if args.model_dir else None)
+        if flat is not None and flat.exists():
+            tok = Tokenizer.from_flat_file(flat)
+        else:
+            tok = Tokenizer.from_merges(DEMO_MERGES)
+        ds = make_dataset(args.data, tokenizer=tok,
+                          context_len=cfg.clip.context_len,
+                          image_size=cfg.image_size)
+        if len(ds) < args.batch:
+            print(f"error: {len(ds)} examples < batch {args.batch}",
+                  file=sys.stderr)
+            return 2
+        steps_per_epoch = len(ds) // args.batch
+        start_epoch = int(state.step) // max(steps_per_epoch, 1)
+        print(f"dataset: {len(ds)} examples ({ds.kind}), "
+              f"{steps_per_epoch} steps/epoch, resuming epoch {start_epoch}")
+        if ds.kind == "images":
+            frozen["vae_enc"] = cast_params(pipeline["vae_enc"], dt)
+        batches = stream(ds, args.batch, seed=args.seed,
+                         prefetch=args.prefetch, device=device,
+                         start_epoch=start_epoch)
+    else:
+        n = max(args.batch * 4, 8)
+        s = cfg.latent_size
+        g = torch.Generator(device=device).manual_seed(1)
+        latents = torch.randn((n, s, s, cfg.latent_channels), generator=g,
+                              device=device)
+        tokens = torch.arange(cfg.clip.context_len, dtype=torch.int32,
+                              device=device)[None].repeat(n, 1)
+        print(f"no --data: {n} synthetic demo examples")
+
+        def _demo_batches():
+            i = int(state.step)
+            while True:
+                idx = torch.randperm(
+                    n, generator=step_generator(args.seed + 23, i, device),
+                    device=device)[:args.batch]
+                i += 1
+                yield {"latents": latents[idx], "tokens": tokens[idx]}
+
+        batches = _demo_batches()
+    del pipeline
+
+    step = make_train_step(cfg, opt, kernels=args.kernels, remat=args.remat,
+                           objective=args.objective,
+                           snr_gamma=args.snr_gamma,
+                           noise_offset=args.noise_offset)
+    t0 = time.time()
+    try:
+        for i in range(args.steps):
+            batch = next(batches)
+            gen = step_generator(args.seed + 17, int(state.step), device)
+            state, metrics = step(state, frozen, batch, gen)
+            if i % args.log_every == 0 or i == args.steps - 1:
+                print(f"step {int(state.step):6d}  "
+                      f"loss {float(metrics['loss']):.4f}  "
+                      f"gnorm {float(metrics['grad_norm']):.3f}  "
+                      f"({(time.time() - t0):.1f}s)", flush=True)
+    finally:
+        if hasattr(batches, "close"):
+            batches.close()
+    save_train_state(state, args.out)
+    print(f"saved train state (step {int(state.step)}"
+          + (", ema" if args.ema else "") + f") to {args.out}")
+    return 0
+
+
 def _cmd_unported(args) -> int:
     print(f"error: `{args.cmd}` is not ported yet (ROADMAP "
           f"{UNPORTED[args.cmd]}); the JAX package's `sdtpu {args.cmd}` "
@@ -416,8 +566,7 @@ def main(argv=None) -> int:
     for name, help_ in (("bench", "per-part steady-state benchmark"),
                         ("profile", "per-op device profile of one part"),
                         ("sweep", "sampler/steps/CFG/size config sweep"),
-                        ("analyze", "analyze benchmark results"),
-                        ("train", "LDM fine-tune the UNet")):
+                        ("analyze", "analyze benchmark results")):
         u = sub.add_parser(name, help=f"{help_} (not ported yet: ROADMAP "
                                       f"{UNPORTED[name]})")
         u.set_defaults(fn=_cmd_unported)
@@ -469,6 +618,54 @@ def main(argv=None) -> int:
                          "excess requests get 503 + Retry-After")
     sv.add_argument("--platform", default="auto", choices=PLATFORMS)
     sv.set_defaults(fn=_cmd_serve)
+
+    t = sub.add_parser("train",
+                       help="LDM fine-tune the UNet (sdtpu_torch.train)")
+    t.add_argument("--data", default=None,
+                   help="training data: a .npz (latents [N,h,w,4] + tokens "
+                        "[N,T]), a directory of such .npz shards, or an "
+                        "image folder with captions.txt — shards stream "
+                        "with epoch shuffle + device prefetch; image "
+                        "folders VAE-encode on the device inside the step "
+                        "(omit for a synthetic demo batch)")
+    t.add_argument("--prefetch", type=int, default=2,
+                   help="device-staging prefetch depth (0 disables the "
+                        "background loader)")
+    t.add_argument("--config", default="sd15", choices=sorted(CONFIGS))
+    t.add_argument("--model-dir", default=None,
+                   help="frozen CLIP/temb + UNet init weights "
+                        "(omit for random-init demo)")
+    t.add_argument("--steps", type=int, default=100)
+    t.add_argument("--batch", type=int, default=2)
+    t.add_argument("--lr", type=float, default=1e-5)
+    t.add_argument("--ema", action="store_true",
+                   help="track EMA weights (decay 0.9999)")
+    t.add_argument("--objective", default="auto",
+                   choices=["auto", "eps", "v"],
+                   help="regression target: eps (SD1.x) or v-prediction "
+                        "(SD2.x-768); auto follows the config")
+    t.add_argument("--snr-gamma", type=float, default=0.0,
+                   help="min-SNR loss weighting gamma (arXiv:2303.09556; "
+                        "5.0 is the paper default, 0 disables)")
+    t.add_argument("--noise-offset", type=float, default=0.0,
+                   help="offset-noise strength: per-channel constant "
+                        "shift added to eps (community full-range recipe)")
+    t.add_argument("--remat", action="store_true",
+                   help="torch.utils.checkpoint the UNet (memory for "
+                        "FLOPs)")
+    t.add_argument("--kernels", default="auto", choices=TRAIN_KERNEL_CHOICES,
+                   help="auto = cuda on the card (the flash kernel and its "
+                        "backward), plain elsewhere")
+    t.add_argument("--resume", default=None,
+                   help="train-state directory (--out of an earlier run) to "
+                        "resume from")
+    t.add_argument("--out", default="train_ckpt",
+                   help="directory to save the final train state in")
+    t.add_argument("--log-every", type=int, default=10)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--platform", default="auto", choices=PLATFORMS,
+                   help="the device (auto = the CUDA card)")
+    t.set_defaults(fn=_cmd_train)
 
     wu = sub.add_parser(
         "warmup",

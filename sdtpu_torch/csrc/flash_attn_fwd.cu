@@ -48,6 +48,12 @@
 //    the softmax and p.v in every step.
 //  * Softmax: exp2 (one ex2.approx a value) of logits scaled by log2(e) /
 //    sqrt(d) inside one fma; only the last, ragged key tile is masked.
+//  * Training (LSE = true, d <= 128): each row's natural-log log-sum-exp of
+//    the scaled logits, (m + log2 l) ln 2 from the running max and sum the
+//    kernel holds at its end, goes to an f32 [B*heads, sq] output, which
+//    the backward (flash_attn_bwd.cu) reads in place of recomputing the
+//    softmax's statistics. Inference instantiates LSE = false, whose code
+//    has no such store.
 //
 // The wrapper's static rule (sdtpu_torch/ops/attention.py:plan) chooses DPAD,
 // the rows a block takes and the keys a step takes; this file checks it.
@@ -67,6 +73,7 @@ constexpr int STAGES = 2;
 constexpr int MAX_DEVICES = 64;
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low 16 bits
@@ -119,14 +126,15 @@ struct Tile {
 };
 
 // q, o: [B, sq, heads*d]; k, v: [B, sk, heads*d]; all row-major bf16.
-// grid: (ceil(sq / rows), B*heads); rows = 64 for SPLIT, else 64 a
-// warpgroup of the block (blockDim.x = 128 or 256).
-template <int DPAD, int BKV, bool SPLIT>
+// lse (LSE only): [B*heads, sq] f32. grid: (ceil(sq / rows), B*heads); rows
+// = 64 for SPLIT, else 64 a warpgroup of the block (blockDim.x = 128 or
+// 256).
+template <int DPAD, int BKV, bool SPLIT, bool LSE>
 __global__ void __launch_bounds__(2 * WG)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int heads, int sq, int sk, int d, float scale_log2) {
   using T = Tile<DPAD, BKV, SPLIT>;
   constexpr int CH = T::CH, KS = T::KS, NV = T::NV;
@@ -322,15 +330,23 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(ob + (long long)r1 * ld + c) =
           pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
   }
+  // one thread of each row's group writes its statistic (under SPLIT both
+  // warpgroups hold the same rows: the first writes)
+  if (LSE && tg == 0 && (!SPLIT || wg == 0)) {
+    float* lb = lse + (long long)blockIdx.y * sq;
+    if (r0 < sq) lb[r0] = (m0 + log2f(l0)) * LN2;
+    if (r1 < sq) lb[r1] = (m1 + log2f(l1)) * LN2;
+  }
 }
 
 struct Args {
   const __nv_bfloat16 *q, *k, *v;
   __nv_bfloat16* o;
+  float* lse;
   int batch, heads, sq, sk, d, rows;
 };
 
-template <int DPAD, int BKV, bool SPLIT>
+template <int DPAD, int BKV, bool SPLIT, bool LSE = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using T = Tile<DPAD, BKV, SPLIT>;
   // raise the kernel's shared-memory cap on this device once (not again
@@ -341,7 +357,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!allowed[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<DPAD, BKV, SPLIT>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<DPAD, BKV, SPLIT, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)T::smem(DPAD > 64 ? 64 : 128));
     if (err != cudaSuccess) return err;
@@ -351,9 +367,18 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int threads = SPLIT ? 2 * WG : 2 * rows;
   const dim3 grid((a.sq + rows - 1) / rows, a.batch * a.heads);
   const float scale_log2 = LOG2E / sqrtf((float)a.d);
-  flash_fwd_kernel<DPAD, BKV, SPLIT><<<grid, threads, T::smem(rows), stream>>>(
-      a.q, a.k, a.v, a.o, a.heads, a.sq, a.sk, a.d, scale_log2);
+  flash_fwd_kernel<DPAD, BKV, SPLIT, LSE>
+      <<<grid, threads, T::smem(rows), stream>>>(
+          a.q, a.k, a.v, a.o, a.lse, a.heads, a.sq, a.sk, a.d, scale_log2);
   return cudaGetLastError();
+}
+
+bool bad_args(int batch, int heads, int sq, int sk, int d, int dpad,
+              int rows) {
+  return d <= 0 || d % 8 != 0 || d > 512 || batch <= 0 || heads <= 0 ||
+         sq <= 0 || sk <= 0 || d > dpad || (rows != 64 && rows != 128) ||
+         (long long)heads * d > (1 << 24) || (dpad > 64 && rows != 64) ||
+         (long long)batch * heads > 65535;
 }
 
 }  // namespace
@@ -370,15 +395,13 @@ extern "C" int sdtpu_flash_attn_fwd(const void* q, const void* k,
                                     int heads, int sq, int sk, int d,
                                     int dpad, int rows, int bkv,
                                     void* stream) {
-  if (d <= 0 || d % 8 != 0 || d > 512 || batch <= 0 || heads <= 0 ||
-      sq <= 0 || sk <= 0 || d > dpad || (rows != 64 && rows != 128) ||
-      (long long)heads * d > (1 << 24) ||
-      (dpad > 64 && rows != 64) || (long long)batch * heads > 65535)
+  if (bad_args(batch, heads, sq, sk, d, dpad, rows))
     return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(q),
                static_cast<const __nv_bfloat16*>(k),
                static_cast<const __nv_bfloat16*>(v),
-               static_cast<__nv_bfloat16*>(o), batch, heads, sq, sk, d, rows};
+               static_cast<__nv_bfloat16*>(o), nullptr, batch, heads, sq, sk,
+               d, rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the instantiations that exist, by dpad * 1000 + bkv
   switch (dpad * 1000 + bkv) {
@@ -390,6 +413,33 @@ extern "C" int sdtpu_flash_attn_fwd(const void* q, const void* k,
     case 128064: return (int)launch<128, 64, false>(a, s);
     case 256064: return (int)launch<256, 64, true>(a, s);
     case 512032: return (int)launch<512, 32, true>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The training forward: sdtpu_flash_attn_fwd's function, and each row's
+// log-sum-exp into lse ([batch*heads, sq] f32). Instantiated where the
+// backward's contract lies, d <= 128 (dpad up to 128).
+extern "C" int sdtpu_flash_attn_fwd_lse(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int batch, int heads, int sq, int sk,
+                                        int d, int dpad, int rows, int bkv,
+                                        void* stream) {
+  if (bad_args(batch, heads, sq, sk, d, dpad, rows) || d > 128)
+    return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const __nv_bfloat16*>(q),
+               static_cast<const __nv_bfloat16*>(k),
+               static_cast<const __nv_bfloat16*>(v),
+               static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+               batch, heads, sq, sk, d, rows};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dpad * 1000 + bkv) {
+    case 16064: return (int)launch<16, 64, false, true>(a, s);
+    case 32064: return (int)launch<32, 64, false, true>(a, s);
+    case 48064: return (int)launch<48, 64, false, true>(a, s);
+    case 64064: return (int)launch<64, 64, false, true>(a, s);
+    case 80064: return (int)launch<80, 64, false, true>(a, s);
+    case 128064: return (int)launch<128, 64, false, true>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

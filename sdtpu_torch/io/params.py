@@ -267,3 +267,56 @@ def fuse_attention_projections(params):
         return node
 
     return walk(params)
+
+
+def _adam_state(node):
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
+    state: a chain's tuple, a ``multi_transform``'s dict of inner states, a
+    masked state's ``inner_state``; found by its fields, without optax."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, dict):
+        children = list(node.values())
+    elif isinstance(node, (tuple, list)):
+        children = list(node)
+    else:
+        return None
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_jax(opt_state, device=None) -> dict:
+    """optax's AdamW state (``sdtpu.train.make_optimizer`` or
+    ``make_lora_optimizer``: ``ScaleByAdamState`` beside the clip's empty
+    state, inside a ``multi_transform`` for LoRA) -> the port's optimizer
+    state (``train.step.AdamW.init``'s layout): ``count`` a host int64,
+    ``mu`` and ``nu`` {flat key: float32 tensor} of every leaf that has
+    moments, in the port's layout (a conv weight's HWIO -> OIHW); a masked
+    leaf (optax's ``MaskedNode``, an empty tuple) has none."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the state")
+
+    def flat(tree):
+        out = {}
+
+        def walk(node, path, key):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, path + (k,), k)
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(v, path + (i,), None)
+            elif node is not None and hasattr(node, "shape"):
+                out["/".join(map(str, path))] = _convert(
+                    node, key, torch.float32, device)
+
+        walk(tree, (), None)
+        return out
+
+    return {"count": torch.tensor(int(np.asarray(adam.count)),
+                                  dtype=torch.int64),
+            "mu": flat(adam.mu), "nu": flat(adam.nu)}

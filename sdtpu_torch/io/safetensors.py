@@ -2,9 +2,10 @@
 
 A file is an 8-byte little-endian header length ``n``, ``n`` bytes of JSON
 header ``{name: {"dtype", "shape", "data_offsets": [begin, end]}}`` (plus an
-optional ``"__metadata__"`` of strings, which the reader skips and the
-writer does not write), then the tensors' raw little-endian
-bytes, the offsets counted from the end of the header. The writer pads the
+optional ``"__metadata__"`` of strings, which ``load_file`` skips,
+``read_metadata`` returns and ``save_file`` writes where it is given),
+then the tensors' raw little-endian bytes, the offsets counted from the
+end of the header. The writer pads the
 header with spaces to a multiple of 8 bytes and lays the tensors out by
 element size, largest first, then by name, as the ``safetensors`` package
 does, so each package reads the other's files and every tensor starts
@@ -85,6 +86,12 @@ def load_file(path, device=None) -> dict:
                                  offset=start + begin).reshape(shape)
         out[name] = t if device is None else t.to(device)
     return out
+
+
+def read_metadata(path) -> dict:
+    """The file's ``__metadata__`` ({str: str}; empty where it has none)."""
+    header, _ = _header(Path(path))
+    return dict(header.get("__metadata__") or {})
 
 
 def save_file(tensors: dict, path, metadata: dict | None = None) -> None:

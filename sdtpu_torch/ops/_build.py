@@ -161,6 +161,24 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+class NoBackwardError(RuntimeError):
+    """A kernel without a backward was asked to run where autograd records
+    the call: launched through ctypes, it would cut the graph and train the
+    tensors before it with a zero gradient."""
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``NoBackwardError`` if autograd would record a call of the
+    kernel ``what`` on these tensors (None entries are skipped)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{what} has no backward: it cannot run on a tensor that "
+            f"requires grad (train with kernels 'plain' or 'cuda')")
+
+
 def check_launch(err: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a cudaError_t other than
     0."""

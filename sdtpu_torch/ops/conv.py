@@ -251,7 +251,11 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
     (widened to float32 here). Raises on anything else. ``plan_conv``
     chooses the kernel and its tiling; the C entry point checks the plan.
     Counts its launches in ``fused_conv_cuda.launches``, those with int8
-    weights also in ``fused_conv_cuda.launches_int8``."""
+    weights also in ``fused_conv_cuda.launches_int8``. Raises
+    ``_build.NoBackwardError`` where autograd would record the call."""
+    from sdtpu_torch.ops import _build
+
+    _build.refuse_grad("conv_gn_silu", x, w, b, a, d, w_scale)
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -288,8 +292,6 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
     for name, t in (("x", x), ("w", wk), ("a", a), ("d", d)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    from sdtpu_torch.ops import _build
-
     lib = _build.library()
     out = torch.empty((n, h, ww, c_out), dtype=x.dtype, device=x.device)
     m = n * h * ww

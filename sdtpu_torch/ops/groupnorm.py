@@ -205,9 +205,12 @@ def group_norm_cuda(p, x, groups: int, eps: float = 1e-5,
 
     x: [N, ..., C] and p as ``_checked`` takes them; raises on anything
     else. ``plan_gn`` tiles the launch; the C entry point checks the plan.
-    Counts its launches in ``group_norm_cuda.launches``."""
-    n, hw, c, scale, bias, param_bf16, plan = _checked(p, x, groups)
+    Counts its launches in ``group_norm_cuda.launches``. Raises
+    ``_build.NoBackwardError`` where autograd would record the call."""
     from sdtpu_torch.ops import _build
+
+    _build.refuse_grad("group_norm_silu", x, p.get("scale"), p.get("bias"))
+    n, hw, c, scale, bias, param_bf16, plan = _checked(p, x, groups)
 
     lib = _build.library()
     out = torch.empty_like(x)
@@ -232,9 +235,13 @@ def group_norm_affine_cuda(p, x, groups: int, eps: float = 1e-5):
     of ``sdtpu_torch.ops.conv.gn_affine`` (whose plain version is the
     reference). x and p as ``_checked`` takes them; raises on anything
     else; the launch as ``group_norm_cuda``'s. Counts its launches in
-    ``group_norm_affine_cuda.launches``."""
-    n, hw, c, scale, bias, param_bf16, plan = _checked(p, x, groups)
+    ``group_norm_affine_cuda.launches``. Raises ``_build.NoBackwardError``
+    where autograd would record the call."""
     from sdtpu_torch.ops import _build
+
+    _build.refuse_grad("group_norm_affine", x, p.get("scale"),
+                       p.get("bias"))
+    n, hw, c, scale, bias, param_bf16, plan = _checked(p, x, groups)
 
     lib = _build.library()
     a = torch.empty((n, c), dtype=torch.float32, device=x.device)

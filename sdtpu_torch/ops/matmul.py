@@ -197,10 +197,13 @@ def matmul_int8w_cuda(x, w8, scale, bias=None):
     scale and bias [N] (widened to float32 here). Raises on anything else.
     Counts its calls that launched in ``matmul_int8w_cuda.launches``, and
     in ``matmul_int8w_cuda.sum_launches`` those of them that split K and so
-    launched the sum pass as a second kernel."""
+    launched the sum pass as a second kernel. Raises
+    ``_build.NoBackwardError`` where autograd would record the call."""
+    from sdtpu_torch.ops import _build
+
+    _build.refuse_grad("matmul_int8w", x, scale, bias)
     m, k, n = _check_operands(x, w8, (("scale", scale), ("bias", bias)))
     scale, bias = _f32(scale), _f32(bias)
-    from sdtpu_torch.ops import _build
 
     lib = _build.library()
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
@@ -291,13 +294,17 @@ def matmul_w8a8_cuda(x, w8, w_scale, x_scale, bias=None):
     anything else. Counts its calls that launched in
     ``matmul_w8a8_cuda.launches``, and in ``matmul_w8a8_cuda.sum_launches``
     those of them that split K and so launched the sum pass as a second
-    kernel."""
+    kernel. Raises ``_build.NoBackwardError`` where autograd would record
+    the call."""
+    from sdtpu_torch.ops import _build
+
+    _build.refuse_grad("matmul_w8a8", x, w_scale, bias,
+                       x_scale if torch.is_tensor(x_scale) else None)
     m, k, n = _check_operands(x, w8, (("w_scale", w_scale), ("bias", bias)))
     if not torch.is_tensor(x_scale) or x_scale.numel() != 1 or (
             x_scale.device != x.device):
         raise ValueError("x_scale must be a one-element tensor on x's device")
     w_scale, bias, x_scale = _f32(w_scale), _f32(bias), _f32(x_scale)
-    from sdtpu_torch.ops import _build
 
     lib = _build.library()
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)

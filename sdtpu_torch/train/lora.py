@@ -1,5 +1,5 @@
-"""LoRA adapters for serving, the counterpart of the serving half of
-``sdtpu/train/lora.py``.
+"""LoRA adapters, the counterpart of ``sdtpu/train/lora.py``: training
+(``inject_lora``, ``lora_mask``, ``make_lora_optimizer``) and serving.
 
 An adapter lives inside the parameter tree: a dense site gains ``lora_a``
 [in, r], ``lora_b`` [r, out] and ``lora_s`` (alpha / r, 0-d), and
@@ -11,17 +11,110 @@ base tree, sharing every base tensor; ``merge_lora`` folds it into the
 weights. The ``.npz`` file (``save_lora_npz``, ``load_lora_npz``) is the
 JAX package's: '/'-joined tree paths, a conv site's ``lora_a`` in HWIO.
 
-Injecting fresh adapters, their mask and the optimizer belong to training,
-still to port.
+Training reuses ``train.step``: ``inject_lora`` adds fresh adapters to
+the float32 masters (B zero, so the injected model is the base), and
+``make_lora_optimizer`` moves their A and B alone, every other leaf's
+update exactly zero; the step still takes every leaf's gradient, so its
+``grad_norm`` is the reference's ``optax.global_norm`` over the whole tree.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 #: a LoRA site's leaves
 ADAPTER_KEYS = ("lora_a", "lora_b", "lora_s")
+#: dense-site names that receive adapters: the attention projections and
+#: the feed-forward products (``sdtpu/train/lora.py:32``)
+LORA_TARGETS = frozenset({"q", "k", "v", "out", "ff1", "ff2"})
+
+
+def _walk(node, fn, path=()):
+    if isinstance(node, dict):
+        return {k: _walk(v, fn, path + (k,)) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_walk(v, fn, path + (i,)) for i, v in enumerate(node)]
+    return fn(path, node)
+
+
+def _site_dicts(node, path=(), targets=LORA_TARGETS):
+    """(path, site dict) of every dense site with a 2-D weight whose name
+    is in ``targets``."""
+    if isinstance(node, dict):
+        w = node.get("w")
+        if (w is not None and getattr(w, "ndim", 0) == 2 and path
+                and path[-1] in targets):
+            yield path, node
+        for k, v in node.items():
+            yield from _site_dicts(v, path + (k,), targets)
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _site_dicts(v, path + (i,), targets)
+
+
+def inject_lora(params, rank: int, generator, alpha: float | None = None,
+                targets=LORA_TARGETS, dtype=torch.float32, a=None):
+    """A copy of ``params`` (sharing every base tensor) with an adapter at
+    each target dense site: ``lora_a`` [in, rank] drawn from ``generator``
+    in site order, N(0, 1) / sqrt(in) (Kaiming), ``lora_b`` [rank, out]
+    zero, ``lora_s`` = alpha / rank (alpha defaults to rank). The injected
+    model equals the base until training moves B. ``a``: {site path:
+    [in, rank] array} hands in A (the tests pass the reference's)."""
+    alpha = float(rank) if alpha is None else float(alpha)
+    lora_at = {}
+    for path, node in _site_dicts(params, targets=frozenset(targets)):
+        w = node["w"]
+        d_in, d_out = w.shape
+        if a is not None and path in a:
+            # a copy: the injected leaf trains in place
+            la = torch.tensor(np.array(a[path], dtype=np.float32),
+                              dtype=dtype, device=w.device)
+        else:
+            la = torch.randn((d_in, rank), generator=generator,
+                             dtype=torch.float32, device=w.device
+                             ).div_(math.sqrt(d_in)).to(dtype)
+        lora_at[path] = {
+            "lora_a": la,
+            "lora_b": torch.zeros((rank, d_out), dtype=dtype,
+                                  device=w.device),
+            "lora_s": torch.tensor(alpha / rank, dtype=dtype,
+                                   device=w.device)}
+
+    def patch(node, path=()):
+        if isinstance(node, dict):
+            out = {k: patch(v, path + (k,)) for k, v in node.items()}
+            if path in lora_at:
+                out.update(lora_at[path])
+            return out
+        if isinstance(node, list):
+            return [patch(v, path + (i,)) for i, v in enumerate(node)]
+        return node
+
+    return patch(params)
+
+
+def is_adapter(path) -> bool:
+    """Is the leaf at ``path`` an adapter's A or B (what LoRA trains)?"""
+    return bool(path) and path[-1] in ("lora_a", "lora_b")
+
+
+def lora_mask(params):
+    """A tree of bools: True exactly on the adapter leaves A and B."""
+    return _walk(params, lambda path, leaf: is_adapter(path))
+
+
+def make_lora_optimizer(lr: float = 1e-4, weight_decay: float = 0.0,
+                        grad_clip: float = 1.0):
+    """AdamW over the adapter leaves only (``sdtpu/train/lora.py:96-112``):
+    moments for A and B alone, their gradients clipped by their own global
+    norm, and every other leaf's update exactly zero."""
+    from sdtpu_torch.train.step import AdamW
+
+    return AdamW(lr=lr, weight_decay=weight_decay, grad_clip=grad_clip,
+                 trainable=is_adapter)
 
 
 def merge_lora(params):

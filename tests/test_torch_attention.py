@@ -111,7 +111,7 @@ def test_cuda_wrapper_rejects_without_launching(bad):
     assert t_attn.flash_attention_cuda.launches == before
 
 
-KERNEL_SOURCES = ["conv_gn_silu.cu", "flash_attn_fwd.cu",
+KERNEL_SOURCES = ["conv_gn_silu.cu", "flash_attn_bwd.cu", "flash_attn_fwd.cu",
                   "group_norm_silu.cu", "matmul_int8w.cu", "matmul_w8a8.cu"]
 
 

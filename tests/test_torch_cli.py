@@ -3,7 +3,8 @@
 cases (info, generate to PNG and to raw ``.bin`` with ``show``, the
 img2img and inpaint flags, a bad sampler), each ported subcommand's option
 set against the reference parser's, read from both ``--help`` outputs,
-``SAMPLER_CHOICES`` against the port's registry, the refused subcommands,
+``SAMPLER_CHOICES`` against the port's registry, the refused subcommands
+(``train`` is ported: ``tests/test_torch_train.py`` runs it),
 ``serve``'s Context and ``warmup`` with its artifact's member check."""
 
 import io
@@ -121,7 +122,7 @@ def _options(main_fn, cmd, capsys):
 
 
 @pytest.mark.parametrize("cmd", ["generate", "show", "serve", "warmup",
-                                 "info"])
+                                 "info", "train"])
 def test_option_set_is_the_references(cmd, capsys):
     assert _options(main, cmd, capsys) == _options(j_cli.main, cmd, capsys)
 
@@ -141,8 +142,7 @@ def test_sampler_choices_are_the_registry():
     assert t_cli.SAMPLER_CHOICES == j_cli.SAMPLER_CHOICES
 
 
-@pytest.mark.parametrize("cmd,item", [("train", "item 22"),
-                                      ("bench", "item 25"),
+@pytest.mark.parametrize("cmd,item", [("bench", "item 25"),
                                       ("profile", "item 25"),
                                       ("sweep", "item 25"),
                                       ("analyze", "item 25")])

@@ -131,11 +131,12 @@ def test_flash_rows_follow_the_card():
 
 
 def _fake(shape, dtype=torch.bfloat16, device="cuda", contiguous=True,
-          ptr=0):
+          ptr=0, requires_grad=False):
     """What a dispatch rule reads of a tensor, without a card."""
     return types.SimpleNamespace(
         shape=torch.Size(shape), dtype=dtype, device=torch.device(device),
-        is_contiguous=lambda: contiguous, data_ptr=lambda: ptr)
+        is_contiguous=lambda: contiguous, data_ptr=lambda: ptr,
+        requires_grad=requires_grad)
 
 
 @pytest.mark.parametrize("case,c,heads,want", [
@@ -149,17 +150,24 @@ def _fake(shape, dtype=torch.bfloat16, device="cuda", contiguous=True,
     ("cpu_float32", 320, 8, True),     # the plain version takes any dtype
     ("cpu_float32", 20, 1, True),
     ("cpu_bf16", 520, 1, True),
+    # under autograd the backward kernel's contract too: d <= 128
+    ("bf16_grad", 320, 8, True),
+    ("bf16_grad", 1024, 8, True),      # d = 128
+    ("bf16_grad", 512, 1, False),      # d = 512: the plain sdpa, which
+    ("cpu_grad", 512, 1, True),        # autograd differentiates
 ])
 def test_flash_rule_is_the_kernel_contract(case, c, heads, want):
     """K1's static rule reads the tensors: the reference's sequence clause,
     then, on a CUDA tensor, what ``flash_attention_cuda`` takes (bf16,
     contiguous, aligned, a head dim it is built for); on a CPU tensor the
     plain version, any floating dtype. Taken by the rule alone, on stand-ins
-    for tensors of either device type."""
+    for tensors of either device type; under grad, the backward's contract
+    too (a head dim of at most 128 on the card)."""
     dtype = torch.float32 if "float32" in case else torch.bfloat16
     device = "cpu" if case.startswith("cpu") else "cuda"
     t = _fake((2, 4096, c), dtype, device, contiguous=case != "strided",
-              ptr=8 if case == "unaligned" else 0)
+              ptr=8 if case == "unaligned" else 0,
+              requires_grad=case.endswith("grad"))
     assert t_attn.uses_kernel(t, t, t, heads) is want
     short = _fake((2, 77, c), dtype, device)
     assert t_attn.uses_kernel(short, short, short, heads) is False
@@ -469,7 +477,8 @@ def test_w8a8_plan_is_what_the_wrapper_passes(monkeypatch):
     monkeypatch.setattr(t_mm, "_check_operands",
                         lambda x, w, v: (x.shape[0], *w.shape))
     xs = types.SimpleNamespace(numel=lambda: 1, device=torch.device("cpu"),
-                               float=lambda: torch.ones(1))
+                               float=lambda: torch.ones(1),
+                               requires_grad=False)
     monkeypatch.setattr(torch, "is_tensor", lambda t: True)
     before = t_mm.matmul_w8a8_cuda.launches
     sums = t_mm.matmul_w8a8_cuda.sum_launches
@@ -1036,6 +1045,8 @@ def test_parse_ptxas_reads_registers_and_spills():
 
 @pytest.mark.parametrize("module,fn,pointers,ints", [
     (t_attn, "sdtpu_flash_attn_fwd", 4, 8),
+    (t_attn, "sdtpu_flash_attn_fwd_lse", 5, 8),
+    (t_attn, "sdtpu_flash_attn_bwd", 11, 6),
     (t_mm, "sdtpu_matmul_int8w", 6, 7),
     (t_mm, "sdtpu_matmul_w8a8", 7, 7),
     (t_conv, "sdtpu_conv_gn_silu", 9, 16),
@@ -1049,7 +1060,8 @@ def test_bind_declares_the_c_signature(module, fn, pointers, ints):
     ints (K2's eps, a float, among them), in the entry point's order."""
     import ctypes
 
-    names = ("sdtpu_flash_attn_fwd", "sdtpu_matmul_int8w",
+    names = ("sdtpu_flash_attn_fwd", "sdtpu_flash_attn_fwd_lse",
+             "sdtpu_flash_attn_bwd", "sdtpu_matmul_int8w",
              "sdtpu_matmul_w8a8", "sdtpu_conv_gn_silu",
              "sdtpu_group_norm_silu", "sdtpu_group_norm_affine",
              "sdtpu_group_norm_clusters")
@@ -1064,6 +1076,8 @@ def test_bind_declares_the_c_signature(module, fn, pointers, ints):
                             + [ctypes.c_void_p])
     assert sig.restype is ctypes.c_int
     src = (_build.SRC_DIR / {"sdtpu_flash_attn_fwd": "flash_attn_fwd.cu",
+                             "sdtpu_flash_attn_fwd_lse": "flash_attn_fwd.cu",
+                             "sdtpu_flash_attn_bwd": "flash_attn_bwd.cu",
                              "sdtpu_matmul_int8w": "matmul_int8w.cu",
                              "sdtpu_matmul_w8a8": "matmul_w8a8.cu",
                              "sdtpu_conv_gn_silu": "conv_gn_silu.cu"}.get(
@@ -1256,16 +1270,23 @@ def _calibrated(tree):
 def _recorders(mode, log, part):
     """The kernel wrappers replaced by recorders that return empty meta
     tensors of the kernel's output shape, appending each call's key to
-    ``log[(part[0], kernel)]``, under ``mode``'s flags. Keys: flash (b,
-    sq, c, heads); group_norm (n, hw, c, groups, eps, silu);
+    ``log[(part[0], kernel)]``, under ``mode``'s flags. Keys: flash and
+    flash_bwd (b, sq, c, heads); group_norm (n, hw, c, groups, eps, silu);
     group_norm_affine (n, hw, c, groups); conv (n, h, w, c_in, c_out, k,
     int8); matmul_int8w and matmul_w8a8 (m, k, n)."""
     def put(kernel, key):
         log.setdefault((part[0], kernel), []).append(key)
 
-    def flash(q, k, v, heads):
+    def flash(q, k, v, heads, with_lse=False):
         put("flash", (q.shape[0], q.shape[1], q.shape[2], heads))
+        if with_lse:
+            return torch.empty_like(q), q.new_empty(
+                (q.shape[0] * heads, q.shape[1]), dtype=torch.float32)
         return torch.empty_like(q)
+
+    def flash_bwd(q, k, v, out, lse, do, heads):
+        put("flash_bwd", (q.shape[0], q.shape[1], q.shape[2], heads))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
     def gn(p, x, groups, eps, silu):
         put("group_norm", (x.shape[0], x.numel() // (x.shape[0] * x.shape[-1]),
@@ -1300,6 +1321,7 @@ def _recorders(mode, log, part):
     mp = pytest.MonkeyPatch()
     mp.setattr(torch.nn.functional, "conv2d", channels_last_conv2d)
     mp.setattr(t_attn, "flash_attention_cuda", flash)
+    mp.setattr(t_attn, "flash_attention_bwd_cuda", flash_bwd)
     mp.setattr(t_gn, "group_norm_cuda", gn)
     mp.setattr(t_conv, "gn_affine", affine)
     mp.setattr(t_conv, "fused_conv_cuda", conv)
@@ -2272,6 +2294,159 @@ def test_rules_take_every_serving_site(kernel):
 
 
 # ---------------------------------------------------------------------------
+# training: one SD1.5 train step at 512^2, batch 2, forward and backward,
+# recorded on the meta device through the port's own ldm_loss with every
+# kernel wrapper (K1-bwd's too) replaced by a recorder
+# ---------------------------------------------------------------------------
+
+_TRAIN_LOGS = {}
+
+
+def _train_log(arm):
+    """{(part, kernel): [call key, ...]} of one train step's loss and its
+    gradients of ``chip_smoke.TRAIN_CONFIG`` at its full width under
+    ``kernels="cuda"``: ``arm`` "cuda", "cuda_remat" or "cuda_images" (the
+    images path: the encoder inside the loss)."""
+    if arm not in _TRAIN_LOGS:
+        from sdtpu_torch.config import CONFIGS
+        from sdtpu_torch.models import clip, temb, vae
+        from sdtpu_torch.train import step as T
+
+        cfg = CONFIGS[chip_smoke.TRAIN_CONFIG]
+        meta = torch.device("meta")
+        if "masters" not in _TRAIN_LOGS:
+            # float32 masters: the serving tests' bf16 meta UNet, cast
+            masters = _meta_tree(_meta_unet(cfg, "cuda"), torch.float32)
+            for _, p in T.leaves(masters):
+                p.requires_grad_(True)
+            _TRAIN_LOGS["masters"] = masters
+            _TRAIN_LOGS["frozen"] = {
+                "clip": _meta_tree(clip.init(cfg.clip, None, meta)),
+                "temb": _meta_tree(temb.init(cfg.unet, None, meta)),
+                "vae_enc": _meta_tree(vae.init_encoder(cfg.vae, None,
+                                                       meta))}
+        masters = _TRAIN_LOGS["masters"]
+        b, s = chip_smoke.TRAIN_BATCH, cfg.latent_size
+        lat = (b, s, s, cfg.latent_channels)
+        batch = {"tokens": torch.empty((b, cfg.clip.context_len),
+                                       dtype=torch.int32, device=meta)}
+        if arm == "cuda_images":
+            batch["images"] = torch.empty((b, cfg.image_size,
+                                           cfg.image_size, 3), device=meta)
+        else:
+            batch["latents"] = torch.empty(lat, device=meta)
+        draws = {"t": torch.empty((b,), dtype=torch.int64, device=meta),
+                 "eps": torch.empty(lat, device=meta),
+                 "posterior": torch.empty(lat, device=meta)}
+        log = {}
+        with _recorders("cuda", log, ("unet",)):
+            loss = T.ldm_loss(masters, _TRAIN_LOGS["frozen"], batch, None,
+                              cfg, "cuda", arm == "cuda_remat", draws=draws)
+            torch.autograd.grad(loss, [p for _, p in T.leaves(masters)])
+        _TRAIN_LOGS[arm] = log
+    return _TRAIN_LOGS[arm]
+
+
+@pytest.mark.parametrize("arm", ["cuda", "cuda_remat", "cuda_images"])
+def test_train_pins_are_the_rules(arm):
+    """A train step's launches, from the recording, are the smoke run's
+    pins (``chip_smoke.TRAIN_PINNED``): K1 10 forward and 10 backward
+    calls a step (the 64x64 and 32x32 self-attentions), 20 forward with
+    remat, one more forward (the encoder's mid block, no backward) on the
+    images path; the plain policy launches none."""
+    got = dict.fromkeys(chip_smoke.KERNEL_NAMES + ("flash_bwd",), 0)
+    for (_, kernel), keys in _train_log(arm).items():
+        got[kernel] += len(keys)
+    assert got == chip_smoke.TRAIN_PINNED[arm]
+    assert chip_smoke.TRAIN_PINNED["cuda"]["flash_bwd"] == 10
+    for plain in ("plain", "plain_remat"):
+        assert not any(chip_smoke.TRAIN_PINNED[plain].values())
+
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_flash_bwd_plan_covers_every_head_dim(d):
+    """K1-bwd's rule at every head dim of its contract: the least padded
+    dim that holds d, 64-row streamed tiles up to dpad 64 and 32 above, an
+    instantiation in the C entry point's switch, which computes the same
+    rule and refuses any other plan."""
+    dpad, bt = t_attn.plan_bwd(d, 4096, 16)
+    assert dpad == min(p for p in t_attn.BWD_DPADS if p >= d)
+    assert bt == (64 if dpad <= 64 else 32)
+    src = (_build.SRC_DIR / "flash_attn_bwd.cu").read_text()
+    assert f"case {dpad * 1000 + bt}: return (int)launch<{dpad}, {bt}>" in src
+    assert "const int want = d <= 80 ? (d + 15) / 16 * 16 : 128;" in src
+    want = (d + 15) // 16 * 16 if d <= 80 else 128
+    assert (dpad, bt) == (want, 64 if want <= 64 else 32)
+
+
+def _check_bwd_site(b, s, c, heads):
+    """One self-attention site under grad through K1-bwd's rule and the
+    forward's statistics instantiation: the plan within what the C entry
+    points accept."""
+    d = c // heads
+    dpad, bt = t_attn.plan_bwd(d, s, b * heads)
+    assert dpad in t_attn.BWD_DPADS and d <= dpad < 2 * d + 16
+    assert bt == (64 if dpad <= 64 else 32)
+    rows = 64
+    smem = ((2 * rows + 4 * bt) * (dpad + 8) * 2 + 4 * bt * 4)
+    assert smem <= SMEM_CAP
+    assert b * heads <= 65535 and b * s * c < 2 ** 31
+    fdpad, frows, fbkv = t_attn.plan(d, s, s, b * heads, SMS)
+    assert fdpad <= 128 and fbkv == 64     # the statistics' instantiations
+
+
+def test_rules_take_every_train_site():
+    """K1-bwd's static rule at every self-attention that takes the kernel
+    in a train step of SD1.5 (recorded), and of SD 2.1 and SDXL (their
+    UNets' kernel sites at batch 2 and full width: head dim 64 everywhere,
+    so under grad each takes the kernel as in inference)."""
+    sites = {key for arm in ("cuda", "cuda_remat")
+             for (_, kernel), keys in _train_log(arm).items()
+             if kernel == "flash_bwd" for key in keys}
+    assert sites == {(2, 4096, 320, 8), (2, 1024, 640, 8)}
+    for name in ("sd21", "sdxl"):
+        fam = {key for key in _part_log("unet", name, "cuda").get(
+            ("unet", "flash"), [])}
+        assert fam and all(c // h <= t_attn.BWD_MAX_HEAD_DIM
+                           for _, _, c, h in fam)
+        sites |= fam
+    for site in sorted(sites):
+        _check_bwd_site(*site)
+    for b, s, c, heads in chip_smoke.TRAIN_SITES + chip_smoke.TRAIN_RAGGED:
+        _check_bwd_site(b, s, c, heads)
+
+
+def _grad_guard_calls():
+    """Each K2-K5 wrapper with one argument that requires grad."""
+    x = torch.zeros((1, 4, 4, 8), requires_grad=True)
+    p = {"scale": torch.ones(8), "bias": torch.zeros(8)}
+    w8 = torch.zeros((8, 8), dtype=torch.int8)
+    return {
+        "group_norm": lambda: t_gn.group_norm_cuda(p, x, 2),
+        "group_norm_affine": lambda: t_gn.group_norm_affine_cuda(p, x, 2),
+        "conv": lambda: t_conv.fused_conv_cuda(
+            x, torch.zeros((8, 8, 3, 3)), torch.zeros(8)),
+        "matmul_int8w": lambda: t_mm.matmul_int8w_cuda(
+            x.reshape(16, 8), w8, torch.ones(8)),
+        "matmul_w8a8": lambda: t_mm.matmul_w8a8_cuda(
+            x.reshape(16, 8), w8, torch.ones(8), torch.ones(())),
+    }
+
+
+@pytest.mark.parametrize("kernel", sorted(_grad_guard_calls()))
+def test_kernels_without_a_backward_refuse_grad(kernel):
+    """K2-K5 launch through ctypes and have no backward: on a tensor that
+    requires grad each wrapper raises ``NoBackwardError`` before anything
+    else (it would cut the graph); under ``no_grad`` the guard lets the
+    call through to the wrapper's own checks."""
+    call = _grad_guard_calls()[kernel]
+    with pytest.raises(_build.NoBackwardError, match="no backward"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError):
+        call()      # a CPU tensor: the wrapper's own refusal
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -2830,3 +3005,57 @@ def test_cuda_tiny_xl_context_against_plain(policy):
     assert np.abs(got - ref).max() / scale <= 2.0 * max(gap_plain, 1e-3)
     assert np.array_equal(got, ctx.generate("a horse", seed=5,
                                             output="latent"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,heads", chip_smoke.TRAIN_SITES
+                         + chip_smoke.TRAIN_RAGGED)
+def test_cuda_flash_bwd_matches_plain(b, s, c, heads):
+    """K1-bwd against its plain version at the training sites and ragged
+    shapes of its contract: dq, dk, dv each within the smoke run's
+    ``KERNEL_TOL`` of the plain version's max-abs; the same bytes twice;
+    the forward's statistics are each row's log-sum-exp."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((b, s, c), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = t_attn.flash_attention_cuda(q, k, v, heads, with_lse=True)
+    assert torch.equal(out, t_attn.flash_attention_cuda(q, k, v, heads))
+    d = c // heads
+    qh, kh = (t.float().view(b, s, heads, d).transpose(1, 2) for t in (q, k))
+    ref_lse = torch.logsumexp(torch.einsum("bhqd,bhkd->bhqk", qh, kh)
+                              / d ** 0.5, dim=-1).reshape(b * heads, s)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    grads = t_attn.flash_attention_bwd_cuda(q, k, v, out, lse, do, heads)
+    again = t_attn.flash_attention_bwd_cuda(q, k, v, out, lse, do, heads)
+    torch.cuda.synchronize()
+    refs = t_attn.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), do.float(), heads)
+    for x, y, r in zip(grads, again, refs):
+        assert torch.equal(x, y)
+        assert (x.float() - r).abs().max().item() <= (
+            chip_smoke.KERNEL_TOL * r.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_grad_guard_calls()))
+def test_cuda_kernels_without_a_backward_refuse_grad(kernel):
+    """The same guard on CUDA tensors: nothing launches."""
+    _needs_card()
+    x = torch.zeros((1, 4, 4, 8), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    p = {"scale": torch.ones(8, device="cuda"),
+         "bias": torch.zeros(8, device="cuda")}
+    w8 = torch.zeros((8, 8), dtype=torch.int8, device="cuda")
+    one = torch.ones(8, device="cuda")
+    call = {"group_norm": lambda: t_gn.group_norm_cuda(p, x, 2),
+            "group_norm_affine": lambda: t_gn.group_norm_affine_cuda(p, x, 2),
+            "conv": lambda: t_conv.fused_conv_cuda(
+                x, torch.zeros((8, 8, 3, 3), device="cuda",
+                               dtype=torch.bfloat16), one),
+            "matmul_int8w": lambda: t_mm.matmul_int8w_cuda(
+                x.reshape(16, 8), w8, one),
+            "matmul_w8a8": lambda: t_mm.matmul_w8a8_cuda(
+                x.reshape(16, 8), w8, one, torch.ones((), device="cuda"))}
+    with pytest.raises(_build.NoBackwardError):
+        call[kernel]()
