@@ -7,9 +7,9 @@ Phases, each printing one JSON object per line:
 1. device: the card's name and power limit (also printed raw, as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them), torch and CUDA versions;
-2. build: nvcc builds the five kernels from sdtpu_torch/csrc (first use);
-   resources: registers and spills of the wgmma kernels (K1, K3, K4, K5),
-   from ptxas, taken beside the build;
+2. build: nvcc builds the six kernel sources from sdtpu_torch/csrc (first
+   use); resources: registers and spills of the wgmma kernels (K1, K1-bwd,
+   K3, K4, K5), from ptxas, taken beside the build: none may spill;
 3. kernel: the flash-attention kernel (K1) against its plain version at the
    main path's shapes (and d=64 as a look ahead), error and device
    times, beside ``F.scaled_dot_product_attention`` as a yardstick and the
@@ -219,11 +219,14 @@ Phases, each printing one JSON object per line:
    with ``SERVING_PINNED`` (the stream server's from its ticks and
    decodes); s/image, device busy ms; then kernel_serving: K1 at the
    pool's N = 8 and the decodes of 1 to 4 slots against its plain version.
-21. train, after the serving phase: K1-bwd (``flash_attn_bwd.cu``) against
-   its plain version at the training sites (SD1.5's 64x64 and 32x32
-   self-attention at batch 2, d = 64) and ragged shapes of its contract,
-   each of dq, dk, dv within ``KERNEL_TOL``, the same bytes twice, device
-   ms beside the bound, the plain version and SDPA's backward; then SD1.5
+21. train, after the breakdowns, with the four SD1.5 inference Contexts
+   released (the step's peak memory is its own): K1-bwd
+   (``flash_attn_bwd.cu``, wgmma) against its plain version at the
+   training sites (SD1.5's 64x64 and 32x32 self-attention at batch 2, d =
+   64) and ragged shapes of its contract, each of dq, dk, dv within
+   ``KERNEL_TOL``, the same bytes twice, its plan, design, registers and
+   spills, device ms and TFLOP/s beside the bound, the plain version and
+   SDPA's backward; then SD1.5
    at full width, 512^2, demo weights, float32 masters, bf16 compute, batch
    2, through ``train.make_train_step``: one step's gradients from the same
    draws under cuda and plain, remat off and on, each against a float32
@@ -737,14 +740,14 @@ def phase_device():
     return name, smi
 
 
-WGMMA_SOURCES = ("flash_attn_fwd.cu", "conv_gn_silu.cu", "matmul_int8w.cu",
-                 "matmul_w8a8.cu")
+WGMMA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "conv_gn_silu.cu",
+                 "matmul_int8w.cu", "matmul_w8a8.cu")
 
 
 def phase_build():
     """Build and load the kernels; beside the build, ``nvcc -Xptxas -v`` on
-    the wgmma kernels' sources (K1, K3, K4, K5), none of which may spill,
-    and on K1-bwd's, for their registers and spills."""
+    the wgmma kernels' sources (K1, K1-bwd, K3, K4, K5), none of which may
+    spill. Returns the reports by source."""
     from concurrent.futures import ThreadPoolExecutor
 
     from sdtpu_torch.ops import _build
@@ -752,7 +755,7 @@ def phase_build():
     t0 = time.perf_counter()
     path = _build.library_path()
     fresh = not path.exists()
-    names = WGMMA_SOURCES + ("flash_attn_bwd.cu",)
+    names = WGMMA_SOURCES
     with ThreadPoolExecutor(len(names)) as pool:
         reports = [pool.submit(_build.ptxas_report, _build.SRC_DIR / n)
                    for n in names]
@@ -764,9 +767,9 @@ def phase_build():
         reports = [r.result() for r in reports]
     for name, report in zip(names, reports):
         emit({"phase": "resources", "source": name, "kernels": report})
-        if not report or (name in WGMMA_SOURCES and any(
-                r["spill_store_bytes"] for r in report)):
+        if not report or any(r["spill_store_bytes"] for r in report):
             raise AssertionError(f"{name}: a kernel spills: {report}")
+    return dict(zip(names, reports))
 
 
 def flash_plain_chunks(b, sq, sk, heads):
@@ -4150,16 +4153,43 @@ def reset_train_counts():
     A.flash_attention_bwd_cuda.launches = 0
 
 
-def phase_train_kernels():
+BWD_DESIGN = ("wgmma: a dq kernel (S, dP recomputed; D and lse2 of its "
+              "rows) then a dk/dv kernel, each writing its own rows, no "
+              "atomics; ss S/dP, rs_mn dv/dk/dq; cp.async ring into "
+              "128-byte-swizzled tiles, copy slots worked out once; with "
+              "one warpgroup a block, a tile's last product under the next "
+              "tile's S and dP")
+
+
+def bwd_resources(resources, plan):
+    """Registers and spill bytes of the two K1-bwd kernels that ``plan``
+    instantiates, from ``phase_build``'s reports (demangled or mangled
+    names)."""
+    dpad, rows, bkv, bq = plan
+    got = {}
+    for kernel, bt in (("dq", bq), ("dkdv", bkv)):
+        names = (f"flash_bwd_{kernel}_kernel<{dpad}, {bt}, {rows // 64},",
+                 f"flash_bwd_{kernel}_kernelILi{dpad}ELi{bt}ELi{rows // 64}E")
+        for r in (resources or {}).get("flash_attn_bwd.cu", []):
+            if any(n in r["kernel"].replace("(int)", "") for n in names):
+                got[kernel] = r
+    return {"registers": {k: r["registers"] for k, r in got.items()},
+            "spill_store_bytes": sum(r["spill_store_bytes"]
+                                     for r in got.values())}
+
+
+def phase_train_kernels(resources=None):
     """K1-bwd against its plain version (``flash_attention_bwd_reference``,
     float32 on the same bf16 inputs) at ``TRAIN_SITES`` and
     ``TRAIN_RAGGED``: dq, dk and dv each within ``KERNEL_TOL`` of the plain
-    version's max-abs; at the sites the device times of the kernel, the
-    plain version and the library's backward (``F.scaled_dot_product_
-    attention`` forward and backward less its forward), beside the bound:
-    the larger of the five products' 10 BH S^2 d operations at the bf16
-    peak, the S^2 exponentials a head at ``PEAK_EXP`` and the bytes
-    (q, k, v, o, do, lse in; dq, dk, dv out)."""
+    version's max-abs; each row with its plan, design and the registers
+    and spills of its instantiation (``resources``: ``phase_build``'s
+    reports); at the sites the device times of the kernel, the plain
+    version and the library's backward (``F.scaled_dot_product_
+    attention`` forward and backward less its forward), the kernel's
+    TFLOP/s beside the bound's: the larger of the five products' 10 BH S^2
+    d operations at the bf16 peak, the S^2 exponentials a head at
+    ``PEAK_EXP`` and the bytes (q, k, v, o, do, lse in; dq, dk, dv out)."""
     from sdtpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
@@ -4188,6 +4218,8 @@ def phase_train_kernels():
         by_bytes = nbytes / PEAK_BYTES * 1e3
         row = {"shape": [b, s, c], "heads": heads, "head_dim": d,
                "plan": list(A.plan_bwd(d, s, b * heads)),
+               "design": BWD_DESIGN,
+               **bwd_resources(resources, A.plan_bwd(d, s, b * heads)),
                "max_abs_err": max(errs.values()), "errs": errs,
                "ref_abs_max": maxes,
                "deterministic": all(torch.equal(x, y)
@@ -4202,6 +4234,7 @@ def phase_train_kernels():
             row["plain_ms"] = cuda_ms(lambda: A.flash_attention_bwd_reference(
                 q, k, v, do, heads))
             row["tflops"] = ops / row["ms"] / 1e9
+            row["bound_tflops"] = ops / row["bound_ms"] / 1e9
             # the one PyTorch call with the same function, as a yardstick
             # only: the backward of SDPA, its forward and backward less its
             # forward (the port never calls it)
@@ -4275,10 +4308,13 @@ def same_bytes(a, b):
         pa == pb and torch.equal(x, y) for (pa, x), (pb, y) in zip(la, lb))
 
 
-def phase_train(smi):
+def phase_train(smi, resources=None):
     """Training on SD1.5 at its published widths and depth, 512^2, demo
     weights, float32 masters, bf16 compute, batch ``TRAIN_BATCH`` (module
-    docstring, item 21). Returns (launches per arm, K1-bwd's rows)."""
+    docstring, item 21), run after the inference Contexts are released, so
+    that its peak memory is the step's own. ``resources``: ``phase_build``'s
+    reports, for K1-bwd's registers and spills. Returns (launches per arm,
+    K1-bwd's rows)."""
     from sdtpu_torch.models.layers import disable_tf32
 
     start = time.perf_counter()
@@ -4289,12 +4325,12 @@ def phase_train(smi):
     before = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        return _phase_train(smi, start)
+        return _phase_train(smi, start, resources)
     finally:
         torch.backends.cudnn.deterministic = before
 
 
-def _phase_train(smi, start):
+def _phase_train(smi, start, resources):
     import dataclasses
 
     from sdtpu_torch.config import CONFIGS
@@ -4302,7 +4338,7 @@ def _phase_train(smi, start):
     from sdtpu_torch.train import lora as L
     from sdtpu_torch.train import step as T
 
-    rows = phase_train_kernels()
+    rows = phase_train_kernels(resources)
     cfg = CONFIGS[TRAIN_CONFIG]
     res = {"phase": "train", "nvidia_smi": smi, "config": TRAIN_CONFIG,
            "batch": TRAIN_BATCH, "lr": TRAIN_LR}
@@ -4670,7 +4706,7 @@ def main() -> int:
     from sdtpu_torch import Context
 
     name, smi = phase_device()
-    phase_build()
+    resources = phase_build()
     rows = phase_kernel()
     ctx = Context(config="sd15", steps=STEPS, sampler="dpm", kernels="auto",
                   seed=0, device="cuda")
@@ -4746,10 +4782,6 @@ def main() -> int:
     # the serving infrastructure (the HTTP service, the stream pool, the
     # CLI, the C API) on the same Context, then K1 at the shapes it brings
     serving_launches, serving_rows = phase_serving(ctx, smi)
-    # training: K1-bwd at the training sites, the SD1.5 train step (cuda
-    # and plain, remat off and on) against float32, its pins, determinism,
-    # LoRA, the CLI
-    train_launches, train_rows = phase_train(smi)
 
     # the user's model: the demo weights written as checkpoint files and
     # served from them, then the text features on the native file
@@ -4777,6 +4809,12 @@ def main() -> int:
     with w8a8_kernel(True):
         phase_breakdown(ctx_i, "cuda")
     release(ctx, ctx_d, ctx_w, ctx_i)
+
+    # training on the card's own memory, with the inference Contexts
+    # released: K1-bwd at the training sites, the SD1.5 train step (cuda
+    # and plain, remat off and on) against float32, its pins, determinism,
+    # LoRA, the CLI
+    train_launches, train_rows = phase_train(smi, resources)
 
     # the SD 2.x and SDXL families at full width, then every kernel at their
     # sites
@@ -4870,7 +4908,8 @@ def main() -> int:
          "library_ms": bwd_main["library_ms"],
          "library": "F.scaled_dot_product_attention's backward: its "
                     "forward and backward less its forward",
-         "plan": bwd_main["plan"],
+         "plan": bwd_main["plan"], "design": bwd_main["design"],
+         "registers": bwd_main["registers"],
          "timed_shape": bwd_main["shape"] + [bwd_main["heads"]],
          "shapes": train_rows},
         {"name": "group_norm_silu", "route": "cuda",

@@ -26,11 +26,11 @@ from __future__ import annotations
 
 from pathlib import Path
 
-# accumulator widths by form. ss: the flash kernel's key tiles (32, 64) and
-# the GEMM's column tiles (128, 160); rs_mn: the flash kernel's padded head
-# dims (16 .. 128) and the halves of 256 and 512 (128, 256); rs: the fused
-# conv's column tiles; ss_s8: the W8A8 GEMM's column tiles (256 for its
-# wide sites)
+# accumulator widths by form. ss: the flash kernels' key and query tiles
+# (32, 64) and the GEMM's column tiles (128, 160); rs_mn: the flash kernels'
+# padded head dims (16 .. 128) and the halves of 256 and 512 (128, 256); rs:
+# the fused conv's column tiles; ss_s8: the W8A8 GEMM's column tiles (256
+# for its wide sites)
 FORMS = {"ss": (32, 64, 128, 160), "rs_mn": (16, 32, 48, 64, 80, 128, 256),
          "rs": (128, 160), "ss_s8": (128, 160, 256)}
 WIDTHS = tuple(sorted({n for widths in FORMS.values() for n in widths}))

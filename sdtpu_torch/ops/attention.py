@@ -102,25 +102,33 @@ def plan(d: int, sq: int, sk: int, batch_heads: int, sms: int):
 
 # padded head dims the backward kernel is built for
 BWD_DPADS = (16, 32, 48, 64, 80, 128)
+# the lse2 and D scratch rows of the backward, padded to a multiple of this
+BWD_SPAD = 64
 
 
 def plan_bwd(d: int, s: int, batch_heads: int):
-    """The backward launcher's static rule: ``(dpad, bt)`` for a head dim
-    ``d`` (a multiple of 8, at most 128). ``dpad``: the least of
-    ``BWD_DPADS`` that holds ``d``, zero in shared memory only. ``bt``, the
-    rows of the tile a block streams (queries in the dk/dv kernel, keys in
-    the dq kernel) past its own 64: 64 up to dpad 64, 32 above, where a
-    warp's two f32 accumulators of 16 x dpad already take dpad registers a
-    thread. Both kernels' grids are ``(ceil(s / 64), batch_heads)``. The C
-    entry point takes both and refuses a combination this rule does not
-    give."""
+    """The backward launcher's static rule: ``(dpad, rows, bkv, bq)`` for a
+    head dim ``d`` (a multiple of 8, at most 128). ``dpad``: the least of
+    ``BWD_DPADS`` that holds ``d``, zero in shared memory only. ``rows``,
+    the queries a dq block owns and the keys a dk/dv block owns: 128 (two
+    warpgroups sharing each streamed tile) up to dpad 48, where two such
+    blocks fit an SM's registers; 64 (one warpgroup) above, where the dk/dv
+    kernel's two f32 accumulators take dpad registers a thread. ``bkv`` and
+    ``bq``, the rows of the tile the dk/dv kernel (queries) and the dq
+    kernel (keys) stream: 64 in general; 32 for dk/dv up to dpad 48 (so
+    that its block keeps to 128 registers a thread) and for both at dpad
+    128 (so that neither spills). Both kernels' grids are ``(ceil(s / rows),
+    batch_heads)``. The C entry point takes all four and refuses a
+    combination this rule does not give."""
     if d <= 0 or d % 8 or d > BWD_MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} must be a multiple of 8 and <= "
                          f"{BWD_MAX_HEAD_DIM}")
     if s <= 0 or batch_heads <= 0:
         raise ValueError("empty attention problem")
     dpad = next(p for p in BWD_DPADS if p >= d)
-    return dpad, 64 if dpad <= 64 else 32
+    return (dpad, 128 if dpad <= 48 else 64,
+            32 if dpad <= 48 or dpad == 128 else 64,
+            32 if dpad == 128 else 64)
 
 
 def flash_attention(q, k, v, heads: int):
@@ -274,7 +282,7 @@ flash_attention_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, do, heads: int):
-    """Launch the backward kernel (pre-pass, dk/dv, dq) on
+    """Launch the backward kernels (dq with D and lse2, then dk/dv) on
     ``torch.cuda.current_stream()``: ``(dq, dk, dv)``, bf16.
 
     q, k, v, out (the forward's output), do: [B, S, C] bf16, contiguous, on
@@ -307,16 +315,18 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, do, heads: int):
     from sdtpu_torch.ops import _build
 
     lib = _build.library()
-    dpad, bt = plan_bwd(d, s, b * heads)
+    dpad, rows, bkv, bq = plan_bwd(d, s, b * heads)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta, lse2 = (torch.empty_like(lse) for _ in range(2))
+    spad = -(-s // BWD_SPAD) * BWD_SPAD
+    delta, lse2 = (torch.empty((b * heads, spad), dtype=torch.float32,
+                               device=q.device) for _ in range(2))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sdtpu_flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), lse2.data_ptr(), b, heads, s,
-            d, dpad, bt, stream)
+            d, dpad, rows, bkv, bq, stream)
     _build.check_launch(err, "flash_attn_bwd")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
@@ -330,7 +340,7 @@ def bind(lib: ctypes.CDLL) -> None:
     so ctypes does not cut them to 32 bits)."""
     for name, pointers, ints in (("sdtpu_flash_attn_fwd", 4, 8),
                                  ("sdtpu_flash_attn_fwd_lse", 5, 8),
-                                 ("sdtpu_flash_attn_bwd", 11, 6)):
+                                 ("sdtpu_flash_attn_bwd", 11, 8)):
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])

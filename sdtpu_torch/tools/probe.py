@@ -4,6 +4,7 @@
     python3 -m sdtpu_torch.tools.probe w8a8     # K5, the W8A8 GEMM
     python3 -m sdtpu_torch.tools.probe gn       # K2, the GroupNorm's plans
     PYTHONPATH=. python3 <this file> gn_times   # K2 of the checkout in .
+    PYTHONPATH=. python3 <this file> bwd_times  # K1-bwd of the checkout in .
 
 Run from the repository's root (device times come from ``chip_smoke.cuda_ms``:
 CUDA-graph replays between CUDA events). Each probe prints one JSON object a
@@ -36,6 +37,12 @@ checkout it is imported from runs them (``group_norm_cuda``,
 ``group_norm_affine_cuda``): run by path from the root of another checkout,
 with ``PYTHONPATH=.``, it times that checkout's kernel, so two commits
 compare in one call.
+
+``bwd_times``: K1-bwd (``flash_attention_bwd_cuda``) at ``chip_smoke.
+TRAIN_SITES`` as the checkout it is imported from runs it, three times
+each, beside SDPA's backward (its forward and backward less its forward)
+on the same inputs; run by path from another checkout's root as
+``gn_times``.
 """
 
 from __future__ import annotations
@@ -243,13 +250,42 @@ def probe_gn_times() -> None:
                   p, x, 32, 1e-5))})
 
 
+def probe_bwd_times() -> None:
+    import torch.nn.functional as F
+
+    from chip_smoke import TRAIN_SITES, cuda_ms
+    from sdtpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for b, s, c, heads in TRAIN_SITES:
+        d = c // heads
+        q, k, v, do = (torch.randn((b, s, c), generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        out, lse = A.flash_attention_cuda(q, k, v, heads, with_lse=True)
+        ms = [cuda_ms(lambda: A.flash_attention_bwd_cuda(
+            q, k, v, out, lse, do, heads)) for _ in range(3)]
+        qh, kh, vh = (t.view(b, s, heads, d).transpose(1, 2).detach()
+                      .requires_grad_(True) for t in (q, k, v))
+        doh = do.view(b, s, heads, d).transpose(1, 2)
+
+        def fwd():
+            return F.scaled_dot_product_attention(qh, kh, vh)
+
+        both = cuda_ms(lambda: torch.autograd.grad(fwd(), (qh, kh, vh), doh))
+        emit({"probe": "bwd_times", "module": A.__file__,
+              "shape": [b, s, c], "heads": heads, "ms": ms,
+              "library_ms": both - cuda_ms(fwd)})
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 2
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     probes = {"conv": probe_conv, "w8a8": probe_w8a8, "gn": probe_gn,
-              "gn_times": probe_gn_times}
+              "gn_times": probe_gn_times, "bwd_times": probe_bwd_times}
     if what not in probes:
         print(f"usage: python3 -m sdtpu_torch.tools.probe {'|'.join(probes)}",
               file=sys.stderr)

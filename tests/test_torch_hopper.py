@@ -1002,15 +1002,20 @@ def test_wgmma_header_has_each_width(n, forms):
 def test_wgmma_forms_are_what_the_kernels_instantiate():
     """flash_attn_fwd.cu: ``ss`` over the keys of a step, ``rs_mn`` over a
     warpgroup's output columns (the padded head dim, half of it above 128);
+    flash_attn_bwd.cu: ``ss`` over its streamed tiles, ``rs_mn`` over its
+    padded head dim;
     matmul_int8w.cu: ``ss`` over its column tile; matmul_w8a8.cu: ``ss_s8``
     over its column tile; conv_gn_silu.cu: ``rs`` over its column tile."""
     forms = _generator().FORMS
     plans = [t_attn.plan(d, 4096, 4096, 16, SMS) for d in range(8, 513, 8)]
     bns = {t_mm.plan_int8w(m, 320, n, SMS)["bn"]
            for m in (64, 8192) for n in (320, 640, 130)}
-    assert set(forms["ss"]) == {bkv for _, _, bkv in plans} | bns
-    assert set(forms["rs_mn"]) == {dpad if dpad <= 128 else dpad // 2
-                                   for dpad, _, _ in plans}
+    bwd = [t_attn.plan_bwd(d, 4096, 16) for d in range(8, 129, 8)]
+    assert set(forms["ss"]) == ({bkv for _, _, bkv in plans} | bns
+                                | {bt for p in bwd for bt in p[2:]})
+    assert set(forms["rs_mn"]) == ({dpad if dpad <= 128 else dpad // 2
+                                    for dpad, _, _ in plans}
+                                   | {p[0] for p in bwd})
     assert set(forms["ss_s8"]) == {t_mm.plan_w8a8(m, k, n, SMS)["bn"]
                                    for m, k, n in _w8a8_sites() + MM_RAGGED}
     assert set(forms["rs"]) == {
@@ -1046,7 +1051,7 @@ def test_parse_ptxas_reads_registers_and_spills():
 @pytest.mark.parametrize("module,fn,pointers,ints", [
     (t_attn, "sdtpu_flash_attn_fwd", 4, 8),
     (t_attn, "sdtpu_flash_attn_fwd_lse", 5, 8),
-    (t_attn, "sdtpu_flash_attn_bwd", 11, 6),
+    (t_attn, "sdtpu_flash_attn_bwd", 11, 8),
     (t_mm, "sdtpu_matmul_int8w", 6, 7),
     (t_mm, "sdtpu_matmul_w8a8", 7, 7),
     (t_conv, "sdtpu_conv_gn_silu", 9, 16),
@@ -2363,36 +2368,179 @@ def test_train_pins_are_the_rules(arm):
         assert not any(chip_smoke.TRAIN_PINNED[plain].values())
 
 
+def _bwd_smem(dpad, rows, bt):
+    """Shared memory of a K1-bwd kernel: 1 KB of alignment slack, the
+    block's own two tiles of ``rows`` rows, a ring of two streamed tiles of
+    ``bt`` rows (three stages where a row is one column block of 64, else
+    two) and each stage's lse2 and D (read by the dk/dv kernel only), each
+    tile in column blocks of 64 bf16 (128-byte rows)."""
+    ch = -(-dpad // 64)
+    stages = 3 if ch == 1 else 2
+    return (1024 + 2 * ch * rows * 128 + stages * 2 * ch * bt * 128
+            + stages * 2 * bt * 4)
+
+
+def _bwd_want(d):
+    """K1-bwd's rule as the C entry point writes it."""
+    want = (d + 15) // 16 * 16 if d <= 80 else 128
+    return (want, 128 if want <= 48 else 64,
+            32 if want <= 48 or want == 128 else 64,
+            32 if want == 128 else 64)
+
+
 @pytest.mark.parametrize("d", range(8, 129, 8))
 def test_flash_bwd_plan_covers_every_head_dim(d):
     """K1-bwd's rule at every head dim of its contract: the least padded
-    dim that holds d, 64-row streamed tiles up to dpad 64 and 32 above, an
-    instantiation in the C entry point's switch, which computes the same
-    rule and refuses any other plan."""
-    dpad, bt = t_attn.plan_bwd(d, 4096, 16)
+    dim that holds d, blocks of two warpgroups (128 rows) up to dpad 48 and
+    one above, streamed tiles of 32 rows for dk/dv up to dpad 48 and for
+    both kernels at 128, 64 else; an instantiation in the C entry point's
+    switch, which computes the same rule and refuses any other plan; the
+    blocks an SM must hold fit its shared memory."""
+    dpad, rows, bkv, bq = t_attn.plan_bwd(d, 4096, 16)
     assert dpad == min(p for p in t_attn.BWD_DPADS if p >= d)
-    assert bt == (64 if dpad <= 64 else 32)
+    assert (dpad, rows, bkv, bq) == _bwd_want(d)
     src = (_build.SRC_DIR / "flash_attn_bwd.cu").read_text()
-    assert f"case {dpad * 1000 + bt}: return (int)launch<{dpad}, {bt}>" in src
+    minb = 2 if rows == 128 else 1
+    assert (f"case {dpad}: return (int)launch<{dpad}, {rows // 64}, {bkv}, "
+            f"{bq}, {minb}>(a, st);" in src)
     assert "const int want = d <= 80 ? (d + 15) / 16 * 16 : 128;" in src
-    want = (d + 15) // 16 * 16 if d <= 80 else 128
-    assert (dpad, bt) == (want, 64 if want <= 64 else 32)
+    assert "rows != (want <= 48 ? 128 : 64)" in src
+    assert "bkv != (want <= 48 || want == 128 ? 32 : 64)" in src
+    assert "bq != (want == 128 ? 32 : 64)" in src
+    assert f"constexpr int SPAD = {t_attn.BWD_SPAD};" in src
+    assert t_attn.BWD_SPAD % bkv == 0 and t_attn.BWD_SPAD % bq == 0
+    for bt in (bkv, bq):
+        assert _bwd_smem(dpad, rows, bt) * minb <= SMEM_CAP
 
 
 def _check_bwd_site(b, s, c, heads):
     """One self-attention site under grad through K1-bwd's rule and the
     forward's statistics instantiation: the plan within what the C entry
-    points accept."""
+    points accept (both kernels' grids, 32-bit indexing, the padded scratch
+    rows every streamed tile's statistics read, shared memory)."""
     d = c // heads
-    dpad, bt = t_attn.plan_bwd(d, s, b * heads)
+    dpad, rows, bkv, bq = t_attn.plan_bwd(d, s, b * heads)
     assert dpad in t_attn.BWD_DPADS and d <= dpad < 2 * d + 16
-    assert bt == (64 if dpad <= 64 else 32)
-    rows = 64
-    smem = ((2 * rows + 4 * bt) * (dpad + 8) * 2 + 4 * bt * 4)
-    assert smem <= SMEM_CAP
+    assert (dpad, rows, bkv, bq) == _bwd_want(d)
+    assert max(_bwd_smem(dpad, rows, bt) for bt in (bkv, bq)) <= SMEM_CAP
+    spad = -(-s // t_attn.BWD_SPAD) * t_attn.BWD_SPAD
+    assert -(-s // bkv) * bkv <= spad <= -(-s // rows) * rows
     assert b * heads <= 65535 and b * s * c < 2 ** 31
+    assert b * heads * spad < 2 ** 31
     fdpad, frows, fbkv = t_attn.plan(d, s, s, b * heads, SMS)
     assert fdpad <= 128 and fbkv == 64     # the statistics' instantiations
+
+
+def _emulate_bwd(q, k, v, do, heads):
+    """K1-bwd's design replayed with its arithmetic on [B, S, C] float32
+    tensors (bf16 values): the forward's output rounded to bf16 and its
+    log-sum-exp; the pre-pass's D = rowsum(do * o) and lse2 = lse log2(e),
+    padded with +inf and 0 to ``BWD_SPAD``; head dims zero-padded to
+    ``dpad``; dk/dv blocks of ``rows`` keys streaming query tiles of ``bkv``
+    (P^T = exp2(S^T scale log2(e) - lse2), rounded to bf16 for dv, dS^T =
+    P^T (dP^T - D) rounded to bf16 for dk) and dq blocks of ``rows``
+    queries streaming key tiles of ``bq`` (the last tile's keys past the
+    sequence masked), each product's sum in float32; outputs scaled and
+    rounded to bf16 as the kernels store them."""
+    b, s, c = q.shape
+    d = c // heads
+    dpad, rows, bkv, bq = t_attn.plan_bwd(d, s, b * heads)
+    scale = 1.0 / math.sqrt(d)
+    c2 = math.log2(math.e) * scale
+    bf = torch.bfloat16
+
+    def split(x):
+        x = x.reshape(b, s, heads, d).transpose(1, 2).reshape(b * heads, s, d)
+        return torch.nn.functional.pad(x, (0, dpad - d))
+
+    qh, kh, vh, doh = (split(t) for t in (q, k, v, do))
+    logits = torch.einsum("bqd,bkd->bqk", qh, kh) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    p = torch.softmax(logits, dim=-1).to(bf).float()
+    o = torch.einsum("bqk,bkd->bqd", p, vh).to(bf).float()
+    spad = -(-s // t_attn.BWD_SPAD) * t_attn.BWD_SPAD
+    lse2 = torch.full((b * heads, spad), math.inf)
+    lse2[:, :s] = lse * math.log2(math.e)
+    delta = torch.zeros((b * heads, spad))
+    delta[:, :s] = (doh * o).sum(-1)
+
+    def rows_of(x, r0, n):
+        out = torch.zeros((x.shape[0], n, dpad))
+        part = x[:, r0:r0 + n]
+        out[:, :part.shape[1]] = part
+        return out
+
+    dq, dk, dv = (torch.zeros_like(qh) for _ in range(3))
+    for r0 in range(0, s, rows):
+        kb, vb = rows_of(kh, r0, rows), rows_of(vh, r0, rows)
+        acc_k, acc_v = torch.zeros_like(kb), torch.zeros_like(vb)
+        for t0 in range(0, s, bkv):
+            qt, ot = rows_of(qh, t0, bkv), rows_of(doh, t0, bkv)
+            lt, dt = lse2[:, None, t0:t0 + bkv], delta[:, None, t0:t0 + bkv]
+            pt = torch.exp2(torch.einsum("bkd,bqd->bkq", kb, qt) * c2 - lt)
+            acc_v += torch.einsum("bkq,bqd->bkd", pt.to(bf).float(), ot)
+            dst = pt * (torch.einsum("bkd,bqd->bkq", vb, ot) - dt)
+            acc_k += torch.einsum("bkq,bqd->bkd", dst.to(bf).float(), qt)
+        n = min(rows, s - r0)
+        dk[:, r0:r0 + n], dv[:, r0:r0 + n] = acc_k[:, :n] * scale, acc_v[:, :n]
+        qb, ob = rows_of(qh, r0, rows), rows_of(doh, r0, rows)
+        lr = lse2[:, r0:r0 + rows, None]
+        dr = delta[:, r0:r0 + rows, None]
+        if lr.shape[1] < rows:
+            lr = torch.cat([lr, torch.full((lr.shape[0], rows - lr.shape[1],
+                                            1), math.inf)], 1)
+            dr = torch.cat([dr, torch.zeros((dr.shape[0], rows - dr.shape[1],
+                                             1))], 1)
+        acc = torch.zeros_like(qb)
+        for t0 in range(0, s, bq):
+            kt, vt = rows_of(kh, t0, bq), rows_of(vh, t0, bq)
+            pt = torch.exp2(torch.einsum("bqd,bkd->bqk", qb, kt) * c2 - lr)
+            pt[:, :, max(0, s - t0):] = 0.0
+            ds = pt * (torch.einsum("bqd,bkd->bqk", ob, vt) - dr)
+            acc += torch.einsum("bqk,bkd->bqd", ds.to(bf).float(), kt)
+        dq[:, r0:r0 + n] = acc[:, :n] * scale
+
+    def merge(x):
+        return (x[..., :d].reshape(b, heads, s, d).transpose(1, 2)
+                .reshape(b, s, c).to(bf))
+
+    return merge(dq), merge(dk), merge(dv)
+
+
+@pytest.mark.parametrize("b,s,c,heads", [
+    (1, 200, 16, 2), (1, 200, 80, 2), (2, 130, 160, 2), (1, 77, 96, 1),
+    (1, 129, 128, 1), (1, 256, 128, 2)])
+def test_flash_bwd_design_replayed_matches_plain(b, s, c, heads):
+    """K1-bwd's tiling, padding, masking and bf16 roundings, replayed on the
+    CPU at a small size (``_emulate_bwd``; d = 8, 40, 80, 96, 128, 64 at
+    sequences no tile divides and one that tiles exactly): dq, dk and dv
+    within ``chip_smoke.KERNEL_TOL`` of the plain version's max-abs, as the
+    card is held; two runs give the same bits."""
+    rng = np.random.default_rng(16)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, c))
+                                    .astype(np.float32))
+                   .to(torch.bfloat16).float() for _ in range(4))
+    got = _emulate_bwd(q, k, v, do, heads)
+    refs = t_attn.flash_attention_bwd_reference(q, k, v, do, heads)
+    for x, y, r in zip(got, _emulate_bwd(q, k, v, do, heads), refs):
+        assert torch.equal(x, y)
+        assert torch.isfinite(x.float()).all()
+        assert (x.float() - r).abs().max().item() <= (
+            chip_smoke.KERNEL_TOL * r.abs().max().item())
+
+
+def test_flash_bwd_products_are_wgmma():
+    """K1-bwd's products are wgmma through the generated wrappers: ``ss``
+    over the streamed tile (S and dP, in each kernel, through one helper)
+    and three ``rs_mn`` over the padded head dim (dv, dk, dq); no
+    mma.sync."""
+    src = (_build.SRC_DIR / "flash_attn_bwd.cu").read_text()
+    assert src.count("Wgmma<BT>::ss(") == 1
+    assert src.count("product_s<DPAD, BT, ROWS>(") == 4
+    assert src.count("Wgmma<DPAD>::rs_mn(") == 3
+    assert "mma.sync" not in src and "ldmatrix" not in src
+    assert '#include "wgmma_sm90.cuh"' in src
+    assert "flash_attn_bwd.cu" in chip_smoke.WGMMA_SOURCES
 
 
 def test_rules_take_every_train_site():

@@ -254,9 +254,10 @@ def test_grad_dispatch_takes_the_function_or_plain(monkeypatch):
         t_attn.flash_attention(x, x, x, 2).grad_fn).__name__
     with torch.no_grad():
         assert t_attn.flash_attention(x, x, x, 2).grad_fn is None
-    assert t_attn.plan_bwd(40, 4096, 16) == (48, 64)
-    assert t_attn.plan_bwd(80, 1024, 16) == (80, 32)
-    assert t_attn.plan_bwd(64, 1024, 40) == (64, 64)
+    assert t_attn.plan_bwd(40, 4096, 16) == (48, 128, 32, 64)
+    assert t_attn.plan_bwd(80, 1024, 16) == (80, 64, 64, 64)
+    assert t_attn.plan_bwd(64, 1024, 40) == (64, 64, 64, 64)
+    assert t_attn.plan_bwd(96, 77, 1) == (128, 64, 32, 32)
     for bad in (0, 12, 136):
         with pytest.raises(ValueError):
             t_attn.plan_bwd(bad, 1024, 16)
