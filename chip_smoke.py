@@ -239,6 +239,28 @@ Phases, each printing one JSON object per line:
    adapters move); the CLI: ``train --ema`` as ``python -m``,
    ``--resume``, ``--data`` over two ``.npz`` shards and over an image
    folder, each state read back.
+22. bench, after the breakdowns and before the SD1.5 Contexts are
+   released: the port's measurement tools at SD1.5's full width on the
+   demo weights. ``bench.runner.benchmark_parts`` (3 warm-up calls, 10
+   timed) under cuda, cuda_gn and cuda_conv: each part's median and p99
+   host ms, device ms (CUDA events around the call), FLOPs
+   (``bench.flops.count_flops``), TFLOP/s and MFU against the card's bf16
+   peak; any part's ``.error`` fails the run. ``bench.xprof.profile_ops``
+   over one UNet eval under each policy: each hand-written kernel's main
+   launches at ``EVAL_PINNED`` (K1 10; K2 61 under cuda_gn; K3 and K2's
+   statistics mode 60 under cuda_conv), sum passes beside them, the class
+   totals and the top 10. ``tools/attr_mma.py`` over one UNet eval under
+   cuda_conv: its FLOPs within ``ATTR_FLOPS_TOL`` of ``count_flops``, the
+   10 shapes with the most device ms. ``bench.profile.phase_timings`` (20
+   steps, cuda). The CLI's ``bench``, ``analyze``, ``profile`` and
+   ``sweep --quick`` in process, each returning 0. CLIP score of two
+   images against their prompts with a ViT-L/14 vision tower and a text
+   projection made from a seed in float32 and the Context's text tower:
+   scores in [0, 100], cosines within ``CLIP_COS_TOL`` of the same towers
+   on the CPU, ms an image. ``quantize="int8w_dense"`` under cuda_conv:
+   one image with ``PINNED["int8w_dense_conv"]``, the same bytes from the
+   same seed, its K3 sites against ``kernel_conv``'s int8 rows, device busy
+   ms beside int8w_dense under cuda.
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -356,6 +378,13 @@ MM_INT8W_PER_EVAL = 160 + 22 + 46
 # convs of 512 and 128 rows; and of int8w's 16 proj_out + 14 skip convs
 MM_INT8W_SUMS_PER_EVAL = 93
 MM_INT8W_SUMS_PER_EVAL_CONVS = 13
+# int8w_dense under cuda_conv: K3 takes the 60 ResBlock convs and proj_in
+# 1x1 convs an eval with int8 weights (the VAE's 28 stay bf16), K4 the 228
+# sites less the 16 proj_in: 212, of which 87 split K (93 less the 6
+# proj_in that do) (tests/test_torch_hopper.py::
+# test_int8w_dense_conv_pins_are_the_rules)
+MM_INT8W_PER_EVAL_CONV = MM_INT8W_PER_EVAL - 16
+MM_INT8W_SUMS_PER_EVAL_CONV = 87
 MM_W8A8_PER_EVAL = 60 + 5 + 20
 # of them the sites that split K (K5's steps are 128 deep): every site of
 # 512 and 128 rows but ff1 (54), and attn2's k and v at 64x64 and 32x32 (20)
@@ -392,6 +421,10 @@ PINNED = {
     "int8": pins(),
     "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL * STEPS,
                     matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL * STEPS),
+    "int8w_dense_conv": pins(
+        group_norm_affine=CONV_PER_IMAGE, conv=CONV_PER_IMAGE,
+        conv_int8=60 * STEPS, matmul_int8w=MM_INT8W_PER_EVAL_CONV * STEPS,
+        matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL_CONV * STEPS),
 }
 BATCH_PINNED = {
     "cuda": PINNED["cuda"], "cuda_gn": PINNED["cuda_gn"],
@@ -1294,7 +1327,10 @@ def device_profile(fn):
     """torch.profiler over one call of ``fn``: device ms by kernel name,
     the number of device kernels, and the call's wall ms on the host. The
     device events are read from the profiler's raw records: building its
-    Python event tree over the eager loop's CPU ops took 20-35 s a call."""
+    Python event tree over the eager loop's CPU ops took 20-35 s a call.
+    The profile may miss the call's first 25 or so kernels (see
+    ``sdtpu_torch.bench.xprof``), a few of an image's tens of
+    thousands."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1363,6 +1399,280 @@ def phase_breakdown(ctx, policy):
         "top_kernels_ms": [[k[:90], v] for k, v in top]})
     emit(res)
     ctx.kernels = before
+
+
+# the bench phase: the port's measurement tools (sdtpu_torch.bench,
+# tools/attr_mma.py, the CLI's bench, profile, sweep and analyze), CLIP
+# score with a ViT-L/14 vision tower, and int8w_dense under cuda_conv
+BENCH_POLICIES = ("cuda", "cuda_gn", "cuda_conv")
+# launches of each hand-written kernel's main __global__ in one UNet eval
+# (the CFG batch of 2), from the profiler's device kernels (xprof's
+# classes): K1 10 under every policy (201 = 10 x 20 + 1), K2 61 under
+# cuda_gn, K3 and K2's statistics mode 60 each under cuda_conv (1,228 =
+# 60 x 20 + 28); a split's sum pass is not a launch of the kernel
+# (tests/test_torch_hopper.py::test_eval_pins_are_the_image_pins)
+EVAL_PINNED = {"cuda": {"K1": 10},
+               "cuda_gn": {"K1": 10, "K2": 61},
+               "cuda_conv": {"K1": 10, "K2": 60, "K3": 60}}
+# attr_mma's FLOPs over a part against count_flops of the same part
+ATTR_FLOPS_TOL = 0.06
+# CLIP score: the cosines on the card against the same float32 towers on
+# the CPU (the product order differs)
+CLIP_COS_TOL = 1e-3
+CLIP_SEED = 41
+
+
+def bench_runner(ctx, res):
+    """(a): ``benchmark_parts`` under each policy on the demo weights; a
+    part's ``.error`` fails the run."""
+    from sdtpu_torch.bench.runner import benchmark_parts
+
+    tmp = tempfile.mkdtemp(prefix="sdtpu-bench-")
+    try:
+        for policy in BENCH_POLICIES:
+            out = os.path.join(tmp, policy)
+            summary = benchmark_parts(ctx.cfg, params=ctx.params, warmup=3,
+                                      iters=10, out_dir=out, kernels=policy,
+                                      device="cuda")
+            errors = sorted(f for f in os.listdir(out)
+                            if f.endswith(".error"))
+            if errors:
+                with open(os.path.join(out, errors[0])) as f:
+                    raise AssertionError(f"bench {policy}: {errors}: "
+                                         f"{f.read()[-3000:]}")
+            res[f"parts_{policy}"] = {
+                name: {k: r[k] for k in (
+                    "latency_ms", "latency_p99_ms", "device_ms",
+                    "device_p99_ms", "flops", "tflop_per_s", "mfu_pct",
+                    "device_tflop_per_s", "device_mfu_pct", "op_classes")}
+                for name, r in summary.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: the wrappers' counters (``counts``) of each class of EVAL_PINNED
+EVAL_COUNTERS = {"K1": ("flash",), "K2": ("group_norm", "group_norm_affine"),
+                 "K3": ("conv",)}
+
+
+def bench_kernel_counts(ctx, res, failures):
+    """(b): the profiler over one UNet eval under each policy: each
+    hand-written kernel's main launches at ``EVAL_PINNED``, and at the
+    wrappers' counts over the same calls (a warm one and the profiled one,
+    so a record the profiler lost shows apart from a launch that did not
+    happen); the sum passes beside them, the class totals and the top
+    10."""
+    from sdtpu_torch.bench.runner import part_specs
+    from sdtpu_torch.bench.xprof import kernel_launches, profile_ops
+
+    for policy in BENCH_POLICIES:
+        fn, args = part_specs(ctx.cfg, ctx.params, policy, "cuda")["unet"]
+        reset_counts()
+        ops = profile_ops(fn, args)
+        wrapped = counts()
+        launches = kernel_launches(ops)
+        mains = {k: v[0] for k, v in launches.items()}
+        calls = {cls: sum(wrapped[c] for c in names) / 2
+                 for cls, names in EVAL_COUNTERS.items()
+                 if any(wrapped[c] for c in names)}
+        by_class: dict[str, float] = {}
+        for rec in ops.values():
+            by_class[rec["class"]] = (by_class.get(rec["class"], 0.0)
+                                      + rec["total_us"] / 1e3)
+        top = sorted(ops.items(), key=lambda kv: -kv[1]["total_us"])[:10]
+        res[f"eval_{policy}"] = {
+            "launches": mains, "wrapper_calls": calls,
+            "sum_passes": {k: v[1] for k, v in launches.items() if v[1]},
+            "device_ms": sum(r["total_us"] for r in ops.values()) / 1e3,
+            "kernels": sum(r["count"] for r in ops.values()),
+            "class_ms": dict(sorted(by_class.items(),
+                                    key=lambda kv: -kv[1])),
+            "top_ms": [[k[:90], r["total_us"] / 1e3, r["count"], r["class"]]
+                       for k, r in top],
+            "names": {k[:160]: [r["count"], r["class"]]
+                      for k, r in ops.items()}}
+        if mains != EVAL_PINNED[policy] or calls != EVAL_PINNED[policy]:
+            failures.append(f"{policy}: kernels an eval {mains} (the "
+                            f"wrappers' {calls}), expected "
+                            f"{EVAL_PINNED[policy]}")
+    reset_counts()
+
+
+def bench_attribution(ctx, res):
+    """(c): ``attr_mma`` over one UNet eval under cuda_conv: its FLOPs
+    within ``ATTR_FLOPS_TOL`` of ``count_flops``; the 10 rows with the most
+    device ms."""
+    from sdtpu_torch.bench.flops import count_flops
+    from sdtpu_torch.tools import attr_mma
+
+    fn, args = attr_mma.part_call("unet", ctx.cfg, "cuda_conv", "cuda",
+                                  params=ctx.params)
+    t0 = time.perf_counter()
+    got = attr_mma.attribute(fn, args)
+    want = count_flops(ctx.cfg, "unet")
+    rows = sorted(got["rows"].items(), key=lambda kv: -kv[1]["us"])
+    res["attr"] = {
+        "seconds": time.perf_counter() - t0, "flops": got["flops"],
+        "count_flops": want, "rel": got["flops"] / want - 1.0,
+        "device_ms": got["total_us"] / 1e3,
+        "attributed_ms": got["attributed_us"] / 1e3,
+        "tflop_per_s": got["flops"] / (got["total_us"] * 1e-6) / 1e12,
+        "top": [[k, r["us"] / 1e3, r["flops"] / r["calls"], r["calls"],
+                 r["flops"] / (r["us"] * 1e-6) / 1e12] for k, r in rows[:10]],
+        "by_class_ms": {k: v / 1e3 for k, v in got["by_class"].items()}}
+    if abs(res["attr"]["rel"]) > ATTR_FLOPS_TOL:
+        raise AssertionError(f"attr_mma FLOPs off count_flops: {res['attr']}")
+
+
+def bench_cli(res):
+    """(e): the CLI in process, each command returning 0."""
+    from sdtpu_torch import cli
+
+    tmp = tempfile.mkdtemp(prefix="sdtpu-bench-cli-")
+    try:
+        runs = {
+            "bench": ["bench", "--parts", "unet", "--warmup", "2", "--iters",
+                      "5", "--results", tmp],
+            "analyze": ["analyze", "--results", tmp],
+            "profile": ["profile", "--part", "unet", "--top", "10"],
+            "sweep": ["sweep", "--quick", "--sizes", "512", "--steps-list",
+                      "4", "--iters", "1"]}
+        for name, argv in runs.items():
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            lines = out.getvalue().splitlines()
+            res[f"cli_{name}"] = {"rc": rc, "seconds":
+                                  time.perf_counter() - t0,
+                                  "lines": lines[-12:]}
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rc != 0:
+                raise AssertionError(f"cli {name}: rc {rc}: {lines[-20:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sweep = json.loads(res["cli_sweep"]["lines"][-1])
+    if sweep["steps"] != 4 or sweep["kernels"] != "cuda":
+        raise AssertionError(f"cli sweep: {sweep}")
+
+
+def bench_clip_score(ctx, res):
+    """(f): CLIP score of two main-path images against their prompts, a
+    ViT-L/14 vision tower and a [768, 768] text projection made from a
+    seed in float32, the Context's text tower: scores finite in [0, 100],
+    the cosines within ``CLIP_COS_TOL`` of the same towers on the CPU."""
+    from sdtpu_torch.models import clip
+    from sdtpu_torch.quant import clip_score as CS
+
+    gen = torch.Generator(device="cuda").manual_seed(CLIP_SEED)
+    vcfg = clip.VIT_L14
+    vision = clip.init_vision(vcfg, gen, "cuda")
+    proj = torch.randn((ctx.cfg.clip.hidden, vcfg.projection), generator=gen,
+                       device="cuda") * ctx.cfg.clip.hidden ** -0.5
+    images = np.stack([ctx.generate(p, guidance=7.5, seed=CLIP_SEED)
+                       for p in CALIB_PROMPTS])
+    args = (images, CALIB_PROMPTS, ctx.tokenizer, ctx.params["clip"], proj,
+            vision, ctx.cfg.clip, vcfg)
+    CS.clip_scores(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = CS.clip_scores(*args)
+    ms = (time.perf_counter() - t0) * 1e3 / len(images)
+    cos = CS.clip_cosines(*args)
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cpu(v) for v in tree]
+        return tree.cpu()
+
+    cos_cpu = CS.clip_cosines(images, CALIB_PROMPTS, ctx.tokenizer,
+                              cpu(ctx.params["clip"]), proj.cpu(),
+                              cpu(vision), ctx.cfg.clip, vcfg)
+    del vision
+    err = float(np.abs(cos - cos_cpu).max())
+    res["clip_score"] = {"scores": scores.tolist(), "cosines": cos.tolist(),
+                         "cosines_cpu": cos_cpu.tolist(), "max_abs_err": err,
+                         "ms_per_image": ms, "images": list(images.shape)}
+    if not (np.isfinite(scores).all() and ((scores >= 0)
+                                           & (scores <= 100)).all()
+            and err <= CLIP_COS_TOL):
+        raise AssertionError(f"clip score: {res['clip_score']}")
+
+
+def bench_int8w_dense_conv(ctx_d, conv_sites, res):
+    """(g): ``quantize="int8w_dense"`` under cuda_conv: one image with
+    every launch pinned, the same bytes from the same seed; its K3 sites of
+    int8 weights against the ones ``kernel_conv`` holds (a row for each it
+    does not); the image's device busy ms beside int8w_dense under cuda."""
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import conv as C
+
+    launches = phase_policy(ctx_d, "cuda_conv", "int8w_dense_conv")
+    cfg = ctx_d.cfg
+    x, te, context = unet_inputs(cfg, 3)
+    log = []
+    with torch.inference_mode(), recording(C, "fused_conv_cuda", log):
+        unet.apply(ctx_d.params["unet"], x, te, context, cfg.unet,
+                   "cuda_conv")
+    reset_counts()
+    held = {k for k in conv_sites if k[0][0] == 2}
+    new = {}
+    for args, kwargs in log:
+        xx, w, b = args
+        if kwargs.get("w_scale") is None:
+            raise AssertionError("int8w_dense: a K3 site without int8 "
+                                 "weights")
+        prologue = (None if kwargs.get("a") is None else
+                    "silu" if kwargs.get("silu", True) else "affine")
+        key = (tuple(xx.shape), w.shape[0], w.shape[-1], prologue,
+               b.dim() == 2)
+        if key not in held:
+            new[key] = new.get(key, 0) + STEPS
+    res["int8w_dense_conv"] = {"launches": launches, "k3_sites": len(log),
+                               "new_k3_sites": len(new)}
+    if new:
+        res["int8w_dense_conv"]["rows"] = phase_kernel_conv(
+            new, ragged=[], label="kernel_conv_int8w_dense")
+    before = ctx_d.kernels
+    for policy in ("cuda", "cuda_conv"):
+        ctx_d.kernels = policy
+        by_name, n, wall = device_profile(
+            lambda: ctx_d.generate(PROMPT, guidance=7.5, seed=5))
+        res["int8w_dense_conv"][f"busy_ms_{policy}"] = sum(by_name.values())
+        res["int8w_dense_conv"][f"kernels_{policy}"] = n
+        res["int8w_dense_conv"][f"wall_ms_{policy}"] = wall
+    ctx_d.kernels = before
+
+
+def phase_bench(ctx, ctx_d, conv_sites):
+    """The port's measurement tools at SD1.5's full width on the demo
+    weights, one JSON line: (a) ``benchmark_parts`` under cuda, cuda_gn and
+    cuda_conv; (b) the per-eval launches of K1, K2 and K3 from the
+    profiler; (c) ``attr_mma``'s FLOPs against ``count_flops``; (d)
+    ``phase_timings``; (e) the CLI's bench, analyze, profile and sweep in
+    process; (f) CLIP score on the card against the CPU; (g)
+    ``int8w_dense`` under cuda_conv."""
+    from sdtpu_torch.bench.profile import phase_timings
+
+    t0 = time.perf_counter()
+    res = {"phase": "bench"}
+    failures = []
+    bench_runner(ctx, res)
+    bench_kernel_counts(ctx, res, failures)
+    bench_attribution(ctx, res)
+    res["phases"] = phase_timings(ctx.cfg, ctx.params, steps=STEPS,
+                                  kernels="cuda", warmup=1, iters=3)
+    bench_cli(res)
+    bench_clip_score(ctx, res)
+    bench_int8w_dense_conv(ctx_d, conv_sites, res)
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    if failures:
+        raise AssertionError(f"bench: {failures}")
+    return res["int8w_dense_conv"]["launches"]
 
 
 def check_image(img, size):
@@ -4808,6 +5118,8 @@ def main() -> int:
         phase_breakdown(c, policy)
     with w8a8_kernel(True):
         phase_breakdown(ctx_i, "cuda")
+    # the port's measurement tools, CLIP score, int8w_dense under cuda_conv
+    launches["int8w_dense_conv"] = phase_bench(ctx, ctx_d, conv_sites)
     release(ctx, ctx_d, ctx_w, ctx_i)
 
     # training on the card's own memory, with the inference Contexts
@@ -4942,6 +5254,9 @@ def main() -> int:
          "launches_loaded_int8w_int8_weights": loaded["int8w"]["conv_int8"],
          "launches_int8w": launches["int8w"]["conv"],
          "launches_int8w_int8_weights": launches["int8w"]["conv_int8"],
+         "launches_int8w_dense_conv": launches["int8w_dense_conv"]["conv"],
+         "launches_int8w_dense_conv_int8_weights":
+             launches["int8w_dense_conv"]["conv_int8"],
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "ms": conv_main["ms"], "ms_int8_weights": conv_main_int8["ms"],
          "plain_ms": conv_main["plain_ms"],
@@ -4969,6 +5284,8 @@ def main() -> int:
          "launches": launches["cuda_conv"]["group_norm_affine"],
          "launches_loaded_weights": loaded["cuda_conv"]["group_norm_affine"],
          "launches_int8w": launches["int8w"]["group_norm_affine"],
+         "launches_int8w_dense_conv":
+             launches["int8w_dense_conv"]["group_norm_affine"],
          "max_abs_err": max(r["max_abs_err"] for r in affine_rows),
          "ms": affine_main["ms"], "plain_ms": affine_main["plain_ms"],
          "bound_ms": affine_main["bound_ms"],
@@ -4991,6 +5308,8 @@ def main() -> int:
          "launches": launches["int8w_dense"]["matmul_int8w"],
          "launches_loaded_weights": loaded["int8w_dense"]["matmul_int8w"],
          "launches_int8w": launches["int8w"]["matmul_int8w"],
+         "launches_int8w_dense_conv":
+             launches["int8w_dense_conv"]["matmul_int8w"],
          "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
          "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
          "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],

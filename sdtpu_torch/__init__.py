@@ -9,6 +9,7 @@ kernels live in ``sdtpu_torch/csrc`` and are built with nvcc at first use.
 from sdtpu_torch.config import SD15, TINY, PipelineConfig
 from sdtpu_torch.engine.context import Context
 from sdtpu_torch.engine.errors import ErrorCode, SdtpuError
+from sdtpu_torch.version import __version__
 
 __all__ = ["Context", "ErrorCode", "PipelineConfig", "SD15", "SdtpuError",
-           "TINY"]
+           "TINY", "__version__"]

@@ -7,6 +7,10 @@ subcommands' flags and defaults:
     python -m sdtpu_torch.cli warmup --configs sd15 --batch-sizes 1,2,4
     python -m sdtpu_torch.cli info
     python -m sdtpu_torch.cli train --steps 100 --batch 2 [--data DIR]
+    python -m sdtpu_torch.cli bench --parts unet [--phases]
+    python -m sdtpu_torch.cli profile --part unet --top 15
+    python -m sdtpu_torch.cli sweep --quick
+    python -m sdtpu_torch.cli analyze --results results
 
 (``sdtpu-torch`` once installed). ``--platform`` takes ``auto|cpu|cuda``:
 ``auto`` is the card, the port's default device, and raises
@@ -19,9 +23,12 @@ the first image of each configuration and batch size, and ``--pack`` /
 ``--kernels`` takes ``auto|plain|cuda`` (``auto`` is ``cuda`` on the card,
 as the reference's is ``pallas`` on a TPU: the policies whose kernels have
 a backward) and writes the port's train-state file (``--out``, read back by
-``--resume``; an orbax directory is refused, ROADMAP item 24). ``bench``,
-``profile``, ``sweep`` and ``analyze`` are refused, naming their ROADMAP
-item.
+``--resume``; an orbax directory is refused, ROADMAP item 24). ``bench``
+times each model part (``sdtpu_torch.bench.runner``; ``--phases`` the
+pipeline's phases too) and ``analyze`` prints its table; ``profile``
+prints one part's device kernels by time and by class
+(``sdtpu_torch.bench.xprof``); ``sweep`` times ``Context.generate`` over
+samplers, steps, guidance, batches and sizes (``sdtpu_torch.bench.sweep``).
 """
 
 from __future__ import annotations
@@ -45,11 +52,8 @@ SAMPLER_CHOICES = ["ddim", "dpm", "dpm++", "dpm2", "dpm2_karras",
 PLATFORMS = ["auto", "cpu", "cuda"]
 KERNEL_CHOICES = ["auto", "cuda", "cuda_gn", "cuda_conv", "plain"]
 
-#: the reference's subcommands of later slices -> their ROADMAP item
-UNPORTED = {"bench": "item 25 (bench tooling)",
-            "profile": "item 25 (bench tooling)",
-            "sweep": "item 25 (bench tooling)",
-            "analyze": "item 25 (bench tooling)"}
+#: the parts of ``sdtpu_torch.bench.runner``
+PARTS = ["temb", "text_encoder", "unet", "vae_decoder"]
 
 #: a literal copy of sdtpu_torch.train.step.TRAIN_KERNELS (tests pin them)
 TRAIN_KERNEL_CHOICES = ["auto", "plain", "cuda"]
@@ -305,8 +309,9 @@ def _cmd_info(args) -> int:
     import torch
 
     from sdtpu_torch.config import CONFIGS
+    from sdtpu_torch.version import __version__
 
-    print(f"sdtpu_torch (torch {torch.__version__}, CUDA "
+    print(f"sdtpu_torch {__version__} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})")
     if torch.cuda.is_available():
         n = torch.cuda.device_count()
@@ -464,11 +469,74 @@ def _cmd_train(args) -> int:
     return 0
 
 
-def _cmd_unported(args) -> int:
-    print(f"error: `{args.cmd}` is not ported yet (ROADMAP "
-          f"{UNPORTED[args.cmd]}); the JAX package's `sdtpu {args.cmd}` "
-          f"has it", file=sys.stderr)
-    return 2
+def _cmd_bench(args) -> int:
+    from sdtpu_torch.bench.analyze import analyze
+    from sdtpu_torch.bench.runner import benchmark_parts
+    from sdtpu_torch.config import CONFIGS
+
+    cfg = CONFIGS[args.config]
+    parts = args.parts.split(",") if args.parts else None
+    summary = benchmark_parts(
+        cfg, warmup=args.warmup, iters=args.iters, parts=parts,
+        out_dir=args.results, kernels=args.kernels,
+        device=_device(args.platform),
+    )
+    ok = [n for n, r in summary.items() if not r.get("error")]
+    bad = [n for n, r in summary.items() if r.get("error")]
+    print(f"benchmarked: {ok}" + (f", FAILED: {bad}" if bad else ""))
+    if args.phases:
+        from sdtpu_torch.bench.profile import phase_timings
+
+        pt = phase_timings(cfg, steps=args.steps, kernels=args.kernels,
+                           device=_device(args.platform))
+        for k, v in pt.items():
+            print(f"  {k:22s} {v:10.3f} ms")
+    print(analyze(args.results))
+    return 1 if bad else 0
+
+
+def _cmd_profile(args) -> int:
+    from sdtpu_torch.bench.runner import (check_device, demo_params,
+                                          part_specs, resolve)
+    from sdtpu_torch.bench.xprof import profile_ops, summarize
+    from sdtpu_torch.config import CONFIGS
+
+    cfg = CONFIGS[args.config]
+    device = check_device(_device(args.platform))
+    kernels = resolve(args.kernels, device)
+    params = demo_params(cfg, device)
+    fn, fargs = part_specs(cfg, params, kernels, device)[args.part]
+    ops = profile_ops(fn, fargs)
+    print(f"== {args.part} ({device.type}, kernels={kernels})")
+    print(summarize(ops, top=args.top))
+    if args.trace_dir:
+        from sdtpu_torch.bench.profile import capture_trace
+
+        print(f"trace: {capture_trace(fn, fargs, args.trace_dir)}")
+    return 0
+
+
+def _cmd_sweep(args) -> int:
+    from sdtpu_torch.bench.sweep import run_sweep
+
+    run_sweep(
+        config=args.config,
+        iters=args.iters,
+        out_dir=args.out,
+        dump_images=args.images,
+        quick=args.quick,
+        sizes=tuple(int(s) for s in args.sizes.split(",")),
+        steps_list=tuple(int(s) for s in args.steps_list.split(",")),
+        device=_device(args.platform),
+    )
+    return 0
+
+
+def _cmd_analyze(args) -> int:
+    from sdtpu_torch.bench.analyze import analyze
+
+    print(analyze(args.results))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -563,13 +631,46 @@ def main(argv=None) -> int:
     g.add_argument("--out", default="output.png")
     g.set_defaults(fn=_cmd_generate)
 
-    for name, help_ in (("bench", "per-part steady-state benchmark"),
-                        ("profile", "per-op device profile of one part"),
-                        ("sweep", "sampler/steps/CFG/size config sweep"),
-                        ("analyze", "analyze benchmark results")):
-        u = sub.add_parser(name, help=f"{help_} (not ported yet: ROADMAP "
-                                      f"{UNPORTED[name]})")
-        u.set_defaults(fn=_cmd_unported)
+    b = sub.add_parser("bench", help="per-part steady-state benchmark")
+    b.add_argument("--config", default="sd15", choices=sorted(CONFIGS))
+    b.add_argument("--warmup", type=int, default=20)
+    b.add_argument("--iters", type=int, default=100)
+    b.add_argument("--steps", type=int, default=20)
+    b.add_argument("--parts", default=None,
+                   help="comma list: " + ",".join(PARTS))
+    b.add_argument("--results", default="results")
+    b.add_argument("--kernels", default="auto", choices=KERNEL_CHOICES)
+    b.add_argument("--phases", action="store_true",
+                   help="also time pipeline phases (conditioning/denoise/decode)")
+    b.add_argument("--platform", default="auto", choices=PLATFORMS)
+    b.set_defaults(fn=_cmd_bench)
+
+    pr = sub.add_parser("profile", help="per-op device profile of one part")
+    pr.add_argument("--part", default="unet", choices=PARTS)
+    pr.add_argument("--config", default="sd15", choices=sorted(CONFIGS))
+    pr.add_argument("--kernels", default="auto", choices=KERNEL_CHOICES)
+    pr.add_argument("--top", type=int, default=15)
+    pr.add_argument("--trace-dir", default=None,
+                    help="also write a Chrome trace of one call here "
+                         "(torch.profiler)")
+    pr.add_argument("--platform", default="auto", choices=PLATFORMS)
+    pr.set_defaults(fn=_cmd_profile)
+
+    w = sub.add_parser("sweep", help="sampler/steps/CFG/size config sweep")
+    w.add_argument("--config", default="sd15", choices=sorted(CONFIGS))
+    w.add_argument("--iters", type=int, default=3)
+    w.add_argument("--sizes", default="512,768")
+    w.add_argument("--steps-list", default="10,20,50")
+    w.add_argument("--out", default=None)
+    w.add_argument("--images", action="store_true")
+    w.add_argument("--quick", action="store_true",
+                   help="one config only (smoke test)")
+    w.add_argument("--platform", default="auto", choices=PLATFORMS)
+    w.set_defaults(fn=_cmd_sweep)
+
+    a = sub.add_parser("analyze", help="analyze benchmark results")
+    a.add_argument("--results", default="results")
+    a.set_defaults(fn=_cmd_analyze)
 
     s = sub.add_parser("show", help="render a raw output.bin to png")
     s.add_argument("path")
@@ -695,10 +796,7 @@ def main(argv=None) -> int:
     i = sub.add_parser("info", help="print version/device/config info")
     i.set_defaults(fn=_cmd_info)
 
-    # a refused subcommand takes the reference's flags without naming them
-    args, extra = p.parse_known_args(argv)
-    if extra and args.fn is not _cmd_unported:
-        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = p.parse_args(argv)
     if getattr(args, "cache_dir", "") is None:
         from sdtpu_torch.ops import _build
 

@@ -109,6 +109,11 @@ def cast_params(params, dtype):
     return cast(params)
 
 
+#: the leaves that hold a conv weight when 4-D: HWIO in the JAX package,
+#: OIHW in the port (the CLIP vision tower's ``patch_embedding`` too)
+CONV_KEYS = ("w", "w8", "lora_a", "patch_embedding")
+
+
 def _convert(node, key=None, dtype=None, device=None):
     if isinstance(node, dict):
         return {k: _convert(v, k, dtype, device) for k, v in node.items()}
@@ -121,7 +126,7 @@ def _convert(node, key=None, dtype=None, device=None):
     if (dtype is not None and key not in KEEP_FLOAT32
             and t.is_floating_point()):
         t = t.float().to(dtype)
-    if key in ("w", "w8", "lora_a") and t.dim() == 4:   # conv: HWIO -> OIHW
+    if key in CONV_KEYS and t.dim() == 4:   # conv: HWIO -> OIHW
         t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     elif key in ("w8", "w_q") and t.dim() == 2:
         t = column_major(t)   # (in, out) stays; the int8 kernels' memory
@@ -207,6 +212,18 @@ def from_jax_tree(tree, cfg: PipelineConfig, dtype=None, device=None):
     return out
 
 
+def vision_from_jax_tree(tree, vcfg, dtype=None, device=None):
+    """The JAX package's CLIP vision tree (``sdtpu.models.clip.init_vision``
+    or ``sdtpu.quant.clip_score.vision_params_from_hf``) -> the port's:
+    ``patch_embedding`` from HWIO to OIHW in channels_last memory, every
+    other leaf 1:1, moved and cast as ``from_jax_tree`` does. Raises if a
+    shape differs from ``models.clip.init_vision(vcfg)``'s."""
+    out = _convert(tree, None, dtype, device)
+    _check_shapes(out, clip.init_vision(vcfg, None, torch.device("meta")),
+                  "vision")
+    return out
+
+
 def _map_leaves(fn, node, key=None):
     if isinstance(node, dict):
         return {k: _map_leaves(fn, v, k) for k, v in node.items()}
@@ -221,7 +238,7 @@ def jax_layout(params):
     to HWIO; every other leaf keeps its shape. The JAX package's native
     file (``io.weights.save_native``) holds this tree."""
     def leaf(t, key):
-        if key in ("w", "w8", "lora_a") and t.dim() == 4:   # OIHW -> HWIO
+        if key in CONV_KEYS and t.dim() == 4:   # OIHW -> HWIO
             return t.permute(2, 3, 1, 0)
         return t
 

@@ -3,8 +3,9 @@
 cases (info, generate to PNG and to raw ``.bin`` with ``show``, the
 img2img and inpaint flags, a bad sampler), each ported subcommand's option
 set against the reference parser's, read from both ``--help`` outputs,
-``SAMPLER_CHOICES`` against the port's registry, the refused subcommands
-(``train`` is ported: ``tests/test_torch_train.py`` runs it),
+``SAMPLER_CHOICES`` against the port's registry, the measurement
+subcommands (``bench``, ``profile``, ``sweep``, ``analyze``) at TINY
+(``train``: ``tests/test_torch_train.py`` runs it), ``info``'s version,
 ``serve``'s Context and ``warmup`` with its artifact's member check."""
 
 import io
@@ -122,7 +123,8 @@ def _options(main_fn, cmd, capsys):
 
 
 @pytest.mark.parametrize("cmd", ["generate", "show", "serve", "warmup",
-                                 "info", "train"])
+                                 "info", "train", "bench", "profile",
+                                 "sweep", "analyze"])
 def test_option_set_is_the_references(cmd, capsys):
     assert _options(main, cmd, capsys) == _options(j_cli.main, cmd, capsys)
 
@@ -142,14 +144,54 @@ def test_sampler_choices_are_the_registry():
     assert t_cli.SAMPLER_CHOICES == j_cli.SAMPLER_CHOICES
 
 
-@pytest.mark.parametrize("cmd,item", [("bench", "item 25"),
-                                      ("profile", "item 25"),
-                                      ("sweep", "item 25"),
-                                      ("analyze", "item 25")])
-def test_unported_subcommands_are_refused(cmd, item, capsys):
-    assert main([cmd, "--config", "tiny", "--steps", "3"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+@pytest.mark.parametrize("cmd", ["bench", "profile", "sweep", "analyze"])
+def test_measurement_subcommands_run(cmd, tmp_path, capsys):
+    """``bench``, ``profile``, ``sweep`` and ``analyze`` at TINY on the CPU,
+    each returning 0 with its output: the part table, the kernels by time
+    and class, one JSON line a config, the table over ``bench``'s files."""
+    results = tmp_path / "results"
+    runs = {
+        "bench": ["bench", "--config", "tiny", "--platform", "cpu",
+                  "--warmup", "1", "--iters", "2", "--parts", "unet,temb",
+                  "--results", str(results), "--phases", "--steps", "2"],
+        "profile": ["profile", "--config", "tiny", "--platform", "cpu",
+                    "--part", "vae_decoder", "--top", "4", "--trace-dir",
+                    str(tmp_path / "trace")],
+        "sweep": ["sweep", "--config", "tiny", "--platform", "cpu",
+                  "--quick", "--steps-list", "2", "--iters", "1"],
+        "analyze": ["analyze", "--results", str(results)],
+    }
+    if cmd == "analyze":
+        assert main(runs["bench"]) == 0
+        capsys.readouterr()
+    assert main(runs[cmd]) == 0
+    out = capsys.readouterr().out
+    if cmd in ("bench", "analyze"):
+        assert re.search(r"^unet\s+\d", out, re.M)
+        assert re.search(r"^temb\s+\d", out, re.M)
+        assert "pipeline estimate (20-step)" in out
+        assert sorted(p.name for p in results.iterdir()) == [
+            "temb.json", "unet.json"]
+    if cmd == "bench":
+        assert "benchmarked: ['temb', 'unet']" in out
+        assert re.search(r"^  per_step\s+[\d.]+ ms$", out, re.M)
+    elif cmd == "profile":
+        assert "== vae_decoder (cpu, kernels=plain)" in out
+        assert "top 4 ops by device time:" in out
+        assert (tmp_path / "trace" / "trace.json").exists()
+    elif cmd == "sweep":
+        row = json.loads(out.splitlines()[-1])
+        assert (row["config"], row["steps"], row["kernels"]) == (
+            "tiny", 2, "plain")
+
+
+def test_info_prints_the_version(capsys):
+    from sdtpu_torch import __version__
+
+    assert main(["info"]) == 0
+    first = capsys.readouterr().out.splitlines()[0]
+    assert first.startswith(f"sdtpu_torch {__version__} (torch ")
+    assert __version__ == "0.1.0"
 
 
 def test_serve_builds_the_context(monkeypatch):

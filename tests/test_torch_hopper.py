@@ -1248,7 +1248,8 @@ MODES = {"plain": ("plain", "none", False),
          "cuda_conv": ("cuda_conv", "none", False),
          "int8w": ("cuda_conv", "int8w", False),
          "int8w_dense": ("cuda", "int8w_dense", False),
-         "int8+k5": ("cuda", "int8", True)}
+         "int8+k5": ("cuda", "int8", True),
+         "int8w_dense_conv": ("cuda_conv", "int8w_dense", False)}
 
 
 def _meta_tree(tree, dtype=torch.bfloat16):
@@ -3207,3 +3208,235 @@ def test_cuda_kernels_without_a_backward_refuse_grad(kernel):
                 x.reshape(16, 8), w8, one, torch.ones((), device="cuda"))}
     with pytest.raises(_build.NoBackwardError):
         call[kernel]()
+
+
+# ---------------------------------------------------------------------------
+# int8w_dense under cuda_conv: K3 with int8 weights and K4 in one mode
+# ---------------------------------------------------------------------------
+
+def test_int8w_dense_conv_pins_are_the_rules():
+    """SD1.5 under ``quantize="int8w_dense"`` and cuda_conv, from its sites
+    and the rules: K3 1,228 an image (60 an eval with int8 weights + the
+    VAE's 28 in bf16) with K2's statistics mode beside each, K4 at the 212
+    sites an eval K3 does not take (228 less the 16 proj_in), 87 of them
+    split K: the smoke run's ``PINNED["int8w_dense_conv"]``."""
+    got = _per_image(_family_log("sd15", "int8w_dense_conv"),
+                     chip_smoke.STEPS)
+    assert got == chip_smoke.PINNED["int8w_dense_conv"]
+    assert chip_smoke.MM_INT8W_PER_EVAL_CONV == 212
+    assert chip_smoke.MM_INT8W_SUMS_PER_EVAL_CONV == 87
+    assert got["conv"] == chip_smoke.CONV_PER_IMAGE == 1228
+    assert got["conv_int8"] == 60 * chip_smoke.STEPS
+    # K4's sites are int8w_dense's under cuda less the ones K3 fuses
+    dense = _part_log("unet", "sd15", "int8w_dense")[("unet", "matmul_int8w")]
+    conv = _part_log("unet", "sd15", "int8w_dense_conv")
+    assert set(conv[("unet", "matmul_int8w")]) <= set(dense)
+    assert len(dense) - len(conv[("unet", "matmul_int8w")]) == 16
+
+
+@pytest.mark.parametrize("kernel", ["flash", "group_norm_affine", "conv",
+                                    "matmul_int8w"])
+def test_rules_take_every_int8w_dense_conv_site(kernel):
+    """Every site of the mode through its kernel's static rule, and the
+    plan within what the C entry point accepts; K3's UNet sites all carry
+    int8 weights."""
+    log = _family_log("sd15", "int8w_dense_conv")
+    sites = sorted({k for (part, kk), keys in log.items() if kk == kernel
+                    for k in keys})
+    assert sites
+    for site in sites:
+        _check_site(kernel, site)
+    if kernel == "conv":
+        assert all(k[-1] for k in log[("unet", "conv")])
+        assert not any(k[-1] for k in log[("vae", "conv")])
+
+
+# ---------------------------------------------------------------------------
+# the bench phase: kernels an eval from the profiler, the classes of the
+# kernel names the card's traces show
+# ---------------------------------------------------------------------------
+
+def test_eval_pins_are_the_image_pins():
+    """``EVAL_PINNED`` (the profiler's main launches in one UNet eval) are
+    the recorders' counts in one eval, and the image pins less the VAE's:
+    K1 10, K2 61 under cuda_gn, K3 and K2's statistics mode 60 under
+    cuda_conv."""
+    names = {"flash": "K1", "group_norm": "K2", "group_norm_affine": "K2",
+             "conv": "K3"}
+    for policy, want in chip_smoke.EVAL_PINNED.items():
+        got = {}
+        for (part, kernel), keys in _part_log("unet", "sd15",
+                                              policy).items():
+            got[names[kernel]] = got.get(names[kernel], 0) + len(keys)
+        assert got == want, policy
+        vae = _part_log("vae", "sd15", policy)
+        for kernel, cls in names.items():
+            image = chip_smoke.PINNED[policy][kernel]
+            evals = sum(len(v) for (_, k), v in _part_log(
+                "unet", "sd15", policy).items() if k == kernel)
+            assert image == evals * chip_smoke.STEPS + len(
+                vae.get(("vae", kernel), []))
+    assert chip_smoke.EVAL_PINNED["cuda"] == {"K1": 10}
+    assert chip_smoke.EVAL_PINNED["cuda_conv"] == {"K1": 10, "K2": 60,
+                                                  "K3": 60}
+
+
+CARD_KERNEL_NAMES = [
+    ('void (anonymous namespace)::flash_fwd_kernel<48, 64, false, false>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bflo',
+     'K1'),
+    ('void (anonymous namespace)::flash_fwd_kernel<80, 64, false, false>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bflo',
+     'K1'),
+    ('void (anonymous namespace)::gn_kernel<8, 0, __nv_bfloat16>((anonymous namespace)::GnArgs)',
+     'K2'),
+    ('void (anonymous namespace)::gn_kernel<8, 1, __nv_bfloat16>((anonymous namespace)::GnArgs)',
+     'K2'),
+    ('void (anonymous namespace)::gn_kernel<8, 2, __nv_bfloat16>((anonymous namespace)::GnArgs)',
+     'K2'),
+    ('void (anonymous namespace)::conv_general_kernel<1, false>((anonymous namespace)::ConvArgs)',
+     'K3'),
+    ('void (anonymous namespace)::conv_slab_kernel<128, false, 1>((anonymous namespace)::SlabArgs)',
+     'K3'),
+    ('void (anonymous namespace)::conv_slab_kernel<128, false, 3>((anonymous namespace)::SlabArgs)',
+     'K3'),
+    ('void (anonymous namespace)::conv_slab_kernel<160, false, 1>((anonymous namespace)::SlabArgs)',
+     'K3'),
+    ('void (anonymous namespace)::conv_slab_kernel<160, false, 3>((anonymous namespace)::SlabArgs)',
+     'K3'),
+    ('void (anonymous namespace)::conv_sum_kernel<4>((anonymous namespace)::ConvArgs, int)',
+     'K3'),
+    ('void at::native::vectorized_elementwise_kernel<8, at::native::bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)::{lambd',
+     'cast'),
+    ('sm80_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize64x32x64_stage5_warpsize2x2x1_g1_tensor16x8x16_',
+     'conv'),
+    ('sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x32_warpgroupsize1x1x1_g1_execute_segmen',
+     'conv'),
+    ('sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64_warpgroupsize1x1x1_g1_execute_segmen',
+     'conv'),
+    ('sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize256x64x32_warpgroupsize1x1x1_g1_execute_segment',
+     'conv'),
+    ('sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize64x128x64_warpgroupsize1x1x1_g1_execute_segment',
+     'conv'),
+    ('sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize64x64x64_warpgroupsize1x1x1_g1_execute_segment_',
+     'conv'),
+    ('void cask_plugin__5x_cudnn::xmma__5x_cudnn::init_device_workspace_kernel<xmma__5x_cudnn::implicit_gemm::fprop::Warp_spec',
+     'conv'),
+    ('void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop_optimized_bf16_256x64_32x4_nhwc_align8>(cutlass_tensoro',
+     'conv'),
+    ('void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<at::native::direct_copy_kernel_cuda(at::T',
+     'copy'),
+    ('void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast<at::native::direct_copy_kernel_cuda(at::T',
+     'copy'),
+    ('void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::{lambda()#3}:',
+     'copy'),
+    ('Memset (Device)',
+     'elementwise'),
+    ('void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<at::native::BinaryFunctor<float, float, f',
+     'elementwise'),
+    ('void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<at::native::CUDAFunctor_add<float> >(at::',
+     'elementwise'),
+    ('void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast<at::native::BinaryFunctor<c10::BFloat16, ',
+     'elementwise'),
+    ('void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast<at::native::CUDAFunctor_add<c10::BFloat16',
+     'elementwise'),
+    ('void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast<at::native::GeluCUDAKernelImpl(at::Tensor',
+     'elementwise'),
+    ('void at::native::vectorized_elementwise_kernel<4, at::native::(anonymous namespace)::pow_tensor_scalar_kernel_impl<float',
+     'elementwise'),
+    ('void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor<float, float, float, at::native::binary_inte',
+     'elementwise'),
+    ('void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctorOnSelf_add<float>, std::array<char*, 2ul> >(int',
+     'elementwise'),
+    ('void at::native::vectorized_elementwise_kernel<4, at::native::rsqrt_kernel_cuda(at::TensorIteratorBase&)::{lambda()#2}::',
+     'elementwise'),
+    ('void at::native::vectorized_elementwise_kernel<8, at::native::BinaryFunctor<c10::BFloat16, c10::BFloat16, c10::BFloat16,',
+     'elementwise'),
+    ('void at::native::vectorized_elementwise_kernel<8, at::native::CUDAFunctor_add<c10::BFloat16>, std::array<char*, 3ul> >(i',
+     'elementwise'),
+    ('void at::native::vectorized_elementwise_kernel<8, at::native::sigmoid_kernel_cuda(at::TensorIteratorBase&)::{lambda()#2}',
+     'elementwise'),
+    ('nvjet_tst_128x64_64x8_2x4_h_bz_NNT',
+     'matmul'),
+    ('nvjet_tst_128x80_64x8_1x2_h_bz_NNT',
+     'matmul'),
+    ('nvjet_tst_160x64_64x6_1x2_h_bz_NNN',
+     'matmul'),
+    ('nvjet_tst_168x128_64x5_1x2_h_bz_TNN',
+     'matmul'),
+    ('nvjet_tst_320x128_64x3_1x2_h_bz_coopB_NNT',
+     'matmul'),
+    ('nvjet_tst_64x24_64x16_2x4_h_bz_NNT',
+     'matmul'),
+    ('nvjet_tst_64x32_64x16_2x4_h_bz_NNT',
+     'matmul'),
+    ('nvjet_tst_64x32_64x16_2x4_h_bz_TNT',
+     'matmul'),
+    ('nvjet_tst_64x40_64x16_2x4_h_bz_NNT',
+     'matmul'),
+    ('nvjet_tst_64x8_64x16_2x4_h_bz_NNT',
+     'matmul'),
+    ('nvjet_tst_64x8_64x16_4x1_v_bz_NNT',
+     'matmul'),
+    ('nvjet_tst_80x128_64x8_2x1_v_bz_TNN',
+     'matmul'),
+    ('nvjet_tst_80x64_64x11_1x2_h_bz_TNN',
+     'matmul'),
+    ('sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x32x8_stage3_warpsize2x2x1_ffma_aligna4_alignc4_execute_kernel__5x_cubl',
+     'matmul'),
+    ('sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize256x64x8_stage3_warpsize2x2x1_ffma_aligna4_alignc4_execute_kernel__5x_cubl',
+     'matmul'),
+    ('sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize32x32x8_stage3_warpsize1x2x1_ffma_aligna4_alignc4_execute_kernel__5x_cubla',
+     'matmul'),
+    ('sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8_stage3_warpsize1x4x1_ffma_aligna4_alignc4_execute_kernel__5x_cubla',
+     'matmul'),
+    ('void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, at::native::MeanOps<float, float, float, float>, unsi',
+     'reduce'),
+    ('void at::native::(anonymous namespace)::CatArrayBatchedCopy_vectorized<at::native::(anonymous namespace)::OpaqueType<2u>',
+     'shaping'),
+    ('void nhwcAddPaddingKernel<__nv_bfloat16, __nv_bfloat16, float, true, (cudnnKernelDataType_t)0>(int, int, int, int, int, ',
+     'shaping'),
+    ('void (anonymous namespace)::softmax_warp_forward<float, float, float, 6, false, false>(float*, float const*, int, int, i',
+     'softmax'),
+    ('void (anonymous namespace)::softmax_warp_forward<float, float, float, 7, false, false>(float*, float const*, int, int, i',
+     'softmax'),
+    ('void (anonymous namespace)::softmax_warp_forward<float, float, float, 8, false, false>(float*, float const*, int, int, i',
+     'softmax'),
+]
+
+
+@pytest.mark.parametrize("name,cls", CARD_KERNEL_NAMES)
+def test_classify_the_card_kernel_names(name, cls):
+    """The names of every device kernel in one SD1.5 UNet eval under cuda,
+    cuda_gn and cuda_conv on an H100 (CUDA 12: cuDNN's ``sm90_xmma_fprop``
+    and cutlass convs, cuBLAS's ``nvjet`` and float32 ``xmma_gemm``
+    products, ATen's kernels), first 120 characters, each in its class."""
+    from sdtpu_torch.bench.xprof import classify
+
+    assert classify(name) == cls
+
+
+def test_every_kernel_class_has_a_card_name():
+    classes = {cls for _, cls in CARD_KERNEL_NAMES}
+    assert {"K1", "K2", "K3", "conv", "matmul", "elementwise", "copy",
+            "cast", "reduce", "softmax", "shaping"} <= classes
+    assert "other" not in classes
+
+
+@pytest.mark.cuda
+def test_cuda_profile_counts_one_eval():
+    """``profile_ops`` over one SD1.5 UNet eval on the card: each
+    hand-written kernel's main launches at ``chip_smoke.EVAL_PINNED`` under
+    every policy (the bench phase's check, here at random weights)."""
+    from sdtpu_torch.bench.runner import part_specs
+    from sdtpu_torch.bench.xprof import kernel_launches, profile_ops
+    from sdtpu_torch.config import SD15
+    from sdtpu_torch.models import unet
+
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {"unet": _meta_tree(unet.init(SD15.unet, gen, "cuda"))}
+    for policy, want in chip_smoke.EVAL_PINNED.items():
+        fn, args = part_specs(SD15, {**params, "temb": None, "clip": None,
+                                     "vae": None}, policy, "cuda")["unet"]
+        got = {k: v[0] for k, v in kernel_launches(
+            profile_ops(fn, args)).items()}
+        assert got == want, policy
