@@ -92,7 +92,8 @@ Phases, each printing one JSON object per line:
    bytes), a scheduled prompt, a degenerate schedule (the plain prompt's
    bytes). The files are deleted after it;
 14. families: the SD 2.x and SDXL configurations at full width with demo
-   weights, 20 DPM-Solver++(2M) steps, CFG 7.5, batch 1, bf16 (the SD1.5
+   weights, ``FAMILY_STEPS`` (10) DPM-Solver++(2M) steps, CFG 7.5, batch 1,
+   bf16 (the SD1.5
    Contexts released first). ``sdxl`` at 1024x1024: one image under plain,
    cuda, cuda_gn and cuda_conv on one Context, then on a Context each
    under ``quantize="int8w_dense"`` (K4) and calibrated ``"int8"`` with
@@ -262,6 +263,24 @@ Phases, each printing one JSON object per line:
    same seed, its K3 sites against ``kernel_conv``'s int8 rows, device busy
    ms beside int8w_dense under cuda.
 
+23. mesh, last (nothing after it shares its process groups): serving on
+   the (data, model) mesh of ``sdtpu_torch.parallel`` at SD1.5's full
+   width, ``MESH_STEPS`` steps. K1 at its shard shapes (heads // m at m =
+   2 and 4, ``MESH_FLASH_SHAPES``) against its plain version; then two
+   gloo ranks, each a fresh interpreter (``--mesh-rank``) on this card
+   with the kernels built here, run (1, 2) under cuda and under calibrated
+   int8 with K5 on, and (2, 1) at a batch of 2, each image with
+   ``MESH_PINNED`` launches and collectives and the same bytes on both
+   ranks; the (1, 2) UNet eval within ``MODEL_FACTOR`` of plain bf16's
+   error against float32; each (2, 1) rank's request within
+   ``BATCH_GAP_FACTOR`` of its own bf16 gap from the same call on one
+   device; meanwhile one rank over NCCL here (``mesh=(1, 1)``: the bytes
+   of a Context without a mesh, no collective; the collectives' transport
+   on the card); then K5 at the shard shapes the ranks recorded against
+   its plain version. The profiled breakdowns (``device_profile``) run
+   each call in the active step of the profiler's schedule after a
+   warm-up step, and the ``cuda`` breakdown must hold K1's 201 kernels.
+
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
 
@@ -409,6 +428,33 @@ def pins(**launches):
             **launches}
 
 
+# the mesh phase (``phase_mesh``): SD1.5 served on the (data, model) mesh of
+# ``sdtpu_torch.parallel``, a rank's launches and collectives an image
+# (tests/test_torch_hopper.py::test_mesh_pins_are_the_rules): K1 10 an eval
+# (heads // m each at m = 2) and the VAE's; 48 all-reduces an eval (16
+# transformer blocks x attn1, attn2, ff2) and 24 a text encode (12 CLIP
+# layers x out, fc2) at m > 1, one all-gather of the time MLP's fc1 there,
+# one of the images at d > 1; K5 at the shard shapes (N / m, K / m)
+MESH_STEPS = 4
+MESH_SEED = 59
+MESH_PROMPTS = [PROMPT, CALIB_PROMPTS[1]]
+MESH_FLASH = 10 * MESH_STEPS + 1
+MESH_ALL_REDUCE = 48 * MESH_STEPS + 24
+# K1's self-attention sites on a rank at m = 2 and m = 4: [B, T, C / m],
+# heads / m
+MESH_FLASH_SHAPES = [(2, 4096, 160, 4), (2, 1024, 320, 4),
+                     (2, 4096, 80, 2), (2, 1024, 160, 2)]
+MESH_W8A8_PER_EVAL = 85
+MESH_W8A8_SUMS_PER_EVAL = 75
+
+
+def mesh_pins(all_reduce, all_gather, **launches):
+    return {"launches": pins(flash=MESH_FLASH, **launches),
+            "collectives": {"all-reduce": all_reduce,
+                            "all-gather": all_gather}}
+
+
+
 PINNED = {
     "cuda": pins(),
     "cuda_gn": pins(group_norm=61 * STEPS),
@@ -426,6 +472,15 @@ PINNED = {
         conv_int8=60 * STEPS, matmul_int8w=MM_INT8W_PER_EVAL_CONV * STEPS,
         matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL_CONV * STEPS),
 }
+MESH_PINNED = {
+    "1x1_nccl": mesh_pins(0, 0),
+    "1x2_cuda": mesh_pins(MESH_ALL_REDUCE, 1),
+    "1x2_int8+k5": mesh_pins(
+        MESH_ALL_REDUCE, 1,
+        matmul_w8a8=MESH_W8A8_PER_EVAL * MESH_STEPS,
+        matmul_w8a8_sum=MESH_W8A8_SUMS_PER_EVAL * MESH_STEPS),
+    "2x1_cuda": mesh_pins(0, 1),
+}
 BATCH_PINNED = {
     "cuda": PINNED["cuda"], "cuda_gn": PINNED["cuda_gn"],
     "cuda_conv": PINNED["cuda_conv"],
@@ -436,7 +491,9 @@ BATCH_PINNED = {
                     matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL_B4 * STEPS),
 }
 # the families phase (sd21 768x768 v-prediction, sd21base 512x512, sdxl
-# 1024x1024), 20 steps, batch 1: launches per image of each kernel under
+# 1024x1024), FAMILY_STEPS steps (half the main path's since the mesh phase
+# joined: the whole run stays well inside its 1,200 s), batch 1: launches
+# per image of each kernel under
 # each mode, derived from the rules at every site of the full-width UNet
 # and VAE (tests/test_torch_hopper.py::test_family_pins_are_the_rules):
 #   flash: SDXL 10 self-attentions at 64x64 (d 64, 10 heads) and 60 at 32x32
@@ -453,7 +510,7 @@ BATCH_PINNED = {
 #   int8 + K5: the n >= m sites: SDXL ff1 (N = 10,240 >= M = 2,048) and
 #     attn2 k, v (154 rows) of the 60 blocks at 32x32, attn2 k, v of the 10
 #     at 64x64: 200 an eval, of which 140 split K
-FAMILY_STEPS = STEPS
+FAMILY_STEPS = STEPS // 2
 
 
 def family_pins(flash, **launches):
@@ -477,16 +534,18 @@ FAMILY_PINNED = {
                                matmul_w8a8_sum=140 * FAMILY_STEPS)},
     "sd21": {
         "cuda": family_pins(FLASH_SD2),
-        "cuda_conv": family_pins(FLASH_SD2, group_norm_affine=CONV_PER_IMAGE,
-                                 conv=CONV_PER_IMAGE),
+        "cuda_conv": family_pins(FLASH_SD2,
+                                 group_norm_affine=60 * FAMILY_STEPS + 28,
+                                 conv=60 * FAMILY_STEPS + 28),
         "heun": family_pins(10 * 2 * FAMILY_STEPS + 1),
         # the sites phase's: the kernel rows at SD 2.1's K2, K4 and K5 sites
         "cuda_gn": family_pins(FLASH_SD2, group_norm=61 * FAMILY_STEPS),
         "int8w_dense": family_pins(FLASH_SD2,
-                                   matmul_int8w=MM_INT8W_PER_EVAL * STEPS,
+                                   matmul_int8w=(MM_INT8W_PER_EVAL
+                                                 * FAMILY_STEPS),
                                    matmul_int8w_sum=44 * FAMILY_STEPS),
         "int8+k5": family_pins(FLASH_SD2,
-                               matmul_w8a8=MM_W8A8_PER_EVAL * STEPS,
+                               matmul_w8a8=MM_W8A8_PER_EVAL * FAMILY_STEPS,
                                matmul_w8a8_sum=39 * FAMILY_STEPS)},
     "sd21base": {"cuda": family_pins(FLASH_SD2)},
 }
@@ -917,10 +976,10 @@ def recording(module, name, log):
         setattr(module, name, real)
 
 
-def phase_sites(ctx, batch=1, pinned=PINNED, label="sites"):
+def phase_sites(ctx, batch=1, pinned=PINNED, label="sites", steps=STEPS):
     """The call shapes K1, K2 and K3 get on the main path, and how many
-    times each runs per image: one UNet eval (x STEPS) and one VAE decode
-    under each policy, with the wrappers' arguments logged
+    times each runs per image: one UNet eval (x ``steps``) and one VAE
+    decode under each policy, with the wrappers' arguments logged
     (``record_sites``); for ``batch`` requests, the UNet eval at N = 2 x
     batch and the decode at N = batch (the launches per call do not
     change)."""
@@ -933,7 +992,7 @@ def phase_sites(ctx, batch=1, pinned=PINNED, label="sites"):
                      cfg.latent_channels), generator=g, device="cuda").to(
         cfg.compute_dtype)
     sites = record_sites([
-        (STEPS, lambda k: unet.apply(ctx.params["unet"], x, te, context,
+        (steps, lambda k: unet.apply(ctx.params["unet"], x, te, context,
                                      cfg.unet, k)),
         (1, lambda k: vae.apply(ctx.params["vae"], z, cfg.vae, k))])
     gn_sites, conv_sites = sites["group_norm"], sites["conv"]
@@ -1323,28 +1382,41 @@ def phase_model(ctx):
                                      f"{res}")
 
 
-def device_profile(fn):
+def device_profile(fn, per_name=None):
     """torch.profiler over one call of ``fn``: device ms by kernel name,
-    the number of device kernels, and the call's wall ms on the host. The
+    the number of device kernels, and the call's wall ms on the host
+    (``per_name``, a dict, also gets each name's kernel count). The
     device events are read from the profiler's raw records: building its
     Python event tree over the eager loop's CPU ops took 20-35 s a call.
-    The profile may miss the call's first 25 or so kernels (see
-    ``sdtpu_torch.bench.xprof``), a few of an image's tens of
-    thousands."""
-    from torch.profiler import ProfilerActivity, profile
+    The call runs in the active step of the profiler's schedule, after a
+    warm-up step of one small CUDA op (as ``sdtpu_torch.bench.xprof.
+    trace``): a window opened right at the call lost its first 25 or so
+    kernels once the process had profiled for a while. The schedule's step
+    ranges lie on the device's timeline too and are not kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    warm = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm.add_(1.0)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        prof.step()
     by_name: dict[str, float] = {}
     launches = 0
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.name().startswith("ProfilerStep#")):
             launches += 1
             by_name[e.name()] = (by_name.get(e.name(), 0.0)
                                  + e.duration_ns() / 1e6)
+            if per_name is not None:
+                per_name[e.name()] = per_name.get(e.name(), 0) + 1
     return by_name, launches, wall_ms
 
 
@@ -1376,11 +1448,16 @@ def phase_breakdown(ctx, policy):
            "denoise_ms": ev[1].elapsed_time(ev[2]),
            "unet_eval_ms": ev[1].elapsed_time(ev[2]) / ctx.steps,
            "decode_ms": ev[2].elapsed_time(ev[3])}
+    per_name: dict[str, int] = {}
     by_name, launches, wall_ms = device_profile(
-        lambda: ctx.generate(PROMPT, guidance=7.5, seed=5))
+        lambda: ctx.generate(PROMPT, guidance=7.5, seed=5), per_name)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # every policy keeps K1: the profile must hold each of its launches
+    flash_kernels = sum(n for k, n in per_name.items()
+                        if "flash_fwd_kernel" in k)
     res.update({
+        "flash_kernels": flash_kernels,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
         "device_idle_share": 1.0 - busy / wall_ms if busy else None,
         "device_kernels": launches,
@@ -1399,6 +1476,10 @@ def phase_breakdown(ctx, policy):
         "top_kernels_ms": [[k[:90], v] for k, v in top]})
     emit(res)
     ctx.kernels = before
+    if flash_kernels != FLASH_PER_IMAGE:
+        raise AssertionError(f"the profile holds {flash_kernels} K1 kernels "
+                             f"of an image, the wrapper launches "
+                             f"{FLASH_PER_IMAGE}")
 
 
 # the bench phase: the port's measurement tools (sdtpu_torch.bench,
@@ -2407,7 +2488,7 @@ def family_mm_sites(ctx, name):
     """The call shapes K4 and K5 get in one UNet eval of the family at the
     CFG batch of 2, and their launches per image (``record_mm_sites``),
     held to the family's pins."""
-    found = record_mm_sites(ctx, *unet_inputs(ctx.cfg, 6), STEPS)
+    found = record_mm_sites(ctx, *unet_inputs(ctx.cfg, 6), FAMILY_STEPS)
     pinned = FAMILY_PINNED[name]
     emit({"phase": "family_mm_sites", "config": name, **{
         f"{k}_{what}": v for k, sites in found.items() for what, v in (
@@ -2424,7 +2505,7 @@ def family_sites(ctx, name):
     """Every kernel's call shapes on the family's main path, with launches
     per image: K1, K2 and K3 (``phase_sites``), K4 and K5."""
     sites = phase_sites(ctx, pinned=FAMILY_PINNED[name],
-                        label=f"sites_{name}")
+                        label=f"sites_{name}", steps=FAMILY_STEPS)
     return {**sites, "mm": family_mm_sites(ctx, name)}
 
 
@@ -4972,6 +5053,329 @@ def train_cli(cfg, launches):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the mesh: serving on the (data, model) mesh of sdtpu_torch.parallel
+# ---------------------------------------------------------------------------
+
+# the gloo arms, each run by both ranks: (label, mesh, kernel policy,
+# quantize, KERNEL_W8A8, prompts)
+MESH_ARMS = [("1x2_cuda", (1, 2), "cuda", "none", False, [PROMPT]),
+             ("1x2_int8+k5", (1, 2), "cuda", "int8", True, [PROMPT]),
+             ("2x1_cuda", (2, 1), "cuda", "none", False, MESH_PROMPTS)]
+MESH_RANKS = 2
+MESH_RANK_TIMEOUT_S = 600
+
+
+def mesh_rank(rank: int, root: str) -> int:
+    """One gloo rank of ``phase_mesh`` (``chip_smoke.py --mesh-rank <rank>
+    <dir>``): a fresh interpreter on the parent's card, with the kernel
+    library the parent built. Each ``MESH_ARMS`` arm: a
+    ``Context(mesh=...)``, one image (and, at (2, 1), the call's latents)
+    from ``MESH_SEED`` with its launches and collectives; at (1, 2) one
+    UNet eval at ``unet_inputs(cfg, MESH_SEED)``; under int8 the K5 call
+    shapes of one eval. Writes ``<dir>/rank<rank>.json`` and its arrays
+    ``<dir>/rank<rank>_*.npy``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from sdtpu_torch import Context
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import matmul as MM
+    from sdtpu_torch.parallel import collectives
+    from sdtpu_torch.parallel import mesh as mesh_mod
+    from sdtpu_torch.quant.ptq import calibrate
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{root}/store", rank=rank,
+        world_size=MESH_RANKS, timeout=datetime.timedelta(seconds=300))
+    out = {}
+    try:
+        for label, shape, kernels, quantize, flag, prompts in MESH_ARMS:
+            t0 = time.perf_counter()
+            ctx = Context(config="sd15", steps=MESH_STEPS, kernels=kernels,
+                          quantize=quantize, mesh=shape)
+            arm = {"init_s": time.perf_counter() - t0,
+                   "device": str(ctx.device), "coords": ctx.mesh.coords}
+            if quantize == "int8":
+                with mesh_mod.use(ctx.mesh), torch.inference_mode():
+                    ctx.params = calibrate(ctx.params, ctx.cfg,
+                                           CALIB_PROMPTS, ctx.tokenizer,
+                                           steps=2)
+            with w8a8_kernel(flag):
+                reset_counts()
+                collectives.reset_counts()
+                t0 = time.perf_counter()
+                img = ctx.generate(prompts, guidance=7.5, seed=MESH_SEED)
+                arm["image_s"] = time.perf_counter() - t0
+                arm["launches"] = counts()
+                arm["collectives"] = collectives.collective_counts()
+                np.save(f"{root}/rank{rank}_{label}_image.npy", img)
+                if shape[0] > 1:
+                    lat = ctx.generate(prompts, guidance=7.5,
+                                       seed=MESH_SEED, output="latent")
+                    np.save(f"{root}/rank{rank}_{label}_latent.npy", lat)
+                x, te, context = unet_inputs(ctx.cfg, MESH_SEED)
+                with mesh_mod.use(ctx.mesh), torch.inference_mode():
+                    if label == "1x2_cuda":
+                        eps = unet.apply(ctx.params["unet"], x, te, context,
+                                         ctx.cfg.unet, kernels)
+                        np.save(f"{root}/rank{rank}_{label}_unet.npy",
+                                eps.float().cpu().numpy())
+                    if quantize == "int8":
+                        log = []
+                        with recording(MM, "matmul_w8a8_cuda", log):
+                            unet.apply(ctx.params["unet"], x, te, context,
+                                       ctx.cfg.unet, kernels)
+                        sites = {}
+                        for args, _ in log:
+                            xx, w8 = args[0], args[1]
+                            key = (xx.numel() // xx.shape[-1], w8.shape[0],
+                                   w8.shape[1], args[-1] is not None)
+                            sites[key] = sites.get(key, 0) + MESH_STEPS
+                        arm["w8a8_sites"] = [[*k, v]
+                                             for k, v in sorted(sites.items())]
+            out[label] = arm
+            release(ctx)
+    finally:
+        with open(f"{root}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+    return 0
+
+
+def start_mesh_ranks(root):
+    """``MESH_RANKS`` fresh interpreters running ``mesh_rank``: never a
+    fork, since this process has initialised CUDA. The checkout's root is
+    their working directory and on their path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env.pop("LOCAL_RANK", None)
+    procs = []
+    for r in range(MESH_RANKS):
+        log = open(f"{root}/rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--mesh-rank", str(r), root],
+            cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_mesh_ranks(procs, root):
+    """Wait for every rank; a non-zero exit, a timeout or a missing result
+    fails the phase. Returns each rank's results."""
+    deadline = time.perf_counter() + MESH_RANK_TIMEOUT_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    ranks = []
+    for r, (p, _) in enumerate(procs):
+        path = f"{root}/rank{r}.json"
+        if p.returncode != 0 or not os.path.exists(path):
+            with open(f"{root}/rank{r}.log") as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"mesh rank {r} exited {p.returncode}:\n"
+                                 f"{tail}")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def mesh_references(c_one):
+    """What the gloo arms are held against, on one device: the SD1.5
+    UNet's eval at ``unet_inputs(cfg, MESH_SEED)`` in float32 and under
+    plain bf16; ``MESH_PROMPTS``' latents from ``MESH_SEED`` under cuda
+    and in float32."""
+    import dataclasses
+
+    from sdtpu_torch import Context
+    from sdtpu_torch.io.params import cast_params
+    from sdtpu_torch.models import unet
+
+    cfg = c_one.cfg
+    x, te, context = unet_inputs(cfg, MESH_SEED)
+    with torch.inference_mode():
+        p32 = cast_params(c_one.params["unet"], torch.float32)
+        ref = unet.apply(p32, x.float(), te.float(), context.float(),
+                         cfg.unet, "plain")
+        del p32
+        plain = unet.apply(c_one.params["unet"], x, te, context, cfg.unet,
+                           "plain")
+    lat = c_one.generate(MESH_PROMPTS, guidance=7.5, seed=MESH_SEED,
+                         output="latent")
+    c32 = Context(config=dataclasses.replace(cfg, dtype="float32"),
+                  steps=MESH_STEPS, kernels="plain", device="cuda")
+    c32.params = {k: cast_params(v, torch.float32)
+                  for k, v in c_one.params.items()}
+    with torch.inference_mode():
+        c32._prepare_buffers()
+    lat32 = c32.generate(MESH_PROMPTS, guidance=7.5, seed=MESH_SEED,
+                         output="latent")
+    release(c32)
+    return {"unet_f32": ref, "unet_plain_rel_err": rel_err(plain, ref),
+            "latent": lat, "latent_f32": lat32}
+
+
+def mesh_nccl(c_one):
+    """(a): one rank over NCCL in this process: ``Context(mesh=(1, 1))``
+    must give ``c_one``'s bytes with ``MESH_PINNED["1x1_nccl"]``; then the
+    port's collectives on the one-rank groups keep a CUDA tensor on the
+    card (outside the counted call)."""
+    import torch.distributed as dist
+
+    from sdtpu_torch import Context
+    from sdtpu_torch.parallel import collectives
+    from sdtpu_torch.parallel import mesh as mesh_mod
+
+    root = tempfile.mkdtemp(prefix="sdtpu-nccl-")
+    dist.init_process_group("nccl", init_method=f"file://{root}/store",
+                            rank=0, world_size=1)
+    try:
+        c = Context(config="sd15", steps=MESH_STEPS, kernels="cuda",
+                    mesh=(1, 1))
+        reset_counts()
+        collectives.reset_counts()
+        img = c.generate(PROMPT, guidance=7.5, seed=MESH_SEED)
+        got = {"launches": counts(),
+               "collectives": {k: collectives.collective_counts()[k]
+                               for k in ("all-reduce", "all-gather")}}
+        want = c_one.generate(PROMPT, guidance=7.5, seed=MESH_SEED)
+        t = torch.randn((4, 320), device="cuda").to(torch.bfloat16)
+        with mesh_mod.use(c.mesh):
+            s = collectives.all_reduce_sum(t.clone(), "model")
+            g = collectives.all_gather(t, "data", 0)
+        res = {"backend": c.mesh.backend("model"), "device": str(c.device),
+               "same_bytes": bool(np.array_equal(img, want)),
+               "launches": got["launches"],
+               "collectives": got["collectives"],
+               "transport_on_card": bool(s.is_cuda and g.is_cuda),
+               "transport_exact": bool(torch.equal(s, t)
+                                       and torch.equal(g, t))}
+        release(c)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    if not (res["same_bytes"] and res["transport_on_card"]
+            and res["transport_exact"]):
+        raise AssertionError(f"mesh (1, 1) over NCCL: {res}")
+    if got != MESH_PINNED["1x1_nccl"]:
+        raise AssertionError(f"mesh (1, 1): {got}, expected "
+                             f"{MESH_PINNED['1x1_nccl']}")
+    return res
+
+
+def phase_mesh(smi):
+    """Serving on the (data, model) mesh (``sdtpu_torch.parallel``).
+
+    (c) first, on a quiet card: K1 at its shard shapes at m = 2 and 4
+    (``MESH_FLASH_SHAPES``) against its plain version. Then (b): two gloo
+    ranks, fresh interpreters sharing this card (NCCL refuses two ranks of
+    one communicator on one device), run ``MESH_ARMS`` while this process
+    runs (a), one rank over NCCL (``mesh_nccl``), and the single-device
+    references. (b)'s checks: each rank's launches and collectives at
+    ``MESH_PINNED``; both ranks return the same bytes (every rank the whole
+    batch); the (1, 2) UNet eval within ``MODEL_FACTOR`` of plain bf16's
+    error against float32 (``phase_model``'s rule); each (2, 1) rank's
+    request within ``BATCH_GAP_FACTOR`` of that request's own bf16 to
+    float32 gap from the same call on one device (``phase_batch``'s rule).
+    Then K5 at the shard shapes the ranks recorded. Two ranks on one card
+    measure correctness and the cost of the host-staged gloo transport,
+    not the speed of a mesh. Returns (K1 rows, K5 rows, launches)."""
+    from sdtpu_torch import Context
+
+    t_start = time.perf_counter()
+    per_image = {s: 5 * MESH_STEPS for s in MESH_FLASH_SHAPES}
+    flash_rows = phase_kernel(shapes=MESH_FLASH_SHAPES, ragged=[],
+                              label="kernel_mesh", per_image=per_image)
+    root = tempfile.mkdtemp(prefix="sdtpu-mesh-")
+    try:
+        t0 = time.perf_counter()
+        procs = start_mesh_ranks(root)
+        c_one = Context(config="sd15", steps=MESH_STEPS, kernels="cuda",
+                        device="cuda")
+        nccl = mesh_nccl(c_one)
+        refs = mesh_references(c_one)
+        release(c_one)
+        ranks = wait_mesh_ranks(procs, root)
+        ranks_s = time.perf_counter() - t0
+        res = {"phase": "mesh", "nvidia_smi": smi, "steps": MESH_STEPS,
+               "ranks": MESH_RANKS, "backend": "gloo (host-staged), "
+               "two ranks on one card",
+               "note": "two ranks sharing one card measure correctness and "
+                       "the host-staged transport's cost, not the speed of "
+                       "a mesh", "nccl_1x1": nccl, "ranks_s": ranks_s,
+               "unet_plain_rel_err": refs["unet_plain_rel_err"], "arms": {}}
+        failures = []
+        lat, lat32 = refs["latent"], refs["latent_f32"]
+        for label, shape, *_ in MESH_ARMS:
+            imgs = [np.load(f"{root}/rank{r}_{label}_image.npy")
+                    for r in range(MESH_RANKS)]
+            arm = {"same_bytes_across_ranks": all(
+                np.array_equal(imgs[0], im) for im in imgs)}
+            for r, rk in enumerate(ranks):
+                got = {"launches": rk[label]["launches"],
+                       "collectives": {k: rk[label]["collectives"][k] for k
+                                       in ("all-reduce", "all-gather")}}
+                arm[f"rank{r}"] = {**got, "image_s": rk[label]["image_s"],
+                                   "init_s": rk[label]["init_s"],
+                                   "device": rk[label]["device"]}
+                if got != MESH_PINNED[label]:
+                    failures.append(f"{label} rank {r}: {got}")
+            try:
+                check_image(imgs[0][0], 512)
+            except AssertionError as e:
+                failures.append(f"{label}: {e}")
+            if label == "1x2_cuda":
+                for r in range(MESH_RANKS):
+                    eps = torch.from_numpy(np.load(
+                        f"{root}/rank{r}_{label}_unet.npy")).cuda()
+                    err = rel_err(eps, refs["unet_f32"])
+                    arm[f"rank{r}"]["unet_rel_err"] = err
+                    if not err <= MODEL_FACTOR * refs["unet_plain_rel_err"]:
+                        failures.append(f"{label} rank {r}: UNet {err}")
+            if shape[0] > 1:
+                for r in range(MESH_RANKS):
+                    mine = np.load(f"{root}/rank{r}_{label}_latent.npy")
+                    i = ranks[r][label]["coords"][0]
+                    scale = np.abs(lat32[i]).max()
+                    err = float(np.abs(mine[i] - lat[i]).max() / scale)
+                    gap = float(np.abs(lat[i] - lat32[i]).max() / scale)
+                    arm[f"rank{r}"].update(latent_rel_err=err,
+                                           latent_gap_f32=gap)
+                    if not err <= BATCH_GAP_FACTOR * gap:
+                        failures.append(f"{label} rank {r}: latents {err} "
+                                        f"against a gap of {gap}")
+            if not arm["same_bytes_across_ranks"]:
+                failures.append(f"{label}: ranks differ")
+            res["arms"][label] = arm
+        k5_sites = {tuple(s[:4]): s[4]
+                    for s in ranks[0]["1x2_int8+k5"]["w8a8_sites"]}
+        res["w8a8_sites"] = len(k5_sites)
+        res["seconds_before_k5"] = time.perf_counter() - t_start
+        emit(res)
+        if failures:
+            raise AssertionError(f"mesh phase: {failures}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mm_rows = phase_kernel_mm({"int8w_dense": {}, "int8+k5": k5_sites},
+                              ragged=[], label="kernel_mesh_mm")
+    launches = {label: {**res["arms"][label]["rank0"]["launches"],
+                        **res["arms"][label]["rank0"]["collectives"]}
+                for label, *_ in MESH_ARMS}
+    launches["1x1_nccl"] = {**nccl["launches"], **nccl["collectives"]}
+    emit({"phase": "mesh_done", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_start})
+    return flash_rows, mm_rows["matmul_w8a8"], launches
+
+
 def image_summary(rows, launches):
     """A kernel's rows at the image sites for the ``kernels`` line, as
     ``family_summary``; None where the group has no site of it."""
@@ -5139,6 +5543,9 @@ def main() -> int:
     stage_launches, stage_rows = phase_stages(smi)
     # a ControlNet on SDXL, for its sites
     adapter_launches.update(phase_adapters_xl(smi))
+    # serving on the (data, model) mesh, last: nothing after it shares its
+    # process groups
+    mesh_flash, mesh_w8a8, mesh_launches = phase_mesh(smi)
 
     def images(kernel, counter):
         return {"rows": {g: image_summary(rows.get(kernel), None)
@@ -5204,6 +5611,9 @@ def main() -> int:
          "adapters": adapters("flash", "flash"),
          "serving": serving("flash", "flash"),
          "train": {k: v["flash"] for k, v in train_launches.items()},
+         "mesh": {"rows": mesh_flash,
+                  "launches": {k: v["flash"]
+                               for k, v in mesh_launches.items()}},
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "flash_attn_bwd", "route": "cuda",
@@ -5355,6 +5765,9 @@ def main() -> int:
          "stages": stages("matmul_w8a8", "matmul_w8a8"),
          "adapters": adapters("matmul_w8a8", "matmul_w8a8"),
          "serving": serving("matmul_w8a8", "matmul_w8a8"),
+         "mesh": {"rows": mesh_w8a8,
+                  "launches": {k: v["matmul_w8a8"]
+                               for k, v in mesh_launches.items()}},
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -5362,4 +5775,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -180,10 +180,18 @@ def _cmd_show(args) -> int:
 
 def _cmd_serve(args) -> int:
     import sdtpu_torch
+    from sdtpu_torch.engine.errors import ErrorCode, SdtpuError
     from sdtpu_torch.engine.logging import LogLevel
     from sdtpu_torch.engine.server import serve
 
-    mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
+    if args.mesh:
+        # one process serves HTTP here; a mesh needs a rank-0 server with
+        # follower ranks, which the port does not have yet
+        raise SdtpuError(
+            ErrorCode.INVALID_ARGUMENT,
+            "serve --mesh is not ported yet (ROADMAP item 23b: a rank-0 "
+            "server with follower ranks); Context(mesh=) serves on every "
+            "rank of a process group")
     lora = None
     if args.lora:
         lora = {}
@@ -197,7 +205,7 @@ def _cmd_serve(args) -> int:
     ctx = sdtpu_torch.Context(
         model_dir=args.model_dir, steps=args.steps, sampler=args.sampler,
         config=args.config, log_level=LogLevel(args.log_level),
-        kernels=args.kernels, mesh=mesh, lora=lora,
+        kernels=args.kernels, lora=lora,
         cfg_interval=_interval(args.cfg_interval), deepcache=args.deepcache,
         tome_ratio=args.tome_ratio, device=_device(args.platform))
     stream_steps = (tuple(int(s) for s in args.stream_steps.split(","))
@@ -685,7 +693,7 @@ def main(argv=None) -> int:
     sv.add_argument("--model-dir", default=None)
     sv.add_argument("--mesh", default=None,
                     help="multi-card serving mesh as 'data,model' (not "
-                         "ported yet: ROADMAP item 23)")
+                         "ported yet: ROADMAP item 23b)")
     sv.add_argument("--lora", action="append", default=None,
                     metavar="NAME=PATH",
                     help="register a LoRA adapter for per-request selection "

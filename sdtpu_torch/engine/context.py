@@ -61,8 +61,20 @@ control_scale=)`` runs, one or several at once; ``load_lora(name, path)``
 registers a LoRA adapter (a native ``.npz`` or a kohya ``.safetensors``),
 and ``lora=`` selects it on every entry point (the constructor's ``lora=``
 loads one as the default, or a dict of them). An adapter's overlay of the
-towers is built once and shares every base tensor. The reference's
-``mesh`` is refused with ``INVALID_ARGUMENT`` until its slice of the port.
+towers is built once and shares every base tensor.
+
+Multi-card serving (``sdtpu/engine/context.py:101-107``): ``mesh=(data,
+model)`` on every rank of a process group of data x model ranks the caller
+started (``torchrun``, ``init_process_group``); with no group the world is
+one rank and ``(1, 1)`` runs with no collective. The parameters are split
+at load by the tensor-parallel plan (``parallel.sharding``; a ControlNet at
+``load_controlnet``, a LoRA adapter's overlay at its first use), a call's
+batch by the data axis: each rank runs its rows and every rank returns the
+whole batch. A call whose batch the data axis does not divide is
+``INVALID_ARGUMENT`` with the reference's text; the batched entry points
+pad to a multiple of it. A mesh larger than the world is
+``INVALID_ARGUMENT`` with ``make_mesh``'s text. On the card each rank takes
+``cuda:{LOCAL_RANK % device_count()}`` unless ``device`` names one.
 
 The constructor takes the reference's keywords with its names, defaults
 and positional order (``sdtpu/engine/context.py:60-84``); ``device`` is
@@ -127,6 +139,9 @@ from sdtpu_torch.io.weights import (UnsupportedCheckpoint, _unflatten_tree,
                                     load_pipeline_params)
 from sdtpu_torch.models import controlnet
 from sdtpu_torch.models.layers import disable_tf32
+from sdtpu_torch.parallel import mesh as mesh_mod
+from sdtpu_torch.parallel.sharding import (shard_adapter, shard_params,
+                                           site_plan)
 from sdtpu_torch.quant.ptq import (count_quantized, quantize_unet,
                                    quantize_weights_only)
 from sdtpu_torch.samplers import SAMPLERS
@@ -176,7 +191,13 @@ class Context:
                 "no CUDA device (torch.cuda.is_available() is false); pass "
                 "device='cpu' to run the plain versions on the host",
                 self.errors)
-        _refuse_unported(self.errors, mesh=mesh)
+        self.mesh = None
+        #: the tensor-parallel plan of the tree (``sharding.site_plan``)
+        self._plan: dict = {}
+        if mesh is not None:
+            self.mesh = self._make_mesh(mesh)
+            if self.device == torch.device("cuda"):
+                self.device = mesh_mod.rank_device()
         self.cfg = self._configure(config, size, clip_skip, freeu,
                                    tome_ratio, deepcache, guidance_rescale)
         self.logger = slog.Logger(log_level,
@@ -330,6 +351,42 @@ class Context:
             raise SdtpuError(ErrorCode.INVALID_ARGUMENT, why, self.errors)
         return float(lo), float(hi)
 
+    def _make_mesh(self, mesh):
+        """``make_mesh(data=mesh[0], model=mesh[1])``; its ``ValueError`` (a
+        mesh larger than the world) as ``INVALID_ARGUMENT`` with its text. A
+        rank of the world outside the mesh has no rows to serve."""
+        try:
+            data, model = (int(v) for v in mesh)
+            m = mesh_mod.make_mesh(data=data, model=model)
+        except (TypeError, ValueError) as e:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT, str(e),
+                             self.errors) from e
+        if not m.member:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"this rank is outside the {data}x{model} mesh", self.errors)
+        return m
+
+    def _check_batch(self, batch: int) -> None:
+        """A call's batch must tile the mesh's data axis (the reference's
+        text, ``sdtpu/engine/context.py:817-821``)."""
+        if self.mesh is not None and batch % self.mesh.shape["data"]:
+            raise SdtpuError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"batch {batch} not divisible by data axis "
+                f"{self.mesh.shape['data']}", self.errors)
+
+    def _shard(self, params):
+        """``params`` (a tree of the pipeline's, keyed from its root) split
+        for this rank by the tensor-parallel plan, the plan kept for the
+        adapters (``sdtpu/engine/context.py:367-370``); as they are off a
+        mesh."""
+        if self.mesh is None:
+            return params
+        plan = site_plan(params, self.mesh.shape["model"], self.cfg)
+        self._plan.update(plan)
+        return shard_params(params, self.mesh, self.cfg, plan)
+
     # ------------------------------------------------------------------
     # phased init
     # ------------------------------------------------------------------
@@ -359,7 +416,7 @@ class Context:
         else:
             phase(self._load_models)()
             phase(self._load_tokenizer)()
-        with torch.inference_mode():
+        with torch.inference_mode(), mesh_mod.use(self.mesh):
             self._prepare_buffers()
             for word, src in embeddings.items():
                 self.load_embedding(word, src)
@@ -397,7 +454,7 @@ class Context:
                 # only an unquantized tree: the quantizers and the
                 # checkpoint layout keep the unfused projections
                 params = fuse_attention_projections(params)
-            self.params = params
+            self.params = self._shard(params)
             if self.lora is not None:
                 # a string is the default adapter of every request that
                 # selects none (``lora=""`` selects the base)
@@ -614,6 +671,8 @@ class Context:
         p = self._lora_params.get(lora)
         if p is None:
             adapters = self._adapters[lora]
+            if self.mesh is not None:
+                adapters = shard_adapter(adapters, self.mesh, self._plan)
             p = dict(self.params)
             if isinstance(adapters, dict) and set(adapters) <= {
                     "unet", "clip", "clip2"}:
@@ -651,7 +710,11 @@ class Context:
                 cn = from_jax_tree({"controlnet": _unflatten_tree(tensors)},
                                    self.cfg, dtype=dtype,
                                    device=self.device)["controlnet"]
-        self._controlnets[name] = cast_params(cn, dtype)
+        # split by the plan once at load: its transformer matmuls take the
+        # Megatron pairs, its zero convs replicate (sdtpu/engine/context.py:
+        # 598-604)
+        self._controlnets[name] = self._shard(
+            {"controlnet": cast_params(cn, dtype)})["controlnet"]
         self.logger.info(f"ControlNet {name!r} loaded")
 
     def controlnet_names(self) -> list[str]:
@@ -731,7 +794,8 @@ class Context:
         launch, a torch error) comes out typed as ``RUNTIME_ERROR``,
         recorded, and the context stays usable."""
         try:
-            with torch.inference_mode(), slog.logger_scope(self.logger):
+            with (torch.inference_mode(), slog.logger_scope(self.logger),
+                  mesh_mod.use(self.mesh)):
                 return fn()
         except SdtpuError:
             raise
@@ -812,6 +876,7 @@ class Context:
         self._check_usable()
         self._check_in_channels("txt2img", "generate")
         prompts = self._prompts(prompt)
+        self._check_batch(len(prompts))
         params = self._params_for(lora)
         cns, hint = self._resolve_control(control, control_image)
         if cns is not None:
@@ -931,6 +996,7 @@ class Context:
                 self.errors)
         start_step = round(self.steps * denoising_start)
         prompts = self._prompts(prompt)
+        self._check_batch(len(prompts))
         lat = np.asarray(latents, np.float32)
         if lat.ndim == 3:
             lat = lat[None]
@@ -1034,6 +1100,7 @@ class Context:
         self._check_usable()
         self._check_in_channels("txt2img", "generate_async")
         prompts = self._prompts(prompt)
+        self._check_batch(len(prompts))
         params = self._params_for(lora)
         self._refuse_scheduling(prompts + [negative_prompt])
         self._check_knobs()
@@ -1074,7 +1141,9 @@ class Context:
                         pag_key=False):
         """Validate a batch (``check(request)`` for a mode's own keys; with
         ``pag_key`` a request's ``pag_scale`` turns PAG on), pad it to the
-        next power of two with copies of the first request -> (padded
+        next power of two, and on a mesh on to a multiple of its data axis
+        (``sdtpu/engine/context.py:1274-1277``), with copies of the first
+        request -> (padded
         requests, one seed each, one guidance each, the parameters of the
         batch's adapter).
 
@@ -1106,6 +1175,8 @@ class Context:
         self._check_output(output)
         n = len(requests)
         p = 1 << (n - 1).bit_length()
+        if self.mesh is not None:
+            p = -(-p // self.mesh.shape["data"]) * self.mesh.shape["data"]
         pad = list(requests) + [requests[0]] * (p - n)
         self._refuse_scheduling([t for r in requests for t in (
             r["prompt"], r.get("negative_prompt"))])
@@ -1221,6 +1292,7 @@ class Context:
                              f"strength must be in (0, 1], got {strength}",
                              self.errors)
         prompts = self._prompts(prompt)
+        self._check_batch(len(prompts))
         params = self._params_for(lora)
         self._check_output(output)
         self._refuse_scheduling(prompts + [negative_prompt])
@@ -1349,6 +1421,7 @@ class Context:
                              f"strength must be in (0, 1), got {strength}",
                              self.errors)
         prompts = self._prompts(prompt)
+        self._check_batch(len(prompts))
         params = self._params_for(lora)
         self._check_output(output)
         self._refuse_scheduling(prompts + [negative_prompt])
@@ -1599,19 +1672,3 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
-
-
-#: the reference's arguments of features still to port -> their ROADMAP item
-UNPORTED = {"mesh": "item 23 (parallelism)"}
-
-
-def _refuse_unported(errors: ErrorTable, **given) -> None:
-    """Refuse a reference argument whose feature is a later slice of the
-    port (``UNPORTED``), when it is given a value other than its default
-    None."""
-    for name, value in given.items():
-        if value is not None:
-            raise SdtpuError(
-                ErrorCode.INVALID_ARGUMENT,
-                f"{name}= is not ported yet (ROADMAP {UNPORTED[name]})",
-                errors)

@@ -27,6 +27,12 @@ at ``start_step`` from its noised latents, and may re-pin a masked region
 or feed extra planes to the UNet at every step (``denoise``); a call's
 random draws follow ``draw_noise``'s rule.
 
+On the mesh (``sdtpu_torch.parallel``), each entry point takes the whole
+call's inputs and draws on every rank, keeps this rank's rows of the data
+axis (``_rows``; the draws sliced after ``_draws`` made them all, so a
+rank's numbers are those of one device) and gathers the results over the
+data group (``_finish``); the model axis acts inside the models.
+
 The Context knobs act in ``denoise``: the CFG interval splits the loop into
 segments (``segments``), CFG rescale and PAG change each step's eps,
 DeepCache alternates full and shallow UNet evals; ``check_knobs`` holds
@@ -43,6 +49,7 @@ import torch
 
 from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.models import clip, controlnet, temb, unet, vae
+from sdtpu_torch.parallel.sharding import data_rows, gather_rows
 from sdtpu_torch.samplers import get_sampler
 from sdtpu_torch.samplers.schedule import NoiseSchedule, to_f32
 
@@ -238,7 +245,9 @@ def _draws(generator, shape, steps, sampler, device, seams, extra=()):
     where the caller gave one (a tensor or an array; for ``step_noise`` and
     ``pin_noise`` also a callable of the step, checked at each step), else
     from ``generator`` by ``draw_noise``'s rule (all of them then, so the
-    order never shifts). Returns the dict, float32 on ``device``."""
+    order never shifts). ``shape`` is the whole call's; on the mesh each
+    draw is then cut to this rank's rows. Returns the dict, float32 on
+    ``device``."""
     with_steps = getattr(get_sampler(sampler), "NEEDS_NOISE", False)
     want = ("noise",) + (("step_noise",) if with_steps else ()) + tuple(extra)
     out = {k: seams.get(k) for k in want}
@@ -246,9 +255,40 @@ def _draws(generator, shape, steps, sampler, device, seams, extra=()):
         drawn = draw_noise(generator, shape, steps, want, device)
         out = {k: drawn[k] if v is None else v for k, v in out.items()}
     for k, v in out.items():
-        if not callable(v):
-            out[k] = _seam(v, _draw_shape(k, shape, steps), device, k)
+        dim = 1 if k in _PER_STEP else 0
+        if callable(v):
+            out[k] = _rows_of_step(v, _draw_shape(k, shape, steps)[1:],
+                                   device, k)
+        else:
+            out[k] = data_rows(_seam(v, _draw_shape(k, shape, steps),
+                                     device, k), dim)
     return out
+
+
+def _rows_of_step(fn, shape, device, name):
+    """A per-step seam of the whole batch as one of this rank's rows."""
+    def rows(i):
+        return data_rows(_seam(fn(i), shape, device, name))
+
+    return rows
+
+
+def _rows(x, dim=0):
+    """This rank's rows of a call's batched input on the mesh's data axis
+    (``parallel.sharding.data_rows``): a tensor along ``dim``, a
+    per-sample list or tuple; a scalar or None as it is."""
+    if isinstance(x, (list, tuple)):
+        t = data_rows(torch.arange(len(x)))
+        return [x[i] for i in t.tolist()]
+    if torch.is_tensor(x) and x.dim() > dim:
+        return data_rows(x, dim)
+    return x
+
+
+def _uncond_rows(uncond):
+    """One uncond embedding a sample [B, T, D] sliced; a shared [T, D]
+    kept."""
+    return _rows(uncond) if uncond.dim() == 3 else uncond
 
 
 def check_knobs(cfg: PipelineConfig, sampler: str, pag=False, ip2p=False,
@@ -645,6 +685,13 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
     ``sched_idx`` ([steps] integer, each step's variant), tokens are [V, B,
     k, T] (+ weights): the V variants encode into one table [V, B, k*T, D]
     in one call, and step i conditions on variant ``sched_idx[i]``."""
+    bdim = 0 if sched_idx is None else 1
+    shape = _latent_shape(tokens.shape[bdim], cfg)
+    tokens, token_weights = _rows(tokens, bdim), _rows(token_weights, bdim)
+    uncond_embedding = _uncond_rows(uncond_embedding)
+    guidance, pag_scale = _rows(guidance), _rows(pag_scale)
+    if hint is not None:
+        hint = _rows(hint, 1 if hint.dim() == 5 else 0)
     cond_schedule = None
     if sched_idx is not None:
         v, bsz, k, t = tokens.shape
@@ -662,7 +709,6 @@ def generate(params, tokens, uncond_embedding, generator, guidance, *,
     else:
         context = _build_context(params, tokens, uncond_embedding, cfg,
                                  use_cfg, weights=token_weights)
-    shape = _latent_shape(context.shape[0] // (2 if use_cfg else 1), cfg)
     d = _draws(generator, shape, steps, sampler, context.device,
                {"noise": noise, "step_noise": step_noise})
     x = denoise(params, context, guidance, cfg, steps, use_cfg, kernels,
@@ -690,23 +736,29 @@ def refine(params, tokens, uncond_embedding, generator, guidance, latents, *,
     steps' share from ``start_step`` on; the start latents drawn are not
     read. So ``start_step=0`` with ``generate``'s own start latents gives
     ``generate``'s result under one generator."""
+    shape = _latent_shape(tokens.shape[0], cfg)
+    tokens, token_weights = _rows(tokens), _rows(token_weights)
+    uncond_embedding = _uncond_rows(uncond_embedding)
+    guidance, pag_scale = _rows(guidance), _rows(pag_scale)
     context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
                              weights=token_weights)
-    shape = _latent_shape(tokens.shape[0], cfg)
     d = _draws(generator, shape, steps, sampler, context.device,
                {"noise": noise, "step_noise": step_noise})
     x = denoise(params, context, guidance, cfg, steps, use_cfg, kernels,
                 sampler=sampler, step_noise=d.get("step_noise"),
                 start_step=start_step,
-                x_start=_seam(latents, shape, context.device, "latents"),
+                x_start=_rows(_seam(latents, shape, context.device,
+                                    "latents")),
                 cfg_interval=cfg_interval, pag_scale=pag_scale,
                 pag_layers=pag_layers)
     return _finish(params, x, cfg, kernels, output)
 
 
 def _finish(params, x, cfg, kernels, output):
-    return x if output == "latent" else decode_latents(params, x, cfg,
-                                                       kernels)
+    """Decode (or not), then the whole batch from the data group's
+    rows."""
+    return gather_rows(x if output == "latent"
+                       else decode_latents(params, x, cfg, kernels))
 
 
 def _encode_init_latents(params, image, cfg: PipelineConfig, kernels,
@@ -756,9 +808,13 @@ def img2img(params, tokens, uncond_embedding, generator, guidance, image, *,
     Draws (``draw_noise``): noise, step noise, posterior noise; ``noise``,
     ``step_noise``, ``posterior_noise`` are their seams. ``cfg_interval``,
     ``pag_scale`` and ``pag_layers``: ``denoise``'s knobs."""
+    shape = _latent_shape(tokens.shape[0], cfg)
+    tokens, token_weights = _rows(tokens), _rows(token_weights)
+    uncond_embedding = _uncond_rows(uncond_embedding)
+    guidance, pag_scale = _rows(guidance), _rows(pag_scale)
+    image, depth = _rows(image), _rows(depth)
     context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
                              weights=token_weights)
-    shape = _latent_shape(tokens.shape[0], cfg)
     d = _draws(generator, shape, steps, sampler, context.device,
                {"noise": noise, "step_noise": step_noise,
                 "posterior_noise": posterior_noise}, ("posterior_noise",))
@@ -803,9 +859,13 @@ def inpaint(params, tokens, uncond_embedding, generator, guidance, image,
 
     ``noise``, ``step_noise``, ``posterior_noise``, ``masked_noise`` and
     ``pin_noise`` are the draws' seams; ``cfg_interval`` is ``denoise``'s."""
+    shape = _latent_shape(tokens.shape[0], cfg)
+    tokens, token_weights = _rows(tokens), _rows(token_weights)
+    uncond_embedding = _uncond_rows(uncond_embedding)
+    guidance = _rows(guidance)
+    image, mask = _rows(image), _rows(mask)
     context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
                              weights=token_weights)
-    shape = _latent_shape(tokens.shape[0], cfg)
     m = _latent_pool(mask, cfg)
     seams = {"noise": noise, "step_noise": step_noise,
              "posterior_noise": posterior_noise,
@@ -862,9 +922,12 @@ def hires_refine(params, tokens, uncond_embedding, generator, guidance,
     continued after the first pass (``Context.hires_fix``).
     ``cfg_interval`` is ``denoise``'s."""
     cfg_hi = dataclasses.replace(cfg, latent_size=cfg.latent_size * scale)
+    shape = _latent_shape(tokens.shape[0], cfg_hi)
+    tokens, token_weights = _rows(tokens), _rows(token_weights)
+    uncond_embedding = _uncond_rows(uncond_embedding)
+    guidance, latents = _rows(guidance), _rows(latents)
     context = _build_context(params, tokens, uncond_embedding, cfg_hi,
                              use_cfg, weights=token_weights)
-    shape = _latent_shape(tokens.shape[0], cfg_hi)
     d = _draws(generator, shape, steps, sampler, context.device,
                {"noise": noise, "step_noise": step_noise})
     x = denoise(params, context, guidance, cfg_hi, steps,
@@ -886,10 +949,13 @@ def instruct_pix2pix(params, tokens, uncond_embedding, generator, guidance,
     context [cond, uncond, uncond], and steers toward the instruction
     (``guidance``) and the image (``image_guidance``). Always from pure
     noise. Draws: noise and step noise."""
+    shape = _latent_shape(tokens.shape[0], cfg)
+    tokens, token_weights = _rows(tokens), _rows(token_weights)
+    uncond_embedding = _uncond_rows(uncond_embedding)
+    guidance, image = _rows(guidance), _rows(image)
     p_cond = encode_text(params, tokens, cfg, token_weights)
     p_un = uncond_embedding.to(p_cond.dtype).expand(p_cond.shape)
     context = torch.cat([p_cond, p_un, p_un], dim=0)
-    shape = _latent_shape(tokens.shape[0], cfg)
     d = _draws(generator, shape, steps, sampler, context.device,
                {"noise": noise, "step_noise": step_noise})
     image_latents = _encode_init_latents(params, image, cfg, kernels,
@@ -920,10 +986,14 @@ def upscale(params, tokens, uncond_embedding, generator, guidance, image,
     full trajectory from pure noise, decoded by the f4 VAE to [B, 4h, 4w,
     3]. Draws: noise, step noise, then ``aug_noise`` in the image's shape;
     ``noise``, ``step_noise`` and ``aug_noise`` are their seams."""
+    shape = _latent_shape(tokens.shape[0], cfg)
+    tokens, token_weights = _rows(tokens), _rows(token_weights)
+    uncond_embedding = _uncond_rows(uncond_embedding)
+    guidance, image, noise_level = (_rows(guidance), _rows(image),
+                                    _rows(noise_level))
     context = _build_context(params, tokens, uncond_embedding, cfg, use_cfg,
                              weights=token_weights)
     dev = context.device
-    shape = _latent_shape(tokens.shape[0], cfg)
     d = _draws(generator, shape, steps, sampler, dev,
                {"noise": noise, "step_noise": step_noise,
                 "aug_noise": aug_noise}, ("aug_noise",))

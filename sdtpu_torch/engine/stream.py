@@ -101,6 +101,11 @@ class StreamScheduler:
         if ctx.cfg.deepcache_interval is not None:
             raise ValueError("DeepCache's scan-carry cache is incompatible "
                              "with iteration-level scheduling")
+        mesh = getattr(ctx, "mesh", None)
+        if mesh is not None and mesh.shape["data"] * mesh.shape["model"] > 1:
+            # its ticks run on one rank; the ranks of a mesh serve together
+            raise ValueError("the stream pool on a mesh is not ported yet "
+                             "(ROADMAP item 23b)")
         self.ctx = ctx
         self.cfg = cfg = ctx.cfg
         self.device = dev = ctx.device

@@ -25,6 +25,7 @@ from sdtpu_torch.models.layers import (
     init_norm,
     layer_norm,
     quick_gelu,
+    split_of,
 )
 
 
@@ -57,17 +58,24 @@ def init(cfg: CLIPConfig, generator, device):
     return params
 
 
-def _encoder_block(blk, x, heads, eps, act, causal=True):
+def _encoder_block(blk, x, heads, eps, act, causal=True, mlp_ratio=4):
     """A pre-LN block; ``causal`` masks the self-attention (the text
     towers), else every token sees every other (the vision tower, the plain
-    ``sdpa`` as the reference's takes no kernel)."""
+    ``sdpa`` as the reference's takes no kernel). On the mesh's model axis
+    (``parallel.sharding``) a split attention runs this rank's heads and a
+    split MLP its slice of ``fc1``'s columns, each all-reduced after its
+    row site (``out``, ``fc2``, ``mlp_ratio`` x wide)."""
+    d = x.shape[-1]
+    t_attn = split_of(blk["out"], d)
+    heads = heads // t_attn
     h = layer_norm(blk["ln1"], x, eps)
     q, k, v = dense(blk["q"], h), dense(blk["k"], h), dense(blk["v"], h)
     a = (causal_sdpa(q, k, v, heads) if causal
          else sdpa(q, k, v, heads, kernel="plain"))
-    x = x + dense(blk["out"], a)
+    x = x + dense(blk["out"], a, reduce=t_attn > 1)
     h = layer_norm(blk["ln2"], x, eps)
-    return x + dense(blk["fc2"], act(dense(blk["fc1"], h)))
+    return x + dense(blk["fc2"], act(dense(blk["fc1"], h)),
+                     reduce=split_of(blk["fc2"], mlp_ratio * d) > 1)
 
 
 def _act(cfg: CLIPConfig):
@@ -90,7 +98,8 @@ def apply(params, tokens, cfg: CLIPConfig, dtype=torch.float32):
     blocks = params["blocks"]
     n_skip = cfg.skip_last or (1 if cfg.penultimate else 0)
     for blk in blocks[:len(blocks) - n_skip]:
-        x = _encoder_block(blk, x, cfg.heads, cfg.eps, act)
+        x = _encoder_block(blk, x, cfg.heads, cfg.eps, act,
+                           mlp_ratio=cfg.mlp_ratio)
     return layer_norm(params["final_ln"], x, cfg.eps)
 
 
@@ -106,11 +115,13 @@ def apply_xl(params, tokens, cfg: CLIPConfig, eot_id: int,
     act = _act(cfg)
     x = _embed(params, tokens, dtype)
     for blk in params["blocks"][:-1]:
-        x = _encoder_block(blk, x, cfg.heads, cfg.eps, act)
+        x = _encoder_block(blk, x, cfg.heads, cfg.eps, act,
+                           mlp_ratio=cfg.mlp_ratio)
     hidden = x
     if "text_proj" not in params:
         return hidden, None
-    x = _encoder_block(params["blocks"][-1], x, cfg.heads, cfg.eps, act)
+    x = _encoder_block(params["blocks"][-1], x, cfg.heads, cfg.eps, act,
+                       mlp_ratio=cfg.mlp_ratio)
     x = layer_norm(params["final_ln"], x, cfg.eps)
     eot = torch.argmax((tokens == eot_id).to(torch.int32), dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -204,7 +215,7 @@ def apply_vision(params, images, cfg: CLIPVisionConfig, dtype=torch.float32):
     x = layer_norm(params["ln_pre"], x, cfg.eps)
     for blk in params["blocks"]:
         x = _encoder_block(blk, x, cfg.heads, cfg.eps, quick_gelu,
-                           causal=False)
+                           causal=False, mlp_ratio=cfg.mlp_ratio)
     pooled = layer_norm(params["ln_post"], x[:, 0], cfg.eps)
     return _project(pooled, params["proj"], dtype)
 

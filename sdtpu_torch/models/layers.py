@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from sdtpu_torch.ops import matmul as MM
+from sdtpu_torch.parallel import collectives
 
 
 def disable_tf32() -> None:
@@ -180,17 +181,50 @@ def _int8w_gemm_ok(w8, x) -> bool:
     return not MM.DISABLE and MM.eligible(x, w8)
 
 
-def dense(p, x, dtype=None):
+def dense(p, x, dtype=None, reduce: bool = False):
     """``x @ w + b``, dispatched on the site's leaf names as
     ``sdtpu/models/layers.py:199-227``: ``w_q`` is a W8A8 site, ``w8`` a
     weight-only-int8 one, ``w`` a plain one. A site with a LoRA adapter
     (``lora_a`` [in, r], ``lora_b`` [r, out], ``lora_s``) adds ``(x A) B s``
-    in the output's dtype to whichever of them ran (``lora_delta``)."""
+    in the output's dtype to whichever of them ran (``lora_delta``).
+
+    ``reduce``: a row-parallel site of the mesh (``parallel.sharding``):
+    ``x`` and the weight hold this rank's slice of the input features, so
+    the product and the LoRA delta are a partial sum, all-reduced over the
+    model group in the output's dtype before the bias is added, once."""
+    if reduce:
+        y = dense({k: v for k, v in p.items() if k != "b"}, x, dtype)
+        y = collectives.all_reduce_sum(y, "model")
+        return y + p["b"].to(y.dtype) if "b" in p else y
     y = _dense_base(p, x, dtype)
     if "lora_a" in p:
         dt = y.dtype
         y = y + lora_delta(p, x.to(dt) @ p["lora_a"].to(dt))
     return y
+
+
+def _weight_leaf(p):
+    for f in ("w", "w_q", "w8"):
+        if f in p:
+            return p[f]
+    raise KeyError(f"no dense weight among {sorted(p)}")
+
+
+def split_of(p, full: int) -> int:
+    """The model-axis split of a row-parallel site whose whole input is
+    ``full`` features wide: ``full // (its input width)``, 1 where the
+    site is whole (``parallel.sharding``)."""
+    return full // _weight_leaf(p).shape[0]
+
+
+def gather_columns(p, y):
+    """A lone column-parallel site's output (the time MLP's ``fc1``, whose
+    ``(D, D)`` weight holds this rank's output columns) gathered over the
+    model group; ``y`` as it is where the site is whole."""
+    w = _weight_leaf(p)
+    if w.shape[1] == w.shape[0]:
+        return y
+    return collectives.all_gather(y, "model", dim=-1)
 
 
 def lora_delta(p, xa):

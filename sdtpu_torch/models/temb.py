@@ -14,7 +14,8 @@ import math
 import torch
 
 from sdtpu_torch.config import UNetConfig
-from sdtpu_torch.models.layers import dense, init_dense, silu, timestep_features
+from sdtpu_torch.models.layers import (dense, gather_columns, init_dense, silu,
+                                      timestep_features)
 
 
 def init(cfg: UNetConfig, generator, device):
@@ -56,7 +57,13 @@ def apply(params, t, cfg: UNetConfig, dtype=None, cond=None,
     if dtype is not None:
         feats = feats.to(dtype)
     h = dense(params["fc0"], feats)
-    return dense(params["fc1"], silu(h))
+    return _fc1(params["fc1"], silu(h))
+
+
+def _fc1(p, h):
+    """The MLP's second product: on the mesh a lone column-parallel site
+    (``parallel.sharding``), its columns gathered over the model group."""
+    return gather_columns(p, dense(p, h))
 
 
 def guidance_scale_features(w, dim: int, device=None):
@@ -91,7 +98,7 @@ def apply_vec(params, y, dtype=None):
     """y: [..., adm_in_channels] -> [..., time_embed_dim]."""
     if dtype is not None:
         y = y.to(dtype)
-    return dense(params["fc1"], silu(dense(params["fc0"], y)))
+    return _fc1(params["fc1"], silu(dense(params["fc0"], y)))
 
 
 def micro_features(cfg, fourier_dim: int, device=None):

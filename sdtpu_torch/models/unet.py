@@ -39,6 +39,7 @@ from sdtpu_torch.models.layers import (
     lora_delta,
     sdpa,
     silu,
+    split_of,
 )
 from sdtpu_torch.ops import conv as C
 from sdtpu_torch.ops import groupnorm as G
@@ -297,8 +298,16 @@ def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
     before attn1 and its output unmerges after the out projection; attn2
     and the ff run unmerged. The identity attention never merges. A fused
     ``qkv`` (``io.params.fuse_attention_projections``) or ``kv`` leaf is one
-    product, split."""
+    product, split.
+
+    On the mesh's model axis (``parallel.sharding``) a split attention runs
+    this rank's ``heads // split`` heads and all-reduces its ``out``
+    partial; a split ff its slice of GEGLU's columns, all-reduced after
+    ``ff2``. The split is read off each row site's input width."""
+    c = h.shape[-1]
     a = p["attn1"]
+    t1 = split_of(a["out"], c)
+    heads1 = heads // t1
     hn = layer_norm(p["ln1"], h)
     if cross_only:
         unmerge = None
@@ -309,13 +318,13 @@ def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
             else:
                 unmerge = None
         k, v = _kv(a, context)
-        o = dense(a["out"], sdpa(dense(a["q"], hn), k, v, heads,
-                                 attn_kernel))
+        o = dense(a["out"], sdpa(dense(a["q"], hn), k, v, heads1,
+                                 attn_kernel), reduce=t1 > 1)
         h = h + (unmerge(o) if unmerge is not None else o)
     elif perturb_self:
         v = (_split(dense(a["qkv"], hn), 3)[2] if "qkv" in a
              else dense(a["v"], hn))
-        h = h + dense(a["out"], v)
+        h = h + dense(a["out"], v, reduce=t1 > 1)
     else:
         unmerge = None
         if tome is not None:
@@ -328,15 +337,18 @@ def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
             q, k, v = _split(dense(a["qkv"], hn), 3)
         else:
             q, k, v = dense(a["q"], hn), dense(a["k"], hn), dense(a["v"], hn)
-        o = dense(a["out"], sdpa(q, k, v, heads, attn_kernel))
+        o = dense(a["out"], sdpa(q, k, v, heads1, attn_kernel),
+                  reduce=t1 > 1)
         h = h + (unmerge(o) if unmerge is not None else o)
     a = p["attn2"]
+    t2 = split_of(a["out"], c)
     hn = layer_norm(p["ln2"], h)
     k, v = _kv(a, context)
-    h = h + dense(a["out"], sdpa(dense(a["q"], hn), k, v, heads,
-                                 attn_kernel))
+    h = h + dense(a["out"], sdpa(dense(a["q"], hn), k, v, heads // t2,
+                                 attn_kernel), reduce=t2 > 1)
     hn = layer_norm(p["ln3"], h)
-    return h + dense(p["ff2"], geglu(p["ff1"], hn))
+    return h + dense(p["ff2"], geglu(p["ff1"], hn),
+                     reduce=split_of(p["ff2"], 4 * c) > 1)
 
 
 def _kv(a, context):

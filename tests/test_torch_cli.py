@@ -210,6 +210,7 @@ def test_serve_builds_the_context(monkeypatch):
     with pytest.raises(SdtpuError) as ei:
         main(["serve", *TINY, "--mesh", "2,4"])
     assert ei.value.code == ErrorCode.INVALID_ARGUMENT
+    assert "ROADMAP item 23b" in ei.value.reason
 
 
 def test_warmup_and_artifact(tmp_path, capsys, monkeypatch):

@@ -1427,16 +1427,17 @@ def _per_image(log, evals, out=None):
 def test_family_pins_are_the_rules(name):
     """Each family's launches per image under each mode, from its sites and
     the rules, are the smoke run's pins (``chip_smoke.FAMILY_PINNED``):
-    K1 1,401 an SDXL image and 201 an SD 2.x one under every ``cuda*``
-    policy (the 576- and 144-token levels take the plain path by the
-    reference's sequence clause)."""
+    K1 70 an SDXL eval and 10 an SD 2.x one under every ``cuda*`` policy
+    (the 576- and 144-token levels take the plain path by the reference's
+    sequence clause), and the VAE's, at ``FAMILY_STEPS``."""
+    steps = chip_smoke.FAMILY_STEPS
     for mode, want in chip_smoke.FAMILY_PINNED[name].items():
-        evals = 2 * chip_smoke.STEPS if mode == "heun" else chip_smoke.STEPS
+        evals = 2 * steps if mode == "heun" else steps
         got = _per_image(_family_log(name, "cuda" if mode == "heun"
                                      else mode), evals)
         assert got == want, (name, mode)
-    assert chip_smoke.FAMILY_PINNED["sdxl"]["cuda"]["flash"] == 1401
-    assert chip_smoke.FAMILY_PINNED["sd21"]["cuda"]["flash"] == 201
+    assert chip_smoke.FAMILY_PINNED["sdxl"]["cuda"]["flash"] == 70 * steps + 1
+    assert chip_smoke.FAMILY_PINNED["sd21"]["cuda"]["flash"] == 10 * steps + 1
 
 
 def _family_sites(kernel):
@@ -3440,3 +3441,155 @@ def test_cuda_profile_counts_one_eval():
         got = {k: v[0] for k, v in kernel_launches(
             profile_ops(fn, args)).items()}
         assert got == want, policy
+
+
+# ---------------------------------------------------------------------------
+# the mesh (sdtpu_torch.parallel): SD1.5 at full width split for rank 0 of
+# the model axis, on the meta device: K1's and K5's sites at the shard
+# shapes through their rules, and the collectives a call issues, the smoke
+# run's pins (``chip_smoke.MESH_PINNED``)
+# ---------------------------------------------------------------------------
+
+MESH_MODES = {"1x1_nccl": ("cuda", 1, 1), "1x2_cuda": ("cuda", 1, 2),
+              "1x2_int8+k5": ("int8+k5", 1, 2), "2x1_cuda": ("cuda", 2, 1)}
+
+
+@contextlib.contextmanager
+def _counted_collectives(log):
+    """The collectives replaced by counters that give the shapes the group
+    would: an all-reduce its input, an all-gather the input repeated over
+    the current mesh's axis."""
+    from sdtpu_torch.parallel import collectives
+    from sdtpu_torch.parallel import mesh as mesh_mod
+
+    def reduce(x, axis="model"):
+        log["all-reduce"] = log.get("all-reduce", 0) + 1
+        return x
+
+    def gather(x, axis, dim=0):
+        log["all-gather"] = log.get("all-gather", 0) + 1
+        return torch.cat([x] * mesh_mod.current().shape[axis], dim=dim)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(collectives, "all_reduce_sum", reduce)
+    mp.setattr(collectives, "all_gather", gather)
+    try:
+        yield
+    finally:
+        mp.undo()
+
+
+_MESH_LOGS = {}
+
+
+def _mesh_log(mode, data, model):
+    """(kernel log of one UNet eval at the CFG batch of 2, {part:
+    collectives}) of SD1.5's tree split for rank 0 of a (data, model)
+    mesh under ``mode``: the parts one eval ("eval"), one text encode
+    ("encode") and one time-embedding table ("table")."""
+    from sdtpu_torch.config import SD15
+    from sdtpu_torch.models import clip, temb, unet
+    from sdtpu_torch.parallel import mesh as mesh_mod
+    from sdtpu_torch.parallel.sharding import shard_params
+
+    key = (mode, data, model)
+    if key not in _MESH_LOGS:
+        fake = mesh_mod.Mesh(data, model, 0)
+        full = {"unet": _meta_unet(SD15, mode),
+                "clip": _meta_tree(clip.init(SD15.clip, None, "meta")),
+                "temb": _meta_tree(temb.init(SD15.unet, None, "meta"))}
+        local = shard_params(full, fake, SD15)
+
+        def meta(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, device="meta", dtype=dtype)
+
+        log, coll = {}, {}
+        with mesh_mod.use(fake), _recorders(mode, log, ["unet"]):
+            for part, run in (
+                    ("eval", lambda: unet.apply(
+                        local["unet"], meta(2, 64, 64, 4), meta(2, 1280),
+                        meta(2, 77, 768), SD15.unet, MODES[mode][0])),
+                    ("encode", lambda: clip.apply(
+                        local["clip"], meta(1, 77, dtype=torch.int64),
+                        SD15.clip, torch.bfloat16)),
+                    ("table", lambda: temb.apply(
+                        local["temb"], meta(4, dtype=torch.float32),
+                        SD15.unet, torch.bfloat16))):
+                coll[part] = {}
+                with _counted_collectives(coll[part]):
+                    run()
+        _MESH_LOGS[key] = (log, coll, local)
+    return _MESH_LOGS[key]
+
+
+@pytest.mark.parametrize("label", sorted(MESH_MODES))
+def test_mesh_pins_are_the_rules(label):
+    """A rank's launches and collectives for one SD1.5 image of the mesh
+    phase, from the split tree and the rules: ``MESH_STEPS`` evals and one
+    text encode (the uncond one is made at init), one time table (dpm has
+    no second eval), one decode, and the data axis's gather of the
+    images; K1 41 (10 an eval, heads // m each at m = 2, and the VAE's),
+    48 all-reduces an eval (16 transformer blocks x attn1, attn2, ff2) and
+    24 an encode (12 CLIP layers x out, fc2), one all-gather of the time
+    MLP's fc1 at m > 1."""
+    mode, data, model = MESH_MODES[label]
+    log, coll, _ = _mesh_log(mode, data, model)
+    steps = chip_smoke.MESH_STEPS
+    launches = _per_image({**log, **_part_log("vae", "sd15", mode)}, steps)
+    want = {k: 0 for k in ("all-reduce", "all-gather")}
+    for part, times in (("eval", steps), ("encode", 1), ("table", 1)):
+        for k, v in coll[part].items():
+            want[k] += times * v
+    want["all-gather"] += data > 1
+    assert chip_smoke.MESH_PINNED[label] == {"launches": launches,
+                                             "collectives": want}
+    if model > 1:
+        assert coll["eval"] == {"all-reduce": 48}
+        assert coll["encode"] == {"all-reduce": 24}
+        assert coll["table"] == {"all-gather": 1}
+    else:
+        assert coll == {"eval": {}, "encode": {}, "table": {}}
+
+
+@pytest.mark.parametrize("kernel", ["flash", "matmul_w8a8"])
+@pytest.mark.parametrize("model", [2, 4])
+def test_rules_take_every_mesh_site(kernel, model):
+    """Every site K1 and K5 get on a rank of the model axis through their
+    static rules, and the plan within what the C entry point accepts: K1
+    at SD1.5's 64^2 and 32^2 self-attention with heads // m heads
+    (``chip_smoke.MESH_FLASH_SHAPES``), K5 at N / m (column sites) and
+    K / m (row sites), each split W8A8 weight still in K5's contract
+    (``ops.matmul.eligible``: column-major, K % 16 == 0)."""
+    mode = "cuda" if kernel == "flash" else "int8+k5"
+    log, _, local = _mesh_log(mode, 1, model)
+    sites = sorted(set(log[("unet", kernel)]))
+    assert sites
+    for site in sites:
+        _check_site(kernel, site)
+    if kernel == "flash":
+        assert sites == sorted(s for s in chip_smoke.MESH_FLASH_SHAPES
+                               if s[3] == 8 // model)
+        return
+    split = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "w_q" in node:
+                w = node["w_q"]
+                x = torch.empty((154, w.shape[0]), device="meta",
+                                dtype=torch.bfloat16)
+                assert t_mm.eligible(x, w), w.shape
+                split.append(tuple(w.shape))
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+
+    walk(local["unet"])
+    # 16 blocks: attn1 q/k/v/out, attn2 q/k/v/out, ff1, ff2
+    assert len(split) == 160
+    # attn1's out at 320 (rows), ff1 (columns, both GEGLU halves) and ff2
+    # (rows) at 1280
+    assert (320 // model, 320) in split
+    assert (1280, 10240 // model) in split and (5120 // model, 1280) in split

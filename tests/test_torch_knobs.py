@@ -788,12 +788,15 @@ def test_bad_setter_has_the_references_code_and_text(setter, value):
 
 
 @pytest.mark.parametrize("kw,code,text", [
-    (dict(mesh=(1, 1)), ErrorCode.INVALID_ARGUMENT, "ROADMAP item 23"),
+    (dict(mesh=(2, 2)), ErrorCode.INVALID_ARGUMENT,
+     "mesh 2x2 exceeds 1 devices"),
     (dict(lora="a.npz"), ErrorCode.RUNTIME_ERROR, "model load failed")])
 def test_unported_keywords_are_refused_naming_their_item(kw, code, text):
-    """``mesh``, still to port, is refused naming its ROADMAP item;
-    ``lora``, ported, loads its adapter at init, and a file that is not
-    there fails the load as the reference's does (``RUNTIME_ERROR``)."""
+    """``mesh``, ported, builds its mesh at init, and a mesh larger than
+    the world (one rank without a process group) is refused with the
+    reference's ``make_mesh`` text; ``lora``, ported, loads its adapter at
+    init, and a file that is not there fails the load as the reference's
+    does (``RUNTIME_ERROR``)."""
     with pytest.raises(SdtpuError) as ei:
         Context(config="tiny", device="cpu", **kw)
     assert ei.value.code == code

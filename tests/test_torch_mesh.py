@@ -1,0 +1,549 @@
+"""Serving on the (data, model) mesh (``sdtpu_torch.parallel``) against the
+JAX package's ``sdtpu/parallel``, on the CPU.
+
+* The plan: the port's ``param_pspecs`` against the reference's, leaf by
+  leaf, on the TINY tree and on SD1.5's and SDXL's full-width trees (the
+  reference's through ``jax.eval_shape``, the port's on the meta device).
+  The port decides per site, so each disagreement must be one of the
+  listed divergences (``_divergence``): whole heads, GEGLU's halves, a
+  fused projection's sections, a weight-only-int8 site.
+* The mesh: gloo worlds of two and four CPU processes
+  (``tests/torch_mesh_ranks.py``, started once for the module, through a
+  ``file://`` store under the test's temporary directory) serve every
+  entry point the reference routes to its mesh on (1, 2), (2, 1) and
+  (2, 2), at TINY in float32: each within 1 uint8 LSB of the same call on
+  a Context without a mesh (the bound ``tests/test_parallel.py`` holds the
+  reference's mesh to), and the port's pipeline functions on a rank's split
+  tree, with the reference's draws handed in through the seams, within
+  1e-4 (latents) and 1 LSB (images) of the reference's single-device
+  result. Every rank returns the whole batch, the same bytes.
+* The refusals: a batch the data axis does not divide, a mesh larger than
+  the world, with the reference's code and text.
+* The collectives a rank issues, pinned from the plan.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+from jax.tree_util import tree_flatten_with_path
+
+from sdtpu import config as j_config
+from sdtpu.io import params as j_params
+from sdtpu.parallel import mesh as j_mesh
+from sdtpu.parallel import sharding as j_sharding
+from sdtpu_torch import Context, ErrorCode, SdtpuError
+from sdtpu_torch import config as t_config
+from sdtpu_torch.io.params import init_pipeline_params, init_tree, tree_names
+from sdtpu_torch.models import layers as t_layers
+from sdtpu_torch.parallel import collectives
+from sdtpu_torch.parallel import mesh as t_mesh
+from sdtpu_torch.parallel import sharding as t_sharding
+from sdtpu_torch.train.lora import extract_lora, inject_lora, save_lora_npz
+from test_torch_image import (CFGS, _draws, _image, _mask, _reference_latents,
+                              _shape, _text, assert_close, ref, trees)
+
+import torch_mesh_ranks as R
+
+ROOT = Path(__file__).resolve().parent.parent
+WORLDS = {2: ["1x2", "2x1"], 4: ["2x2"]}
+MESHES = [m for ms in WORLDS.values() for m in ms]
+#: an anchor -> its configuration's name in ``test_torch_image.CFGS``
+ANCHOR_CFG = {"anchor_generate": "tiny", "anchor_img2img": "tiny",
+              "anchor_inpaint": "tiny", "anchor_inpaint9": "inpaint",
+              "anchor_xl_inpaint9": "xl_inpaint"}
+ANCHOR_SEED = 7
+RANK_TIMEOUT_S = 300
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and eager ops on TINY tensors lose far more to oversubscribed threads
+    than they gain from them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_tf32():
+    t_layers.disable_tf32()
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+def _names(path):
+    return tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+def _ref_specs(jtree, m):
+    """{path of names: the reference's spec as a tuple}."""
+    specs = j_sharding.param_pspecs(jtree, m)
+    flat, _ = tree_flatten_with_path(specs,
+                                     is_leaf=lambda x: isinstance(x, P))
+    return {_names(p): tuple(s) for p, s in flat}
+
+
+def _port_specs(ttree, m, cfg):
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        else:
+            out[path] = node
+
+    walk(t_sharding.param_pspecs(ttree, m, cfg), ())
+    return out
+
+
+def _site(tree, path):
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+def _heads(cfg, top, width):
+    if top in ("clip", "clip2"):
+        return getattr(cfg, top).heads
+    if top == "unet":
+        u = cfg.unet
+        return width // u.head_dim if u.head_dim else u.num_heads
+    return 1
+
+
+def _divergence(ttree, cfg, m, path, ours, theirs):
+    """Why the port's spec of the leaf at ``path`` may differ from the
+    reference's, or None where it may not."""
+    site = path[:-1]
+    node = _site(ttree, site[:-1])
+    if any(a and ":" in a for a in ours):
+        # the same split dimension, sliced a section at a time
+        assert [a and a.split(":")[0] for a in ours] == list(theirs)
+        return "GEGLU halves" if site[-1] == "ff1" else "fused sections"
+    if ours == () and "w8" in _site(ttree, site):
+        return "w8 site"
+    if ours == () and "out" in node and any(
+            c in node for c in ("q", "k", "v", "qkv", "kv")):
+        w = node["out"].get("w", node["out"].get("w_q"))
+        if w is not None and _heads(cfg, site[0], w.shape[1]) % m:
+            return "heads"
+    if ours == () and site[0] in ("vae", "vae_enc"):
+        # the VAE's one head of 512 (its q, k, v are 1x1 convs whose biases
+        # the reference's rule splits): never whole heads on a rank
+        return "the VAE's one head"
+    return None
+
+
+def _compare(ttree, jspecs, cfg, m):
+    """{reason: count} of the disagreements; fails on one without a
+    listed reason."""
+    ours = _port_specs(ttree, m, cfg)
+    assert set(ours) == set(jspecs)
+    reasons = {}
+    for path, theirs in jspecs.items():
+        if ours[path] == theirs:
+            continue
+        why = _divergence(ttree, cfg, m, path, ours[path], theirs)
+        assert why is not None, (path, ours[path], theirs)
+        reasons[why] = reasons.get(why, 0) + 1
+    return reasons
+
+
+@pytest.mark.parametrize("m,fuse", [(2, False), (4, False), (2, True),
+                                    (7, False)])
+def test_plan_agrees_with_the_reference_on_tiny(m, fuse):
+    """TINY at m = 2 (whole heads: two of two), 4 (heads replicate), a
+    fused tree, and the reference's ``model_size=7`` (everything
+    replicated in both, ``tests/test_parallel.py:53``)."""
+    from sdtpu_torch.io.params import fuse_attention_projections, to_jax_tree
+
+    ttree = trees("tiny")[1]
+    if fuse:
+        ttree = fuse_attention_projections(ttree)
+    jtree = jax.tree.map(jnp.asarray, to_jax_tree(ttree))
+    reasons = _compare(ttree, _ref_specs(jtree, m), t_config.TINY, m)
+    if m == 7:
+        assert reasons == {}
+        assert all(s == () for s in _port_specs(ttree, m,
+                                                t_config.TINY).values())
+    elif m == 4:
+        assert set(reasons) <= {"heads", "GEGLU halves",
+                                "the VAE's one head"} and "heads" in reasons
+    else:
+        assert "GEGLU halves" in reasons
+        assert ("fused sections" in reasons) == fuse
+
+
+def _meta_tree(cfg):
+    return {name: init_tree(name, cfg, None, "meta")
+            for name in tree_names(cfg)}
+
+
+@pytest.mark.parametrize("name,m", [("sd15", 2), ("sd15", 8), ("sdxl", 4)])
+def test_plan_agrees_with_the_reference_at_full_width(name, m):
+    """SD1.5 and SDXL's full-width trees: the reference's through
+    ``jax.eval_shape`` of its init, the port's on the meta device. CLIP
+    ViT-L's 12 heads replicate at m = 8; SDXL's 640-wide level (10 heads of
+    64) at m = 4; the int8 weights only at a ``w8`` site."""
+    jcfg, tcfg = j_config.CONFIGS[name], t_config.CONFIGS[name]
+    jtree = jax.eval_shape(lambda k: j_params.init_pipeline_params(k, jcfg),
+                           jax.random.PRNGKey(0))
+    ttree = _meta_tree(tcfg)
+    reasons = _compare(ttree, _ref_specs(jtree, m), tcfg, m)
+    assert "GEGLU halves" in reasons
+    assert ("heads" in reasons) == (m > 2)
+    plan = t_sharding.site_plan(ttree, m, tcfg)
+    rows = {(p[0], p[-1]) for p, (kind, _) in plan.items() if kind == "row"}
+    # CLIP's attention replicates at m = 8, its MLP splits
+    assert {("unet", "out"), ("unet", "ff2"), ("clip", "fc2")} <= rows
+    assert (("clip", "out") in rows) == (m != 8)
+
+
+def test_plan_keeps_w8_sites_whole():
+    """Under ``int8w_dense`` a weight-only-int8 dense site (and its
+    partner) is replicated whole: the reference shards only its bias."""
+    from sdtpu_torch.io.params import to_jax_tree
+    from sdtpu_torch.quant.ptq import quantize_weights_only
+
+    ttree = dict(trees("tiny")[1])
+    ttree["unet"] = quantize_weights_only(ttree["unet"], include_dense=True,
+                                          min_elems=0)
+    jtree = jax.tree.map(jnp.asarray, to_jax_tree(ttree))
+    reasons = _compare(ttree, _ref_specs(jtree, 2), t_config.TINY, 2)
+    assert reasons.get("w8 site", 0) > 0
+    assert not any(p[0] == "unet" for p in t_sharding.site_plan(
+        ttree, 2, t_config.TINY))
+
+
+def test_shard_params_slices_each_section():
+    """Rank r's columns of GEGLU's ff1 are the r-th slice of each half, of
+    a fused qkv the r-th of each section; a row site's rows the r-th
+    chunk; a column-major int8 weight stays column-major; replicated
+    leaves are the same tensors."""
+    from sdtpu_torch.io.params import fuse_attention_projections
+    from sdtpu_torch.quant.ptq import quantize_unet
+
+    full = fuse_attention_projections(trees("tiny")[1])
+    st = full["unet"]["down"][0]["blocks"][0]["st"]
+    for r in range(2):
+        local = t_sharding.shard_params(full, t_mesh.Mesh(1, 2, r),
+                                        t_config.TINY)
+        lst = local["unet"]["down"][0]["blocks"][0]["st"]
+        w, lw = st["ff1"]["w"], lst["ff1"]["w"]
+        half, q = w.shape[1] // 2, w.shape[1] // 4
+        assert torch.equal(lw, torch.cat(
+            [w[:, r * q:(r + 1) * q], w[:, half + r * q:half + (r + 1) * q]],
+            dim=1))
+        wq, lwq = st["attn1"]["qkv"]["w"], lst["attn1"]["qkv"]["w"]
+        c = wq.shape[1] // 3
+        assert torch.equal(lwq, torch.cat(
+            [wq[:, s * c + r * c // 2:s * c + (r + 1) * c // 2]
+             for s in range(3)], dim=1))
+        wo = st["attn1"]["out"]["w"]
+        assert torch.equal(lst["attn1"]["out"]["w"],
+                           wo[r * wo.shape[0] // 2:(r + 1) * wo.shape[0] // 2])
+        assert lst["attn1"]["out"]["b"] is st["attn1"]["out"]["b"]
+        assert (local["vae"]["conv_in"]["w"]
+                is full["vae"]["conv_in"]["w"])
+    q8 = quantize_unet(trees("tiny")[1])
+    local = t_sharding.shard_params(q8, t_mesh.Mesh(1, 2, 1), t_config.TINY)
+    w = local["unet"]["mid"]["st"]["attn1"]["q"]["w_q"]
+    assert w.t().is_contiguous() and not w.is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the mesh: gloo worlds of CPU processes
+# ---------------------------------------------------------------------------
+
+def _lora_file(path):
+    """A rank-2 adapter on attn1's q (a column site), its out and ff2 (row
+    sites) and ff1 (a column site of two halves), B drawn non-zero."""
+    c = Context(config="tiny", steps=1, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    tree = inject_lora({"unet": c.params["unet"]}, 2, g,
+                       targets=("q", "out", "ff1", "ff2"))
+    ad = extract_lora(tree)
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: (torch.randn(v.shape, generator=g) * 0.3
+                        if k == "lora_b" else fill(v))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [fill(v) for v in node]
+        return node
+
+    save_lora_npz(fill(ad)["unet"], path)
+
+
+def _anchor_inputs():
+    """The anchors' inputs: tokens, the reference's draws for one key at a
+    batch of 2, images and masks; -> (inputs for the ranks, the
+    reference's uncond embedding an anchor)."""
+    inputs, j_uncond = {}, {}
+    for name, cname in ANCHOR_CFG.items():
+        tcfg = CFGS[cname][1]
+        tok, j_un, _ = _text(cname, b=2)
+        inputs[f"{name}/tokens"] = tok
+        j_uncond[name] = j_un
+        d = _draws(ANCHOR_SEED, _shape(tcfg, b=2), steps=R.ANCHOR_STEPS)
+        for k, v in d.items():
+            inputs[f"{name}/{k}"] = v
+        inputs[f"{name}/image"] = _image(2, seed=11)[1]
+        inputs[f"{name}/mask"] = _mask(2)
+    return inputs, j_uncond
+
+
+def _reference_anchors(refmod, j_uncond, inputs):
+    """{anchor: (latents, image)} of the reference's pipeline functions on
+    one device, the same draws."""
+    mp = pytest.MonkeyPatch()
+    out = {}
+    try:
+        for name, (_, fn_name, _) in R.ANCHORS.items():
+            jcfg = CFGS[ANCHOR_CFG[name]][0]
+            jtree = trees(ANCHOR_CFG[name])[0]
+            args = [jtree, jnp.asarray(inputs[f"{name}/tokens"], jnp.int32),
+                    j_uncond[name], jax.random.PRNGKey(ANCHOR_SEED),
+                    jnp.float32(7.5)]
+            kw = dict(cfg=jcfg, sampler="dpm", steps=R.ANCHOR_STEPS,
+                      kernels="xla")
+            if fn_name != "generate":
+                args.append(jnp.asarray(inputs[f"{name}/image"]))
+                kw["start_step"] = R.ANCHOR_START[fn_name]
+            if fn_name == "inpaint":
+                args.append(jnp.asarray(inputs[f"{name}/mask"]))
+            out[name] = _reference_latents(refmod, mp, getattr(refmod,
+                                                               fn_name),
+                                           *args, **kw)
+    finally:
+        mp.undo()
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds(ref, tmp_path_factory):
+    """Start the gloo worlds, compute the reference's anchors while they
+    run, and collect every rank's results: {"w2": [rank 0, rank 1], "w4":
+    [...], "anchors": {...}}."""
+    d = tmp_path_factory.mktemp("mesh")
+    inputs, j_uncond = _anchor_inputs()
+    np.savez(d / "inputs.npz", **inputs)
+    _lora_file(d / "lora.npz")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + ([os.environ["PYTHONPATH"]]
+                                  if os.environ.get("PYTHONPATH") else [])))
+    procs = []
+    for world in WORLDS:
+        for rank in range(world):
+            log = open(d / f"w{world}_r{rank}.log", "w")
+            procs.append((world, rank, log, subprocess.Popen(
+                [sys.executable, str(ROOT / "tests" / "torch_mesh_ranks.py"),
+                 str(world), str(rank), str(d)], cwd=ROOT, env=env,
+                stdout=log, stderr=subprocess.STDOUT)))
+    try:
+        anchors = _reference_anchors(ref, j_uncond, inputs)
+        deadline = time.perf_counter() + RANK_TIMEOUT_S
+        for *_, p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for *_, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    out = {"anchors": anchors}
+    for world, rank, _, p in procs:
+        text = (d / f"w{world}_r{rank}.log").read_text()
+        assert p.returncode == 0, f"world {world} rank {rank}:\n{text[-3000:]}"
+        with np.load(d / f"w{world}_r{rank}.npz") as z:
+            out.setdefault(f"w{world}", []).append({k: z[k] for k in z.files})
+    return out
+
+
+def _ranks(worlds, mesh):
+    world = next(w for w, ms in WORLDS.items() if mesh in ms)
+    return worlds[f"w{world}"]
+
+
+CASES = ["generate", "generate_negative", "generate_async", "generate_batch",
+         "scheduled", "weighted", "img2img", "inpaint", "img2img_batch",
+         "inpaint_batch", "hires_fix", "two_stage_base", "two_stage",
+         "controlnet", "lora", "pin", "xl", "concat_inpaint9", "ip2p"]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("mesh", MESHES)
+def test_mesh_serves_as_one_device(worlds, mesh, case):
+    """Each entry point on the mesh within 1 uint8 LSB of the same call on
+    a Context without one (float32 latents within 1e-4 of its max-abs);
+    every rank returns the same whole batch."""
+    ranks = _ranks(worlds, mesh)
+    single = worlds["w2"][0][f"single/{case}"]
+    got = [r[f"{mesh}/{case}"] for r in ranks]
+    for g in got[1:]:
+        np.testing.assert_array_equal(g, got[0])
+    assert got[0].shape == single.shape and got[0].dtype == single.dtype
+    if single.dtype == np.uint8:
+        assert np.abs(got[0].astype(int) - single.astype(int)).max() <= 1
+    else:
+        assert_close(got[0], single)
+
+
+@pytest.mark.parametrize("anchor", sorted(R.ANCHORS))
+@pytest.mark.parametrize("mesh", MESHES)
+def test_mesh_pipeline_matches_jax(worlds, mesh, anchor):
+    """The port's pipeline functions on each rank's split tree, with the
+    reference's draws, against the reference's single-device result:
+    latents within 1e-4 of its max-abs, the images within 1 LSB."""
+    j_lat, j_img = worlds["anchors"][anchor]
+    for rank in _ranks(worlds, mesh):
+        assert_close(rank[f"{mesh}/{anchor}/latent"], j_lat)
+        img = rank[f"{mesh}/{anchor}/image"]
+        assert img.dtype == np.uint8 and img.shape == j_img.shape
+        assert np.abs(img.astype(int) - j_img.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "2x2"])
+def test_indivisible_batch_is_refused_with_the_references_text(worlds, mesh):
+    """One prompt on a data axis of 2: ``INVALID_ARGUMENT`` with the
+    reference's text (``sdtpu/engine/context.py:817-821``), on every rank
+    and before any collective (the ranks go on to their next case)."""
+    src = (ROOT / "sdtpu" / "engine" / "context.py").read_text()
+    assert 'f"batch {batch} not divisible by data axis "' in src
+    for rank in _ranks(worlds, mesh):
+        assert str(rank[f"{mesh}/indivisible/error"]) == (
+            f"SdtpuError:{ErrorCode.INVALID_ARGUMENT!r}:"
+            f"batch 1 not divisible by data axis 2")
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_stream_pool_is_refused_on_a_mesh(worlds, mesh):
+    """The stream pool ticks on one rank, where a mesh's ranks serve
+    together: refused naming the slice that ports it."""
+    for rank in _ranks(worlds, mesh):
+        assert str(rank[f"{mesh}/stream/error"]) == (
+            "the stream pool on a mesh is not ported yet (ROADMAP item 23b)")
+
+
+@pytest.mark.parametrize("data,model", [(2, 2), (1, 2), (2, 1)])
+def test_mesh_larger_than_the_world_is_refused(data, model):
+    """No process group: the world is one rank. ``make_mesh`` raises the
+    reference's ``ValueError`` text (its one-device mesh), and the Context
+    gives it as ``INVALID_ARGUMENT``."""
+    with pytest.raises(ValueError) as theirs:
+        j_mesh.make_mesh(data=data, model=model,
+                         devices=jax.devices()[:1])
+    with pytest.raises(ValueError) as ours:
+        t_mesh.make_mesh(data=data, model=model)
+    assert str(ours.value) == str(theirs.value)
+    with pytest.raises(SdtpuError) as ei:
+        Context(config="tiny", steps=1, device="cpu", mesh=(data, model))
+    assert ei.value.code == ErrorCode.INVALID_ARGUMENT
+    assert ei.value.reason == str(theirs.value)
+
+
+def test_one_rank_without_a_group_serves_with_no_collective():
+    """``mesh=(1, 1)`` with no process group (``single_device_mesh``): the
+    bytes of a Context without a mesh, no collective issued."""
+    a = Context(config="tiny", steps=2, device="cpu")
+    b = Context(config="tiny", steps=2, device="cpu", mesh=(1, 1))
+    assert b.mesh.shape == {"data": 1, "model": 1} and b.mesh.groups is None
+    one = t_mesh.single_device_mesh()
+    assert one.shape == b.mesh.shape and one.coords == (0, 0)
+    collectives.reset_counts()
+    np.testing.assert_array_equal(a.generate(["a", "b"], seed=2),
+                                  b.generate(["a", "b"], seed=2))
+    assert collectives.collective_counts() == dict.fromkeys(
+        collectives.COLLECTIVES, 0)
+    assert set(collectives.COLLECTIVES) == {
+        "all-reduce", "all-gather", "collective-permute", "reduce-scatter",
+        "all-to-all"}
+
+
+def _plan_counts(m, cfg=t_config.TINY):
+    """(all-reduces an eval, an encode; all-gathers a time table) of a rank
+    of the model axis, from the plan of TINY's tree."""
+    plan = t_sharding.site_plan(trees("tiny")[1], m, cfg)
+    rows = [p for p, (kind, _) in plan.items() if kind == "row"]
+    gathers = [p for p, (kind, _) in plan.items() if kind == "gather"]
+    return (sum(p[0] == "unet" for p in rows),
+            sum(p[0] == "clip" for p in rows),
+            sum(p[0] == "temb" for p in gathers))
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("case,steps", [("pin", 1), ("generate", R.STEPS)])
+def test_collectives_are_the_plans(worlds, mesh, case, steps):
+    """Each rank's collectives for a two-prompt ``generate``: an eval's
+    row sites' all-reduces each step, an encode's once (the uncond
+    embedding was made at init), the time table's gather, and one gather of
+    the images over a data axis of 2; nothing else. TINY at m = 2: 21 an
+    eval (7 transformers x 3), 4 an encode (2 CLIP layers x 2), 1 a
+    table."""
+    data, model = (int(v) for v in mesh.split("x"))
+    per_eval, per_encode, per_table = _plan_counts(model)
+    if model > 1:
+        assert (per_eval, per_encode, per_table) == (21, 4, 1)
+    want = dict.fromkeys(collectives.COLLECTIVES, 0)
+    want["all-reduce"] = per_eval * steps + per_encode
+    want["all-gather"] = per_table + (data > 1)
+    for rank in _ranks(worlds, mesh):
+        got = dict(zip(collectives.COLLECTIVES,
+                       rank[f"{mesh}/{case}/counts"].tolist()))
+        assert got == want
+
+
+def test_lora_overlay_slices_with_its_sites(tmp_path):
+    """A LoRA overlay on a rank of m = 2: ``lora_b`` takes its column
+    site's columns (both GEGLU halves at ff1), ``lora_a`` its row site's
+    rows, ``lora_s`` whole."""
+    path = tmp_path / "a.npz"
+    _lora_file(path)
+    from sdtpu_torch.train.lora import load_lora_npz
+
+    ad = load_lora_npz(path)
+    full = trees("tiny")[1]
+    plan = t_sharding.site_plan(full, 2, t_config.TINY)
+    local = t_sharding.shard_adapter(ad, t_mesh.Mesh(1, 2, 1), plan)
+    a, la = ad["down"][0]["blocks"][0]["st"], local["down"][0]["blocks"][0][
+        "st"]
+    b = a["attn1"]["q"]["lora_b"]
+    assert torch.equal(la["attn1"]["q"]["lora_b"], b[:, b.shape[1] // 2:])
+    lo = a["attn1"]["out"]["lora_a"]
+    assert torch.equal(la["attn1"]["out"]["lora_a"], lo[lo.shape[0] // 2:])
+    f = a["ff1"]["lora_b"]
+    q = f.shape[1] // 4
+    assert torch.equal(la["ff1"]["lora_b"],
+                       torch.cat([f[:, q:2 * q], f[:, 3 * q:]], dim=1))
+    assert torch.equal(la["ff2"]["lora_s"], a["ff2"]["lora_s"])
+
+
+def test_dataclass_config_reaches_the_plan():
+    """A configuration object's heads decide the plan: TINY with 4 heads
+    splits its attentions at m = 4 where TINY's 2 heads replicate."""
+    four = dataclasses.replace(t_config.TINY, unet=dataclasses.replace(
+        t_config.TINY.unet, num_heads=4))
+    tree = init_pipeline_params(four, None, "meta")
+    at4 = t_sharding.site_plan(tree, 4, four)
+    at4_tiny = t_sharding.site_plan(tree, 4, t_config.TINY)
+    assert any(p[-1] == "out" for p in at4 if p[0] == "unet")
+    assert not any(p[-1] == "out" for p in at4_tiny if p[0] == "unet")

@@ -394,7 +394,8 @@ def test_unknown_sampler_has_the_references_text():
     # a control image with no ControlNet loaded
     lambda c: c.generate("a photo", control_image=np.zeros((16, 16, 3))),
     lambda c: c.generate_batch([{"prompt": "a", "lora": "style"}]),
-    lambda c: Context(config="tiny", device="cpu", mesh=(1, 1)),
+    # a mesh larger than the world of one rank
+    lambda c: Context(config="tiny", device="cpu", mesh=(1, 2)),
 ])
 def test_context_refusals(ctx, call):
     seed = ctx.seed
