@@ -33,8 +33,8 @@ Phases, each printing one JSON object per line:
    ``plan``; K2's with the clusters the card holds at once), K3's the time
    its prologue's special-function work alone needs, and at three shapes
    the kernel's time without the prologue;
-6. main path: Context(config="sd15", steps=20, sampler="dpm") with random
-   demo weights generates 512x512 images under ``kernels="cuda"`` (the
+6. main path: Context(config="sd15", steps=STEPS (10), sampler="dpm") with
+   random demo weights generates 512x512 images under ``kernels="cuda"`` (the
    ``auto`` choice), then under ``"cuda_gn"`` and ``"cuda_conv"`` on the
    same Context; each image must launch each kernel exactly the pinned
    number of times; the same seed must give the same bytes; median s/image
@@ -42,8 +42,9 @@ Phases, each printing one JSON object per line:
 7. ab: s/image under plain, cuda, cuda_gn and cuda_conv, in turns (there
    and back: 2 each);
    samplers: one image each with ddim, plms_exact, euler_a, lms, dpm_sde,
-   unipc, heun and dpm_karras under cuda, K1's launches pinned (201, 211
-   for plms_exact, 401 for heun), the same bytes for the same seed, finite
+   unipc, heun and dpm_karras under cuda, K1's launches pinned (101, 111
+   for plms_exact, 201 for heun at 10 steps), the same bytes for the same
+   seed, finite
    latents;
 8. quantized serving, on three more Contexts with the same demo weights:
    ``quantize="int8w_dense"`` (kernels cuda), ``"int8w"`` (cuda_conv) and
@@ -92,7 +93,7 @@ Phases, each printing one JSON object per line:
    bytes), a scheduled prompt, a degenerate schedule (the plain prompt's
    bytes). The files are deleted after it;
 14. families: the SD 2.x and SDXL configurations at full width with demo
-   weights, ``FAMILY_STEPS`` (10) DPM-Solver++(2M) steps, CFG 7.5, batch 1,
+   weights, ``FAMILY_STEPS`` (4) DPM-Solver++(2M) steps, CFG 7.5, batch 1,
    bf16 (the SD1.5
    Contexts released first). ``sdxl`` at 1024x1024: one image under plain,
    cuda, cuda_gn and cuda_conv on one Context, then on a Context each
@@ -116,8 +117,8 @@ Phases, each printing one JSON object per line:
    launches per image.
 
 15. image, after the quantized phases, on their Contexts: image-conditioned
-   serving on SD1.5 at full width, 20 DPM-Solver++(2M) steps, CFG 7.5, a
-   fixed-seed random uint8 image and a mask: ``img2img`` at strength 0.6
+   serving on SD1.5 at full width, ``STEPS`` DPM-Solver++(2M) steps, CFG
+   7.5, a fixed-seed random uint8 image and a mask: ``img2img`` at strength 0.6
    under cuda, cuda_gn and cuda_conv and under ``quantize="int8w_dense"``,
    ``inpaint`` at 1.0, ``hires_fix(scale=2)`` and ``img2img_batch`` of 3
    requests (the batch of one against ``img2img``, the same bytes). Every
@@ -133,10 +134,11 @@ Phases, each printing one JSON object per line:
    where its float32 scores would pass 2 GiB: ``flash_plain``);
 16. concat, after the families: the concat-conditioned configurations at
    full width with demo weights, one Context at a time: ``sd15_inpaint``
-   and ``sd15_ip2p`` at 20 steps under cuda and cuda_conv, ``sd2_depth``
-   at 20 steps (strength 0.8) under cuda, ``sd21_inpaint`` and
-   ``sdxl_inpaint`` at 4 steps under cuda (their kernel sites, not a speed
-   measure), each call held as in the image phase;
+   and ``sd15_ip2p`` at ``STEPS`` steps under cuda and cuda_conv,
+   ``sd2_depth`` at ``STEPS`` steps (strength 0.8) under cuda,
+   ``sd21_inpaint`` and ``sdxl_inpaint`` at 4 steps under cuda (their
+   kernel sites, not a speed measure), each call held as in the image
+   phase;
 17. knobs, after the image phase, on its Contexts: ``Context``'s knobs on
    SD1.5 at full width, ``KNOB_STEPS`` DPM-Solver++(2M) steps, CFG 7.5,
    one arm each (``KNOB_ARMS``): ToMe at 0.5 and at 0.3 (2,868 merged
@@ -277,9 +279,30 @@ Phases, each printing one JSON object per line:
    device; meanwhile one rank over NCCL here (``mesh=(1, 1)``: the bytes
    of a Context without a mesh, no collective; the collectives' transport
    on the card); then K5 at the shard shapes the ranks recorded against
-   its plain version. The profiled breakdowns (``device_profile``) run
+   its plain version. Since ROADMAP item 23b the same ranks also run: the
+   spatial partition at (1, 2) (``sharding.generate_sharded(...,
+   spatial=True)``) under cuda, cuda_gn and cuda_conv, each image with
+   ``MESH_SPATIAL_PINNED`` (the halos' collective-permutes too), the same
+   bytes on both ranks and the UNet eval within ``MODEL_FACTOR`` of plain
+   bf16's error; the train step on the mesh at (2, 1) and (1, 2)
+   (``make_train_step(..., mesh=, plan=)``, SD1.5, batch 2, the EMA on):
+   one step's gathered gradients and loss against a float32 step on one
+   card within ``MODEL_FACTOR`` of plain bf16's error, ``MESH_TRAIN_STEPS``
+   steps with ``MESH_TRAIN_PINNED``, the whole leaves the same bytes on
+   both ranks, each rank's peak memory; beside them ``sdtpu-torch serve
+   --mesh 1,2`` started as a user starts it (its follower its own), a
+   /generate through its pool and an /img2img through its micro-batcher,
+   each the
+   bytes of ``Context(mesh=(1, 2))``, its processes gone after SIGINT.
+   Last, on a quiet card: K1 with its log-sum-exp and K1-bwd at a rank's
+   training shapes (``MESH_TRAIN_FLASH_SHAPES``), K2's partial mode and
+   its normalising and statistics modes from handed-in statistics at the
+   slices the ranks recorded, and K3 at the halo'd slices (beside cuDNN's
+   conv alone), each against its plain version. The profiled breakdowns
+   (``device_profile``) run
    each call in the active step of the profiler's schedule after a
-   warm-up step, and the ``cuda`` breakdown must hold K1's 201 kernels.
+   warm-up step, and the ``cuda`` breakdown must hold K1's 101 kernels
+   (``FLASH_PER_IMAGE``).
 
 Kernel times are device times: CUDA-event time of CUDA-graph replays
 (``cuda_ms``), so the host's launch cost is not in them.
@@ -363,7 +386,10 @@ FLASH_RAGGED = [(2, 4096, 1000, 320, 8), (2, 1024, 4096, 640, 8),
 # units, at the clock the published 989 TFLOP/s implies (4096 bf16 FLOP a
 # clock an SM): 1.829 GHz
 PEAK_EXP = 132 * 16 * (989e12 / (132 * 4096))
-STEPS = 20
+# the main path's DPM-Solver++(2M) steps: 10 since the mesh's train, spatial
+# and serve arms joined (20 before), so that the whole run stays well inside
+# its 1,200 s on a slow host too
+STEPS = 10
 # the float32 scores K1's plain version may hold at once (``flash_plain``)
 PLAIN_SCORES_BYTES = 2 ** 31
 # launches per image of each kernel under each policy:
@@ -420,7 +446,7 @@ MM_W8A8_PER_EVAL_B4 = 35
 MM_W8A8_SUMS_PER_EVAL_B4 = 29
 KERNEL_NAMES = ("flash", "group_norm", "group_norm_affine", "conv",
                 "conv_int8", "matmul_int8w", "matmul_int8w_sum",
-                "matmul_w8a8", "matmul_w8a8_sum")
+                "matmul_w8a8", "matmul_w8a8_sum", "group_norm_partial")
 
 
 def pins(**launches):
@@ -454,6 +480,37 @@ def mesh_pins(all_reduce, all_gather, **launches):
                             "all-gather": all_gather}}
 
 
+# the spatial partition (ROADMAP item 23b) at (1, 2), a rank's launches and
+# collectives an image: SD1.5's conv stack on W-slices (every level tiles:
+# 32, 16, 8, 4 columns a rank); an eval's 52 3x3 convs take a halo each
+# (two collective-permutes), its 45 sliced GroupNorms' statistics, its 16
+# transformers' planes and its output one all-gather each; K2's partial
+# mode at each sliced GroupNorm of a kernel site (45 an eval under
+# cuda_gn, the 44 ResBlock convs' under cuda_conv), K3 on the halo'd
+# slices (tests/test_torch_hopper.py::test_spatial_pins_are_the_rules)
+MESH_SPATIAL_GATHERS = 62
+MESH_SPATIAL_PERMUTES = 104
+
+
+def spatial_pins(**launches):
+    return {"launches": pins(flash=MESH_FLASH, **launches),
+            "collectives": {
+                "all-reduce": MESH_ALL_REDUCE,
+                "all-gather": 1 + MESH_SPATIAL_GATHERS * MESH_STEPS,
+                "collective-permute": MESH_SPATIAL_PERMUTES * MESH_STEPS}}
+
+
+MESH_SPATIAL_PINNED = {
+    "spatial_cuda": spatial_pins(),
+    "spatial_cuda_gn": spatial_pins(group_norm=61 * MESH_STEPS,
+                                    group_norm_partial=45 * MESH_STEPS),
+    "spatial_cuda_conv": spatial_pins(
+        conv=60 * MESH_STEPS + 14 * 2,
+        group_norm_affine=60 * MESH_STEPS + 14 * 2,
+        group_norm_partial=44 * MESH_STEPS),
+}
+
+
 
 PINNED = {
     "cuda": pins(),
@@ -481,18 +538,29 @@ MESH_PINNED = {
         matmul_w8a8_sum=MESH_W8A8_SUMS_PER_EVAL * MESH_STEPS),
     "2x1_cuda": mesh_pins(0, 1),
 }
+# the batch phase keeps 20 steps: its check holds a request's in-batch
+# difference to BATCH_GAP_FACTOR times its own bf16 gap, rounding grown over
+# 20 steps; at 10, int8 + K5's in-batch differences (its int8 roundings, not
+# bf16 ones) passed twice that gap on the H100
+BATCH_STEPS = 20
+FLASH_BATCH = (5 + 5) * BATCH_STEPS + 1
 BATCH_PINNED = {
-    "cuda": PINNED["cuda"], "cuda_gn": PINNED["cuda_gn"],
-    "cuda_conv": PINNED["cuda_conv"],
+    "cuda": pins(flash=FLASH_BATCH),
+    "cuda_gn": pins(flash=FLASH_BATCH, group_norm=61 * BATCH_STEPS),
+    "cuda_conv": pins(flash=FLASH_BATCH,
+                      group_norm_affine=60 * BATCH_STEPS + 14 * 2,
+                      conv=60 * BATCH_STEPS + 14 * 2),
     "int8w_dense": pins(
-        matmul_int8w=MM_INT8W_PER_EVAL * STEPS,
-        matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL_B4 * STEPS),
-    "int8+k5": pins(matmul_w8a8=MM_W8A8_PER_EVAL_B4 * STEPS,
-                    matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL_B4 * STEPS),
+        flash=FLASH_BATCH, matmul_int8w=MM_INT8W_PER_EVAL * BATCH_STEPS,
+        matmul_int8w_sum=MM_INT8W_SUMS_PER_EVAL_B4 * BATCH_STEPS),
+    "int8+k5": pins(flash=FLASH_BATCH,
+                    matmul_w8a8=MM_W8A8_PER_EVAL_B4 * BATCH_STEPS,
+                    matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL_B4 * BATCH_STEPS),
 }
 # the families phase (sd21 768x768 v-prediction, sd21base 512x512, sdxl
-# 1024x1024), FAMILY_STEPS steps (half the main path's since the mesh phase
-# joined: the whole run stays well inside its 1,200 s), batch 1: launches
+# 1024x1024), FAMILY_STEPS steps (10 since the mesh phase joined, 4 since
+# its train, spatial and serve arms did: the whole run stays well inside its
+# 1,200 s), batch 1: launches
 # per image of each kernel under
 # each mode, derived from the rules at every site of the full-width UNet
 # and VAE (tests/test_torch_hopper.py::test_family_pins_are_the_rules):
@@ -510,7 +578,7 @@ BATCH_PINNED = {
 #   int8 + K5: the n >= m sites: SDXL ff1 (N = 10,240 >= M = 2,048) and
 #     attn2 k, v (154 rows) of the 60 blocks at 32x32, attn2 k, v of the 10
 #     at 64x64: 200 an eval, of which 140 split K
-FAMILY_STEPS = STEPS // 2
+FAMILY_STEPS = 4
 
 
 def family_pins(flash, **launches):
@@ -569,8 +637,12 @@ FAMILY_PINNED = {
 #     conv_in and the downsample convs stay cuDNN convs;
 #   int8w_dense: K4's 228 sites an eval, 93 of them split K, as at B = 1
 IMAGE_STEPS_XL = 4
-IMAGE_EVALS = 12
-DEPTH_EVALS = 16
+IMAGE_STRENGTH = 0.6
+DEPTH_STRENGTH = 0.8
+# the evals of a warm start (Context._start_step: round(steps (1 -
+# strength)) skipped)
+IMAGE_EVALS = STEPS - round(STEPS * (1 - IMAGE_STRENGTH))
+DEPTH_EVALS = STEPS - round(STEPS * (1 - DEPTH_STRENGTH))
 FLASH_IMAGE = 10 * IMAGE_EVALS + 2
 FLASH_FULL = 10 * STEPS + 2
 CONV_ENCODER = 20
@@ -684,7 +756,7 @@ BATCH_TIMED = BATCH_REQUESTS + [
 # a request's latents in the batch against the same request run alone,
 # relative to the float32 run's max-abs, may differ by at most this factor
 # times that request's own gap between bf16 alone (cuda) and float32. Both
-# gaps are rounding grown over 20 steps: a batch runs other bf16 sums (and
+# gaps are rounding grown over the steps: a batch runs other bf16 sums (and
 # under int8 + K5 other routes, n >= m reading M), which the trajectory
 # amplifies to the order of bf16 itself (0.72-1.16x under cuda, up to 1.95x
 # under int8 + K5 on an H100), so the factor is the one the model phase
@@ -807,7 +879,8 @@ def _counters():
             "matmul_int8w": (MM.matmul_int8w_cuda, "launches"),
             "matmul_int8w_sum": (MM.matmul_int8w_cuda, "sum_launches"),
             "matmul_w8a8": (MM.matmul_w8a8_cuda, "launches"),
-            "matmul_w8a8_sum": (MM.matmul_w8a8_cuda, "sum_launches")}
+            "matmul_w8a8_sum": (MM.matmul_w8a8_cuda, "sum_launches"),
+            "group_norm_partial": (G.group_norm_partial_cuda, "launches")}
 
 
 def counts():
@@ -1033,7 +1106,7 @@ def record_sites(runs):
                     q, heads = args[0], args[3]
                     key = (q.shape[0], q.shape[1], q.shape[2], heads)
                 elif kernel == "group_norm":
-                    p, xx, groups, eps, silu = args
+                    p, xx, groups, eps, silu = args[:5]
                     n = xx.shape[0]
                     key = (n, xx.numel() // (n * xx.shape[-1]),
                            xx.shape[-1], groups, eps, bool(silu))
@@ -1219,7 +1292,7 @@ def phase_kernel_gn_affine(conv_sites, ragged=GN_RAGGED,
 
 
 def phase_kernel_conv(conv_sites, ragged=CONV_RAGGED, unet_n=2,
-                      label="kernel_conv", int8=True):
+                      label="kernel_conv", int8=True, cudnn=False):
     """K3 at every main-path shape (with int8 weights too at the UNet's)
     and at ragged ones, against its plain version in float32 on the same bf16 inputs (the prologue from a real
     GroupNorm of x, ``gn_affine``, which is K2's statistics mode, itself
@@ -1232,7 +1305,9 @@ def phase_kernel_conv(conv_sites, ragged=CONV_RAGGED, unet_n=2,
     for. ``prologue_bound_ms`` is
     the time the SiLU's special-function work alone needs, one operation
     an input element (derived, not measured); ``ms_no_prologue`` the
-    kernel's time on the same call without ``a`` and ``d``."""
+    kernel's time on the same call without ``a`` and ``d``. ``cudnn``:
+    each row also times cuDNN's conv alone on the same x and weight
+    (``F.conv2d`` on the NCHW view, bias added: ``cudnn_ms``)."""
     from sdtpu_torch.models import unet
     from sdtpu_torch.ops import conv as C
     from sdtpu_torch.ops import groupnorm as G
@@ -1306,6 +1381,12 @@ def phase_kernel_conv(conv_sites, ragged=CONV_RAGGED, unet_n=2,
                 x, w, b, w_scale=scale, **kw))
         if prologue == "silu":
             row["prologue_bound_ms"] = x.numel() / PEAK_EXP * 1e3
+        if cudnn and not int8:
+            nchw = x.permute(0, 3, 1, 2)
+            bias = b if b.dim() == 1 else b[0]
+            bias = bias.to(torch.bfloat16)
+            row["cudnn_ms"] = cuda_ms(lambda: F.conv2d(
+                nchw, w, bias, padding=k // 2))
         if (shape, c_out, k) in CONV_PROBED and prologue and not int8:
             row["ms_no_prologue"] = cuda_ms(lambda: C.fused_conv_cuda(
                 x, w, b, w_scale=scale))
@@ -1488,9 +1569,9 @@ def phase_breakdown(ctx, policy):
 BENCH_POLICIES = ("cuda", "cuda_gn", "cuda_conv")
 # launches of each hand-written kernel's main __global__ in one UNet eval
 # (the CFG batch of 2), from the profiler's device kernels (xprof's
-# classes): K1 10 under every policy (201 = 10 x 20 + 1), K2 61 under
-# cuda_gn, K3 and K2's statistics mode 60 each under cuda_conv (1,228 =
-# 60 x 20 + 28); a split's sum pass is not a launch of the kernel
+# classes): K1 10 under every policy (101 = 10 x 10 + 1 an image), K2 61
+# under cuda_gn, K3 and K2's statistics mode 60 each under cuda_conv (628 =
+# 60 x 10 + 28 an image); a split's sum pass is not a launch of the kernel
 # (tests/test_torch_hopper.py::test_eval_pins_are_the_image_pins)
 EVAL_PINNED = {"cuda": {"K1": 10},
                "cuda_gn": {"K1": 10, "K2": 61},
@@ -1918,10 +1999,10 @@ def phase_calibrate(ctx_i):
         raise AssertionError("calibration left a site without a scale")
 
 
-def phase_mm_sites(ctx_d, ctx_w, ctx_i, batch=1):
+def phase_mm_sites(ctx_d, ctx_w, ctx_i, batch=1, steps=STEPS):
     """The call shapes K4 and K5 get on the quantized main paths, and how
-    many times per image: one UNet eval (x STEPS) under each mode with the
-    wrappers' arguments logged. Keys are (m, k, n, bias). For ``batch``
+    many times per image: one UNet eval (x ``steps``) under each mode with
+    the wrappers' arguments logged. Keys are (m, k, n, bias). For ``batch``
     requests (the UNet eval at N = 2 x batch) the modes of the batch phase,
     against ``BATCH_PINNED``."""
     from sdtpu_torch.models import unet
@@ -1946,7 +2027,7 @@ def phase_mm_sites(ctx_d, ctx_w, ctx_i, batch=1):
             xx, w8 = args[0], args[1]
             key = (xx.numel() // xx.shape[-1], w8.shape[0], w8.shape[1],
                    args[-1] is not None)
-            sites[key] = sites.get(key, 0) + STEPS
+            sites[key] = sites.get(key, 0) + steps
         found[label] = sites
     reset_counts()
     emit({"phase": "mm_sites", "batch": batch, **{
@@ -2278,7 +2359,7 @@ def phase_checkpoint(root, ctx, demo, smi):
 
 def phase_text_surface(native, demo):
     """The text features on the native file under cuda (module docstring,
-    item 13): K1 201 launches an image, the same bytes twice at a seed."""
+    item 13): K1 101 launches an image, the same bytes twice at a seed."""
     def image(c, prompt, label):
         reset_counts()
         img = c.generate(prompt, guidance=7.5, seed=CKPT_SEED)
@@ -2444,13 +2525,15 @@ def phase_batch_kernels(ctx, ctx_d, ctx_w, ctx_i):
     device time."""
     flash = phase_kernel([(2 * BATCH, 4096, 320, 8), (2 * BATCH, 1024, 640, 8),
                           (BATCH, 4096, 512, 1)], [], "kernel_b4")
-    sites = phase_sites(ctx, BATCH)
+    sites = phase_sites(ctx, BATCH, BATCH_PINNED, steps=BATCH_STEPS)
     gn_sites, conv_sites = sites["group_norm"], sites["conv"]
     gn = phase_kernel_gn(gn_sites, [], "kernel_gn_b4")
-    affine = phase_kernel_gn_affine(conv_sites, [], "kernel_gn_affine_b4")
+    affine = phase_kernel_gn_affine(
+        conv_sites, [], "kernel_gn_affine_b4",
+        BATCH_PINNED["cuda_conv"]["group_norm_affine"])
     conv = phase_kernel_conv(conv_sites, [], 2 * BATCH, "kernel_conv_b4")
-    mm = phase_kernel_mm(phase_mm_sites(ctx_d, ctx_w, ctx_i, BATCH), [],
-                         "kernel_mm_b4")
+    mm = phase_kernel_mm(phase_mm_sites(ctx_d, ctx_w, ctx_i, BATCH,
+                                        BATCH_STEPS), [], "kernel_mm_b4")
     return {"flash": flash, "group_norm": gn, "group_norm_affine": affine,
             "conv": conv, **mm}
 
@@ -2622,9 +2705,9 @@ def family_checkpoint(ctx, name, root, want):
 
 def phase_families(smi):
     """SD 2.1 (768x768, v-prediction), SD 2.1-base and SDXL (1024x1024) at
-    full width with demo weights, 20 DPM-Solver++(2M) steps, CFG 7.5, batch
-    1, bf16 (module docstring, item 14). Returns the kernel rows at the
-    families' sites and the launches per image."""
+    full width with demo weights, ``FAMILY_STEPS`` DPM-Solver++(2M) steps,
+    CFG 7.5, batch 1, bf16 (module docstring, item 14). Returns the kernel
+    rows at the families' sites and the launches per image."""
     from sdtpu_torch.quant.ptq import calibrate
 
     start = time.perf_counter()
@@ -2893,8 +2976,6 @@ ADAPTER_PINNED = {
 }
 
 IMAGE_SEED = 29
-IMAGE_STRENGTH = 0.6
-DEPTH_STRENGTH = 0.8
 
 
 def image_inputs(size, seed=IMAGE_SEED):
@@ -3092,8 +3173,8 @@ def phase_image_kernels(ctx):
 
 def phase_concat(smi):
     """The concat-conditioned families at full width with demo weights
-    (module docstring, item 16): sd15_inpaint and sd15_ip2p at 20 steps
-    under cuda and cuda_conv, sd2_depth at 20 steps under cuda,
+    (module docstring, item 16): sd15_inpaint and sd15_ip2p at ``STEPS``
+    steps under cuda and cuda_conv, sd2_depth at ``STEPS`` steps under cuda,
     sd21_inpaint and sdxl_inpaint at 4 steps under cuda (their kernel
     sites, not a speed measure). Each call with its pins, the same bytes
     from the same seed and finite latents. Returns the launches."""
@@ -4569,7 +4650,9 @@ def bwd_resources(resources, plan):
                                      for r in got.values())}
 
 
-def phase_train_kernels(resources=None):
+def phase_train_kernels(resources=None, sites=TRAIN_SITES,
+                        ragged=TRAIN_RAGGED, label="kernel_bwd",
+                        per_step=None):
     """K1-bwd against its plain version (``flash_attention_bwd_reference``,
     float32 on the same bf16 inputs) at ``TRAIN_SITES`` and
     ``TRAIN_RAGGED``: dq, dk and dv each within ``KERNEL_TOL`` of the plain
@@ -4580,13 +4663,14 @@ def phase_train_kernels(resources=None):
     attention`` forward and backward less its forward), the kernel's
     TFLOP/s beside the bound's: the larger of the five products' 10 BH S^2
     d operations at the bf16 peak, the S^2 exponentials a head at
-    ``PEAK_EXP`` and the bytes (q, k, v, o, do, lse in; dq, dk, dv out)."""
+    ``PEAK_EXP`` and the bytes (q, k, v, o, do, lse in; dq, dk, dv out).
+    ``sites``, ``ragged`` and ``label``: the mesh's shard shapes
+    (``per_step``: launches a train step of each, put in its row)."""
     from sdtpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
     rows = []
-    cases = ([(*c, True) for c in TRAIN_SITES]
-             + [(*c, False) for c in TRAIN_RAGGED])
+    cases = ([(*c, True) for c in sites] + [(*c, False) for c in ragged])
     for b, s, c, heads, main in cases:
         d = c // heads
         q, k, v, do = (torch.randn((b, s, c), generator=g, device="cuda")
@@ -4643,7 +4727,9 @@ def phase_train_kernels(resources=None):
             row["library_fwd_ms"] = cuda_ms(lib_fwd)
             row["library_ms"] = row["library_fwd_bwd_ms"] - row[
                 "library_fwd_ms"]
-        emit({"phase": "kernel_bwd" if main else "kernel_bwd_ragged", **row})
+        if per_step is not None:
+            row["per_step"] = per_step.get((b, s, c, heads), 0)
+        emit({"phase": label if main else "kernel_bwd_ragged", **row})
         if not (row["deterministic"] and all(
                 errs[n] <= KERNEL_TOL * maxes[n] for n in errs)):
             raise AssertionError(f"K1-bwd disagrees at {row}")
@@ -5064,6 +5150,288 @@ MESH_ARMS = [("1x2_cuda", (1, 2), "cuda", "none", False, [PROMPT]),
              ("2x1_cuda", (2, 1), "cuda", "none", False, MESH_PROMPTS)]
 MESH_RANKS = 2
 MESH_RANK_TIMEOUT_S = 600
+# the train step on the mesh (ROADMAP item 23b): SD1.5 at full width, demo
+# weights, cuda, batch MESH_TRAIN_BATCH (a row a rank at d = 2), the EMA
+# on, MESH_TRAIN_STEPS steps at each of (2, 1) and (1, 2). A rank's
+# launches and collectives a step: K1 and K1-bwd 10 each (heads // m at
+# m = 2); at m = 2 the 48 row sites' all-reduces forward and the 48 column
+# inputs' backward, CLIP's 24, the global norm's 1 and the time table's
+# all-gather; at d = 2 the gradients' MESH_TRAIN_BUCKETS float32 buckets
+# and the loss (tests/test_torch_hopper.py::test_mesh_train_pins_are_the_
+# rules)
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_BATCH = 2
+MESH_TRAIN_BUCKETS = 4
+MESH_TRAIN_ARMS = [("train_2x1", (2, 1)), ("train_1x2", (1, 2))]
+MESH_TRAIN_PINNED = {
+    "train_2x1": {"launches": train_pins(TRAIN_FLASH, TRAIN_FLASH),
+                  "collectives": {"all-reduce": MESH_TRAIN_BUCKETS + 1,
+                                  "all-gather": 0}},
+    "train_1x2": {"launches": train_pins(TRAIN_FLASH, TRAIN_FLASH),
+                  "collectives": {"all-reduce": 2 * 48 + 24 + 1,
+                                  "all-gather": 1}},
+}
+# K1 (with its log-sum-exp) and K1-bwd at a rank's training shapes: heads
+# // 2 at (1, 2), a row of the batch at (2, 1)
+MESH_TRAIN_FLASH_SHAPES = [(2, 4096, 160, 4), (2, 1024, 320, 4),
+                           (1, 4096, 320, 8), (1, 1024, 640, 8)]
+
+
+# what serve --mesh 1,2 is asked (phase_mesh's serve arm): a /generate
+# through its stream pool of MESH_SERVE_SLOTS, an /img2img through its
+# micro-batcher
+MESH_SERVE_SLOTS = 2
+MESH_SERVE_GENERATE = {"prompt": PROMPT, "seed": 61, "guidance": 7.5,
+                       "negative_prompt": "blurry"}
+MESH_SERVE_IMG2IMG = {"prompt": CALIB_PROMPTS[1], "seed": 62,
+                      "guidance": 6.0}
+MESH_SERVE_STRENGTH = 0.6
+MESH_SERVE_TIMEOUT_S = 300
+
+
+def mesh_serve_image():
+    """The /img2img request's image."""
+    return np.random.default_rng(63).integers(0, 256, (512, 512, 3),
+                                              dtype=np.uint8)
+
+
+def mesh_rank_serve(ctx, rank, root):
+    """What ``serve --mesh 1,2`` must answer, on this rank's
+    ``Context(mesh=(1, 2))``: the pool's image and ``img2img_batch``'s."""
+    from sdtpu_torch.engine.stream import StreamScheduler
+
+    sched = StreamScheduler(ctx, MESH_SERVE_SLOTS)
+    rid = sched.submit(**MESH_SERVE_GENERATE)
+    np.save(f"{root}/rank{rank}_serve_generate.npy", sched.drain()[rid])
+    img = ctx.img2img_batch([dict(MESH_SERVE_IMG2IMG,
+                                  image=mesh_serve_image())],
+                            strength=MESH_SERVE_STRENGTH)[0]
+    np.save(f"{root}/rank{rank}_serve_img2img.npy", img)
+    open(f"{root}/rank{rank}_serve.done", "w").close()
+
+
+def mesh_rank_spatial(ctx, rank, root):
+    """The spatial partition on this rank of (1, 2)'s Context
+    (``sharding.generate_sharded(..., spatial=True)``) under cuda, cuda_gn
+    and cuda_conv: per policy one image from ``MESH_SEED`` with its
+    launches and collectives, one UNet eval at ``unet_inputs(cfg,
+    MESH_SEED)``, and K2's and K3's call shapes in one eval."""
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import conv as C
+    from sdtpu_torch.ops import groupnorm as G
+    from sdtpu_torch.parallel import collectives
+    from sdtpu_torch.parallel import mesh as mesh_mod
+    from sdtpu_torch.parallel import spatial
+    from sdtpu_torch.parallel.sharding import generate_sharded
+
+    cfg = ctx.cfg
+    tokens = torch.tensor([ctx.tokenizer.tokenize(
+        PROMPT, cfg.clip.context_len)], dtype=torch.int64, device="cuda")
+    x, te, context = unet_inputs(cfg, MESH_SEED)
+    out = {}
+    for policy in ("cuda", "cuda_gn", "cuda_conv"):
+        call = generate_sharded(cfg, ctx.mesh, "dpm", MESH_STEPS,
+                                kernels=policy, spatial=True)
+        arm = {}
+
+        def image():
+            return call(ctx.params, tokens, ctx._uncond, [torch.Generator(
+                device="cuda").manual_seed(MESH_SEED)], 7.5).cpu().numpy()
+
+        reset_counts()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        img = image()
+        arm["image_s"] = time.perf_counter() - t0
+        arm["launches"] = counts()
+        arm["collectives"] = collectives.collective_counts()
+        np.save(f"{root}/rank{rank}_spatial_{policy}_image.npy", img)
+        gn_log, part_log, conv_log = [], [], []
+        with (mesh_mod.use(ctx.mesh), spatial.use(ctx.mesh),
+              torch.inference_mode(),
+              recording(G, "group_norm_cuda", gn_log),
+              recording(G, "group_norm_partial_cuda", part_log),
+              recording(C, "fused_conv_cuda", conv_log)):
+            eps = unet.apply(ctx.params["unet"], x, te, context, cfg.unet,
+                             policy)
+        np.save(f"{root}/rank{rank}_spatial_{policy}_unet.npy",
+                eps.float().cpu().numpy())
+
+        def per_image(keys):
+            got = {}
+            for k in keys:
+                got[k] = got.get(k, 0) + MESH_STEPS
+            return [[*k, n] for k, n in sorted(got.items())]
+
+        def plane(t):
+            return t.shape[0], t.numel() // (t.shape[0] * t.shape[-1]), \
+                t.shape[-1]
+
+        arm["partial_sites"] = per_image(
+            (*plane(a[0]), a[1]) for a, _ in part_log)
+        arm["stats_sites"] = per_image(
+            (*plane(a[1]), a[2], a[3], bool(a[4])) for a, _ in gn_log
+            if len(a) > 5 and a[5] is not None)
+        sites = {}
+        for a, kw in conv_log:
+            xx, w, b = a
+            prologue = (None if kw.get("a") is None else
+                        "silu" if kw.get("silu", True) else "affine")
+            if w.shape[-1] == 3:
+                key = (tuple(xx.shape), w.shape[0], 3, prologue,
+                       b.dim() == 2)
+                sites[key] = sites.get(key, 0) + MESH_STEPS
+        arm["conv_sites"] = [[list(k[0]), *k[1:], n]
+                             for k, n in sorted(sites.items(), key=str)]
+        out[f"spatial_{policy}"] = arm
+    return out
+
+
+def _leaf_digests(tree):
+    import hashlib
+
+    from sdtpu_torch.train.step import flat_key, leaves
+
+    return {flat_key(p): hashlib.sha1(
+        t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+    ).hexdigest()
+        for p, t in leaves(tree)}
+
+
+def mesh_rank_train(rank, root):
+    """The train step on the mesh, on this rank: SD1.5 at full width,
+    demo weights (``train_models``), cuda, float32 masters, the EMA on,
+    ``MESH_TRAIN_BATCH``. Rank 0 first takes one step's loss and
+    gradients from the same draws on its own, in float32 under plain (the
+    reference) and in bf16 under plain (its error is the bound). Then each
+    ``MESH_TRAIN_ARMS`` mesh: the rank's split tree
+    (``sharding.shard_params``), one step's loss and gradients from those
+    draws (``train.step.loss_and_grads``), gathered
+    (``sharding.gather_params``) and held against the reference on rank
+    0; ``MESH_TRAIN_STEPS`` steps of ``make_train_step(..., mesh=,
+    plan=)`` with their launches and collectives; each leaf's digest after
+    them; the peak memory."""
+    import dataclasses
+
+    from sdtpu_torch.config import CONFIGS
+    from sdtpu_torch.io.params import cast_params
+    from sdtpu_torch.parallel import collectives
+    from sdtpu_torch.parallel import mesh as mesh_mod
+    from sdtpu_torch.parallel.sharding import (gather_params, shard_params,
+                                               site_plan, split_leaves)
+    from sdtpu_torch.models.layers import disable_tf32
+    from sdtpu_torch.train import step as T
+
+    # float32 in full float32, and cuDNN's deterministic algorithms (as the
+    # train CLI sets them): a replicated leaf's gradient is the same bits
+    # on every rank
+    disable_tf32()
+    torch.backends.cudnn.deterministic = True
+    cfg = CONFIGS[TRAIN_CONFIG]
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    shape = (MESH_TRAIN_BATCH, cfg.latent_size, cfg.latent_size,
+             cfg.latent_channels)
+    draws = {"t": torch.randint(0, 1000, (MESH_TRAIN_BATCH,), generator=gen,
+                                device="cuda"),
+             "eps": torch.randn(shape, generator=gen, device="cuda")}
+    batch = train_batch(cfg, 1, n=MESH_TRAIN_BATCH)
+    out = {}
+    ref = None
+    if rank == 0:
+        trees = train_models(cfg)
+        masters = trees.pop("unet")
+        named = [p.requires_grad_(True) for _, p in T.leaves(masters)]
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        grads = {}
+        for arm, c in (("f32", cfg32), ("plain", cfg)):
+            fz = trees if c is cfg32 else {n: cast_params(t, cfg.compute_dtype)
+                                           for n, t in trees.items()}
+            loss = T.ldm_loss(masters, fz, batch, None, c, "plain",
+                              draws=draws)
+            grads[arm] = (loss.item(), torch.autograd.grad(loss, named))
+            del loss, fz
+        out["ref_loss"] = grads["f32"][0]
+        out["plain_loss"] = grads["plain"][0]
+        out["plain_grad_rel_err"] = grad_rel_err(grads["plain"][1],
+                                                 grads["f32"][1])
+        # the reference waits in host memory: the arms need the card's
+        ref = [g.cpu() for g in grads["f32"][1]]
+        del grads, masters, named, trees
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, mshape in MESH_TRAIN_ARMS:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mesh = mesh_mod.make_mesh(*mshape)
+        full = train_models(cfg)
+        plan = site_plan(full, mshape[1], cfg)
+        local = shard_params(full, mesh, cfg, plan)
+        del full
+        frozen = {n: cast_params(local[n], cfg.compute_dtype)
+                  for n in ("clip", "temb")}
+        opt = T.make_optimizer(lr=TRAIN_LR)
+        state = T.init_train_state(local.pop("unet"), opt, ema=True)
+        del local
+        arm = {"init_s": time.perf_counter() - t0}
+        num = den = 0.0
+        finite = True
+        with mesh_mod.use(mesh):
+            loss, grads = T.loss_and_grads(state, frozen, batch, None, cfg,
+                                           "cuda", draws=draws)
+            # each leaf gathered (a split leaf's all-gather) and held
+            # against the reference on rank 0, one at a time
+            for i, (path, g) in enumerate(T.leaves(T.unflatten(
+                    state.params, grads))):
+                whole = gather_params({path[-1]: g}, mesh, plan,
+                                      ("unet",) + path[:-1])[path[-1]]
+                if ref is not None:
+                    r = ref[i].cuda()
+                    num += torch.linalg.vector_norm(
+                        whole.float() - r).item() ** 2
+                    den += torch.linalg.vector_norm(r).item() ** 2
+                    finite = finite and bool(torch.isfinite(whole).all())
+                del whole
+        arm["loss"] = loss.item()
+        if ref is not None:
+            arm["loss_rel_err"] = abs(arm["loss"] - out["ref_loss"]) / abs(
+                out["ref_loss"])
+            arm["grad_rel_err"] = (num / den) ** 0.5
+            arm["grads_finite"] = finite
+        del loss, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        arm["allocated_gb_before_steps"] = torch.cuda.memory_allocated() / 1e9
+        step = T.make_train_step(cfg, opt, kernels="cuda", mesh=mesh,
+                                 plan=plan)
+        arm["steps"] = []
+        for i in range(MESH_TRAIN_STEPS):
+            reset_train_counts()
+            collectives.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the state is updated in place; the returned one is not kept,
+            # so that the arm's end frees it
+            met = step(state, frozen, train_batch(cfg, 300 + i,
+                                                  n=MESH_TRAIN_BATCH),
+                       T.step_generator(TRAIN_SEED, i, "cuda"))[1]
+            arm["steps"].append({
+                "loss": met["loss"].item(),
+                "grad_norm": met["grad_norm"].item(),
+                "s": time.perf_counter() - t0,
+                "launches": train_counts(),
+                "collectives": collectives.collective_counts()})
+        arm["digests"] = _leaf_digests(state.params)
+        arm["split"] = sorted(T.flat_key(p) for p in split_leaves(
+            state.params, plan, ("unet",)))
+        arm["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[label] = arm
+        del state, frozen, step, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def mesh_rank(rank: int, root: str) -> int:
@@ -5072,9 +5440,11 @@ def mesh_rank(rank: int, root: str) -> int:
     library the parent built. Each ``MESH_ARMS`` arm: a
     ``Context(mesh=...)``, one image (and, at (2, 1), the call's latents)
     from ``MESH_SEED`` with its launches and collectives; at (1, 2) one
-    UNet eval at ``unet_inputs(cfg, MESH_SEED)``; under int8 the K5 call
-    shapes of one eval. Writes ``<dir>/rank<rank>.json`` and its arrays
-    ``<dir>/rank<rank>_*.npy``."""
+    UNet eval at ``unet_inputs(cfg, MESH_SEED)``, what ``serve --mesh
+    1,2`` must answer (``mesh_rank_serve``) and the spatial partition's
+    arms (``mesh_rank_spatial``); under int8 the K5 call shapes of one
+    eval. Then the train step's arms (``mesh_rank_train``). Writes
+    ``<dir>/rank<rank>.json`` and its arrays ``<dir>/rank<rank>_*.npy``."""
     import datetime
 
     import torch.distributed as dist
@@ -5135,8 +5505,12 @@ def mesh_rank(rank: int, root: str) -> int:
                             sites[key] = sites.get(key, 0) + MESH_STEPS
                         arm["w8a8_sites"] = [[*k, v]
                                              for k, v in sorted(sites.items())]
+                if label == "1x2_cuda":
+                    mesh_rank_serve(ctx, rank, root)
+                    out.update(mesh_rank_spatial(ctx, rank, root))
             out[label] = arm
             release(ctx)
+        out.update(mesh_rank_train(rank, root))
     finally:
         with open(f"{root}/rank{rank}.json", "w") as f:
             json.dump(out, f)
@@ -5153,6 +5527,9 @@ def start_mesh_ranks(root):
     env["PYTHONPATH"] = os.pathsep.join(
         [here] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     env.pop("LOCAL_RANK", None)
+    # two ranks share the card's memory with this process: blocks of
+    # growing segments waste less of it
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     procs = []
     for r in range(MESH_RANKS):
         log = open(f"{root}/rank{r}.log", "w")
@@ -5286,9 +5663,15 @@ def phase_mesh(smi):
     error against float32 (``phase_model``'s rule); each (2, 1) rank's
     request within ``BATCH_GAP_FACTOR`` of that request's own bf16 to
     float32 gap from the same call on one device (``phase_batch``'s rule).
-    Then K5 at the shard shapes the ranks recorded. Two ranks on one card
-    measure correctness and the cost of the host-staged gloo transport,
-    not the speed of a mesh. Returns (K1 rows, K5 rows, launches)."""
+    The same ranks run the spatial arms (``mesh_spatial_checks``) and the
+    train arms (``mesh_train_checks``), with ``serve --mesh 1,2``
+    (``mesh_serve``) beside them. Then, on a quiet card, K5 at the shard shapes the
+    ranks recorded, K1 with its statistics and K1-bwd at the training
+    shard shapes, K2's spatial modes and K3 at the slices the spatial arms
+    recorded. Two ranks on one card measure correctness and the cost of
+    the host-staged gloo transport, not the speed of a mesh. Returns
+    {"flash", "w8a8", "lse", "bwd", "gn", "conv": rows, "launches": {arm:
+    rank 0's launches and collectives}}."""
     from sdtpu_torch import Context
 
     t_start = time.perf_counter()
@@ -5296,6 +5679,9 @@ def phase_mesh(smi):
     flash_rows = phase_kernel(shapes=MESH_FLASH_SHAPES, ragged=[],
                               label="kernel_mesh", per_image=per_image)
     root = tempfile.mkdtemp(prefix="sdtpu-mesh-")
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_reserved_gb = torch.cuda.memory_reserved() / 1e9
     try:
         t0 = time.perf_counter()
         procs = start_mesh_ranks(root)
@@ -5304,6 +5690,15 @@ def phase_mesh(smi):
         nccl = mesh_nccl(c_one)
         refs = mesh_references(c_one)
         release(c_one)
+        parent_waiting_gb = torch.cuda.memory_reserved() / 1e9
+        # serve --mesh 1,2 beside the ranks' spatial and train arms, once
+        # they have saved what it must answer
+        try:
+            serve = mesh_serve(root, procs)
+        except BaseException:
+            for p, _ in procs:
+                p.kill()
+            raise
         ranks = wait_mesh_ranks(procs, root)
         ranks_s = time.perf_counter() - t0
         res = {"phase": "mesh", "nvidia_smi": smi, "steps": MESH_STEPS,
@@ -5312,6 +5707,8 @@ def phase_mesh(smi):
                "note": "two ranks sharing one card measure correctness and "
                        "the host-staged transport's cost, not the speed of "
                        "a mesh", "nccl_1x1": nccl, "ranks_s": ranks_s,
+               "parent_reserved_gb": [parent_reserved_gb,
+                                      parent_waiting_gb],
                "unet_plain_rel_err": refs["unet_plain_rel_err"], "arms": {}}
         failures = []
         lat, lat32 = refs["latent"], refs["latent_f32"]
@@ -5356,24 +5753,346 @@ def phase_mesh(smi):
             if not arm["same_bytes_across_ranks"]:
                 failures.append(f"{label}: ranks differ")
             res["arms"][label] = arm
+        mesh_spatial_checks(ranks, root, refs, res, failures)
+        mesh_train_checks(ranks, res, failures)
         k5_sites = {tuple(s[:4]): s[4]
                     for s in ranks[0]["1x2_int8+k5"]["w8a8_sites"]}
         res["w8a8_sites"] = len(k5_sites)
-        res["seconds_before_k5"] = time.perf_counter() - t_start
+        res["seconds_before_serve"] = time.perf_counter() - t_start
         emit(res)
+        emit({"phase": "mesh_serve", "nvidia_smi": smi, **serve})
         if failures:
             raise AssertionError(f"mesh phase: {failures}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # the kernels at the shapes the new arms gave them, on a quiet card
     mm_rows = phase_kernel_mm({"int8w_dense": {}, "int8+k5": k5_sites},
                               ragged=[], label="kernel_mesh_mm")
+    per_step = {s: 5 for s in MESH_TRAIN_FLASH_SHAPES}
+    lse_rows = phase_kernel_lse(MESH_TRAIN_FLASH_SHAPES, per_step)
+    bwd_rows = phase_train_kernels(None, MESH_TRAIN_FLASH_SHAPES, [],
+                                   "kernel_mesh_bwd", per_step)
+    gn_arm = ranks[0]["spatial_cuda_gn"]
+    gn_rows = phase_kernel_gn_partial(gn_arm["partial_sites"],
+                                      gn_arm["stats_sites"])
+    conv_rows = phase_kernel_conv(
+        {(tuple(k[0]), *k[1:5]): k[5]
+         for k in ranks[0]["spatial_cuda_conv"]["conv_sites"]}, ragged=[],
+        label="kernel_mesh_conv", int8=False, cudnn=True)
     launches = {label: {**res["arms"][label]["rank0"]["launches"],
                         **res["arms"][label]["rank0"]["collectives"]}
-                for label, *_ in MESH_ARMS}
+                for label in [a[0] for a in MESH_ARMS] + [
+                    f"spatial_{p}" for p in ("cuda", "cuda_gn",
+                                             "cuda_conv")]}
+    for label, _ in MESH_TRAIN_ARMS:
+        step = ranks[0][label]["steps"][0]
+        launches[label] = {**step["launches"], **step["collectives"]}
     launches["1x1_nccl"] = {**nccl["launches"], **nccl["collectives"]}
     emit({"phase": "mesh_done", "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_start})
-    return flash_rows, mm_rows["matmul_w8a8"], launches
+    return {"flash": flash_rows, "w8a8": mm_rows["matmul_w8a8"],
+            "lse": lse_rows, "bwd": bwd_rows, "gn": gn_rows,
+            "conv": conv_rows, "launches": launches}
+
+
+def phase_kernel_lse(shapes, per_step):
+    """K1 with each row's log-sum-exp out (the training forward,
+    ``flash_attention_cuda(..., with_lse=True)``) at a rank's training
+    shapes on the mesh, against its plain version: the output within
+    ``KERNEL_TOL`` of the plain version's max-abs, the log-sum-exp (of the
+    float32 scaled logits) within ``KERNEL_TOL`` of its own; device times
+    of the kernel, the plain version and SDPA's forward, the bound as
+    ``phase_kernel``'s plus the statistics' bytes."""
+    from sdtpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(64)
+    rows = []
+    for b, sq, c, heads in shapes:
+        d = c // heads
+        q, k, v = (torch.randn((b, sq, c), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        out, lse = A.flash_attention_cuda(q, k, v, heads, with_lse=True)
+        torch.cuda.synchronize()
+        ref = flash_plain(q.float(), k.float(), v.float(), heads)
+        qh, kh = (t.float().view(b, sq, heads, d).transpose(1, 2)
+                  for t in (q, k))
+        ref_lse = torch.logsumexp(torch.einsum(
+            "bhqd,bhkd->bhqk", qh, kh) * d ** -0.5, dim=-1).reshape(
+                b * heads, sq)
+        del qh, kh
+        err = (out.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        ref_max, lse_max = (ref.abs().max().item(),
+                            ref_lse.abs().max().item())
+        del ref, ref_lse
+        flop = 4.0 * b * sq * sq * c
+        bound_ms, bound_by = bound(flop, "bf16", 2 * (4 * q.numel())
+                                   + 4 * lse.numel())
+        vh = (t.view(b, sq, heads, d).transpose(1, 2) for t in (q, k, v))
+        qv, kv, vv = vh
+        row = {"shape": [b, sq, c], "heads": heads, "head_dim": d,
+               "max_abs_err": err, "ref_abs_max": ref_max,
+               "lse_abs_err": lse_err, "lse_abs_max": lse_max,
+               "ms": cuda_ms(lambda: A.flash_attention_cuda(
+                   q, k, v, heads, with_lse=True)),
+               "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, heads)),
+               "library_ms": cuda_ms(
+                   lambda: F.scaled_dot_product_attention(qv, kv, vv)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "per_step": per_step.get((b, sq, c, heads), 0)}
+        emit({"phase": "kernel_mesh_lse", **row})
+        if not (err <= KERNEL_TOL * ref_max
+                and lse_err <= KERNEL_TOL * lse_max):
+            raise AssertionError(f"K1 with its statistics disagrees at "
+                                 f"{row}")
+        rows.append(row)
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernel_gn_partial(partial_sites, stats_sites):
+    """K2's spatial modes at the slices the ranks recorded: its partial
+    mode (each (sample, group)'s mean and M2 of a slice) against its plain
+    version, within ``AFFINE_TOL`` of each statistic's largest value;
+    device times of the kernel, the plain version and ``torch.var_mean``
+    over the [N, hw, G, C/G] view (``library_ms``). Then, from those
+    statistics (``spatial.combine`` of one part), its normalising mode
+    (+ SiLU where the site has it) against its plain version within
+    ``FUSED_TOL`` and its statistics mode's A and D within
+    ``AFFINE_TOL``, with their device times (``stats_ms``,
+    ``affine_stats_ms``) beside ``F.group_norm`` + SiLU's."""
+    from sdtpu_torch.ops import conv as C
+    from sdtpu_torch.ops import groupnorm as G
+    from sdtpu_torch.parallel import spatial
+
+    g = torch.Generator(device="cuda").manual_seed(65)
+    silu_of = {tuple(k[:4]): (k[4], k[5]) for k in stats_sites}
+    rows = []
+    for n, hw, c, groups, per_image in partial_sites:
+        x, p = _gn_case(n, hw, c, g)
+        part = G.group_norm_partial_cuda(x, groups)
+        torch.cuda.synchronize()
+        ref = G.group_norm_partial_reference(x.float(), groups)
+        err = max(rel_err(part[..., i], ref[..., i]) for i in (0, 1))
+        eps, silu = silu_of.get((n, hw, c, groups), (1e-5, True))
+        stats = spatial.combine(part[None], hw * c // groups, eps)
+        y = G.group_norm_cuda(p, x, groups, eps, silu, stats)
+        a, d = G.group_norm_affine_cuda(p, x, groups, eps, stats)
+        torch.cuda.synchronize()
+        y_ref = G.group_norm_reference(p, x.float(), groups, eps, silu,
+                                       stats)
+        ra, rd = C.gn_affine_reference(p, x, groups, eps, stats)
+        y_err = (y.float() - y_ref).abs().max().item()
+        y_scale = y_ref.abs().max().item()
+        ad_err = max(rel_err(a, ra), rel_err(d, rd))
+        del y_ref, ra, rd
+        bound_ms, bound_by = bound(6.0 * x.numel(), "f32",
+                                   x.numel() * 2 + part.numel() * 4)
+        view = x.view(n, hw, groups, c // groups)
+        nchw = x.view(n, hw, c).permute(0, 2, 1)
+        act = F.silu if silu else (lambda t: t)
+        row = {"shape": [n, hw, c], "groups": groups,
+               "per_image": per_image, "max_abs_err": (
+                   part - ref).abs().max().item(), "rel_err": err,
+               "stats_abs_err": y_err, "stats_ref_abs_max": y_scale,
+               "affine_stats_rel_err": ad_err, "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "plan": _gn_plan(n, hw, c, groups),
+               "ms": cuda_ms(lambda: G.group_norm_partial_cuda(x, groups)),
+               "plain_ms": cuda_ms(lambda: G.group_norm_partial_reference(
+                   x, groups)),
+               "library_ms": cuda_ms(lambda: torch.var_mean(
+                   view, dim=(1, 3), correction=0)),
+               "stats_ms": cuda_ms(lambda: G.group_norm_cuda(
+                   p, x, groups, eps, silu, stats)),
+               "stats_library_ms": cuda_ms(lambda: act(F.group_norm(
+                   nchw, groups, p["scale"], p["bias"], eps))),
+               "affine_stats_ms": cuda_ms(lambda: G.group_norm_affine_cuda(
+                   p, x, groups, eps, stats))}
+        emit({"phase": "kernel_mesh_gn", **row})
+        if not (err <= AFFINE_TOL and y_err <= FUSED_TOL * y_scale
+                and ad_err <= AFFINE_TOL):
+            raise AssertionError(f"K2's spatial modes disagree at {row}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_spatial_checks(ranks, root, refs, res, failures):
+    """The spatial arms' checks: each rank's launches and collectives at
+    ``MESH_SPATIAL_PINNED``; the same bytes on both ranks; a 512^2 image;
+    each rank's UNet eval within ``MODEL_FACTOR`` of plain bf16's error
+    against float32."""
+    for policy in ("cuda", "cuda_gn", "cuda_conv"):
+        label = f"spatial_{policy}"
+        imgs = [np.load(f"{root}/rank{r}_{label}_image.npy")
+                for r in range(MESH_RANKS)]
+        arm = {"same_bytes_across_ranks": all(
+            np.array_equal(imgs[0], im) for im in imgs)}
+        want = MESH_SPATIAL_PINNED[label]
+        for r, rk in enumerate(ranks):
+            got = {"launches": rk[label]["launches"],
+                   "collectives": {k: rk[label]["collectives"][k]
+                                   for k in want["collectives"]}}
+            eps = torch.from_numpy(np.load(
+                f"{root}/rank{r}_{label}_unet.npy")).cuda()
+            err = rel_err(eps, refs["unet_f32"])
+            arm[f"rank{r}"] = {**got, "image_s": rk[label]["image_s"],
+                               "unet_rel_err": err}
+            if got != want:
+                failures.append(f"{label} rank {r}: {got}")
+            if not err <= MODEL_FACTOR * refs["unet_plain_rel_err"]:
+                failures.append(f"{label} rank {r}: UNet {err}")
+        try:
+            check_image(imgs[0][0], 512)
+        except AssertionError as e:
+            failures.append(f"{label}: {e}")
+        if not arm["same_bytes_across_ranks"]:
+            failures.append(f"{label}: ranks differ")
+        res["arms"][label] = arm
+
+
+def mesh_train_checks(ranks, res, failures):
+    """The train arms' checks: on rank 0, one step's gathered gradients
+    finite and within ``MODEL_FACTOR`` of plain bf16's error against the
+    float32 step, its loss likewise; each rank's launches and collectives
+    in each step at ``MESH_TRAIN_PINNED``; every rank the same loss and
+    grad norm; after the steps each leaf the ranks both hold whole the
+    same bytes on both (every leaf at (2, 1), the unsplit ones at (1,
+    2))."""
+    r0 = ranks[0]
+    plain_loss_err = abs(r0["plain_loss"] - r0["ref_loss"]) / abs(
+        r0["ref_loss"])
+    res["train_reference"] = {
+        "ref_loss": r0["ref_loss"], "plain_loss": r0["plain_loss"],
+        "plain_loss_rel_err": plain_loss_err,
+        "plain_grad_rel_err": r0["plain_grad_rel_err"]}
+    for label, shape in MESH_TRAIN_ARMS:
+        arms = [rk[label] for rk in ranks]
+        a0 = arms[0]
+        arm = {k: a0[k] for k in ("loss", "loss_rel_err", "grad_rel_err",
+                                  "grads_finite")}
+        arm["steps"] = [[{k: st[k] for k in ("loss", "grad_norm", "s")}
+                         for st in a["steps"]] for a in arms]
+        arm["max_memory_gb"] = [a["max_memory_gb"] for a in arms]
+        arm["allocated_gb_before_steps"] = [a["allocated_gb_before_steps"]
+                                            for a in arms]
+        arm["init_s"] = [a["init_s"] for a in arms]
+        if not (a0["grads_finite"] and a0["grad_rel_err"]
+                <= MODEL_FACTOR * r0["plain_grad_rel_err"]):
+            failures.append(f"{label}: gradients {a0['grad_rel_err']}")
+        if not a0["loss_rel_err"] <= MODEL_FACTOR * plain_loss_err:
+            failures.append(f"{label}: loss {a0['loss_rel_err']}")
+        want = MESH_TRAIN_PINNED[label]
+        for r, a in enumerate(arms):
+            for i, st in enumerate(a["steps"]):
+                got = {"launches": st["launches"],
+                       "collectives": {k: st["collectives"][k]
+                                       for k in want["collectives"]}}
+                if got != want or any(
+                        v for k, v in st["collectives"].items()
+                        if k not in want["collectives"]):
+                    failures.append(f"{label} rank {r} step {i}: {got}")
+                if (st["loss"], st["grad_norm"]) != (
+                        a0["steps"][i]["loss"], a0["steps"][i]["grad_norm"]):
+                    failures.append(f"{label} step {i}: ranks' loss or "
+                                    f"norm differ")
+        split = set(a0["split"])
+        whole = [k for k in a0["digests"] if k not in split]
+        arm["whole_leaves"], arm["split_leaves"] = len(whole), len(split)
+        arm["same_bytes_whole_leaves"] = all(
+            a["digests"][k] == a0["digests"][k] for a in arms for k in whole)
+        if not arm["same_bytes_whole_leaves"] or bool(split) != (
+                shape[1] > 1):
+            failures.append(f"{label}: replicated leaves differ or the "
+                            f"split is wrong ({len(split)} split)")
+        res["arms"][label] = arm
+
+
+def mesh_serve(root, procs):
+    """``python3 -m sdtpu_torch.cli serve --mesh 1,2`` as a user starts it
+    (its follower started by the CLI, a fresh interpreter on this card, the
+    ranks over gloo), its pool of ``MESH_SERVE_SLOTS``: a /generate through
+    the pool and an /img2img through the micro-batcher, each the bytes the
+    gloo ranks' ``Context(mesh=(1, 2))`` gave for the same request (it
+    starts once both ranks have saved them, ``procs`` running their later
+    arms beside it); then SIGINT: the server exits 0 and no process of its
+    session is left."""
+    import signal
+
+    deadline = time.perf_counter() + MESH_RANK_TIMEOUT_S
+    while not all(os.path.exists(f"{root}/rank{r}_serve.done")
+                  for r in range(MESH_RANKS)):
+        if any(p.poll() is not None for p, _ in procs):
+            raise AssertionError("a mesh rank ended before saving what "
+                                 "serve --mesh must answer")
+        if time.perf_counter() > deadline:
+            raise AssertionError("the mesh ranks did not reach serve's "
+                                 "requests")
+        time.sleep(0.5)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env.pop("LOCAL_RANK", None)
+    t0 = time.perf_counter()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "sdtpu_torch.cli", "serve", "--config",
+         "sd15", "--steps", str(MESH_STEPS), "--kernels", "cuda", "--port",
+         "0", "--mesh", "1,2", "--stream-slots", str(MESH_SERVE_SLOTS)],
+        cwd=root, env=env, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    lines, ready = [], threading.Event()
+
+    def read():
+        for line in p.stderr:
+            lines.append(line)
+            if "serving on http://" in line:
+                ready.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    res = {}
+    try:
+        if not ready.wait(MESH_SERVE_TIMEOUT_S):
+            raise AssertionError("serve --mesh did not start:\n"
+                                 + "".join(lines)[-3000:])
+        res["start_s"] = time.perf_counter() - t0
+        url = next(ln for ln in lines if "serving on http://" in ln).split(
+            "serving on ")[1].split()[0]
+        t0 = time.perf_counter()
+        res["generate_status"], _, gen = http(
+            f"{url}/generate", {**MESH_SERVE_GENERATE, "format": "raw"})
+        res["generate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["img2img_status"], _, i2i = http(f"{url}/img2img", {
+            **MESH_SERVE_IMG2IMG, "strength": MESH_SERVE_STRENGTH,
+            "format": "raw", "image_b64": png_b64(mesh_serve_image())})
+        res["img2img_s"] = time.perf_counter() - t0
+        os.kill(p.pid, signal.SIGINT)
+        res["exit_code"] = p.wait(timeout=120)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    try:
+        os.killpg(p.pid, 0)
+        res["processes_left"] = True
+    except ProcessLookupError:
+        res["processes_left"] = False
+    same = []
+    for name, got in (("generate", gen), ("img2img", i2i)):
+        for r in range(MESH_RANKS):
+            want = np.load(f"{root}/rank{r}_serve_{name}.npy")
+            same.append(len(got) == want.size and np.array_equal(
+                np.frombuffer(got, np.uint8).reshape(want.shape), want))
+    res["same_bytes_as_the_mesh_context"] = all(same)
+    if not (all(same) and res["exit_code"] == 0
+            and not res["processes_left"]):
+        raise AssertionError(f"serve --mesh 1,2: {res}\n"
+                             + "".join(lines)[-3000:])
+    return res
 
 
 def image_summary(rows, launches):
@@ -5508,12 +6227,16 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
 
     # batched serving under every policy and the modes with a GEMM kernel,
-    # then the kernels at the batch's call shapes
+    # at BATCH_STEPS, then the kernels at the batch's call shapes
+    for c in (ctx, ctx_d, ctx_i):
+        c.set_steps(BATCH_STEPS)
     phase_batch([("cuda", ctx, "cuda", False),
                  ("cuda_gn", ctx, "cuda_gn", False),
                  ("cuda_conv", ctx, "cuda_conv", False),
                  ("int8w_dense", ctx_d, "cuda", False),
                  ("int8+k5", ctx_i, "cuda", True)], float32_latents(ctx))
+    for c in (ctx, ctx_d, ctx_i):
+        c.set_steps(STEPS)
     b4 = phase_batch_kernels(ctx, ctx_d, ctx_w, ctx_i)
 
     phase_model(ctx)
@@ -5545,7 +6268,13 @@ def main() -> int:
     adapter_launches.update(phase_adapters_xl(smi))
     # serving on the (data, model) mesh, last: nothing after it shares its
     # process groups
-    mesh_flash, mesh_w8a8, mesh_launches = phase_mesh(smi)
+    mesh = phase_mesh(smi)
+    mesh_launches = mesh["launches"]
+
+    def on_mesh(counter, rows=None):
+        return {"rows": rows, "launches": {
+            k: v[counter] for k, v in mesh_launches.items()
+            if counter in v}}
 
     def images(kernel, counter):
         return {"rows": {g: image_summary(rows.get(kernel), None)
@@ -5592,6 +6321,8 @@ def main() -> int:
                                                    r["x"][1]))
     k4_main, k5_main = main_row(k4_rows), main_row(k5_rows)
     bwd_main = train_rows[0]
+    gn_part_main = max(mesh["gn"], key=lambda r: (r["per_image"],
+                                                  r["shape"][1]))
     emit({"kernels": [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "sdtpu_torch/csrc/flash_attn_fwd.cu",
@@ -5611,9 +6342,8 @@ def main() -> int:
          "adapters": adapters("flash", "flash"),
          "serving": serving("flash", "flash"),
          "train": {k: v["flash"] for k, v in train_launches.items()},
-         "mesh": {"rows": mesh_flash,
-                  "launches": {k: v["flash"]
-                               for k, v in mesh_launches.items()}},
+         "mesh": {**on_mesh("flash", mesh["flash"]),
+                  "train_lse_rows": mesh["lse"]},
          "timed_shape": rows[0]["shape"] + [rows[0]["heads"]],
          "shapes": rows},
         {"name": "flash_attn_bwd", "route": "cuda",
@@ -5633,7 +6363,8 @@ def main() -> int:
          "plan": bwd_main["plan"], "design": bwd_main["design"],
          "registers": bwd_main["registers"],
          "timed_shape": bwd_main["shape"] + [bwd_main["heads"]],
-         "shapes": train_rows},
+         "shapes": train_rows,
+         "mesh": on_mesh("flash_bwd", mesh["bwd"])},
         {"name": "group_norm_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/group_norm_silu.cu",
          "replaces": "sdtpu/ops/groupnorm.py:38",
@@ -5654,6 +6385,10 @@ def main() -> int:
          "stages": stages("group_norm", "group_norm"),
          "adapters": adapters("group_norm", "group_norm"),
          "serving": serving("group_norm", "group_norm"),
+         "mesh": {**on_mesh("group_norm"), "stats_rows": [
+             {k: r[k] for k in ("shape", "groups", "per_image",
+                                "stats_abs_err", "stats_ms",
+                                "stats_library_ms")} for r in mesh["gn"]]},
          "timed_shape": gn_main["shape"] + [gn_main["groups"]]},
         {"name": "conv_gn_silu", "route": "cuda",
          "source": "sdtpu_torch/csrc/conv_gn_silu.cu",
@@ -5683,6 +6418,7 @@ def main() -> int:
          "stages": stages("conv", "conv"),
          "adapters": adapters("conv", "conv"),
          "serving": serving("conv", "conv"),
+         "mesh": on_mesh("conv", mesh["conv"]),
          "timed_shape": conv_main["x"] + [conv_main["c_out"],
                                           conv_main["k"]]},
         {"name": "group_norm_affine", "route": "cuda",
@@ -5711,7 +6447,29 @@ def main() -> int:
          "stages": stages("group_norm_affine", "group_norm_affine"),
          "adapters": adapters("group_norm_affine", "group_norm_affine"),
          "serving": serving("group_norm_affine", "group_norm_affine"),
+         "mesh": {**on_mesh("group_norm_affine"), "stats_rows": [
+             {k: r[k] for k in ("shape", "groups", "affine_stats_rel_err",
+                                "affine_stats_ms")} for r in mesh["gn"]]},
          "timed_shape": affine_main["shape"] + [affine_main["groups"]]},
+        {"name": "group_norm_partial", "route": "cuda",
+         "source": "sdtpu_torch/csrc/group_norm_silu.cu",
+         "replaces": "sdtpu/ops/groupnorm.py:38",
+         "note": "K2's partial mode: a W-slice's per-(sample, group) mean "
+                 "and M2 on the spatial partition, combined over the model "
+                 "group (GSPMD partitions the reference's statistics)",
+         "launches": mesh_launches["spatial_cuda_gn"]["group_norm_partial"],
+         "launches_cuda_conv":
+             mesh_launches["spatial_cuda_conv"]["group_norm_partial"],
+         "max_abs_err": max(r["max_abs_err"] for r in mesh["gn"]),
+         "ms": gn_part_main["ms"], "plain_ms": gn_part_main["plain_ms"],
+         "bound_ms": gn_part_main["bound_ms"],
+         "bound_by": gn_part_main["bound_by"],
+         "library_ms": gn_part_main["library_ms"],
+         "library": "torch.var_mean over the [N, hw, G, C/G] view",
+         "per_image_ms": per_image_ms(mesh["gn"], "ms"),
+         "per_image_library_ms": per_image_ms(mesh["gn"], "library_ms"),
+         "timed_shape": gn_part_main["shape"] + [gn_part_main["groups"]],
+         "shapes": mesh["gn"]},
         {"name": "matmul_int8w", "route": "cuda",
          "source": "sdtpu_torch/csrc/matmul_int8w.cu",
          "replaces": "sdtpu/ops/matmul.py:81",
@@ -5765,9 +6523,7 @@ def main() -> int:
          "stages": stages("matmul_w8a8", "matmul_w8a8"),
          "adapters": adapters("matmul_w8a8", "matmul_w8a8"),
          "serving": serving("matmul_w8a8", "matmul_w8a8"),
-         "mesh": {"rows": mesh_w8a8,
-                  "launches": {k: v["matmul_w8a8"]
-                               for k, v in mesh_launches.items()}},
+         "mesh": on_mesh("matmul_w8a8", mesh["w8a8"]),
          "timed_shape": [k5_main[d] for d in "mkn"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

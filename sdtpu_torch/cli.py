@@ -184,14 +184,16 @@ def _cmd_serve(args) -> int:
     from sdtpu_torch.engine.logging import LogLevel
     from sdtpu_torch.engine.server import serve
 
+    mesh = None
     if args.mesh:
-        # one process serves HTTP here; a mesh needs a rank-0 server with
-        # follower ranks, which the port does not have yet
-        raise SdtpuError(
-            ErrorCode.INVALID_ARGUMENT,
-            "serve --mesh is not ported yet (ROADMAP item 23b: a rank-0 "
-            "server with follower ranks); Context(mesh=) serves on every "
-            "rank of a process group")
+        try:
+            mesh = tuple(int(v) for v in args.mesh.split(","))
+            if len(mesh) != 2 or min(mesh) < 1:
+                raise ValueError
+        except ValueError:
+            raise SdtpuError(ErrorCode.INVALID_ARGUMENT,
+                             f"--mesh takes 'data,model', got "
+                             f"{args.mesh!r}") from None
     lora = None
     if args.lora:
         lora = {}
@@ -202,19 +204,58 @@ def _cmd_serve(args) -> int:
                 return 2
             name, path = spec.split("=", 1)
             lora[name] = path
+    rank, group, followers = 0, None, []
+    if mesh is not None and mesh[0] * mesh[1] > 1:
+        from sdtpu_torch.parallel import follow
+
+        rank, group, followers = follow.start(
+            mesh[0] * mesh[1], _device(args.platform),
+            ["-m", "sdtpu_torch.cli", *args.argv])
     ctx = sdtpu_torch.Context(
         model_dir=args.model_dir, steps=args.steps, sampler=args.sampler,
         config=args.config, log_level=LogLevel(args.log_level),
         kernels=args.kernels, lora=lora,
         cfg_interval=_interval(args.cfg_interval), deepcache=args.deepcache,
-        tome_ratio=args.tome_ratio, device=_device(args.platform))
+        tome_ratio=args.tome_ratio, device=_device(args.platform),
+        mesh=mesh)
+    if group is None:
+        _serve(serve, ctx, args, None)
+        return 0
+    from sdtpu_torch.parallel import follow
+
+    if rank:
+        follow.follow(ctx, group)
+        return 0
+    leader = follow.Leader(group, ctx)
+    try:
+        _serve(serve, ctx, args, leader)
+    finally:
+        leader.stop()
+        for p in followers:
+            p.wait()
+    return 0
+
+
+def _serve(serve, ctx, args, leader) -> None:
+    """``engine.server.serve`` with the command's flags; SIGTERM stops it
+    as an interrupt does, so a mesh's leader ends its followers."""
+    import signal
+
+    def stop(signum, frame):
+        raise KeyboardInterrupt
+
     stream_steps = (tuple(int(s) for s in args.stream_steps.split(","))
                     if args.stream_steps else ())
-    serve(ctx, host=args.host, port=args.port,
-          max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-          stream_slots=args.stream_slots, max_queue=args.max_queue,
-          stream_steps=stream_steps)
-    return 0
+    previous = signal.signal(signal.SIGTERM, stop)
+    try:
+        serve(ctx, host=args.host, port=args.port,
+              max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+              stream_slots=args.stream_slots, max_queue=args.max_queue,
+              stream_steps=stream_steps, leader=leader)
+    except KeyboardInterrupt:
+        ctx.logger.info("serve: stopped")
+    finally:
+        signal.signal(signal.SIGTERM, previous)
 
 
 def _library_files(cache_dir):
@@ -692,8 +733,9 @@ def main(argv=None) -> int:
     sv.add_argument("--sampler", default="dpm", choices=SAMPLER_CHOICES)
     sv.add_argument("--model-dir", default=None)
     sv.add_argument("--mesh", default=None,
-                    help="multi-card serving mesh as 'data,model' (not "
-                         "ported yet: ROADMAP item 23b)")
+                    help="multi-card serving mesh as 'data,model': rank 0 "
+                         "serves HTTP, the other ranks (torchrun's, or "
+                         "started here) follow its calls")
     sv.add_argument("--lora", action="append", default=None,
                     metavar="NAME=PATH",
                     help="register a LoRA adapter for per-request selection "
@@ -805,6 +847,8 @@ def main(argv=None) -> int:
     i.set_defaults(fn=_cmd_info)
 
     args = p.parse_args(argv)
+    # the command line, for the followers serve --mesh starts
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     if getattr(args, "cache_dir", "") is None:
         from sdtpu_torch.ops import _build
 

@@ -14,6 +14,15 @@
 // conv_gn_silu.cu), in place of sdtpu/ops/conv.py:gn_affine (XLA work in the
 // reference).
 //
+// On the spatial partition of a mesh (sdtpu_torch/parallel/spatial.py) a
+// rank holds a W-slice of the plane, and a group's statistics span the
+// ranks. The partial mode writes each (sample, group)'s (mean, M2) of the
+// slice, which the wrapper's caller combines over the model group with
+// Chan's rule (as the blocks of a cluster combine theirs here); the
+// normalising and statistics modes then take the combined (mean, rstd) as
+// an input (`stats_in`) and compute none: the normalising mode still reads
+// the tile once, the statistics mode reads no x at all.
+//
 // What bounds it on this card: device memory, and at the small planes
 // latency. At the UNet's 64x64 level ([2, 4096, 320]) one call reads and
 // writes 5.2 MB each and does about ten operations per element, far below
@@ -63,9 +72,10 @@ constexpr int MAX_CPG = 4096;       // channels per group
 constexpr int MAX_GRID_Y = 65535;
 constexpr size_t SMEM_CAP = 227 * 1024;
 constexpr int MAX_DEVICES = 64;
-// what the kernel writes: the normalised x, the same through SiLU, or only
-// the GroupNorm folded into per-(sample, channel) A and D, y = x * A + D
-constexpr int NORM = 0, NORM_SILU = 1, AFFINE = 2;
+// what the kernel writes: the normalised x, the same through SiLU, only
+// the GroupNorm folded into per-(sample, channel) A and D, y = x * A + D, or
+// only the slice's per-(sample, group) mean and M2
+constexpr int NORM = 0, NORM_SILU = 1, AFFINE = 2, PARTIAL = 3;
 
 // The dynamic shared memory of a block, as byte offsets: `bufs` tile buffers
 // of `chunk` rows x `span` bf16, the reduction scratch (a float per vector
@@ -176,6 +186,9 @@ struct GnArgs {
   int hw, c, cpg;
   int span, cl, rows, chunk, bufs;   // the plan
   float eps;
+  // [N, G, 2]: the (mean, rstd) handed in, or null; PARTIAL's (mean, M2)
+  const float* stats_in;
+  float* stats_out;
 };
 
 // Which vector column of the span and which rows a thread takes: `cols`
@@ -301,7 +314,9 @@ __device__ __forceinline__ void group_sums(const __nv_bfloat16* tile,
 }
 
 // x, y: [N, hw, c] bf16; scale, bias: [c] of type P; a_out, d_out: [N, c]
-// f32 (AFFINE only, which writes no y). grid: (cl, N * c / span), clusters
+// f32 (AFFINE only, which writes no y); stats_in: [N, G, 2] f32 (mean,
+// rstd) or null; stats_out: [N, G, 2] f32 (mean, M2), PARTIAL's only output
+// (it reads no scale or bias). grid: (cl, N * c / span), clusters
 // of (cl, 1, 1): block `rank` of a cluster takes rows [rank * rows, (rank +
 // 1) * rows) of sample blockIdx.y / spans, span blockIdx.y % spans, in
 // chunks of `chunk` rows through `bufs` buffers (with two, the next chunk
@@ -333,19 +348,25 @@ __global__ void __launch_bounds__(THREADS) gn_kernel(const GnArgs a) {
                          (long long)s * a.span;
   const __nv_bfloat16* xs = a.x + base;
   const int chunks = (my_rows + a.chunk - 1) / a.chunk;
+  // statistics handed in: no sums and no exchange; the tile is staged only
+  // where the normalising pass reads it (resident), never for A and D
+  const bool ext = a.stats_in != nullptr;
+  const int staged =
+      !ext ? chunks : (MODE != AFFINE && chunks <= a.bufs ? chunks : 0);
 
-  const int first = min(a.bufs, chunks);
+  const int first = min(a.bufs, staged);
   for (int k = 0; k < first; ++k) {
     stage<VEC>(tile + k * buf, xs + (long long)k * a.chunk * a.c,
                min(a.chunk, my_rows - k * a.chunk), geo);
     cp_async_commit();
   }
   float run_n = 0.f;   // elements of a group this block has seen
-  for (int k = 0; k < chunks; ++k) {
+  for (int k = 0; k < staged; ++k) {
     const int rows_k = min(a.chunk, my_rows - k * a.chunk);
     const __nv_bfloat16* t = tile + (k % a.bufs) * buf;
-    cp_async_wait(min(chunks, k + a.bufs) - k - 1);   // chunk k has landed
+    cp_async_wait(min(staged, k + a.bufs) - k - 1);   // chunk k has landed
     __syncthreads();
+    if (ext) continue;
     const float nb = (float)rows_k * a.cpg;
     group_sums<VEC, false>(t, rows_k, geo, a.cpg, nullptr, 0.f, red, chs,
                            g_sum);
@@ -380,9 +401,18 @@ __global__ void __launch_bounds__(THREADS) gn_kernel(const GnArgs a) {
   }
 
   // the one exchange: every block of the cluster folds all partials, in
-  // rank order, so all get the same statistics
+  // rank order, so all get the same statistics; the M2 of the whole
+  // (sample, group) is kept in g_m2 (a chunk's scratch, read by no other
+  // block) for PARTIAL
   const float total = (float)a.hw * a.cpg;
-  if (a.cl > 1) {
+  const int groups = a.c / a.cpg;
+  if (ext) {
+    for (int g = threadIdx.x; g < gps; g += THREADS) {
+      const float* st = a.stats_in + ((long long)n * groups + s * gps + g) * 2;
+      fin_mean[g] = st[0];
+      fin_rstd[g] = st[1];
+    }
+  } else if (a.cl > 1) {
     cluster_arrive();
     cluster_wait();
     coop::cluster_group cluster = coop::this_cluster();
@@ -403,6 +433,7 @@ __global__ void __launch_bounds__(THREADS) gn_kernel(const GnArgs a) {
       }
       fin_mean[g] = mean;
       fin_rstd[g] = rsqrtf(m2 / total + a.eps);
+      g_m2[g] = m2;
     }
     // the remote reads are done; the wait that keeps this block's shared
     // memory alive for the others' comes at the end
@@ -411,13 +442,23 @@ __global__ void __launch_bounds__(THREADS) gn_kernel(const GnArgs a) {
     for (int g = threadIdx.x; g < gps; g += THREADS) {
       fin_mean[g] = run_mean[g];
       fin_rstd[g] = rsqrtf(run_m2[g] / total + a.eps);
+      g_m2[g] = run_m2[g];
     }
   }
   __syncthreads();
 
-  const P* scale = static_cast<const P*>(a.scale) + s * a.span;
-  const P* bias = static_cast<const P*>(a.bias) + s * a.span;
-  if (MODE == AFFINE) {
+  const P* scale = static_cast<const P*>(a.scale);
+  const P* bias = static_cast<const P*>(a.bias);
+  if (MODE == PARTIAL) {
+    if (rank == 0)
+      for (int g = threadIdx.x; g < gps; g += THREADS) {
+        float* st = a.stats_out + ((long long)n * groups + s * gps + g) * 2;
+        st[0] = fin_mean[g];
+        st[1] = g_m2[g];
+      }
+  } else if (MODE == AFFINE) {
+    scale += s * a.span;
+    bias += s * a.span;
     if (rank == 0) {
       const long long o = (long long)n * a.c + (long long)s * a.span;
       for (int ch = threadIdx.x; ch < a.span; ch += THREADS) {
@@ -428,6 +469,8 @@ __global__ void __launch_bounds__(THREADS) gn_kernel(const GnArgs a) {
       }
     }
   } else {
+    scale += s * a.span;
+    bias += s * a.span;
     for (int i = threadIdx.x; i < a.span; i += THREADS) {
       const int g = i / a.cpg;
       const float av = fin_rstd[g] * to_float(scale[i]);
@@ -464,7 +507,7 @@ __global__ void __launch_bounds__(THREADS) gn_kernel(const GnArgs a) {
       }
     }
   }
-  if (a.cl > 1) cluster_wait();
+  if (a.cl > 1 && !ext) cluster_wait();
 }
 
 template <int VEC, int MODE, typename P>
@@ -618,6 +661,62 @@ extern "C" int sdtpu_group_norm_silu(const void* x, const void* scale,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(silu ? dispatch<NORM_SILU>(a, n, param_bf16 != 0, s)
                     : dispatch<NORM>(a, n, param_bf16 != 0, s));
+}
+
+// The normalising mode with the statistics handed in: stats: [n, groups, 2]
+// f32, each (sample, group)'s mean and rstd; no eps (rstd holds it); the
+// rest as sdtpu_group_norm_silu.
+extern "C" int sdtpu_group_norm_silu_stats(const void* x, const void* scale,
+                                           const void* bias,
+                                           const void* stats, void* y, int n,
+                                           int hw, int c, int groups,
+                                           int span, int cl, int chunk,
+                                           int bufs, int silu, int param_bf16,
+                                           void* stream) {
+  GnArgs a{static_cast<const __nv_bfloat16*>(x), scale, bias,
+           static_cast<__nv_bfloat16*>(y), nullptr, nullptr};
+  if (stats == nullptr ||
+      !valid(n, hw, c, groups, span, cl, chunk, bufs, &a))
+    return (int)cudaErrorInvalidValue;
+  a.stats_in = static_cast<const float*>(stats);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(silu ? dispatch<NORM_SILU>(a, n, param_bf16 != 0, s)
+                    : dispatch<NORM>(a, n, param_bf16 != 0, s));
+}
+
+// The statistics mode with the statistics handed in (as
+// sdtpu_group_norm_silu_stats): a, d from them; x is not read.
+extern "C" int sdtpu_group_norm_affine_stats(const void* x, const void* scale,
+                                             const void* bias,
+                                             const void* stats, void* a,
+                                             void* d, int n, int hw, int c,
+                                             int groups, int span, int cl,
+                                             int chunk, int bufs,
+                                             int param_bf16, void* stream) {
+  GnArgs args{static_cast<const __nv_bfloat16*>(x), scale, bias, nullptr,
+              static_cast<float*>(a), static_cast<float*>(d)};
+  if (stats == nullptr ||
+      !valid(n, hw, c, groups, span, cl, chunk, bufs, &args))
+    return (int)cudaErrorInvalidValue;
+  args.stats_in = static_cast<const float*>(stats);
+  return (int)dispatch<AFFINE>(args, n, param_bf16 != 0,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The partial mode: stats: [n, groups, 2] f32, each (sample, group)'s mean
+// and M2 over x's hw rows; the plan as sdtpu_group_norm_silu's.
+extern "C" int sdtpu_group_norm_partial(const void* x, void* stats, int n,
+                                        int hw, int c, int groups, int span,
+                                        int cl, int chunk, int bufs,
+                                        void* stream) {
+  GnArgs a{static_cast<const __nv_bfloat16*>(x)};
+  if (stats == nullptr ||
+      !valid(n, hw, c, groups, span, cl, chunk, bufs, &a))
+    return (int)cudaErrorInvalidValue;
+  a.stats_out = static_cast<float*>(stats);
+  return (int)dispatch_vec<PARTIAL, float>(a, n,
+                                           static_cast<cudaStream_t>(stream),
+                                           nullptr);
 }
 
 // The statistics mode: a, d: [n, c] f32 with GroupNorm(x) = x * a + d per

@@ -217,10 +217,11 @@ class StreamWorker:
     preview while their request is in flight."""
 
     def __init__(self, ctx, slots: int = 4, max_queue: int = 64,
-                 step_choices: tuple = ()):
+                 step_choices: tuple = (), sched=None):
         from sdtpu_torch.engine.stream import StreamScheduler
 
-        self.sched = StreamScheduler(ctx, slots, step_choices=step_choices)
+        self.sched = (StreamScheduler(ctx, slots, step_choices=step_choices)
+                      if sched is None else sched)
         self.max_queue = max(1, int(max_queue))
         self._cv = threading.Condition()
         self._waiters: dict[int, dict] = {}
@@ -624,19 +625,27 @@ def serve(ctx, host: str = "127.0.0.1", port: int = 8000,
           ready_event: threading.Event | None = None,
           max_batch: int = 4, max_wait_ms: float = 25.0,
           max_body_mb: int = 32, stream_slots: int = 0,
-          max_queue: int = 64, stream_steps: tuple = ()):
+          max_queue: int = 64, stream_steps: tuple = (), leader=None):
     """Blocking serve loop. `ready_event` is set once the socket is bound.
     ``stream_slots`` > 0 serves plain /generate requests through the
     continuous-batching pool instead of the barrier micro-batcher;
     ``stream_steps`` lists additional per-request step counts the pool
     schedules (heterogeneous traffic: clients pass ``"steps"``).
     ``max_queue`` bounds the number of waiting requests per worker; excess
-    requests get 503 + Retry-After (backpressure, not unbounded buildup)."""
+    requests get 503 + Retry-After (backpressure, not unbounded buildup).
+    ``leader`` (``parallel.follow.Leader``): rank 0 of a mesh, whose
+    followers make every call it makes on the Context and the pool."""
+    sched = None
+    if leader is not None:
+        ctx = leader.mirror("ctx")
+        if stream_slots:
+            sched = leader.new("pool", stream_slots,
+                               step_choices=stream_steps)
     lock = threading.Lock()
     batcher = MicroBatcher(ctx, lock, max_batch, max_wait_ms,
                            max_queue=max_queue)
     stream = (StreamWorker(ctx, stream_slots, max_queue=max_queue,
-                           step_choices=stream_steps)
+                           step_choices=stream_steps, sched=sched)
               if stream_slots else None)
     httpd = ThreadingHTTPServer(
         (host, port),

@@ -46,6 +46,12 @@ Scope: txt2img with a prompt, negative prompt, guidance and seed per
 request (a guidance-embedded LCM configuration takes the guidance through
 its time MLP, one UNet row a slot); long or weighted prompts, LoRA,
 ControlNet, PAG and the image paths stay on ``Context``'s static paths.
+
+On a mesh (``Context(mesh=...)``) every rank holds the pool and makes the
+same calls in the same order (``parallel.follow`` drives the followers of
+an HTTP server): the encodes and evals run on the rank's split tree under
+the mesh, and a pooled eval's rows are split over the data axis where it
+tiles them, gathered after (``sharding.data_rows``, ``gather_rows``).
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ from sdtpu_torch.engine import logging as slog
 from sdtpu_torch.engine.pipeline import (_add_embedding, _draws,
                                          _unpack_context, decode_latents)
 from sdtpu_torch.models import temb, unet
+from sdtpu_torch.parallel import mesh as mesh_mod
+from sdtpu_torch.parallel.sharding import data_rows, gather_rows
 from sdtpu_torch.samplers import get_sampler
 from sdtpu_torch.samplers.schedule import NoiseSchedule
 
@@ -101,11 +109,7 @@ class StreamScheduler:
         if ctx.cfg.deepcache_interval is not None:
             raise ValueError("DeepCache's scan-carry cache is incompatible "
                              "with iteration-level scheduling")
-        mesh = getattr(ctx, "mesh", None)
-        if mesh is not None and mesh.shape["data"] * mesh.shape["model"] > 1:
-            # its ticks run on one rank; the ranks of a mesh serve together
-            raise ValueError("the stream pool on a mesh is not ported yet "
-                             "(ROADMAP item 23b)")
+        self.mesh = getattr(ctx, "mesh", None)
         self.ctx = ctx
         self.cfg = cfg = ctx.cfg
         self.device = dev = ctx.device
@@ -186,8 +190,15 @@ class StreamScheduler:
         if add_emb is not None:
             te = te + add_emb.to(te.dtype)
         x_rep = torch.cat([x, x], dim=0) if r == 2 else x
-        eps = unet.apply(params["unet"], x_rep.to(cfg.compute_dtype), te,
-                         rows, cfg.unet, self.ctx.kernels).float()
+        d = 1 if self.mesh is None else self.mesh.shape["data"]
+        if x_rep.shape[0] % d:
+            d = 1
+        part = data_rows if d > 1 else (lambda t: t)
+        eps = unet.apply(params["unet"], part(x_rep.to(cfg.compute_dtype)),
+                         part(te), part(rows), cfg.unet,
+                         self.ctx.kernels).float()
+        if d > 1:
+            eps = gather_rows(eps)
         if cfg.prediction == "v":
             # eps = alpha v + sigma x_t, each slot at its own marginal
             a = pn.alpha_m if second else pn.alpha_s
@@ -269,7 +280,9 @@ class StreamScheduler:
         cfg, dev = self.cfg, self.device
         shape = (1, cfg.latent_size, cfg.latent_size, cfg.latent_channels)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        d = _draws(gen, shape, steps, self.ctx.sampler, dev, seams)
+        with mesh_mod.use(None):
+            # a slot's draws are its own, never cut into a mesh's rows
+            d = _draws(gen, shape, steps, self.ctx.sampler, dev, seams)
         self._x[slot] = d["noise"][0]
         for leaf in self._state:
             if leaf.dim():
@@ -312,7 +325,7 @@ class StreamScheduler:
                 raise ValueError("long/weighted prompts are not stream-"
                                  "schedulable; use Context.generate")
         seed = ctx._next_seed(seed)
-        with torch.inference_mode():
+        with torch.inference_mode(), mesh_mod.use(self.mesh):
             cond = ctx._embed_prompt(
                 text_mod.strip_syntax(prompt)
                 if text_mod.has_attention_syntax(prompt) else prompt)
@@ -331,7 +344,8 @@ class StreamScheduler:
         """One scheduling iteration: admit, run the pooled step (k of them
         with ``max_block`` > 1), retire the finished slots: their decode is
         launched here and fetched in ``completed()``/``drain()``."""
-        with torch.inference_mode(), slog.logger_scope(self.ctx.logger):
+        with (torch.inference_mode(), slog.logger_scope(self.ctx.logger),
+              mesh_mod.use(self.mesh)):
             self._admit_from_queue()
             if not self._live:
                 return

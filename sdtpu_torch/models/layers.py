@@ -191,10 +191,15 @@ def dense(p, x, dtype=None, reduce: bool = False):
     ``reduce``: a row-parallel site of the mesh (``parallel.sharding``):
     ``x`` and the weight hold this rank's slice of the input features, so
     the product and the LoRA delta are a partial sum, all-reduced over the
-    model group in the output's dtype before the bias is added, once."""
+    model group in the output's dtype before the bias is added, once
+    (``collectives.reduce_from_model``: under autograd its gradient passes
+    through). In training only the UNet's sites run under grad: CLIP's,
+    the VAE's and the time MLP's are frozen and run under ``no_grad``
+    (``sdtpu_torch.train.step``), so their collectives never carry a
+    gradient."""
     if reduce:
         y = dense({k: v for k, v in p.items() if k != "b"}, x, dtype)
-        y = collectives.all_reduce_sum(y, "model")
+        y = collectives.reduce_from_model(y)
         return y + p["b"].to(y.dtype) if "b" in p else y
     y = _dense_base(p, x, dtype)
     if "lora_a" in p:
@@ -217,14 +222,23 @@ def split_of(p, full: int) -> int:
     return full // _weight_leaf(p).shape[0]
 
 
+def column_input(x, split: int):
+    """The input of a column-parallel site group split ``split`` ways
+    (``collectives.copy_to_model``: under autograd each rank's columns give
+    their share of the input's gradient, summed over the model group); ``x``
+    as it is where the sites are whole."""
+    return collectives.copy_to_model(x) if split > 1 else x
+
+
 def gather_columns(p, y):
     """A lone column-parallel site's output (the time MLP's ``fc1``, whose
     ``(D, D)`` weight holds this rank's output columns) gathered over the
-    model group; ``y`` as it is where the site is whole."""
+    model group (under autograd, the gradient's backward keeps this rank's
+    columns); ``y`` as it is where the site is whole."""
     w = _weight_leaf(p)
     if w.shape[1] == w.shape[0]:
         return y
-    return collectives.all_gather(y, "model", dim=-1)
+    return collectives.gather_from_model(y, dim=-1)
 
 
 def lora_delta(p, xa):
@@ -287,18 +301,35 @@ def layer_norm(p, x, eps=1e-5):
     return y.to(x.dtype)
 
 
-def group_norm(p, x, groups, eps=1e-5):
+def group_norm(p, x, groups, eps=1e-5, stats=None):
     """GroupNorm over channels-last x of shape [..., C], in float32 "ln
     form": each group's (spatial x C/G) slab is normalized like a LayerNorm
-    (``sdtpu/models/layers.py:group_norm``)."""
+    (``sdtpu/models/layers.py:group_norm``). ``stats``: float32 [N, G, 2]
+    of each (sample, group)'s mean and 1 / sqrt(var + eps), handed in
+    where x is a slice of the plane (``parallel.spatial``)."""
     c = x.shape[-1]
     n = x.shape[0]
     xf = x.float().reshape(n, -1, groups, c // groups)
-    mu = xf.mean(dim=(1, 3), keepdim=True)
-    var = (xf - mu).square().mean(dim=(1, 3), keepdim=True)
-    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
+    if stats is None:
+        mu = xf.mean(dim=(1, 3), keepdim=True)
+        var = (xf - mu).square().mean(dim=(1, 3), keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+    else:
+        mu, rstd = (stats[..., i].float()[:, None, :, None] for i in (0, 1))
+    y = ((xf - mu) * rstd).reshape(x.shape)
     y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
+
+
+def group_norm_moments(x, groups):
+    """float32 [N, G, 2]: each (sample, group)'s mean and sum of squared
+    deviations (M2) over x's rows, two passes: a slice's partial
+    statistics, which Chan's rule combines (``parallel.spatial``)."""
+    c = x.shape[-1]
+    xf = x.float().reshape(x.shape[0], -1, groups, c // groups)
+    mu = xf.mean(dim=(1, 3), keepdim=True)
+    m2 = (xf - mu).square().sum(dim=(1, 3))
+    return torch.stack([mu[:, 0, :, 0], m2], dim=-1)
 
 
 def silu(x):

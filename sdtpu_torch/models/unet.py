@@ -20,6 +20,14 @@ through the config's ``tome_ratio`` (ToMe) and ``freeu`` (FreeU).
 
 Activations are NHWC; attention flattens HW into the sequence axis, so the
 64x64 level's self-attention is a 4096-token problem for the flash kernel.
+
+Under the spatial partition of a mesh (``parallel.spatial``, on around a
+``sharding.generate_sharded(..., spatial=True)`` call) the conv stack runs
+on W-slices: each plane is held whole or as this rank's slice by the
+reference's ``constrain`` rule (``spatial.tiles``), taken at the sites the
+reference constrains (``conv_in``, each ResBlock, ``down``, ``up``) and
+kept through the level; the transformers run on the gathered plane, and
+the output is gathered.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from sdtpu_torch.models.layers import (
     init_conv,
     init_dense,
     init_norm,
+    column_input,
     layer_norm,
     lora_delta,
     sdpa,
@@ -44,6 +53,7 @@ from sdtpu_torch.models.layers import (
 from sdtpu_torch.ops import conv as C
 from sdtpu_torch.ops import groupnorm as G
 from sdtpu_torch.ops import tome as T
+from sdtpu_torch.parallel import spatial as S
 
 
 # ---------------------------------------------------------------------------
@@ -183,13 +193,26 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
 # apply
 # ---------------------------------------------------------------------------
 
-def _gn(p, x, groups, eps, fuse_silu, kernels):
+def _gn(p, x, groups, eps, fuse_silu, kernels, split=False):
     """GroupNorm (+SiLU); the fused kernel under ``"cuda_gn"``
-    (``sdtpu/models/unet.py:_gn``)."""
+    (``sdtpu/models/unet.py:_gn``). ``split``: x is this rank's W-slice of
+    the plane (``parallel.spatial``): the statistics are the whole plane's,
+    from K2's partial mode under ``"cuda_gn"``."""
+    kernel = kernels == "cuda_gn" and G.uses_kernel(x, groups)
+    stats = S.stats(x, groups, eps, kernel) if split else None
     if kernels == "cuda_gn":
-        return G.fused_group_norm(p, x, groups, eps, fuse_silu)
-    y = group_norm(p, x, groups, eps)
+        return G.fused_group_norm(p, x, groups, eps, fuse_silu, stats)
+    y = group_norm(p, x, groups, eps, stats)
     return silu(y) if fuse_silu else y
+
+
+def _conv3(p, x, split, stride=1):
+    """A 3x3 conv (padding 1) of x, whole or this rank's W-slice
+    (``split``): a slice takes its neighbours' columns
+    (``spatial.padded``) and no W padding."""
+    if not split:
+        return conv2d(p, x, stride=stride)
+    return conv2d(p, S.padded(x), stride=stride, padding=(1, 0))
 
 
 def _conv_wq(p):
@@ -202,7 +225,7 @@ def _conv_wq(p):
 
 
 def _norm_conv(pn, pc, x, groups, eps, kernels, *, fuse_silu=True,
-               padding=1, t=None):
+               padding=1, t=None, split=False):
     """conv(pc, [silu](GroupNorm(pn, x))) [+ t, a per-sample [N, Cout] add].
 
     Under ``"cuda_conv"``, where the conv is ``eligible`` for x, one fused
@@ -218,7 +241,14 @@ def _norm_conv(pn, pc, x, groups, eps, kernels, *, fuse_silu=True,
     the site takes the unfused chain and its delta (``layers.conv2d``).
     The reference's fused path drops the delta there instead
     (``sdtpu/models/unet.py:225-242, 266-275``); its ``xla`` path, which
-    the port matches, applies it."""
+    the port matches, applies it.
+
+    ``split``: x is this rank's W-slice (``parallel.spatial``). The
+    GroupNorm's statistics are the whole plane's (K2's partial mode, then
+    its statistics mode from them, under ``"cuda_conv"``); the kernel runs
+    on the slice widened by its neighbours' raw columns
+    (``spatial.halo_slice``) with its own padding, and the halo's output
+    columns are dropped (``spatial.crop``)."""
     w, w_scale = _conv_wq(pc)
     lora_a = pc.get("lora_a")
     if lora_a is not None:
@@ -227,26 +257,36 @@ def _norm_conv(pn, pc, x, groups, eps, kernels, *, fuse_silu=True,
             memory_format=torch.channels_last)
     if (kernels == "cuda_conv" and C.eligible(x, w, 1, padding)
             and (lora_a is None or C.eligible(x, lora_a, 1, padding))):
-        a, d = C.gn_affine(pn, x, groups, eps)
+        stats = (S.stats(x, groups, eps, G.uses_kernel(x, groups)) if split
+                 else None)
+        a, d = C.gn_affine(pn, x, groups, eps, stats)
+        xk, left, right = (S.halo_slice(x) if split and padding
+                           else (x, False, False))
         b = pc["b"].float()
         if t is not None:
             b = b[None, :] + t.float()
-        y = C.fused_conv(x, w, b, a=a, d=d, silu=fuse_silu, w_scale=w_scale)
+        y = C.fused_conv(xk, w, b, a=a, d=d, silu=fuse_silu,
+                         w_scale=w_scale)
         if lora_a is not None:
             zero = torch.zeros(lora_a.shape[0], dtype=torch.float32,
                                device=x.device)
-            y = y + lora_delta(pc, C.fused_conv(x, lora_a, zero, a=a, d=d,
+            y = y + lora_delta(pc, C.fused_conv(xk, lora_a, zero, a=a, d=d,
                                                  silu=fuse_silu))
-        return y
-    h = conv2d(pc, _gn(pn, x, groups, eps, fuse_silu, kernels),
-               padding=padding)
+        return S.crop(y, left, right)
+    h = _gn(pn, x, groups, eps, fuse_silu, kernels, split)
+    if split and padding:
+        h = conv2d(pc, S.padded(h), padding=(padding, 0))
+    else:
+        h = conv2d(pc, h, padding=padding)
     return h if t is None else h + t[:, None, None, :]
 
 
-def _resblock(p, x, emb, groups, kernels):
+def _resblock(p, x, emb, groups, kernels, split=False):
     t = dense(p["emb"], silu(emb))
-    h = _norm_conv(p["norm1"], p["conv1"], x, groups, 1e-5, kernels, t=t)
-    h = _norm_conv(p["norm2"], p["conv2"], h, groups, 1e-5, kernels)
+    h = _norm_conv(p["norm1"], p["conv1"], x, groups, 1e-5, kernels, t=t,
+                   split=split)
+    h = _norm_conv(p["norm2"], p["conv2"], h, groups, 1e-5, kernels,
+                   split=split)
     if "skip" in p:
         x = conv2d(p["skip"], x, padding=0)
     return x + h
@@ -267,6 +307,14 @@ def _transformer(p, x, context, heads, groups, kernels, perturb_self=False,
                          perturb_self, tome, cross_only)
     h = h.reshape(b, hh, ww, c)
     return x + conv2d(p["proj_out"], h, padding=0)
+
+
+def _spatial_transformer(p, x, split, *args, **kw):
+    """``_transformer`` on the whole plane: a W-slice (``split``) is
+    gathered first and this rank's slice taken after."""
+    if not split:
+        return _transformer(p, x, *args, **kw)
+    return S.split(_transformer(p, S.gather(x), *args, **kw))
 
 
 def attention_kernel(kernels: str) -> str:
@@ -303,12 +351,14 @@ def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
     On the mesh's model axis (``parallel.sharding``) a split attention runs
     this rank's ``heads // split`` heads and all-reduces its ``out``
     partial; a split ff its slice of GEGLU's columns, all-reduced after
-    ``ff2``. The split is read off each row site's input width."""
+    ``ff2``. The split is read off each row site's input width. A split
+    site group's input goes through ``layers.column_input``, whose
+    backward sums its gradient over the model group."""
     c = h.shape[-1]
     a = p["attn1"]
     t1 = split_of(a["out"], c)
     heads1 = heads // t1
-    hn = layer_norm(p["ln1"], h)
+    hn = column_input(layer_norm(p["ln1"], h), t1)
     if cross_only:
         unmerge = None
         if tome is not None:
@@ -342,13 +392,13 @@ def _basic_block(p, h, context, heads, attn_kernel, perturb_self=False,
         h = h + (unmerge(o) if unmerge is not None else o)
     a = p["attn2"]
     t2 = split_of(a["out"], c)
-    hn = layer_norm(p["ln2"], h)
+    hn = column_input(layer_norm(p["ln2"], h), t2)
     k, v = _kv(a, context)
     h = h + dense(a["out"], sdpa(dense(a["q"], hn), k, v, heads // t2,
                                  attn_kernel), reduce=t2 > 1)
-    hn = layer_norm(p["ln3"], h)
-    return h + dense(p["ff2"], geglu(p["ff1"], hn),
-                     reduce=split_of(p["ff2"], 4 * c) > 1)
+    t3 = split_of(p["ff2"], 4 * c)
+    hn = column_input(layer_norm(p["ln3"], h), t3)
+    return h + dense(p["ff2"], geglu(p["ff1"], hn), reduce=t3 > 1)
 
 
 def _kv(a, context):
@@ -458,20 +508,29 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
     tome = ((cfg.tome_ratio, cfg.tome_min_tokens) if cfg.tome_ratio > 0.0
             else None)
     g = cfg.groups
-    h = conv2d(params["conv_in"], x)
+    # h is held whole or as this rank's W-slice (sp) of a plane w wide
+    w = x.shape[2]
+    h, sp = S.fit(x, False, w)
+    h = _conv3(params["conv_in"], h, sp)
     skips = [h]
     for lvl, level in enumerate(params["down"][:1] if shallow
                                 else params["down"]):
         for blk in level["blocks"]:
-            h = _resblock(blk["res"], h, t_emb, g, kernels)
+            h = _resblock(blk["res"], h, t_emb, g, kernels, sp)
             if "st" in blk:
-                h = _transformer(blk["st"], h, context,
-                                 _heads(cfg, h.shape[-1]), g, kernels,
-                                 "down" in perturb, tome,
-                                 lvl in cfg.cross_only_levels)
+                h = _spatial_transformer(
+                    blk["st"], h, sp, context, _heads(cfg, h.shape[-1]), g,
+                    kernels, "down" in perturb, tome,
+                    lvl in cfg.cross_only_levels)
             skips.append(h)
         if "down" in level and not shallow:
-            h = conv2d(level["down"], h, stride=2)
+            if sp and h.shape[2] % 2:
+                # a slice of odd width would start the strided taps at odd
+                # offsets: the conv runs on the gathered plane
+                h, sp = S.gather(h), False
+            h = _conv3(level["down"], h, sp, stride=2)
+            w = (w + 1) // 2
+            h, sp = S.fit(h, sp, w)
             skips.append(h)
 
     ctrl_down = None
@@ -484,15 +543,16 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
         ctrl_down = list(ctrl_down)
 
     if shallow:
-        h = deep.to(h.dtype)
+        h, sp = S.fit(deep.to(h.dtype), False, w)
     else:
         mid = params["mid"]
-        h = _resblock(mid["res1"], h, t_emb, g, kernels)
-        h = _transformer(mid["st"], h, context, _heads(cfg, h.shape[-1]), g,
-                         kernels, "mid" in perturb, tome)
-        h = _resblock(mid["res2"], h, t_emb, g, kernels)
+        h = _resblock(mid["res1"], h, t_emb, g, kernels, sp)
+        h = _spatial_transformer(mid["st"], h, sp, context,
+                                 _heads(cfg, h.shape[-1]), g, kernels,
+                                 "mid" in perturb, tome)
+        h = _resblock(mid["res2"], h, t_emb, g, kernels, sp)
         if control is not None:
-            h = h + ctrl_mid.to(h.dtype)
+            h = h + S.fit(ctrl_mid.to(h.dtype), False, w)[0]
 
     cache = None
     up_levels = params["up"][-1:] if shallow else params["up"]
@@ -501,23 +561,32 @@ def apply(params, x, t_emb, context, cfg: UNetConfig,
         # level 0 only
         lvl = 0 if shallow else len(cfg.channel_mult) - 1 - uidx
         if capture and uidx == len(up_levels) - 1:
-            cache = h
+            cache = S.gather(h) if sp else h
         for blk in level["blocks"]:
             s = skips.pop()
             if ctrl_down is not None:
-                s = s + ctrl_down.pop().to(s.dtype)
+                s = s + S.fit(ctrl_down.pop().to(s.dtype), False, w)[0]
             if cfg.freeu is not None:
-                h, s = _freeu(h, s, cfg)
+                if sp:
+                    # the skip's Fourier filter takes the whole plane
+                    h, s = (S.split(t) for t in _freeu(S.gather(h),
+                                                       S.gather(s), cfg))
+                else:
+                    h, s = _freeu(h, s, cfg)
             h = torch.cat([h, s], dim=-1)
-            h = _resblock(blk["res"], h, t_emb, g, kernels)
+            h = _resblock(blk["res"], h, t_emb, g, kernels, sp)
             if "st" in blk:
-                h = _transformer(blk["st"], h, context,
-                                 _heads(cfg, h.shape[-1]), g, kernels,
-                                 "up" in perturb, tome,
-                                 lvl in cfg.cross_only_levels)
+                h = _spatial_transformer(
+                    blk["st"], h, sp, context, _heads(cfg, h.shape[-1]), g,
+                    kernels, "up" in perturb, tome,
+                    lvl in cfg.cross_only_levels)
         if "up" in level:
-            h = conv2d(level["up"], _upsample_nearest(h))
+            w = 2 * w
+            h, sp = S.fit(_upsample_nearest(h), sp, w)
+            h = _conv3(level["up"], h, sp)
 
-    h = _gn(params["out_norm"], h, g, 1e-5, True, kernels)
-    out = conv2d(params["conv_out"], h)
+    h = _gn(params["out_norm"], h, g, 1e-5, True, kernels, sp)
+    out = _conv3(params["conv_out"], h, sp)
+    if sp:
+        out = S.gather(out)
     return (out, cache) if capture else out

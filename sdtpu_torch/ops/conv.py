@@ -328,25 +328,30 @@ fused_conv_cuda.launches = 0
 fused_conv_cuda.launches_int8 = 0
 
 
-def gn_affine(p, x, groups: int, eps: float = 1e-5):
+def gn_affine(p, x, groups: int, eps: float = 1e-5, stats=None):
     """Fold GroupNorm(x) into per-(sample, channel) float32 A, D [N, C] with
     ``group_norm(p, x) == x * A[n] + D[n]``, as ``sdtpu/ops/conv.py:
     gn_affine`` does: mean and variance over each group's (spatial, C/G)
-    slab in float32. On a CUDA tensor within the GroupNorm kernel's
-    contract, that kernel's statistics mode computes it in one launch
-    (``groupnorm.group_norm_affine_cuda``); elsewhere the plain version."""
+    slab in float32, or ``stats`` (float32 [N, G, 2] mean and rstd of the
+    whole plane, where x is a slice of it: ``parallel.spatial``). On a CUDA
+    tensor within the GroupNorm kernel's contract, that kernel's statistics
+    mode computes it in one launch (``groupnorm.group_norm_affine_cuda``);
+    elsewhere the plain version."""
     if x.device.type == "cuda" and G.uses_kernel(x, groups):
-        return G.group_norm_affine_cuda(p, x, groups, eps)
-    return gn_affine_reference(p, x, groups, eps)
+        return G.group_norm_affine_cuda(p, x, groups, eps, stats)
+    return gn_affine_reference(p, x, groups, eps, stats)
 
 
-def gn_affine_reference(p, x, groups: int, eps: float = 1e-5):
+def gn_affine_reference(p, x, groups: int, eps: float = 1e-5, stats=None):
     """``gn_affine``'s plain version, in float32 torch ops."""
     c = x.shape[-1]
     cg = c // groups
-    xf = x.float().reshape(x.shape[0], -1, groups, cg)
-    var, mu = torch.var_mean(xf, dim=(1, 3), correction=0)      # [N, G]
-    rstd = torch.rsqrt(var + eps)
+    if stats is None:
+        xf = x.float().reshape(x.shape[0], -1, groups, cg)
+        var, mu = torch.var_mean(xf, dim=(1, 3), correction=0)  # [N, G]
+        rstd = torch.rsqrt(var + eps)
+    else:
+        mu, rstd = stats[..., 0].float(), stats[..., 1].float()
     scale = p["scale"].float()[None, :]
     bias = p["bias"].float()[None, :]
     a = rstd.repeat_interleave(cg, dim=1) * scale

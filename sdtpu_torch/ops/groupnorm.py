@@ -147,32 +147,59 @@ def uses_kernel(x, groups: int) -> bool:
 
 
 def fused_group_norm(p, x, groups: int, eps: float = 1e-5,
-                     fuse_silu: bool = False):
-    """Drop-in for ``silu(layers.group_norm(p, x, groups, eps))`` (SiLU only
-    with ``fuse_silu``) on channels-last x [N, ..., C]."""
+                     fuse_silu: bool = False, stats=None):
+    """Drop-in for ``silu(layers.group_norm(p, x, groups, eps, stats))``
+    (SiLU only with ``fuse_silu``) on channels-last x [N, ..., C]."""
     if not uses_kernel(x, groups):
-        y = group_norm(p, x, groups, eps)
+        y = group_norm(p, x, groups, eps, stats)
         return silu(y) if fuse_silu else y
     if x.device.type == "cpu":
-        return group_norm_reference(p, x, groups, eps, fuse_silu)
-    return group_norm_cuda(p, x, groups, eps, fuse_silu)
+        return group_norm_reference(p, x, groups, eps, fuse_silu, stats)
+    return group_norm_cuda(p, x, groups, eps, fuse_silu, stats)
 
 
 def group_norm_reference(p, x, groups: int, eps: float = 1e-5,
-                         fuse_silu: bool = False):
+                         fuse_silu: bool = False, stats=None):
     """The kernel's plain version: ``layers.group_norm`` (float32 stats over
-    each group's spatial x C/G slab, two-pass variance, affine), then SiLU
-    in float32, rounded once to x's dtype."""
-    y = group_norm(p, x.float(), groups, eps)
+    each group's spatial x C/G slab, two-pass variance, affine; or the
+    handed-in ``stats``), then SiLU in float32, rounded once to x's
+    dtype."""
+    y = group_norm(p, x.float(), groups, eps, stats)
     return (silu(y) if fuse_silu else y).to(x.dtype)
 
 
-def _checked(p, x, groups: int):
-    """(n, hw, c, scale, bias, param_bf16, plan) for a kernel launch on x,
-    or raise: x bf16, contiguous, on a CUDA device, within ``uses_kernel``'s
-    contract; ``p["scale"]`` and ``p["bias"]``: [C], both bf16 or both
-    float32, contiguous, on x's device. ``plan`` is ``plan_gn``'s for x on
-    its device."""
+def group_norm_partial(x, groups: int):
+    """The partial statistics of x [N, ..., C], a slice of a plane
+    (``parallel.spatial.stats``): float32 [N, G, 2] of each (sample,
+    group)'s mean and M2 over x. On a CUDA tensor the kernel's partial mode
+    (it must be within ``uses_kernel``'s contract); on a CPU tensor its
+    plain version."""
+    if x.device.type == "cpu":
+        return group_norm_partial_reference(x, groups)
+    return group_norm_partial_cuda(x, groups)
+
+
+def group_norm_partial_reference(x, groups: int):
+    """The partial mode's plain version: ``layers.group_norm_moments``."""
+    from sdtpu_torch.models.layers import group_norm_moments
+
+    return group_norm_moments(x, groups)
+
+
+def _checked_stats(stats, n: int, groups: int, x):
+    """The handed-in statistics as the kernel reads them: float32 [N, G, 2]
+    (mean, rstd), contiguous, on x's device."""
+    if stats is None:
+        return None
+    if (stats.shape != (n, groups, 2) or stats.dtype != torch.float32
+            or stats.device != x.device):
+        raise ValueError(f"stats must be float32 [{n}, {groups}, 2] on "
+                         f"{x.device}")
+    return stats.contiguous()
+
+
+def _checked_params(p, x, groups: int):
+    """``_checked``'s checks of x and p: (scale, bias, param_bf16)."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -182,6 +209,8 @@ def _checked(p, x, groups: int):
                          f"is outside the kernel's contract")
     if x.data_ptr() % 16:
         raise ValueError("x must start on a 16-byte boundary")
+    if p is None:
+        return None, None, 0
     c = x.shape[-1]
     scale, bias = p["scale"], p["bias"]
     for name, t in (("scale", scale), ("bias", bias)):
@@ -192,35 +221,54 @@ def _checked(p, x, groups: int):
             raise ValueError(f"{name} must be bfloat16 or float32")
     if scale.dtype != bias.dtype:
         raise ValueError("scale and bias must share a dtype")
-    n = x.shape[0]
+    return scale, bias, int(scale.dtype == torch.bfloat16)
+
+
+def _checked(p, x, groups: int):
+    """(n, hw, c, scale, bias, param_bf16, plan) for a kernel launch on x,
+    or raise: x bf16, contiguous, on a CUDA device, within ``uses_kernel``'s
+    contract; ``p["scale"]`` and ``p["bias"]``: [C], both bf16 or both
+    float32, contiguous, on x's device (``p`` None: none, for the partial
+    mode). ``plan`` is ``plan_gn``'s for x on its device."""
+    scale, bias, param_bf16 = _checked_params(p, x, groups)
+    n, c = x.shape[0], x.shape[-1]
     hw = x.numel() // (n * c)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return (n, hw, c, scale, bias, int(scale.dtype == torch.bfloat16),
+    return (n, hw, c, scale, bias, param_bf16,
             plan_gn(n, hw, c, groups, sms))
 
 
 def group_norm_cuda(p, x, groups: int, eps: float = 1e-5,
-                    fuse_silu: bool = False):
+                    fuse_silu: bool = False, stats=None):
     """Launch the CUDA kernel on ``torch.cuda.current_stream()``.
 
     x: [N, ..., C] and p as ``_checked`` takes them; raises on anything
-    else. ``plan_gn`` tiles the launch; the C entry point checks the plan.
+    else. ``stats``: float32 [N, G, 2] (mean, rstd) of the whole plane of
+    which x is a slice; the kernel then normalises with them and computes
+    none. ``plan_gn`` tiles the launch; the C entry point checks the plan.
     Counts its launches in ``group_norm_cuda.launches``. Raises
     ``_build.NoBackwardError`` where autograd would record the call."""
     from sdtpu_torch.ops import _build
 
     _build.refuse_grad("group_norm_silu", x, p.get("scale"), p.get("bias"))
     n, hw, c, scale, bias, param_bf16, plan = _checked(p, x, groups)
+    stats = _checked_stats(stats, n, groups, x)
 
     lib = _build.library()
     out = torch.empty_like(x)
+    tiling = (plan["span"], plan["cluster"], plan["chunk"], plan["bufs"])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sdtpu_group_norm_silu(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            n, hw, c, groups, plan["span"], plan["cluster"], plan["chunk"],
-            plan["bufs"], float(eps), int(bool(fuse_silu)), param_bf16,
-            stream)
+        if stats is None:
+            err = lib.sdtpu_group_norm_silu(
+                x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), n, hw, c, groups, *tiling, float(eps),
+                int(bool(fuse_silu)), param_bf16, stream)
+        else:
+            err = lib.sdtpu_group_norm_silu_stats(
+                x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                stats.data_ptr(), out.data_ptr(), n, hw, c, groups, *tiling,
+                int(bool(fuse_silu)), param_bf16, stream)
     _build.check_launch(err, "group_norm_silu")
     group_norm_cuda.launches += 1
     return out
@@ -229,12 +277,15 @@ def group_norm_cuda(p, x, groups: int, eps: float = 1e-5,
 group_norm_cuda.launches = 0
 
 
-def group_norm_affine_cuda(p, x, groups: int, eps: float = 1e-5):
+def group_norm_affine_cuda(p, x, groups: int, eps: float = 1e-5,
+                           stats=None):
     """The kernel's statistics mode: GroupNorm(x) folded into float32
     A, D [N, C] with ``group_norm(p, x) == x * A[n] + D[n]``, the contract
     of ``sdtpu_torch.ops.conv.gn_affine`` (whose plain version is the
     reference). x and p as ``_checked`` takes them; raises on anything
-    else; the launch as ``group_norm_cuda``'s. Counts its launches in
+    else; the launch as ``group_norm_cuda``'s. ``stats``: float32 [N, G,
+    2] (mean, rstd) of the whole plane of which x is a slice: A and D come
+    from them, and x is not read. Counts its launches in
     ``group_norm_affine_cuda.launches``. Raises ``_build.NoBackwardError``
     where autograd would record the call."""
     from sdtpu_torch.ops import _build
@@ -242,22 +293,57 @@ def group_norm_affine_cuda(p, x, groups: int, eps: float = 1e-5):
     _build.refuse_grad("group_norm_affine", x, p.get("scale"),
                        p.get("bias"))
     n, hw, c, scale, bias, param_bf16, plan = _checked(p, x, groups)
+    stats = _checked_stats(stats, n, groups, x)
 
     lib = _build.library()
     a = torch.empty((n, c), dtype=torch.float32, device=x.device)
     d = torch.empty_like(a)
+    tiling = (plan["span"], plan["cluster"], plan["chunk"], plan["bufs"])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sdtpu_group_norm_affine(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), a.data_ptr(),
-            d.data_ptr(), n, hw, c, groups, plan["span"], plan["cluster"],
-            plan["chunk"], plan["bufs"], float(eps), param_bf16, stream)
+        if stats is None:
+            err = lib.sdtpu_group_norm_affine(
+                x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                a.data_ptr(), d.data_ptr(), n, hw, c, groups, *tiling,
+                float(eps), param_bf16, stream)
+        else:
+            err = lib.sdtpu_group_norm_affine_stats(
+                x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                stats.data_ptr(), a.data_ptr(), d.data_ptr(), n, hw, c,
+                groups, *tiling, param_bf16, stream)
     _build.check_launch(err, "group_norm_affine")
     group_norm_affine_cuda.launches += 1
     return a, d
 
 
 group_norm_affine_cuda.launches = 0
+
+
+def group_norm_partial_cuda(x, groups: int):
+    """The kernel's partial mode: float32 [N, G, 2] of each (sample,
+    group)'s mean and M2 over x, a slice of a plane, the partials that
+    ``parallel.spatial.stats`` combines over the model group. x as
+    ``_checked`` takes it (bf16, CUDA, within ``uses_kernel``'s contract);
+    raises on anything else; the launch as ``group_norm_cuda``'s. Counts
+    its launches in ``group_norm_partial_cuda.launches``."""
+    from sdtpu_torch.ops import _build
+
+    _build.refuse_grad("group_norm_partial", x)
+    n, hw, c, _, _, _, plan = _checked(None, x, groups)
+
+    lib = _build.library()
+    out = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.sdtpu_group_norm_partial(
+            x.data_ptr(), out.data_ptr(), n, hw, c, groups, plan["span"],
+            plan["cluster"], plan["chunk"], plan["bufs"], stream)
+    _build.check_launch(err, "group_norm_partial")
+    group_norm_partial_cuda.launches += 1
+    return out
+
+
+group_norm_partial_cuda.launches = 0
 
 
 def co_resident(n: int, hw: int, c: int, groups: int, plan: dict,
@@ -289,4 +375,16 @@ def bind(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
     fn = lib.sdtpu_group_norm_clusters
     fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.sdtpu_group_norm_silu_stats
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.sdtpu_group_norm_affine_stats
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.sdtpu_group_norm_partial
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int

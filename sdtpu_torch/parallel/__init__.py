@@ -20,7 +20,16 @@ the collectives written out.
 * ``collectives`` issues and counts every collective under the names the
   reference counts in its compiled HLO (``sdtpu/parallel/hlo.py``).
 
-Entry point: ``Context(mesh=(data, model))`` on every rank. The train step
-on the mesh and the spatial conv partition (``sdtpu/parallel/spatial.py``)
-are not ported here.
+* ``spatial``: the reference's spatial partition of the UNet's conv stack
+  over the model axis (W-slices, halo exchanges, GroupNorm statistics
+  combined across ranks), on around ``sharding.generate_sharded(...,
+  spatial=True)``.
+* ``follow``: one HTTP front end for a mesh (``sdtpu-torch serve --mesh``):
+  rank 0 serves and broadcasts each call, the other ranks make it too.
+
+Entry points: ``Context(mesh=(data, model))`` on every rank;
+``sharding.generate_sharded``; ``train.step.make_train_step(..., mesh=,
+plan=)`` on each rank's split tree (``sharding.shard_params``, and
+``sharding.gather_params`` to put a tree back together); ``sdtpu-torch
+serve --mesh d,m``.
 """

@@ -34,6 +34,7 @@ import torch
 
 from sdtpu_torch.parallel import collectives
 from sdtpu_torch.parallel.mesh import Mesh, current
+from sdtpu_torch.parallel.mesh import use as use_mesh
 
 # carried over from sdtpu/parallel/sharding.py:25-26
 COL_PARENTS = {"q", "k", "v", "qkv", "kv", "fc1", "ff1"}  # output-dim split
@@ -245,3 +246,81 @@ def gather_rows(x):
     if mesh is None or mesh.shape["data"] == 1:
         return x
     return collectives.all_gather(x, "data", 0)
+
+
+def _untake(parts, spec):
+    """The whole leaf from every rank's slice (``_take`` undone): the
+    slices concatenated along the split dimension, a section at a time."""
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        sections = int(ax.split(":")[1]) if ":" in ax else 1
+        if sections == 1:
+            return torch.cat(parts, dim=dim)
+        chunks = [p.chunk(sections, dim=dim) for p in parts]
+        return torch.cat([c[s] for s in range(sections) for c in chunks],
+                         dim=dim)
+    return parts[0]
+
+
+def gather_params(tree, mesh: Mesh, plan, prefix=()):
+    """The whole tree from every rank's split one (``shard_params``
+    undone): each split leaf all-gathered over the model group (one
+    all-gather a leaf) and its slices put back in place; every other leaf
+    the same tensor. ``tree`` is the pipeline's tree, or a subtree at
+    ``prefix`` (``("unet",)`` for a train state's params, its moments or
+    its gradients); ``plan`` is ``site_plan`` of the whole tree. Runs on
+    every rank of the model group."""
+    if not plan:
+        return tree
+
+    def leaf(t, path):
+        full = prefix + path
+        spec = leaf_spec(plan.get(full[:-1]), full[-1], t.dim())
+        if not spec:
+            return t
+        with use_mesh(mesh):
+            parts = collectives.all_gather_parts(t, "model")
+        return _untake(parts, spec)
+
+    return _map(tree, (), leaf)
+
+
+def split_leaves(tree, plan, prefix=()) -> set:
+    """The paths of ``tree``'s leaves that hold a rank's slice under
+    ``plan`` (a subtree at ``prefix``, as ``gather_params`` takes it)."""
+    out = set()
+
+    def leaf(t, path):
+        full = prefix + path
+        if leaf_spec(plan.get(full[:-1]), full[-1], t.dim()):
+            out.add(path)
+        return t
+
+    _map(tree, (), leaf)
+    return out
+
+
+def generate_sharded(cfg, mesh: Mesh, sampler: str = "dpm", steps: int = 20,
+                     use_cfg: bool = True, kernels: str = "plain",
+                     spatial: bool = False):
+    """The counterpart of the reference's ``jit_generate_sharded``
+    (``sdtpu/parallel/sharding.py:216``), with nothing to compile: gives
+    ``call(params, tokens, uncond, generator, guidance, **kw)``, the
+    pipeline's ``generate`` on this rank's split tree under ``mesh``, with
+    ``generate``'s keyword arguments (``noise=``, ``output=``, ...).
+    ``spatial=True`` splits the UNet's conv stack over the model axis
+    (``parallel.spatial``) for the call. Every rank of the mesh calls
+    it."""
+    from sdtpu_torch.engine import pipeline
+    from sdtpu_torch.parallel import spatial as spatial_mod
+
+    def call(params, tokens, uncond, generator, guidance, **kw):
+        with (torch.inference_mode(), use_mesh(mesh),
+              spatial_mod.use(mesh if spatial else None)):
+            return pipeline.generate(
+                params, tokens, uncond, generator, guidance, cfg=cfg,
+                sampler=sampler, steps=steps, use_cfg=use_cfg,
+                kernels=kernels, **kw)
+
+    return call

@@ -35,10 +35,24 @@ What differs from the reference, by design:
 * **State files** are the port's own (``save_train_state``): one
   safetensors file of flat keys and a JSON header, no pickle. An orbax
   directory is refused (``OrbaxCheckpointError``, ROADMAP item 24).
+
+On the (data, model) mesh (``sdtpu/train/step.py:17-21, 243-252``; the
+reference lets GSPMD shard its one jit) each rank runs the step on its split
+tree (``parallel.sharding.shard_params``; ``init_train_state`` over its
+UNet, ``make_train_step(..., mesh=, plan=)``), every rank handed the whole
+batch: it draws the whole call in ``TRAIN_DRAW_ORDER`` and keeps its data
+rows (``sharding.data_rows``), as serving does. The model axis's sums carry
+gradients through Megatron's pairs (``parallel.collectives``); the
+gradients are averaged over the data group in float32 buckets
+(``collectives.all_reduce_mean``), the loss with them; the global norm is
+the logical tree's (a split leaf's sum of squares all-reduced over the
+model group, a replicated leaf's counted once), and the clip uses it.
+AdamW and the EMA are elementwise on the shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -50,6 +64,10 @@ import torch
 
 from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.models import clip, temb, unet
+from sdtpu_torch.parallel import collectives
+from sdtpu_torch.parallel.mesh import current
+from sdtpu_torch.parallel.mesh import use as use_mesh
+from sdtpu_torch.parallel.sharding import data_rows, split_leaves
 from sdtpu_torch.samplers.schedule import NoiseSchedule
 
 #: the order a training step's generator draws in; "offset" only with
@@ -87,11 +105,34 @@ def flat_key(path) -> str:
     return "/".join(str(p) for p in path)
 
 
-def global_norm(tensors):
+def unflatten(like, by_key: dict):
+    """``by_key``'s tensors ({flat key: tensor}, the moments' and the
+    gradients' form) in ``like``'s tree shape."""
+    def walk(node, path=()):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        return by_key[flat_key(path)]
+
+    return walk(like)
+
+
+def global_norm(tensors, split=None):
     """sqrt of the sum of squares of every element (``optax.global_norm``),
-    a float32 0-d tensor."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    a float32 0-d tensor. ``split``: a flag a tensor, set where it holds
+    this rank's slice of a leaf split over the mesh's model axis: their sum
+    of squares is all-reduced over the model group, and the others, the
+    same on every rank, count once, so that the norm is the logical
+    tree's."""
+    norms = torch.stack(torch._foreach_norm([t.float() for t in tensors]))
+    if split is None or not any(split):
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor(split, device=norms.device)
+    sq = torch.square(norms)
+    whole = collectives.all_reduce_sum(torch.where(mask, sq, 0.0).sum(),
+                                       "model")
+    return torch.sqrt(torch.where(mask, 0.0, sq).sum() + whole)
 
 
 # ---------------------------------------------------------------------------
@@ -129,16 +170,22 @@ class AdamW:
                 "nu": nu}
 
     @torch.no_grad()
-    def update_(self, params: dict, grads: dict, state: dict) -> None:
+    def update_(self, params: dict, grads: dict, state: dict,
+                split=frozenset(), norm=None) -> None:
         """One step on ``params`` ({flat key: leaf}) from ``grads`` (the
-        same keys), in place; ``state`` is updated in place too."""
+        same keys), in place; ``state`` is updated in place too. ``split``:
+        the keys of leaves split over the mesh's model axis, for the clip's
+        norm (``global_norm``); ``norm``: that norm where the caller has
+        it."""
         keys = list(state["mu"])
         if not keys:
             return
         p = [params[k] for k in keys]
         g = [grads[k].float() for k in keys]
+        if norm is None:
+            norm = global_norm(g, [k in split for k in keys])
         # optax: where(|g| < c, g, g / |g| * c); c / 0 = inf clamps to 1
-        g = torch._foreach_mul(g, torch.clamp(self.grad_clip / global_norm(g),
+        g = torch._foreach_mul(g, torch.clamp(self.grad_clip / norm,
                                               max=1.0))
         mu = [state["mu"][k] for k in keys]
         nu = [state["nu"][k] for k in keys]
@@ -186,7 +233,9 @@ class TrainState:
 def init_train_state(unet_params, optimizer: AdamW,
                      ema: bool = False) -> TrainState:
     """A TrainState over ``unet_params`` (float32 masters, which it marks
-    as requiring grad), the moments on their device."""
+    as requiring grad), the moments on their device. On a mesh,
+    ``unet_params`` is this rank's split UNet, and the moments and the EMA
+    are its shards."""
     for _, p in leaves(unet_params):
         if p.is_floating_point():
             p.requires_grad_(True)
@@ -277,7 +326,11 @@ def ldm_loss(unet_params, frozen, batch, generator, cfg: PipelineConfig,
     in the target. ``remat``: ``torch.utils.checkpoint`` around the UNet,
     its activations recomputed in the backward. ``kernels``:
     ``TRAIN_KERNELS``. ``generator`` draws ``TRAIN_DRAW_ORDER``; ``draws``
-    ({name: array}) hands any of them in."""
+    ({name: array}) hands any of them in.
+
+    On a mesh's data axis the draws are the whole batch's and the loss is
+    the mean over this rank's rows (``sharding.data_rows``) of the
+    batch."""
     from sdtpu_torch.io.params import cast_params
 
     if objective == "auto":
@@ -295,29 +348,31 @@ def ldm_loss(unet_params, frozen, batch, generator, cfg: PipelineConfig,
 
     tokens = _tensor(batch["tokens"], device)
     b = tokens.shape[0]
+    tokens = data_rows(tokens)
     with torch.no_grad():
         if "latents" in batch:
-            latents = _tensor(batch["latents"], device).float()
+            latents = data_rows(_tensor(batch["latents"], device).float())
             posterior = None
         else:
             from sdtpu_torch.models import vae
 
-            images = _tensor(batch["images"], device)
+            images = data_rows(_tensor(batch["images"], device))
             posterior = vae.apply_encoder(frozen["vae_enc"], images.to(dt),
                                           cfg.vae, kernels)
             latents = None
-    shape = tuple(latents.shape if latents is not None
-                  else posterior[0].shape)
-    t_idx = draw(generator, draws, "t", (b,), device, "int",
-                 sched.num_train_steps)
-    eps = draw(generator, draws, "eps", shape, device)
+    shape = (b,) + tuple(latents.shape[1:] if latents is not None
+                         else posterior[0].shape[1:])
+    t_idx = data_rows(draw(generator, draws, "t", (b,), device, "int",
+                           sched.num_train_steps))
+    eps = data_rows(draw(generator, draws, "eps", shape, device))
     if noise_offset:
-        eps = eps + noise_offset * draw(generator, draws, "offset",
-                                        (b, 1, 1, shape[-1]), device)
+        eps = eps + noise_offset * data_rows(draw(
+            generator, draws, "offset", (b, 1, 1, shape[-1]), device))
     if posterior is not None:
         mean, logvar = posterior
         latents = (mean.float() + torch.exp(0.5 * logvar.float())
-                   * draw(generator, draws, "posterior", shape, device))
+                   * data_rows(draw(generator, draws, "posterior", shape,
+                                    device)))
 
     abar = abar_all[t_idx]
     x0 = latents * cfg.vae.scale_factor
@@ -346,7 +401,15 @@ def ldm_loss(unet_params, frozen, batch, generator, cfg: PipelineConfig,
     if remat:
         from torch.utils.checkpoint import checkpoint
 
-        pred = checkpoint(unet.apply, compute, x_t.to(dt), te, ctx, cfg.unet,
+        mesh = current()
+
+        def forward(*args):
+            # the recompute runs in autograd's device thread: on the call's
+            # mesh, which that thread does not see
+            with use_mesh(mesh):
+                return unet.apply(*args)
+
+        pred = checkpoint(forward, compute, x_t.to(dt), te, ctx, cfg.unet,
                           kernels, use_reentrant=False)
     else:
         pred = unet.apply(compute, x_t.to(dt), te, ctx, cfg.unet, kernels)
@@ -363,24 +426,58 @@ def ldm_loss(unet_params, frozen, batch, generator, cfg: PipelineConfig,
 # the step
 # ---------------------------------------------------------------------------
 
+def loss_and_grads(state: TrainState, frozen, batch, generator,
+                   cfg: PipelineConfig, kernels: str = "auto",
+                   remat: bool = False, objective: str = "auto",
+                   snr_gamma: float = 0.0, noise_offset: float = 0.0,
+                   draws=None):
+    """``(loss, grads)`` of one step: the float32 0-d loss and {flat key:
+    gradient} of every leaf of ``state.params`` (a leaf the forward does
+    not read gets zeros, as ``jax.grad`` gives it). On a mesh's data axis
+    both are the data group's means, so every rank of a model column holds
+    the whole batch's."""
+    named = [(flat_key(path), p) for path, p in leaves(state.params)]
+    loss = ldm_loss(state.params, frozen, batch, generator, cfg, kernels,
+                    remat, objective, snr_gamma, noise_offset, draws)
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True, materialize_grads=True)
+    loss = loss.detach()
+    mesh = current()
+    if mesh is not None and mesh.shape["data"] > 1:
+        collectives.all_reduce_mean(list(grads), "data")
+        collectives.all_reduce_mean([loss], "data")
+    return loss, {k: g for (k, _), g in zip(named, grads)}
+
+
 def train_step(state: TrainState, frozen, batch, generator,
                cfg: PipelineConfig, optimizer: AdamW, kernels: str = "auto",
                remat: bool = False, ema_decay: float = 0.9999,
                objective: str = "auto", snr_gamma: float = 0.0,
-               noise_offset: float = 0.0, draws=None):
+               noise_offset: float = 0.0, draws=None, mesh=None,
+               plan=None):
     """One optimizer step, in place; returns ``(state, metrics)``:
     ``loss`` and ``grad_norm``, the global norm of every leaf's gradient
     before the clip (``optax.global_norm(grads)``), both float32 0-d tensors
-    on the params' device (``sdtpu/train/step.py:183-200``)."""
+    on the params' device (``sdtpu/train/step.py:183-200``).
+
+    ``mesh`` and ``plan``: the step on a rank of the (data, model) mesh,
+    ``state`` over its split UNet and ``frozen`` its split towers
+    (``sharding.shard_params`` under ``plan``, ``site_plan`` of the whole
+    tree); the loss and ``grad_norm`` are the logical step's, the same on
+    every rank."""
     named = [(flat_key(path), p) for path, p in leaves(state.params)]
-    loss = ldm_loss(state.params, frozen, batch, generator, cfg, kernels,
-                    remat, objective, snr_gamma, noise_offset, draws)
-    # a leaf the forward does not read gets zeros, as jax.grad gives it
-    grads = torch.autograd.grad(loss, [p for _, p in named],
-                                allow_unused=True, materialize_grads=True)
-    grads = {k: g for (k, _), g in zip(named, grads)}
-    grad_norm = global_norm(list(grads.values()))
-    optimizer.update_(dict(named), grads, state.opt_state)
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        loss, grads = loss_and_grads(state, frozen, batch, generator, cfg,
+                                     kernels, remat, objective, snr_gamma,
+                                     noise_offset, draws)
+        split = ({flat_key(p) for p in split_leaves(state.params, plan,
+                                                    ("unet",))}
+                 if plan else frozenset())
+        grad_norm = global_norm(list(grads.values()),
+                                [k in split for k in grads])
+        # the clip's norm is grad_norm where every leaf trains
+        optimizer.update_(dict(named), grads, state.opt_state, split,
+                          grad_norm if optimizer.trainable is None else None)
     if state.ema is not None:
         with torch.no_grad():
             ema = [e for _, e in leaves(state.ema)]
@@ -388,7 +485,7 @@ def train_step(state: TrainState, frozen, batch, generator,
             torch._foreach_add_(ema, [p for _, p in named],
                                 alpha=1.0 - ema_decay)
     state.step += 1
-    return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+    return state, {"loss": loss, "grad_norm": grad_norm}
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -402,16 +499,19 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def make_train_step(cfg: PipelineConfig, optimizer: AdamW,
                     kernels: str = "auto", remat: bool = False,
                     ema_decay: float = 0.9999, objective: str = "auto",
-                    snr_gamma: float = 0.0, noise_offset: float = 0.0):
+                    snr_gamma: float = 0.0, noise_offset: float = 0.0,
+                    mesh=None, plan=None):
     """``step(state, frozen, batch, generator, draws=None) -> (state,
     metrics)`` with the configuration, optimizer, kernels, remat and
     objective knobs fixed: the counterpart of ``jit_train_step``
     (``sdtpu/train/step.py:243``). It updates the state in place, as the
-    reference donates its buffers."""
+    reference donates its buffers. ``mesh`` and ``plan``: the step on a
+    rank of the mesh (``train_step``)."""
     return functools.partial(train_step, cfg=cfg, optimizer=optimizer,
                              kernels=kernels, remat=remat,
                              ema_decay=ema_decay, objective=objective,
-                             snr_gamma=snr_gamma, noise_offset=noise_offset)
+                             snr_gamma=snr_gamma, noise_offset=noise_offset,
+                             mesh=mesh, plan=plan)
 
 
 # ---------------------------------------------------------------------------

@@ -207,10 +207,16 @@ def test_serve_builds_the_context(monkeypatch):
     assert seen["max_batch"] == 2 and seen["stream_slots"] == 2
     assert seen["stream_steps"] == (1, 3) and seen["port"] == 0
     assert main(["serve", *TINY, "--lora", "nameless"]) == 2
-    with pytest.raises(SdtpuError) as ei:
-        main(["serve", *TINY, "--mesh", "2,4"])
-    assert ei.value.code == ErrorCode.INVALID_ARGUMENT
-    assert "ROADMAP item 23b" in ei.value.reason
+    # --mesh: a world of one serves alone (tests/test_torch_mesh.py starts
+    # a mesh of two); a malformed one is refused
+    assert main(["serve", *TINY, "--mesh", "1,1"]) == 0
+    assert seen["ctx"].mesh.shape == {"data": 1, "model": 1}
+    assert seen["leader"] is None
+    for bad in ("2", "2,x", "0,2", "1,2,3"):
+        with pytest.raises(SdtpuError) as ei:
+            main(["serve", *TINY, "--mesh", bad])
+        assert ei.value.code == ErrorCode.INVALID_ARGUMENT
+        assert "--mesh takes 'data,model'" in ei.value.reason
 
 
 def test_warmup_and_artifact(tmp_path, capsys, monkeypatch):

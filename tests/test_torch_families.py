@@ -43,6 +43,12 @@ from sdtpu_torch.models import temb as t_temb
 from sdtpu_torch.models import unet as t_unet
 from sdtpu_torch.tokenizer import DEMO_MERGES, Tokenizer
 
+
+#: XLA:CPU compiles at backend optimization level 0: the same arithmetic,
+#: compiled in a fraction of the time
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
 XL_J, XL_T = j_config.TINY_XL, t_config.TINY_XL
 
 
@@ -230,7 +236,7 @@ def test_apply_xl_matches_jax(xl, tower):
         assert_close(p, p_ref)
 
 
-_encode_xl = jax.jit(functools.partial(j_pipeline.encode_text, cfg=XL_J))
+_encode_xl = _jit(functools.partial(j_pipeline.encode_text, cfg=XL_J))
 
 
 def test_encode_text_dual_tower_matches_jax(xl, tok):
@@ -334,7 +340,7 @@ def test_denoise_v_prediction_matches_jax(v_trees, sampler):
     jtree, ttree = v_trees
     ctx = _rand(2, L, V_T.unet.context_dim, seed=8)
     shape = (1, V_T.latent_size, V_T.latent_size, 4)
-    ref = jax.jit(functools.partial(
+    ref = _jit(functools.partial(
         j_pipeline.denoise, cfg=V_J, sampler=sampler, steps=STEPS,
         use_cfg=True, kernels="xla"))(jtree, jnp.asarray(ctx),
                                       jax.random.PRNGKey(9), 7.5)
@@ -352,7 +358,7 @@ def test_generate_xl_matches_jax(xl, tok):
     jtree, ttree = xl
     tokens = np.array([tok.tokenize(PROMPT, L)], np.int32)
     unc = _encode_xl(jtree, jnp.asarray([tok.tokenize("", L)], jnp.int32))[0]
-    j_lat = jax.jit(functools.partial(
+    j_lat = _jit(functools.partial(
         j_pipeline.generate, cfg=XL_J, sampler="dpm", steps=STEPS,
         kernels="xla", output="latent"))(
         jtree, jnp.asarray(tokens), unc, jax.random.PRNGKey(5),

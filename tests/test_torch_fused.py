@@ -46,6 +46,12 @@ from sdtpu_torch.ops import attention as t_attn
 from sdtpu_torch.ops import conv as t_conv
 from sdtpu_torch.ops import groupnorm as t_gn
 
+
+#: XLA:CPU compiles at backend optimization level 0: the same arithmetic,
+#: compiled in a fraction of the time
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
 TINY_J, TINY_T = j_config.TINY, t_config.TINY
 PROMPT = "a photograph of an astronaut riding a horse"
 CUDA_POLICIES = ("cuda", "cuda_gn", "cuda_conv")
@@ -388,7 +394,7 @@ def test_unet_matches_jax_policy(pallas, trees, ours, theirs, kernel):
     jtree, ttree = trees
     x, te = _rand(2, 16, 16, 4, seed=1), _rand(2, 64, seed=2)
     ctx = _rand(2, 16, 32, seed=3)
-    ref = jax.jit(functools.partial(j_unet.apply, cfg=TINY_J.unet,
+    ref = _jit(functools.partial(j_unet.apply, cfg=TINY_J.unet,
                                     kernels=theirs))(
         jtree["unet"], jnp.asarray(x), jnp.asarray(te), jnp.asarray(ctx))
     assert pallas[kernel] > 0
@@ -402,7 +408,7 @@ def test_vae_matches_jax_pallas_conv(pallas, trees):
     max-abs error <= 1e-4 x the output's max-abs."""
     jtree, ttree = trees
     z = _rand(1, 8, 8, 4, seed=4)
-    ref = jax.jit(functools.partial(j_vae.apply, cfg=TINY_J.vae,
+    ref = _jit(functools.partial(j_vae.apply, cfg=TINY_J.vae,
                                     kernels="pallas_conv"))(
         jtree["vae"], jnp.asarray(z))
     assert pallas["_conv_kernel_b"] > 0
@@ -429,14 +435,14 @@ def test_context_cuda_conv_matches_jax_pipeline(monkeypatch, pallas, trees):
                 for a in j_text.chunked_tokens(tok, PROMPT, L, min_chunks=k))
     nt, nw = (jnp.asarray(a[None])
               for a in j_text.chunked_tokens(tok, "", L, min_chunks=k))
-    j_unc = jax.jit(functools.partial(j_pipeline.encode_text, cfg=TINY_J))(
+    j_unc = _jit(functools.partial(j_pipeline.encode_text, cfg=TINY_J))(
         jtree, nt, weights=nw)[0]
     key = jax.random.PRNGKey(seed)
-    j_lat = jax.jit(functools.partial(
+    j_lat = _jit(functools.partial(
         j_pipeline.generate, cfg=TINY_J, sampler="dpm", steps=steps,
         kernels="pallas_conv", output="latent"))(
         jtree, jtok, j_unc, key, jnp.float32(guidance), token_weights=jw)
-    j_img = np.asarray(jax.jit(functools.partial(
+    j_img = np.asarray(_jit(functools.partial(
         j_pipeline.decode_latents, cfg=TINY_J, kernels="pallas_conv"))(
         jtree, j_lat))
     assert pallas["_conv_kernel_b"] > 0

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.utils._python_dispatch
 
 from sdtpu_torch import Context, ErrorCode, SdtpuError
 from sdtpu_torch.config import TINY
@@ -42,6 +43,71 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+class _MetaShapes(torch.utils._python_dispatch.TorchDispatchMode):
+    """Meta-device ops memoized by their inputs' metadata: an op that
+    returns fresh tensors (no alias, no mutation in its schema) and takes
+    only meta tensors and hashable arguments gives the shapes, strides
+    and dtypes it gave the first time, without running PyTorch's Python
+    meta kernels again (an elementwise op costs about a millisecond
+    there; the full-width loops below repeat each UNet eval's shapes step
+    after step). Every other op runs as it is."""
+
+    def __init__(self, memo):
+        super().__init__()
+        self.memo = memo
+
+    @staticmethod
+    def _arg(a):
+        if isinstance(a, torch.Tensor):
+            if a.device.type != "meta":
+                raise TypeError
+            return ("t", tuple(a.shape), a.stride(), a.dtype)
+        if isinstance(a, (list, tuple)):
+            return tuple(_MetaShapes._arg(v) for v in a)
+        hash(a)
+        return a
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        schema = func._schema
+        key = None
+        if not schema.is_mutable and all(r.alias_info is None
+                                         for r in schema.returns):
+            try:
+                key = (func, self._arg(args),
+                       self._arg(tuple(sorted(kwargs.items()))))
+            except TypeError:
+                key = None
+        got = self.memo.get(key) if key is not None else None
+        if got is not None:
+            out = [torch.empty_strided(sh, st, dtype=dt, device="meta")
+                   for sh, st, dt in got[1]]
+            return out[0] if got[0] else tuple(out)
+        out = func(*args, **kwargs)
+        single = isinstance(out, torch.Tensor)
+        outs = [out] if single else out
+        if key is not None and isinstance(outs, (list, tuple)) and all(
+                isinstance(t, torch.Tensor) and t.device.type == "meta"
+                for t in outs) and isinstance(out, (torch.Tensor, tuple)):
+            self.memo[key] = (single, [(tuple(t.shape), t.stride(), t.dtype)
+                                       for t in outs])
+        return out
+
+
+_META_MEMO: dict = {}
+
+
+@pytest.fixture(autouse=True)
+def _meta_shapes(request):
+    """Each CPU test's meta-device runs under ``_MetaShapes``, one memo for
+    the module; the card's tests run as they are."""
+    if request.node.get_closest_marker("cuda"):
+        yield
+        return
+    with _MetaShapes(_META_MEMO):
+        yield
 
 
 def _load(path, name):
@@ -1059,6 +1125,10 @@ def test_parse_ptxas_reads_registers_and_spills():
     (t_gn, "sdtpu_group_norm_silu", 4, (8, 2)),
     (t_gn, "sdtpu_group_norm_affine", 5, (8, 1)),
     (t_gn, "sdtpu_group_norm_clusters", 0, 9),
+    # its spatial partition's modes (no eps: the statistics hold it)
+    (t_gn, "sdtpu_group_norm_silu_stats", 5, 10),
+    (t_gn, "sdtpu_group_norm_affine_stats", 6, 9),
+    (t_gn, "sdtpu_group_norm_partial", 2, 8),
 ])
 def test_bind_declares_the_c_signature(module, fn, pointers, ints):
     """Pointers and the stream as c_void_p (never cut to 32 bits), then the
@@ -1069,7 +1139,8 @@ def test_bind_declares_the_c_signature(module, fn, pointers, ints):
              "sdtpu_flash_attn_bwd", "sdtpu_matmul_int8w",
              "sdtpu_matmul_w8a8", "sdtpu_conv_gn_silu",
              "sdtpu_group_norm_silu", "sdtpu_group_norm_affine",
-             "sdtpu_group_norm_clusters")
+             "sdtpu_group_norm_clusters", "sdtpu_group_norm_silu_stats",
+             "sdtpu_group_norm_affine_stats", "sdtpu_group_norm_partial")
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names})
     module.bind(lib)
     sig = getattr(lib, fn)
@@ -1278,8 +1349,9 @@ def _recorders(mode, log, part):
     tensors of the kernel's output shape, appending each call's key to
     ``log[(part[0], kernel)]``, under ``mode``'s flags. Keys: flash and
     flash_bwd (b, sq, c, heads); group_norm (n, hw, c, groups, eps, silu);
-    group_norm_affine (n, hw, c, groups); conv (n, h, w, c_in, c_out, k,
-    int8); matmul_int8w and matmul_w8a8 (m, k, n)."""
+    group_norm_affine and group_norm_partial (n, hw, c, groups); conv (n,
+    h, w, c_in, c_out, k, int8); matmul_int8w and matmul_w8a8 (m, k,
+    n)."""
     def put(kernel, key):
         log.setdefault((part[0], kernel), []).append(key)
 
@@ -1294,16 +1366,21 @@ def _recorders(mode, log, part):
         put("flash_bwd", (q.shape[0], q.shape[1], q.shape[2], heads))
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
-    def gn(p, x, groups, eps, silu):
+    def gn(p, x, groups, eps, silu, stats=None):
         put("group_norm", (x.shape[0], x.numel() // (x.shape[0] * x.shape[-1]),
                            x.shape[-1], groups, eps, bool(silu)))
         return torch.empty_like(x)
 
-    def affine(p, x, groups, eps=1e-5):
+    def affine(p, x, groups, eps=1e-5, stats=None):
         if t_gn.uses_kernel(x, groups):
             put("group_norm_affine", (x.shape[0], x.numel() // (
                 x.shape[0] * x.shape[-1]), x.shape[-1], groups))
-        return t_conv.gn_affine_reference(p, x, groups, eps)
+        return t_conv.gn_affine_reference(p, x, groups, eps, stats)
+
+    def partial(x, groups):
+        put("group_norm_partial", (x.shape[0], x.numel() // (
+            x.shape[0] * x.shape[-1]), x.shape[-1], groups))
+        return x.new_empty((x.shape[0], groups, 2), dtype=torch.float32)
 
     def conv(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
         put("conv", (*x.shape, w.shape[0], w.shape[-1], w_scale is not None))
@@ -1329,6 +1406,7 @@ def _recorders(mode, log, part):
     mp.setattr(t_attn, "flash_attention_cuda", flash)
     mp.setattr(t_attn, "flash_attention_bwd_cuda", flash_bwd)
     mp.setattr(t_gn, "group_norm_cuda", gn)
+    mp.setattr(t_gn, "group_norm_partial_cuda", partial)
     mp.setattr(t_conv, "gn_affine", affine)
     mp.setattr(t_conv, "fused_conv_cuda", conv)
     mp.setattr(t_mm, "matmul_int8w_cuda", mm("matmul_int8w"))
@@ -1548,11 +1626,12 @@ def _image_call(call, mode):
 @pytest.mark.parametrize("call", sorted(chip_smoke.IMAGE_PINNED))
 def test_image_pins_are_the_rules(call):
     """Each image call's launches under each mode the smoke run takes, from
-    its sites and the rules, are its pins: img2img at strength 0.6 K1 122
-    (12 evals x 10, the encoder and the decoder), inpaint 202, the hires fix
-    381 (pass 1's 200 without a decode, 12 x 15 and its 1024^2 decode),
-    ip2p 202, sd2_depth at strength 0.8 162; under cuda_conv the encoder
-    adds 20 K3 launches and 20 of K2's statistics mode."""
+    its sites and the rules, are its pins: at the main path's 10 steps,
+    img2img at strength 0.6 K1 62 (6 evals x 10, the encoder and the
+    decoder), inpaint 102, the hires fix 191 (pass 1's 100 without a
+    decode, 6 x 15 and its 1024^2 decode), ip2p 102, sd2_depth at strength
+    0.8 82; under cuda_conv the encoder adds 20 K3 launches and 20 of K2's
+    statistics mode."""
     for mode, want in chip_smoke.IMAGE_PINNED[call].items():
         got = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0)
         for log, evals in _image_call(call, mode):
@@ -1561,8 +1640,8 @@ def test_image_pins_are_the_rules(call):
     pinned = chip_smoke.IMAGE_PINNED
     assert [pinned[c]["cuda"]["flash"] for c in (
         "img2img", "inpaint", "hires", "sd15_ip2p", "sd2_depth")] == [
-        122, 202, 381, 202, 162]
-    assert pinned["img2img"]["cuda_conv"]["conv"] == 60 * 12 + 28 + 20
+        62, 102, 191, 102, 82]
+    assert pinned["img2img"]["cuda_conv"]["conv"] == 60 * 6 + 28 + 20
 
 
 def test_encoder_sites():
@@ -2991,6 +3070,47 @@ def test_cuda_group_norm_matches_plain(n, hw, c, groups, fuse_silu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,c,groups", [
+    (2, 2048, 320, 32), (2, 32, 2560, 32), (2, 131072, 128, 32),
+    (1, 35, 30, 3)])
+def test_cuda_group_norm_spatial_modes_match_plain(n, hw, c, groups):
+    """K2's spatial partition modes (a W-slice of a plane): the partial
+    mode's (mean, M2) within 1e-4 of each statistic's largest value; from
+    those statistics (``spatial.combine`` of one part), the normalising
+    mode with SiLU within one bf16 rounding and the statistics mode's A
+    and D within 1e-4; a resident, a clustered, a streamed and a ragged
+    plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from sdtpu_torch.parallel import spatial
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn((n, hw, c), generator=g, device="cuda") * 2 + 1).to(
+        torch.bfloat16)
+    p = {"scale": torch.randn(c, generator=g, device="cuda").to(
+        torch.bfloat16), "bias": torch.randn(c, generator=g, device="cuda")
+        .to(torch.bfloat16)}
+    part = t_gn.group_norm_partial_cuda(x, groups)
+    torch.cuda.synchronize()
+    ref = t_gn.group_norm_partial_reference(x.float(), groups)
+    for i in (0, 1):
+        assert (part[..., i] - ref[..., i]).abs().max().item() <= (
+            1e-4 * ref[..., i].abs().max().item())
+    stats = spatial.combine(part[None], hw * c // groups, 1e-5)
+    y = t_gn.group_norm_cuda(p, x, groups, 1e-5, True, stats)
+    a, d = t_gn.group_norm_affine_cuda(p, x, groups, 1e-5, stats)
+    torch.cuda.synchronize()
+    y_ref = t_gn.group_norm_reference(p, x.float(), groups, 1e-5, True,
+                                      stats)
+    assert (y.float() - y_ref).abs().max().item() <= (
+        1e-2 * y_ref.abs().max().item())
+    ra, rd = t_conv.gn_affine_reference(p, x, groups, 1e-5, stats)
+    for got, want in ((a, ra), (d, rd)):
+        assert (got - want).abs().max().item() <= (
+            1e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups", [((2, 64, 64, 320), 32),
                                           ((2, 8, 8, 2560), 32),
                                           ((1, 7, 9, 30), 3)])
@@ -3217,7 +3337,7 @@ def test_cuda_kernels_without_a_backward_refuse_grad(kernel):
 
 def test_int8w_dense_conv_pins_are_the_rules():
     """SD1.5 under ``quantize="int8w_dense"`` and cuda_conv, from its sites
-    and the rules: K3 1,228 an image (60 an eval with int8 weights + the
+    and the rules: K3 628 an image (60 an eval with int8 weights + the
     VAE's 28 in bf16) with K2's statistics mode beside each, K4 at the 212
     sites an eval K3 does not take (228 less the 16 proj_in), 87 of them
     split K: the smoke run's ``PINNED["int8w_dense_conv"]``."""
@@ -3226,7 +3346,7 @@ def test_int8w_dense_conv_pins_are_the_rules():
     assert got == chip_smoke.PINNED["int8w_dense_conv"]
     assert chip_smoke.MM_INT8W_PER_EVAL_CONV == 212
     assert chip_smoke.MM_INT8W_SUMS_PER_EVAL_CONV == 87
-    assert got["conv"] == chip_smoke.CONV_PER_IMAGE == 1228
+    assert got["conv"] == chip_smoke.CONV_PER_IMAGE == 628
     assert got["conv_int8"] == 60 * chip_smoke.STEPS
     # K4's sites are int8w_dense's under cuda less the ones K3 fuses
     dense = _part_log("unet", "sd15", "int8w_dense")[("unet", "matmul_int8w")]
@@ -3458,7 +3578,7 @@ MESH_MODES = {"1x1_nccl": ("cuda", 1, 1), "1x2_cuda": ("cuda", 1, 2),
 def _counted_collectives(log):
     """The collectives replaced by counters that give the shapes the group
     would: an all-reduce its input, an all-gather the input repeated over
-    the current mesh's axis."""
+    the current mesh's axis, a halo rank 0's (a right column only)."""
     from sdtpu_torch.parallel import collectives
     from sdtpu_torch.parallel import mesh as mesh_mod
 
@@ -3470,9 +3590,15 @@ def _counted_collectives(log):
         log["all-gather"] = log.get("all-gather", 0) + 1
         return torch.cat([x] * mesh_mod.current().shape[axis], dim=dim)
 
+    def halo(x, dim=2):
+        # rank 0's: no left neighbour, the right one's first column
+        log["collective-permute"] = log.get("collective-permute", 0) + 2
+        return None, x.narrow(dim, x.shape[dim] - 1, 1)
+
     mp = pytest.MonkeyPatch()
     mp.setattr(collectives, "all_reduce_sum", reduce)
     mp.setattr(collectives, "all_gather", gather)
+    mp.setattr(collectives, "halo", halo)
     try:
         yield
     finally:
@@ -3593,3 +3719,173 @@ def test_rules_take_every_mesh_site(kernel, model):
     # (rows) at 1280
     assert (320 // model, 320) in split
     assert (1280, 10240 // model) in split and (5120 // model, 1280) in split
+
+
+# ---------------------------------------------------------------------------
+# the rest of the mesh (ROADMAP item 23b): the train step on SD1.5's split
+# tree and the spatial partition, on the meta device with the collectives
+# counted (``chip_smoke.MESH_TRAIN_PINNED``, ``MESH_SPATIAL_PINNED``)
+# ---------------------------------------------------------------------------
+
+_MESH_TRAIN = {}
+
+
+def _mesh_train_log(data, model):
+    """(kernel log, collectives) of one train step of SD1.5 at
+    ``chip_smoke.MESH_TRAIN_BATCH`` for rank 0 of a (data, model) mesh on
+    the meta device: ``make_train_step(..., mesh=, plan=)`` with the EMA,
+    float32 masters, bf16 compute."""
+    from sdtpu_torch.config import SD15
+    from sdtpu_torch.models import clip, temb
+    from sdtpu_torch.parallel import mesh as mesh_mod
+    from sdtpu_torch.parallel.sharding import shard_params, site_plan
+    from sdtpu_torch.train import step as T
+
+    key = (data, model)
+    if key not in _MESH_TRAIN:
+        meta = torch.device("meta")
+        fake = mesh_mod.Mesh(data, model, 0)
+        full = {"unet": _meta_tree(_meta_unet(SD15, "cuda"), torch.float32),
+                "clip": _meta_tree(clip.init(SD15.clip, None, meta)),
+                "temb": _meta_tree(temb.init(SD15.unet, None, meta))}
+        plan = site_plan(full, model, SD15)
+        local = shard_params(full, fake, SD15, plan)
+        opt = T.make_optimizer()
+        state = T.init_train_state(local["unet"], opt, ema=True)
+        b, s = chip_smoke.MESH_TRAIN_BATCH, SD15.latent_size
+        lat = (b, s, s, SD15.latent_channels)
+        batch = {"tokens": torch.empty((b, SD15.clip.context_len),
+                                       dtype=torch.int32, device=meta),
+                 "latents": torch.empty(lat, device=meta)}
+        draws = {"t": torch.empty((b,), dtype=torch.int64, device=meta),
+                 "eps": torch.empty(lat, device=meta)}
+        step = T.make_train_step(SD15, opt, kernels="cuda", mesh=fake,
+                                 plan=plan)
+        log, coll = {}, {}
+        with _recorders("cuda", log, ("unet",)), _counted_collectives(coll):
+            step(state, {k: local[k] for k in ("clip", "temb")}, batch,
+                 None, draws=draws)
+        _MESH_TRAIN[key] = (log, coll, state)
+    return _MESH_TRAIN[key]
+
+
+@pytest.mark.parametrize("label,shape", chip_smoke.MESH_TRAIN_ARMS)
+def test_mesh_train_pins_are_the_rules(label, shape):
+    """A rank's launches and collectives in one train step on the mesh,
+    from the split tree on the meta device, are the smoke run's
+    (``chip_smoke.MESH_TRAIN_PINNED``): K1 and K1-bwd 10 each (heads // m
+    at m = 2, a row at d = 2); at m = 2 121 all-reduces (48 forward, 48
+    backward, 24 CLIP, 1 norm) and 1 all-gather; at d = 2 the gradient
+    buckets (``collectives.buckets`` of SD1.5's 860 M) and the loss."""
+    from sdtpu_torch.parallel import collectives
+    from sdtpu_torch.train import step as T
+
+    log, coll, state = _mesh_train_log(*shape)
+    got = dict.fromkeys(chip_smoke.KERNEL_NAMES + ("flash_bwd",), 0)
+    for (_, kernel), keys in log.items():
+        got[kernel] += len(keys)
+    want = chip_smoke.MESH_TRAIN_PINNED[label]
+    assert got == want["launches"]
+    assert {k: coll.get(k, 0) for k in want["collectives"]} == want[
+        "collectives"]
+    assert set(coll) <= set(want["collectives"])
+    if shape[0] > 1:
+        sizes = [t.numel() for _, t in T.leaves(state.params)]
+        assert len(collectives.buckets(sizes)) == (
+            chip_smoke.MESH_TRAIN_BUCKETS)
+        assert 8.5e8 < sum(sizes) < 8.6e8
+
+
+def test_mesh_train_flash_sites_are_the_shard_shapes():
+    """K1 and K1-bwd in a mesh train step run at
+    ``chip_smoke.MESH_TRAIN_FLASH_SHAPES``, each within both kernels'
+    contracts and ``plan_bwd``'s rule (d 40 and 80 at half the
+    batch-heads)."""
+    sites = set()
+    for _, shape in chip_smoke.MESH_TRAIN_ARMS:
+        log, _, _ = _mesh_train_log(*shape)
+        for kernel in ("flash", "flash_bwd"):
+            keys = set(log[("unet", kernel)])
+            sites |= keys
+            for b, s, c, heads in keys:
+                d = c // heads
+                assert t_attn.plan_bwd(d, s, b * heads) == _bwd_want(d)
+                _check_site("flash", (b, s, c, heads))
+    assert sorted(sites) == sorted(chip_smoke.MESH_TRAIN_FLASH_SHAPES)
+
+
+_SPATIAL = {}
+
+
+def _spatial_log(mode):
+    """(kernel log, collectives) of one SD1.5 UNet eval at the CFG batch of
+    2 under the spatial partition for rank 0 of (1, 2), on the meta
+    device."""
+    from sdtpu_torch.config import SD15
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.parallel import mesh as mesh_mod
+    from sdtpu_torch.parallel import spatial
+    from sdtpu_torch.parallel.sharding import shard_params
+
+    if mode not in _SPATIAL:
+        fake = mesh_mod.Mesh(1, 2, 0)
+        local = shard_params({"unet": _meta_unet(SD15, mode)}, fake, SD15)
+
+        def meta(*shape):
+            return torch.empty(shape, device="meta", dtype=torch.bfloat16)
+
+        log, coll = {}, {}
+        with (mesh_mod.use(fake), spatial.use(fake),
+              _recorders(mode, log, ["unet"]), _counted_collectives(coll)):
+            out = unet.apply(local["unet"], meta(2, 64, 64, 4),
+                             meta(2, 1280), meta(2, 77, 768), SD15.unet,
+                             MODES[mode][0])
+        assert out.shape == (2, 64, 64, 4)
+        _SPATIAL[mode] = (log, coll)
+    return _SPATIAL[mode]
+
+
+@pytest.mark.parametrize("mode", ["cuda", "cuda_gn", "cuda_conv"])
+def test_spatial_pins_are_the_rules(mode):
+    """A rank's launches and collectives for one SD1.5 image under the
+    spatial partition at (1, 2), from the split tree on the meta device
+    (``MESH_STEPS`` evals, one decode, one encode, one time table): the
+    smoke run's ``MESH_SPATIAL_PINNED``; an eval's 62 all-gathers and 104
+    collective-permutes."""
+    log, coll = _spatial_log(mode)
+    steps = chip_smoke.MESH_STEPS
+    launches = _per_image({**log, **_part_log("vae", "sd15", mode)}, steps)
+    want = chip_smoke.MESH_SPATIAL_PINNED[f"spatial_{mode}"]
+    assert launches == want["launches"]
+    assert coll == {"all-reduce": 48,
+                    "all-gather": chip_smoke.MESH_SPATIAL_GATHERS,
+                    "collective-permute": chip_smoke.MESH_SPATIAL_PERMUTES}
+    _, plain, _ = _mesh_log("cuda", 1, 2)
+    assert want["collectives"] == {
+        "all-reduce": steps * coll["all-reduce"] + plain["encode"][
+            "all-reduce"],
+        "all-gather": steps * coll["all-gather"] + plain["table"][
+            "all-gather"],
+        "collective-permute": steps * coll["collective-permute"]}
+
+
+@pytest.mark.parametrize("mode", ["cuda_gn", "cuda_conv"])
+def test_rules_take_every_spatial_site(mode):
+    """Every K2 and K3 site of the spatial partition is within its
+    kernel's contract: K2's partial and normalising modes at a rank's
+    slices (n, hw / 2, c), K3 at the halo'd slices (W / 2 + 1 columns on
+    an edge rank; the general kernel where 128 pixels do not tile them)."""
+    log, _ = _spatial_log(mode)
+    parts = sorted(set(log[("unet", "group_norm_partial")]))
+    assert parts and all(hw * 2 in (64 * 64, 32 * 32, 16 * 16, 8 * 8)
+                         for _, hw, _, _ in parts)
+    for n, hw, c, groups in parts:
+        x = torch.empty((n, hw, c), device="meta", dtype=torch.bfloat16)
+        assert t_gn.uses_kernel(x, groups)
+        t_gn.plan_gn(n, hw, c, groups, SMS)
+    if mode == "cuda_conv":
+        convs = sorted(set(log[("unet", "conv")]))
+        halo = [k for k in convs if k[5] == 3]
+        assert {k[2] for k in halo} == {33, 17, 9, 5}
+        for site in convs:
+            _check_site("conv", site)

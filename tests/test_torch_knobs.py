@@ -342,8 +342,8 @@ def _unet_pair(jcfg, tcfg, fused=False, **kw):
     ours = t_unet.apply(ttree["unet"], torch.from_numpy(x),
                         torch.from_numpy(te), torch.from_numpy(ctx),
                         tcfg.unet, **kw)
-    theirs = j_unet.apply(jtree["unet"], jnp.asarray(x), jnp.asarray(te),
-                          jnp.asarray(ctx), jcfg.unet, **kw)
+    theirs = _unet_apply(jtree["unet"], jnp.asarray(x), jnp.asarray(te),
+                         jnp.asarray(ctx), jcfg.unet, **kw)
     return ours, theirs
 
 
@@ -370,8 +370,8 @@ def test_unet_capture_and_shallow_match_jax():
     ours = t_unet.apply(ttree["unet"], torch.from_numpy(x),
                         torch.from_numpy(te), torch.from_numpy(ctx),
                         TINY_T.unet, deep=cache)
-    theirs = j_unet.apply(jtree["unet"], jnp.asarray(x), jnp.asarray(te),
-                          jnp.asarray(ctx), TINY_J.unet, deep=j_cache)
+    theirs = _unet_apply(jtree["unet"], jnp.asarray(x), jnp.asarray(te),
+                         jnp.asarray(ctx), TINY_J.unet, deep=j_cache)
     assert_close(ours, theirs, 1e-5)
 
 

@@ -20,13 +20,31 @@ JAX package's ``sdtpu/parallel``, on the CPU.
 * The refusals: a batch the data axis does not divide, a mesh larger than
   the world, with the reference's code and text.
 * The collectives a rank issues, pinned from the plan.
+* The rest of the mesh, in the same worlds: the stream pool on every mesh;
+  the train step on (1, 2), (2, 1) and (2, 2) against the reference's
+  single-device step with its draws (``sdtpu.train.step``'s loss and
+  optax's update, as ``tests/test_torch_train.py`` runs them): the loss
+  within ``rtol=2e-5`` (``tests/test_train.py:100``), the gathered params,
+  moments and EMA within ``test_torch_train``'s bounds, the replicated
+  leaves the same bits on every rank; ``global_norm`` of a replicated and a
+  split leaf; the spatial partition on (1, 2) and (2, 2) within 1 uint8 LSB
+  of the reference's single-device ``generate`` (``tests/test_parallel.py:
+  179``), also where a level does not tile the model axis, with its
+  collectives (the collective-permutes of the halos) derived from the
+  UNet's structure; and ``sdtpu-torch serve --mesh 1,2``, started as a user
+  starts it, answering with the bytes of ``Context(mesh=(1, 2))``.
 """
 
 import dataclasses
+import json
 import os
+import signal
 import subprocess
 import sys
+import threading
 import time
+import types
+import urllib.request
 from pathlib import Path
 
 import jax
@@ -48,9 +66,14 @@ from sdtpu_torch.models import layers as t_layers
 from sdtpu_torch.parallel import collectives
 from sdtpu_torch.parallel import mesh as t_mesh
 from sdtpu_torch.parallel import sharding as t_sharding
+from sdtpu_torch.train import step as t_step
 from sdtpu_torch.train.lora import extract_lora, inject_lora, save_lora_npz
 from test_torch_image import (CFGS, _draws, _image, _mask, _reference_latents,
                               _shape, _text, assert_close, ref, trees)
+from test_torch_train import _Ref, _check_state, _end_to_end
+from test_torch_train import _batch as _train_batch
+from test_torch_train import _draws as _train_draws
+from test_torch_train import _frozen as _train_frozen
 
 import torch_mesh_ranks as R
 
@@ -293,11 +316,22 @@ def _lora_file(path):
     save_lora_npz(fill(ad)["unet"], path)
 
 
+TRAIN_KEYS = (20, 21)
+SPATIAL_SEED = 13
+
+
 def _anchor_inputs():
     """The anchors' inputs: tokens, the reference's draws for one key at a
-    batch of 2, images and masks; -> (inputs for the ranks, the
-    reference's uncond embedding an anchor)."""
+    batch of 2, images and masks; the spatial cases' (latent 8 takes
+    ``anchor_generate``'s) and the train step's batch and draws; -> (inputs
+    for the ranks, the reference's uncond embedding an anchor)."""
     inputs, j_uncond = {}, {}
+    for k, v in _train_batch(t_config.TINY).items():
+        inputs[f"train/{k}"] = v
+    for i, key in enumerate(TRAIN_KEYS):
+        for k, v in _train_draws(jax.random.PRNGKey(key),
+                                 t_config.TINY).items():
+            inputs[f"train/{i}/{k}"] = v
     for name, cname in ANCHOR_CFG.items():
         tcfg = CFGS[cname][1]
         tok, j_un, _ = _text(cname, b=2)
@@ -308,7 +342,45 @@ def _anchor_inputs():
             inputs[f"{name}/{k}"] = v
         inputs[f"{name}/image"] = _image(2, seed=11)[1]
         inputs[f"{name}/mask"] = _mask(2)
+    for k in ("tokens", "noise"):
+        inputs[f"spatial_8/{k}"] = inputs[f"anchor_generate/{k}"]
+    inputs["spatial_6/tokens"] = inputs["anchor_generate/tokens"]
+    inputs["spatial_6/noise"] = _draws(SPATIAL_SEED, (2, 6, 6, 4),
+                                       steps=R.ANCHOR_STEPS)["noise"]
     return inputs, j_uncond
+
+
+def _reference_spatial(refmod, j_uncond, inputs, anchors):
+    """{latent size: (latents, image)} of the reference's single-device
+    ``generate`` with the spatial cases' draws: at 8 ``anchor_generate``'s,
+    at 6 one more compile of its UNet."""
+    mp = pytest.MonkeyPatch()
+    try:
+        jcfg = dataclasses.replace(CFGS["tiny"][0], latent_size=6)
+        six = _reference_latents(
+            refmod, mp, refmod.generate, trees("tiny")[0],
+            jnp.asarray(inputs["spatial_6/tokens"], jnp.int32),
+            j_uncond["anchor_generate"], jax.random.PRNGKey(SPATIAL_SEED),
+            jnp.float32(7.5), cfg=jcfg, sampler="dpm",
+            steps=R.ANCHOR_STEPS, kernels="xla")
+    finally:
+        mp.undo()
+    return {8: anchors["anchor_generate"], 6: six}
+
+
+def _reference_train(inputs):
+    """The reference's two steps (``test_torch_train._Ref``: its loss and
+    gradients, optax's update, the EMA): [(loss, grad norm)] and its state
+    after them in the port's layout."""
+    from test_torch_train import trees as train_trees
+
+    _, jtree = train_trees(t_config.TINY)
+    ref_ = _Ref(jtree["unet"], R.TRAIN_LR, lora=False)
+    jbatch = {k: jnp.asarray(inputs[f"train/{k}"])
+              for k in ("tokens", "latents")}
+    steps = [ref_.step(_train_frozen(jtree), jbatch,
+                       jax.random.PRNGKey(key))[:2] for key in TRAIN_KEYS]
+    return steps, ref_.expect()
 
 
 def _reference_anchors(refmod, j_uncond, inputs):
@@ -339,10 +411,14 @@ def _reference_anchors(refmod, j_uncond, inputs):
 
 
 @pytest.fixture(scope="module")
-def worlds(ref, tmp_path_factory):
-    """Start the gloo worlds, compute the reference's anchors while they
-    run, and collect every rank's results: {"w2": [rank 0, rank 1], "w4":
-    [...], "anchors": {...}}."""
+def worlds(request, tmp_path_factory):
+    """Start the gloo worlds, compute the reference's results while they
+    run, and collect every rank's results: {"w1": [the single cases],
+    "w2": [rank 0, rank 1], "w4":
+    [...], "anchors": {...}, "spatial": {...}, "train": ...}. The train
+    step's reference runs first: its jit traces the reference's
+    ``jax.random.normal`` and models, which the pipeline's ``ref`` fixture
+    then replaces for the module."""
     d = tmp_path_factory.mktemp("mesh")
     inputs, j_uncond = _anchor_inputs()
     np.savez(d / "inputs.npz", **inputs)
@@ -352,7 +428,7 @@ def worlds(ref, tmp_path_factory):
                    [str(ROOT)] + ([os.environ["PYTHONPATH"]]
                                   if os.environ.get("PYTHONPATH") else [])))
     procs = []
-    for world in WORLDS:
+    for world in (1, *WORLDS):
         for rank in range(world):
             log = open(d / f"w{world}_r{rank}.log", "w")
             procs.append((world, rank, log, subprocess.Popen(
@@ -360,7 +436,10 @@ def worlds(ref, tmp_path_factory):
                  str(world), str(rank), str(d)], cwd=ROOT, env=env,
                 stdout=log, stderr=subprocess.STDOUT)))
     try:
+        train_ref = _reference_train(inputs)
+        ref = request.getfixturevalue("ref")
         anchors = _reference_anchors(ref, j_uncond, inputs)
+        spatial_refs = _reference_spatial(ref, j_uncond, inputs, anchors)
         deadline = time.perf_counter() + RANK_TIMEOUT_S
         for *_, p in procs:
             p.wait(timeout=max(1.0, deadline - time.perf_counter()))
@@ -370,7 +449,7 @@ def worlds(ref, tmp_path_factory):
                 p.kill()
                 p.wait()
             log.close()
-    out = {"anchors": anchors}
+    out = {"anchors": anchors, "spatial": spatial_refs, "train": train_ref}
     for world, rank, _, p in procs:
         text = (d / f"w{world}_r{rank}.log").read_text()
         assert p.returncode == 0, f"world {world} rank {rank}:\n{text[-3000:]}"
@@ -387,7 +466,8 @@ def _ranks(worlds, mesh):
 CASES = ["generate", "generate_negative", "generate_async", "generate_batch",
          "scheduled", "weighted", "img2img", "inpaint", "img2img_batch",
          "inpaint_batch", "hires_fix", "two_stage_base", "two_stage",
-         "controlnet", "lora", "pin", "xl", "concat_inpaint9", "ip2p"]
+         "controlnet", "lora", "pin", "xl", "concat_inpaint9", "ip2p",
+         "stream"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -397,7 +477,7 @@ def test_mesh_serves_as_one_device(worlds, mesh, case):
     a Context without one (float32 latents within 1e-4 of its max-abs);
     every rank returns the same whole batch."""
     ranks = _ranks(worlds, mesh)
-    single = worlds["w2"][0][f"single/{case}"]
+    single = worlds["w1"][0][f"single/{case}"]
     got = [r[f"{mesh}/{case}"] for r in ranks]
     for g in got[1:]:
         np.testing.assert_array_equal(g, got[0])
@@ -437,11 +517,15 @@ def test_indivisible_batch_is_refused_with_the_references_text(worlds, mesh):
 
 @pytest.mark.parametrize("mesh", MESHES)
 def test_stream_pool_is_refused_on_a_mesh(worlds, mesh):
-    """The stream pool ticks on one rank, where a mesh's ranks serve
-    together: refused naming the slice that ports it."""
+    """The stream pool is no longer refused on a mesh: every rank ticks the
+    same pool, and each request's image is within 1 uint8 LSB of the same
+    request through ``generate_batch`` on that mesh (the pool's contract,
+    ``engine/stream.py``)."""
     for rank in _ranks(worlds, mesh):
-        assert str(rank[f"{mesh}/stream/error"]) == (
-            "the stream pool on a mesh is not ported yet (ROADMAP item 23b)")
+        pool = rank[f"{mesh}/stream"].astype(int)
+        batch = rank[f"{mesh}/stream_batch"].astype(int)
+        assert pool.shape == batch.shape
+        assert np.abs(pool - batch).max() <= 1
 
 
 @pytest.mark.parametrize("data,model", [(2, 2), (1, 2), (2, 1)])
@@ -547,3 +631,325 @@ def test_dataclass_config_reaches_the_plan():
     at4_tiny = t_sharding.site_plan(tree, 4, t_config.TINY)
     assert any(p[-1] == "out" for p in at4 if p[0] == "unet")
     assert not any(p[-1] == "out" for p in at4_tiny if p[0] == "unet")
+
+
+# ---------------------------------------------------------------------------
+# the train step, the spatial partition and serve --mesh
+# ---------------------------------------------------------------------------
+
+TRAIN_MESHES = ["1x2", "2x1", "2x2"]
+SPATIAL_MESHES = ["1x2", "2x2"]
+#: the train step's loss against the reference's (tests/test_train.py:100)
+TRAIN_LOSS_RTOL = 2e-5
+
+
+def _coords(worlds, mesh):
+    """[(rank's results, (data, model) coordinates)] of a mesh's ranks."""
+    model = int(mesh.split("x")[1])
+    return [(r, (i // model, i % model))
+            for i, r in enumerate(_ranks(worlds, mesh))]
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+def test_mesh_train_step_matches_the_reference(worlds, mesh):
+    """Two steps of ``make_train_step(..., mesh=, plan=)`` on each rank's
+    split tree, every rank handed the whole batch and the reference's
+    draws, against the reference's single-device step: the loss within
+    ``TRAIN_LOSS_RTOL`` and the grad norm (the logical tree's) within
+    ``test_torch_train.GRAD_TOL`` each step; after the second, the
+    gathered params, AdamW moments and EMA within
+    ``test_torch_train._check_state``'s bounds, the same on every rank."""
+    steps, want = worlds["train"]
+    for rank, _ in _coords(worlds, mesh):
+        for i, (jloss, jnorm) in enumerate(steps):
+            np.testing.assert_allclose(rank[f"{mesh}/train/{i}/loss"], jloss,
+                                       rtol=TRAIN_LOSS_RTOL)
+            np.testing.assert_allclose(rank[f"{mesh}/train/{i}/grad_norm"],
+                                       jnorm, rtol=1e-4)
+
+        def flat(name):
+            pre = f"{mesh}/train/{name}/"
+            return {k[len(pre):]: torch.from_numpy(v) for k, v in rank.items()
+                    if k.startswith(pre)}
+
+        state = types.SimpleNamespace(
+            params=flat("params"), ema=flat("ema"), opt_state={
+                "count": torch.tensor(R.TRAIN_STEPS), "mu": flat("mu"),
+                "nu": flat("nu")})
+        _check_state(state, want, _end_to_end(R.TRAIN_LR, R.TRAIN_STEPS),
+                     drift=True)
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+def test_mesh_train_backward_in_another_thread(worlds, mesh):
+    """The gradients of a loss on the mesh are the same bits when the
+    backward runs in a thread that does not see the call's mesh (as
+    autograd's device thread runs a CUDA backward): the collectives'
+    backward carries its mesh from the forward."""
+    for rank in _ranks(worlds, mesh):
+        assert bool(rank[f"{mesh}/train/thread_grads_equal"])
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+def test_mesh_train_keeps_replicated_leaves_the_same_bits(worlds, mesh):
+    """After the update every leaf a data group shares is the same bytes on
+    its ranks, and every leaf the plan does not split is the same bytes on
+    the ranks of a model group; split leaves differ there."""
+    ranks = _coords(worlds, mesh)
+    split = set(ranks[0][0][f"{mesh}/train/split"].tolist())
+    model = int(mesh.split("x")[1])
+    assert bool(split) == (model > 1)
+    keys = [t_step.flat_key(p)
+            for p, _ in t_step.leaves(trees("tiny")[1]["unet"])]
+    for a, ca in ranks:
+        for b, cb in ranks:
+            da, db = (r[f"{mesh}/train/digests"] for r in (a, b))
+            if ca[1] == cb[1]:
+                np.testing.assert_array_equal(da, db)
+            elif ca[0] == cb[0]:
+                for k, x, y in zip(keys, da, db):
+                    assert (x == y) == (k not in split), k
+
+
+def test_global_norm_counts_a_replicated_leaf_once(worlds):
+    """``global_norm`` at m = 2 of a replicated leaf (ones [3] on both
+    ranks) and a split one (halves of arange(4)): sqrt(3 + 14), where
+    all-reducing every sum of squares would give sqrt(2 * 3 + 14)."""
+    for rank in _ranks(worlds, "1x2"):
+        got = float(rank["1x2/global_norm"])
+        assert got == pytest.approx(np.sqrt(17.0), rel=1e-6)
+        assert got != pytest.approx(np.sqrt(20.0), rel=1e-3)
+
+
+def _train_pin(data, model):
+    """A rank's collectives a train step at TINY: at m > 1 each row site's
+    all-reduce forward and its column input's backward (21 each), CLIP's
+    4, the global norm's 1, the time table's gather; at d > 1 one gradient
+    bucket and the loss."""
+    per_eval, per_encode, per_table = _plan_counts(model)
+    want = dict.fromkeys(collectives.COLLECTIVES, 0)
+    if model > 1:
+        want["all-reduce"] = 2 * per_eval + per_encode + 1
+        want["all-gather"] = per_table
+    if data > 1:
+        want["all-reduce"] += len(collectives.buckets(
+            [t.numel() for _, t in t_step.leaves(trees("tiny")[1]["unet"])]
+        )) + 1
+    return want
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+def test_mesh_train_collectives_are_the_plans(worlds, mesh):
+    """Each rank's collectives in each train step (``_train_pin``): at
+    (1, 2) 47 all-reduces and 1 all-gather, at (2, 1) 2 all-reduces."""
+    data, model = (int(v) for v in mesh.split("x"))
+    want = _train_pin(data, model)
+    if (data, model) == (1, 2):
+        assert want["all-reduce"] == 47 and want["all-gather"] == 1
+    for rank in _ranks(worlds, mesh):
+        for i in range(R.TRAIN_STEPS):
+            got = dict(zip(collectives.COLLECTIVES,
+                           rank[f"{mesh}/train/{i}/counts"].tolist()))
+            assert got == want
+
+
+def _spatial_eval_counts(u, lat, m):
+    """A rank's all-gathers and collective-permutes in one UNet eval of
+    config ``u`` at a ``lat``-wide latent under the spatial partition at
+    m, from the UNet's structure and ``spatial.tiles``' rule: a halo (two
+    permutes) a 3x3 conv on a slice, a GroupNorm's statistics (one
+    gather) on a slice, a transformer's plane (one gather), a slice
+    gathered where a level stops tiling or a down conv's slice is odd, the
+    output (one gather)."""
+    def tiles(w):
+        return w % m == 0 and w // m >= 2
+
+    n = {"ag": 0, "perm": 0}
+    st = {"w": lat, "sp": tiles(lat)}
+
+    def conv3():
+        n["perm"] += 2 * st["sp"]
+
+    def res():
+        n["ag"] += 2 * st["sp"]
+        n["perm"] += 4 * st["sp"]
+
+    def transformer():
+        n["ag"] += st["sp"]
+
+    last = len(u.channel_mult) - 1
+    conv3()
+    for lvl in range(last + 1):
+        for _ in range(u.num_res_blocks):
+            res()
+            if lvl in u.attn_levels:
+                transformer()
+        if lvl != last:
+            if st["sp"] and (st["w"] // m) % 2:
+                n["ag"] += 1
+                st["sp"] = False
+            conv3()
+            st["w"] = (st["w"] + 1) // 2
+            if st["sp"] and not tiles(st["w"]):
+                n["ag"] += 1
+            st["sp"] = tiles(st["w"])
+    res()
+    transformer()
+    res()
+    for lvl in reversed(range(last + 1)):
+        for _ in range(u.num_res_blocks + 1):
+            res()
+            if lvl in u.attn_levels:
+                transformer()
+        if lvl:
+            st["w"] *= 2
+            st["sp"] = tiles(st["w"])
+            conv3()
+    n["ag"] += 2 * st["sp"]
+    conv3()
+    return n["ag"], n["perm"]
+
+
+@pytest.mark.parametrize("lat", sorted(R.SPATIAL))
+@pytest.mark.parametrize("mesh", SPATIAL_MESHES)
+def test_spatial_collectives_are_the_rule(worlds, mesh, lat):
+    """One UNet eval under the spatial partition: the row sites'
+    all-reduces (21), and the all-gathers and collective-permutes of
+    ``_spatial_eval_counts``: at latent 8, 25 and 40; at 6, where the
+    3-wide level stays whole, fewer."""
+    model = int(mesh.split("x")[1])
+    ag, perm = _spatial_eval_counts(t_config.TINY.unet, lat, model)
+    if lat == 8:
+        assert (ag, perm) == (25, 40)
+    want = dict.fromkeys(collectives.COLLECTIVES, 0)
+    want.update({"all-reduce": _plan_counts(model)[0], "all-gather": ag,
+                 "collective-permute": perm})
+    for rank in _ranks(worlds, mesh):
+        got = dict(zip(collectives.COLLECTIVES,
+                       rank[f"{mesh}/spatial_{lat}/eval/counts"].tolist()))
+        assert got == want
+
+
+SPATIAL_CASES = [(lat, k) for lat, ks in sorted(R.SPATIAL.items())
+                 for k in ks]
+
+
+@pytest.mark.parametrize("lat,kernels", SPATIAL_CASES)
+@pytest.mark.parametrize("mesh", SPATIAL_MESHES)
+def test_spatial_matches_jax(worlds, mesh, lat, kernels):
+    """``generate_sharded(..., spatial=True)`` on each rank's split tree
+    with the reference's draws, against the reference's single-device
+    ``generate``: latents within 1e-4 of its max-abs, the images within 1
+    uint8 LSB (``tests/test_parallel.py:179``); every rank the same
+    bytes."""
+    j_lat, j_img = worlds["spatial"][lat]
+    imgs = []
+    for rank in _ranks(worlds, mesh):
+        assert_close(rank[f"{mesh}/spatial_{lat}/{kernels}/latent"], j_lat)
+        img = rank[f"{mesh}/spatial_{lat}/{kernels}/image"]
+        assert img.dtype == np.uint8 and img.shape == j_img.shape
+        assert np.abs(img.astype(int) - j_img.astype(int)).max() <= 1
+        imgs.append(img)
+    for img in imgs[1:]:
+        np.testing.assert_array_equal(img, imgs[0])
+
+
+def test_spatial_rule_is_the_references():
+    """``spatial.tiles`` is the reference's ``constrain`` rule: split
+    where W % m == 0 and W // m >= 2; nothing is split with the spec off or
+    at m = 1."""
+    from sdtpu_torch.parallel import spatial
+
+    src = (ROOT / "sdtpu" / "parallel" / "spatial.py").read_text()
+    assert "x.shape[2] % n or x.shape[2] // n < 2" in src
+    assert spatial.parts() == 1 and not spatial.tiles(64)
+    for m, w, want in ((2, 64, True), (2, 2, False), (2, 4, True),
+                       (4, 4, False), (2, 3, False), (4, 8, True)):
+        with spatial.use(t_mesh.Mesh(1, m, 0)):
+            assert spatial.tiles(w) == want, (m, w)
+    with spatial.use(t_mesh.Mesh(2, 1, 0)):
+        assert not spatial.tiles(64)
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read()
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """``python -m sdtpu_torch.cli serve --mesh 1,2`` as a user starts it
+    (it starts its follower itself), two requests (/generate through the
+    pool, /img2img through the micro-batcher), then SIGINT to the server:
+    -> (the two raw answers, the server's exit code, whether any process
+    of its session is left)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + ([os.environ["PYTHONPATH"]]
+                                  if os.environ.get("PYTHONPATH") else [])))
+    p = subprocess.Popen(
+        [sys.executable, "-m", "sdtpu_torch.cli", "serve", "--config",
+         "tiny", "--steps", str(R.SERVE_STEPS), "--platform", "cpu",
+         "--port", "0", "--mesh", "1,2", "--stream-slots", "2"],
+        cwd=tmp_path_factory.mktemp("serve"), env=env,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    lines, ready = [], threading.Event()
+
+    def read():
+        for line in p.stderr:
+            lines.append(line)
+            if "serving on http://" in line:
+                ready.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        assert ready.wait(RANK_TIMEOUT_S), "".join(lines)[-3000:]
+        url = next(ln for ln in lines if "serving on http://" in ln).split(
+            "serving on ")[1].split()[0]
+        buf = io.BytesIO()
+        Image.fromarray(R.serve_image(t_config.TINY.image_size)).save(
+            buf, format="PNG")
+        gen = _post(f"{url}/generate", {**R.SERVE_GENERATE, "format": "raw"})
+        i2i = _post(f"{url}/img2img", {
+            **R.SERVE_IMG2IMG, "strength": R.SERVE_STRENGTH, "format": "raw",
+            "image_b64": base64.b64encode(buf.getvalue()).decode()})
+        os.kill(p.pid, signal.SIGINT)
+        rc = p.wait(timeout=120)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    try:
+        os.killpg(p.pid, 0)
+        left = True
+    except ProcessLookupError:
+        left = False
+    return gen, i2i, rc, left, "".join(lines)
+
+
+def test_serve_mesh_answers_as_the_context(worlds, served):
+    """``serve --mesh 1,2``'s answers are the bytes of the same requests on
+    ``Context(mesh=(1, 2))`` (the pool's and ``img2img_batch``'s), on both
+    ranks of the worker world; the server exits 0 on SIGINT, its follower
+    with it."""
+    gen, i2i, rc, left, log = served
+    size = t_config.TINY.image_size
+    for rank in _ranks(worlds, "1x2"):
+        for got, case in ((gen, "serve_generate"), (i2i, "serve_img2img")):
+            want = rank[f"1x2/{case}"]
+            assert want.shape == (size, size, 3)
+            np.testing.assert_array_equal(
+                np.frombuffer(got, np.uint8).reshape(want.shape), want)
+    # and the mesh's answer is the one device's within 1 LSB
+    single = worlds["w1"][0]["single/serve_generate"].astype(int)
+    assert np.abs(np.frombuffer(gen, np.uint8).reshape(single.shape)
+                  - single).max() <= 1
+    assert rc == 0, log[-3000:]
+    assert not left

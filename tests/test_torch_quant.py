@@ -548,9 +548,54 @@ def _unet_inputs(size):
             _rand(2, 16, 32, seed=33))
 
 
+_RANGES = {}
+
+
+def _static_ranges(unet_tree, inputs):
+    """{path of a W8A8 site: the absmax of its activations} in the JAX
+    package's UNet on ``inputs`` (its calibration recorder), from one jit at
+    XLA's backend optimization level 0 (the same arithmetic; op by op the
+    run took some 30 s), made once: both static-scale cases read it."""
+    if "unet" not in _RANGES:
+        paths = []
+
+        def ranges(tree, *xs):
+            site = {}
+
+            def walk(node, path=()):
+                if isinstance(node, dict):
+                    if "w_q" in node:
+                        site[id(node["w_q"])] = path
+                    for k, v in node.items():
+                        walk(v, path + (k,))
+                elif isinstance(node, list):
+                    for i, v in enumerate(node):
+                        walk(v, path + (i,))
+
+            walk(tree)
+            got = {}
+            prev = j_layers.set_calibration_recorder(
+                lambda w, a: got.__setitem__(site[id(w)], a))
+            try:
+                j_unet.apply(tree, *xs, TINY_J.unet)
+            finally:
+                j_layers.set_calibration_recorder(prev)
+            paths.extend(got)
+            return list(got.values())
+
+        got = jax.jit(ranges, compiler_options={
+            "xla_backend_optimization_level": 0})(
+            unet_tree, *(jnp.asarray(a) for a in inputs))
+        _RANGES["unet"] = {p: np.asarray(v) for p, v in zip(paths, got)}
+    return _RANGES["unet"]
+
+
 def _jax_unet(tree, inputs, kernels):
+    """The JAX package's UNet, jitted at XLA's backend optimization level 0
+    (the same arithmetic, compiled in a fraction of the time)."""
     return jax.jit(functools.partial(j_unet.apply, cfg=TINY_J.unet,
-                                     kernels=kernels))(
+                                     kernels=kernels), compiler_options={
+        "xla_backend_optimization_level": 0})(
         tree, *(jnp.asarray(a) for a in inputs))
 
 
@@ -586,26 +631,19 @@ def test_unet_matches_jax_under_quantization(monkeypatch, pallas, calls,
         jq = j_ptq.quantize_unet(jtree)
         if mode != "int8":
             # a static scale per site: the site's range on these inputs
-            ranges = {}
-            prev = j_layers.set_calibration_recorder(
-                lambda w, a: ranges.__setitem__(id(w), a))
-            try:
-                j_unet.apply(jq["unet"], *(jnp.asarray(a) for a in inputs),
-                             TINY_J.unet)
-            finally:
-                j_layers.set_calibration_recorder(prev)
+            ranges = _static_ranges(jq["unet"], inputs)
 
-            def bake(node):
+            def bake(node, path=()):
                 if isinstance(node, dict):
                     if "w_q" in node:
                         return {**node, "x_scale": np.float32(
-                            ranges[id(node["w_q"])]) / np.float32(127.0)}
-                    return {k: bake(v) for k, v in node.items()}
+                            ranges[path]) / np.float32(127.0)}
+                    return {k: bake(v, path + (k,)) for k, v in node.items()}
                 if isinstance(node, list):
-                    return [bake(v) for v in node]
+                    return [bake(v, path + (i,)) for i, v in enumerate(node)]
                 return node
 
-            jq = bake(jq)
+            jq["unet"] = bake(jq["unet"])
     if mode == "int8_static_k5":
         for mod in (j_mm, t_mm):
             monkeypatch.setattr(mod, "KERNEL_W8A8", True)

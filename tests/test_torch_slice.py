@@ -44,6 +44,12 @@ from sdtpu_torch.samplers import dpm as t_dpm
 from sdtpu_torch.samplers.schedule import NoiseSchedule as TNoiseSchedule
 from sdtpu_torch.tokenizer import DEMO_MERGES, Tokenizer
 
+
+#: XLA:CPU compiles at backend optimization level 0: the same arithmetic,
+#: compiled in a fraction of the time
+_jit = functools.partial(
+    jax.jit, compiler_options={"xla_backend_optimization_level": 0})
+
 TINY_J, TINY_T = j_config.TINY, t_config.TINY
 PROMPT = "a photograph of an astronaut riding a horse"
 
@@ -208,7 +214,7 @@ def test_clip_matches_jax(trees):
     jtree, ttree = trees
     tok = np.random.default_rng(0).integers(
         0, TINY_J.clip.vocab_size, (2, TINY_J.clip.context_len))
-    ref = jax.jit(functools.partial(j_clip.apply, cfg=TINY_J.clip))(
+    ref = _jit(functools.partial(j_clip.apply, cfg=TINY_J.clip))(
         jtree["clip"], jnp.asarray(tok, jnp.int32))
     ours = t_clip.apply(ttree["clip"], torch.from_numpy(tok), TINY_T.clip)
     assert_close(ours, ref)
@@ -218,7 +224,7 @@ def test_unet_matches_jax(trees):
     jtree, ttree = trees
     x, te = _rand(2, 8, 8, 4, seed=1), _rand(2, 64, seed=2)
     ctx = _rand(2, 16, 32, seed=3)
-    ref = jax.jit(functools.partial(j_unet.apply, cfg=TINY_J.unet))(
+    ref = _jit(functools.partial(j_unet.apply, cfg=TINY_J.unet))(
         jtree["unet"], jnp.asarray(x), jnp.asarray(te), jnp.asarray(ctx))
     for kernels in ("plain", "cuda"):   # "cuda" on CPU tensors: plain too
         ours = t_unet.apply(ttree["unet"], _t(x), _t(te), _t(ctx),
@@ -229,7 +235,7 @@ def test_unet_matches_jax(trees):
 def test_vae_matches_jax(trees):
     jtree, ttree = trees
     z = _rand(1, 8, 8, 4, seed=4)
-    ref = jax.jit(functools.partial(j_vae.apply, cfg=TINY_J.vae))(
+    ref = _jit(functools.partial(j_vae.apply, cfg=TINY_J.vae))(
         jtree["vae"], jnp.asarray(z))
     assert_close(t_vae.apply(ttree["vae"], _t(z), TINY_T.vae), ref)
 
@@ -290,14 +296,14 @@ def test_generate_matches_jax(trees):
     tok = JTokenizer.from_merges(J_DEMO_MERGES)
     L = TINY_J.clip.context_len
     jtok = jnp.asarray([tok.tokenize(PROMPT, L)], jnp.int32)
-    j_unc = jax.jit(functools.partial(j_pipeline.encode_text, cfg=TINY_J))(
+    j_unc = _jit(functools.partial(j_pipeline.encode_text, cfg=TINY_J))(
         jtree, jnp.asarray([tok.tokenize("", L)], jnp.int32))[0]
-    j_gen = jax.jit(functools.partial(
+    j_gen = _jit(functools.partial(
         j_pipeline.generate, cfg=TINY_J, sampler="dpm", steps=steps,
         kernels="xla", output="latent"))
     key = jax.random.PRNGKey(seed)
     j_lat = j_gen(jtree, jtok, j_unc, key, jnp.float32(guidance))
-    j_img = np.asarray(jax.jit(functools.partial(
+    j_img = np.asarray(_jit(functools.partial(
         j_pipeline.decode_latents, cfg=TINY_J))(jtree, j_lat))
     shape = (1, TINY_J.latent_size, TINY_J.latent_size,
              TINY_J.latent_channels)

@@ -226,7 +226,7 @@ def test_attention_grad_matches_jax(monkeypatch):
     def f(q, k, v):
         return jnp.sum(j_attn.flash_attention(q, k, v, heads) * do)
 
-    ref = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(q, k, v)
+    ref = _jit(jax.grad(f, argnums=(0, 1, 2)))(q, k, v)
     j_attn._flash_mha.clear_cache()
     ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
     out = t_attn.flash_attention(*ts, heads)
