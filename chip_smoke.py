@@ -93,7 +93,7 @@ Phases, each printing one JSON object per line:
    bytes), a scheduled prompt, a degenerate schedule (the plain prompt's
    bytes). The files are deleted after it;
 14. families: the SD 2.x and SDXL configurations at full width with demo
-   weights, ``FAMILY_STEPS`` (4) DPM-Solver++(2M) steps, CFG 7.5, batch 1,
+   weights, ``FAMILY_STEPS`` (2) DPM-Solver++(2M) steps, CFG 7.5, batch 1,
    bf16 (the SD1.5
    Contexts released first). ``sdxl`` at 1024x1024: one image under plain,
    cuda, cuda_gn and cuda_conv on one Context, then on a Context each
@@ -294,6 +294,20 @@ Phases, each printing one JSON object per line:
    /generate through its pool and an /img2img through its micro-batcher,
    each the
    bytes of ``Context(mesh=(1, 2))``, its processes gone after SIGINT.
+   Since ROADMAP item 24 the ranks also load the checkpoint files of
+   ``checkpoint`` on the mesh: a ``Context(model_dir=<native>, mesh=)``
+   at (1, 2) (each rank reads only its slices, ``io.checkpoint``) gives
+   the demo-weights (1, 2) Context's bytes, launches and collectives under
+   cuda, cuda_gn and cuda_conv, and at (2, 1) under cuda, ``MESH_PINNED``
+   under cuda; each rank's peak allocated memory over the sliced load is
+   at most its shard, its largest leaf and ``MESH_LOAD_SLACK`` and below
+   the whole-then-shard load of the LDM file. The (1, 2) train arm saves
+   its state on the mesh (``save_train_state``: the logical file, rank 0
+   writing) and reloads it at (2, 1) and on one device, each the gathered
+   state's fingerprints, and one more step from the state reloaded at
+   (1, 2) gives the bits of that step from the state in memory; a (1, 2)
+   arm with remat (ROADMAP item 23c) holds its gradients within
+   ``MODEL_FACTOR`` of the arm without, K1 twice a step.
    Last, on a quiet card: K1 with its log-sum-exp and K1-bwd at a rank's
    training shapes (``MESH_TRAIN_FLASH_SHAPES``), K2's partial mode and
    its normalising and statistics modes from handed-in statistics at the
@@ -319,6 +333,7 @@ Without a CUDA card it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import atexit
 import base64
 import contextlib
 import ctypes
@@ -559,8 +574,8 @@ BATCH_PINNED = {
 }
 # the families phase (sd21 768x768 v-prediction, sd21base 512x512, sdxl
 # 1024x1024), FAMILY_STEPS steps (10 since the mesh phase joined, 4 since
-# its train, spatial and serve arms did: the whole run stays well inside its
-# 1,200 s), batch 1: launches
+# its train, spatial and serve arms did, 2 since its checkpoint arms did:
+# the whole run stays inside its 1,200 s on a slow host), batch 1: launches
 # per image of each kernel under
 # each mode, derived from the rules at every site of the full-width UNet
 # and VAE (tests/test_torch_hopper.py::test_family_pins_are_the_rules):
@@ -578,7 +593,7 @@ BATCH_PINNED = {
 #   int8 + K5: the n >= m sites: SDXL ff1 (N = 10,240 >= M = 2,048) and
 #     attn2 k, v (154 rows) of the 60 blocks at 32x32, attn2 k, v of the 10
 #     at 64x64: 200 an eval, of which 140 split K
-FAMILY_STEPS = 4
+FAMILY_STEPS = 2
 
 
 def family_pins(flash, **launches):
@@ -688,7 +703,7 @@ IMAGE_PINNED = {
 #     K1 (cross-only attn1 at levels 1 and 2, 256 tokens at level 3 and the
 #     mid block); its f4 VAE's mid block at 16,384 tokens does
 LCM_STEPS = 4
-STAGE_STEPS = 10
+STAGE_STEPS = 5
 STAGE_END = 0.8
 STAGE_SPLIT = round(STAGE_STEPS * STAGE_END)
 #: call -> (configuration, UNet batch, UNet evals, decodes)
@@ -812,29 +827,51 @@ MM_RAGGED = [(300, 336, 130, True), (100, 48, 72, False), (33, 16, 7, True),
 
 
 START = time.perf_counter()
+#: {phase: seconds}: the time up to each line is its phase's (``emit``)
+PHASE_SECONDS: dict = {}
+_LAST_EMIT = [START]
 
 
 def emit(obj) -> None:
     """One JSON line on stdout; the seconds since the start and the phase on
-    stderr, where a run's time goes."""
+    stderr, where a run's time goes. The seconds since the line before go
+    to this line's phase in ``PHASE_SECONDS``."""
     print(json.dumps(obj), flush=True)
-    print(f"[{time.perf_counter() - START:7.1f} s] {obj.get('phase')}",
-          file=sys.stderr, flush=True)
+    now = time.perf_counter()
+    phase = str(obj.get("phase"))
+    PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + now - _LAST_EMIT[0]
+    _LAST_EMIT[0] = now
+    print(f"[{now - START:7.1f} s] {phase}", file=sys.stderr, flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, replays: int = 5) -> float:
+#: a call at least this long (ms) is timed from graph replays of one call
+#: (the kernels line's K1 and K1-bwd rows carry the time by both rules)
+LONG_CALL_MS = 2.0
+
+
+def cuda_ms(fn, reps: int = 10, replays: int = 5,
+            long_once: bool = True) -> float:
     """Device time of one call of ``fn``, in ms: ``reps`` calls captured in
     a CUDA graph after two warm-up calls, the graph replayed ``replays``
     times between two CUDA events. The host's launch cost is not in the
     number (a call of a few small kernels takes longer to enqueue than to
     run), so it compares what the card does for a kernel and for the
-    kernels it replaces."""
+    kernels it replaces. With ``long_once``, a call whose second warm-up
+    takes ``LONG_CALL_MS`` or more (a plain version at a large shape) is
+    captured once: its replays alone average out its noise."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    first = torch.cuda.Event(enable_timing=True)
+    second = torch.cuda.Event(enable_timing=True)
     with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
+        fn()
+        first.record()
+        fn()
+        second.record()
     torch.cuda.current_stream().wait_stream(side)
+    second.synchronize()
+    if long_once and first.elapsed_time(second) >= LONG_CALL_MS:
+        reps = 1
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -1015,6 +1052,11 @@ def phase_kernel(shapes=SHAPES, ragged=FLASH_RAGGED, label="kernel",
                "bound_by": bound_by, "tflops": flop / ms / 1e9}
         if main:
             row["plain_ms"] = cuda_ms(lambda: flash_plain(q, k, v, heads))
+            if label == "kernel":
+                # the main rows' plain time also by the rule before
+                # LONG_CALL_MS: ten calls a graph
+                row["plain_ms_ten_a_graph"] = cuda_ms(
+                    lambda: flash_plain(q, k, v, heads), long_once=False)
             row["plain_chunks"] = flash_plain_chunks(b, sq, sk, heads)
             row["plain_tflops"] = flop / row["plain_ms"] / 1e9
         if per_image is not None:
@@ -2829,9 +2871,9 @@ def phase_families(smi):
 #   flash: 10 an eval and the VAE's mid block. ToMe 0.5 merges the five
 #     64x64 self-attentions to 2,048 tokens (still the kernel); ToMe 0.3
 #     to 2,868 (not a multiple of 128: the plain path), 5 an eval left.
-#     DeepCache 3 runs full evals at steps 0, 3, 6 and shallow ones (the
-#     64x64 level's 2 down and 3 up transformers, its 6 + 9 fused convs)
-#     at the other 5. PAG at ("mid",) adds an eval of the cond rows a step
+#     DeepCache 3 runs full evals at steps 0, 3 (and 6 at 8 steps) and
+#     shallow ones (the 64x64 level's 2 down and 3 up transformers, its
+#     6 + 9 fused convs) at the others. PAG at ("mid",) adds an eval of the cond rows a step
 #     (10 more), at ("down", "up") one whose self-attentions are identity
 #     (none); the interval's unguided steps run the cond rows alone (10);
 #     size=768 takes the 96^2 and 48^2 levels (9,216 and 2,304 tokens) and
@@ -2840,7 +2882,7 @@ def phase_families(smi):
 #     226 of the perturbed one (the mid block's q and k skipped), 301 of
 #     them a step splitting K (ToMe halves M at the 64x64 attn1 sites, the
 #     batch-1 eval everywhere)
-KNOB_STEPS = 8
+KNOB_STEPS = 4
 KNOB_SEED = 37
 #: label -> (Context keywords, generate keywords, mode). tome_ratio and
 #: deepcache alone are set on the shared Context of the mode
@@ -2863,11 +2905,16 @@ KNOB_ARMS = {
 }
 KNOB_SETTABLE = ("tome_ratio", "deepcache")
 KNOB_FLASH = 10 * KNOB_STEPS + 1
+# K1 in a DeepCache shallow eval; DeepCache 3 runs the full UNet at every
+# third step from the first, the shallow one at the others
 KNOB_SHALLOW = 5
+KNOB_DEEP_FULL = len(range(0, KNOB_STEPS, 3))
+KNOB_DEEP_SHALLOW = KNOB_STEPS - KNOB_DEEP_FULL
 KNOBS_PINNED = {
     "tome_0.5": pins(flash=KNOB_FLASH),
     "tome_0.3": pins(flash=5 * KNOB_STEPS + 1),
-    "deepcache_3": pins(flash=10 * 3 + 5 * KNOB_SHALLOW + 1),
+    "deepcache_3": pins(flash=10 * KNOB_DEEP_FULL
+                        + KNOB_SHALLOW * KNOB_DEEP_SHALLOW + 1),
     "pag_mid": pins(flash=20 * KNOB_STEPS + 1),
     "pag_down_up": pins(flash=KNOB_FLASH),
     "cfg_interval": pins(flash=KNOB_FLASH),
@@ -2875,9 +2922,10 @@ KNOBS_PINNED = {
     "freeu": pins(flash=KNOB_FLASH),
     "size_768": pins(flash=KNOB_FLASH),
     "fuse_qkv": pins(flash=KNOB_FLASH),
-    "deepcache_3_cuda_conv": pins(flash=10 * 3 + 5 * KNOB_SHALLOW + 1,
-                                  group_norm_affine=60 * 3 + 15 * 5 + 28,
-                                  conv=60 * 3 + 15 * 5 + 28),
+    "deepcache_3_cuda_conv": pins(
+        flash=10 * KNOB_DEEP_FULL + KNOB_SHALLOW * KNOB_DEEP_SHALLOW + 1,
+        group_norm_affine=60 * KNOB_DEEP_FULL + 15 * KNOB_DEEP_SHALLOW + 28,
+        conv=60 * KNOB_DEEP_FULL + 15 * KNOB_DEEP_SHALLOW + 28),
     "tome_pag_int8w_dense": pins(flash=20 * KNOB_STEPS + 1,
                                  matmul_int8w=(228 + 226) * KNOB_STEPS,
                                  matmul_int8w_sum=301 * KNOB_STEPS),
@@ -2906,7 +2954,7 @@ KNOB_AB = ("off", "tome_0.5", "deepcache_3", "cfg_interval")
 #   SDXL at 1024^2, ADAPTER_XL_STEPS steps: its ControlNet's 4 self-attentions
 #     at 4,096 tokens (level 1, depth 2) and 30 at 1,024 (level 2 and the mid
 #     block, depth 10) beside the UNet's 70: 104 an eval
-ADAPTER_STEPS = 8
+ADAPTER_STEPS = 4
 ADAPTER_XL_STEPS = 4
 ADAPTER_SEED = 43
 ADAPTER_RANK = 16
@@ -2949,12 +2997,13 @@ def _lora_pins(mode, adapted=16):
                 matmul_w8a8_sum=MM_W8A8_SUMS_PER_EVAL * ADAPTER_STEPS)}[mode]
 
 
-# K1 at 8 steps: 113 with a ControlNet (10 + 4 an eval and the decoder's
-# mid block), 145 with two, 81 with a LoRA; K2 704 (88 an eval) with a
-# ControlNet under cuda_gn; K3 724 (87 an eval and the decoder's 28) with
-# one under cuda_conv, 636 (76 an eval) with the LoRA, 988 (120) with the
-# LoCon; K4 1,824 under int8w_dense either way; K5 680 with the LoRA;
-# SDXL with a ControlNet at 4 steps K1 417 ((70 + 34) an eval + 1)
+# K1 at ADAPTER_STEPS (4; 8 before the mesh's checkpoint arms): 57 with a
+# ControlNet (10 + 4 an eval and the decoder's mid block), 73 with two, 41
+# with a LoRA; K2 352 (88 an eval) with a ControlNet under cuda_gn; K3 376
+# (87 an eval and the decoder's 28) with one under cuda_conv, 332 (76 an
+# eval) with the LoRA, 508 (120) with the LoCon; K4 912 under int8w_dense
+# either way; K5 340 with the LoRA; SDXL with a ControlNet at 4 steps K1 417
+# ((70 + 34) an eval + 1)
 ADAPTER_PINNED = {
     "cn_cuda": pins(flash=ADAPTER_CN_FLASH),
     "cn_cuda_gn": pins(flash=ADAPTER_CN_FLASH,
@@ -4708,6 +4757,10 @@ def phase_train_kernels(resources=None, sites=TRAIN_SITES,
                 q, k, v, out, lse, do, heads))
             row["plain_ms"] = cuda_ms(lambda: A.flash_attention_bwd_reference(
                 q, k, v, do, heads))
+            if label == "kernel_bwd":
+                row["plain_ms_ten_a_graph"] = cuda_ms(
+                    lambda: A.flash_attention_bwd_reference(
+                        q, k, v, do, heads), long_once=False)
             row["tflops"] = ops / row["ms"] / 1e9
             row["bound_tflops"] = ops / row["bound_ms"] / 1e9
             # the one PyTorch call with the same function, as a yardstick
@@ -5152,17 +5205,21 @@ MESH_RANKS = 2
 MESH_RANK_TIMEOUT_S = 600
 # the train step on the mesh (ROADMAP item 23b): SD1.5 at full width, demo
 # weights, cuda, batch MESH_TRAIN_BATCH (a row a rank at d = 2), the EMA
-# on, MESH_TRAIN_STEPS steps at each of (2, 1) and (1, 2). A rank's
+# on, MESH_TRAIN_STEPS steps (2 before the checkpoint arms) at each of
+# (2, 1) and (1, 2). A rank's
 # launches and collectives a step: K1 and K1-bwd 10 each (heads // m at
 # m = 2); at m = 2 the 48 row sites' all-reduces forward and the 48 column
 # inputs' backward, CLIP's 24, the global norm's 1 and the time table's
 # all-gather; at d = 2 the gradients' MESH_TRAIN_BUCKETS float32 buckets
 # and the loss (tests/test_torch_hopper.py::test_mesh_train_pins_are_the_
 # rules)
-MESH_TRAIN_STEPS = 2
+MESH_TRAIN_STEPS = 1
 MESH_TRAIN_BATCH = 2
 MESH_TRAIN_BUCKETS = 4
-MESH_TRAIN_ARMS = [("train_2x1", (2, 1)), ("train_1x2", (1, 2))]
+# (ROADMAP item 23c) a (1, 2) arm with remat: the UNet's forward recomputed
+# in the backward, K1 and the row sites' all-reduces again
+MESH_TRAIN_ARMS = [("train_2x1", (2, 1)), ("train_1x2", (1, 2)),
+                   ("train_1x2_remat", (1, 2))]
 MESH_TRAIN_PINNED = {
     "train_2x1": {"launches": train_pins(TRAIN_FLASH, TRAIN_FLASH),
                   "collectives": {"all-reduce": MESH_TRAIN_BUCKETS + 1,
@@ -5170,7 +5227,19 @@ MESH_TRAIN_PINNED = {
     "train_1x2": {"launches": train_pins(TRAIN_FLASH, TRAIN_FLASH),
                   "collectives": {"all-reduce": 2 * 48 + 24 + 1,
                                   "all-gather": 1}},
+    "train_1x2_remat": {"launches": train_pins(2 * TRAIN_FLASH, TRAIN_FLASH),
+                        "collectives": {"all-reduce": 3 * 48 + 24 + 1,
+                                        "all-gather": 1}},
 }
+# checkpoints on the mesh (ROADMAP item 24): the arms a rank loads from
+# ``phase_checkpoint``'s files, (label, mesh, file, policies); the sliced
+# load's peak allocated memory over init may pass the rank's shard and its
+# largest leaf by MESH_LOAD_SLACK (the Context's buffers, a leaf's cast)
+MESH_CKPT_ARMS = [("ckpt_1x2", (1, 2), "native", ("cuda", "cuda_gn",
+                                                  "cuda_conv")),
+                  ("ckpt_ldm_1x2", (1, 2), "ldm", ()),
+                  ("ckpt_2x1", (2, 1), "native", ("cuda",))]
+MESH_LOAD_SLACK = 256 << 20
 # K1 (with its log-sum-exp) and K1-bwd at a rank's training shapes: heads
 # // 2 at (1, 2), a row of the batch at (2, 1)
 MESH_TRAIN_FLASH_SHAPES = [(2, 4096, 160, 4), (2, 1024, 320, 4),
@@ -5287,7 +5356,9 @@ def mesh_rank_spatial(ctx, rank, root):
     return out
 
 
-def _leaf_digests(tree):
+def _leaf_digests(tree, skip=()):
+    """{flat key: sha1 of the leaf's bytes} of every leaf of ``tree`` whose
+    key is not in ``skip``."""
     import hashlib
 
     from sdtpu_torch.train.step import flat_key, leaves
@@ -5295,7 +5366,111 @@ def _leaf_digests(tree):
     return {flat_key(p): hashlib.sha1(
         t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
     ).hexdigest()
-        for p, t in leaves(tree)}
+        for p, t in leaves(tree) if flat_key(p) not in skip}
+
+
+def fingerprints(tensors, cut=None) -> dict:
+    """{key: [a, b]} of each tensor's bits, computed on its device: the sum
+    and a position-weighted sum (modulo 2^64) of its 32-bit words, so that
+    a word changed changes ``a``. ``cut(key, tensor)``: the part of each
+    tensor taken, one at a time."""
+    out = {}
+    for k, t in tensors.items():
+        if cut is not None:
+            t = cut(k, t)
+        w = t.detach().contiguous().view(-1).view(torch.int32).long()
+        i = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out[k] = torch.stack([w.sum(), (w * i).sum()])
+        del w, i
+    return {k: v.tolist() for k, v in out.items()}
+
+
+def mesh_train_state(held, frozen, step, opt, mesh, plan, cfg, root):
+    """The (1, 2) train arm's state on the disk (ROADMAP queue 3):
+    ``save_train_state`` on the mesh into ``root`` (the logical file,
+    rank 0 writing; the free disk before, the file's bytes, the seconds);
+    the state's fingerprints, this rank's slices; one more step from the
+    state in memory; then, with that state freed, a zeroed state on (1, 2)
+    loaded from the file (the state's own fingerprints) and stepped once
+    (that step's bits), one on (2, 1) and one on one device: each holds
+    every leaf whole, and this rank's slice of each (``sharding.take`` by
+    the plan) must be the state's, so that the ranks together hold every
+    element of the logical state. ``held["state"]`` is the state, taken
+    and freed here. The file is removed at the end."""
+    import torch.distributed as dist
+
+    from sdtpu_torch.io.params import init_tree
+    from sdtpu_torch.parallel import mesh as mesh_mod
+    from sdtpu_torch.parallel.sharding import take
+    from sdtpu_torch.train import step as T
+
+    state = held.pop("state")
+    res = {}
+    path = os.path.join(root, "train_state")
+    res["free_disk_gb_before"] = shutil.disk_usage(root).free / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T.save_train_state(state, path, mesh, plan)
+    res["save_s"] = time.perf_counter() - t0
+    res["file_bytes"] = os.path.getsize(os.path.join(path, T.STATE_FILE))
+    specs = T._specs(T.state_entries(state), plan)
+    before = fingerprints(T._state_tensors(state))
+    i = MESH_TRAIN_STEPS
+
+    def one_step(s):
+        step(s, frozen, train_batch(cfg, 300 + i, n=MESH_TRAIN_BATCH),
+             T.step_generator(TRAIN_SEED, i, "cuda"))
+
+    one_step(state)
+    after = fingerprints(T._state_tensors(state))
+    skeleton = T._map(lambda t: torch.empty_like(t, device="meta"),
+                      state.params)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def zeroed(tree):
+        return T.init_train_state(T._map(
+            lambda t: torch.zeros_like(t, device="cuda"), tree), opt,
+            ema=True)
+
+    def mine(k, t):
+        # this rank's slice of a whole leaf
+        return take(t, specs[k], mesh.shape["model"],
+                    mesh.coords[1]) if k in specs else t
+
+    def load(label, like, *at, whole=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.load_train_state(path, like, *at)
+        res[f"load_{label}_s"] = time.perf_counter() - t0
+        return fingerprints(T._state_tensors(like), mine if whole else None)
+
+    like = zeroed(skeleton)
+    res["reload_1x2_same"] = load("1x2", like, mesh, plan) == before
+    one_step(like)
+    res["resume_same_bits"] = fingerprints(T._state_tensors(like)) == after
+    del like
+    gc.collect()
+    torch.cuda.empty_cache()
+    like = zeroed(init_tree("unet", cfg, None, "meta"))
+    res["reload_2x1_same"] = load("2x1", like, mesh_mod.make_mesh(2, 1),
+                                  None, whole=True) == before
+    with torch.no_grad():
+        for t in T._state_tensors(like).values():
+            t.zero_()
+    res["reload_one_device_same"] = load("one_device", like,
+                                         whole=True) == before
+    res["tensors"] = len(before)
+    res["split_tensors"] = len(specs)
+    del like
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every rank has read the file
+    dist.barrier()
+    if mesh.coords == (0, 0):
+        shutil.rmtree(path)
+    return res
 
 
 def mesh_rank_train(rank, root):
@@ -5310,7 +5485,9 @@ def mesh_rank_train(rank, root):
     (``sharding.gather_params``) and held against the reference on rank
     0; ``MESH_TRAIN_STEPS`` steps of ``make_train_step(..., mesh=,
     plan=)`` with their launches and collectives; each leaf's digest after
-    them; the peak memory."""
+    them; the peak memory. An arm whose label ends in ``_remat`` runs the
+    loss and the steps with remat; the (1, 2) arm's state then goes to the
+    disk and back (``mesh_train_state``)."""
     import dataclasses
 
     from sdtpu_torch.config import CONFIGS
@@ -5360,8 +5537,9 @@ def mesh_rank_train(rank, root):
         gc.collect()
         torch.cuda.empty_cache()
     for label, mshape in MESH_TRAIN_ARMS:
+        remat = label.endswith("_remat")
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
+        t0 = t_arm = time.perf_counter()
         mesh = mesh_mod.make_mesh(*mshape)
         full = train_models(cfg)
         plan = site_plan(full, mshape[1], cfg)
@@ -5377,7 +5555,7 @@ def mesh_rank_train(rank, root):
         finite = True
         with mesh_mod.use(mesh):
             loss, grads = T.loss_and_grads(state, frozen, batch, None, cfg,
-                                           "cuda", draws=draws)
+                                           "cuda", remat=remat, draws=draws)
             # each leaf gathered (a split leaf's all-gather) and held
             # against the reference on rank 0, one at a time
             for i, (path, g) in enumerate(T.leaves(T.unflatten(
@@ -5401,8 +5579,8 @@ def mesh_rank_train(rank, root):
         gc.collect()
         torch.cuda.empty_cache()
         arm["allocated_gb_before_steps"] = torch.cuda.memory_allocated() / 1e9
-        step = T.make_train_step(cfg, opt, kernels="cuda", mesh=mesh,
-                                 plan=plan)
+        step = T.make_train_step(cfg, opt, kernels="cuda", remat=remat,
+                                 mesh=mesh, plan=plan)
         arm["steps"] = []
         for i in range(MESH_TRAIN_STEPS):
             reset_train_counts()
@@ -5420,17 +5598,86 @@ def mesh_rank_train(rank, root):
                 "s": time.perf_counter() - t0,
                 "launches": train_counts(),
                 "collectives": collectives.collective_counts()})
-        arm["digests"] = _leaf_digests(state.params)
+        # a split leaf's slices differ by rank: only the whole leaves are
+        # held across ranks
         arm["split"] = sorted(T.flat_key(p) for p in split_leaves(
             state.params, plan, ("unet",)))
+        arm["digests"] = _leaf_digests(state.params, set(arm["split"]))
         arm["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if label == "train_1x2":
+            held = {"state": state}
+            del state
+            t0 = time.perf_counter()
+            arm["state"] = mesh_train_state(held, frozen, step, opt, mesh,
+                                            plan, cfg, root)
+            arm["state"]["seconds"] = time.perf_counter() - t0
+        else:
+            del state
+        arm["seconds"] = time.perf_counter() - t_arm
         out[label] = arm
-        del state, frozen, step, opt
+        del frozen, step, opt
         gc.collect()
         torch.cuda.empty_cache()
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_images(ctx, rank, root, label, policies, prompts):
+    """One image of ``ctx`` from ``MESH_SEED`` under each policy, saved as
+    ``<root>/rank<rank>_<label>_<policy>_image.npy``: {policy: its
+    launches, collectives and seconds}."""
+    from sdtpu_torch.parallel import collectives
+
+    before = ctx.kernels
+    out = {}
+    for policy in policies:
+        ctx.kernels = policy
+        reset_counts()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        img = ctx.generate(prompts, guidance=7.5, seed=MESH_SEED)
+        out[policy] = {"image_s": time.perf_counter() - t0,
+                       "launches": counts(),
+                       "collectives": collectives.collective_counts()}
+        np.save(f"{root}/rank{rank}_{label}_{policy}_image.npy", img)
+    ctx.kernels = before
+    return out
+
+
+def mesh_rank_checkpoint(rank, root):
+    """The checkpoint files of ``phase_checkpoint`` on the mesh (ROADMAP
+    item 24), each ``MESH_CKPT_ARMS`` arm a ``Context(model_dir=, mesh=)``
+    of SD1.5 on this rank: the peak allocated memory over its init above
+    what was allocated before (``torch.cuda.max_memory_allocated``), the
+    rank's shard and its largest leaf in bytes; then one image from
+    ``MESH_SEED`` under each of the arm's policies (``mesh_rank_images``):
+    ``[PROMPT]`` on one row of the data axis, ``MESH_PROMPTS`` on two."""
+    from sdtpu_torch import Context
+    from sdtpu_torch.train.step import leaves
+
+    with open(f"{root}/checkpoint.json") as f:
+        files = json.load(f)
+    out = {}
+    for label, shape, source, policies in MESH_CKPT_ARMS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ctx = Context(config="sd15", model_dir=files[source],
+                      steps=MESH_STEPS, kernels="cuda", mesh=shape)
+        sizes = [t.numel() * t.element_size() for _, t in leaves(ctx.params)]
+        arm = {"init_s": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "allocated_before_bytes": base, "shard_bytes": sum(sizes),
+               "largest_leaf_bytes": max(sizes)}
+        prompts = [PROMPT] if shape[0] == 1 else MESH_PROMPTS
+        arm["policies"] = mesh_rank_images(ctx, rank, root, label, policies,
+                                           prompts)
+        out[label] = arm
+        release(ctx)
     return out
 
 
@@ -5443,8 +5690,10 @@ def mesh_rank(rank: int, root: str) -> int:
     UNet eval at ``unet_inputs(cfg, MESH_SEED)``, what ``serve --mesh
     1,2`` must answer (``mesh_rank_serve``) and the spatial partition's
     arms (``mesh_rank_spatial``); under int8 the K5 call shapes of one
-    eval. Then the train step's arms (``mesh_rank_train``). Writes
-    ``<dir>/rank<rank>.json`` and its arrays ``<dir>/rank<rank>_*.npy``."""
+    eval; at (1, 2) also an image under cuda_gn and cuda_conv. Then the
+    checkpoint's arms (``mesh_rank_checkpoint``) and the train step's
+    (``mesh_rank_train``). Writes ``<dir>/rank<rank>.json`` and its arrays
+    ``<dir>/rank<rank>_*.npy``."""
     import datetime
 
     import torch.distributed as dist
@@ -5460,6 +5709,8 @@ def mesh_rank(rank: int, root: str) -> int:
         "gloo", init_method=f"file://{root}/store", rank=rank,
         world_size=MESH_RANKS, timeout=datetime.timedelta(seconds=300))
     out = {}
+    seconds = {}
+    t_arms = time.perf_counter()
     try:
         for label, shape, kernels, quantize, flag, prompts in MESH_ARMS:
             t0 = time.perf_counter()
@@ -5506,12 +5757,21 @@ def mesh_rank(rank: int, root: str) -> int:
                         arm["w8a8_sites"] = [[*k, v]
                                              for k, v in sorted(sites.items())]
                 if label == "1x2_cuda":
+                    arm["policies"] = mesh_rank_images(
+                        ctx, rank, root, label, ("cuda_gn", "cuda_conv"),
+                        prompts)
                     mesh_rank_serve(ctx, rank, root)
                     out.update(mesh_rank_spatial(ctx, rank, root))
             out[label] = arm
             release(ctx)
-        out.update(mesh_rank_train(rank, root))
+        seconds["serving_arms"] = time.perf_counter() - t_arms
+        for section, run in (("checkpoint", mesh_rank_checkpoint),
+                             ("train", mesh_rank_train)):
+            t0 = time.perf_counter()
+            out.update(run(rank, root))
+            seconds[section] = time.perf_counter() - t0
     finally:
+        out["seconds"] = seconds
         with open(f"{root}/rank{rank}.json", "w") as f:
             json.dump(out, f)
         dist.destroy_process_group()
@@ -5649,7 +5909,7 @@ def mesh_nccl(c_one):
     return res
 
 
-def phase_mesh(smi):
+def phase_mesh(smi, files):
     """Serving on the (data, model) mesh (``sdtpu_torch.parallel``).
 
     (c) first, on a quiet card: K1 at its shard shapes at m = 2 and 4
@@ -5668,8 +5928,11 @@ def phase_mesh(smi):
     (``mesh_serve``) beside them. Then, on a quiet card, K5 at the shard shapes the
     ranks recorded, K1 with its statistics and K1-bwd at the training
     shard shapes, K2's spatial modes and K3 at the slices the spatial arms
-    recorded. Two ranks on one card measure correctness and the cost of
-    the host-staged gloo transport, not the speed of a mesh. Returns
+    recorded. The ranks also load ``files`` ({"native", "ldm": the
+    directories ``phase_checkpoint`` wrote}) on the mesh
+    (``mesh_checkpoint_checks``). Two ranks on one card measure
+    correctness and the cost of the host-staged gloo transport, not the
+    speed of a mesh. Returns
     {"flash", "w8a8", "lse", "bwd", "gn", "conv": rows, "launches": {arm:
     rank 0's launches and collectives}}."""
     from sdtpu_torch import Context
@@ -5683,8 +5946,15 @@ def phase_mesh(smi):
     torch.cuda.empty_cache()
     parent_reserved_gb = torch.cuda.memory_reserved() / 1e9
     try:
+        with open(f"{root}/checkpoint.json", "w") as f:
+            json.dump(files, f)
         t0 = time.perf_counter()
         procs = start_mesh_ranks(root)
+        # the checkpoint files read once beside the ranks' first arms, so
+        # that their loads read the page cache (a warm read), not the disk
+        warm = threading.Thread(target=read_through, args=(files.values(),),
+                                daemon=True)
+        warm.start()
         c_one = Context(config="sd15", steps=MESH_STEPS, kernels="cuda",
                         device="cuda")
         nccl = mesh_nccl(c_one)
@@ -5701,6 +5971,7 @@ def phase_mesh(smi):
             raise
         ranks = wait_mesh_ranks(procs, root)
         ranks_s = time.perf_counter() - t0
+        warm.join()
         res = {"phase": "mesh", "nvidia_smi": smi, "steps": MESH_STEPS,
                "ranks": MESH_RANKS, "backend": "gloo (host-staged), "
                "two ranks on one card",
@@ -5709,7 +5980,8 @@ def phase_mesh(smi):
                        "a mesh", "nccl_1x1": nccl, "ranks_s": ranks_s,
                "parent_reserved_gb": [parent_reserved_gb,
                                       parent_waiting_gb],
-               "unet_plain_rel_err": refs["unet_plain_rel_err"], "arms": {}}
+               "unet_plain_rel_err": refs["unet_plain_rel_err"],
+               "rank_seconds": [rk["seconds"] for rk in ranks], "arms": {}}
         failures = []
         lat, lat32 = refs["latent"], refs["latent_f32"]
         for label, shape, *_ in MESH_ARMS:
@@ -5754,6 +6026,7 @@ def phase_mesh(smi):
                 failures.append(f"{label}: ranks differ")
             res["arms"][label] = arm
         mesh_spatial_checks(ranks, root, refs, res, failures)
+        mesh_checkpoint_checks(ranks, root, res, failures)
         mesh_train_checks(ranks, res, failures)
         k5_sites = {tuple(s[:4]): s[4]
                     for s in ranks[0]["1x2_int8+k5"]["w8a8_sites"]}
@@ -5784,6 +6057,11 @@ def phase_mesh(smi):
                 for label in [a[0] for a in MESH_ARMS] + [
                     f"spatial_{p}" for p in ("cuda", "cuda_gn",
                                              "cuda_conv")]}
+    for label, _, _, policies in MESH_CKPT_ARMS:
+        for policy in policies:
+            got = ranks[0][label]["policies"][policy]
+            launches[f"{label}_{policy}"] = {**got["launches"],
+                                             **got["collectives"]}
     for label, _ in MESH_TRAIN_ARMS:
         step = ranks[0][label]["steps"][0]
         launches[label] = {**step["launches"], **step["collectives"]}
@@ -5953,6 +6231,75 @@ def mesh_spatial_checks(ranks, root, refs, res, failures):
         res["arms"][label] = arm
 
 
+def read_through(dirs):
+    """Read every file of ``dirs`` once, start to end."""
+    for d in dirs:
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name), "rb") as f:
+                while f.read(64 << 20):
+                    pass
+
+
+def mesh_checkpoint_checks(ranks, root, res, failures):
+    """The checkpoint arms' checks (``mesh_rank_checkpoint``), on each
+    rank: under each policy the bytes, launches and collectives of the
+    demo-weights Context on the same mesh (``1x2_cuda`` and its cuda_gn
+    and cuda_conv images, ``2x1_cuda``), ``MESH_PINNED`` under cuda; the
+    sliced load's peak at most the rank's shard, its largest leaf and
+    ``MESH_LOAD_SLACK``, and below the whole-then-shard load's of the LDM
+    file."""
+    demo = {"ckpt_1x2": "1x2_cuda", "ckpt_2x1": "2x1_cuda"}
+    for label, _, source, policies in MESH_CKPT_ARMS:
+        arm = {}
+        for r, rk in enumerate(ranks):
+            a = rk[label]
+            mine = {k: a[k] for k in ("init_s", "peak_bytes",
+                                      "allocated_before_bytes",
+                                      "shard_bytes", "largest_leaf_bytes")}
+            for policy in policies:
+                got = a["policies"][policy]
+                want = (rk[demo[label]] if policy == "cuda"
+                        else rk[demo[label]]["policies"][policy])
+                same = np.array_equal(
+                    np.load(f"{root}/rank{r}_{label}_{policy}_image.npy"),
+                    np.load(f"{root}/rank{r}_{demo[label]}_image.npy"
+                            if policy == "cuda" else
+                            f"{root}/rank{r}_{demo[label]}_{policy}_"
+                            f"image.npy"))
+                mine[policy] = {"same_bytes_as_demo": same,
+                                "image_s": got["image_s"],
+                                "launches": got["launches"],
+                                "collectives": got["collectives"]}
+                if not same:
+                    failures.append(f"{label} rank {r} {policy}: other "
+                                    f"bytes than the demo weights")
+                if (got["launches"], got["collectives"]) != (
+                        want["launches"], want["collectives"]):
+                    failures.append(f"{label} rank {r} {policy}: "
+                                    f"launches or collectives differ")
+                pinned = {"launches": got["launches"], "collectives": {
+                    k: got["collectives"][k]
+                    for k in ("all-reduce", "all-gather")}}
+                if policy == "cuda" and pinned != MESH_PINNED[demo[label]]:
+                    failures.append(f"{label} rank {r}: {pinned}")
+            if source == "native":
+                limit = (a["shard_bytes"] + a["largest_leaf_bytes"]
+                         + MESH_LOAD_SLACK)
+                # the LDM file's load on the same mesh
+                whole = rk[f"ckpt_ldm_{label[5:]}"]["peak_bytes"] if (
+                    f"ckpt_ldm_{label[5:]}" in rk) else None
+                mine.update(peak_limit_bytes=limit,
+                            whole_then_shard_peak_bytes=whole)
+                if not (a["peak_bytes"] <= limit
+                        and (whole is None or a["peak_bytes"] < whole)):
+                    failures.append(
+                        f"{label} rank {r}: sliced load peak "
+                        f"{a['peak_bytes']} (limit {limit}, whole-then-"
+                        f"shard {whole})")
+            arm[f"rank{r}"] = mine
+        res["arms"][label] = arm
+
+
 def mesh_train_checks(ranks, res, failures):
     """The train arms' checks: on rank 0, one step's gathered gradients
     finite and within ``MODEL_FACTOR`` of plain bf16's error against the
@@ -5960,7 +6307,10 @@ def mesh_train_checks(ranks, res, failures):
     in each step at ``MESH_TRAIN_PINNED``; every rank the same loss and
     grad norm; after the steps each leaf the ranks both hold whole the
     same bytes on both (every leaf at (2, 1), the unsplit ones at (1,
-    2))."""
+    2)). The remat arm's gradients within ``MODEL_FACTOR`` of the same
+    mesh's error without remat; the state saved at (1, 2) back at (1, 2),
+    (2, 1) and on one device, and the step after the reload the
+    uninterrupted step's bits, on every rank (``mesh_train_state``)."""
     r0 = ranks[0]
     plain_loss_err = abs(r0["plain_loss"] - r0["ref_loss"]) / abs(
         r0["ref_loss"])
@@ -5979,6 +6329,7 @@ def mesh_train_checks(ranks, res, failures):
         arm["allocated_gb_before_steps"] = [a["allocated_gb_before_steps"]
                                             for a in arms]
         arm["init_s"] = [a["init_s"] for a in arms]
+        arm["seconds"] = [a["seconds"] for a in arms]
         if not (a0["grads_finite"] and a0["grad_rel_err"]
                 <= MODEL_FACTOR * r0["plain_grad_rel_err"]):
             failures.append(f"{label}: gradients {a0['grad_rel_err']}")
@@ -5998,6 +6349,23 @@ def mesh_train_checks(ranks, res, failures):
                         a0["steps"][i]["loss"], a0["steps"][i]["grad_norm"]):
                     failures.append(f"{label} step {i}: ranks' loss or "
                                     f"norm differ")
+        if label.endswith("_remat"):
+            # remat recomputes the forward: its gradients' error against
+            # float32 within MODEL_FACTOR of the same mesh's without
+            base = ranks[0][label[:-len("_remat")]]["grad_rel_err"]
+            arm["grad_rel_err_no_remat"] = base
+            if not a0["grad_rel_err"] <= MODEL_FACTOR * base:
+                failures.append(f"{label}: gradients {a0['grad_rel_err']} "
+                                f"against {base} without remat")
+        if "state" in a0:
+            arm["state"] = [a["state"] for a in arms]
+            for r, a in enumerate(arms):
+                st = a["state"]
+                if not all(st[k] for k in (
+                        "reload_1x2_same", "resume_same_bits",
+                        "reload_2x1_same", "reload_one_device_same")):
+                    failures.append(f"{label} rank {r}: the saved state "
+                                    f"does not come back: {st}")
         split = set(a0["split"])
         whole = [k for k in a0["digests"] if k not in split]
         arm["whole_leaves"], arm["split_leaves"] = len(whole), len(split)
@@ -6219,12 +6587,13 @@ def main() -> int:
     # the user's model: the demo weights written as checkpoint files and
     # served from them, then the text features on the native file
     demo = demo_images(ctx, ctx_d, ctx_w, ctx_i)
-    root = tempfile.mkdtemp(prefix="sdtpu-ckpt-")
-    try:
-        native, loaded = phase_checkpoint(root, ctx, demo, smi)
-        phase_text_surface(native, demo)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # the native and LDM files stay for the mesh phase's loads; removed
+    # after it, or when the script exits
+    ckpt_root = tempfile.mkdtemp(prefix="sdtpu-ckpt-")
+    atexit.register(shutil.rmtree, ckpt_root, True)
+    native, loaded = phase_checkpoint(ckpt_root, ctx, demo, smi)
+    phase_text_surface(native, demo)
+    shutil.rmtree(os.path.join(ckpt_root, "int8w"))
 
     # batched serving under every policy and the modes with a GEMM kernel,
     # at BATCH_STEPS, then the kernels at the batch's call shapes
@@ -6268,7 +6637,9 @@ def main() -> int:
     adapter_launches.update(phase_adapters_xl(smi))
     # serving on the (data, model) mesh, last: nothing after it shares its
     # process groups
-    mesh = phase_mesh(smi)
+    mesh = phase_mesh(smi, {"native": native,
+                            "ldm": os.path.join(ckpt_root, "ldm")})
+    shutil.rmtree(ckpt_root)
     mesh_launches = mesh["launches"]
 
     def on_mesh(counter, rows=None):
@@ -6323,6 +6694,12 @@ def main() -> int:
     bwd_main = train_rows[0]
     gn_part_main = max(mesh["gn"], key=lambda r: (r["per_image"],
                                                   r["shape"][1]))
+    # where the run's time went, phase by phase (the mesh's ranks in its
+    # "rank_seconds"), against the 1,200 s the run must stay inside
+    emit({"phase": "timings", "nvidia_smi": smi,
+          "total_s": time.perf_counter() - START,
+          "seconds": dict(sorted(PHASE_SECONDS.items(),
+                                 key=lambda kv: -kv[1]))})
     emit({"kernels": [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "sdtpu_torch/csrc/flash_attn_fwd.cu",
@@ -6331,6 +6708,7 @@ def main() -> int:
          "launches_loaded_weights": loaded["cuda"]["flash"],
          "max_abs_err": max(r["max_abs_err"] for r in rows),
          "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+         "plain_ms_ten_a_graph": rows[0]["plain_ms_ten_a_graph"],
          "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
          "library_ms": rows[0]["library_ms"],
          "design": rows[0]["design"],
@@ -6356,6 +6734,7 @@ def main() -> int:
                               for k, v in train_launches.items()},
          "max_abs_err": max(r["max_abs_err"] for r in train_rows),
          "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
+         "plain_ms_ten_a_graph": bwd_main["plain_ms_ten_a_graph"],
          "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
          "library_ms": bwd_main["library_ms"],
          "library": "F.scaled_dot_product_attention's backward: its "

@@ -23,7 +23,7 @@ the first image of each configuration and batch size, and ``--pack`` /
 ``--kernels`` takes ``auto|plain|cuda`` (``auto`` is ``cuda`` on the card,
 as the reference's is ``pallas`` on a TPU: the policies whose kernels have
 a backward) and writes the port's train-state file (``--out``, read back by
-``--resume``; an orbax directory is refused, ROADMAP item 24). ``bench``
+``--resume``; an orbax directory is refused: orbax needs JAX). ``bench``
 times each model part (``sdtpu_torch.bench.runner``; ``--phases`` the
 pipeline's phases too) and ``analyze`` prints its table; ``profile``
 prints one part's device kernels by time and by class

@@ -21,7 +21,10 @@ else ``model_dir`` is a directory or one file holding a checkpoint of the
 configuration's family (SD1.x, SD2.x with its OpenCLIP tower, SDXL or its
 refiner in the sgm naming), loaded by ``io.weights.load_pipeline_params`` (the native
 ``*.sdtpu.safetensors`` preferred, then LDM-named ``*.safetensors``), with
-``model_dir/ctokenizer.txt`` as the tokenizer when present. A missing or
+``model_dir/ctokenizer.txt`` as the tokenizer when present. On a mesh a
+native file is the port's checkpoint (``io.checkpoint``): each rank loads
+only its slices from it, unless ``quantize`` or ``fuse_qkv`` need whole
+leaves. A missing or
 empty ``model_dir`` fails as ``RUNTIME_ERROR`` "model load failed: ..." and
 latches; an orbax directory, a ControlNet (an adapter:
 ``load_controlnet``), or a checkpoint of another family than the
@@ -130,13 +133,14 @@ from sdtpu_torch.engine import logging as slog
 from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.errors import ErrorCode, ErrorTable, SdtpuError
 from sdtpu_torch.io import safetensors as st
+from sdtpu_torch.io.checkpoint import load_checkpoint
 from sdtpu_torch.io.kohya import load_lora_kohya
 from sdtpu_torch.io.params import (cast_params, from_jax_tree,
                                    fuse_attention_projections, init_tree,
-                                   tree_names)
+                                   param_count, tree_names)
 from sdtpu_torch.io.weights import (UnsupportedCheckpoint, _unflatten_tree,
                                     load_controlnet_state_dict,
-                                    load_pipeline_params)
+                                    load_pipeline_params, native_file)
 from sdtpu_torch.models import controlnet
 from sdtpu_torch.models.layers import disable_tf32
 from sdtpu_torch.parallel import mesh as mesh_mod
@@ -256,7 +260,7 @@ class Context:
                            f"steps must be >= 1, got {steps}")
             self._init_mt(threads, embeddings or {})
             self.init_seconds = time.perf_counter() - t0
-            n = sum(t.numel() for t in _leaves(self.params or {}))
+            n = param_count(self.params or {})
             self.logger.info(
                 f"initialized in {self.init_seconds:.2f}s "
                 f"({n / 1e6:.1f}M params, device={self.device.type})")
@@ -376,6 +380,14 @@ class Context:
                 f"batch {batch} not divisible by data axis "
                 f"{self.mesh.shape['data']}", self.errors)
 
+    @property
+    def plan(self) -> dict:
+        """The tensor-parallel plan the tree was split by
+        (``sharding.site_plan``; empty off a mesh): with ``self.mesh``,
+        what ``io.checkpoint.save_checkpoint`` takes to save
+        ``self.params`` whole."""
+        return self._plan
+
     def _shard(self, params):
         """``params`` (a tree of the pipeline's, keyed from its root) split
         for this rank by the tensor-parallel plan, the plan kept for the
@@ -431,7 +443,15 @@ class Context:
         t0 = time.perf_counter()
         try:
             dtype = self.cfg.compute_dtype
-            if self.model_dir is not None:
+            sliced = self._sliced_file()
+            if sliced is not None:
+                # each rank reads and places only its slices of the file
+                # (io.checkpoint): the quantizers and the fused projections
+                # take whole leaves, and an LDM file's rules build whole
+                # trees, so those keep the load-then-shard path
+                params = load_checkpoint(sliced, self.cfg, dtype, self.mesh,
+                                         self.device, plan=self._plan)
+            elif self.model_dir is not None:
                 params = load_pipeline_params(self.model_dir, self.cfg,
                                               dtype=dtype, device=self.device)
             else:
@@ -454,7 +474,8 @@ class Context:
                 # only an unquantized tree: the quantizers and the
                 # checkpoint layout keep the unfused projections
                 params = fuse_attention_projections(params)
-            self.params = self._shard(params)
+            self.params = params if sliced is not None else self._shard(
+                params)
             if self.lora is not None:
                 # a string is the default adapter of every request that
                 # selects none (``lora=""`` selects the base)
@@ -469,6 +490,15 @@ class Context:
         except Exception as e:  # noqa: BLE001 - init boundary, latched
             self._fail(ErrorCode.RUNTIME_ERROR, f"model load failed: {e}")
         self.logger.info(f"models loaded in {time.perf_counter() - t0:.2f}s")
+
+    def _sliced_file(self):
+        """The native file a rank of the mesh loads its slices from: on a
+        mesh, with ``quantize="none"`` and unfused projections; else
+        None."""
+        if (self.mesh is None or self.model_dir is None
+                or self.quantize != "none" or self.fuse_qkv):
+            return None
+        return native_file(self.model_dir)
 
     def _load_tokenizer(self) -> None:
         """``model_dir/ctokenizer.txt`` when there is one, else the demo
@@ -1662,13 +1692,3 @@ def _on(tree, device):
     if isinstance(tree, (list, tuple)):
         return [_on(v, device) for v in tree]
     return tree.to(device)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree

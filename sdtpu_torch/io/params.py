@@ -109,6 +109,15 @@ def cast_params(params, dtype):
     return cast(params)
 
 
+def param_count(params) -> int:
+    """The elements of every leaf of a tree (``sdtpu/io/params.py:60``)."""
+    if isinstance(params, dict):
+        params = list(params.values())
+    if isinstance(params, list):
+        return sum(param_count(v) for v in params)
+    return params.numel()
+
+
 #: the leaves that hold a conv weight when 4-D: HWIO in the JAX package,
 #: OIHW in the port (the CLIP vision tower's ``patch_embedding`` too)
 CONV_KEYS = ("w", "w8", "lora_a", "patch_embedding")
@@ -124,7 +133,7 @@ def _convert(node, key=None, dtype=None, device=None):
     if device is not None:
         t = t.to(device)
     if (dtype is not None and key not in KEEP_FLOAT32
-            and t.is_floating_point()):
+            and t.is_floating_point() and t.dtype != dtype):
         t = t.float().to(dtype)
     if key in CONV_KEYS and t.dim() == 4:   # conv: HWIO -> OIHW
         t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)

@@ -9,7 +9,8 @@ end of the header. The writer pads the
 header with spaces to a multiple of 8 bytes and lays the tensors out by
 element size, largest first, then by name, as the ``safetensors`` package
 does, so each package reads the other's files and every tensor starts
-aligned to its element size.
+aligned to its element size. ``StreamWriter`` writes the header from the
+tensors' dtypes and shapes first, then takes the tensors one at a time.
 
 The reader maps the file and views each tensor in place
 (``torch.frombuffer``): a bfloat16 tensor never passes through numpy,
@@ -94,32 +95,88 @@ def read_metadata(path) -> dict:
     return dict(header.get("__metadata__") or {})
 
 
+def file_order(specs: dict) -> list:
+    """The names of ``specs`` ({name: (dtype, shape)}) in the order a file
+    lays them out: by element size, largest first, then by name."""
+    def size(name):
+        return torch.empty((), dtype=specs[name][0]).element_size()
+
+    return sorted(specs, key=lambda n: (-size(n), n))
+
+
+class StreamWriter:
+    """A file written header first, from each tensor's dtype and shape
+    ({name: (dtype, shape)}), then its tensors one at a time in
+    ``file_order``: a caller that makes each tensor just before it is
+    written (gathers it, converts it) never holds more than one.
+    ``write(name, t)`` takes the next name of ``order``; ``close`` fails
+    unless every tensor was written."""
+
+    def __init__(self, path, specs: dict, metadata: dict | None = None):
+        for name, (dtype, _) in specs.items():
+            if dtype not in NAMES:
+                raise ValueError(f"{name}: unsupported dtype {dtype}")
+        self.specs = {n: (d, tuple(int(v) for v in s))
+                      for n, (d, s) in specs.items()}
+        self.order = file_order(self.specs)
+        header = {} if metadata is None else {"__metadata__": {
+            str(k): str(v) for k, v in metadata.items()}}
+        offset = 0
+        for name in self.order:
+            dtype, shape = self.specs[name]
+            numel = 1
+            for v in shape:
+                numel *= v
+            nbytes = numel * torch.empty((), dtype=dtype).element_size()
+            header[name] = {"dtype": NAMES[dtype], "shape": list(shape),
+                            "data_offsets": [offset, offset + nbytes]}
+            offset += nbytes
+        raw = json.dumps(header, separators=(",", ":")).encode()
+        raw += b" " * (-len(raw) % 8)
+        self._next = 0
+        self._f = open(path, "wb")
+        self._f.write(struct.pack("<Q", len(raw)))
+        self._f.write(raw)
+
+    def write(self, name: str, t) -> None:
+        """Write ``t`` (on any device, any memory layout) as ``name``, the
+        next tensor of ``order``, copied to the host as it is written."""
+        if self._next >= len(self.order) or name != self.order[self._next]:
+            raise ValueError(f"{name}: written out of order (next: "
+                             f"{self.order[self._next:self._next + 1]})")
+        dtype, shape = self.specs[name]
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} where the "
+                             f"header says {dtype} {shape}")
+        if t.numel():
+            host = t.detach().to("cpu").contiguous()
+            self._f.write(host.reshape(-1).view(torch.uint8).numpy().data)
+        self._next += 1
+
+    def close(self) -> None:
+        self._f.close()
+        if self._next != len(self.order):
+            raise ValueError(f"{len(self.order) - self._next} tensors of the "
+                             f"header were not written")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.close()
+        else:
+            self._f.close()
+
+
 def save_file(tensors: dict, path, metadata: dict | None = None) -> None:
     """Write {name: tensor} (on any device, any memory layout) to ``path``,
     with the format's optional ``__metadata__`` ({str: str}). Each tensor
     is copied to the host one at a time, as it is written."""
-    items = []
     for name, t in tensors.items():
         if not torch.is_tensor(t):
             raise TypeError(f"{name}: not a tensor ({type(t).__name__})")
-        if t.dtype not in NAMES:
-            raise ValueError(f"{name}: unsupported dtype {t.dtype}")
-        items.append((name, t))
-    items.sort(key=lambda kv: (-kv[1].element_size(), kv[0]))
-    header = {} if metadata is None else {"__metadata__": {
-        str(k): str(v) for k, v in metadata.items()}}
-    offset = 0
-    for name, t in items:
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + nbytes]}
-        offset += nbytes
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for _, t in items:
-            if t.numel():
-                host = t.detach().to("cpu").contiguous()
-                f.write(host.reshape(-1).view(torch.uint8).numpy().data)
+    with StreamWriter(path, {n: (t.dtype, t.shape)
+                             for n, t in tensors.items()}, metadata) as w:
+        for name in w.order:
+            w.write(name, tensors[name])

@@ -29,9 +29,10 @@ ResBlock and transformer rules (``load_controlnet_state_dict``,
 ``Context.load_controlnet``, not a base model for ``model_dir``.
 
 Files are read and written by ``io.safetensors``; the ``safetensors``
-package is not needed. Orbax directories are a format the port does not
-have yet: ``UnsupportedCheckpoint`` names them, and a ControlNet handed to
-``model_dir``.
+package is not needed. The native file is the port's checkpoint, on one
+device or a mesh (``io.checkpoint``). An orbax directory cannot be read
+without JAX: ``UnsupportedCheckpoint`` names the conversion where JAX runs
+(``refuse_orbax``); it also names a ControlNet handed to ``model_dir``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from sdtpu_torch.config import PipelineConfig
 from sdtpu_torch.io import safetensors as st
 from sdtpu_torch.io.params import (ADAPTER_TREES, PORTED, _convert,
                                    from_jax_tree, jax_layout, tree_names)
+from sdtpu_torch.parallel.sharding import site_plan, spec_at, take
 
 
 class UnsupportedCheckpoint(ValueError):
@@ -708,11 +710,10 @@ def save_native(params, path) -> None:
     st.save_file(_flatten_tree(jax_layout(params)), path)
 
 
-def load_native(path, cfg: PipelineConfig, dtype=None, device=None):
-    """A native file (written by either package) -> the port's tree, each
-    leaf to ``dtype`` (kept when None) on ``device``."""
-    tree = _unflatten_tree(st.load_file(path))
-    extra = sorted(set(tree) - set(PORTED))
+def check_native_trees(names, path, cfg: PipelineConfig) -> None:
+    """Refuse a native file whose trees (``names``) are not the
+    configuration's: an adapter's (a ControlNet's) or another family's."""
+    extra = sorted(set(names) - set(PORTED))
     if extra:
         adapters = set(extra) & set(ADAPTER_TREES)
         raise UnsupportedCheckpoint(
@@ -721,13 +722,53 @@ def load_native(path, cfg: PipelineConfig, dtype=None, device=None):
                                        "Context.load_controlnet)"
                                        if adapters else "")
             + f"; it loads {list(PORTED)}")
-    other = sorted(set(tree) - set(tree_names(cfg)))
+    other = sorted(set(names) - set(tree_names(cfg)))
     if other:
         raise UnsupportedCheckpoint(
             f"native file {path} carries {other}, trees this configuration "
             f"does not have (a dual-tower file is served with "
             f"config='sdxl')")
-    return from_jax_tree(tree, cfg, dtype=dtype, device=device)
+
+
+def load_native(path, cfg: PipelineConfig, dtype=None, device=None,
+                mesh=None, plan=None):
+    """A native file (written by either package) -> the port's tree, read
+    through the file's memory map. Every tree, key and shape is checked
+    against the configuration first (quantized sites as ``from_jax_tree``
+    takes them), a mismatch refused naming the key. Then one leaf at a
+    time: with ``mesh``, this rank's slice of a split leaf
+    (``sharding.take`` by ``site_plan`` of the file's tree at the mesh's
+    model axis); the leaf converted by ``from_jax_tree``'s rule, cast to
+    ``dtype`` (kept when None) and copied to ``device`` (the host when
+    None, where an unsplit leaf stays a view of the map). So ``device``
+    never holds a whole split leaf or the whole tree, and no collective
+    runs. ``plan``: where given, a dict the plan is written into."""
+    views = st.load_file(path)
+    meta = _unflatten_tree({k: torch.empty(v.shape, dtype=v.dtype,
+                                           device="meta")
+                            for k, v in views.items()})
+    check_native_trees(meta, path, cfg)
+    abstract = from_jax_tree(meta, cfg)
+    m = 1 if mesh is None else mesh.shape["model"]
+    r = 0 if mesh is None else mesh.coords[1]
+    sites = site_plan(abstract, m, cfg)
+    if plan is not None:
+        plan.update(sites)
+
+    def walk(node, at):
+        if isinstance(node, dict):
+            return {k: walk(v, at + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, at + (i,)) for i, v in enumerate(node)]
+        t = views["/".join(map(str, at))]
+        spec = spec_at(sites, at, node.dim()) if sites else ()
+        if spec:
+            t = take(t, spec, m, r)
+        return _convert(t, at[-1] if isinstance(at[-1], str) else None,
+                        dtype, device)
+
+    with torch.no_grad():
+        return walk(abstract, ())
 
 
 def is_orbax_checkpoint(path) -> bool:
@@ -737,30 +778,48 @@ def is_orbax_checkpoint(path) -> bool:
         p.is_dir() and any(p.glob("**/_CHECKPOINT_METADATA")))
 
 
+def refuse_orbax(path) -> None:
+    """Raise ``UnsupportedCheckpoint`` on an orbax directory: reading one
+    needs orbax and tensorstore, which import JAX. Where JAX runs it
+    converts to the native file, which the port loads on any mesh."""
+    if is_orbax_checkpoint(path):
+        raise UnsupportedCheckpoint(
+            f"{path} is an orbax checkpoint directory, which the port "
+            f"cannot read (orbax needs JAX); convert it on a host with JAX: "
+            f"sdtpu.io.orbax_ckpt.load_checkpoint, then "
+            f"sdtpu.io.weights.save_native to a *{NATIVE_SUFFIX} file, "
+            f"which the port loads on any mesh")
+
+
+def native_file(model_dir):
+    """The native file that ``load_pipeline_params`` loads from
+    ``model_dir`` (the file itself, or a directory's first
+    ``*.sdtpu.safetensors``), or None where it loads LDM-named files.
+    Refuses an orbax directory."""
+    model_dir = Path(model_dir)
+    refuse_orbax(model_dir)
+    if model_dir.is_file():
+        return model_dir if model_dir.name.endswith(NATIVE_SUFFIX) else None
+    native = sorted(model_dir.glob(f"*{NATIVE_SUFFIX}"))
+    return native[0] if native else None
+
+
 def load_pipeline_params(model_dir, cfg: PipelineConfig, dtype=None,
                          device=None):
     """Load from a directory holding a checkpoint of ``cfg``'s family (SD
     v1.x, v2.x, XL or one of the staged configurations), or from one
     file: the native file (``*.sdtpu.safetensors``, written by
-    ``sdtpu_torch.tools.convert_weights`` or the JAX package's converter)
-    is preferred, then LDM-named ``*.safetensors``. ``dtype``: the compute
-    dtype every floating leaf is cast to (an LDM file's through float32).
-    The tokenizer (``ctokenizer.txt``) is the Context's."""
+    ``sdtpu_torch.tools.convert_weights``, ``io.checkpoint.save_checkpoint``
+    or the JAX package's converter) is preferred, then LDM-named
+    ``*.safetensors``. ``dtype``: the compute dtype every floating leaf is
+    cast to (an LDM file's through float32). The tokenizer
+    (``ctokenizer.txt``) is the Context's."""
     model_dir = Path(model_dir)
-    if is_orbax_checkpoint(model_dir):
-        raise UnsupportedCheckpoint(
-            f"{model_dir} is an orbax checkpoint directory, which the port "
-            f"does not read yet (ROADMAP item 24); convert it to a native "
-            f"file")
-    if model_dir.is_file():
-        if model_dir.name.endswith(NATIVE_SUFFIX):
-            return load_native(model_dir, cfg, dtype, device)
-        files = [model_dir]
-    else:
-        native = sorted(model_dir.glob(f"*{NATIVE_SUFFIX}"))
-        if native:
-            return load_native(native[0], cfg, dtype, device)
-        files = sorted(model_dir.glob("*.safetensors"))
+    native = native_file(model_dir)
+    if native is not None:
+        return load_native(native, cfg, dtype, device)
+    files = ([model_dir] if model_dir.is_file()
+             else sorted(model_dir.glob("*.safetensors")))
     if not files:
         raise FileNotFoundError(f"no .safetensors checkpoint under {model_dir}")
     tensors = {}

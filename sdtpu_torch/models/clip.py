@@ -23,6 +23,7 @@ from sdtpu_torch.models.layers import (
     gelu,
     init_dense,
     init_norm,
+    init_normal,
     layer_norm,
     quick_gelu,
     split_of,
@@ -33,7 +34,7 @@ def init(cfg: CLIPConfig, generator, device):
     d = cfg.hidden
 
     def normal(shape, std):
-        return torch.randn(shape, generator=generator, device=device) * std
+        return init_normal(shape, std, generator, device)
 
     params = {
         "token_embedding": normal((cfg.vocab_size, d), 0.02),
@@ -163,7 +164,7 @@ def init_vision(cfg: CLIPVisionConfig, generator, device):
     d = cfg.hidden
 
     def normal(shape, std):
-        return torch.randn(shape, generator=generator, device=device) * std
+        return init_normal(shape, std, generator, device)
 
     params = {
         "class_embedding": normal((d,), 0.02),

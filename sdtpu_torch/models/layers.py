@@ -52,6 +52,16 @@ def _uniform(shape, bound, generator, device):
     return u * (2.0 * bound) - bound
 
 
+def init_normal(shape, std, generator, device):
+    """Draws of N(0, std^2) in float32; on the meta device, as
+    ``_uniform``, no draw (there a normal draw is a decomposed op whose
+    first call imports torch's compiler stack, seconds of a load)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device=device, dtype=torch.float32)
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32) * std
+
+
 def kaiming_uniform(shape, fan_in, generator, device):
     """torch default init (kaiming_uniform with a=sqrt(5))."""
     bound = math.sqrt(1.0 / fan_in) * math.sqrt(3.0)

@@ -43,6 +43,7 @@ from sdtpu_torch.models.layers import (
     init_conv,
     init_dense,
     init_norm,
+    init_normal,
     column_input,
     layer_norm,
     lora_delta,
@@ -180,9 +181,8 @@ def init(cfg: UNetConfig, generator, device, zero_init_outs: bool = True):
     if cfg.num_class_embeds:
         # the noise-level class table (LDM ``label_emb``, an nn.Embedding:
         # N(0, 1) init); its selected row adds to the time embedding
-        params["label_emb"] = torch.randn(
-            (cfg.num_class_embeds, cfg.time_embed_dim), generator=gen,
-            device=dev, dtype=torch.float32)
+        params["label_emb"] = init_normal(
+            (cfg.num_class_embeds, cfg.time_embed_dim), 1.0, gen, dev)
     params["out_norm"] = init_norm(cur, dev)
     params["conv_out"] = init_conv(3, cur, cfg.out_channels, gen, dev,
                                    zero_init=zero_init_outs)

@@ -55,6 +55,16 @@ class Mesh:
     def backend(self, axis: str) -> str:
         return dist.get_backend(self.group(axis))
 
+    def barrier(self) -> None:
+        """Return once every rank of the mesh has called it: a barrier over
+        the model group, then over the data group (a rank's data group
+        holds one rank of every model group). Nothing on one rank."""
+        if self.groups is None:
+            return
+        for axis in ("model", "data"):
+            if self.shape[axis] > 1:
+                dist.barrier(group=self.groups[axis])
+
     def __repr__(self) -> str:
         return (f"Mesh(data={self.shape['data']}, "
                 f"model={self.shape['model']}, coords={self.coords})")

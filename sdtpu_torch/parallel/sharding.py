@@ -163,15 +163,34 @@ def _map(node, path, fn):
     return fn(node, path)
 
 
+def spec_at(plan, path, ndim: int) -> tuple:
+    """The spec of the leaf at ``path`` (keys and list indices from the
+    root of the pipeline's tree) under ``plan``."""
+    return leaf_spec(plan.get(tuple(path[:-1])), path[-1], ndim)
+
+
 def param_pspecs(params, model_size: int, cfg):
     """The spec tree of ``params`` (tuples, see the module docstring): the
     reference's ``param_pspecs`` decided per site (``site_plan``)."""
     plan = site_plan(params, model_size, cfg)
-    return _map(params, (), lambda t, p: leaf_spec(
-        plan.get(p[:-1]), p[-1], t.dim()))
+    return _map(params, (), lambda t, p: spec_at(plan, p, t.dim()))
 
 
-def _take(t, spec, m: int, r: int):
+def whole_shape(shape, spec, m: int) -> tuple:
+    """The logical leaf's shape from a rank's slice's ``shape``."""
+    return tuple(s * m if i < len(spec) and spec[i] is not None else s
+                 for i, s in enumerate(shape))
+
+
+def check_plan(mesh, plan) -> None:
+    """Refuse a tree split over a model axis without its plan: a rank's
+    slice cannot be told from a whole leaf."""
+    if mesh is not None and mesh.shape["model"] > 1 and plan is None:
+        raise ValueError("a tree split over the model axis needs its plan "
+                         "(sharding.site_plan of the pipeline's tree)")
+
+
+def take(t, spec, m: int, r: int):
     """Rank ``r``'s slice of ``t`` along each split dimension of
     ``spec``, a fresh tensor (so the whole one can be freed) in ``t``'s
     layout: a column-major int8 weight stays column-major."""
@@ -201,8 +220,8 @@ def shard_params(params, mesh: Mesh, cfg, plan=None):
     r = mesh.coords[1]
 
     def leaf(t, path):
-        spec = leaf_spec(plan.get(path[:-1]), path[-1], t.dim())
-        return _take(t, spec, m, r) if spec else t
+        spec = spec_at(plan, path, t.dim())
+        return take(t, spec, m, r) if spec else t
 
     return _map(params, (), leaf)
 
@@ -219,8 +238,8 @@ def shard_adapter(adapters, mesh: Mesh, plan, prefix=("unet",)):
         prefix = ()
 
     def leaf(t, path):
-        spec = leaf_spec(plan.get(prefix + path[:-1]), path[-1], t.dim())
-        return _take(t, spec, m, r) if spec else t
+        spec = spec_at(plan, prefix + path, t.dim())
+        return take(t, spec, m, r) if spec else t
 
     return _map(adapters, (), leaf)
 
@@ -249,7 +268,7 @@ def gather_rows(x):
 
 
 def _untake(parts, spec):
-    """The whole leaf from every rank's slice (``_take`` undone): the
+    """The whole leaf from every rank's slice (``take`` undone): the
     slices concatenated along the split dimension, a section at a time."""
     for dim, ax in enumerate(spec):
         if ax is None:
@@ -261,6 +280,14 @@ def _untake(parts, spec):
         return torch.cat([c[s] for s in range(sections) for c in chunks],
                          dim=dim)
     return parts[0]
+
+
+def gather_leaf(t, spec, mesh: Mesh):
+    """The whole leaf from every rank's slice ``t`` of it: one all-gather
+    over the model group, on every rank of it."""
+    with use_mesh(mesh):
+        parts = collectives.all_gather_parts(t, "model")
+    return _untake(parts, spec)
 
 
 def gather_params(tree, mesh: Mesh, plan, prefix=()):
@@ -275,13 +302,8 @@ def gather_params(tree, mesh: Mesh, plan, prefix=()):
         return tree
 
     def leaf(t, path):
-        full = prefix + path
-        spec = leaf_spec(plan.get(full[:-1]), full[-1], t.dim())
-        if not spec:
-            return t
-        with use_mesh(mesh):
-            parts = collectives.all_gather_parts(t, "model")
-        return _untake(parts, spec)
+        spec = spec_at(plan, prefix + path, t.dim())
+        return gather_leaf(t, spec, mesh) if spec else t
 
     return _map(tree, (), leaf)
 
@@ -292,8 +314,7 @@ def split_leaves(tree, plan, prefix=()) -> set:
     out = set()
 
     def leaf(t, path):
-        full = prefix + path
-        if leaf_spec(plan.get(full[:-1]), full[-1], t.dim()):
+        if spec_at(plan, prefix + path, t.dim()):
             out.add(path)
         return t
 

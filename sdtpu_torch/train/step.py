@@ -33,8 +33,9 @@ What differs from the reference, by design:
   restricts it to some leaves, the others' updates being exactly zero
   (``sdtpu/train/lora.py:make_lora_optimizer``).
 * **State files** are the port's own (``save_train_state``): one
-  safetensors file of flat keys and a JSON header, no pickle. An orbax
-  directory is refused (``OrbaxCheckpointError``, ROADMAP item 24).
+  safetensors file of flat keys and a JSON header, no pickle, holding the
+  logical state however the state was split. An orbax directory is
+  refused (``OrbaxCheckpointError``).
 
 On the (data, model) mesh (``sdtpu/train/step.py:17-21, 243-252``; the
 reference lets GSPMD shard its one jit) each rank runs the step on its split
@@ -47,7 +48,8 @@ gradients are averaged over the data group in float32 buckets
 (``collectives.all_reduce_mean``), the loss with them; the global norm is
 the logical tree's (a split leaf's sum of squares all-reduced over the
 model group, a replicated leaf's counted once), and the clip uses it.
-AdamW and the EMA are elementwise on the shards.
+AdamW and the EMA are elementwise on the shards. A state saved on a mesh
+is gathered into the logical file, which loads on any mesh or one device.
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ from sdtpu_torch.models import clip, temb, unet
 from sdtpu_torch.parallel import collectives
 from sdtpu_torch.parallel.mesh import current
 from sdtpu_torch.parallel.mesh import use as use_mesh
-from sdtpu_torch.parallel.sharding import data_rows, split_leaves
+from sdtpu_torch.parallel.sharding import (check_plan, data_rows, spec_at,
+                                           split_leaves, take, whole_shape)
 from sdtpu_torch.samplers.schedule import NoiseSchedule
 
 #: the order a training step's generator draws in; "offset" only with
@@ -82,8 +85,8 @@ STATE_FORMAT = "sdtpu_torch.train_state"
 
 
 class OrbaxCheckpointError(ValueError):
-    """The JAX package's orbax train-state directory, which the port does
-    not read (ROADMAP item 24)."""
+    """The JAX package's orbax train-state directory, which the port cannot
+    read (orbax needs JAX): it reads its own train-state files."""
 
 
 # ---------------------------------------------------------------------------
@@ -518,69 +521,117 @@ def make_train_step(cfg: PipelineConfig, optimizer: AdamW,
 # state files
 # ---------------------------------------------------------------------------
 
-def _state_tensors(state: TrainState) -> dict:
-    out = {f"params/{flat_key(p)}": t.detach()
-           for p, t in leaves(state.params)}
-    out.update({f"opt/mu/{k}": t for k, t in state.opt_state["mu"].items()})
-    out.update({f"opt/nu/{k}": t for k, t in state.opt_state["nu"].items()})
-    out["opt/count"] = state.opt_state["count"]
-    out["step"] = state.step
+def state_entries(state: TrainState) -> list:
+    """[(flat key, the leaf's path in the UNet or None, tensor)] of every
+    tensor of the state: params, the moments, count, step, the EMA."""
+    out = [(f"params/{flat_key(p)}", p, t.detach())
+           for p, t in leaves(state.params)]
+    for name in ("mu", "nu"):
+        moments = state.opt_state[name]
+        out += [(f"opt/{name}/{flat_key(p)}", p, moments[flat_key(p)])
+                for p, _ in leaves(state.params) if flat_key(p) in moments]
+    out += [("opt/count", None, state.opt_state["count"]),
+            ("step", None, state.step)]
     if state.ema is not None:
-        out.update({f"ema/{flat_key(p)}": t for p, t in leaves(state.ema)})
+        out += [(f"ema/{flat_key(p)}", p, t) for p, t in leaves(state.ema)]
     return out
 
 
-def save_train_state(state: TrainState, path) -> None:
+def _state_tensors(state: TrainState) -> dict:
+    return {k: t for k, _, t in state_entries(state)}
+
+
+def _specs(entries, plan) -> dict:
+    """{flat key: the spec of the leaf's slice on a rank} ({} where a leaf
+    is whole) under ``plan``, ``site_plan`` of the pipeline's tree."""
+    out = {}
+    for k, p, t in entries:
+        if plan and p is not None:
+            spec = spec_at(plan, ("unet",) + p, t.dim())
+            if spec:
+                out[k] = spec
+    return out
+
+
+def save_train_state(state: TrainState, path, mesh=None, plan=None) -> None:
     """The whole training state (params, AdamW moments and count, step,
     EMA), the resume artifact: ``path/train_state.safetensors``, flat keys
     (``params/...``, ``opt/mu/...``, ``opt/nu/...``, ``opt/count``,
     ``step``, ``ema/...``) with a JSON header in the file's metadata. The
-    port's format in place of the reference's orbax directory."""
-    from sdtpu_torch.io import safetensors
+    port's format in place of the reference's orbax directory.
 
-    root = Path(path)
-    root.mkdir(parents=True, exist_ok=True)
+    The file holds the logical state (``sdtpu/train/step.py:208-222``).
+    ``mesh`` and ``plan``: ``state`` is this rank's of the mesh, split by
+    ``plan`` (``site_plan`` of the pipeline's tree); every rank of the mesh
+    calls this, each split leaf is gathered in the file's order and the
+    mesh's first rank alone writes (``io.checkpoint.save_logical``). The
+    header records the mesh it was saved from (for information: the file
+    loads on any mesh)."""
+    from sdtpu_torch.io.checkpoint import save_logical
+
+    check_plan(mesh, plan)
+    entries = state_entries(state)
     header = {"format": STATE_FORMAT, "version": 1,
-              "step": int(state.step), "ema": state.ema is not None}
-    tmp = root / (STATE_FILE + ".tmp")
-    safetensors.save_file(_state_tensors(state), tmp,
-                          metadata={"sdtpu_torch": json.dumps(header)})
-    tmp.replace(root / STATE_FILE)
+              "step": int(state.step), "ema": state.ema is not None,
+              "logical": True,
+              "mesh": [1, 1] if mesh is None else [mesh.shape["data"],
+                                                   mesh.shape["model"]]}
+    save_logical({k: t for k, _, t in entries}, _specs(entries, plan), mesh,
+                 Path(path) / STATE_FILE,
+                 metadata={"sdtpu_torch": json.dumps(header)})
 
 
-def load_train_state(path, like: TrainState) -> TrainState:
-    """Restore a state written by ``save_train_state`` into ``like`` (a
-    freshly built ``init_train_state`` with the same optimizer and EMA
-    setting), in place: every tensor keeps its device, dtype and memory
-    format. Raises ``OrbaxCheckpointError`` on the reference's orbax
-    directory and ``ValueError`` on missing, extra or misshapen keys."""
+def load_train_state(path, like: TrainState, mesh=None,
+                     plan=None) -> TrainState:
+    """Restore a state written by ``save_train_state`` (on any mesh or on
+    one device) into ``like`` (a freshly built ``init_train_state`` with the
+    same optimizer and EMA setting), in place: every tensor keeps its
+    device, dtype and memory format. ``mesh`` and ``plan``: ``like`` is
+    this rank's of the mesh, split by ``plan``; each split leaf takes this
+    rank's slice of the file's logical leaf (``sharding.take``), read
+    through the file's memory map (``sdtpu/train/step.py:225-250``). No
+    collective runs. Raises ``OrbaxCheckpointError`` on the reference's
+    orbax directory and ``ValueError`` on missing or extra keys, or a
+    tensor whose shape is not the logical state's (naming the key)."""
     from sdtpu_torch.io import safetensors
     from sdtpu_torch.io.weights import is_orbax_checkpoint
 
+    check_plan(mesh, plan)
     root = Path(path)
     file = root / STATE_FILE
     if not file.exists():
         if is_orbax_checkpoint(root):
             raise OrbaxCheckpointError(
-                f"{root} is an orbax checkpoint of the JAX package; the "
-                f"port reads its own train-state files (orbax is ROADMAP "
-                f"item 24)")
+                f"{root} is an orbax checkpoint of the JAX package, which "
+                f"the port cannot read: the port reads its own train-state "
+                f"files ({STATE_FILE}, written by save_train_state)")
         raise FileNotFoundError(f"no {STATE_FILE} under {root}")
     header = json.loads(safetensors.read_metadata(file).get(
         "sdtpu_torch", "{}"))
     if header.get("format") != STATE_FORMAT:
         raise ValueError(f"{file} is not a {STATE_FORMAT} file")
     got = safetensors.load_file(file)
-    want = _state_tensors(like)
-    if set(got) != set(want):
-        missing, extra = set(want) - set(got), set(got) - set(want)
+    entries = state_entries(like)
+    if set(got) != {k for k, _, _ in entries}:
+        want = {k for k, _, _ in entries}
+        missing, extra = want - set(got), set(got) - want
         raise ValueError(f"{file}: keys differ from the state: missing "
                          f"{sorted(missing)[:5]}, extra {sorted(extra)[:5]}")
+    specs = _specs(entries, plan)
+    m = 1 if mesh is None else mesh.shape["model"]
+    r = 0 if mesh is None else mesh.coords[1]
     with torch.no_grad():
-        for k, dst in want.items():
-            src = got[k]
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"{file}: {k} has shape {tuple(src.shape)},"
-                                 f" the state {tuple(dst.shape)}")
-            dst.copy_(src)
+        for k, _, dst in entries:
+            src, spec = got[k], specs.get(k, ())
+            want = whole_shape(dst.shape, spec, m)
+            if tuple(src.shape) != want:
+                part = len(src.shape) == len(want) and all(
+                    a == b or (0 < a < b and b % a == 0)
+                    for a, b in zip(src.shape, want))
+                raise ValueError(
+                    f"{file}: {k} has shape {tuple(src.shape)}, the logical "
+                    f"state {want}" + (
+                        " (one rank's slice: a file written on a mesh before "
+                        "the train state was saved whole)" if part else ""))
+            dst.copy_(take(src, spec, m, r) if spec else src)
     return like

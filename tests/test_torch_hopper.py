@@ -1796,16 +1796,16 @@ def test_knob_pins_are_the_rules(label):
 
 
 def test_knob_pins_are_the_counts_of_the_loop():
-    """K1 at 8 steps: 81 an image with no knob, the same under ToMe 0.5
-    (2,048 tokens take the kernel), 41 under ToMe 0.3 (2,868 do not),
-    161 with PAG at ("mid",), 81 at ("down", "up"), 56 under DeepCache 3
-    (3 full evals, 5 shallow ones of 5), and 81 under fuse_qkv (the split
+    """K1 at 4 steps: 41 an image with no knob, the same under ToMe 0.5
+    (2,048 tokens take the kernel), 21 under ToMe 0.3 (2,868 do not),
+    81 with PAG at ("mid",), 41 at ("down", "up"), 31 under DeepCache 3
+    (2 full evals, 2 shallow ones of 5), and 41 under fuse_qkv (the split
     q, k, v are contiguous)."""
     pinned = {k: v["flash"] for k, v in chip_smoke.KNOBS_PINNED.items()}
     assert (pinned["tome_0.5"], pinned["tome_0.3"], pinned["pag_mid"],
             pinned["pag_down_up"], pinned["deepcache_3"],
             pinned["fuse_qkv"], pinned["size_768"]) == (
-        81, 41, 161, 81, 56, 81, 81)
+        41, 21, 81, 41, 31, 41, 41)
 
 
 _KNOB_PARTS = {}
@@ -1913,8 +1913,8 @@ def test_stage_pins_are_the_rules(stage):
     """Each stage call's launches under each mode the smoke run takes, from
     its sites and the rules, are its pins (``chip_smoke.STAGES_PINNED``):
     K1 41 an LCM call (10 an eval at 4 steps, the decoder's mid block) and
-    the same for its batch of four, 560 the SDXL base's 8 steps of 10 (no
-    decode), 81 the refiner's 2 (40 an eval: its 256-token mid block takes
+    the same for its batch of four, 280 the SDXL base's 4 steps of 5 (no
+    decode), 41 the refiner's 1 (40 an eval: its 256-token mid block takes
     the plain path) and its decode, 1 an upscale (the x4 UNet's attn1 is
     cross-only at 4,096 and 1,024 tokens, its 256-token level and mid block
     take the plain path: the f4 VAE's 16,384-token mid block alone)."""
@@ -1925,7 +1925,7 @@ def test_stage_pins_are_the_rules(stage):
         assert got == want, (stage, mode)
     assert {s: chip_smoke.STAGES_PINNED[s]["cuda"]["flash"]
             for s in chip_smoke.STAGES_PINNED} == {
-        "lcm": 41, "lcm_batch": 41, "base": 560, "refine": 81, "x4": 1}
+        "lcm": 41, "lcm_batch": 41, "base": 280, "refine": 41, "x4": 1}
 
 
 _STAGE_RUNS = {}
@@ -3730,18 +3730,18 @@ def test_rules_take_every_mesh_site(kernel, model):
 _MESH_TRAIN = {}
 
 
-def _mesh_train_log(data, model):
+def _mesh_train_log(data, model, remat=False):
     """(kernel log, collectives) of one train step of SD1.5 at
     ``chip_smoke.MESH_TRAIN_BATCH`` for rank 0 of a (data, model) mesh on
-    the meta device: ``make_train_step(..., mesh=, plan=)`` with the EMA,
-    float32 masters, bf16 compute."""
+    the meta device: ``make_train_step(..., mesh=, plan=, remat=)`` with
+    the EMA, float32 masters, bf16 compute."""
     from sdtpu_torch.config import SD15
     from sdtpu_torch.models import clip, temb
     from sdtpu_torch.parallel import mesh as mesh_mod
     from sdtpu_torch.parallel.sharding import shard_params, site_plan
     from sdtpu_torch.train import step as T
 
-    key = (data, model)
+    key = (data, model, remat)
     if key not in _MESH_TRAIN:
         meta = torch.device("meta")
         fake = mesh_mod.Mesh(data, model, 0)
@@ -3759,8 +3759,8 @@ def _mesh_train_log(data, model):
                  "latents": torch.empty(lat, device=meta)}
         draws = {"t": torch.empty((b,), dtype=torch.int64, device=meta),
                  "eps": torch.empty(lat, device=meta)}
-        step = T.make_train_step(SD15, opt, kernels="cuda", mesh=fake,
-                                 plan=plan)
+        step = T.make_train_step(SD15, opt, kernels="cuda", remat=remat,
+                                 mesh=fake, plan=plan)
         log, coll = {}, {}
         with _recorders("cuda", log, ("unet",)), _counted_collectives(coll):
             step(state, {k: local[k] for k in ("clip", "temb")}, batch,
@@ -3776,11 +3776,14 @@ def test_mesh_train_pins_are_the_rules(label, shape):
     (``chip_smoke.MESH_TRAIN_PINNED``): K1 and K1-bwd 10 each (heads // m
     at m = 2, a row at d = 2); at m = 2 121 all-reduces (48 forward, 48
     backward, 24 CLIP, 1 norm) and 1 all-gather; at d = 2 the gradient
-    buckets (``collectives.buckets`` of SD1.5's 860 M) and the loss."""
+    buckets (``collectives.buckets`` of SD1.5's 860 M) and the loss. With
+    remat (``train_1x2_remat``) the recomputed forward's K1 and row sites
+    again: K1 20, 169 all-reduces."""
     from sdtpu_torch.parallel import collectives
     from sdtpu_torch.train import step as T
 
-    log, coll, state = _mesh_train_log(*shape)
+    log, coll, state = _mesh_train_log(*shape,
+                                       remat=label.endswith("_remat"))
     got = dict.fromkeys(chip_smoke.KERNEL_NAMES + ("flash_bwd",), 0)
     for (_, kernel), keys in log.items():
         got[kernel] += len(keys)
@@ -3802,8 +3805,8 @@ def test_mesh_train_flash_sites_are_the_shard_shapes():
     contracts and ``plan_bwd``'s rule (d 40 and 80 at half the
     batch-heads)."""
     sites = set()
-    for _, shape in chip_smoke.MESH_TRAIN_ARMS:
-        log, _, _ = _mesh_train_log(*shape)
+    for label, shape in chip_smoke.MESH_TRAIN_ARMS:
+        log, _, _ = _mesh_train_log(*shape, remat=label.endswith("_remat"))
         for kernel in ("flash", "flash_bwd"):
             keys = set(log[("unet", kernel)])
             sites |= keys

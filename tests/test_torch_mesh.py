@@ -33,6 +33,12 @@ JAX package's ``sdtpu/parallel``, on the CPU.
   collectives (the collective-permutes of the halos) derived from the
   UNet's structure; and ``sdtpu-torch serve --mesh 1,2``, started as a user
   starts it, answering with the bytes of ``Context(mesh=(1, 2))``.
+* Checkpoints on the mesh (``io.checkpoint``, the train state's file), in
+  the same worlds: the logical file written by rank 0 alone, loaded back
+  on the mesh, on another mesh and on one device bit for bit; a step after
+  the reload the uninterrupted step's bits. A load on a rank issues no
+  collective, so each rank's slices are also held against
+  ``shard_params`` in one process (``tests/test_torch_checkpoint.py``).
 """
 
 import dataclasses
@@ -449,7 +455,8 @@ def worlds(request, tmp_path_factory):
                 p.kill()
                 p.wait()
             log.close()
-    out = {"anchors": anchors, "spatial": spatial_refs, "train": train_ref}
+    out = {"anchors": anchors, "spatial": spatial_refs, "train": train_ref,
+           "dir": d}
     for world, rank, _, p in procs:
         text = (d / f"w{world}_r{rank}.log").read_text()
         assert p.returncode == 0, f"world {world} rank {rank}:\n{text[-3000:]}"
@@ -953,3 +960,121 @@ def test_serve_mesh_answers_as_the_context(worlds, served):
                   - single).max() <= 1
     assert rc == 0, log[-3000:]
     assert not left
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on the mesh
+# ---------------------------------------------------------------------------
+
+def _writes(worlds, mesh, key):
+    return [int(r[f"{mesh}/{key}"]) for r in _ranks(worlds, mesh)]
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_mesh_checkpoint_serves_the_demo_bytes(worlds, mesh):
+    """The demo Context's split tree saved from the mesh
+    (``save_checkpoint``: rank 0 alone opens a file, the first data row
+    alone gathers) is the logical tree,
+    ``save_native``'s file of a Context without a mesh byte for byte; a
+    ``Context(model_dir=, mesh=)`` of it holds the demo Context's split
+    tree and plan, and serves its ``generate`` bytes with its
+    collectives."""
+    from sdtpu_torch.io.checkpoint import CHECKPOINT_FILE
+    from sdtpu_torch.io.weights import save_native
+
+    assert _writes(worlds, mesh, "checkpoint/writes") == [1] + [0] * (
+        len(_ranks(worlds, mesh)) - 1)
+    # the first data row gathers each split leaf once; the other rows
+    # gather nothing
+    gathers = _writes(worlds, mesh, "checkpoint/save_gathers")
+    m = int(mesh.split("x")[1])
+    assert gathers[:m] == [gathers[0]] * m and (gathers[0] > 0) == (m > 1)
+    assert gathers[m:] == [0] * (len(gathers) - m)
+    d = worlds["dir"]
+    save_native(Context(config="tiny", steps=R.STEPS, device="cpu").params,
+                d / f"native_{mesh}.sdtpu.safetensors")
+    assert ((d / f"ck_{mesh}" / CHECKPOINT_FILE).read_bytes()
+            == (d / f"native_{mesh}.sdtpu.safetensors").read_bytes())
+    for rank in _ranks(worlds, mesh):
+        assert bool(rank[f"{mesh}/checkpoint/same_tree"])
+        assert bool(rank[f"{mesh}/checkpoint/same_plan"])
+        np.testing.assert_array_equal(rank[f"{mesh}/checkpoint/generate"],
+                                      rank[f"{mesh}/generate"])
+        np.testing.assert_array_equal(
+            rank[f"{mesh}/checkpoint/generate/counts"],
+            rank[f"{mesh}/generate/counts"])
+
+
+def _gathered(rank, mesh):
+    """{state key: the gathered tensor} of a rank's train state after its
+    steps (``gather_params``' params, moments and EMA)."""
+    keys = {"params": "params/", "mu": "opt/mu/", "nu": "opt/nu/",
+            "ema": "ema/"}
+    out = {}
+    for name, pre in keys.items():
+        head = f"{mesh}/train/{name}/"
+        out.update({pre + k[len(head):]: torch.from_numpy(v)
+                    for k, v in rank.items() if k.startswith(head)})
+    return out
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+def test_mesh_train_state_is_saved_whole(worlds, mesh):
+    """The state saved on the mesh (rank 0 alone opens a file) reloads on
+    one device as ``gather_params``' state bit for bit, with its count
+    and step; a fresh state on the same mesh loaded from it holds each
+    rank's own tensors, and one more step from it gives the uninterrupted
+    step's bits on every rank."""
+    assert _writes(worlds, mesh, "train/writes") == [1] + [0] * (
+        len(_ranks(worlds, mesh)) - 1)
+    from test_torch_train import trees as train_trees
+
+    ttree, _ = train_trees(t_config.TINY)
+    masters = t_step._map(lambda t: t.detach().clone(), ttree["unet"])
+    like = t_step.init_train_state(masters, t_step.make_optimizer(),
+                                   ema=True)
+    t_step.load_train_state(worlds["dir"] / f"ts_{mesh}", like)
+    got = t_step._state_tensors(like)
+    want = _gathered(_ranks(worlds, mesh)[0], mesh)
+    assert set(got) - set(want) == {"opt/count", "step"}
+    for k, t in want.items():
+        assert torch.equal(got[k], t), k
+    assert int(got["opt/count"]) == int(got["step"]) == R.TRAIN_STEPS
+    for rank in _ranks(worlds, mesh):
+        assert bool(rank[f"{mesh}/train/reload_same"])
+        assert bool(rank[f"{mesh}/train/resume_same"])
+
+
+@pytest.mark.parametrize("mesh", TRAIN_MESHES)
+def test_mesh_train_remat_matches_the_step_without(worlds, mesh):
+    """Remat on the mesh (ROADMAP item 23c): one step's gradients with the
+    UNet's forward recomputed in the backward are the same bits as
+    without, and the recompute issues the forward's row-site all-reduces
+    again: at m = 2, 21 an eval three times (forward, the column inputs'
+    backward, the recompute) and CLIP's 4; the data axis's buckets and
+    loss as the step's."""
+    data, model = (int(v) for v in mesh.split("x"))
+    want = _train_pin(data, model)
+    if model > 1:
+        per_eval = _plan_counts(model)[0]
+        want["all-reduce"] += per_eval - 1   # the recompute; no norm here
+    for rank in _ranks(worlds, mesh):
+        assert float(rank[f"{mesh}/train/remat_max_abs_diff"]) == 0.0
+        got = dict(zip(collectives.COLLECTIVES,
+                       rank[f"{mesh}/train/remat/counts"].tolist()))
+        assert got == want
+
+
+def test_mesh_train_state_reloads_on_another_mesh(worlds):
+    """The state saved at (1, 2) loads on each rank of (2, 1), where
+    nothing is split, as its gathered state, bit for bit."""
+    import hashlib
+
+    want = {k: hashlib.sha1(t.contiguous().numpy().tobytes()).hexdigest()
+            for k, t in _gathered(_ranks(worlds, "1x2")[0], "1x2").items()}
+    for rank in _ranks(worlds, "2x1"):
+        got = dict(zip(rank["2x1/train/reload_1x2/keys"].tolist(),
+                       rank["2x1/train/reload_1x2/digests"].tolist()))
+        assert set(got) - set(want) == {"opt/count", "step"}
+        for k, v in want.items():
+            assert got[k] == v, k

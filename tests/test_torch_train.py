@@ -801,7 +801,8 @@ def _orbax_dir(tmp_path):
 def test_state_file_round_trip_and_orbax_refused(tmp_path):
     """``save_train_state`` then ``load_train_state`` into a fresh state
     gives every tensor's bytes, and the next step from each is the same;
-    the reference's orbax directory is refused naming ROADMAP item 24."""
+    the reference's orbax directory is refused, naming the port's own
+    train-state files."""
     ttree, _ = trees(TINY)
     opt = t_step.make_optimizer(lr=1e-3)
     step = t_step.make_train_step(TINY, opt)
@@ -830,7 +831,8 @@ def test_state_file_round_trip_and_orbax_refused(tmp_path):
         t_step.load_train_state(tmp_path / "ck", t_step.init_train_state(
             _masters(ttree), opt))
     _orbax_dir(tmp_path)
-    with pytest.raises(t_step.OrbaxCheckpointError, match="item 24"):
+    with pytest.raises(t_step.OrbaxCheckpointError,
+                       match="its own train-state files"):
         t_step.load_train_state(tmp_path / "orbax", fresh)
     with pytest.raises(FileNotFoundError):
         t_step.load_train_state(tmp_path / "missing", fresh)
@@ -884,7 +886,8 @@ def test_cli_train_demo_resume_and_data(tmp_path, capsys):
     """``train`` at TINY on the CPU: the demo batches with ``--ema``, the
     reference's line formats, a state that ``load_train_state`` reads;
     ``--resume`` continues its step count; ``--data`` over shards and over
-    an image folder; an orbax ``--resume`` is refused naming item 24."""
+    an image folder; an orbax ``--resume`` is refused, naming the port's
+    own train-state files."""
     out = tmp_path / "ck"
     rc, io = _train(["--steps", "2", "--batch", "2", "--ema", "--out",
                      str(out)], capsys)
@@ -918,4 +921,4 @@ def test_cli_train_demo_resume_and_data(tmp_path, capsys):
     _orbax_dir(tmp_path)
     rc, io = _train(["--steps", "1", "--resume", str(tmp_path / "orbax")],
                     capsys)
-    assert rc == 2 and "item 24" in io.err
+    assert rc == 2 and "its own train-state files" in io.err

@@ -23,11 +23,16 @@ spatial partition's (``spatial_*``, at m = 2): ``sharding.generate_sharded
 collectives. The train step's (``train``): two steps of
 ``make_train_step(..., mesh=, plan=)`` with the reference's draws, the state
 gathered (``sharding.gather_params``), each leaf's digest and each step's
-collectives. Imports no JAX: a spawned rank does not pay for it.
+collectives; the state saved whole into ``<dir>/ts_<mesh>`` and reloaded
+(at (2, 1) also the file (1, 2) saved). The checkpoint's
+(``checkpoint``): the demo Context's tree saved from the mesh into
+``<dir>/ck_<mesh>`` and served from it. Imports no JAX: a spawned rank does
+not pay for it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import hashlib
 import sys
@@ -43,6 +48,8 @@ from sdtpu_torch import Context
 from sdtpu_torch import config as t_config
 from sdtpu_torch.engine import pipeline
 from sdtpu_torch.engine.stream import StreamScheduler
+from sdtpu_torch.io import safetensors as st
+from sdtpu_torch.io.checkpoint import save_checkpoint
 from sdtpu_torch.io.params import init_pipeline_params
 from sdtpu_torch.models import unet
 from sdtpu_torch.parallel import collectives, mesh as mesh_mod
@@ -255,6 +262,69 @@ def _digests(tree):
                      for _, t in T.leaves(tree)])
 
 
+@contextlib.contextmanager
+def counted_writers(paths):
+    """Record in ``paths`` each file a ``safetensors.StreamWriter`` opens
+    in this process while the block runs."""
+    base = st.StreamWriter
+
+    class Counted(base):
+        def __init__(self, path, *args, **kw):
+            paths.append(str(path))
+            super().__init__(path, *args, **kw)
+
+    st.StreamWriter = Counted
+    try:
+        yield paths
+    finally:
+        st.StreamWriter = base
+
+
+def checkpoint_cases(mesh_shape, d):
+    """The pipeline's checkpoint on ``mesh_shape``: the demo weights'
+    ``Context(mesh=)`` saved by ``save_checkpoint`` (the files each rank
+    opened, its all-gathers) into ``<d>/ck_<mesh>``, then a ``Context(model_dir=)`` of it
+    on the same mesh: whether its split tree and plan are the demo
+    Context's, and the ``generate`` case's images with their
+    collectives."""
+    out, counts = {}, {}
+    tag = f"{mesh_shape[0]}x{mesh_shape[1]}"
+    c = Context(config="tiny", steps=STEPS, device="cpu", mesh=mesh_shape)
+    collectives.reset_counts()
+    with counted_writers([]) as opened:
+        save_checkpoint(c.params, d / f"ck_{tag}", mesh=c.mesh, plan=c.plan)
+    out["checkpoint/writes"] = np.array(len(opened))
+    out["checkpoint/save_gathers"] = np.array(
+        collectives.collective_counts()["all-gather"])
+    loaded = Context(config="tiny", steps=STEPS, device="cpu",
+                     mesh=mesh_shape, model_dir=str(d / f"ck_{tag}"))
+    a, b = dict(T.leaves(loaded.params)), dict(T.leaves(c.params))
+    # values and dtypes (a 1x1 conv's strides may differ: either is its
+    # one layout in memory)
+    out["checkpoint/same_tree"] = np.array(set(a) == set(b) and all(
+        a[p].dtype == t.dtype and torch.equal(a[p], t)
+        for p, t in b.items()))
+    out["checkpoint/same_plan"] = np.array(loaded.plan == c.plan)
+    collectives.reset_counts()
+    out["checkpoint/generate"] = loaded.generate(PROMPTS, seed=3)
+    counts["checkpoint/generate"] = np.array(
+        [collectives.collective_counts()[k] for k in collectives.COLLECTIVES])
+    return out, counts
+
+
+def _state_digests(state):
+    """{flat key: digest} of every tensor of a train state."""
+    return {k: hashlib.sha1(t.detach().contiguous().numpy().tobytes()
+                            ).hexdigest()
+            for k, t in T._state_tensors(state).items()}
+
+
+def _fresh_state(m, cfg, plan, opt):
+    full = init_pipeline_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    local = shard_params(full, m, cfg, plan)
+    return T.init_train_state(local["unet"], opt, ema=True)
+
+
 def train_cases(mesh_shape, inputs):
     """Two train steps on the rank's split tree at ``mesh_shape`` with the
     reference's draws: {name: array} of each step's loss and grad norm, the
@@ -308,7 +378,51 @@ def train_cases(mesh_shape, inputs):
                                               state.opt_state["nu"]))):
             whole = sharding.gather_params(tree, m, plan, ("unet",))
             for p, t in T.leaves(whole):
-                out[f"train/{name}/{T.flat_key(p)}"] = t.detach().numpy()
+                # a copy: an unsplit leaf is the state's own tensor, which
+                # the resume case below steps in place
+                out[f"train/{name}/{T.flat_key(p)}"] = (
+                    t.detach().numpy().copy())
+    # remat on the mesh (ROADMAP item 23c): one step's gradients with the
+    # UNet's forward recomputed in the backward, against the same step's
+    # without, and their collectives
+    draws = {k: inputs[f"train/0/{k}"] for k in ("t", "eps")}
+    grads = {}
+    for remat in (True, False):
+        collectives.reset_counts()
+        with mesh_mod.use(m):
+            grads[remat] = T.loss_and_grads(state, frozen, batch, None, cfg,
+                                            remat=remat, draws=draws)[1]
+        if remat:
+            counts["train/remat"] = np.array(
+                [collectives.collective_counts()[k]
+                 for k in collectives.COLLECTIVES])
+    out["train/remat_max_abs_diff"] = np.array(max(
+        (grads[True][k] - g).abs().max().item()
+        for k, g in grads[False].items()))
+    # the state's file (ROADMAP queue 3): the logical state, rank 0 alone
+    # writing; a fresh state on this mesh loaded from it holds this rank's
+    # tensors, and one more step from each gives the same bits
+    d = Path(inputs["dir"])
+    tag = f"{mesh_shape[0]}x{mesh_shape[1]}"
+    with counted_writers([]) as opened:
+        T.save_train_state(state, d / f"ts_{tag}", m, plan)
+    out["train/writes"] = np.array(len(opened))
+    like = _fresh_state(m, cfg, plan, opt)
+    T.load_train_state(d / f"ts_{tag}", like, m, plan)
+    out["train/reload_same"] = np.array(
+        _state_digests(like) == _state_digests(state))
+    for s in (state, like):
+        step(s, frozen, batch, None, draws=draws)
+    out["train/resume_same"] = np.array(
+        _state_digests(like) == _state_digests(state))
+    if mesh_shape == (2, 1):
+        # the file (1, 2) saved, on this mesh
+        other = _fresh_state(m, cfg, plan, opt)
+        T.load_train_state(d / "ts_1x2", other, m, plan)
+        got = _state_digests(other)
+        out["train/reload_1x2/keys"] = np.array(sorted(got))
+        out["train/reload_1x2/digests"] = np.array([got[k]
+                                                    for k in sorted(got)])
     return out, counts
 
 
@@ -361,6 +475,7 @@ def main(world: int, rank: int, d: Path) -> None:
     with np.load(d / "inputs.npz") as z:
         inputs = {k: z[k] for k in z.files}
     inputs["lora_path"] = str(d / "lora.npz")
+    inputs["dir"] = str(d)
     res = {}
     try:
         if world == 1:
@@ -380,6 +495,9 @@ def main(world: int, rank: int, d: Path) -> None:
                 res.update({f"{tag}/{k}": v for k, v in got.items()})
                 res.update({f"{tag}/{k}/counts": v
                             for k, v in counts.items()})
+            got, counts = checkpoint_cases(shape, d)
+            res.update({f"{tag}/{k}": v for k, v in got.items()})
+            res.update({f"{tag}/{k}/counts": v for k, v in counts.items()})
             if shape == (1, 2):
                 with mesh_mod.use(mesh_mod.make_mesh(1, 2)):
                     res[f"{tag}/global_norm"] = norm_case()
