@@ -23,8 +23,9 @@ Phases, each printing one JSON object per line:
    shapes (K3 with int8 weights too at the UNet's, as ``quantize="int8w"``
    feeds it) and at ragged ones (odd planes, C/G not a multiple of 8, each
    of K2's span classes, planes K2 streams, Cout not a multiple of the
-   tile; for K3 the shapes its slab could break and one of each class its
-   general kernel takes), each against its plain version run in float32 on
+   tile; for K3 the shapes its slab could break and each of its tilings:
+   whole planes, patches cut at the plane's edge, runs that wrap rows, a
+   short last Cin chunk), each against its plain version run in float32 on
    the same bf16 inputs; device times of the kernel, of the plain version,
    of the one PyTorch call that computes the same function where there is
    one (``F.group_norm`` + SiLU, ``torch.var_mean``), and of the site as
@@ -788,32 +789,45 @@ GN_RAGGED = [(2, 77, 30, 3, 1e-5, True), (1, 5, 9, 3, 1e-6, False),
              (2, 1023, 960, 32, 1e-5, True)] + [
     (1, 999, c, 32, 1e-5, True) for c in (320, 640, 960, 1280, 1920, 2560)
 ] + [(1, 262144, 128, 32, 1e-6, False), (1, 65536, 512, 32, 1e-6, True)]
-# (x shape, c_out, k, prologue, int8, the kernel the static rule must
-# choose). The general kernel's classes: a plane whose rows do not tile 128
-# pixels, Cin not a multiple of 64, both. The slab kernel: a tile that
-# spans two samples and ends in a ragged one, a 128-pixel run of a row at W
-# = 128 and 256 with Cout not a multiple of the tile, one Cin chunk and 30
-# of them split over blocks, eight 4x4 planes a tile, 1x1 sites with one
-# and with a ragged last chunk of three 64-channel groups
-CONV_RAGGED = [((2, 63, 65, 64), 100, 3, "silu", False, "general"),
-               ((2, 5, 3, 16), 13, 3, None, False, "general"),
-               ((1, 7, 9, 24), 40, 3, "silu", True, "general"),
-               ((2, 32, 32, 640), 640, 3, "silu", True, "slab"),
-               ((2, 9, 11, 40), 72, 1, "affine", False, "general"),
-               ((2, 16, 16, 40), 72, 3, "silu", True, "general"),
-               ((2, 6, 32, 64), 72, 3, "silu", False, "general"),
-               ((3, 8, 8, 64), 100, 3, "silu", False, "slab"),
-               ((3, 8, 8, 64), 100, 3, "silu", True, "slab"),
-               ((1, 8, 128, 64), 72, 3, "silu", False, "slab"),
-               ((1, 8, 128, 64), 72, 3, "silu", True, "slab"),
-               ((1, 4, 256, 128), 200, 3, "affine", False, "slab"),
-               ((1, 4, 256, 128), 200, 3, None, True, "slab"),
-               ((2, 16, 16, 1920), 100, 3, "silu", False, "slab"),
-               ((2, 16, 16, 1920), 100, 3, "silu", True, "slab"),
-               ((5, 4, 4, 64), 64, 3, "silu", False, "slab"),
-               ((2, 16, 16, 128), 136, 1, "affine", False, "slab"),
-               ((2, 16, 16, 320), 136, 1, "affine", True, "slab"),
-               ((2, 8, 8, 1280), 1280, 1, "silu", False, "slab")]
+# (x shape, c_out, k, prologue, int8, the tiling the static rule must
+# choose). Whole planes ("planes"): two of 5 x 3 pixels, a plane of 7 x 9
+# and of 9 x 11 (1x1), Cin 16, 24 and 40 (one short chunk; int8 rows of 24
+# and 40 channels only 8-byte aligned), five 4 x 4 planes a block, 8 x 8
+# planes split over 10 and 20 blocks (1x1, and 3 samples: a last block of
+# one). Patches ("patch"): planes whose rows do not tile 128 pixels cut at
+# their edges (63 x 65, 6 x 32, 12 x 12, a halo'd slice of 33 columns, 8 x 8
+# and 4 x 256 in 8 x 16 patches), Cout not a multiple of the tile, one Cin
+# chunk and 30 of them split over blocks, 1x1 sites, Cin 40, 200 and 328 (a
+# last chunk of 8 channels). Runs that wrap rows ("run"), where they save
+# a wave of blocks: 65 x 65 (Cin 64 and 40) and 129 x 33 (1x1)
+CONV_RAGGED = [((2, 63, 65, 64), 100, 3, "silu", False, "patch"),
+               ((2, 5, 3, 16), 13, 3, None, False, "planes"),
+               ((1, 7, 9, 24), 40, 3, "silu", True, "planes"),
+               ((2, 32, 32, 640), 640, 3, "silu", True, "patch"),
+               ((2, 9, 11, 40), 72, 1, "affine", False, "planes"),
+               ((2, 16, 16, 40), 72, 3, "silu", True, "patch"),
+               ((2, 6, 32, 64), 72, 3, "silu", False, "patch"),
+               ((3, 8, 8, 64), 100, 3, "silu", False, "patch"),
+               ((3, 8, 8, 64), 100, 3, "silu", True, "patch"),
+               ((1, 8, 128, 64), 72, 3, "silu", False, "patch"),
+               ((1, 8, 128, 64), 72, 3, "silu", True, "patch"),
+               ((1, 4, 256, 128), 200, 3, "affine", False, "patch"),
+               ((1, 4, 256, 128), 200, 3, None, True, "patch"),
+               ((2, 16, 16, 1920), 100, 3, "silu", False, "patch"),
+               ((2, 16, 16, 1920), 100, 3, "silu", True, "patch"),
+               ((5, 4, 4, 64), 64, 3, "silu", False, "planes"),
+               ((2, 16, 16, 128), 136, 1, "affine", False, "patch"),
+               ((2, 16, 16, 320), 136, 1, "affine", True, "patch"),
+               ((2, 8, 8, 1280), 1280, 1, "silu", False, "planes"),
+               ((3, 8, 8, 640), 640, 3, "silu", True, "planes"),
+               ((2, 12, 12, 64), 72, 3, "silu", False, "patch"),
+               ((2, 12, 12, 128), 136, 3, "silu", True, "patch"),
+               ((2, 64, 33, 320), 320, 3, "silu", True, "patch"),
+               ((2, 32, 32, 200), 128, 3, "silu", True, "patch"),
+               ((2, 16, 16, 328), 72, 1, "affine", True, "patch"),
+               ((3, 65, 65, 64), 64, 3, "silu", False, "run"),
+               ((3, 65, 65, 40), 64, 3, "silu", True, "run"),
+               ((3, 129, 33, 64), 64, 1, "affine", True, "run")]
 # where K3's time without the prologue is taken too
 CONV_PROBED = {((2, 64, 64, 320), 320, 3), ((2, 16, 16, 1280), 1280, 3),
                ((2, 8, 8, 1280), 1280, 3)}
@@ -1342,9 +1356,10 @@ def phase_kernel_conv(conv_sites, ragged=CONV_RAGGED, unet_n=2,
     version, of the whole cuda_conv site (``gn_affine`` + the kernel) and of
     the cuda policy's site (bf16 GroupNorm + SiLU + cuDNN conv + bias).
     The plain version's times are taken at the main path's bf16 rows only
-    (the statistics mode's in ``kernel_gn_affine``). Each row names the kernel and the tiling
-    ``plan_conv`` chose; a ragged case must get the kernel it was written
-    for. ``prologue_bound_ms`` is
+    (the statistics mode's in ``kernel_gn_affine``). Each row names the
+    tiling ``plan_conv`` chose (``design``: planes, patch or run) and its
+    plan; a ragged case must get the tiling it was written for.
+    ``prologue_bound_ms`` is
     the time the SiLU's special-function work alone needs, one operation
     an input element (derived, not measured); ``ms_no_prologue`` the
     kernel's time on the same call without ``a`` and ``d``. ``cudnn``:
@@ -1444,7 +1459,7 @@ def phase_kernel_conv(conv_sites, ragged=CONV_RAGGED, unet_n=2,
         if not err <= FUSED_TOL * ref_max:
             raise AssertionError(f"conv kernel disagrees at {row}")
         if want not in (None, plan["design"]):
-            raise AssertionError(f"conv case written for the {want} kernel "
+            raise AssertionError(f"conv case written for the {want} tiling "
                                  f"got {row}")
         if affine and not affine["affine_rel_err"] <= AFFINE_TOL:
             raise AssertionError(f"gn_affine kernel disagrees at {row}")
@@ -1590,7 +1605,6 @@ def phase_breakdown(ctx, policy):
                              if "gn_kernel" in k),
         "conv_ms": sum(v for k, v in by_name.items() if any(
             kernel in k for kernel in ("conv_slab_kernel",
-                                       "conv_general_kernel",
                                        "conv_sum_kernel"))),
         "matmul_int8w_ms": sum(v for k, v in by_name.items()
                                if "mm_int8w" in k),

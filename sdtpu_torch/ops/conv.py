@@ -14,18 +14,18 @@ differ per sample (the ResBlock's time-embedding add), and rounds once.
 ``eligible`` checks the source's own contract only: the reference's VMEM,
 power-of-two and Mosaic gates (``sdtpu/ops/conv.py:120-173,192-201``) are the
 TPU's. A conv outside it goes to ``layers.conv2d`` by that static rule.
-Inside it ``plan_conv`` chooses, from the shapes alone, between the source's
-two kernels: the slab kernel (wgmma over a halo slab that is normalised
-once; Cin % 64 == 0 and planes whose rows tile 128 pixels: every UNet and
-VAE site) with its column tile and its split of the Cin chunks, or the
-general kernel (any plane, Cin % 8 == 0) with ``splits_for``'s split-K. On a
-CPU tensor the plain version runs instead; on a CUDA tensor a kernel
-launches or the call raises.
+Inside it ``plan_conv`` chooses, from the shapes alone, how the source's
+one kernel tiles the conv: the slab kernel (wgmma over a halo slab that is
+normalised once) takes every plane, with the 128 output pixels of a block a
+patch, whole planes or a run of consecutive pixels, its column tile and its
+split of the Cin chunks. On a CPU tensor the plain version runs instead; on
+a CUDA tensor the kernel launches or the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -33,88 +33,81 @@ import torch.nn.functional as F
 from sdtpu_torch.ops import groupnorm as G
 
 _BIG = 2 ** 31            # the kernel indexes each tensor with 32-bit ints
-_MAX_COUT_TILES = 65535   # 128-wide Cout tiles on the grid's y axis
-_TILE, _BK = 128, 32      # the general kernel's tile (M and Cout), K step
-_MAX_SPLITS = 16
+_MAX_COUT_TILES = 65535   # Cout tiles on the grid's y axis
+_TILE = 128               # output pixels a block; eligible's Cout tile
 # the slab kernel (csrc/conv_gn_silu.cu: SLAB_*, Shape, slab_smem)
 _SLAB_PITCH = 144         # bytes of a slab row: 64 bf16 and 16 spare
 _SLAB_MAX_ROWS = 400      # slab rows of one 64-channel group
 _SLAB_MAX_SAMPLES = 8     # samples one block's 128 pixels may span
 _SMEM_CAP = 227 * 1024    # a block's shared memory on sm_90
+_PATCHES = ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8))   # (ph, pw)
+# plan_cost's constants, in slab rows staged and normalised, fitted to the
+# slab kernel's times on an H100 under every tiling and split
+# (tools/probe.py conv): one step of a block's products (64x64 x 320 3x3
+# under each patch), and a block's own work, its tables, first slab and
+# epilogue (the splits at 16x16 x 1280, 12x12 x 1280 and 48x48 x 640)
+_STEP_ROWS = 35
+_BLOCK_ROWS = 1000
 _PROLOGUE = {None: 0, "affine": 1, "silu": 2}
-_COUNTERS: dict = {}      # device -> int32 per-tile counters, kept at 0
 
 
-def splits_for(m: int, c_out: int, k: int, sms: int) -> int:
-    """How many blocks share one output tile's K loop (split-K): as many as
-    keep all blocks in one wave of the two an SM holds, at most
-    _MAX_SPLITS, with at least 32 K steps (1,024 of K) per block, so the
-    partials' write and sum stay small beside the products. Swept on the
-    H100 at the SD1.5 UNet's 8x8-32x32 convs: the best count was within 5%
-    of this rule's at each."""
-    tiles = -(-m // _TILE) * -(-c_out // _TILE)
-    steps = -(-k // _BK)
-    return max(1, min(_MAX_SPLITS, 2 * sms // tiles, steps // 32))
+def run_rows(w: int) -> int:
+    """The rows of a plane of width ``w`` that a run of 128 consecutive
+    pixels may span (``run_rows`` in the source): a run starts at a multiple
+    of 128, so at a column that is a multiple of gcd(w, 128)."""
+    return (w - math.gcd(w, 128) + 127) // w + 1
 
 
-def general_plan(m: int, c_in: int, c_out: int, ks: int, sms: int) -> dict:
-    """The general kernel's plan: 128 x 128 output tiles, ``splits_for``'s
-    split-K."""
-    splits = splits_for(m, c_out, ks * ks * c_in, sms)
-    return {"design": "general", "bn": _TILE, "splits": splits, "chunks": 0,
-            "ph": 0, "pw": 0, "ns": 0,
-            "blocks": -(-m // _TILE) * -(-c_out // _TILE) * splits, "smem": 0}
-
-
-def slab_patch(h: int, w: int):
-    """How the slab kernel's 128 consecutive output pixels lie in an h x w
-    plane, as (rows, pixels a row, samples), or None where they do not tile
-    it: a 128-pixel run of one row (w a multiple of 128), 128 / w whole rows
-    of one sample (dividing h), or whole planes of up to
-    ``_SLAB_MAX_SAMPLES`` samples (h w dividing 128)."""
-    if w >= 128:
-        return (1, 128, 1) if w % 128 == 0 else None
-    if 128 % w:
-        return None
-    rows = 128 // w
-    if h % rows == 0:
-        return (rows, w, 1)
-    if rows % h == 0 and rows // h <= _SLAB_MAX_SAMPLES:
-        return (h, w, rows // h)
-    return None
+def conv_tilings(n: int, h: int, w: int):
+    """Every way the slab kernel can lay its blocks' 128 output pixels over
+    an n x h x w output, in ``plan_conv``'s order of preference, as
+    ``(design, ph, pw, ns, blocks)``: ``ns`` whole planes (h w <= 128); a
+    ph x pw patch of one sample (``_PATCHES``, the widest rows first; the
+    patches at the plane's edge cut by it); a run of 128 consecutive pixels
+    of one sample over ``run_rows(w)`` rows of the whole width. ``blocks``:
+    how many tile the output."""
+    out = []
+    if h * w <= _TILE:
+        ns = min(n, _TILE // (h * w), _SLAB_MAX_SAMPLES)
+        out.append(("planes", h, w, ns, -(-n // ns)))
+    out += [("patch", ph, pw, 1, n * -(-h // ph) * -(-w // pw))
+            for ph, pw in _PATCHES]
+    out.append(("run", run_rows(w), w, 1, n * -(-h * w // _TILE)))
+    return out
 
 
 def slab_shape(ks: int):
-    """(groups, steps, lead): a slab chunk holds ``groups`` runs of 64 input
-    channels and is multiplied in up to ``steps`` steps of one weight tile
-    each (the 9 taps of its one group, or the 3 groups of a 1x1 conv); the
-    weight copies run ``lead`` steps ahead."""
-    return (1, 9, 3) if ks == 3 else (3, 3, 2)
+    """(steps, lead, buffers): a slab chunk of 64 input channels is
+    multiplied in ``steps`` steps of one weight tile each (the 9 taps of a
+    3x3 conv, the one of a 1x1), the weight copies run ``lead`` steps
+    ahead, and the slabs run in a ring of ``buffers``."""
+    return (9, 3, 2) if ks == 3 else (1, 4, 5)
 
 
 def slab_smem_bytes(bn: int, int8: bool, ks: int, rows: int, ns: int) -> int:
     """The slab kernel's dynamic shared memory (``slab_smem`` in the
     source): 1 KB of alignment slack, the weight tiles (lead + 2 of bf16
-    weights; 3 widened and ``lead`` raw stages of int8), two slabs of
-    ``groups * rows`` rows, two stages of the chunk's A and D, the table of
-    the slab rows' pixels, the block's bias rows and scales."""
-    groups, _, lead = slab_shape(ks)
+    weights; 3 widened and ``lead`` raw stages of int8), ``buffers`` slabs
+    of ``rows`` rows and as many stages of the chunk's A and D, the table of
+    the slab rows' pixels, the block's bias rows and scales, the table of
+    its 128 output pixels."""
+    _, lead, bufs = slab_shape(ks)
     tiles = (3 if int8 else lead + 2) * bn * 128
     raw = lead * bn * 64 if int8 else 0
-    slabs = 2 * groups * rows * _SLAB_PITCH
-    ad = 2 * (2 * ns * groups * 64 * 4)
+    slabs = bufs * rows * _SLAB_PITCH
+    ad = bufs * (2 * ns * 64 * 4)
     table = (rows * 4 + 15) // 16 * 16
-    return 1024 + tiles + raw + slabs + ad + table + ns * bn * 4 + bn * 4
+    return (1024 + tiles + raw + slabs + ad + table + ns * bn * 4 + bn * 4
+            + _TILE * 4)
 
 
 def slab_plan(n: int, h: int, w: int, c_in: int, c_out: int, ks: int,
-              sms: int, int8: bool = False):
-    """The slab kernel's plan for a conv within its contract, else None
-    (``plan_conv`` names the fields)."""
-    patch = slab_patch(h, w)
-    if c_in % 64 or patch is None:
-        return None
-    ph, pw, ns = patch
+              sms: int, int8: bool, tiling, splits=None):
+    """The plan of one tiling of ``conv_tilings``, or None where its slab
+    has more than ``_SLAB_MAX_ROWS`` rows or its block's shared memory
+    does not fit (``plan_conv`` names the fields). ``splits``: the split
+    rule's, or as many runs of Cin chunks as given (a probe's)."""
+    design, ph, pw, ns, grid = tiling
     pad = ks // 2
     rows = ns * (ph + 2 * pad) * (pw + 2 * pad)
     bn = 160 if c_out % 160 == 0 and c_out % 128 else 128
@@ -123,55 +116,70 @@ def slab_plan(n: int, h: int, w: int, c_in: int, c_out: int, ks: int,
         bn, smem = 128, slab_smem_bytes(128, int8, ks, rows, ns)
     if rows > _SLAB_MAX_ROWS or smem > _SMEM_CAP:
         return None
-    tiles = -(-n * h * w // _TILE) * -(-c_out // bn)
-    chunks_all = -(-(c_in // 64) // slab_shape(ks)[0])
-    splits = 1 if 2 * tiles > sms else min(chunks_all, sms // tiles)
+    tiles = grid * -(-c_out // bn)
+    chunks_all = -(-c_in // 64)
+    if splits is None:
+        # the fewest runs of least plan_cost, within the kernel's 32-bit
+        # indexing of the partials
+        splits = min((s for s in range(1, chunks_all + 1)
+                      if s == 1 or s * n * h * w * c_out < _BIG),
+                     key=lambda s: (_cost(ks, rows, -(-tiles * s // sms),
+                                          -(-chunks_all // s)), s))
     chunks = -(-chunks_all // splits)
     splits = -(-chunks_all // chunks)
-    return {"design": "slab", "bn": bn, "splits": splits, "chunks": chunks,
+    return {"design": design, "bn": bn, "splits": splits, "chunks": chunks,
             "ph": ph, "pw": pw, "ns": ns, "blocks": tiles * splits,
             "smem": smem}
 
 
+def _cost(ks: int, rows: int, waves: int, chunks: int) -> int:
+    return waves * (chunks * (slab_shape(ks)[0] * _STEP_ROWS + rows)
+                    + _BLOCK_ROWS)
+
+
+def plan_cost(plan: dict, ks: int, sms: int) -> int:
+    """``plan_conv``'s estimate of a plan's time, in slab rows: waves of
+    blocks (one block an SM) x (chunks a block x (a chunk's steps of
+    products, each worth ``_STEP_ROWS`` rows, + the slab rows staged and
+    normalised for it) + a block's own work, ``_BLOCK_ROWS``)."""
+    pad = ks // 2
+    rows = plan["ns"] * (plan["ph"] + 2 * pad) * (plan["pw"] + 2 * pad)
+    return _cost(ks, rows, -(-plan["blocks"] // sms), plan["chunks"])
+
+
 def plan_conv(n: int, h: int, w: int, c_in: int, c_out: int, ks: int,
               sms: int, int8: bool = False) -> dict:
-    """The static rule of ``fused_conv_cuda``: which kernel of
-    ``csrc/conv_gn_silu.cu`` takes the conv, and how.
+    """The static rule of ``fused_conv_cuda``: how the slab kernel of
+    ``csrc/conv_gn_silu.cu`` takes the conv.
 
-    * ``design``: ``"slab"`` where Cin % 64 == 0, the plane tiles into runs
-      of 128 pixels (``slab_patch``: ``ph``, ``pw``, ``ns``), the slab has at
-      most ``_SLAB_MAX_ROWS`` rows and the block's shared memory fits; else
-      ``"general"`` (``general_plan``). A 1x1 conv whose blocks would walk
-      more than two slab chunks un-split stays general too: each chunk
-      costs a block a round trip to device memory that nothing hides (one
-      block an SM), and the general kernel measured faster there (the
-      UNet's 32x32 ``proj_in``).
-    * ``bn``, the slab kernel's column tile: 160 where that divides Cout
-      and 128 does not (Cout = 320 is two exact tiles) and fits, else 128.
-    * ``splits`` and ``chunks``: Cin is walked in slab chunks (64 channels
-      for 3x3, 192 for 1x1); where the output tiles would leave half of the
-      SMs idle, the chunks are cut into ``splits`` runs of ``chunks`` each
-      (the last may be shorter, none is empty), one block a run, and a second
-      pass sums the float32 partial tiles in a fixed order.
-    * ``blocks``: the grid's size; ``smem``: the slab kernel's dynamic
-      shared memory a block (0 for the general kernel, whose launcher sizes
-      its own).
+    * ``design``, ``ph``, ``pw``, ``ns``: of the tilings of
+      ``conv_tilings`` whose slab (``ns (ph + 2 pad)(pw + 2 pad)`` rows) has
+      at most ``_SLAB_MAX_ROWS`` rows and whose block's shared memory fits,
+      the one of least ``plan_cost``; of equals, the first in
+      ``conv_tilings``' order. A wave of blocks costs as much whether every
+      pixel of it is stored or not, so a cut patch may beat an exact
+      tiling with a larger halo: 8 x 16 patches take SD 2.1 768's planes
+      from 96^2 to 12^2 and a halo'd slice of 33 columns, 16 x 8 one of
+      17; whole planes 8^2 and 8 x 5 at the CFG batch.
+    * ``bn``, the column tile: 160 where that divides Cout and 128 does not
+      (Cout = 320 is two exact tiles) and fits, else 128.
+    * ``splits`` and ``chunks``: Cin is walked in slab chunks of 64
+      channels (the last may be short), cut into ``splits`` runs of
+      ``chunks`` each (the last may be shorter, none is empty), one block a
+      run, where that lowers ``plan_cost`` (``slab_plan``: ten runs fill
+      one wave with the 8x8 level's ten tiles, two save one of 48x48 x
+      640's three); a second pass sums the float32 partial tiles in a
+      fixed order.
+    * ``blocks``: the grid's size; ``smem``: the block's dynamic shared
+      memory.
     """
-    plan = slab_plan(n, h, w, c_in, c_out, ks, sms, int8)
-    if plan is None or (ks == 1 and plan["splits"] == 1
-                        and plan["chunks"] > 2):
-        return general_plan(n * h * w, c_in, c_out, ks, sms)
-    return plan
-
-
-def _tile_counters(device, tiles: int):
-    """Zeroed int32 counters, one per output tile, kept per device: the
-    kernel's last block of each tile resets its counter to 0."""
-    have = _COUNTERS.get(device)
-    if have is None or have.numel() < tiles:
-        have = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = have
-    return have
+    best = None
+    for tiling in conv_tilings(n, h, w):
+        plan = slab_plan(n, h, w, c_in, c_out, ks, sms, int8, tiling)
+        if plan is not None and (best is None or plan_cost(plan, ks, sms)
+                                 < plan_cost(best, ks, sms)):
+            best = plan
+    return best
 
 
 def _kernel_weight(w):
@@ -297,16 +305,11 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
     m = n * h * ww
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = plan_conv(n, h, ww, c_in, c_out, k, sms, quantized)
-    slab = plan["design"] == "slab"
-    ws = counters = None
+    ws = None
     if plan["splits"] > 1:
-        # float32 partial tiles; the general kernel's last block of a tile
-        # sums them (a counter a tile), the slab kernel's second pass
+        # float32 partial tiles, summed by the kernel's second pass
         ws = torch.empty((plan["splits"], m, c_out), dtype=torch.float32,
                          device=x.device)
-        if not slab:
-            counters = _tile_counters(x.device, -(-m // _TILE)
-                                      * -(-c_out // _TILE))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     prologue = _PROLOGUE[None if a is None else ("silu" if silu else
                                                  "affine")]
@@ -314,9 +317,9 @@ def fused_conv_cuda(x, w, b, *, a=None, d=None, silu=True, w_scale=None):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sdtpu_conv_gn_silu(
             x.data_ptr(), wk.data_ptr(), b.data_ptr(), ptr(a), ptr(d),
-            ptr(w_scale), out.data_ptr(), ptr(ws), ptr(counters), n, h, ww,
-            c_in, c_out, k, c_out if b.dim() == 2 else 0, prologue,
-            int(quantized), int(slab), plan["bn"], plan["splits"],
+            ptr(w_scale), out.data_ptr(), ptr(ws), n, h, ww, c_in, c_out, k,
+            c_out if b.dim() == 2 else 0, prologue, int(quantized),
+            int(plan["design"] == "run"), plan["bn"], plan["splits"],
             plan["chunks"], plan["ph"], plan["pw"], plan["ns"], stream)
     _build.check_launch(err, "conv_gn_silu")
     fused_conv_cuda.launches += 1
@@ -362,6 +365,6 @@ def gn_affine_reference(p, x, groups: int, eps: float = 1e-5, stats=None):
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C signature (pointers and the stream as c_void_p)."""
     fn = lib.sdtpu_conv_gn_silu
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int

@@ -1,6 +1,7 @@
 """Probes of the port's kernels on one CUDA card: where a kernel's time goes.
 
     python3 -m sdtpu_torch.tools.probe conv     # K3, the fused conv
+    PYTHONPATH=. python3 <this file> conv_times # K3 of the checkout in .
     python3 -m sdtpu_torch.tools.probe w8a8     # K5, the W8A8 GEMM
     python3 -m sdtpu_torch.tools.probe gn       # K2, the GroupNorm's plans
     PYTHONPATH=. python3 <this file> gn_times   # K2 of the checkout in .
@@ -10,12 +11,20 @@ Run from the repository's root (device times come from ``chip_smoke.cuda_ms``:
 CUDA-graph replays between CUDA events). Each probe prints one JSON object a
 line, the first with the card's name and power limit.
 
-``conv``: both kernels of the conv source at the UNet's shapes, each forced
-through ``plan_conv`` where the rule would choose the other: at three 3x3
-shapes with the SiLU prologue, the affine one and none, the general kernel
-(mma.sync, the prologue applied to every staged tap) with split-K at 1 and
-at its rule's value: how much of each time is prologue, products and the
-split's tail; and at the 1x1 ``proj_in`` shapes.
+``conv``: K3's slab kernel at the UNet's shapes and at the planes whose
+rows do not tile 128 pixels (SD 2.1 768's levels, a halo'd slice), under
+its rule's plan, under every other tiling that fits (whole planes, each
+patch, a run) and with the rule's tiling split into 1 to 4 runs of Cin
+chunks: which tiling and split the rule should choose; the 3x3 convs with
+the SiLU prologue and without it (how much of a time is prologue), the
+1x1 with the affine one.
+
+``conv_times``: K3 (``fused_conv_cuda``) at the sites PR 2's general kernel
+took (SD 2.1 768's UNet and VAE planes, halo'd slices, SD1.5's 32x32
+``proj_in``) and at SD1.5's other main-path planes, as the checkout it is
+imported from runs them, beside
+cuDNN's conv alone and the whole site under ``kernels="cuda"``; run by
+path from another checkout's root as ``gn_times``.
 
 ``w8a8``: K5 at two main-path shapes as the wrapper runs it, with the products
 left out and with the copies left out of its K loop (the entry point's
@@ -53,9 +62,40 @@ import sys
 
 import torch
 
-CONV_SHAPES = [((2, 64, 64, 320), 320, 3), ((2, 16, 16, 1280), 1280, 3),
-               ((2, 8, 8, 1280), 1280, 3), ((2, 64, 64, 320), 320, 1),
-               ((2, 32, 32, 640), 640, 1), ((2, 16, 16, 1280), 1280, 1)]
+CONV_SHAPES = [((2, 64, 64, 320), 320, 3), ((2, 32, 32, 1280), 640, 3),
+               ((2, 16, 16, 1280), 1280, 3),
+               ((2, 8, 8, 1280), 1280, 3), ((2, 96, 96, 320), 320, 3),
+               ((2, 48, 48, 640), 640, 3), ((2, 24, 24, 1280), 1280, 3),
+               ((2, 12, 12, 1280), 1280, 3), ((2, 64, 33, 320), 320, 3),
+               ((2, 64, 64, 320), 320, 1), ((2, 32, 32, 640), 640, 1),
+               ((2, 16, 16, 1280), 1280, 1), ((2, 96, 96, 320), 320, 1),
+               ((2, 48, 48, 640), 640, 1), ((2, 24, 24, 1280), 1280, 1)]
+# (x shape, c_out, k, prologue): the sites PR 2's general kernel took, then
+# SD1.5's main path at 512^2
+TIMED_SITES = [((2, 96, 96, 320), 320, 3, "silu"),
+                 ((2, 48, 48, 640), 640, 3, "silu"),
+                 ((2, 24, 24, 1280), 1280, 3, "silu"),
+                 ((2, 12, 12, 1280), 1280, 3, "silu"),
+                 ((2, 96, 96, 320), 320, 1, "affine"),
+                 ((2, 48, 48, 640), 640, 1, "affine"),
+                 ((2, 24, 24, 1280), 1280, 1, "affine"),
+                 ((2, 12, 12, 1280), 1280, 1, "affine"),
+                 ((1, 96, 96, 512), 512, 3, "silu"),
+                 ((1, 192, 192, 512), 512, 3, "silu"),
+                 ((2, 64, 33, 320), 320, 3, "silu"),
+                 ((2, 8, 5, 1280), 1280, 3, "silu"),
+                 ((2, 32, 32, 640), 640, 1, "affine"),
+                 ((2, 64, 64, 320), 320, 3, "silu"),
+                 ((2, 32, 32, 640), 640, 3, "silu"),
+                 ((2, 32, 32, 1280), 640, 3, "silu"),
+                 ((2, 16, 16, 1280), 1280, 3, "silu"),
+                 ((2, 8, 8, 1280), 1280, 3, "silu"),
+                 ((2, 64, 64, 320), 320, 1, "affine"),
+                 ((2, 16, 16, 1280), 1280, 1, "affine"),
+                 ((1, 64, 64, 512), 512, 3, "silu"),
+                 ((1, 128, 128, 512), 512, 3, "silu"),
+                 ((1, 256, 256, 256), 256, 3, "silu"),
+                 ((1, 512, 512, 128), 128, 3, "silu")]
 
 
 def emit(obj) -> None:
@@ -69,42 +109,88 @@ def card() -> None:
     emit({"probe": "device", "nvidia_smi": smi, "torch": torch.__version__})
 
 
-def probe_conv() -> None:
-    from chip_smoke import cuda_ms
-    from sdtpu_torch.ops import conv as C
+def _conv_inputs(shape, c_out, ks, g):
     from sdtpu_torch.ops import groupnorm as G
+
+    n, h, w_, c_in = shape
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((c_out, c_in, ks, ks), generator=g, device="cuda")
+         / (ks * ks * c_in) ** 0.5).to(torch.bfloat16).contiguous(
+             memory_format=torch.channels_last)
+    b = torch.randn((n, c_out), generator=g, device="cuda")
+    pn = {"scale": torch.ones(c_in, device="cuda", dtype=torch.bfloat16),
+          "bias": torch.zeros(c_in, device="cuda", dtype=torch.bfloat16)}
+    a, d = G.group_norm_affine_cuda(pn, x, 32, 1e-5)
+    return x, w, b, pn, a, d
+
+
+def probe_conv() -> None:
+    from chip_smoke import cuda_ms, rel_err
+    from sdtpu_torch.ops import conv as C
 
     g = torch.Generator(device="cuda").manual_seed(5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     real_plan = C.plan_conv
     for shape, c_out, ks in CONV_SHAPES:
         n, h, w_, c_in = shape
-        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-        w = (torch.randn((c_out, c_in, ks, ks), generator=g, device="cuda")
-             / (ks * ks * c_in) ** 0.5).to(torch.bfloat16).contiguous(
-                 memory_format=torch.channels_last)
-        b = torch.randn((n, c_out), generator=g, device="cuda")
-        pn = {"scale": torch.ones(c_in, device="cuda", dtype=torch.bfloat16),
-              "bias": torch.zeros(c_in, device="cuda", dtype=torch.bfloat16)}
-        a, d = G.group_norm_affine_cuda(pn, x, 32, 1e-5)
-        general = C.general_plan(n * h * w_, c_in, c_out, ks, sms)
-        slab = C.slab_plan(n, h, w_, c_in, c_out, ks, sms)
-        row = {"probe": "conv", "x": list(shape), "c_out": c_out, "k": ks,
-               "rule": real_plan(n, h, w_, c_in, c_out, ks, sms)["design"],
-               "rule_splits": general["splits"], "slab_plan": slab}
+        x, w, b, _, a, d = _conv_inputs(shape, c_out, ks, g)
+        rule = real_plan(n, h, w_, c_in, c_out, ks, sms)
+        plans = [rule]
+        for tiling in C.conv_tilings(n, h, w_):
+            for splits in (None, 1, 2, 3, 4):
+                plan = C.slab_plan(n, h, w_, c_in, c_out, ks, sms, False,
+                                   tiling, splits)
+                if plan is not None and plan not in plans and (
+                        splits is None or tiling[0] == rule["design"]):
+                    plans.append(plan)
         prologues = (("silu", {"a": a, "d": d, "silu": True}),
-                     ("affine", {"a": a, "d": d, "silu": False}),
                      ("no_prologue", {}))
-        for name, kw in prologues if ks == 3 else prologues[1:2]:
-            plans = [("slab", slab)] + [
-                (f"general_splits{s}", {**general, "splits": s})
-                for s in sorted({1, general["splits"]})]
-            for label, plan in plans:
-                C.plan_conv = lambda *args, plan=plan: plan
-                row[f"{label}_ms_{name}"] = cuda_ms(
-                    lambda: C.fused_conv_cuda(x, w, b, **kw))
-            C.plan_conv = real_plan
-        emit(row)
+        if ks == 1:
+            prologues = (("affine", {"a": a, "d": d, "silu": False}),
+                         ("no_prologue", {}))
+        for plan in plans:
+            row = {"probe": "conv", "x": list(shape), "c_out": c_out,
+                   "k": ks, "rule": plan is rule, "plan": plan}
+            C.plan_conv = lambda *args, plan=plan: plan
+            try:
+                for name, kw in prologues:
+                    out = C.fused_conv_cuda(x, w, b, **kw)
+                    ref = C.fused_conv_reference(x.float(), w, b, **kw)
+                    row[f"err_{name}"] = rel_err(out, ref)
+                    row[f"ms_{name}"] = cuda_ms(
+                        lambda: C.fused_conv_cuda(x, w, b, **kw))
+            finally:
+                C.plan_conv = real_plan
+            emit(row)
+        torch.cuda.empty_cache()
+
+
+def probe_conv_times() -> None:
+    import torch.nn.functional as F
+
+    from chip_smoke import cuda_ms
+    from sdtpu_torch.models import unet
+    from sdtpu_torch.ops import conv as C
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, c_out, ks, prologue in TIMED_SITES:
+        n, h, w_, c_in = shape
+        x, w, b, pn, a, d = _conv_inputs(shape, c_out, ks, g)
+        silu = prologue == "silu"
+        pc = {"w": w, "b": b[0]}
+        emit({"probe": "conv_times", "module": C.__file__, "x": list(shape),
+              "c_out": c_out, "k": ks, "prologue": prologue,
+              "plan": C.plan_conv(n, h, w_, c_in, c_out, ks, sms),
+              "ms": [cuda_ms(lambda: C.fused_conv_cuda(
+                  x, w, b, a=a, d=d, silu=silu)) for _ in range(2)],
+              "cudnn_ms": cuda_ms(lambda: F.conv2d(
+                  x.permute(0, 3, 1, 2), w, b[0].to(torch.bfloat16),
+                  padding=ks // 2)),
+              "cuda_site_ms": cuda_ms(lambda: unet._norm_conv(
+                  pn, pc, x, 32, 1e-5, "cuda", fuse_silu=silu,
+                  padding=ks // 2))})
+        torch.cuda.empty_cache()
 
 
 def probe_w8a8() -> None:
@@ -284,7 +370,8 @@ def main() -> int:
         print("probe: no CUDA device", file=sys.stderr)
         return 2
     what = sys.argv[1] if len(sys.argv) > 1 else ""
-    probes = {"conv": probe_conv, "w8a8": probe_w8a8, "gn": probe_gn,
+    probes = {"conv": probe_conv, "conv_times": probe_conv_times,
+              "w8a8": probe_w8a8, "gn": probe_gn,
               "gn_times": probe_gn_times, "bwd_times": probe_bwd_times}
     if what not in probes:
         print(f"usage: python3 -m sdtpu_torch.tools.probe {'|'.join(probes)}",

@@ -160,16 +160,27 @@ def test_fused_group_norm_matches_jax(pallas, c, groups, eps, fuse_silu):
 
 def _conv_case(case):
     """(x, HWIO weight, bias, GroupNorm params or None, silu, w_scale) for
-    the three prologue/weight variants of K3."""
+    the three prologue/weight variants of K3, and for a plane of each
+    tiling class of ``plan_conv`` that the others do not take: an edge
+    patch cut by the plane (12 x 12 in 8 x 16 patches), a run that wraps
+    rows (17 x 33: 5 runs of 128 pixels against 9 patches, at 15 Cout
+    tiles a wave against two) and a short last Cin chunk (72 = 64 + 8)."""
     if case == "3x3_silu_per_sample_bias":
         x, cin, cout, k = _rand(2, 8, 8, 24, seed=4), 24, 40, 3
     elif case == "1x1_affine":
         x, cin, cout, k = _rand(2, 8, 8, 32, seed=5), 32, 32, 1
+    elif case == "masked_patch":
+        x, cin, cout, k = _rand(2, 12, 12, 64, seed=14), 64, 40, 3
+    elif case == "wrapping_run":
+        x, cin, cout, k = _rand(1, 17, 33, 32, seed=15), 32, 1920, 3
+    elif case == "cin_tail":
+        x, cin, cout, k = _rand(2, 8, 8, 72, seed=16), 72, 24, 3
     else:
         x, cin, cout, k = _rand(2, 8, 8, 16, seed=6), 16, 24, 3
     w = _rand(k, k, cin, cout, seed=7) * 0.1
-    b = _rand(2, cout, seed=8) if case.startswith("3x3") else _rand(cout,
-                                                                   seed=8)
+    per_sample = case.startswith("3x3") or case in ("masked_patch",
+                                                    "cin_tail")
+    b = _rand(x.shape[0], cout, seed=8) if per_sample else _rand(cout, seed=8)
     norm = {"scale": _rand(cin, seed=9) * 0.2 + 1.0,
             "bias": _rand(cin, seed=10)}
     scale = None
@@ -177,16 +188,34 @@ def _conv_case(case):
         scale = (np.abs(w).max(axis=(0, 1, 2)) / 127.0).astype(np.float32)
         w = np.clip(np.rint(w / scale), -127, 127).astype(np.int8)
         norm = None
-    return x, w, b, norm, case != "1x1_affine", scale
+    return x, w, b, norm, case not in ("1x1_affine", "wrapping_run"), scale
 
 
-@pytest.mark.parametrize("case", ["3x3_silu_per_sample_bias", "1x1_affine",
-                                  "int8_w_scale"])
-def test_fused_conv_matches_jax(pallas, case):
+@pytest.mark.parametrize("case,design", [
+    ("3x3_silu_per_sample_bias", "patch"), ("1x1_affine", "planes"),
+    ("int8_w_scale", "patch"), ("masked_patch", "patch"),
+    ("wrapping_run", "run"), ("cin_tail", "patch")])
+def test_fused_conv_matches_jax(pallas, monkeypatch, case, design):
     """JAX's fused_conv (Pallas, interpret mode) against the port's, on the
-    GroupNorm each side folds with its own gn_affine. Both f32: max-abs
-    error <= 1e-5 x the output's max-abs."""
+    GroupNorm each side folds with its own gn_affine, at a plane that
+    ``plan_conv`` tiles as ``design`` on the card. The reference's planner
+    refuses planes of other than power-of-two sides (a Mosaic compile
+    limit, ``sdtpu/ops/conv.py:_plan``), so there it is handed the
+    whole-plane plan its interpret mode runs. Both f32: max-abs error <=
+    1e-5 x the output's max-abs."""
     x, w, b, norm, silu, scale = _conv_case(case)
+    n, h, ww, cin = x.shape
+    plan = t_conv.plan_conv(n, h, ww, cin, w.shape[-1], w.shape[0], 132,
+                            scale is not None)
+    assert plan["design"] == design
+    if case == "masked_patch":      # patches at the plane's edge are cut
+        assert plan["blocks"] * 128 > n * h * ww
+    if case == "cin_tail":
+        assert cin % 64 and plan["splits"] * plan["chunks"] == 2
+    if h & (h - 1) or ww & (ww - 1):
+        monkeypatch.setattr(j_conv, "_plan",
+                            lambda h, w, c_in, c_out, kh, itemsize, n=2:
+                            (c_in, c_in, h, "B"))
     eps = 1e-6 if case == "1x1_affine" else 1e-5
     jx = jnp.asarray(x)
     kw = {}
@@ -284,20 +313,30 @@ def test_group_norm_uses_kernel_is_the_kernel_contract(shape, groups, want):
                             groups) is want
 
 
-@pytest.mark.parametrize("m,c_out,k,want", [
-    (8192, 320, 9 * 320, 1),        # 64x64: 192 output tiles, one wave
-    (2048, 640, 9 * 640, 3),        # 32x32: 80 tiles
-    (512, 1280, 9 * 2560, 6),       # 16x16: 40 tiles
-    (128, 1280, 9 * 1280, 11),      # 8x8: 10 tiles, 32 K steps a block
-    (128, 1280, 9 * 2560, 16),      # 8x8: capped at 16
-    (512, 1280, 1280, 1),           # 16x16 1x1: too shallow to split
-    (30, 13, 144, 1),
+@pytest.mark.parametrize("site,want", [
+    ((2, 64, 64, 320, 320, 3), 1),      # 64x64: 128 blocks, one wave
+    ((2, 32, 32, 640, 640, 3), 1),      # 32x32: 80 blocks, 10 chunks
+    ((2, 32, 32, 1280, 640, 3), 3),     # 20 chunks: 240 blocks of 7
+    ((2, 16, 16, 2560, 1280, 3), 3),    # 16x16: 40 tiles, 40 Cin chunks
+    ((2, 8, 8, 1280, 1280, 3), 10),     # 8x8: 10 tiles, 20 chunks
+    ((2, 12, 12, 1280, 1280, 3), 3),    # 12x12: 40 tiles, some cut
+    ((2, 48, 48, 640, 640, 3), 2),      # 180 tiles: 3 waves of 5 chunks
+    ((2, 16, 16, 1280, 1280, 1), 3),    # 16x16 1x1: 20 chunks
+    ((1, 7, 9, 24, 40, 3), 1),          # one short chunk
 ])
-def test_conv_splits_fill_the_card(m, c_out, k, want):
-    """Split-K on a 132-SM card: the blocks of one wave (two per SM), each
-    with at least 32 K steps (the kernel runs on the card only; the choice
-    is plain Python)."""
-    assert t_conv.splits_for(m, c_out, k, 132) == want
+def test_conv_splits_fill_the_card(site, want):
+    """The slab kernel's split on a 132-SM card: one block a run of Cin
+    chunks, as many runs as give the least ``plan_cost`` (waves of blocks
+    x the work a block), the fewest of equals (the kernel runs on the card
+    only; the choice is plain Python)."""
+    p = t_conv.plan_conv(*site, 132)
+    assert p["splits"] == want
+    if p["splits"] > 1:
+        one = t_conv.slab_plan(*site, 132, False, next(
+            t for t in t_conv.conv_tilings(*site[:3])
+            if t[:4] == (p["design"], p["ph"], p["pw"], p["ns"])), 1)
+        assert t_conv.plan_cost(p, site[5], 132) < t_conv.plan_cost(
+            one, site[5], 132)
 
 
 @pytest.mark.parametrize("bad", ["cpu", "float32"])

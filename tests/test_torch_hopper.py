@@ -10,6 +10,7 @@ cuda``)."""
 
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import math
 import types
@@ -18,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 import torch.utils._python_dispatch
 
 from sdtpu_torch import Context, ErrorCode, SdtpuError
@@ -592,47 +594,110 @@ def test_unet_conv_count():
     assert len(UNET_CONVS) == 60
 
 
+@functools.lru_cache(maxsize=None)
+def _tiling_replay(n, h, w, ks, design, ph, pw, ns):
+    """``conv_slab_kernel``'s index arithmetic over its whole grid, in
+    numpy: each block's origin, ``locate`` (a pixel's slab row and output
+    row) and the table of the slab rows' input pixels. Asserts that the
+    stored pixels cover the output exactly once and that every tap of a
+    stored pixel reads, inside the slab, the input pixel the conv reads (or
+    a row of zero padding). Returns (blocks along the grid's x axis, the
+    slab row of each block's pixel [grid, 128], its output row or -1, the
+    slab table [grid, rows] of input rows or -1)."""
+    pad = ks // 2
+    sw, plane = pw + 2 * pad, (pw + 2 * pad) * (ph + 2 * pad)
+    rpg = ns * plane
+    wrap = design == "run"
+    tiles_w = 0 if wrap else -(-w // pw)
+    tiles = -(-h * w // 128) if wrap else -(-h // ph) * tiles_w
+    grid = -(-n // ns) * tiles
+    bx = np.arange(grid, dtype=np.int64)[:, None]
+    grp, tile = bx // tiles, bx % tiles
+    nb0 = grp * ns
+    if wrap:
+        y0 = tile * 128 // w
+        off, x0 = tile * 128 - y0 * w, 0 * tile
+    else:
+        ty = tile // tiles_w
+        y0, x0, off = ty * ph, (tile - ty * tiles_w) * pw, 0 * tile
+    q = np.arange(128)[None, :] + off
+    s = q // (ph * pw)
+    r, c = (q - s * ph * pw) // pw, (q - s * ph * pw) % pw
+    nn, oh, ow = nb0 + s, y0 + r, x0 + c
+    valid = (s < ns) & (nn < n) & (oh < h) & (ow < w)
+    pix = np.where(valid, (nn * h + oh) * w + ow, -1)
+    srow = np.where(valid, s * plane + r * sw + c, 0)
+    assert (np.bincount(pix[valid], minlength=n * h * w) == 1).all()
+    qq = np.arange(rpg)[None, :]
+    s2 = qq // plane
+    r2, c2 = (qq - s2 * plane) // sw, (qq - s2 * plane) % sw
+    n2, ih, iw = nb0 + s2, y0 - pad + r2, x0 - pad + c2
+    inside = (n2 < n) & (ih >= 0) & (ih < h) & (iw >= 0) & (iw < w)
+    table = np.where(inside, (n2 * h + ih) * w + iw, -1)
+    assert n * h * w < 2 ** 28      # (pixel << 3) | sample in an int
+    for dy in range(ks):
+        for dx in range(ks):
+            at = srow + dy * sw + dx
+            assert (at < rpg).all()
+            got = np.take_along_axis(table, at, axis=1)
+            iy, ix = oh + dy - pad, ow + dx - pad
+            want = np.where((iy >= 0) & (iy < h) & (ix >= 0) & (ix < w),
+                            (nn * h + iy) * w + ix, -1)
+            assert (got[valid] == want[valid]).all()
+    return grid, srow, pix, table
+
+
 def _check_conv_plan(n, h, w, c_in, c_out, ks, int8, want=None):
     p = t_conv.plan_conv(n, h, w, c_in, c_out, ks, SMS, int8)
     m = n * h * w
-    assert p["design"] in ("slab", "general")      # exactly one kernel
+    ph, pw, ns = p["ph"], p["pw"], p["ns"]
+    # one kernel, three tilings of its 128 pixels, as the entry point
+    # checks them
+    assert p["design"] in ("planes", "patch", "run")
     if want is not None:
         assert p["design"] == want
-    if p["design"] == "general":
-        assert p == t_conv.general_plan(m, c_in, c_out, ks, SMS)
-        assert p["splits"] == t_conv.splits_for(m, c_out, ks * ks * c_in, SMS)
-        return p
-    # the slab kernel's contract
-    ph, pw, ns = p["ph"], p["pw"], p["ns"]
-    assert c_in % 64 == 0 and p["bn"] in (128, 160)
-    assert ns * ph * pw == 128 and 1 <= ns <= 8
-    assert pw == min(w, 128) and w % pw == 0
-    assert (h % ph == 0) if ns == 1 else (ph == h)
+    if p["design"] == "run":
+        assert ns == 1 and pw == w and ph == t_conv.run_rows(w)
+    elif p["design"] == "patch":
+        assert ns == 1 and (ph, pw) in t_conv._PATCHES
+    else:
+        assert (ph, pw) == (h, w) and 1 <= ns <= 8 and ns * h * w <= 128
+    assert c_in % 8 == 0 and p["bn"] in (128, 160)
     pad = ks // 2
     rows = ns * (ph + 2 * pad) * (pw + 2 * pad)
     assert rows <= 400
     assert p["smem"] == t_conv.slab_smem_bytes(p["bn"], int8, ks, rows, ns)
     assert p["smem"] <= SMEM_CAP
+    grid = _tiling_replay(n, h, w, ks, p["design"], ph, pw, ns)[0]
+    # no tiling within the row cap and shared memory costs less
+    for tiling in t_conv.conv_tilings(n, h, w):
+        other = t_conv.slab_plan(n, h, w, c_in, c_out, ks, SMS, int8, tiling)
+        if other is not None:
+            assert t_conv.plan_cost(p, ks, SMS) <= t_conv.plan_cost(
+                other, ks, SMS)
     # the epilogue stages two 64 x bn bf16 tiles, rows padded by 16 bytes,
     # over the weight tiles
-    groups, steps, lead = t_conv.slab_shape(ks)
+    steps, lead, bufs = t_conv.slab_shape(ks)
     assert 2 * 64 * (2 * p["bn"] + 16) <= (3 if int8 else lead + 2) * p[
         "bn"] * 128
-    assert steps > lead          # the next slab lands inside its chunk
-    # the runs cover the Cin chunks exactly once and none is empty
-    chunks_all = -(-(c_in // 64) // groups)
+    # the next slab lands inside its chunk (3x3), or bufs - 2 chunks ahead
+    assert steps > lead if bufs == 2 else steps == 1 and bufs > 2
+    # the runs cover the Cin chunks (the last may be short) exactly once
+    # and none is empty
+    chunks_all = -(-c_in // 64)
     assert p["splits"] >= 1 and p["chunks"] >= 1
     assert p["splits"] * p["chunks"] >= chunks_all
     assert (p["splits"] - 1) * p["chunks"] < chunks_all
-    tiles = -(-m // 128) * -(-c_out // p["bn"])
+    tiles = grid * -(-c_out // p["bn"])
     assert p["blocks"] == tiles * p["splits"] >= min(SMS, tiles)
-    if 2 * tiles > SMS:
-        assert p["splits"] == 1
-    else:
-        assert p["blocks"] <= SMS
-        assert (p["splits"] == chunks_all
-                or tiles * (p["splits"] + 1) > SMS
-                or -(-chunks_all // (p["splits"] + 1)) == p["chunks"])
+    assert p["chunks"] == -(-chunks_all // p["splits"])
+    # no other split of this tiling costs less
+    tiling = (p["design"], ph, pw, ns, grid)
+    for s in range(1, chunks_all + 1):
+        other = t_conv.slab_plan(n, h, w, c_in, c_out, ks, SMS, int8,
+                                 tiling, s)
+        assert t_conv.plan_cost(p, ks, SMS) <= t_conv.plan_cost(
+            other, ks, SMS) or s * m * c_out >= 2 ** 31
     if c_out % 160 == 0 and c_out % 128:
         assert p["bn"] == 160
     elif c_out % 128 == 0:
@@ -643,16 +708,13 @@ def _check_conv_plan(n, h, w, c_in, c_out, ks, int8, want=None):
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("site", sorted(set(UNET_CONVS)) + VAE_CONVS)
 def test_conv_plan_at_every_main_path_site(site, int8):
-    """Every UNet and VAE site gets the slab kernel but the UNet's 32x32
-    ``proj_in`` (un-split, four slab chunks a block: the general kernel
-    measured faster there)."""
-    general = site == (2, 32, 32, 640, 640, 1)
-    _check_conv_plan(*site, int8, "general" if general else "slab")
-    slab = t_conv.slab_plan(*site, SMS, int8)
-    if general:      # within the slab kernel's contract, kept off it by rule
-        assert slab["splits"] == 1 and slab["chunks"] == 4
-    else:
-        assert slab == t_conv.plan_conv(*site, SMS, int8)
+    """Every UNet and VAE site of SD1.5 at 512^2 gets an exact tiling:
+    whole planes at 8x8, patches elsewhere; the UNet's 32x32 ``proj_in``
+    (ten 64-channel chunks a block, un-split) too."""
+    n, h, w = site[:3]
+    p = _check_conv_plan(*site, int8, "planes" if h * w <= 128 else "patch")
+    assert p["blocks"] // p["splits"] * 128 == n * h * w * -(
+        -site[4] // p["bn"])
 
 
 @pytest.mark.parametrize("case", RAGGED_CONVS)
@@ -661,37 +723,107 @@ def test_conv_plan_at_the_ragged_cases(case):
 
 
 @pytest.mark.parametrize("site,want", [
-    ((2, 64, 64, 320, 320, 3), {"bn": 160, "splits": 1, "chunks": 5,
-                                "ph": 2, "pw": 64, "ns": 1, "blocks": 128}),
-    ((2, 32, 32, 640, 640, 3), {"bn": 128, "splits": 1, "chunks": 10,
-                                "ph": 4, "pw": 32, "ns": 1, "blocks": 80}),
-    ((2, 16, 16, 1280, 1280, 3), {"bn": 128, "splits": 3, "chunks": 7,
-                                  "ph": 8, "pw": 16, "ns": 1, "blocks": 120}),
-    ((2, 8, 8, 1280, 1280, 3), {"bn": 128, "splits": 10, "chunks": 2,
-                                "ph": 8, "pw": 8, "ns": 2, "blocks": 100}),
-    ((2, 64, 64, 320, 320, 1), {"bn": 160, "splits": 1, "chunks": 2,
-                                "ph": 2, "pw": 64, "ns": 1, "blocks": 128}),
-    ((1, 512, 512, 128, 128, 3), {"bn": 128, "splits": 1, "chunks": 2,
-                                  "ph": 1, "pw": 128, "ns": 1,
+    ((2, 64, 64, 320, 320, 3), {"design": "patch", "bn": 160, "splits": 1,
+                                "chunks": 5, "ph": 8, "pw": 16, "ns": 1,
+                                "blocks": 128}),
+    ((2, 32, 32, 640, 640, 3), {"design": "patch", "bn": 128, "splits": 1,
+                                "chunks": 10, "ph": 8, "pw": 16, "ns": 1,
+                                "blocks": 80}),
+    ((2, 16, 16, 1280, 1280, 3), {"design": "patch", "bn": 128,
+                                  "splits": 3, "chunks": 7, "ph": 8,
+                                  "pw": 16, "ns": 1, "blocks": 120}),
+    ((2, 8, 8, 1280, 1280, 3), {"design": "planes", "bn": 128, "splits": 10,
+                                "chunks": 2, "ph": 8, "pw": 8, "ns": 2,
+                                "blocks": 100}),
+    ((2, 64, 64, 320, 320, 1), {"design": "patch", "bn": 160, "splits": 1,
+                                "chunks": 5, "ph": 2, "pw": 64, "ns": 1,
+                                "blocks": 128}),
+    ((1, 512, 512, 128, 128, 3), {"design": "patch", "bn": 128, "splits": 1,
+                                  "chunks": 2, "ph": 8, "pw": 16, "ns": 1,
                                   "blocks": 2048}),
 ])
 def test_conv_plan_at_the_main_shapes(site, want):
     p = t_conv.plan_conv(*site, SMS)
-    assert p["design"] == "slab"
     assert {k: p[k] for k in want} == want
 
 
+# the sites PR 2's general kernel took before the slab kernel took every
+# plane: SD 2.1 768's (and SD1.5 at size 768's) UNet levels 96^2 .. 12^2
+# and its VAE's 96^2 and 192^2 planes, the halo'd slices of the spatial
+# partition (W / 2 + 1 columns), the SD1.5 UNet's 32x32 proj_in; each with
+# the tiling the rule gives it (design, ph, pw, ns, splits)
+GENERAL_SITES = [
+    ((2, 96, 96, 320, 320, 3), ("patch", 8, 16, 1, 1)),
+    ((2, 96, 96, 320, 320, 1), ("patch", 1, 128, 1, 1)),
+    ((2, 48, 48, 640, 640, 3), ("patch", 8, 16, 1, 2)),
+    ((2, 48, 48, 640, 640, 1), ("patch", 2, 64, 1, 1)),
+    ((2, 24, 24, 1280, 1280, 3), ("patch", 8, 16, 1, 1)),
+    ((2, 24, 24, 1280, 1280, 1), ("patch", 4, 32, 1, 1)),
+    ((2, 12, 12, 1280, 1280, 3), ("patch", 8, 16, 1, 3)),
+    ((2, 12, 12, 2560, 1280, 3), ("patch", 8, 16, 1, 3)),
+    ((1, 96, 96, 512, 512, 3), ("patch", 8, 16, 1, 1)),
+    ((1, 192, 192, 512, 512, 3), ("patch", 8, 16, 1, 1)),
+    ((2, 64, 33, 320, 320, 3), ("patch", 8, 16, 1, 1)),
+    ((2, 32, 17, 640, 640, 3), ("patch", 16, 8, 1, 2)),
+    ((2, 16, 9, 1280, 1280, 3), ("patch", 8, 16, 1, 3)),
+    ((2, 8, 5, 1280, 1280, 3), ("planes", 8, 5, 2, 10)),
+    ((2, 32, 32, 640, 640, 1), ("patch", 4, 32, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("site,want", GENERAL_SITES, ids=str)
+def test_conv_plan_at_the_general_kernels_sites(site, want, int8):
+    p = _check_conv_plan(*site, int8)
+    assert (p["design"], p["ph"], p["pw"], p["ns"], p["splits"]) == want
+
+
+@pytest.mark.parametrize("kind,name,size", [
+    ("unet", "sd21", None), ("vae", "sd21", None), ("unet", "sd15", 96),
+    ("vae", "sd15", 96)])
+def test_conv_plan_at_every_768_site(kind, name, size):
+    """Every K3 site of SD 2.1 768 and of SD1.5 at ``size=768`` (a 96^2
+    latent grid), recorded from the port's own code on the meta device
+    under ``cuda_conv``: the 60 of a UNet eval at 96^2, 48^2, 24^2 and
+    12^2, the decoder's 28 (16 at 96^2 and 192^2), each with the tiling of
+    ``GENERAL_SITES`` where it is one of them."""
+    log = _part_log(kind, name, "cuda_conv", size=size)
+    part = "unet" if kind == "unet" else "vae"
+    sites = log[(part, "conv")]
+    assert len(sites) == (60 if kind == "unet" else 28)
+    pinned = dict(GENERAL_SITES)
+    planes = set()
+    for site in set(sites):
+        _check_site("conv", site)
+        p = t_conv.plan_conv(*site[:6], SMS, site[6])
+        planes.add(site[1])
+        if site[:6] in pinned:
+            assert (p["design"], p["ph"], p["pw"], p["ns"],
+                    p["splits"]) == pinned[site[:6]]
+    assert planes == ({96, 48, 24, 12} if kind == "unet"
+                      else {96, 192, 384, 768})
+
+
 @pytest.mark.parametrize("h,w,want", [
-    (64, 64, (2, 64, 1)), (32, 32, (4, 32, 1)), (16, 16, (8, 16, 1)),
-    (8, 8, (8, 8, 2)), (4, 4, (4, 4, 8)), (8, 16, (8, 16, 1)),
-    (128, 128, (1, 128, 1)), (4, 256, (1, 128, 1)), (512, 512, (1, 128, 1)),
-    (1, 128, (1, 128, 1)), (16, 8, (16, 8, 1)),
+    (64, 64, ("patch", 8, 16, 1)), (32, 32, ("patch", 8, 16, 1)),
+    (16, 16, ("patch", 8, 16, 1)), (8, 8, ("patch", 8, 16, 1)),
+    (4, 4, ("planes", 4, 4, 2)), (8, 16, ("planes", 8, 16, 1)),
+    (128, 128, ("patch", 8, 16, 1)), (4, 256, ("patch", 8, 16, 1)),
+    (512, 512, ("patch", 8, 16, 1)), (1, 128, ("patch", 8, 16, 1)),
+    (16, 8, ("planes", 16, 8, 1)),
     # rows that do not tile 128 pixels, planes under an eighth of a tile
-    (63, 65, None), (5, 3, None), (6, 32, None), (3, 64, None),
-    (2, 2, None), (8, 192, None), (9, 11, None),
+    (63, 65, ("patch", 8, 16, 1)), (5, 3, ("planes", 5, 3, 2)),
+    (6, 32, ("patch", 8, 16, 1)), (3, 64, ("patch", 8, 16, 1)),
+    (2, 2, ("planes", 2, 2, 2)), (8, 192, ("patch", 8, 16, 1)),
+    (9, 11, ("planes", 9, 11, 1)),
 ])
-def test_slab_patch(h, w, want):
-    assert t_conv.slab_patch(h, w) == want
+def test_conv_tiling(h, w, want):
+    """The tiling ``plan_conv`` gives a batch of two such planes (3x3,
+    64 channels, one wave of blocks): the one whose block stages the fewest
+    slab rows, 8 x 16 patches (180 rows) or whole planes under them."""
+    p = t_conv.plan_conv(2, h, w, 64, 64, 3, SMS)
+    assert (p["design"], p["ph"], p["pw"], p["ns"]) == want
+    _tiling_replay(2, h, w, 3, *want)
 
 
 def test_slab_constants_are_the_sources():
@@ -704,23 +836,106 @@ def test_slab_constants_are_the_sources():
         in src
     assert "constexpr size_t SMEM_CAP = 227 * 1024;" in src
     assert t_conv._SMEM_CAP == SMEM_CAP
-    assert "static constexpr int G = KS == 3 ? 1 : 3;" in src
-    assert "static constexpr int T = KS == 3 ? 9 : 3;" in src
-    assert "static constexpr int D = KS == 3 ? 3 : 2;" in src
-    assert t_conv.slab_shape(3) == (1, 9, 3)
-    assert t_conv.slab_shape(1) == (3, 3, 2)
+    assert "static constexpr int T = KS == 3 ? 9 : 1;" in src
+    assert "static constexpr int D = KS == 3 ? 3 : 4;" in src
+    assert "static constexpr int NB = KS == 3 ? 2 : 5;" in src
+    assert "const int d = ks == 3 ? 3 : 4, nb = ks == 3 ? 2 : 5;" in src
+    assert t_conv.slab_shape(3) == (9, 3, 2)
+    assert t_conv.slab_shape(1) == (1, 4, 5)
+    assert "s.pix = s.scale + bn * 4;" in src
+    assert "s.total = 1024 + s.pix + 128 * 4;" in src
+    assert "return (w - a + 127) / w + 1;" in src
+    assert [t_conv.run_rows(w) for w in (5, 24, 33, 64, 96, 128)] == [
+        27, 6, 5, 2, 2, 1]
+    assert "mma.sync" not in src
+    assert src.count("Wgmma<BN>::rs(") == 1
+
+
+def _emulate_slab(x, w, b, kw, w_scale, plan):
+    """The slab kernel's arithmetic replayed on the CPU in float64 through
+    the plan's tiling (``_tiling_replay``): each block's slab gathered by
+    its table and normalised once, zero at the padding and past Cin; a
+    chunk's taps as row offsets of the slab, its weight tile zero past
+    Cin; the chunk runs of the split summed in their order; scale, the
+    sample's bias, stored by the pixel table."""
+    n, h, ww, c_in = x.shape
+    c_out, ks = w.shape[0], w.shape[-1]
+    pad = ks // 2
+    _, srow, pix, table = _tiling_replay(n, h, ww, ks, plan["design"],
+                                         plan["ph"], plan["pw"], plan["ns"])
+    z = x.double().reshape(-1, c_in)
+    if "a" in kw:
+        smp = torch.arange(z.shape[0]) // (h * ww)
+        z = z * kw["a"].double()[smp] + kw["d"].double()[smp]
+        if kw["silu"]:
+            z = z * torch.sigmoid(z)
+    width = -(-c_in // 64) * 64
+    z = F.pad(torch.cat([z, torch.zeros(1, c_in, dtype=z.dtype)]),
+              (0, width - c_in))
+    slab = z[torch.from_numpy(np.where(table < 0, z.shape[0] - 1, table))]
+    wk = F.pad(w.double().permute(0, 2, 3, 1).reshape(c_out, ks * ks, c_in),
+               (0, width - c_in))
+    srow = torch.from_numpy(srow)
+    sw = plan["pw"] + 2 * pad
+    chunk = 64
+    chunks_all = width // chunk
+    acc = torch.zeros(srow.shape + (c_out,), dtype=torch.float64)
+    for run in range(plan["splits"]):
+        part = torch.zeros_like(acc)
+        for cc in range(run * plan["chunks"],
+                        min((run + 1) * plan["chunks"], chunks_all)):
+            ch = slice(cc * chunk, (cc + 1) * chunk)
+            for t in range(ks * ks):
+                at = srow + (t // ks) * sw + t % ks
+                a_t = torch.gather(slab[:, :, ch], 1, at[..., None].expand(
+                    -1, -1, slab[:, :, ch].shape[-1]))
+                part += a_t @ wk[:, t, ch].T
+        acc += part
+    if w_scale is not None:
+        acc = acc * w_scale.double()
+    keep = torch.from_numpy(pix >= 0)
+    rows = torch.from_numpy(pix[pix >= 0])
+    bias = b.double() if b.dim() == 2 else b.double()[None].expand(n, -1)
+    out = torch.empty(n * h * ww, c_out, dtype=torch.float64)
+    out[rows] = acc[keep] + bias[rows // (h * ww)]
+    return out.reshape(n, h, ww, c_out)
+
+
+@pytest.mark.parametrize("case", chip_smoke.CONV_RAGGED, ids=str)
+def test_slab_design_replayed_matches_plain(case):
+    """Each ragged case's plan, replayed on the CPU in float64
+    (``_emulate_slab``), is the conv: within 1e-5 of the output's max-abs
+    of ``fused_conv_reference``, which widens to float32 (its rounding)."""
+    shape, c_out, ks, prologue, int8, _ = case
+    g = torch.Generator().manual_seed(3)
+    n, h, ww, c_in = shape
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    w = torch.randn((c_out, c_in, ks, ks), generator=g,
+                    dtype=torch.float64) / (ks * ks * c_in) ** 0.5
+    scale = None
+    if int8:
+        scale = w.abs().amax(dim=(1, 2, 3)) / 127.0
+        w = torch.round(w / scale[:, None, None, None])
+    b = torch.randn((n, c_out), generator=g, dtype=torch.float64)
+    kw = {}
+    if prologue:
+        kw = {"a": torch.rand((n, c_in), generator=g,
+                              dtype=torch.float64) + 0.5,
+              "d": torch.randn((n, c_in), generator=g, dtype=torch.float64),
+              "silu": prologue == "silu"}
+    plan = t_conv.plan_conv(n, h, ww, c_in, c_out, ks, SMS, int8)
+    got = _emulate_slab(x, w, b, kw, scale, plan)
+    ref = t_conv.fused_conv_reference(x, w, b, w_scale=scale, **kw)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 def test_conv_plan_is_what_the_wrapper_passes(monkeypatch):
-    """The wrapper hands the plan to the C entry point as it is, with a
-    float32 scratch of ``[splits, m, c_out]`` exactly where the reduction is
-    split, and the per-tile counters only for the general kernel."""
+    """The wrapper hands the plan to the C entry point as it is (wrap 1 for
+    a run), with a float32 scratch of ``[splits, m, c_out]`` exactly where
+    the reduction is split."""
     seen, made = {}, []
     _fake_card(monkeypatch, "sdtpu_conv_gn_silu", seen, made)
     monkeypatch.setattr(t_conv, "eligible", lambda x, w, s, p: True)
-    monkeypatch.setattr(t_conv, "_tile_counters",
-                        lambda device, tiles: torch.zeros(tiles,
-                                                          dtype=torch.int32))
     real_device = torch.Tensor.device
 
     class Cuda(torch.Tensor):
@@ -728,7 +943,8 @@ def test_conv_plan_is_what_the_wrapper_passes(monkeypatch):
 
     before = t_conv.fused_conv_cuda.launches
     for site in ((2, 8, 8, 128, 192, 3), (2, 16, 16, 64, 64, 3),
-                 (1, 6, 32, 64, 64, 3), (2, 5, 5, 4096, 128, 3)):
+                 (1, 6, 32, 64, 64, 3), (2, 5, 5, 4096, 128, 3),
+                 (2, 24, 24, 72, 64, 3)):
         n, h, w, c_in, c_out, ks = site
         made.clear()
         x = torch.zeros((n, h, w, c_in), dtype=torch.bfloat16).as_subclass(
@@ -739,18 +955,16 @@ def test_conv_plan_is_what_the_wrapper_passes(monkeypatch):
         b = torch.zeros(c_out).as_subclass(Cuda)
         t_conv.fused_conv_cuda(x, wt, b)
         p = t_conv.plan_conv(*site, SMS, False)
-        assert seen["args"][9:15] == site
-        assert seen["args"][18:25] == (
-            int(p["design"] == "slab"), p["bn"], p["splits"], p["chunks"],
+        assert seen["args"][8:14] == site
+        assert seen["args"][17:24] == (
+            int(p["design"] == "run"), p["bn"], p["splits"], p["chunks"],
             p["ph"], p["pw"], p["ns"])
         scratch = [s for s, dt in made if dt == torch.float32]
         assert scratch == ([(p["splits"], n * h * w, c_out)]
                            if p["splits"] > 1 else [])
         assert (seen["args"][7] is None) == (p["splits"] == 1)
-        assert (seen["args"][8] is None) == (
-            p["splits"] == 1 or p["design"] == "slab")
     assert real_device is torch.Tensor.device
-    assert t_conv.fused_conv_cuda.launches == before + 4
+    assert t_conv.fused_conv_cuda.launches == before + 5
 
 
 # ---------------------------------------------------------------------------
@@ -1120,7 +1334,7 @@ def test_parse_ptxas_reads_registers_and_spills():
     (t_attn, "sdtpu_flash_attn_bwd", 11, 8),
     (t_mm, "sdtpu_matmul_int8w", 6, 7),
     (t_mm, "sdtpu_matmul_w8a8", 7, 7),
-    (t_conv, "sdtpu_conv_gn_silu", 9, 16),
+    (t_conv, "sdtpu_conv_gn_silu", 8, 16),
     # K2: (ints before eps, ints after it)
     (t_gn, "sdtpu_group_norm_silu", 4, (8, 2)),
     (t_gn, "sdtpu_group_norm_affine", 5, (8, 1)),
